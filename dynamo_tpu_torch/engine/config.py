@@ -1,0 +1,112 @@
+"""Engine runtime configuration (a copy of the JAX package's
+engine/config.py, cut to the knobs the PyTorch engine honours).
+
+The reference's other planes (round pipelining, speculation, offload
+tiers, int8 KV, tenancy, overload budgets, sequence-parallel prefill) are
+not ported yet. Their knobs are kept here at the values that mean "off",
+and any other value raises, so a config written for the reference never
+silently runs something else.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+
+def _default_buckets() -> tuple[int, ...]:
+    return (128, 256, 512, 1024, 2048, 4096)
+
+
+def pow2_cover(n: int, lo: int = 1) -> int:
+    """Smallest power of two >= max(n, lo) — the bucketing of page-list
+    and seal-batch widths (padding always targets scratch page 0)."""
+    w = lo
+    while w < n:
+        w *= 2
+    return w
+
+
+# knobs of the reference that this engine does not serve yet, with the
+# only value it accepts (the reference's "off")
+_UNPORTED = {
+    "round_pipeline": False,
+    "speculative": "off",
+    "kv_quant": "none",
+    "lora_adapters": 0,
+    "host_offload_pages": 0,
+    "disk_offload_pages": 0,
+    "sp_prefill_threshold": None,
+    "max_waiting_requests": 0,
+    "max_waiting_prefill_tokens": 0,
+    "preempt_running": False,
+}
+
+
+@dataclass
+class EngineConfig:
+    """Knobs of the continuous-batching engine."""
+
+    # prefix-cache pool (the paged pool is prefix-cache STORAGE; the
+    # serving context is a contiguous per-slot region — models/llama.py)
+    num_pages: int = 512          # pool capacity incl. reserved page 0
+    page_size: int = 64           # tokens per page (also the block size)
+    # per-slot context capacity in pages: max_context = this * page_size
+    max_pages_per_seq: int = 64
+
+    # batching
+    max_decode_slots: int = 8     # fixed decode batch width
+    prefill_buckets: tuple[int, ...] = field(default_factory=_default_buckets)
+
+    # steps per dispatched round (decode+sample steps, then one ring->ctx
+    # flush and one stacked token copy to the host) and rounds allowed in
+    # flight before the loop blocks on results
+    flush_every: int = 4
+    max_inflight_rounds: int = 2
+    # prefill chunks dispatched per scheduling round
+    prefill_chunks_per_round: int = 2
+    # batched multi-request prefill: concurrent same-bucket chunks run as
+    # one [K, T] batch; K <= min(prefill_batch_max, budget // T)
+    prefill_batch_max: int = 8
+    prefill_token_budget: int = 8192
+
+    # sampling: static top-k width for top-p/top-k sampling
+    max_top_k: int = 64
+
+    # prefix cache
+    enable_prefix_caching: bool = True
+
+    # model memory
+    cache_dtype: str = "bfloat16"
+
+    # identity on the control plane
+    worker_id: str = ""
+
+    # not ported yet: see _UNPORTED
+    round_pipeline: bool = False
+    speculative: str = "off"
+    kv_quant: str = "none"
+    lora_adapters: int = 0
+    host_offload_pages: int = 0
+    disk_offload_pages: int = 0
+    sp_prefill_threshold: Optional[int] = None
+    max_waiting_requests: int = 0
+    max_waiting_prefill_tokens: int = 0
+    preempt_running: bool = False
+
+    def __post_init__(self):
+        for name, off in _UNPORTED.items():
+            if getattr(self, name) != off:
+                raise ValueError(
+                    f"EngineConfig.{name}={getattr(self, name)!r}: not "
+                    f"supported by the PyTorch engine yet (only {off!r})")
+
+    @property
+    def max_context(self) -> int:
+        return self.max_pages_per_seq * self.page_size
+
+    def bucket_for(self, n_tokens: int) -> Optional[int]:
+        """Smallest prefill bucket holding n_tokens."""
+        for b in self.prefill_buckets:
+            if n_tokens <= b:
+                return b
+        return None

@@ -1,0 +1,847 @@
+"""TorchEngine: continuous batching over contiguous per-slot KV, in
+PyTorch (port of the JAX package's TpuEngine main path).
+
+The round structure is the reference's, run in its strict
+process-then-dispatch order (``round_pipeline=False``):
+
+  - Serving context is contiguous per slot (``ctx``); the paged pool is
+    prefix-cache storage, copied in at admission (load_ctx_pages) and out
+    at block seal (seal_blocks). Decode attention goes through the Hopper
+    flash-decode kernel (ops/flash_decode.py).
+  - Decode state lives on the device: last tokens, context lengths, write
+    destinations, the sampler's counts and per-slot sampling knobs. A
+    round is ``flush_every`` decode+sample steps, then the ring->ctx
+    flush and the round's queued block seals; its tokens [F, B] come back
+    in ONE device->host copy into a pinned buffer, which the host reads
+    a bounded lag (``max_inflight_rounds``) behind dispatch.
+  - Host processing (token emission, stop detection, block sealing,
+    admission) runs on lagged results. Releases and admissions patch the
+    device state between rounds; a freed slot's lane is redirected to the
+    scratch lane so its in-flight garbage steps never touch a lane being
+    re-prefilled. One CUDA stream keeps every program in dispatch order.
+  - Prefill runs batched per prefill bucket (batch_prefill); the first
+    token is sampled on the device and patched into the slot without a
+    host round trip.
+
+Not ported yet (ROADMAP.md): round pipelining, CUDA graphs, speculation,
+offload tiers, the transfer plane, tenancy, overload budgets and
+preemption, logprobs, multimodal, int8 KV, w8a16, MoE.
+"""
+from __future__ import annotations
+
+import asyncio
+import logging
+import os
+import queue as queue_mod
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, AsyncIterator, Callable, Optional
+
+import numpy as np
+import torch
+
+from dynamo_tpu_torch.engine import sampling
+from dynamo_tpu_torch.engine.cache import PageAllocator
+from dynamo_tpu_torch.engine.config import EngineConfig, pow2_cover
+from dynamo_tpu_torch.kv_router.protocols import KvCacheEvent
+from dynamo_tpu_torch.models import llama
+from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.ops import flash_decode
+from dynamo_tpu_torch.protocols.common import (
+    FinishReason,
+    LLMEngineOutput,
+    PreprocessedRequest,
+)
+from dynamo_tpu_torch.tokens import TokenBlockSequence
+
+log = logging.getLogger(__name__)
+
+
+@dataclass
+class _Request:
+    req: PreprocessedRequest
+    seq: TokenBlockSequence
+    out: asyncio.Queue
+    loop: asyncio.AbstractEventLoop
+    # the prompt — kept separate from req.token_ids so engine-side state
+    # never mutates the caller's request object
+    tokens: list[int] = field(default_factory=list)
+    matched_blocks: int = 0
+    # prompt blocks already copy-committed into the prefix cache
+    sealed_prefix: int = 0
+    # chunked-prefill progress: tokens already in the region (-1 = not
+    # started)
+    prefill_pos: int = -1
+    slot: int = -1
+    produced: int = 0
+    last_token: int = -1          # newest processed token, not yet in seq
+    cancelled: bool = False
+    finished: bool = False
+    enqueue_time: float = field(default_factory=time.monotonic)
+    first_token_time: Optional[float] = None
+    t_prefill_start: Optional[float] = None
+
+    @property
+    def prompt_len(self) -> int:
+        return len(self.tokens)
+
+    def max_new_tokens(self, max_context: int) -> int:
+        mt = self.req.stop_conditions.max_tokens
+        cap = max_context - self.prompt_len
+        return min(mt, cap) if mt is not None else cap
+
+    def emit(self, item: LLMEngineOutput | Exception) -> None:
+        # the client's event loop can be gone by the time the engine
+        # thread emits (teardown): never mask the original failure
+        try:
+            self.loop.call_soon_threadsafe(self.out.put_nowait, item)
+        except RuntimeError:
+            log.debug("dropped emit to a closed event loop (shutdown)")
+
+
+class _Fetch:
+    """A device->host copy in flight: a pinned host buffer filled with a
+    non-blocking copy, and the CUDA event recorded after it. CPU results
+    are copied at once."""
+
+    def __init__(self, src: torch.Tensor):
+        self.event = None
+        if src.is_cuda:
+            self.host = torch.empty(src.shape, dtype=src.dtype,
+                                    pin_memory=True)
+            self.host.copy_(src, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = src.clone()
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+@dataclass
+class _Entry:
+    """One in-flight fetch: a round of stacked step tokens or a request's
+    prefill first token."""
+
+    kind: str                      # "round" | "first"
+    fetch: _Fetch
+    # round: the slot snapshot at dispatch
+    slots: list[Optional[_Request]] = field(default_factory=list)
+    n_steps: int = 0
+    # first:
+    request: Optional[_Request] = None
+
+
+class TorchEngine:
+    """Continuous-batching engine with a contiguous per-slot KV region,
+    on one device. ``generate(PreprocessedRequest)`` streams
+    LLMEngineOutput deltas, as TpuEngine does."""
+
+    def __init__(
+        self,
+        model_config: ModelConfig,
+        engine_config: Optional[EngineConfig] = None,
+        *,
+        params: Any = None,
+        device: str | torch.device | None = None,
+        rng_seed: int = 0,
+        on_kv_event: Optional[Callable[[KvCacheEvent], None]] = None,
+    ):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "TorchEngine runs on CUDA unless device='cpu' is "
+                    "passed, and no CUDA device is available")
+            device = "cuda"
+        self.device = torch.device(device)
+        self.config = c = model_config
+        self.ecfg = e = engine_config or EngineConfig()
+        dtype = llama.torch_dtype(e.cache_dtype)
+        if params is None:
+            params = llama.init_params(c, rng_seed, self.device)
+        self.params = params
+        # paged pool: prefix-cache STORAGE; contiguous per-slot serving
+        # context (+1 scratch lane); the round's decode write ring
+        self.cache = llama.init_cache(c, e.num_pages, e.page_size, dtype,
+                                      self.device)
+        self.ctx = llama.init_ctx(c, e.max_decode_slots, e.max_context,
+                                  dtype, self.device)
+        self.ring = llama.init_ring(c, e.max_decode_slots, e.flush_every,
+                                    dtype, self.device)
+        self.allocator = PageAllocator(
+            e.num_pages, e.page_size,
+            worker_id=e.worker_id,
+            on_event=on_kv_event,
+            enable_prefix_caching=e.enable_prefix_caching,
+        )
+        B = e.max_decode_slots
+        self._B = B
+        self._slots: list[Optional[_Request]] = [None] * B
+        # lanes reserved by an in-progress (multi-chunk) prefill: occupied
+        # but not decoding until the admission patch
+        self._prefilling: dict[int, _Request] = {}
+        # slot-state mirrors: live (decoding) lanes, and lanes that need
+        # the full sampler (temperature or penalties) rather than argmax
+        self._slot_active = np.zeros(B, bool)
+        self._slot_sampler = np.zeros(B, bool)
+        dev = self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        self._dev = {
+            "tokens": torch.zeros(B, **i32),
+            "ctx": torch.ones(B, **i32),
+            # live slots write their own ctx lane; freed slots write the
+            # scratch lane B (protects lanes being re-prefilled)
+            "dest": torch.full((B,), B, **i32),
+            "counts": torch.zeros(B, c.vocab_size, **i32),
+            "temp": torch.zeros(B, **f32),
+            "top_k": torch.zeros(B, **i32),
+            "top_p": torch.ones(B, **f32),
+            "freq": torch.zeros(B, **f32),
+            "pres": torch.zeros(B, **f32),
+            "rep": torch.ones(B, **f32),
+        }
+        # one generator per slot, reseeded at admission from the request
+        self._gens = [torch.Generator(device=dev) for _ in range(B)]
+        # fused-seal width: sized for a full aligned burst (every slot
+        # completing blocks the same round); larger bursts flush standalone
+        self._seal_fuse_w = pow2_cover(max(
+            B, B * e.flush_every // max(e.page_size, 1), 1))
+
+        self._intake: queue_mod.Queue = queue_mod.Queue()
+        self._wake_evt = threading.Event()
+        self._waiting: list[_Request] = []
+        self._entries: list[_Entry] = []
+        # sealed blocks awaiting the ctx->pool copy: (slot, start, page)
+        self._seal_queue: list[tuple[int, int, int]] = []
+        self._to_release: list[_Request] = []
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._started = False
+        self.step_count = 0
+        # flash-decode kernel launches made by this engine's rounds (read
+        # from the kernel wrapper's own count around each round)
+        self.kernel_launches = 0
+        self.dispatch_counts: dict[str, int] = {
+            "round": 0, "round_seal": 0, "seal": 0, "patch": 0,
+            "prefill_batch": 0, "load_ctx": 0, "sample_first": 0,
+            "fetch": 0,
+        }
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device without a stream sync:
+        PyTorch's blocking host->device copy waits for every queued
+        program, so it is staged in pinned memory and copied
+        non-blocking (the caching host allocator keeps the staging
+        buffer until the copy has run)."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    # ------------------------------------------------------------------
+    # lifecycle
+
+    def start(self) -> None:
+        if self._started:
+            return
+        self._started = True
+        self._thread = threading.Thread(
+            target=self._run_loop, name="torch-engine-loop", daemon=True)
+        self._thread.start()
+
+    async def stop(self) -> None:
+        self._stop.set()
+        self._wake_evt.set()
+        if self._thread:
+            await asyncio.to_thread(self._thread.join, 30.0)
+
+    # ------------------------------------------------------------------
+    # AsyncEngine surface
+
+    async def generate(
+        self, request: PreprocessedRequest
+    ) -> AsyncIterator[LLMEngineOutput]:
+        """Stream engine outputs (token-id deltas) for one request."""
+        if len(request.token_ids) == 0:
+            raise ValueError("empty prompt")
+        if len(request.token_ids) >= self.ecfg.max_context:
+            raise ValueError(
+                f"prompt length {len(request.token_ids)} exceeds max context "
+                f"{self.ecfg.max_context}")
+        if request.output_options.logprobs is not None:
+            raise ValueError(
+                "logprobs are not supported by the PyTorch engine yet")
+        if request.adapter_id or request.multimodal or request.disagg:
+            raise ValueError(
+                "LoRA adapters, multimodal inputs and disaggregated "
+                "prefill are not supported by the PyTorch engine yet")
+        if not self._started:
+            self.start()
+        r = _Request(
+            req=request,
+            seq=TokenBlockSequence.from_tokens(
+                request.token_ids, self.ecfg.page_size, salt=request.model),
+            out=asyncio.Queue(),
+            loop=asyncio.get_running_loop(),
+            tokens=list(request.token_ids),
+        )
+        self._intake.put(r)
+        self._wake_evt.set()
+        try:
+            while True:
+                item = await r.out.get()
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+                if item.finished:
+                    return
+        finally:
+            r.cancelled = True
+
+    # ------------------------------------------------------------------
+    # engine loop
+
+    def _run_loop(self) -> None:
+        with torch.no_grad():
+            while not self._stop.is_set():
+                try:
+                    did_work = self._round()
+                except Exception:  # noqa: BLE001 — engine loop must survive
+                    log.exception("engine round failed")
+                    self._fail_all(RuntimeError("engine step failed; see logs"))
+                    did_work = False
+                if not did_work:
+                    self._wake_evt.wait(timeout=0.02)
+                    self._wake_evt.clear()
+
+    def _round(self) -> bool:
+        """One scheduling round in the strict order: process ready
+        results, apply releases, admit (prefill), dispatch a decode round
+        for the live slots, flush leftover seal copies."""
+        e = self.ecfg
+        self._drain_intake()
+        in_flight = sum(1 for en in self._entries if en.kind == "round")
+        self._process_entries(block=in_flight > e.max_inflight_rounds)
+        self._apply_releases()
+        self._admit()
+        did_work = bool(self._entries) or bool(self._prefilling)
+        dispatched = False
+        in_flight = sum(1 for en in self._entries if en.kind == "round")
+        active = np.flatnonzero(self._slot_active)
+        if in_flight <= e.max_inflight_rounds and active.size:
+            self._dispatch_round(bool(self._slot_sampler[active].any()))
+            did_work = dispatched = True
+        if self._seal_queue:
+            self._flush_seals()
+            did_work = True
+        if (not dispatched and self._entries
+                and self._intake.empty() and not self._waiting):
+            # nothing to overlap with the in-flight copies: block on the
+            # head entry instead of spinning
+            self._process_entries(block=True)
+        return did_work
+
+    def _drain_intake(self) -> None:
+        while True:
+            try:
+                self._waiting.append(self._intake.get_nowait())
+            except queue_mod.Empty:
+                return
+
+    def _slot_on(self, slot: int, r: _Request) -> None:
+        """A slot becomes live. It needs the sampler if it samples OR
+        carries penalties (the counts histogram must advance for them)."""
+        so = r.req.sampling_options
+        self._slot_active[slot] = True
+        self._slot_sampler[slot] = (
+            (so.temperature or 0.0) > 0.0
+            or (so.frequency_penalty or 0.0) != 0.0
+            or (so.presence_penalty or 0.0) != 0.0
+            or (so.repetition_penalty or 1.0) != 1.0
+        )
+
+    def _slot_off(self, slot: int) -> None:
+        self._slot_active[slot] = False
+        self._slot_sampler[slot] = False
+
+    # ---- dispatch side ----
+
+    def _dispatch_round(self, want_sample: bool) -> None:
+        """``flush_every`` decode+sample steps, the ring->ctx flush, the
+        pending seal batch, and one stacked-token copy to the host."""
+        c, e = self.config, self.ecfg
+        n = e.flush_every
+        d = self._dev
+        seal = self._take_seal_batch(width=self._seal_fuse_w)
+        launches_before = flash_decode.launches
+        # the round's ring base is fixed at its start
+        ring_base = torch.clamp(d["ctx"] - 1, min=0)
+        toks_out = torch.empty(n, self._B, dtype=torch.int32,
+                               device=self.device)
+        sp = sampling.SamplingParams(
+            temperature=d["temp"], top_k=d["top_k"], top_p=d["top_p"],
+            frequency_penalty=d["freq"], presence_penalty=d["pres"],
+            repetition_penalty=d["rep"],
+        )
+        for s in range(n):
+            logits = llama.decode_step(
+                c, self.params, self.ctx, self.ring, d["tokens"], d["ctx"],
+                ring_base, s)
+            if want_sample:
+                toks = sampling.sample_step(
+                    logits, d["counts"], sp, e.max_top_k, self._gens)
+            else:
+                toks = torch.argmax(logits, dim=-1).to(torch.int32)
+            toks_out[s] = toks
+            d["tokens"] = toks
+            d["ctx"] = torch.clamp(d["ctx"] + 1, max=e.max_context)
+        # round boundary: scatter the ring into the ctx region (after
+        # every read of the round)
+        valid = torch.clamp(e.max_context - ring_base, max=n)
+        llama.flush_ctx(self.ctx, self.ring, d["dest"], ring_base, valid)
+        if seal is not None:
+            self.dispatch_counts["round_seal"] += 1
+            self._seal_dispatch(seal)
+        else:
+            self.dispatch_counts["round"] += 1
+        self.kernel_launches += flash_decode.launches - launches_before
+        self.step_count += n
+        self.dispatch_counts["fetch"] += 1
+        self._entries.append(_Entry(
+            kind="round", fetch=_Fetch(toks_out),
+            slots=list(self._slots), n_steps=n,
+        ))
+
+    def _dispatch_patch(
+        self,
+        clear_slots: list[int] = (),
+        admit: Optional[dict[str, Any]] = None,
+    ) -> None:
+        """State patch (releases and one admission), in place on the
+        device state. Freed slots park on the scratch lane so their
+        in-flight garbage steps cannot touch a lane being re-prefilled."""
+        d = self._dev
+        self.dispatch_counts["patch"] += 1
+        if clear_slots:
+            idx = self._to_device(np.asarray(clear_slots, np.int64))
+            d["ctx"][idx] = 1
+            d["tokens"][idx] = 0
+            d["temp"][idx] = 0.0
+            d["counts"][idx] = 0
+            d["dest"][idx] = self._B
+        if admit is not None:
+            s = admit["slot"]
+            d["tokens"][s] = admit["tok"][0]  # device copy, no host trip
+            d["ctx"][s] = admit["ctx"]
+            d["dest"][s] = s
+            d["counts"][s] = 0
+            for key in ("temp", "top_k", "top_p", "freq", "pres", "rep"):
+                d[key][s] = admit[key]
+
+    # ---- block sealing (ctx -> pool prefix-cache copies) ----
+
+    def _queue_seal(self, r: _Request, position: int,
+                    block_hash: int, parent_hash: int) -> None:
+        """Copy-commit one sealed block into the prefix cache. Best-effort:
+        a full pool skips the commit — the prefix cache is a cache."""
+        got = self.allocator.allocate(1)
+        if got is None:
+            return
+        page = got[0]
+        if not self.allocator.commit(page, block_hash, parent_hash):
+            self.allocator.free([page])  # duplicate hash: already cached
+            return
+        self._seal_queue.append((r.slot, position * self.ecfg.page_size, page))
+        # release our reference: the page parks in the LRU (prefix-hittable)
+        # once the copy is dispatched — one stream keeps that order
+        self.allocator.free([page])
+
+    def _seal_prefilled(self, r: _Request, limit: Optional[int] = None) -> None:
+        """Copy-commit the prompt blocks fully covered by prefill so far
+        (beyond what was prefix-matched)."""
+        ps = self.ecfg.page_size
+        done_blocks = min(
+            r.prefill_pos // ps if limit is None else limit,
+            len(r.seq.blocks),
+        )
+        for blk in r.seq.blocks[r.sealed_prefix:done_blocks]:
+            self._queue_seal(r, blk.position, blk.block_hash, blk.parent_hash)
+        r.sealed_prefix = max(r.sealed_prefix, done_blocks)
+
+    def _take_seal_batch(self, width: Optional[int] = None):
+        """Pop + pad the pending seal queue as (slots, starts, pages) int32
+        arrays (padding rows -> scratch page 0), or None. With ``width``
+        at most that many entries are taken, padded to exactly it;
+        without, the whole queue at a pow2-bucketed width."""
+        if not self._seal_queue:
+            return None
+        if width is None:
+            batch = self._seal_queue
+            self._seal_queue = []
+            w = pow2_cover(len(batch))
+        else:
+            batch = self._seal_queue[:width]
+            self._seal_queue = self._seal_queue[width:]
+            w = width
+        arr = np.zeros((3, w), np.int32)  # padding -> scratch page 0
+        for i, (s, st, pg) in enumerate(batch):
+            arr[:, i] = (s, st, pg)
+        return arr
+
+    def _seal_dispatch(self, arr: np.ndarray) -> None:
+        slots, starts, pages = self._to_device(arr)
+        llama.seal_blocks(self.cache, self.ctx, slots, starts, pages,
+                          self.ecfg.page_size)
+
+    def _flush_seals(self) -> None:
+        """Dispatch the pending ctx->pool seal copies standalone. Stream
+        order makes this safe: the sealed positions were written by
+        already-dispatched programs, and any admission that reads these
+        pool pages is dispatched after this."""
+        arr = self._take_seal_batch()
+        if arr is None:
+            return
+        self.dispatch_counts["seal"] += 1
+        self._seal_dispatch(arr)
+
+    # ---- admission / prefill ----
+
+    def _admit(self) -> None:
+        kept = []
+        for r in self._waiting:
+            if r.cancelled:
+                self._abort_prefill(r)
+            else:
+                kept.append(r)
+        self._waiting = kept
+        # bounded prefill budget per round: a long prompt advances one
+        # chunk at a time with decode rounds in between
+        budget = max(1, self.ecfg.prefill_chunks_per_round)
+        while budget > 0 and self._waiting:
+            group, width = self._collect_prefill_group(budget)
+            if not group:
+                return  # head is blocked on a free lane
+            budget -= len(group)
+            for r in self._batch_prefill_group(group, width):
+                self._waiting.remove(r)
+
+    def _chunk_width(self, remaining: int) -> int:
+        """Padded (bucketed, page-aligned) width of the next chunk for a
+        request with `remaining` unprefilled tokens."""
+        e = self.ecfg
+        ps = e.page_size
+        max_chunk = ((e.prefill_buckets[-1] + ps - 1) // ps) * ps
+        pad_t = e.bucket_for(min(remaining, max_chunk)) or max_chunk
+        return ((pad_t + ps - 1) // ps) * ps
+
+    def _collect_prefill_group(
+        self, budget: int
+    ) -> tuple[list[_Request], int]:
+        """A FIFO prefix of the waiting queue whose next chunks share one
+        bucket width. Requests are *begun* (lane + prefix match) as they
+        are considered — a member whose bucket diverges stays begun and
+        leads the next group. Returns (group, T)."""
+        e = self.ecfg
+        group: list[_Request] = []
+        width = 0
+        cap = min(budget, max(1, e.prefill_batch_max))
+        for r in self._waiting:
+            if len(group) >= cap:
+                break
+            if r.prefill_pos < 0:
+                if self._free_slot() is None:
+                    break
+                self._prefill_begin(r)
+            t = self._chunk_width(len(r.tokens) - r.prefill_pos)
+            if not group:
+                width = t
+                cap = min(cap, max(1, e.prefill_token_budget // t))
+            elif t != width:
+                break
+            group.append(r)
+        return group, width
+
+    def _batch_prefill_group(
+        self, group: list[_Request], width: int
+    ) -> list[_Request]:
+        """One batched prefill for the group's next chunks; finishes the
+        requests whose prompts complete and returns them."""
+        K = len(group)
+        toks = np.zeros((K, width), np.int32)
+        slots, q_starts, seq_lens = [], [], []
+        for i, r in enumerate(group):
+            start = r.prefill_pos
+            chunk = r.tokens[start: start + width]
+            toks[i, : len(chunk)] = chunk
+            slots.append(r.slot)
+            q_starts.append(start)
+            seq_lens.append(start + len(chunk))
+        # attend only the prior context any row can see: keys at or past
+        # a row's q_start are masked, so a wider window changes nothing
+        ctx_span = max(q_starts)
+        self.dispatch_counts["prefill_batch"] += 1
+        logits = llama.batch_prefill(
+            self.config, self.params, self.ctx,
+            self._to_device(toks),
+            slots, q_starts, seq_lens, ctx_span,
+        )
+        done: list[_Request] = []
+        for i, r in enumerate(group):
+            r.prefill_pos = seq_lens[i]
+            if r.prefill_pos < len(r.tokens):
+                self._seal_prefilled(r)  # mid-prompt blocks seal per chunk
+                continue  # next chunk in a later round
+            self._finish_prefill(r, logits[i])
+            done.append(r)
+        return done
+
+    def _free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self._slots):
+            if s is None and i not in self._prefilling:
+                return i
+        return None
+
+    def _abort_prefill(self, r: _Request) -> None:
+        """Release a half-prefilled request's lane reservation."""
+        if r.slot >= 0 and self._prefilling.get(r.slot) is r:
+            del self._prefilling[r.slot]
+        r.slot = -1
+        r.prefill_pos = -1
+
+    def _prefill_begin(self, r: _Request) -> None:
+        """Start a request's prefill: reserve a lane, prefix-match and copy
+        the matched run pool -> ctx. Seals queued by other requests are
+        flushed first — their pages are matchable but maybe not copied."""
+        ps = self.ecfg.page_size
+        self._flush_seals()
+        slot = self._free_slot()
+        r.slot = slot
+        self._prefilling[slot] = r
+        r.t_prefill_start = time.monotonic()
+        hashes = r.seq.block_hashes()
+        matchable = hashes[: max(0, (len(r.tokens) - 1) // ps)]
+        matched_pages = self.allocator.match_prefix(matchable)
+        usable_pages = matched_pages[: self.ecfg.max_context // ps]
+        r.matched_blocks = len(usable_pages)
+        if usable_pages:
+            padded = np.zeros(pow2_cover(len(usable_pages)), np.int64)
+            padded[: len(usable_pages)] = usable_pages  # pad: scratch page 0
+            self.dispatch_counts["load_ctx"] += 1
+            llama.load_ctx_pages(self.ctx, self.cache, slot,
+                                 self._to_device(padded))
+        if matched_pages:
+            # copy dispatched: stream order lets us drop the refs now
+            self.allocator.free(matched_pages)
+        r.prefill_pos = len(usable_pages) * ps
+        r.sealed_prefix = len(usable_pages)  # matched blocks: already cached
+
+    def _finish_prefill(self, r: _Request, logits: torch.Tensor) -> None:
+        """Prefill tail: commit the prompt blocks, sample the first token
+        on the device, activate the slot."""
+        e = self.ecfg
+        self._seal_prefilled(r, limit=len(r.seq.blocks))
+        so = r.req.sampling_options
+        slot = r.slot
+        # seeded requests reproduce their draws; unseeded ones get fresh
+        # entropy, so two identical prompts do not sample identically
+        seed = so.seed if so.seed is not None else int.from_bytes(
+            os.urandom(8), "little") >> 1
+        gen = self._gens[slot]
+        gen.manual_seed(seed)
+        knobs = dict(
+            temp=float(so.temperature or 0.0),
+            top_k=int(so.top_k or 0),
+            top_p=float(so.top_p if so.top_p is not None else 1.0),
+            freq=float(so.frequency_penalty or 0.0),
+            pres=float(so.presence_penalty or 0.0),
+            rep=float(so.repetition_penalty or 1.0),
+        )
+        # the first token: sampler knobs only, no penalties (nothing
+        # generated yet)
+        sp1 = sampling.default_params(1, self.device)
+        sp1.temperature.fill_(knobs["temp"])
+        sp1.top_k.fill_(knobs["top_k"])
+        sp1.top_p.fill_(knobs["top_p"])
+        counts1 = torch.zeros(1, self.config.vocab_size, dtype=torch.int32,
+                              device=self.device)
+        self.dispatch_counts["sample_first"] += 1
+        first_tok = sampling.sample_step(
+            logits[None], counts1, sp1, e.max_top_k, [gen])
+        del self._prefilling[slot]
+        self._slots[slot] = r
+        self._slot_on(slot, r)
+        self._dispatch_patch(admit=dict(
+            slot=slot, ctx=len(r.tokens) + 1, tok=first_tok, **knobs))
+        self.dispatch_counts["fetch"] += 1
+        self._entries.append(_Entry(
+            kind="first", fetch=_Fetch(first_tok), request=r))
+
+    # ---- processing side (lagged results) ----
+
+    def _process_entries(self, block: bool = False) -> None:
+        # first-token entries are independent of round order: consume
+        # them as soon as their copy lands (the TTFT lever)
+        remaining = []
+        for entry in self._entries:
+            if entry.kind != "round" and entry.fetch.ready():
+                self._consume_entry(entry)
+            else:
+                remaining.append(entry)
+        self._entries = remaining
+        while self._entries:
+            entry = self._entries[0]
+            if not block and not entry.fetch.ready():
+                return
+            self._entries.pop(0)
+            self._consume_entry(entry)
+            block = False  # at most one blocking wait
+
+    def _consume_entry(self, entry: _Entry) -> None:
+        data = entry.fetch.numpy()
+        if entry.kind == "first":
+            self._process_first(entry.request, int(data[0]))
+        else:
+            self._process_round(entry, data)
+
+    def _process_first(self, r: _Request, tok: int) -> None:
+        if r.cancelled or r.finished:
+            self._finish(r, None)
+            return
+        if r.first_token_time is None:
+            r.first_token_time = time.monotonic()
+        sc = r.req.stop_conditions
+        if not sc.ignore_eos and tok in (sc.stop_token_ids or []) and (
+            sc.min_tokens is None or r.produced >= sc.min_tokens
+        ):
+            self._finish(r, FinishReason.EOS)
+            return
+        r.last_token = tok
+        r.produced += 1
+        r.emit(LLMEngineOutput(token_ids=[tok]))
+        if r.produced >= r.max_new_tokens(self.ecfg.max_context):
+            self._finish(r, FinishReason.LENGTH)
+
+    def _process_round(self, entry: _Entry, toks: np.ndarray) -> None:
+        """Consume one round's stacked tokens, emitting one batched
+        output per request per round."""
+        for slot, r in enumerate(entry.slots):
+            # identity check doubles as the epoch: a recycled slot holds
+            # a different _Request object than the snapshot
+            if r is None or r.finished or self._slots[slot] is not r:
+                continue
+            if r.cancelled:
+                self._finish(r, None)
+                continue
+            batch: list[int] = []
+            finish: Optional[FinishReason] = None
+            for step in range(entry.n_steps):
+                tok = int(toks[step, slot])
+                finish = self._advance_token(r, tok)
+                if finish is FinishReason.EOS:
+                    break  # the stop token itself is not emitted
+                batch.append(tok)
+                if finish is not None:
+                    break
+            if batch or finish is not None:
+                extra = {}
+                if finish is not None:
+                    extra["annotations"] = self._final_annotations(r)
+                r.emit(LLMEngineOutput(
+                    token_ids=batch, finish_reason=finish, **extra))
+            if finish is not None:
+                self._finish(r, None)
+
+    def _advance_token(
+        self, r: _Request, tok: int
+    ) -> Optional[FinishReason]:
+        """Per-token state advance (sealing, stop detection, budget).
+        Returns the finish reason when this token ENDS the request (EOS:
+        token not emitted; LENGTH: token emitted as the last one)."""
+        sc = r.req.stop_conditions
+        # copy-commit the block completed by the previous token (stream
+        # order: those positions were written by dispatched steps)
+        if r.last_token >= 0:
+            for blk in r.seq.extend([r.last_token]):
+                self._queue_seal(
+                    r, blk.position, blk.block_hash, blk.parent_hash)
+        if not sc.ignore_eos and tok in (sc.stop_token_ids or []) and (
+            sc.min_tokens is None or r.produced >= sc.min_tokens
+        ):
+            return FinishReason.EOS
+        r.last_token = tok
+        r.produced += 1
+        if r.produced >= r.max_new_tokens(self.ecfg.max_context):
+            return FinishReason.LENGTH
+        return None
+
+    def _final_annotations(self, r: _Request) -> dict:
+        now = time.monotonic()
+        timing: dict[str, Any] = {
+            "e2e_s": now - r.enqueue_time,
+            "output_tokens": r.produced,
+        }
+        if r.first_token_time is not None:
+            timing["ttft_s"] = r.first_token_time - r.enqueue_time
+        if r.t_prefill_start is not None:
+            timing["queue_s"] = r.t_prefill_start - r.enqueue_time
+        return {"timing": timing, "cached_blocks": r.matched_blocks}
+
+    def _finish(
+        self, r: _Request, reason: Optional[FinishReason],
+    ) -> None:
+        """Mark finished on the host; the slot is reclaimed by a release
+        patch at the next round boundary."""
+        if r.finished:
+            return
+        r.finished = True
+        if r.slot >= 0 and self._slots[r.slot] is r:
+            self._slot_off(r.slot)  # out of the dispatch set immediately
+        if reason is not None:
+            r.emit(LLMEngineOutput(
+                token_ids=[], finish_reason=reason,
+                annotations=self._final_annotations(r)))
+        self._to_release.append(r)
+
+    def _apply_releases(self) -> None:
+        # also sweep cancelled requests that never got a finish event
+        for slot, r in enumerate(self._slots):
+            if r is not None and r.cancelled and not r.finished:
+                r.finished = True
+                self._slot_off(slot)
+                self._to_release.append(r)
+        if not self._to_release:
+            return
+        clear_slots = []
+        for r in self._to_release:
+            if r.slot >= 0 and self._slots[r.slot] is r:
+                clear_slots.append(r.slot)
+                self._slots[r.slot] = None
+                self._slot_off(r.slot)
+            r.slot = -1
+        self._to_release = []
+        if clear_slots:
+            self._dispatch_patch(clear_slots=clear_slots)
+
+    def _fail_all(self, err: Exception) -> None:
+        for r in self._slots:
+            if r is not None:
+                r.emit(err)
+                r.finished = True
+        self._slots = [None] * self._B
+        self._slot_active[:] = False
+        self._slot_sampler[:] = False
+        for r in self._waiting:
+            r.emit(err)
+            self._abort_prefill(r)
+        self._waiting = []
+        self._prefilling = {}
+        self._entries = []
+        self._seal_queue = []

@@ -1,0 +1,165 @@
+"""Flash decode attention over the contiguous per-slot context plus the
+per-round write ring.
+
+Position semantics (as in the JAX package's ops/flash_decode.py):
+``ctx_k[l, :, b, p]`` holds position p of slot b, valid while
+``p < min(ring_base[b], ctx_lens[b])``; ``ring_k[l, :, b, r]`` holds
+position ``ring_base[b] + r``, valid while ``< ctx_lens[b]`` (the current
+token INCLUDED: the decode step writes its KV to the ring before it
+attends).
+
+``flash_decode_attention`` launches the hand-written Hopper kernel in
+``csrc/flash_decode.cu`` for CUDA tensors and runs the plain PyTorch
+version for CPU tensors. ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG_INF = -1e30
+
+# kernel launches since import (or since a caller reset it to 0)
+launches = 0
+
+_TILE_ROWS = {torch.bfloat16: 64, torch.float32: 32}  # csrc Tile<T>::kRows
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# head dims the kernel is built for, per dtype (f32 hd 16 is the tiny model)
+_HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (16, 64, 128)}
+_MAX_G = 8
+_SM_TARGET = 4 * 132  # split blocks to aim for: four per H100 SM
+
+
+def flash_decode_attention_plain(
+    q: torch.Tensor,          # [B, n_heads, hd]
+    ctx_k: torch.Tensor,      # [L, kvh, B(+1), S, hd]
+    ctx_v: torch.Tensor,
+    ring_k: torch.Tensor,     # [L, kvh, B, R, hd]
+    ring_v: torch.Tensor,
+    layer: int,
+    ctx_lens: torch.Tensor,   # [B] int32, INCLUDING the current token
+    ring_base: torch.Tensor,  # [B] int32, position of ring slot 0
+) -> torch.Tensor:
+    """Plain PyTorch version: a copy of the JAX package's
+    ``flash_decode_attention_reference`` (dense mode)."""
+    B, n_heads, hd = q.shape
+    S = ctx_k.shape[3]
+    R = ring_k.shape[3]
+    n_rep = n_heads // ctx_k.shape[1]
+    kl, vl = ctx_k[layer][:, :B], ctx_v[layer][:, :B]   # [nkv, B, S, hd]
+    k = kl.repeat_interleave(n_rep, dim=0)              # [nh, B, S, hd]
+    v = vl.repeat_interleave(n_rep, dim=0)
+    rk = ring_k[layer].repeat_interleave(n_rep, dim=0)  # [nh, B, R, hd]
+    rv = ring_v[layer].repeat_interleave(n_rep, dim=0)
+    k = torch.cat([k, rk], dim=2)                       # [nh, B, S+R, hd]
+    v = torch.cat([v, rv], dim=2)
+    scores = torch.einsum(
+        "bnh,nbsh->bns", q.float(), k.float()) / (hd ** 0.5)
+    dev = q.device
+    ctx_pos = torch.arange(S, device=dev)[None, :]
+    ctx_ok = ctx_pos < torch.minimum(ring_base, ctx_lens)[:, None]
+    ring_pos = ring_base[:, None] + torch.arange(R, device=dev)[None, :]
+    ring_ok = ring_pos < ctx_lens[:, None]
+    mask = torch.cat([ctx_ok, ring_ok], dim=1)          # [B, S+R]
+    scores = torch.where(mask[:, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum(
+        "bns,nbsh->bnh", probs.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def pick_splits(batch: int, kv_heads: int, S: int, tile: int) -> int:
+    """Context splits per (slot, KV head): enough blocks to cover the SMs
+    several times over, never more splits than tiles in the region."""
+    want = -(-_SM_TARGET // max(1, batch * kv_heads))
+    return max(1, min(want, -(-S // tile)))
+
+
+def _check(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base):
+    B, n_heads, hd = q.shape
+    L, nkv, lanes, S, hd_k = ctx_k.shape
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash_decode: unsupported dtype {q.dtype}")
+    if hd not in _HEAD_DIMS[q.dtype] or hd_k != hd:
+        raise ValueError(
+            f"flash_decode: unsupported head_dim {hd}/{hd_k} in {q.dtype}")
+    if n_heads % nkv or n_heads // nkv > _MAX_G:
+        raise ValueError(
+            f"flash_decode: {n_heads} heads over {nkv} KV heads unsupported")
+    if lanes < B or ring_k.shape != (L, nkv, B, ring_k.shape[3], hd):
+        raise ValueError("flash_decode: ctx/ring shapes do not match q")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"flash_decode: layer {layer} out of range")
+    for name, t in (("q", q), ("ctx_k", ctx_k), ("ctx_v", ctx_v),
+                    ("ring_k", ring_k), ("ring_v", ring_v)):
+        if t.dtype != q.dtype or not t.is_cuda or not t.is_contiguous():
+            raise ValueError(
+                f"flash_decode: {name} must be a contiguous CUDA {q.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_decode: {name} is not 16-byte aligned")
+    if ctx_v.shape != ctx_k.shape or ring_v.shape != ring_k.shape:
+        raise ValueError("flash_decode: K and V shapes differ")
+    for name, t in (("ctx_lens", ctx_lens), ("ring_base", ring_base)):
+        if (t.dtype != torch.int32 or not t.is_cuda or t.shape != (B,)
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"flash_decode: {name} must be contiguous CUDA int32 [B]")
+
+
+def _launch(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base):
+    global launches
+    from dynamo_tpu_torch.ops import cuda_build
+
+    _check(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base)
+    lib = cuda_build.load("flash_decode")
+    fn = lib.flash_decode_launch
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 11
+            + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    B, n_heads, hd = q.shape
+    _, nkv, lanes, S, _ = ctx_k.shape
+    R = ring_k.shape[3]
+    G = n_heads // nkv
+    n_split = pick_splits(B, nkv, S, _TILE_ROWS[q.dtype])
+    out = torch.empty_like(q)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part_m = torch.empty(B, nkv, n_split + 1, G, **f32)
+    part_l = torch.empty(B, nkv, n_split + 1, G, **f32)
+    part_acc = torch.empty(B, nkv, n_split + 1, G, hd, **f32)
+    err = fn(
+        q.data_ptr(), ctx_k.data_ptr(), ctx_v.data_ptr(),
+        ring_k.data_ptr(), ring_v.data_ptr(),
+        ctx_lens.data_ptr(), ring_base.data_ptr(), out.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+        _DTYPE_CODE[q.dtype], B, n_heads, nkv, hd, lanes, S, R, int(layer),
+        n_split, 1.0 / hd ** 0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_decode kernel launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+def flash_decode_attention(
+    q: torch.Tensor,          # [B, n_heads, hd]
+    ctx_k: torch.Tensor,      # [L, kvh, B(+1), S, hd] contiguous per-slot KV
+    ctx_v: torch.Tensor,
+    ring_k: torch.Tensor,     # [L, kvh, B, R, hd] current-round writes
+    ring_v: torch.Tensor,
+    layer: int,
+    ctx_lens: torch.Tensor,   # [B] int32, context INCLUDING the current token
+    ring_base: torch.Tensor,  # [B] int32, position held by ring slot 0
+) -> torch.Tensor:
+    """Decode attention over contiguous KV + ring; returns [B, n_heads,
+    hd] in q's dtype. CUDA tensors go to the Hopper kernel (or raise);
+    CPU tensors take the plain version."""
+    if q.is_cuda:
+        return _launch(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens,
+                       ring_base)
+    return flash_decode_attention_plain(
+        q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base)

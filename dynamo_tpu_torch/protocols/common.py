@@ -1,0 +1,153 @@
+"""Engine-internal request/response types (a copy of the JAX package's
+protocols/common.py, so the port needs nothing from it).
+
+The preprocessor turns an OpenAI request into a `PreprocessedRequest` (token
+ids + stop conditions + sampling options); engines stream back
+`LLMEngineOutput` per step.
+"""
+from __future__ import annotations
+
+import enum
+import uuid
+from dataclasses import asdict, dataclass, field
+from typing import Any, Optional
+
+
+class FinishReason(str, enum.Enum):
+    EOS = "eos"
+    STOP = "stop"
+    LENGTH = "length"
+    CANCELLED = "cancelled"
+    ERROR = "error"
+    # shed while still WAITING: the request's deadline passed before any
+    # prefill work ran (overload plane) — zero tokens by construction
+    DEADLINE = "deadline"
+
+    def to_openai(self) -> str:
+        # OpenAI surfaces only {stop, length, content_filter, tool_calls}
+        return {
+            FinishReason.EOS: "stop",
+            FinishReason.STOP: "stop",
+            FinishReason.LENGTH: "length",
+            FinishReason.CANCELLED: "stop",
+            FinishReason.ERROR: "stop",
+            FinishReason.DEADLINE: "stop",
+        }[self]
+
+
+@dataclass
+class StopConditions:
+    """When to stop generating (reference common.rs StopConditions)."""
+
+    max_tokens: Optional[int] = None
+    stop: list[str] = field(default_factory=list)  # stop strings (detok plane)
+    stop_token_ids: list[int] = field(default_factory=list)
+    min_tokens: Optional[int] = None
+    ignore_eos: bool = False
+
+
+@dataclass
+class SamplingOptions:
+    """How to sample (reference common.rs SamplingOptions)."""
+
+    temperature: Optional[float] = None
+    top_p: Optional[float] = None
+    top_k: Optional[int] = None
+    frequency_penalty: Optional[float] = None
+    presence_penalty: Optional[float] = None
+    repetition_penalty: Optional[float] = None
+    seed: Optional[int] = None
+    n: int = 1
+
+
+@dataclass
+class OutputOptions:
+    logprobs: Optional[int] = None
+    echo_prompt: bool = False
+
+
+@dataclass
+class PreprocessedRequest:
+    """Tokenized request handed to an engine (reference common/preprocessor.rs)."""
+
+    token_ids: list[int]
+    request_id: str = field(default_factory=lambda: uuid.uuid4().hex)
+    model: str = ""
+    stop_conditions: StopConditions = field(default_factory=StopConditions)
+    sampling_options: SamplingOptions = field(default_factory=SamplingOptions)
+    output_options: OutputOptions = field(default_factory=OutputOptions)
+    # Overload plane (dynamo_tpu/overload/): two-class priority (0 =
+    # normal, 1 = high — high may preempt waiting/low-priority work) and
+    # an ABSOLUTE unix-time deadline minted at the frontend; the engine
+    # sheds still-waiting requests whose deadline passed, the router
+    # skips workers whose queue can't meet it.
+    priority: int = 0
+    deadline: Optional[float] = None
+    # Router annotation: expected prefix-cache hit depth for this worker
+    # (reference kv_router.rs estimated_prefix_hit_num_blocks).
+    estimated_prefix_hit_num_blocks: Optional[int] = None
+    # Disaggregation: set when a prefill worker must run first.
+    disagg: Optional[dict[str, Any]] = None
+    # Multimodal: media inputs resolved by the preprocessor/encode worker.
+    multimodal: Optional[dict[str, Any]] = None
+    annotations: list[str] = field(default_factory=list)
+    # Tenancy plane (dynamo_tpu/tenancy/): tenant identity minted at the
+    # frontend (X-Tenant-Id header / nvext.tenant; legacy traffic lands
+    # in "default") — keys per-tenant quotas, fair-share ordering, and
+    # the dynamo_tenant_* metric slices end to end.
+    tenant: str = "default"
+    # Resident LoRA bank row serving this request (0 = identity base
+    # model). Stamped by the frontend when `model` names a registered
+    # fine-tune variant of the worker's base model.
+    adapter_id: int = 0
+
+    def to_dict(self) -> dict[str, Any]:
+        return asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "PreprocessedRequest":
+        d = dict(d)
+        d["stop_conditions"] = StopConditions(**d.get("stop_conditions") or {})
+        d["sampling_options"] = SamplingOptions(**d.get("sampling_options") or {})
+        d["output_options"] = OutputOptions(**d.get("output_options") or {})
+        return cls(**d)
+
+
+@dataclass
+class LLMEngineOutput:
+    """One streamed step of engine output (reference LLMEngineOutput).
+
+    `token_ids` are the new tokens this step (usually 1 for decode; many for
+    a speculative/prefill flush). `text` is set only by engines that
+    detokenize internally; normally the Backend stage detokenizes.
+    """
+
+    token_ids: list[int] = field(default_factory=list)
+    text: Optional[str] = None
+    cum_log_probs: Optional[float] = None
+    log_probs: Optional[list[float]] = None
+    # per emitted token: top-N alternatives as [token_id, logprob] pairs
+    top_logprobs: Optional[list[list[list]]] = None
+    # OpenAI-ready per-token entries, filled by the Backend (token strings
+    # need the tokenizer): {"token", "logprob", "bytes", "top_logprobs"}
+    logprob_entries: Optional[list[dict]] = None
+    finish_reason: Optional[FinishReason] = None
+    # in-band metrics/events annotation plane (reference Annotated<T>)
+    annotations: dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def finished(self) -> bool:
+        return self.finish_reason is not None
+
+    def to_dict(self) -> dict[str, Any]:
+        d = asdict(self)
+        if self.finish_reason is not None:
+            d["finish_reason"] = self.finish_reason.value
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "LLMEngineOutput":
+        d = dict(d)
+        fr = d.get("finish_reason")
+        d["finish_reason"] = FinishReason(fr) if fr else None
+        return cls(**d)

@@ -1,0 +1,113 @@
+"""Token sequences and chained block hashing.
+
+A block of `block_size` tokens is identified by a *chained* content hash,
+``hash(block) = H(parent_hash || token_bytes)``, so equal hashes imply an
+identical prefix — the property prefix-cache reuse relies on.
+
+The JAX package hashes with xxhash's xxh3_64 (seed 1337); this port hashes
+with the standard library's ``blake2b`` (8-byte digest, the seed as the
+key), so it needs no third-party package. Port block hashes therefore
+DIFFER from JAX block hashes: the two cannot share a router or KV pages.
+Consistency inside the port (engine <-> allocator <-> events) is what
+matters, and every component here must go through this module.
+"""
+from __future__ import annotations
+
+import hashlib
+import struct
+from dataclasses import dataclass, field
+from typing import Iterable, Optional, Sequence
+
+import numpy as np
+
+HASH_SEED = 1337
+# Hash value used as the parent of the first block in a sequence (optionally
+# replaced by a salt hash when multiple models share one control plane).
+NO_PARENT = 0
+_KEY = HASH_SEED.to_bytes(8, "little")
+
+
+def _h64(data: bytes) -> int:
+    return int.from_bytes(
+        hashlib.blake2b(data, digest_size=8, key=_KEY).digest(), "little")
+
+
+def hash_tokens(tokens: Sequence[int], parent: int = NO_PARENT) -> int:
+    """Chained content hash of one block of tokens."""
+    return _h64(struct.pack("<Q", parent)
+                + np.asarray(tokens, dtype=np.dtype("<u4")).tobytes())
+
+
+def salt_hash(salt: str) -> int:
+    """Root parent hash for a (model, lora, ...) namespace salt."""
+    if not salt:
+        return NO_PARENT
+    return _h64(salt.encode("utf-8"))
+
+
+@dataclass(frozen=True)
+class TokenBlock:
+    """An immutable, complete block of `block_size` tokens plus its chain hash."""
+
+    tokens: tuple[int, ...]
+    block_hash: int
+    parent_hash: int
+    position: int  # block index within the sequence
+
+
+@dataclass
+class TokenBlockSequence:
+    """A growing token sequence chunked into hash-chained blocks: complete
+    blocks are eligible for the reuse pool; the partial tail is not."""
+
+    block_size: int
+    salt: str = ""
+    blocks: list[TokenBlock] = field(default_factory=list)
+    partial: list[int] = field(default_factory=list)
+
+    def __post_init__(self):
+        if self.block_size <= 0:
+            raise ValueError("block_size must be positive")
+
+    @classmethod
+    def from_tokens(
+        cls, tokens: Iterable[int], block_size: int, salt: str = ""
+    ) -> "TokenBlockSequence":
+        seq = cls(block_size=block_size, salt=salt)
+        seq.extend(tokens)
+        return seq
+
+    @property
+    def last_hash(self) -> int:
+        return self.blocks[-1].block_hash if self.blocks else salt_hash(self.salt)
+
+    def block_hashes(self) -> list[int]:
+        return [b.block_hash for b in self.blocks]
+
+    def append(self, token: int) -> Optional[TokenBlock]:
+        """Append one token; returns the newly completed block, if any."""
+        self.partial.append(int(token))
+        if len(self.partial) == self.block_size:
+            return self._seal()
+        return None
+
+    def extend(self, tokens: Iterable[int]) -> list[TokenBlock]:
+        """Append many tokens; returns all newly completed blocks."""
+        new_blocks: list[TokenBlock] = []
+        for t in tokens:
+            b = self.append(t)
+            if b is not None:
+                new_blocks.append(b)
+        return new_blocks
+
+    def _seal(self) -> TokenBlock:
+        parent = self.last_hash
+        blk = TokenBlock(
+            tokens=tuple(self.partial),
+            block_hash=hash_tokens(self.partial, parent),
+            parent_hash=parent,
+            position=len(self.blocks),
+        )
+        self.blocks.append(blk)
+        self.partial = []
+        return blk

@@ -1,0 +1,136 @@
+"""Parity of the PyTorch port's ops with the JAX package's: rope, the
+plain flash-decode (against both the Pallas kernel in interpret mode and
+the pure-jnp reference) and the blocked prefill attention. Inputs are made
+with numpy from a seed and fed to both sides."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from dynamo_tpu.ops import attention as jattn
+from dynamo_tpu.ops import flash_decode as jfd
+from dynamo_tpu.ops import rope as jrope
+from dynamo_tpu_torch.ops import attention as tattn
+from dynamo_tpu_torch.ops import flash_decode as tfd
+from dynamo_tpu_torch.ops import rope as trope
+
+L, NKV, NH, HD = 3, 2, 4, 16
+B, S, R = 4, 64, 4
+
+LLAMA3_SCALING = {
+    "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+    "high_freq_factor": 4.0, "original_max_position_embeddings": 8192,
+}
+
+
+@pytest.mark.parametrize("scaling", [None, LLAMA3_SCALING])
+@pytest.mark.parametrize("hd", [16, 128])
+def test_rope_matches_jax(scaling, hd):
+    """inv_freq is the same numpy code (exact); cos/sin and the rotation
+    run in f32 on both sides (tolerance 1e-6, f32 trig)."""
+    inv_j = jrope.rope_inv_freq(hd, 500000.0, scaling)
+    inv_t = trope.rope_inv_freq(hd, 500000.0, scaling)
+    np.testing.assert_array_equal(inv_j, inv_t)
+    rng = np.random.RandomState(0)
+    pos = rng.randint(0, 4096, size=(5,)).astype(np.int32)
+    x = rng.randn(5, 3, hd).astype(np.float32)
+    cj, sj = jrope.rope_cos_sin(jnp.asarray(pos), jnp.asarray(inv_j))
+    ct, st = trope.rope_cos_sin(torch.from_numpy(pos), torch.from_numpy(inv_t))
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), atol=1e-6)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=1e-6)
+    got = trope.apply_rope(torch.from_numpy(x), ct, st).numpy()
+    want = np.asarray(jrope.apply_rope(jnp.asarray(x), cj, sj))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def decode_data():
+    rng = np.random.RandomState(0)
+    return [
+        (rng.randn(*shape) * 0.3).astype(np.float32) for shape in (
+            (B, NH, HD), (L, NKV, B + 1, S, HD), (L, NKV, B + 1, S, HD),
+            (L, NKV, B, R, HD), (L, NKV, B, R, HD),
+        )
+    ]
+
+
+DECODE_PATTERNS = {
+    # mid-round: ring holds 2 tokens beyond each slot's ctx base
+    "mid_round": ([1, 15, 31, 60], [3, 17, 33, 62]),
+    "ring_only": ([0, 0, 0, 0], [1, 2, 3, 4]),
+    "single_token": ([0, 0, 0, 0], [1, 1, 1, 1]),
+    # region full to the last position, ring base at the end
+    "full_region": ([S - 1, S - 2, S - 4, 40], [S, S, S, 44]),
+    # a freed lane (patched to ctx 1, base 0) beside live ones
+    "freed_lane": ([30, 0, 12, 50], [32, 1, 14, 53]),
+}
+
+
+@pytest.mark.parametrize("pattern", sorted(DECODE_PATTERNS))
+@pytest.mark.parametrize("layer", [0, L - 1])
+def test_plain_flash_decode_matches_jax(decode_data, pattern, layer):
+    """Plain port vs the jnp reference (same math in f32: 1e-5) and vs the
+    Pallas kernel in interpret mode (its emulated MXU passes: 5e-3, as
+    tests/test_flash_decode.py)."""
+    base, ctx = (np.asarray(a, np.int32) for a in DECODE_PATTERNS[pattern])
+    j_in = [jnp.asarray(a) for a in decode_data]
+    t_in = [torch.from_numpy(a) for a in decode_data]
+    q, ck, cv, rk, rv = j_in
+    want_ref = np.asarray(jfd.flash_decode_attention_reference(
+        q, ck, cv, rk, rv, jnp.int32(layer), jnp.asarray(ctx),
+        jnp.asarray(base)))
+    want_kernel = np.asarray(jfd.flash_decode_attention(
+        q, ck, cv, rk, rv, jnp.int32(layer), jnp.asarray(ctx),
+        jnp.asarray(base), chunk=16, interpret=True))
+    before = tfd.launches
+    got = tfd.flash_decode_attention(
+        *t_in, layer, torch.from_numpy(ctx), torch.from_numpy(base)).numpy()
+    assert tfd.launches == before  # CPU tensors take the plain version
+    np.testing.assert_allclose(got, want_ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want_kernel, rtol=5e-3, atol=5e-3)
+
+
+def test_pick_splits_fills_the_card():
+    # Llama-3.1-8B serving shape: 64 (slot, KV head) pairs over 132 SMs
+    assert tfd.pick_splits(8, 8, 4096, 64) == 9
+    assert tfd.pick_splits(1, 1, 128, 64) == 2   # capped at the tile count
+    assert tfd.pick_splits(64, 64, 4096, 64) == 1
+
+
+def _prefill_inputs(T, Sc, seed=0):
+    rng = np.random.RandomState(seed)
+    return (
+        rng.randn(T, NH, HD).astype(np.float32),
+        rng.randn(NKV, Sc, HD).astype(np.float32),
+        rng.randn(NKV, Sc, HD).astype(np.float32),
+        rng.randn(T, NKV, HD).astype(np.float32),
+        rng.randn(T, NKV, HD).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("T,Sc,q_start,seq_len,with_ctx,block", [
+    (32, 0, 0, 20, False, 256),   # fresh prefill, padded tail rows
+    (32, 0, 0, 32, False, 8),     # fresh, several key blocks
+    (16, 64, 24, 35, True, 16),   # continuation over prior context
+    (16, 64, 40, 56, True, 256),  # continuation, one block
+    (16, 64, 0, 0, True, 16),     # dummy lane: every row fully masked
+    (8, 0, 0, 0, False, 256),     # dummy fresh lane
+])
+def test_prefill_attention_matches_jax(T, Sc, q_start, seq_len, with_ctx,
+                                       block):
+    """f32 on both sides, blocked running softmax: 1e-5. Fully masked rows
+    must be exact zeros."""
+    q, kc, vc, kn, vn = _prefill_inputs(T, max(Sc, 1))
+    jk = (jnp.asarray(kc), jnp.asarray(vc)) if with_ctx else (None, None)
+    tk = ((torch.from_numpy(kc), torch.from_numpy(vc)) if with_ctx
+          else (None, None))
+    want = np.asarray(jattn.flash_prefill_attention(
+        jnp.asarray(q), *jk, jnp.asarray(kn), jnp.asarray(vn),
+        jnp.int32(q_start), jnp.int32(seq_len), block=block))
+    got = tattn.flash_prefill_attention(
+        torch.from_numpy(q), *tk, torch.from_numpy(kn), torch.from_numpy(vn),
+        q_start, seq_len, block=block).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    if seq_len == 0:
+        assert not got.any()

@@ -1,0 +1,116 @@
+"""Where a decode step's time goes in the PyTorch port, on one GPU.
+
+    python3 tools/torch_profile_decode.py
+
+Runs ``dynamo_tpu_torch.models.llama.decode_step`` at the full width of
+Llama-3.1-8B (32 layers, random bf16 weights from seed 0) for the default
+EngineConfig's 8 slots, with the serve phase's contexts of chip_smoke.py
+(prompts of 128..1024 tokens from seed 0, 17 tokens into decode). It
+prints the host-clock time per step around synchronized steps, the
+device time per step that torch.profiler attributes to CUDA kernels,
+the device's idle share, and the device time by kernel group (matmul,
+the flash-decode kernel, the rest) and by kernel name. The last line is
+a JSON object with the same numbers. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+STEPS = 10
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    if "flash_decode" in low:
+        return "flash_decode"
+    if any(s in low for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass",
+                              "cublas", "splitk")):
+        return "matmul"
+    return "other"
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_profile_decode: no CUDA device", file=sys.stderr)
+        return 1
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    cfg, ecfg = ModelConfig.llama3_8b(), EngineConfig()
+    B, dev = ecfg.max_decode_slots, "cuda"
+    params = llama.init_params(cfg, 0, dev)
+    ctx = llama.init_ctx(cfg, B, ecfg.max_context, torch.bfloat16, dev)
+    ring = llama.init_ring(cfg, B, ecfg.flush_every, torch.bfloat16, dev)
+    for t in (*ctx.values(), *ring.values()):
+        t.normal_(0.0, 0.5)
+    lens = np.random.RandomState(0).randint(128, 1025, size=B) + 17
+    ctx_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    ring_base = ctx_lens - 2
+    tokens = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    def step():
+        return llama.decode_step(cfg, params, ctx, ring, tokens, ctx_lens,
+                                 ring_base, 1)
+
+    with torch.no_grad():
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(STEPS):
+                step()
+            torch.cuda.synchronize()
+
+    by_name: dict[str, float] = defaultdict(float)
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.key] += evt.self_device_time_total / 1e3 / STEPS
+    if not by_name:  # some builds attribute kernels to their CPU launchers
+        for evt in prof.key_averages():
+            if evt.self_device_time_total > 0 and not evt.key.startswith("aten::"):
+                by_name[evt.key] += evt.self_device_time_total / 1e3 / STEPS
+    device_ms = sum(by_name.values())
+    groups: dict[str, float] = defaultdict(float)
+    for name, ms in by_name.items():
+        groups[group_of(name)] += ms
+    print(f"card: {smi}; torch {torch.__version__}")
+    print(f"decode_step at Llama-3.1-8B, B={B}, contexts {lens.tolist()}: "
+          f"wall {wall_ms:.3f} ms/step, device {device_ms:.3f} ms/step, "
+          f"device idle {1 - device_ms / wall_ms:.3f} of wall")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  group {g}: {ms:.3f} ms/step")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  kernel {ms:.4f} ms/step  {name[:110]}")
+    print(json.dumps({
+        "card": smi, "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms,
+        "idle_share": 1 - device_ms / wall_ms,
+        "groups_ms_per_step": dict(groups),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
