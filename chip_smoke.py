@@ -4,23 +4,31 @@
 
 Phases, each printing a line (any failure raises and exits non-zero):
   1. card: name and power limit (nvidia-smi);
-  2. build: the serving path's CUDA kernel, compiled with nvcc from
-     dynamo_tpu_torch/csrc/flash_decode.cu;
+  2. build: the serving path's CUDA kernels (the dense and int8 modes of
+     flash decode), compiled with nvcc from
+     dynamo_tpu_torch/csrc/flash_decode.cu, with ptxas's register,
+     shared-memory and spill counts;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes serving gives it (Llama-3.1-8B and Llama-3.2-1B decode
      shapes, several context/ring patterns; the plain version runs in f32
      on the same inputs, and per element |kernel - plain| <= atol + rtol *
-     |plain|), with the kernel's, the plain
+     |plain|; controls that must fail the check: a dropped row, and in
+     int8 mode K scales off by 5%), with the kernel's, the plain
      version's and one library call's times and the kernel's least time
      (its byte or operation bound);
   4. tiny: TorchEngine on ModelConfig.tiny (f32) on the card must be
      greedy token-identical to the same engine on the CPU (which the CPU
-     tests hold against the JAX TpuEngine);
+     tests hold against the JAX TpuEngine); with int8 KV too, where a
+     greedy token may differ only at a CPU near-tie (top-2 logprob gap
+     <= 0.05), and a seeded request at temperature 0.8 must draw the same
+     stream on both devices;
   5. serve: TorchEngine at the full width of Llama-3.1-8B (32 layers,
-     random bf16 weights from a seed, default EngineConfig) answers 8
-     concurrent greedy requests and a prefix-cache hit through generate();
-     launch counts are zeroed just before and read just after, and must
-     show the decode kernel ran on every layer of every decode step.
+     random bf16 weights from a seed, made once, default EngineConfig)
+     answers 8 concurrent greedy requests and a prefix-cache hit through
+     generate(), first with dense KV, then with int8 KV; launch counts
+     are zeroed just before each and read just after, and must show the
+     decode kernel of that mode ran on every layer of every decode step
+     (and the other mode's never).
 The card line (nvidia-smi's name and power limit) comes third from last,
 the second-to-last line is a JSON object describing every kernel, and the
 last is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -29,7 +37,9 @@ the rest of the repository beside it, the script fails.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -46,6 +56,9 @@ H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 BF16_TOL = (1e-4, 1e-2)
 F32_TOL = (1e-5, 1e-4)
 SEED = 0
+# a greedy token of the int8 engine may differ between devices only where
+# the CPU's top-2 logprob gap is this small (tests/test_kv_quant.py)
+NEAR_TIE = 0.05
 
 
 def log(*a):
@@ -112,13 +125,21 @@ def decode_patterns(S, R, serve_lens):
     }
 
 
-def decode_bound_ms(ctx, base, nkv, nh, hd, R, elem):
+def decode_bound_ms(ctx, base, nkv, nh, hd, R, elem, group=None):
     """Least time for one call: each live K/V row read once, q read and
-    out written once; 4 flops per (head, live row, dim)."""
-    live = sum(min(b, c) + max(0, min(c - b, R)) for c, b in zip(ctx, base))
+    out written once; 4 flops per (head, live row, dim). With ``group``
+    (int8 mode) the ctx rows are 1 byte per element, plus one f32 K and V
+    scale per group they touch and one dequantizing product per element."""
+    live_ctx = sum(min(b, c) for c, b in zip(ctx, base))
+    live_ring = sum(max(0, min(c - b, R)) for c, b in zip(ctx, base))
     B = len(ctx)
-    nbytes = (live * nkv * hd * 2 * elem + 2 * B * nh * hd * elem + 2 * B * 4)
-    flops = 4 * live * nh * hd
+    ctx_elem = elem if group is None else 1
+    nbytes = ((live_ctx * ctx_elem + live_ring * elem) * nkv * hd * 2
+              + 2 * B * nh * hd * elem + 2 * B * 4)
+    flops = 4 * (live_ctx + live_ring) * nh * hd
+    if group is not None:
+        nbytes += sum(-(-min(b, c) // group) for c, b in zip(ctx, base)) * 8
+        flops += 2 * live_ctx * nkv * hd
     peak = H100_BF16_FLOPS if elem == 2 else H100_F32_FLOPS
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -133,12 +154,39 @@ def tol_excess(got, want, tol):
     return ((got.float() - want).abs() / (atol + rtol * want.abs())).max().item()
 
 
-def plain_f32(fd, q, ck, cv, rk, rv, layer, ctx, base):
-    """The plain version on the same inputs computed in f32, in q's dtype.
-    (The plain copy of the JAX reference rounds the probabilities to bf16
-    before P.V; the kernel keeps them in f32. At a 3-row context whose
-    terms cancel, that rounding alone moves an output by ~2e-3.)"""
-    f = [t[layer:layer + 1].float() for t in (ck, cv, rk, rv)]
+def quantize_groups(x, group):
+    """Symmetric int8 with absmax scales per (layer, lane, position group),
+    as the int8 region holds them: ([L, nkv, lanes, S, hd] int8,
+    [L, lanes, S/group] f32)."""
+    L, nkv, lanes, S, hd = x.shape
+    amax = x.float().abs().reshape(L, nkv, lanes, S // group, group,
+                                   hd).amax(dim=(1, 4, 5))
+    sc = torch.clamp(amax / 127.0, min=1e-8)
+    per_pos = sc.repeat_interleave(group, dim=2)[:, None, :, :, None]
+    q = torch.clamp(torch.round(x.float() / per_pos), -127, 127)
+    return q.to(torch.int8), sc
+
+
+def dense_layer(c, sc, layer, dtype):
+    """One layer [1, nkv, lanes, S, hd] of a region in the compute dtype:
+    a dense region as it is; an int8 one (scales ``sc``) as the int8 mode
+    defines it, the f32 product with the row's scale rounded to dtype."""
+    if sc is None:
+        return c[layer:layer + 1]
+    g = c.shape[3] // sc.shape[2]
+    per_pos = sc[layer].repeat_interleave(g, dim=1)[None, None, :, :, None]
+    return (c[layer:layer + 1].float() * per_pos).to(dtype)
+
+
+def plain_f32(fd, q, ck, cv, rk, rv, layer, ctx, base, ksc=None, vsc=None):
+    """The plain version on the same inputs (an int8 region dequantized
+    as above) computed in f32, in q's dtype. (The plain copy of the JAX
+    reference rounds the probabilities to bf16 before P.V; the kernel
+    keeps them in f32. At a 3-row context whose terms cancel, that
+    rounding alone moves an output by ~2e-3.)"""
+    f = [t.float() for t in (dense_layer(ck, ksc, layer, q.dtype),
+                             dense_layer(cv, vsc, layer, q.dtype),
+                             rk[layer:layer + 1], rv[layer:layer + 1])]
     return fd.flash_decode_attention_plain(
         q.float(), *f, 0, ctx, base).to(q.dtype)
 
@@ -165,67 +213,93 @@ def sdpa_call(q, ck, cv, rk, rv, layer, ctx, base):
     return call
 
 
-def check_flash_decode(serve_lens):
+def check_flash_decode(serve_lens, quant):
+    """The kernel in dense mode, or in int8 mode with ``quant`` (inputs
+    quantized with per-(layer, lane, group) absmax scales), against its
+    plain version; returns the kernels-line figures at the 8B shape."""
     from dynamo_tpu_torch.ops import flash_decode as fd
 
-    cases = [  # (label, dtype, L, nkv, nh, hd, B, S, R, tol)
-        ("llama3_8b", torch.bfloat16, 32, 8, 32, 128, 8, 4096, 4, BF16_TOL),
-        ("llama3_1b", torch.bfloat16, 16, 8, 32, 64, 8, 4096, 4, BF16_TOL),
-        # f32: a ring of 40 rows spans two of the kernel's 32-row f32 tiles
-        ("llama3_8b_f32", torch.float32, 2, 8, 32, 128, 8, 4096, 40, F32_TOL),
+    name = "flash_decode_int8" if quant else "flash_decode"
+    cases = [  # (label, dtype, L, nkv, nh, hd, B, S, R, int8 group, tol)
+        ("llama3_8b", torch.bfloat16, 32, 8, 32, 128, 8, 4096, 4, 64,
+         BF16_TOL),
+        ("llama3_1b", torch.bfloat16, 16, 8, 32, 64, 8, 4096, 4, 64,
+         BF16_TOL),
+        # f32: a ring of 40 rows spans two of the kernel's 32-row f32
+        # tiles; the tiny engine's int8 group (page size 16)
+        ("llama3_8b_f32", torch.float32, 2, 8, 32, 128, 8, 4096, 40, 16,
+         F32_TOL),
     ]
     report = None
     max_err = 0.0  # bf16, every case and pattern
-    for label, dtype, L, nkv, nh, hd, B, S, R, tol in cases:
+    for label, dtype, L, nkv, nh, hd, B, S, R, group, tol in cases:
         q, ck, cv, rk, rv = decode_inputs(dtype, L, nkv, nh, hd, B, S, R)
+        ksc = vsc = None
+        if quant:
+            ck, ksc = quantize_groups(ck, group)
+            cv, vsc = quantize_groups(cv, group)
+        what = f"{name} {label}" + (f" (group {group})" if quant else "")
         for pname, (ctx_l, base_l) in decode_patterns(S, R, serve_lens).items():
             ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
             base = torch.tensor(base_l, dtype=torch.int32, device="cuda")
+            args = (q, ck, cv, rk, rv)
             err = excess = 0.0
             for layer in (0, L - 1):
-                got = fd.flash_decode_attention(
-                    q, ck, cv, rk, rv, layer, ctx, base)
+                got = fd.flash_decode_attention(*args, layer, ctx, base,
+                                                ksc, vsc)
                 torch.cuda.synchronize()
-                want = plain_f32(fd, q, ck, cv, rk, rv, layer, ctx, base)
+                want = plain_f32(fd, *args, layer, ctx, base, ksc, vsc)
                 err = max(err, (got.float() - want.float()).abs().max().item())
                 excess = max(excess, tol_excess(got, want, tol))
                 if not excess <= 1.0:
                     raise AssertionError(
-                        f"flash_decode {label}/{pname}/layer {layer}: "
-                        f"|kernel - plain| exceeds atol {tol[0]} + rtol "
-                        f"{tol[1]} * |plain| by a factor {excess}")
-                if pname == "serve":
-                    # the check must see one dropped row: the plain output
-                    # without each slot's current token fails it
-                    short = plain_f32(fd, q, ck, cv, rk, rv, layer, ctx - 1,
-                                      base)
-                    if tol_excess(short, want, tol) <= 1.0:
+                        f"{what} {pname} layer {layer}: |kernel - plain| "
+                        f"exceeds atol {tol[0]} + rtol {tol[1]} * |plain| "
+                        f"by a factor {excess}")
+                if pname != "serve":
+                    continue
+                # the check must see one dropped row (the plain output
+                # without each slot's current token) and K scales 5% off
+                controls = {"a dropped row": plain_f32(
+                    fd, *args, layer, ctx - 1, base, ksc, vsc)}
+                if quant:
+                    controls["K scales x1.05"] = plain_f32(
+                        fd, *args, layer, ctx, base, ksc * 1.05, vsc)
+                for bad, out in controls.items():
+                    if tol_excess(out, want, tol) <= 1.0:
                         raise AssertionError(
-                            f"flash_decode {label}: tolerance {tol} cannot "
-                            f"tell a dropped row")
+                            f"{what}: tolerance {tol} cannot tell {bad}")
             if dtype == torch.bfloat16:
                 max_err = max(max_err, err)
-            log(f"kernel flash_decode {label} {pname}: agrees with plain, "
-                f"max |kernel - plain| {err:.3e}, at {excess:.3f} of the "
-                f"tolerance (atol {tol[0]} + rtol {tol[1]} * |plain|)")
+            log(f"kernel {what} {pname}: agrees with plain, max |kernel - "
+                f"plain| {err:.3e}, at {excess:.3f} of the tolerance (atol "
+                f"{tol[0]} + rtol {tol[1]} * |plain|)"
+                + ("; the controls (" + ", ".join(controls) + ") fail it"
+                   if pname == "serve" else ""))
             if pname != "serve" or dtype != torch.bfloat16:
                 continue
-            elem = 2
             ms = cuda_time_ms(lambda i: fd.flash_decode_attention(
-                q, ck, cv, rk, rv, i % L, ctx, base), iters=100)
+                *args, i % L, ctx, base, ksc, vsc), iters=100)
             plain_ms = cuda_time_ms(lambda i: fd.flash_decode_attention_plain(
-                q, ck, cv, rk, rv, i % L, ctx, base), iters=5, warmup=1)
-            lib = sdpa_call(q, ck, cv, rk, rv, 1, ctx, base)
+                *args, i % L, ctx, base, ksc, vsc), iters=5, warmup=1)
+            # yardstick: one SDPA call; in int8 mode over the ALREADY
+            # dequantized bf16 live K/V (no PyTorch call takes int8 K/V
+            # with group scales; the dequantization is not timed)
+            lib = sdpa_call(q, dense_layer(ck, ksc, 1, dtype),
+                            dense_layer(cv, vsc, 1, dtype), rk[1:2], rv[1:2],
+                            0, ctx, base)
             library_ms = cuda_time_ms(lambda i: lib(), iters=20)
+            del lib
             bound_ms, bound_by = decode_bound_ms(
-                ctx_l, base_l, nkv, nh, hd, R, elem)
-            log(f"kernel flash_decode {label} serve shape: {ms:.4f} ms/call "
-                f"(plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-                f"{bound_by} bound {bound_ms:.4f} ms)")
+                ctx_l, base_l, nkv, nh, hd, R, 2, group if quant else None)
+            log(f"kernel {name} {label} serve shape: {ms:.4f} ms/call (plain "
+                f"{plain_ms:.4f} ms, sdpa"
+                + (" over the dequantized bf16 K/V" if quant else "")
+                + f" {library_ms:.4f} ms, {bound_by} bound {bound_ms:.4f} ms)")
             if label == "llama3_8b":
                 report = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=library_ms)
-        del q, ck, cv, rk, rv
+        del q, ck, cv, rk, rv, ksc, vsc, args
         torch.cuda.empty_cache()
     report["max_abs_err"] = max_err
     return report
@@ -234,9 +308,14 @@ def check_flash_decode(serve_lens):
 # ---------------------------------------------------------------------------
 # engine
 
-async def generate_all(engine, prompts, max_tokens):
+async def generate_all(engine, prompts, max_tokens, logprobs=None,
+                       **sampling):
+    """Each prompt as a request, all at once; per request (tokens, finish
+    reason, final annotations, inter-token gaps, top logprobs)."""
     from dynamo_tpu_torch.protocols.common import (
+        OutputOptions,
         PreprocessedRequest,
+        SamplingOptions,
         StopConditions,
     )
 
@@ -244,8 +323,10 @@ async def generate_all(engine, prompts, max_tokens):
         req = PreprocessedRequest(
             token_ids=list(p),
             stop_conditions=StopConditions(max_tokens=max_tokens,
-                                           ignore_eos=True))
-        toks, ann, finish, gaps = [], {}, None, []
+                                           ignore_eos=True),
+            sampling_options=SamplingOptions(**sampling),
+            output_options=OutputOptions(logprobs=logprobs))
+        toks, ann, finish, gaps, top = [], {}, None, [], []
         last = None
         async for out in engine.generate(req):
             now = time.monotonic()
@@ -255,9 +336,10 @@ async def generate_all(engine, prompts, max_tokens):
             if out.token_ids:
                 last = now
             toks.extend(out.token_ids)
+            top.extend(out.top_logprobs or [])
             if out.finish_reason is not None:
                 finish, ann = out.finish_reason.value, out.annotations
-        return toks, finish, ann, gaps
+        return toks, finish, ann, gaps, top
 
     return await asyncio.gather(*[one(p) for p in prompts])
 
@@ -289,7 +371,7 @@ def check_tiny_engine():
             await eng.stop()
             return res
 
-        outs[dev] = [(t, f) for t, f, _, _ in asyncio.run(drive())]
+        outs[dev] = [(t, f) for t, f, *_ in asyncio.run(drive())]
         if dev == "cuda" and eng.kernel_launches == 0:
             raise AssertionError("tiny engine on cuda launched no kernel")
     if outs["cuda"] != outs["cpu"]:
@@ -299,18 +381,107 @@ def check_tiny_engine():
         f"{len(outs['cpu'])} requests")
 
 
-def serve_llama3_8b(counts):
+def check_tiny_int8():
+    """The tiny model with int8 KV (page 16, the int8 kernel at hd 16,
+    group 16) on the card vs on the CPU: greedy tokens equal except at a
+    CPU near-tie, and a seeded temperature-0.8 stream drawn identically
+    (threefry on both devices)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import flash_decode as fd
+
+    cfg = ModelConfig.tiny(dtype="float32")
+    ecfg = dict(num_pages=64, page_size=16, max_pages_per_seq=8,
+                max_decode_slots=4, prefill_buckets=(32, 64),
+                cache_dtype="float32", kv_quant="int8")
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, 256, size=n).tolist() for n in (29, 40, 17, 100)]
+    params = llama.init_params(cfg, SEED, device="cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+                 else v.to(dev)) for k, v in params.items()}
+        eng = TorchEngine(cfg, EngineConfig(**ecfg), params=p, device=dev)
+        before = fd.launches_int8
+
+        async def drive():
+            greedy = await generate_all(eng, prompts, 12, logprobs=2)
+            greedy.append((await generate_all(eng, prompts[:1], 12,
+                                              logprobs=2))[0])
+            seeded = (await generate_all(eng, prompts[1:2], 24,
+                                         temperature=0.8, seed=7))[0]
+            await eng.stop()
+            return greedy, seeded
+
+        outs[dev] = asyncio.run(drive())
+        if dev == "cuda" and fd.launches_int8 == before:
+            raise AssertionError("tiny int8 engine on cuda launched no "
+                                 "int8 kernel")
+    compared = ties = 0
+    for (tc, *_), (tg, fg, _, _, top) in zip(outs["cuda"][0], outs["cpu"][0]):
+        if fg != "length" or len(tg) != 12 or len(tc) != 12:
+            raise AssertionError(f"tiny int8: {len(tc)}/{len(tg)} tokens, "
+                                 f"finish {fg}")
+        for j, (a, b) in enumerate(zip(tc, tg)):
+            if a != b:
+                gap = top[j][0][1] - top[j][1][1]
+                if gap > NEAR_TIE:
+                    raise AssertionError(
+                        f"tiny int8: cuda token {a} != cpu token {b} at "
+                        f"step {j}, cpu top-2 gap {gap:.4f} > {NEAR_TIE}")
+                ties += 1
+                break  # past a divergence the streams are not comparable
+            compared += 1
+    seeded = {dev: o[1][0] for dev, o in outs.items()}
+    if seeded["cuda"] != seeded["cpu"] or len(seeded["cpu"]) != 24:
+        raise AssertionError(f"tiny int8 seeded stream: cuda "
+                             f"{seeded['cuda']} != cpu {seeded['cpu']}")
+    log(f"tiny int8: cuda engine agrees with cpu engine on {compared} greedy "
+        f"positions ({ties} streams stop at a cpu near-tie, gap <= "
+        f"{NEAR_TIE}); the seeded temperature-0.8 stream of 24 tokens is "
+        f"identical on both devices")
+
+
+def time_block_hashes(prompts, page):
+    """The router's block hashing (the port's own XXH3-64) on this
+    machine's host: microseconds per block of ``page`` tokens."""
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+
+    reps = 20
+    n = reps * sum(len(p) // page for p in prompts)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for p in prompts:
+            compute_block_hashes(p, page, "meta-llama/Llama-3.1-8B")
+    us = (time.perf_counter() - t0) / n * 1e6
+    log(f"host: block hash (xxh3_64, page {page} = {8 + 4 * page} bytes) "
+        f"{us:.1f} us per block over {n} blocks")
+
+
+def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
+    """The serve burst on Llama-3.1-8B with the given weights and KV mode;
+    returns each request's tokens."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.ops import flash_decode as fd
 
     cfg = ModelConfig.llama3_8b()
+    quant = kv_quant == "int8"
+    name = "flash_decode_int8" if quant else "flash_decode"
     t0 = time.monotonic()
-    eng = TorchEngine(cfg, EngineConfig(), device="cuda", rng_seed=SEED)
+    eng = TorchEngine(cfg, EngineConfig(kv_quant=kv_quant), params=params,
+                      device="cuda")
     torch.cuda.synchronize()
-    log(f"serve: Llama-3.1-8B engine built in {time.monotonic() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    if quant and not (eng.ctx["k"].dtype == eng.cache["k"].dtype
+                      == torch.int8):
+        raise AssertionError("int8 engine: ctx or pool is not int8")
+    log(f"serve {kv_quant}: Llama-3.1-8B engine built in "
+        f"{time.monotonic() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated "
+        f"(ctx {eng.ctx['k'].dtype}, pool {eng.cache['k'].dtype})")
     prompts = serve_prompts(cfg.vocab_size)
     n_new = 32
 
@@ -323,11 +494,14 @@ def serve_llama3_8b(counts):
         return res, repeat, t_batch
 
     steps0 = eng.step_count
-    fd.launches = 0  # every kernel count to 0 just before the main path
+    # every kernel count to 0 just before the main path
+    fd.launches = fd.launches_int8 = 0
     res, repeat, t_batch = asyncio.run(drive())
-    counts["flash_decode"] = fd.launches
+    launched = fd.launches_int8 if quant else fd.launches
+    other = fd.launches if quant else fd.launches_int8
+    counts[name] = launched
     steps = eng.step_count - steps0
-    for toks, finish, _, _ in res + [repeat]:
+    for toks, finish, *_ in res + [repeat]:
         if len(toks) != n_new or finish != "length":
             raise AssertionError(f"request ended with {len(toks)} tokens, "
                                  f"finish {finish}")
@@ -338,27 +512,46 @@ def serve_llama3_8b(counts):
     if cached != want_cached:
         raise AssertionError(f"prefix repeat hit {cached} blocks, "
                              f"expected {want_cached}")
-    if fd.launches < cfg.num_layers * steps or eng.kernel_launches < fd.launches:
+    if launched < cfg.num_layers * steps or eng.kernel_launches < launched:
         raise AssertionError(
-            f"flash_decode launched {fd.launches} times over {steps} decode "
+            f"{name} launched {launched} times over {steps} decode "
             f"steps of {cfg.num_layers} layers")
-    ttft = [a["timing"]["ttft_s"] for _, _, a, _ in res]
-    e2e = [a["timing"]["e2e_s"] for _, _, a, _ in res]
-    gaps = [g for *_, gs in res for g in gs]
+    if other:
+        raise AssertionError(f"serve {kv_quant}: the other mode's kernel "
+                             f"launched {other} times")
+    ttft = [a["timing"]["ttft_s"] for _, _, a, *_ in res]
+    e2e = [a["timing"]["e2e_s"] for _, _, a, *_ in res]
+    gaps = [g for _, _, _, gs, _ in res for g in gs]
     decode_tokens = sum(len(t) - 1 for t, *_ in res)
     decode_tps = decode_tokens / (max(e2e) - min(ttft))
-    log(f"serve: 8 requests x {n_new} tokens (prompts "
+    log(f"serve {kv_quant}: 8 requests x {n_new} tokens (prompts "
         f"{min(map(len, prompts))}..{max(map(len, prompts))}) in "
         f"{t_batch:.3f} s; TTFT median {np.median(ttft):.4f} s max "
         f"{max(ttft):.4f} s; inter-token gap median "
         f"{np.median(gaps) * 1e3:.2f} ms max {max(gaps) * 1e3:.2f} ms (a "
         f"round's gap spread over its tokens); decode {decode_tps:.1f} "
         f"tok/s over the batch (tokens after the first / span from first "
-        f"first-token to last finish); {steps} decode steps, flash_decode "
-        f"launches {fd.launches}")
-    log(f"serve: prefix repeat hit {cached} cached blocks, TTFT "
+        f"first-token to last finish); {steps} decode steps, {name} "
+        f"launches {launched}")
+    log(f"serve {kv_quant}: prefix repeat hit {cached} cached blocks, TTFT "
         f"{repeat[2]['timing']['ttft_s']:.4f} s")
-    return [len(p) for p in prompts]
+    tokens = [t for t, *_ in res + [repeat]]
+    if dense_tokens is not None:
+        same = sum(a == b for x, y in zip(tokens, dense_tokens)
+                   for a, b in zip(x, y))
+        total = sum(len(x) for x in tokens)
+        # the step at which each stream first leaves the dense one
+        split = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                      len(x)) for x, y in zip(tokens, dense_tokens)]
+        log(f"serve {kv_quant}: {same}/{total} = {same / total:.4f} of the "
+            f"token positions agree with the dense run (greedy, random "
+            f"weights: a stream that leaves the dense one at a near-tie "
+            f"stays apart); first differing step per request {split} "
+            f"({n_new} = never)")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tokens
 
 
 def main() -> int:
@@ -375,23 +568,43 @@ def main() -> int:
         check=True).stdout.strip()
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.monotonic()
-    cuda_build.build("flash_decode")
-    log(f"build: flash_decode in {time.monotonic() - t0:.1f} s")
-
+    ptxas = cuda_build.build("flash_decode")
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
+    smem = [int(b) for b in re.findall(r"(\d+) bytes smem", ptxas)]
+    spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", ptxas))
+    log(f"build: flash_decode in {time.monotonic() - t0:.1f} s; " + (
+        f"{len(regs)} kernels, {min(regs)}..{max(regs)} registers, up to "
+        f"{max(smem)} bytes of shared memory, {spills} bytes of spills"
+        if regs else "built before this run"))
+    from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import ModelConfig
 
-    serve_lens = [len(p) for p in serve_prompts(ModelConfig.llama3_8b().vocab_size)]
-    fd_report = check_flash_decode(serve_lens)
+    cfg = ModelConfig.llama3_8b()
+    serve_lens = [len(p) for p in serve_prompts(cfg.vocab_size)]
+    fd_report = check_flash_decode(serve_lens, quant=False)
+    fd8_report = check_flash_decode(serve_lens, quant=True)
     check_tiny_engine()
+    check_tiny_int8()
+    time_block_hashes(serve_prompts(cfg.vocab_size), 64)
     counts: dict[str, int] = {}
-    serve_llama3_8b(counts)
+    # the 8B weights are made once and serve both KV modes
+    t0 = time.monotonic()
+    params = llama.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    log(f"serve: Llama-3.1-8B bf16 weights made on the card in "
+        f"{time.monotonic() - t0:.1f} s")
+    dense_tokens = serve_llama3_8b(counts, params, "none")
+    serve_llama3_8b(counts, params, "int8", dense_tokens)
     print(smi)
-    kernels = [dict(
-        name="flash_decode", route="cuda",
-        source="dynamo_tpu_torch/csrc/flash_decode.cu",
-        replaces="dynamo_tpu/ops/flash_decode.py:210",
-        launches=counts["flash_decode"], **fd_report,
-    )]
+    source = "dynamo_tpu_torch/csrc/flash_decode.cu"
+    kernels = [
+        dict(name="flash_decode", route="cuda", source=source,
+             replaces="dynamo_tpu/ops/flash_decode.py:210",
+             launches=counts["flash_decode"], **fd_report),
+        dict(name="flash_decode_int8", route="cuda", source=source,
+             replaces="dynamo_tpu/ops/flash_decode.py:176",
+             launches=counts["flash_decode_int8"], **fd8_report),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 // Flash decode attention over the contiguous per-slot context plus the
 // per-round write ring, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `flash_decode_attention`, dense mode
-// (dynamo_tpu/ops/flash_decode.py:210, body `_kernel` at :99). Same
-// semantics: one query token per slot, GQA with G = n_heads / n_kv query
+// Replaces the Pallas TPU kernel `flash_decode_attention`
+// (dynamo_tpu/ops/flash_decode.py:210, body `_kernel` at :99) in both of
+// its modes: dense (entry point flash_decode_launch) and int8
+// (flash_decode_int8_launch; the scale path at flash_decode.py:176-190).
+// Same semantics: one query token per slot, GQA with G = n_heads / n_kv query
 // heads per KV head; keys/values at positions < min(ring_base[b],
 // ctx_lens[b]) come from ctx_k/ctx_v[layer, h, b], and ring entry r holds
 // position ring_base[b] + r, valid while < ctx_lens[b]. Scale 1/sqrt(hd),
@@ -16,6 +18,16 @@
 //     / 3.35 TB/s (H100 SXM HBM3).
 // At the Llama-3.1-8B serving shape (B=8, n_kv=8, hd=128, bf16) a slot
 // with 1024 live positions contributes 4 MiB per layer.
+//
+// Int8 mode. The ctx K/V rows are int8 with f32 absmax scales per (layer,
+// lane, position group), scale[layer, b, pos / group]; element d of row
+// pos is k_i8 * scale, computed in f32 and rounded to the compute dtype
+// (bf16 or f32) exactly as the reference rounds it, before the f32-
+// accumulated QK and PV products. The ring stays in the compute dtype. Its
+// byte bound is the live ctx rows * n_kv * hd * 2 (K and V) * 1 byte, plus
+// their scales (4 bytes per live row per K and V), the ring rows, q and
+// out, over 3.35 TB/s: about half of the dense bound at the serve shape,
+// so ~0.0036 ms against the dense kernel's 0.0072 ms.
 //
 // Design. A TPU runs its grid in order on one core, so the Pallas kernel
 // walks a slot's chunks sequentially and carries (m, l, acc) in VMEM. On
@@ -42,6 +54,13 @@
 //     wrapper allocates; a second launch merges the splits with max
 //     rescaling, floors the denominator at 1e-30 and casts to the output
 //     dtype.
+//   * In int8 mode the same blocks stage each int8 ctx tile with 16-byte
+//     loads (16 elements, half the bytes of a bf16 tile), multiply each row
+//     by its scale (a per-row lookup, so any group that divides S works),
+//     and store the rounded compute-dtype values in the shared tile that
+//     the dense mode fills: the QK/PV loops, the online softmax, the early
+//     exit and the combine are the dense mode's. Dequantizing at staging
+//     does it once per element, not once per query head.
 // This first version is written to be right and simple: no cp.async / TMA
 // pipelining and no tensor-core products. Its measured time against the
 // bound is recorded in PERF.md.
@@ -50,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -87,15 +108,51 @@ __device__ __forceinline__ void stage_rows(T* dst, int stride, const T* src,
   }
 }
 
+// Int8 mode: stage rows [0, n_valid) of an int8 [rows, HD] slab whose first
+// row is position t0, dequantized with the row's scale (scale[(t0 + r) /
+// group]) and rounded to T; the rest are zeroed as in stage_rows.
 template <typename T, int HD>
+__device__ __forceinline__ void stage_rows_i8(T* dst, int stride, const int8_t* src,
+                                              const float* scale, int t0, int group,
+                                              int rows, int n_valid) {
+  constexpr int kPerRow = HD / 16;               // 16 int8 per 16-byte load
+  constexpr int kStores = 16 * sizeof(T) / 16;   // 16-byte stores per load
+  for (int c = threadIdx.x; c < rows * kPerRow; c += kThreads) {
+    const int r = c / kPerRow;
+    const int col = (c % kPerRow) * 16;
+    __align__(16) T vals[16];
+    if (r < n_valid) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * HD + col);
+      const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+      const float s = scale[(t0 + r) / group];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) from_f(static_cast<float>(e[u]) * s, &vals[u]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 16; ++u) from_f(0.f, &vals[u]);
+    }
+#pragma unroll
+    for (int w = 0; w < kStores; ++w) {
+      *reinterpret_cast<uint4*>(dst + r * stride + col + w * (16 / sizeof(T))) =
+          reinterpret_cast<const uint4*>(vals)[w];
+    }
+  }
+}
+
+// T: q, ring and output dtype (the compute dtype). KV: the ctx storage
+// type, T (dense mode) or int8_t (int8 mode, with k_scale/v_scale f32
+// [L, lanes, S / group]).
+template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ ctx_k,
-                          const T* __restrict__ ctx_v, const T* __restrict__ ring_k,
-                          const T* __restrict__ ring_v, const int* __restrict__ ctx_lens,
-                          const int* __restrict__ ring_base, float* __restrict__ part_m,
-                          float* __restrict__ part_l, float* __restrict__ part_acc, int B,
-                          int n_heads, int n_kv, int lanes, int S, int R, int layer,
-                          int n_split, float scale) {
+flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ ctx_k,
+                          const KV* __restrict__ ctx_v, const float* __restrict__ k_scale,
+                          const float* __restrict__ v_scale, int group,
+                          const T* __restrict__ ring_k, const T* __restrict__ ring_v,
+                          const int* __restrict__ ctx_lens, const int* __restrict__ ring_base,
+                          float* __restrict__ part_m, float* __restrict__ part_l,
+                          float* __restrict__ part_acc, int B, int n_heads, int n_kv,
+                          int lanes, int S, int R, int layer, int n_split, float scale) {
+  constexpr bool kQuant = !std::is_same<T, KV>::value;
   constexpr int TILE = Tile<T>::kRows;
   constexpr int kVec = 16 / sizeof(T);
   constexpr int KSTRIDE = HD + kVec;  // 16 B pad: conflict-free row reads
@@ -118,17 +175,23 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ ctx_k,
   const int ctx = ctx_lens[b];
   const int base = ring_base[b];
 
-  // this block's key range [start, end) and where its rows live
-  const T* k_src;
-  const T* v_src;
+  // this block's key range [start, end) and where its rows live: the
+  // ring (compute dtype) or the ctx region (KV, with its scale rows)
+  const bool is_ring = z == n_split;
+  const T* rk_src = nullptr;
+  const T* rv_src = nullptr;
+  const KV* ck_src = nullptr;
+  const KV* cv_src = nullptr;
+  const float* ksc = nullptr;
+  const float* vsc = nullptr;
   int start, end;
-  if (z == n_split) {
+  if (is_ring) {
     // ring: entry r holds position base + r, valid while < ctx
     start = 0;
     end = min(max(ctx - base, 0), R);
     const size_t off = ((static_cast<size_t>(layer) * n_kv + h) * B + b) * R * HD;
-    k_src = ring_k + off;
-    v_src = ring_v + off;
+    rk_src = ring_k + off;
+    rv_src = ring_v + off;
   } else {
     const int live = min(max(min(base, ctx), 0), S);
     int share = (live + n_split - 1) / n_split;
@@ -136,8 +199,13 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ ctx_k,
     start = z * share;
     end = min(start + share, live);
     const size_t off = ((static_cast<size_t>(layer) * n_kv + h) * lanes + b) * S * HD;
-    k_src = ctx_k + off;
-    v_src = ctx_v + off;
+    ck_src = ctx_k + off;
+    cv_src = ctx_v + off;
+    if constexpr (kQuant) {
+      const size_t soff = (static_cast<size_t>(layer) * lanes + b) * (S / group);
+      ksc = k_scale + soff;
+      vsc = v_scale + soff;
+    }
   }
   if (start >= end) {
     if (threadIdx.x < G) {
@@ -164,8 +232,17 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ ctx_k,
   for (int t0 = start; t0 < end; t0 += TILE) {
     const int n_valid = min(TILE, end - t0);
     __syncthreads();  // previous tile's readers are done
-    stage_rows<T, HD>(k_s, KSTRIDE, k_src + static_cast<size_t>(t0) * HD, TILE, n_valid);
-    stage_rows<T, HD>(v_s, HD, v_src + static_cast<size_t>(t0) * HD, TILE, n_valid);
+    const size_t row0 = static_cast<size_t>(t0) * HD;
+    if (is_ring) {
+      stage_rows<T, HD>(k_s, KSTRIDE, rk_src + row0, TILE, n_valid);
+      stage_rows<T, HD>(v_s, HD, rv_src + row0, TILE, n_valid);
+    } else if constexpr (kQuant) {
+      stage_rows_i8<T, HD>(k_s, KSTRIDE, ck_src + row0, ksc, t0, group, TILE, n_valid);
+      stage_rows_i8<T, HD>(v_s, HD, cv_src + row0, vsc, t0, group, TILE, n_valid);
+    } else {
+      stage_rows<T, HD>(k_s, KSTRIDE, ck_src + row0, TILE, n_valid);
+      stage_rows<T, HD>(v_s, HD, cv_src + row0, TILE, n_valid);
+    }
     __syncthreads();
 
     // scores: one (head, row) pair per thread and pass
@@ -270,17 +347,18 @@ flash_decode_combine_kernel(const float* __restrict__ part_m, const float* __res
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* ctx_k, const void* ctx_v, const void* ring_k,
-                   const void* ring_v, const int* ctx_lens, const int* ring_base, void* out,
-                   float* part_m, float* part_l, float* part_acc, int B, int n_heads,
-                   int n_kv, int lanes, int S, int R, int layer, int n_split, float scale,
-                   cudaStream_t stream) {
+template <typename T, typename KV, int HD>
+cudaError_t launch(const void* q, const void* ctx_k, const void* ctx_v, const float* k_scale,
+                   const float* v_scale, int group, const void* ring_k, const void* ring_v,
+                   const int* ctx_lens, const int* ring_base, void* out, float* part_m,
+                   float* part_l, float* part_acc, int B, int n_heads, int n_kv, int lanes,
+                   int S, int R, int layer, int n_split, float scale, cudaStream_t stream) {
   const dim3 grid(B, n_kv, n_split + 1);
-  flash_decode_split_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ctx_k), static_cast<const T*>(ctx_v),
-      static_cast<const T*>(ring_k), static_cast<const T*>(ring_v), ctx_lens, ring_base,
-      part_m, part_l, part_acc, B, n_heads, n_kv, lanes, S, R, layer, n_split, scale);
+  flash_decode_split_kernel<T, KV, HD><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(ctx_k), static_cast<const KV*>(ctx_v),
+      k_scale, v_scale, group, static_cast<const T*>(ring_k), static_cast<const T*>(ring_v),
+      ctx_lens, ring_base, part_m, part_l, part_acc, B, n_heads, n_kv, lanes, S, R, layer,
+      n_split, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_decode_combine_kernel<T, HD><<<dim3(B, n_kv), kThreads, 0, stream>>>(
@@ -310,10 +388,10 @@ extern "C" int flash_decode_launch(const void* q, const void* ctx_k, const void*
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FD_LAUNCH(T, HD)                                                                   \
-  return static_cast<int>(launch<T, HD>(q, ctx_k, ctx_v, ring_k, ring_v, cl, rb, out, pm, \
-                                        pl, pa, B, n_heads, n_kv, lanes, S, R, layer,     \
-                                        n_split, scale, st))
+#define FD_LAUNCH(T, HD)                                                                  \
+  return static_cast<int>(launch<T, T, HD>(q, ctx_k, ctx_v, nullptr, nullptr, 1, ring_k,  \
+                                           ring_v, cl, rb, out, pm, pl, pa, B, n_heads,   \
+                                           n_kv, lanes, S, R, layer, n_split, scale, st))
   if (dtype == 1) {
     if (hd == 128) FD_LAUNCH(__nv_bfloat16, 128);
     if (hd == 64) FD_LAUNCH(__nv_bfloat16, 64);
@@ -323,5 +401,44 @@ extern "C" int flash_decode_launch(const void* q, const void* ctx_k, const void*
     if (hd == 16) FD_LAUNCH(float, 16);
   }
 #undef FD_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Int8 mode (loaded with ctypes). As flash_decode_launch, but ctx_k/ctx_v
+// are int8 [L, n_kv, lanes, S, hd] with k_scale/v_scale f32 [L, lanes,
+// S / group]; q, the ring and out are in the compute dtype (0 = float32,
+// 1 = bfloat16). The caller checks the shapes, S % group == 0 and the
+// rest as for the dense mode. Supported: bf16 with hd 64 or 128; f32 with
+// hd 16, 64 or 128. Returns the cudaError_t of the launches.
+extern "C" int flash_decode_int8_launch(const void* q, const void* ctx_k, const void* ctx_v,
+                                        const void* k_scale, const void* v_scale,
+                                        const void* ring_k, const void* ring_v,
+                                        const void* ctx_lens, const void* ring_base, void* out,
+                                        void* part_m, void* part_l, void* part_acc, int dtype,
+                                        int B, int n_heads, int n_kv, int hd, int lanes, int S,
+                                        int R, int layer, int n_split, int group, float scale,
+                                        void* stream) {
+  const int* cl = static_cast<const int*>(ctx_lens);
+  const int* rb = static_cast<const int*>(ring_base);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  float* pm = static_cast<float*>(part_m);
+  float* pl = static_cast<float*>(part_l);
+  float* pa = static_cast<float*>(part_acc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (group <= 0 || S % group != 0) return static_cast<int>(cudaErrorInvalidValue);
+#define FD_LAUNCH_I8(T, HD)                                                                  \
+  return static_cast<int>(launch<T, int8_t, HD>(q, ctx_k, ctx_v, ks, vs, group, ring_k,     \
+                                                ring_v, cl, rb, out, pm, pl, pa, B, n_heads, \
+                                                n_kv, lanes, S, R, layer, n_split, scale, st))
+  if (dtype == 1) {
+    if (hd == 128) FD_LAUNCH_I8(__nv_bfloat16, 128);
+    if (hd == 64) FD_LAUNCH_I8(__nv_bfloat16, 64);
+  } else if (dtype == 0) {
+    if (hd == 128) FD_LAUNCH_I8(float, 128);
+    if (hd == 64) FD_LAUNCH_I8(float, 64);
+    if (hd == 16) FD_LAUNCH_I8(float, 16);
+  }
+#undef FD_LAUNCH_I8
   return static_cast<int>(cudaErrorInvalidValue);
 }

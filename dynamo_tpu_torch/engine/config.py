@@ -2,8 +2,8 @@
 engine/config.py, cut to the knobs the PyTorch engine honours).
 
 The reference's other planes (round pipelining, speculation, offload
-tiers, int8 KV, tenancy, overload budgets, sequence-parallel prefill) are
-not ported yet. Their knobs are kept here at the values that mean "off",
+tiers, tenancy, overload budgets, sequence-parallel prefill) are not
+ported yet. Their knobs are kept here at the values that mean "off",
 and any other value raises, so a config written for the reference never
 silently runs something else.
 """
@@ -31,7 +31,6 @@ def pow2_cover(n: int, lo: int = 1) -> int:
 _UNPORTED = {
     "round_pipeline": False,
     "speculative": "off",
-    "kv_quant": "none",
     "lora_adapters": 0,
     "host_offload_pages": 0,
     "disk_offload_pages": 0,
@@ -71,12 +70,18 @@ class EngineConfig:
 
     # sampling: static top-k width for top-p/top-k sampling
     max_top_k: int = 64
+    # static top-N width for logprobs (OpenAI caps top_logprobs at 20);
+    # only rounds with a slot asking for logprobs compute them
+    max_logprobs: int = 20
 
     # prefix cache
     enable_prefix_caching: bool = True
 
     # model memory
     cache_dtype: str = "bfloat16"
+    # "int8": the serving ctx region and the prefix pool hold int8 K/V
+    # with per-group absmax scales (the ring stays cache_dtype)
+    kv_quant: str = "none"
 
     # identity on the control plane
     worker_id: str = ""
@@ -84,7 +89,6 @@ class EngineConfig:
     # not ported yet: see _UNPORTED
     round_pipeline: bool = False
     speculative: str = "off"
-    kv_quant: str = "none"
     lora_adapters: int = 0
     host_offload_pages: int = 0
     disk_offload_pages: int = 0
@@ -94,6 +98,10 @@ class EngineConfig:
     preempt_running: bool = False
 
     def __post_init__(self):
+        if self.kv_quant not in ("none", "int8"):
+            raise ValueError(
+                f"EngineConfig.kv_quant={self.kv_quant!r}: expected 'none' "
+                f"or 'int8'")
         for name, off in _UNPORTED.items():
             if getattr(self, name) != off:
                 raise ValueError(

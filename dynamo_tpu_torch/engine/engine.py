@@ -7,25 +7,32 @@ process-then-dispatch order (``round_pipeline=False``):
   - Serving context is contiguous per slot (``ctx``); the paged pool is
     prefix-cache storage, copied in at admission (load_ctx_pages) and out
     at block seal (seal_blocks). Decode attention goes through the Hopper
-    flash-decode kernel (ops/flash_decode.py).
+    flash-decode kernel (ops/flash_decode.py). With ``kv_quant="int8"``
+    the region and the pool are int8 with per-group scales and decode
+    runs the kernel's int8 mode; the ring stays in ``cache_dtype``.
   - Decode state lives on the device: last tokens, context lengths, write
-    destinations, the sampler's counts and per-slot sampling knobs. A
-    round is ``flush_every`` decode+sample steps, then the ring->ctx
-    flush and the round's queued block seals; its tokens [F, B] come back
-    in ONE device->host copy into a pinned buffer, which the host reads
-    a bounded lag (``max_inflight_rounds``) behind dispatch.
+    destinations, the sampler's threefry keys and counts and per-slot
+    sampling knobs. A round is ``flush_every`` decode+sample steps, then
+    the ring->ctx flush and the round's queued block seals; its tokens
+    [F, B] come back in ONE device->host copy into a pinned buffer (plus
+    one packed logprob copy [F, B, 1+2K] in rounds where a slot asked for
+    logprobs), which the host reads a bounded lag
+    (``max_inflight_rounds``) behind dispatch. All-greedy rounds take a
+    bare argmax and touch no key, as the reference's ``want_sample``
+    gate does.
   - Host processing (token emission, stop detection, block sealing,
     admission) runs on lagged results. Releases and admissions patch the
     device state between rounds; a freed slot's lane is redirected to the
     scratch lane so its in-flight garbage steps never touch a lane being
     re-prefilled. One CUDA stream keeps every program in dispatch order.
-  - Prefill runs batched per prefill bucket (batch_prefill); the first
-    token is sampled on the device and patched into the slot without a
-    host round trip.
+  - Prefill runs batched per prefill bucket (batch_prefill); a group of
+    one runs the single-request prefill (llama.prefill), as the
+    reference does. The first token is sampled on the device with its
+    own key stream and patched into the slot without a host round trip.
 
 Not ported yet (ROADMAP.md): round pipelining, CUDA graphs, speculation,
 offload tiers, the transfer plane, tenancy, overload budgets and
-preemption, logprobs, multimodal, int8 KV, w8a16, MoE.
+preemption, multimodal, w8a16, MoE.
 """
 from __future__ import annotations
 
@@ -56,6 +63,8 @@ from dynamo_tpu_torch.protocols.common import (
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 log = logging.getLogger(__name__)
+
+_FIRST_TOKEN_KEY_TAG = 0x46697273  # distinct PRNG stream for first tokens
 
 
 @dataclass
@@ -128,10 +137,11 @@ class _Fetch:
 @dataclass
 class _Entry:
     """One in-flight fetch: a round of stacked step tokens or a request's
-    prefill first token."""
+    prefill first token, with its packed logprobs when asked for."""
 
     kind: str                      # "round" | "first"
     fetch: _Fetch
+    lp_fetch: Optional[_Fetch] = None
     # round: the slot snapshot at dispatch
     slots: list[Optional[_Request]] = field(default_factory=list)
     n_steps: int = 0
@@ -168,11 +178,15 @@ class TorchEngine:
             params = llama.init_params(c, rng_seed, self.device)
         self.params = params
         # paged pool: prefix-cache STORAGE; contiguous per-slot serving
-        # context (+1 scratch lane); the round's decode write ring
+        # context (+1 scratch lane); the round's decode write ring. Under
+        # kv_quant=int8 the pool and the region are int8 with a scale per
+        # page and per (lane, page-sized group); the ring stays dtype
+        self.kv_quant = e.kv_quant == "int8"
         self.cache = llama.init_cache(c, e.num_pages, e.page_size, dtype,
-                                      self.device)
+                                      self.device, kv_quant=e.kv_quant)
         self.ctx = llama.init_ctx(c, e.max_decode_slots, e.max_context,
-                                  dtype, self.device)
+                                  dtype, self.device, kv_quant=e.kv_quant,
+                                  group=e.page_size)
         self.ring = llama.init_ring(c, e.max_decode_slots, e.flush_every,
                                     dtype, self.device)
         self.allocator = PageAllocator(
@@ -187,10 +201,12 @@ class TorchEngine:
         # lanes reserved by an in-progress (multi-chunk) prefill: occupied
         # but not decoding until the admission patch
         self._prefilling: dict[int, _Request] = {}
-        # slot-state mirrors: live (decoding) lanes, and lanes that need
-        # the full sampler (temperature or penalties) rather than argmax
+        # slot-state mirrors: live (decoding) lanes, lanes that need the
+        # full sampler (temperature or penalties) rather than argmax, and
+        # lanes whose request asked for logprobs
         self._slot_active = np.zeros(B, bool)
         self._slot_sampler = np.zeros(B, bool)
+        self._slot_lp = np.zeros(B, bool)
         dev = self.device
         i32 = dict(dtype=torch.int32, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
@@ -201,6 +217,8 @@ class TorchEngine:
             # scratch lane B (protects lanes being re-prefilled)
             "dest": torch.full((B,), B, **i32),
             "counts": torch.zeros(B, c.vocab_size, **i32),
+            # threefry keys (uint32 words in int64), set at admission
+            "keys": torch.zeros(B, 2, dtype=torch.int64, device=dev),
             "temp": torch.zeros(B, **f32),
             "top_k": torch.zeros(B, **i32),
             "top_p": torch.ones(B, **f32),
@@ -208,8 +226,6 @@ class TorchEngine:
             "pres": torch.zeros(B, **f32),
             "rep": torch.ones(B, **f32),
         }
-        # one generator per slot, reseeded at admission from the request
-        self._gens = [torch.Generator(device=dev) for _ in range(B)]
         # fused-seal width: sized for a full aligned burst (every slot
         # completing blocks the same round); larger bursts flush standalone
         self._seal_fuse_w = pow2_cover(max(
@@ -231,8 +247,8 @@ class TorchEngine:
         self.kernel_launches = 0
         self.dispatch_counts: dict[str, int] = {
             "round": 0, "round_seal": 0, "seal": 0, "patch": 0,
-            "prefill_batch": 0, "load_ctx": 0, "sample_first": 0,
-            "fetch": 0,
+            "prefill": 0, "prefill_batch": 0, "load_ctx": 0,
+            "sample_first": 0, "fetch": 0,
         }
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -276,9 +292,9 @@ class TorchEngine:
             raise ValueError(
                 f"prompt length {len(request.token_ids)} exceeds max context "
                 f"{self.ecfg.max_context}")
-        if request.output_options.logprobs is not None:
-            raise ValueError(
-                "logprobs are not supported by the PyTorch engine yet")
+        n_lp = request.output_options.logprobs
+        if n_lp is not None and n_lp < 0:
+            raise ValueError(f"logprobs must be >= 0, got {n_lp}")
         if request.adapter_id or request.multimodal or request.disagg:
             raise ValueError(
                 "LoRA adapters, multimodal inputs and disaggregated "
@@ -337,7 +353,8 @@ class TorchEngine:
         in_flight = sum(1 for en in self._entries if en.kind == "round")
         active = np.flatnonzero(self._slot_active)
         if in_flight <= e.max_inflight_rounds and active.size:
-            self._dispatch_round(bool(self._slot_sampler[active].any()))
+            self._dispatch_round(bool(self._slot_sampler[active].any()),
+                                 bool(self._slot_lp[active].any()))
             did_work = dispatched = True
         if self._seal_queue:
             self._flush_seals()
@@ -361,6 +378,7 @@ class TorchEngine:
         carries penalties (the counts histogram must advance for them)."""
         so = r.req.sampling_options
         self._slot_active[slot] = True
+        self._slot_lp[slot] = r.req.output_options.logprobs is not None
         self._slot_sampler[slot] = (
             (so.temperature or 0.0) > 0.0
             or (so.frequency_penalty or 0.0) != 0.0
@@ -371,21 +389,26 @@ class TorchEngine:
     def _slot_off(self, slot: int) -> None:
         self._slot_active[slot] = False
         self._slot_sampler[slot] = False
+        self._slot_lp[slot] = False
 
     # ---- dispatch side ----
 
-    def _dispatch_round(self, want_sample: bool) -> None:
+    def _dispatch_round(self, want_sample: bool, want_lp: bool) -> None:
         """``flush_every`` decode+sample steps, the ring->ctx flush, the
-        pending seal batch, and one stacked-token copy to the host."""
+        pending seal batch, and one stacked-token copy to the host (plus
+        one packed-logprob copy when ``want_lp``)."""
         c, e = self.config, self.ecfg
         n = e.flush_every
         d = self._dev
         seal = self._take_seal_batch(width=self._seal_fuse_w)
-        launches_before = flash_decode.launches
+        launches_before = self._kernel_count()
         # the round's ring base is fixed at its start
         ring_base = torch.clamp(d["ctx"] - 1, min=0)
         toks_out = torch.empty(n, self._B, dtype=torch.int32,
                                device=self.device)
+        lp_out = (torch.empty(n, self._B, 1 + 2 * e.max_logprobs,
+                              dtype=torch.float32, device=self.device)
+                  if want_lp else None)
         sp = sampling.SamplingParams(
             temperature=d["temp"], top_k=d["top_k"], top_p=d["top_p"],
             frequency_penalty=d["freq"], presence_penalty=d["pres"],
@@ -397,10 +420,13 @@ class TorchEngine:
                 ring_base, s)
             if want_sample:
                 toks = sampling.sample_step(
-                    logits, d["counts"], sp, e.max_top_k, self._gens)
+                    logits, d["counts"], sp, e.max_top_k, d["keys"])
             else:
                 toks = torch.argmax(logits, dim=-1).to(torch.int32)
             toks_out[s] = toks
+            if want_lp:
+                lp_out[s] = sampling.pack_logprobs(*sampling.compute_logprobs(
+                    logits, toks, e.max_logprobs))
             d["tokens"] = toks
             d["ctx"] = torch.clamp(d["ctx"] + 1, max=e.max_context)
         # round boundary: scatter the ring into the ctx region (after
@@ -412,13 +438,18 @@ class TorchEngine:
             self._seal_dispatch(seal)
         else:
             self.dispatch_counts["round"] += 1
-        self.kernel_launches += flash_decode.launches - launches_before
+        self.kernel_launches += self._kernel_count() - launches_before
         self.step_count += n
-        self.dispatch_counts["fetch"] += 1
+        self.dispatch_counts["fetch"] += 1 + want_lp
         self._entries.append(_Entry(
             kind="round", fetch=_Fetch(toks_out),
+            lp_fetch=_Fetch(lp_out) if want_lp else None,
             slots=list(self._slots), n_steps=n,
         ))
+
+    @staticmethod
+    def _kernel_count() -> int:
+        return flash_decode.launches + flash_decode.launches_int8
 
     def _dispatch_patch(
         self,
@@ -443,6 +474,7 @@ class TorchEngine:
             d["ctx"][s] = admit["ctx"]
             d["dest"][s] = s
             d["counts"][s] = 0
+            d["keys"][s, 0], d["keys"][s, 1] = admit["keys"]
             for key in ("temp", "top_k", "top_p", "freq", "pres", "rep"):
                 d[key][s] = admit[key]
 
@@ -529,6 +561,11 @@ class TorchEngine:
             group, width = self._collect_prefill_group(budget)
             if not group:
                 return  # head is blocked on a free lane
+            if len(group) == 1:
+                budget -= 1
+                if self._prefill_step(group[0], width):
+                    self._waiting.remove(group[0])
+                continue
             budget -= len(group)
             for r in self._batch_prefill_group(group, width):
                 self._waiting.remove(r)
@@ -603,6 +640,25 @@ class TorchEngine:
             done.append(r)
         return done
 
+    def _prefill_step(self, r: _Request, width: int) -> bool:
+        """One chunk of a request prefilled alone (llama.prefill, the
+        reference's path for a group of one); on the final chunk, finish
+        the prefill. Returns True when the request is done."""
+        start = r.prefill_pos
+        chunk = r.tokens[start: start + width]
+        toks = np.zeros(width, np.int32)
+        toks[: len(chunk)] = chunk
+        self.dispatch_counts["prefill"] += 1
+        logits = llama.prefill(
+            self.config, self.params, self.ctx, self._to_device(toks),
+            r.slot, start, start + len(chunk))
+        r.prefill_pos = start + len(chunk)
+        if r.prefill_pos < len(r.tokens):
+            self._seal_prefilled(r)  # earlier chunks' blocks seal now
+            return False
+        self._finish_prefill(r, logits)
+        return True
+
     def _free_slot(self) -> Optional[int]:
         for i, s in enumerate(self._slots):
             if s is None and i not in self._prefilling:
@@ -650,12 +706,15 @@ class TorchEngine:
         self._seal_prefilled(r, limit=len(r.seq.blocks))
         so = r.req.sampling_options
         slot = r.slot
-        # seeded requests reproduce their draws; unseeded ones get fresh
-        # entropy, so two identical prompts do not sample identically
-        seed = so.seed if so.seed is not None else int.from_bytes(
-            os.urandom(8), "little") >> 1
-        gen = self._gens[slot]
-        gen.manual_seed(seed)
+        if so.seed is not None:
+            # seeded: keys derived from the seed alone (reproducible)
+            first_key = [_FIRST_TOKEN_KEY_TAG, so.seed & 0xFFFFFFFF]
+            step_keys = [0, so.seed & 0xFFFFFFFF]
+        else:
+            # unseeded: fresh entropy, so two identical prompts do not
+            # sample identically
+            step_keys = np.frombuffer(os.urandom(8), np.uint32).tolist()
+            first_key = [_FIRST_TOKEN_KEY_TAG ^ step_keys[0], step_keys[1]]
         knobs = dict(
             temp=float(so.temperature or 0.0),
             top_k=int(so.top_k or 0),
@@ -672,17 +731,23 @@ class TorchEngine:
         sp1.top_p.fill_(knobs["top_p"])
         counts1 = torch.zeros(1, self.config.vocab_size, dtype=torch.int32,
                               device=self.device)
+        key1 = self._to_device(np.asarray([first_key], np.int64))
         self.dispatch_counts["sample_first"] += 1
         first_tok = sampling.sample_step(
-            logits[None], counts1, sp1, e.max_top_k, [gen])
+            logits[None], counts1, sp1, e.max_top_k, key1)
+        want_lp = r.req.output_options.logprobs is not None
+        first_lp = (sampling.pack_logprobs(*sampling.compute_logprobs(
+            logits[None], first_tok, e.max_logprobs)) if want_lp else None)
         del self._prefilling[slot]
         self._slots[slot] = r
         self._slot_on(slot, r)
         self._dispatch_patch(admit=dict(
-            slot=slot, ctx=len(r.tokens) + 1, tok=first_tok, **knobs))
-        self.dispatch_counts["fetch"] += 1
+            slot=slot, ctx=len(r.tokens) + 1, tok=first_tok,
+            keys=step_keys, **knobs))
+        self.dispatch_counts["fetch"] += 1 + want_lp
         self._entries.append(_Entry(
-            kind="first", fetch=_Fetch(first_tok), request=r))
+            kind="first", fetch=_Fetch(first_tok),
+            lp_fetch=_Fetch(first_lp) if want_lp else None, request=r))
 
     # ---- processing side (lagged results) ----
 
@@ -706,12 +771,35 @@ class TorchEngine:
 
     def _consume_entry(self, entry: _Entry) -> None:
         data = entry.fetch.numpy()
+        lp = (self._unpack_lp(entry.lp_fetch.numpy())
+              if entry.lp_fetch is not None else None)
         if entry.kind == "first":
-            self._process_first(entry.request, int(data[0]))
+            if lp is not None:
+                lp = (float(lp[0][0]), lp[1][0], lp[2][0])
+            self._process_first(entry.request, int(data[0]), lp)
         else:
-            self._process_round(entry, data)
+            self._process_round(entry, data, lp)
 
-    def _process_first(self, r: _Request, tok: int) -> None:
+    def _unpack_lp(self, packed: np.ndarray):
+        """Split packed logprob rows [..., 1+2K] back into (chosen,
+        top_ids, top_lps) — the inverse of sampling.pack_logprobs."""
+        K = self.ecfg.max_logprobs
+        return (packed[..., 0], packed[..., 1:1 + K].astype(np.int32),
+                packed[..., 1 + K:])
+
+    def _lp_pairs(self, r: _Request, ids, lps) -> list[list]:
+        n = min(int(r.req.output_options.logprobs), self.ecfg.max_logprobs)
+        return [[int(i), float(v)] for i, v in zip(ids[:n], lps[:n])]
+
+    def _lp_payload(self, r: _Request, lp) -> dict:
+        """LLMEngineOutput logprob fields for one emitted token."""
+        if lp is None or r.req.output_options.logprobs is None:
+            return {}
+        chosen, ids, lps = lp
+        return {"log_probs": [float(chosen)],
+                "top_logprobs": [self._lp_pairs(r, ids, lps)]}
+
+    def _process_first(self, r: _Request, tok: int, lp=None) -> None:
         if r.cancelled or r.finished:
             self._finish(r, None)
             return
@@ -725,13 +813,14 @@ class TorchEngine:
             return
         r.last_token = tok
         r.produced += 1
-        r.emit(LLMEngineOutput(token_ids=[tok]))
+        r.emit(LLMEngineOutput(token_ids=[tok], **self._lp_payload(r, lp)))
         if r.produced >= r.max_new_tokens(self.ecfg.max_context):
             self._finish(r, FinishReason.LENGTH)
 
-    def _process_round(self, entry: _Entry, toks: np.ndarray) -> None:
-        """Consume one round's stacked tokens, emitting one batched
-        output per request per round."""
+    def _process_round(self, entry: _Entry, toks: np.ndarray,
+                       lp_arrs=None) -> None:
+        """Consume one round's stacked tokens (and unpacked logprobs),
+        emitting one batched output per request per round."""
         for slot, r in enumerate(entry.slots):
             # identity check doubles as the epoch: a recycled slot holds
             # a different _Request object than the snapshot
@@ -741,6 +830,10 @@ class TorchEngine:
                 self._finish(r, None)
                 continue
             batch: list[int] = []
+            lp_chosen: list[float] = []
+            lp_top: list[list] = []
+            with_lp = (lp_arrs is not None
+                       and r.req.output_options.logprobs is not None)
             finish: Optional[FinishReason] = None
             for step in range(entry.n_steps):
                 tok = int(toks[step, slot])
@@ -748,10 +841,16 @@ class TorchEngine:
                 if finish is FinishReason.EOS:
                     break  # the stop token itself is not emitted
                 batch.append(tok)
+                if with_lp:
+                    lp_chosen.append(float(lp_arrs[0][step, slot]))
+                    lp_top.append(self._lp_pairs(
+                        r, lp_arrs[1][step, slot], lp_arrs[2][step, slot]))
                 if finish is not None:
                     break
             if batch or finish is not None:
                 extra = {}
+                if lp_chosen:
+                    extra = {"log_probs": lp_chosen, "top_logprobs": lp_top}
                 if finish is not None:
                     extra["annotations"] = self._final_annotations(r)
                 r.emit(LLMEngineOutput(
@@ -838,6 +937,7 @@ class TorchEngine:
         self._slots = [None] * self._B
         self._slot_active[:] = False
         self._slot_sampler[:] = False
+        self._slot_lp[:] = False
         for r in self._waiting:
             r.emit(err)
             self._abort_prefill(r)

@@ -11,7 +11,13 @@ Layouts stay byte-identical to the reference:
     ``flush_ctx`` scatters into the region once per round;
   - the paged pool ``[L, kvh, P, ps, hd]`` is prefix-cache storage only
     (page 0 is scratch): ``seal_blocks`` copies ctx->pool,
-    ``load_ctx_pages`` pool->ctx.
+    ``load_ctx_pages`` pool->ctx;
+  - with ``kv_quant="int8"`` the region and the pool are int8, with f32
+    absmax scales ``[L, B+1, S/group]`` and ``[L, P]`` (group ==
+    page_size, so ctx<->pool copies move raw pages and scales); writes
+    quantize on store (``_quant_store_span``, ``_flush_ctx_quant``), the
+    decode kernel dequantizes, and prefill dequantizes on read
+    (``_ctx_slot_slab``). The ring stays in the compute dtype.
 
 The JAX programs are pure and donate their state buffers so XLA updates
 them in place. Here the state programs update the caller's tensors IN
@@ -26,9 +32,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dynamo_tpu_torch.kv_quant import dequantize_groups, requantize_groups
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops.attention import (
     ctx_decode_attention,
+    ctx_prefill_attention,
     flash_prefill_attention,
 )
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
@@ -128,23 +136,127 @@ def params_from_jax(np_params: Params,
 # Serving state
 
 def init_cache(config: ModelConfig, num_pages: int, page_size: int,
-               dtype: torch.dtype, device="cuda") -> Cache:
+               dtype: torch.dtype, device="cuda",
+               kv_quant: str = "none") -> Cache:
     """Paged KV pool — prefix-cache STORAGE. Page 0 is the reserved
-    scratch page for padded pool I/O."""
+    scratch page for padded pool I/O. With ``kv_quant="int8"`` the pool
+    holds int8 pages plus per-(layer, page) absmax scales
+    ``k_scale``/``v_scale`` f32 [L, num_pages]."""
     c = config
     shape = (c.num_layers, c.num_kv_heads, num_pages, page_size, c.head_dim)
+    if kv_quant == "int8":
+        sc = (c.num_layers, num_pages)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sc, dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(sc, dtype=torch.float32, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_is_quantized(cache: Cache) -> bool:
+    return "k_scale" in cache
 
 
 def init_ctx(config: ModelConfig, batch: int, ctx_len: int,
-             dtype: torch.dtype, device="cuda") -> Cache:
+             dtype: torch.dtype, device="cuda", kv_quant: str = "none",
+             group: int = 128) -> Cache:
     """Contiguous per-slot serving context ``[L, kvh, batch+1, S, hd]``.
-    Lane `batch` is the scratch lane for freed slots' garbage steps."""
+    Lane `batch` is the scratch lane for freed slots' garbage steps.
+
+    With ``kv_quant="int8"`` the region is int8 plus per-(layer, lane,
+    position-group) f32 absmax scales ``k_scale``/``v_scale``
+    [L, batch+1, S/group]. ``group`` must be the engine's page_size so
+    that pool<->ctx copies are raw int8 page moves; S is padded up to a
+    multiple of it."""
     c = config
     shape = (c.num_layers, c.num_kv_heads, batch + 1, ctx_len, c.head_dim)
+    if kv_quant == "int8":
+        S = -(-ctx_len // group) * group
+        shape = shape[:3] + (S,) + shape[4:]
+        sc = (c.num_layers, batch + 1, S // group)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sc, dtype=torch.float32, device=device),
+                "v_scale": torch.zeros(sc, dtype=torch.float32, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def ctx_is_quantized(ctx: Cache) -> bool:
+    return "k_scale" in ctx
+
+
+def ctx_group_size(ctx: Cache) -> int:
+    """Position-group width of the int8 ctx scale grid."""
+    return ctx["k"].shape[3] // ctx["k_scale"].shape[2]
+
+
+def _ctx_compute_dtype(config: ModelConfig, ctx: Cache) -> torch.dtype:
+    """Dtype activations and attention run in. A dense region doubles as
+    the compute-dtype carrier; an int8 one cannot, so quantized mode
+    computes in the model dtype."""
+    if ctx_is_quantized(ctx):
+        return torch_dtype(config.dtype)
+    return ctx["k"].dtype
+
+
+def _ctx_slot_slab(ctx: Cache, name: str, l: int, slot: int,
+                   dtype: torch.dtype, span: int = 0) -> torch.Tensor:
+    """One slot's [kvh, S, hd] ctx slab in the compute dtype, dequantized
+    on read when the region is int8 (prefill reads; the decode kernel
+    dequantizes itself)."""
+    slab = ctx[name][l, :, slot]                       # [kvh, S, hd]
+    if span > 0:
+        slab = slab[:, :span]
+    if not ctx_is_quantized(ctx):
+        return slab
+    sc = ctx[name + "_scale"][l, slot].repeat_interleave(
+        ctx_group_size(ctx))                           # [S] per position
+    if span > 0:
+        sc = sc[:span]
+    return (slab.float() * sc[None, :, None]).to(dtype)
+
+
+def _quant_store_span(
+    buf: torch.Tensor,     # int8 [L, kvh, lanes, S, hd] — updated IN PLACE
+    scale: torch.Tensor,   # f32 [L, lanes, nG] — updated IN PLACE
+    slot: int,
+    start: int,            # span start position
+    span: torch.Tensor,    # float [L, kvh, T, hd] — new KV rows
+    group: int,
+    valid_t: Optional[int] = None,  # leading span rows that are REAL
+                           # (the rest is bucket padding)
+) -> None:
+    """Quantize-on-store of a contiguous span into one slot's int8 ctx.
+
+    Works on the minimal group-aligned window covering [start, start+T):
+    gather window -> dequant -> overlay span -> requantize with fresh
+    absmax scales for the overlapped groups (absmax over the request's
+    own prefix + the span ONLY — stale suffix bytes from a previous
+    occupant never feed a scale; kv_quant.requantize_groups). The span
+    lands where the JAX version's dynamic_update_slice puts it (its
+    offset clamped into the window)."""
+    nG = scale.shape[2]
+    T = span.shape[2]
+    nW = min((T + group - 1) // group + 1, nG)
+    W = nW * group
+    g0 = min(max(start // group, 0), nG - nW)
+    off = start - g0 * group
+    lo = g0 * group
+    dev = buf.device
+    win = buf[:, :, slot, lo:lo + W][:, :, None]       # [L, kvh, 1, W, hd]
+    sw = scale[:, slot:slot + 1, g0:g0 + nW]           # [L, 1, nW]
+    wf = dequantize_groups(win, sw, group)
+    at = min(max(off, 0), W - T)
+    wf[:, :, 0, at:at + T] = span.float()
+    vt = T if valid_t is None else min(max(valid_t, 0), T)
+    valid = (torch.arange(W, device=dev) < off + vt)[None]
+    j = torch.arange(nW, device=dev)
+    written = (((j + 1) * group > off) & (j * group < off + vt))[None]
+    q, s_new = requantize_groups(wf, sw, valid, written, group)
+    buf[:, :, slot, lo:lo + W] = q[:, :, 0]
+    scale[:, slot, g0:g0 + nW] = s_new[:, 0]
 
 
 def init_ring(config: ModelConfig, batch: int, ring_len: int,
@@ -228,6 +340,61 @@ def _logits(config: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tenso
 # ---------------------------------------------------------------------------
 # Prefill
 
+def prefill(
+    config: ModelConfig,
+    params: Params,
+    ctx: Cache,
+    tokens: torch.Tensor,  # [T] int, bucket-padded
+    slot: int,             # destination slot lane
+    q_start: int,          # tokens already in the region
+    seq_len: int,          # total valid context length
+) -> torch.Tensor:
+    """Prefill of one request (the JAX version's ``prefill_impl``): T new
+    tokens through the model, their KV written into the slot's region at
+    [q_start, q_start+T) IN PLACE after the last read. Attention is one
+    dense causal softmax over the slot's whole region plus the chunk
+    (``ctx_prefill_attention``). Returns the logits [V] (f32) of the last
+    valid token (position seq_len-1)."""
+    _check_dense(config)
+    c = config
+    T = tokens.shape[0]
+    dev = tokens.device
+    positions = q_start + torch.arange(T, device=dev)
+    cos, sin = rope_cos_sin(positions, _inv_freq(c, dev))
+    cdt = _ctx_compute_dtype(c, ctx)
+    h = _embed_rows(params, tokens, cdt)
+    new_ks: list[torch.Tensor] = []
+    new_vs: list[torch.Tensor] = []
+    for l in range(c.num_layers):
+        def write_kv(k, v):
+            new_ks.append(k)
+            new_vs.append(v)
+            return k, v
+
+        def attend(q, kv, l=l):
+            k_new, v_new = kv
+            return ctx_prefill_attention(
+                q, _ctx_slot_slab(ctx, "k", l, slot, cdt),
+                _ctx_slot_slab(ctx, "v", l, slot, cdt),
+                k_new, v_new, q_start, seq_len)
+
+        h = _layer_body(c, _layer(params, l), h, cos, sin, write_kv, attend)
+    # tail: one span write per buffer (all reads are done)
+    upd_k = torch.stack(new_ks).transpose(1, 2)        # [L, kvh, T, hd]
+    upd_v = torch.stack(new_vs).transpose(1, 2)
+    if ctx_is_quantized(ctx):
+        g = ctx_group_size(ctx)
+        for name, upd in (("k", upd_k), ("v", upd_v)):
+            _quant_store_span(ctx[name], ctx[name + "_scale"], slot, q_start,
+                              upd, g, valid_t=seq_len - q_start)
+    else:
+        S = ctx["k"].shape[3]
+        st = min(max(q_start, 0), S - T)
+        for name, upd in (("k", upd_k), ("v", upd_v)):
+            ctx[name][:, :, slot, st:st + T] = upd.to(ctx[name].dtype)
+    return _logits(c, params, h[seq_len - q_start - 1])
+
+
 def _batch_forward(
     config: ModelConfig,
     params: Params,
@@ -249,7 +416,7 @@ def _batch_forward(
     positions = torch.cat([torch.arange(q, q + T, device=dev)
                            for q in q_starts])
     cos, sin = rope_cos_sin(positions, _inv_freq(c, dev))
-    cdt = ctx["k"].dtype
+    cdt = _ctx_compute_dtype(c, ctx)
     h = _embed_rows(params, tokens.reshape(-1), cdt)        # [K*T, H]
     new_ks: list[torch.Tensor] = []
     new_vs: list[torch.Tensor] = []
@@ -265,8 +432,10 @@ def _batch_forward(
             for i in range(K):
                 rows = slice(i * T, (i + 1) * T)
                 if ctx_span > 0:
-                    k_ctx = ctx["k"][l, :, slots[i], :ctx_span]
-                    v_ctx = ctx["v"][l, :, slots[i], :ctx_span]
+                    k_ctx = _ctx_slot_slab(ctx, "k", l, slots[i], cdt,
+                                           ctx_span)
+                    v_ctx = _ctx_slot_slab(ctx, "v", l, slots[i], cdt,
+                                           ctx_span)
                 else:
                     k_ctx = v_ctx = None
                 outs.append(flash_prefill_attention(
@@ -282,13 +451,25 @@ def _batch_forward(
 
 
 def _write_chunks(ctx: Cache, ks: torch.Tensor, vs: torch.Tensor,
-                  slots: list[int], q_starts: list[int]) -> None:
+                  slots: list[int], q_starts: list[int],
+                  seq_lens: Optional[list[int]] = None) -> None:
     """Tail pass, after every read: each chunk's KV [L, kvh, T, hd] lands
     at [q_start, q_start+T) of its slot's region, in place. The start is
     clamped into [0, S-T] as the JAX version's dynamic_update_slice
-    clamps it."""
+    clamps it. An int8 region takes each span through the group
+    requantize window instead, with only the rows below ``seq_lens``
+    feeding its scales."""
     S = ctx["k"].shape[3]
     T = ks.shape[2]
+    if ctx_is_quantized(ctx):
+        g = ctx_group_size(ctx)
+        for i in range(ks.shape[0]):
+            vt = None if seq_lens is None else seq_lens[i] - q_starts[i]
+            for name, kv in (("k", ks), ("v", vs)):
+                _quant_store_span(ctx[name], ctx[name + "_scale"], slots[i],
+                                  q_starts[i], kv[i].transpose(1, 2), g,
+                                  valid_t=vt)
+        return
     for i in range(ks.shape[0]):
         st = min(max(q_starts[i], 0), S - T)
         ctx["k"][:, :, slots[i], st:st + T] = ks[i].transpose(1, 2)
@@ -313,7 +494,7 @@ def batch_prefill(
     _check_dense(config)
     ks, vs, h = _batch_forward(config, params, ctx, tokens, slots, q_starts,
                                seq_lens, ctx_span)
-    _write_chunks(ctx, ks, vs, slots, q_starts)
+    _write_chunks(ctx, ks, vs, slots, q_starts, seq_lens)
     last = [max(s - q - 1, 0) for s, q in zip(seq_lens, q_starts)]
     h_last = torch.stack([h[i, t] for i, t in enumerate(last)])
     return _logits(config, params, h_last)
@@ -335,11 +516,13 @@ def decode_step(
     """One decode step for all slots; returns logits [B, V] (f32). Each
     layer's new KV goes into ring slot ``ring_pos`` BEFORE attention (its
     position is ``ctx-1 == ring_base + ring_pos`` for live slots);
-    attention reads the ctx region below ring_base plus the ring."""
+    attention reads the ctx region below ring_base plus the ring (an int8
+    region through the kernel's int8 mode)."""
     c = config
     positions = torch.clamp(ctx_lens - 1, min=0)
     cos, sin = rope_cos_sin(positions, _inv_freq(c, tokens.device))
-    h = _embed_rows(params, tokens, ctx["k"].dtype)                # [B, H]
+    h = _embed_rows(params, tokens, _ctx_compute_dtype(c, ctx))    # [B, H]
+    quant = ctx_is_quantized(ctx)
     for l in range(c.num_layers):
         def write_kv(k, v, l=l):
             # [B, kvh, hd] -> ring[l, :, :, ring_pos, :]
@@ -350,7 +533,9 @@ def decode_step(
         def attend(q, ring, l=l):
             return ctx_decode_attention(
                 q, ctx["k"], ctx["v"], ring["k"], ring["v"], l,
-                ctx_lens, ring_base)
+                ctx_lens, ring_base,
+                ctx["k_scale"] if quant else None,
+                ctx["v_scale"] if quant else None)
 
         h = _layer_body(c, _layer(params, l), h, cos, sin, write_kv, attend)
     return _logits(c, params, h)
@@ -367,7 +552,8 @@ def flush_ctx(
     after all of the round's reads). Ring entry (b, r) holds position
     ring_base[b]+r and goes to lane dest[b]; entries beyond valid_len[b],
     beyond the region, or of freed slots are redirected to the scratch
-    lane (position 0 there: garbage by contract)."""
+    lane (position 0 there: garbage by contract). An int8 region is
+    requantized window by window instead (``_flush_ctx_quant``)."""
     L, kvh, B, R, hd = ring["k"].shape
     S = ctx["k"].shape[3]
     scratch = ctx["k"].shape[2] - 1
@@ -375,6 +561,9 @@ def flush_ctx(
     r_idx = torch.arange(R, device=dev)[None, :]              # [1, R]
     pos = ring_base.long()[:, None] + r_idx                   # [B, R]
     valid = (r_idx < valid_len.long()[:, None]) & (pos < S)
+    if ctx_is_quantized(ctx):
+        _flush_ctx_quant(ctx, ring, dest, ring_base, valid_len, valid)
+        return
     lane = torch.where(valid, dest.long()[:, None], scratch).reshape(-1)
     pos = torch.where(valid, pos, 0).reshape(-1)
     for name in ("k", "v"):
@@ -382,8 +571,81 @@ def flush_ctx(
         ctx[name][:, :, lane, pos] = ring[name].reshape(L, kvh, B * R, hd)
 
 
+def _flush_ctx_quant(
+    ctx: Cache,
+    ring: Cache,
+    dest: torch.Tensor,       # [B] int (freed slots -> scratch lane)
+    ring_base: torch.Tensor,  # [B] int
+    valid_len: torch.Tensor,  # [B] int
+    valid: torch.Tensor,      # [B, R] bool — precomputed entry validity
+) -> None:
+    """Ring flush into an int8 ctx region, IN PLACE: each lane's minimal
+    group-aligned window around its ring span is gathered, dequantized,
+    overlaid with the valid ring entries (invalid ones are DROPPED, not
+    redirected), requantized with fresh absmax scales for the groups the
+    span overlaps (over the lane's own prefix + the new entries, never
+    stale suffix bytes) and scattered back with its scales. Vacated lanes
+    all alias the scratch lane, so their windows overlap and write
+    garbage over garbage (scratch is garbage by contract; which of the
+    duplicate writes lands is unspecified on CUDA)."""
+    L, kvh, B, R, hd = ring["k"].shape
+    lanes, S = ctx["k"].shape[2], ctx["k"].shape[3]
+    g = ctx_group_size(ctx)
+    nG = S // g
+    dev = dest.device
+    # window: enough group slots to hold a ring span at any alignment
+    nW = min(-(-R // g) + 1, nG)
+    W = nW * g
+    base = torch.clamp(ring_base.long(), 0, S)
+    g0 = torch.clamp(base // g, 0, nG - nW)                    # [B]
+    lane = torch.clamp(dest.long(), 0, lanes - 1)              # [B]
+    off = base - g0 * g                                        # [B]
+    # the ring entry each window position takes, if any: position w of
+    # lane b holds ring entry w - off[b] (distinct per w, so a gather and
+    # a select do what the JAX version's dropping scatter does)
+    w_idx = torch.arange(W, device=dev)[None, :]               # [1, W]
+    r_of_w = w_idx - off[:, None]                              # [B, W]
+    r_c = torch.clamp(r_of_w, 0, R - 1)
+    take = (r_of_w >= 0) & (r_of_w < R) & valid.gather(1, r_c)
+    # absmax inputs: the lane's own prefix + the new valid entries
+    span_end = off + torch.clamp(valid_len.long(), 0, R)
+    valid_w = w_idx < span_end[:, None]                        # [B, W]
+    j = torch.arange(nW, device=dev)[None, :]
+    written = (((j + 1) * g > off[:, None]) & (j * g < span_end[:, None])
+               & (valid_len > 0)[:, None])                     # [B, nW]
+    widx = ((lane * S + g0 * g)[:, None] + w_idx).reshape(-1)  # [B*W]
+    gidx = g0[:, None] + j                                     # [B, nW]
+    r_gather = r_c[None, None, :, :, None].expand(L, kvh, B, W, hd)
+    for name in ("k", "v"):
+        flat = ctx[name].view(L, kvh, lanes * S, hd)
+        win = flat[:, :, widx].reshape(L, kvh, B, W, hd)
+        sw = ctx[name + "_scale"][:, lane[:, None], gidx]      # [L, B, nW]
+        wf = dequantize_groups(win, sw, g)
+        overlay = ring[name].float().gather(3, r_gather)       # [L,kvh,B,W,hd]
+        wf = torch.where(take[None, None, :, :, None], overlay, wf)
+        q, s_new = requantize_groups(wf, sw, valid_w, written, g)
+        flat[:, :, widx] = q.reshape(L, kvh, B * W, hd)
+        ctx[name + "_scale"][:, lane[:, None], gidx] = s_new
+
+
 # ---------------------------------------------------------------------------
 # prefix-cache <-> context copies (admission / block seal)
+
+def _check_same_mode(cache: Cache, ctx: Cache, page_size: int) -> bool:
+    """True for an int8 pool beside an int8 region, False for two dense
+    ones. The cross-mode copies (a dense pool with an int8 region, or the
+    reverse) serve only the transfer plane and are not ported yet."""
+    quant = cache_is_quantized(cache)
+    if quant != ctx_is_quantized(ctx):
+        raise NotImplementedError(
+            "pool<->ctx copies across int8 and dense KV are not ported yet")
+    if quant:
+        g = ctx_group_size(ctx)
+        assert g == page_size, (
+            f"int8 ctx group ({g}) must equal pool page_size ({page_size}) "
+            "— init_ctx(group=page_size) is the engine contract")
+    return quant
+
 
 def load_ctx_pages(
     ctx: Cache,
@@ -394,7 +656,8 @@ def load_ctx_pages(
     """Copy a matched prefix run of pool pages into the slot's context
     region at [0, n*ps), in place. The page list is pow2-padded by the
     caller, so n*ps can exceed the region: the load is clamped to the
-    region (only padding can overflow)."""
+    region (only padding can overflow). An int8 pool into an int8 region
+    is a raw page copy plus a scale copy (the scale grids coincide)."""
     n = page_ids.shape[0]
     ps = cache["k"].shape[3]
     S = ctx["k"].shape[3]
@@ -402,6 +665,15 @@ def load_ctx_pages(
     if usable <= 0:
         return
     page_ids = page_ids[:usable]
+    if _check_same_mode(cache, ctx, ps):
+        for name in ("k", "v"):
+            pages = cache[name][:, :, page_ids]   # [L, kvh, usable, ps, hd]
+            L, kvh, _, _, hd = pages.shape
+            ctx[name][:, :, slot, :usable * ps] = pages.reshape(
+                L, kvh, usable * ps, hd)
+            ctx[name + "_scale"][:, slot, :usable] = (
+                cache[name + "_scale"][:, page_ids])
+        return
     for name in ("k", "v"):
         pages = cache[name][:, :, page_ids]   # [L, kvh, usable, ps, hd]
         L, kvh, _, _, hd = pages.shape
@@ -420,8 +692,10 @@ def seal_blocks(
     """Copy sealed blocks ctx->pool in place: entry i copies
     ctx[:, :, slots[i], starts[i]:+ps] into pool page pages[i] (one gather
     over the (lane, position)-flattened axis). Padding rows target scratch
-    page 0."""
+    page 0. An int8 region into an int8 pool moves the blocks and their
+    scales verbatim (starts are block starts and group == page_size)."""
     ps = page_size
+    quant = _check_same_mode(cache, ctx, ps)
     for name in ("k", "v"):
         src = ctx[name]
         L, kvh, lanes, S, hd = src.shape
@@ -429,3 +703,6 @@ def seal_blocks(
         idx = ((slots.long() * S + starts.long())[:, None]
                + torch.arange(ps, device=src.device)[None, :])
         cache[name][:, :, pages.long()] = flat[:, :, idx].to(cache[name].dtype)
+        if quant:
+            cache[name + "_scale"][:, pages.long()] = ctx[name + "_scale"][
+                :, slots.long(), starts.long() // ps]

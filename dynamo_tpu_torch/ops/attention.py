@@ -2,11 +2,13 @@
 
   - decode: ``ctx_decode_attention`` — the Hopper flash-decode kernel for
     CUDA tensors, its plain PyTorch version for CPU tensors
-    (ops/flash_decode.py);
-  - prefill: ``flash_prefill_attention`` — blocked running-softmax
-    attention in plain PyTorch ops, the same function as the JAX package's
-    (prefill is a large matmul workload; the reference has no kernel
-    for it either).
+    (ops/flash_decode.py), over a dense or an int8 region;
+  - prefill: ``flash_prefill_attention`` (batched prefill) — blocked
+    running-softmax attention — and ``ctx_prefill_attention`` (a prefill
+    of one request) — one dense causal attention over the slot's whole
+    region — in plain PyTorch ops, the same functions as the JAX
+    package's (prefill is a large matmul workload; the reference has no
+    kernel for it either).
 """
 from __future__ import annotations
 
@@ -28,12 +30,52 @@ def ctx_decode_attention(
     layer: int,
     ctx_lens: torch.Tensor,   # [B] int32 — context length INCL. current token
     ring_base: torch.Tensor,  # [B] int32 — position held by ring slot 0
+    ctx_k_scale: Optional[torch.Tensor] = None,  # f32 [L, B(+1), S//g]
+    ctx_v_scale: Optional[torch.Tensor] = None,  # when ctx is int8
 ) -> torch.Tensor:
     """Decode attention over the two-tier context (ctx region below
     ring_base + ring above). The current token's KV must already be in the
-    ring. Returns [B, n_heads, hd]."""
+    ring. Returns [B, n_heads, hd]. With scales the ctx region is int8
+    and is dequantized inside the kernel."""
     return flash_decode_attention(
-        q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base)
+        q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base,
+        ctx_k_scale, ctx_v_scale)
+
+
+def ctx_prefill_attention(
+    q: torch.Tensor,        # [T, n_heads, hd] — new tokens (padded)
+    k_ctx: torch.Tensor,    # [kvh, S, hd] — slot's PRIOR context (< q_start)
+    v_ctx: torch.Tensor,
+    k_new: torch.Tensor,    # [T, kvh, hd] — this chunk's keys
+    v_new: torch.Tensor,
+    q_start: int,           # tokens already in the region
+    seq_len: int,           # total valid context length
+) -> torch.Tensor:
+    """Causal attention of T new tokens (positions q_start..q_start+T)
+    against prior context [0, q_start) plus the chunk itself (causal), as
+    one dense [T, S+T] softmax. Returns [T, n_heads, hd]. The chunk's KV
+    is passed directly; the region is written once after every read."""
+    T, n_heads, hd = q.shape
+    kvh, S, _ = k_ctx.shape
+    n_rep = n_heads // kvh
+    dev = q.device
+    k = torch.cat([k_ctx, k_new.transpose(0, 1).to(k_ctx.dtype)], dim=1)
+    v = torch.cat([v_ctx, v_new.transpose(0, 1).to(v_ctx.dtype)], dim=1)
+    k = k.repeat_interleave(n_rep, dim=0)               # [nh, S+T, hd]
+    v = v.repeat_interleave(n_rep, dim=0)
+    scale = 1.0 / (hd ** 0.5)
+    qt = q.transpose(0, 1)                              # [nh, T, hd]
+    scores = torch.einsum("nth,nsh->nts", qt.float(), k.float()) * scale
+    q_pos = q_start + torch.arange(T, device=dev)[:, None]      # [T, 1]
+    ctx_pos = torch.arange(S, device=dev)[None, :]              # [1, S]
+    ctx_ok = ((ctx_pos < q_start) & (ctx_pos < seq_len)).expand(T, S)
+    new_pos = q_start + torch.arange(T, device=dev)[None, :]    # [1, T]
+    new_ok = (new_pos <= q_pos) & (new_pos < seq_len)           # causal
+    mask = torch.cat([ctx_ok, new_ok], dim=1)                   # [T, S+T]
+    scores = torch.where(mask[None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("nts,nsh->tnh", probs.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
 
 
 def flash_prefill_attention(

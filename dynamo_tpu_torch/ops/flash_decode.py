@@ -8,20 +8,29 @@ position ``ring_base[b] + r``, valid while ``< ctx_lens[b]`` (the current
 token INCLUDED: the decode step writes its KV to the ring before it
 attends).
 
+Int8 mode (``ctx_k_scale``/``ctx_v_scale`` given): ctx K/V are int8 with
+f32 absmax scales per (layer, lane, position group) ``[L, B(+1),
+S/group]``; element p of a row is ``k_i8 * scale[l, b, p // group]``
+computed in f32 and rounded to q's dtype before the products, as the JAX
+kernel dequantizes each chunk in VMEM. The ring stays in q's dtype.
+
 ``flash_decode_attention`` launches the hand-written Hopper kernel in
 ``csrc/flash_decode.cu`` for CUDA tensors and runs the plain PyTorch
-version for CPU tensors. ``launches`` counts kernel launches.
+version for CPU tensors. ``launches`` counts dense-mode kernel launches,
+``launches_int8`` int8-mode ones.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 NEG_INF = -1e30
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset them to 0)
 launches = 0
+launches_int8 = 0
 
 _TILE_ROWS = {torch.bfloat16: 64, torch.float32: 32}  # csrc Tile<T>::kRows
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,14 +49,23 @@ def flash_decode_attention_plain(
     layer: int,
     ctx_lens: torch.Tensor,   # [B] int32, INCLUDING the current token
     ring_base: torch.Tensor,  # [B] int32, position of ring slot 0
+    ctx_k_scale: Optional[torch.Tensor] = None,  # f32 [L, B(+1), S//group]
+    ctx_v_scale: Optional[torch.Tensor] = None,  # (int8 ctx_k/ctx_v)
 ) -> torch.Tensor:
     """Plain PyTorch version: a copy of the JAX package's
-    ``flash_decode_attention_reference`` (dense mode)."""
+    ``flash_decode_attention_reference``. With scales, the int8 ctx is
+    dequantized in f32 and rounded to q's dtype first."""
     B, n_heads, hd = q.shape
     S = ctx_k.shape[3]
     R = ring_k.shape[3]
     n_rep = n_heads // ctx_k.shape[1]
     kl, vl = ctx_k[layer][:, :B], ctx_v[layer][:, :B]   # [nkv, B, S, hd]
+    if ctx_k_scale is not None:
+        g = S // ctx_k_scale.shape[2]
+        ks = ctx_k_scale[layer][:B].repeat_interleave(g, dim=1)  # [B, S]
+        vs = ctx_v_scale[layer][:B].repeat_interleave(g, dim=1)
+        kl = (kl.float() * ks[None, :, :, None]).to(q.dtype)
+        vl = (vl.float() * vs[None, :, :, None]).to(q.dtype)
     k = kl.repeat_interleave(n_rep, dim=0)              # [nh, B, S, hd]
     v = vl.repeat_interleave(n_rep, dim=0)
     rk = ring_k[layer].repeat_interleave(n_rep, dim=0)  # [nh, B, R, hd]
@@ -76,9 +94,11 @@ def pick_splits(batch: int, kv_heads: int, S: int, tile: int) -> int:
     return max(1, min(want, -(-S // tile)))
 
 
-def _check(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base):
+def _check(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base,
+           ctx_k_scale=None, ctx_v_scale=None):
     B, n_heads, hd = q.shape
     L, nkv, lanes, S, hd_k = ctx_k.shape
+    kv_dtype = q.dtype if ctx_k_scale is None else torch.int8
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash_decode: unsupported dtype {q.dtype}")
     if hd not in _HEAD_DIMS[q.dtype] or hd_k != hd:
@@ -91,11 +111,12 @@ def _check(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base):
         raise ValueError("flash_decode: ctx/ring shapes do not match q")
     if not 0 <= int(layer) < L:
         raise ValueError(f"flash_decode: layer {layer} out of range")
-    for name, t in (("q", q), ("ctx_k", ctx_k), ("ctx_v", ctx_v),
-                    ("ring_k", ring_k), ("ring_v", ring_v)):
-        if t.dtype != q.dtype or not t.is_cuda or not t.is_contiguous():
+    for name, t, dt in (("q", q, q.dtype), ("ctx_k", ctx_k, kv_dtype),
+                        ("ctx_v", ctx_v, kv_dtype), ("ring_k", ring_k, q.dtype),
+                        ("ring_v", ring_v, q.dtype)):
+        if t.dtype != dt or not t.is_cuda or not t.is_contiguous():
             raise ValueError(
-                f"flash_decode: {name} must be a contiguous CUDA {q.dtype}")
+                f"flash_decode: {name} must be a contiguous CUDA {dt}")
         if t.data_ptr() % 16:
             raise ValueError(f"flash_decode: {name} is not 16-byte aligned")
     if ctx_v.shape != ctx_k.shape or ring_v.shape != ring_k.shape:
@@ -105,19 +126,40 @@ def _check(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base):
                 or not t.is_contiguous()):
             raise ValueError(
                 f"flash_decode: {name} must be contiguous CUDA int32 [B]")
+    if ctx_k_scale is None:
+        return 0
+    if ctx_v_scale is None:
+        raise ValueError("flash_decode: int8 mode needs both scales")
+    n_groups = ctx_k_scale.shape[-1]
+    if n_groups <= 0 or S % n_groups:
+        raise ValueError(
+            f"flash_decode: {n_groups} scale groups do not tile S={S}")
+    for name, t in (("ctx_k_scale", ctx_k_scale),
+                    ("ctx_v_scale", ctx_v_scale)):
+        if (t.dtype != torch.float32 or not t.is_cuda
+                or not t.is_contiguous() or t.shape != (L, lanes, n_groups)):
+            raise ValueError(
+                f"flash_decode: {name} must be a contiguous CUDA float32 "
+                f"[{L}, {lanes}, S/group]")
+    return S // n_groups
 
 
-def _launch(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base):
-    global launches
+def _launch(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base,
+            ctx_k_scale=None, ctx_v_scale=None):
+    global launches, launches_int8
     from dynamo_tpu_torch.ops import cuda_build
 
-    _check(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base)
+    group = _check(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens,
+                   ring_base, ctx_k_scale, ctx_v_scale)
     lib = cuda_build.load("flash_decode")
-    fn = lib.flash_decode_launch
+    quant = ctx_k_scale is not None
+    fn = lib.flash_decode_int8_launch if quant else lib.flash_decode_launch
+    n_ptr = 13 if quant else 11
+    n_int = 11 if quant else 10
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * 11
-            + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * n_ptr
+            + [ctypes.c_int] * n_int + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     B, n_heads, hd = q.shape
@@ -130,18 +172,24 @@ def _launch(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base):
     part_m = torch.empty(B, nkv, n_split + 1, G, **f32)
     part_l = torch.empty(B, nkv, n_split + 1, G, **f32)
     part_acc = torch.empty(B, nkv, n_split + 1, G, hd, **f32)
+    kv = [ctx_k.data_ptr(), ctx_v.data_ptr()]
+    if quant:
+        kv += [ctx_k_scale.data_ptr(), ctx_v_scale.data_ptr()]
+    dims = [_DTYPE_CODE[q.dtype], B, n_heads, nkv, hd, lanes, S, R,
+            int(layer), n_split] + ([group] if quant else [])
     err = fn(
-        q.data_ptr(), ctx_k.data_ptr(), ctx_v.data_ptr(),
-        ring_k.data_ptr(), ring_v.data_ptr(),
+        q.data_ptr(), *kv, ring_k.data_ptr(), ring_v.data_ptr(),
         ctx_lens.data_ptr(), ring_base.data_ptr(), out.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, n_heads, nkv, hd, lanes, S, R, int(layer),
-        n_split, 1.0 / hd ** 0.5,
+        *dims, 1.0 / hd ** 0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {err}")
-    launches += 1
+    if quant:
+        launches_int8 += 1
+    else:
+        launches += 1
     return out
 
 
@@ -154,12 +202,16 @@ def flash_decode_attention(
     layer: int,
     ctx_lens: torch.Tensor,   # [B] int32, context INCLUDING the current token
     ring_base: torch.Tensor,  # [B] int32, position held by ring slot 0
+    ctx_k_scale: Optional[torch.Tensor] = None,  # f32 [L, B(+1), S//group]
+    ctx_v_scale: Optional[torch.Tensor] = None,  # (int8 ctx_k/ctx_v)
 ) -> torch.Tensor:
     """Decode attention over contiguous KV + ring; returns [B, n_heads,
-    hd] in q's dtype. CUDA tensors go to the Hopper kernel (or raise);
-    CPU tensors take the plain version."""
+    hd] in q's dtype. With scales the ctx K/V are int8 (int8 mode). CUDA
+    tensors go to the Hopper kernel (or raise); CPU tensors take the
+    plain version."""
     if q.is_cuda:
         return _launch(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens,
-                       ring_base)
+                       ring_base, ctx_k_scale, ctx_v_scale)
     return flash_decode_attention_plain(
-        q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base)
+        q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base,
+        ctx_k_scale, ctx_v_scale)

@@ -1,48 +1,56 @@
 """Token sequences and chained block hashing.
 
 A block of `block_size` tokens is identified by a *chained* content hash,
-``hash(block) = H(parent_hash || token_bytes)``, so equal hashes imply an
-identical prefix — the property prefix-cache reuse relies on.
-
-The JAX package hashes with xxhash's xxh3_64 (seed 1337); this port hashes
-with the standard library's ``blake2b`` (8-byte digest, the seed as the
-key), so it needs no third-party package. Port block hashes therefore
-DIFFER from JAX block hashes: the two cannot share a router or KV pages.
-Consistency inside the port (engine <-> allocator <-> events) is what
-matters, and every component here must go through this module.
+``hash(block) = xxh3_64(parent_hash || token_bytes, seed=1337)``, so equal
+hashes imply an identical prefix — the property prefix-cache reuse and
+KV-aware routing rely on. The hash is the JAX package's bit for bit
+(``dynamo_tpu/tokens.py``), computed by the port's own standard-library
+XXH3 (``xxh3.py``), so port and JAX workers can share a router and KV
+pages. Every component here must go through this module.
 """
 from __future__ import annotations
 
-import hashlib
 import struct
 from dataclasses import dataclass, field
 from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
+from dynamo_tpu_torch.xxh3 import xxh3_64
+
 HASH_SEED = 1337
 # Hash value used as the parent of the first block in a sequence (optionally
 # replaced by a salt hash when multiple models share one control plane).
 NO_PARENT = 0
-_KEY = HASH_SEED.to_bytes(8, "little")
 
 
-def _h64(data: bytes) -> int:
-    return int.from_bytes(
-        hashlib.blake2b(data, digest_size=8, key=_KEY).digest(), "little")
-
-
-def hash_tokens(tokens: Sequence[int], parent: int = NO_PARENT) -> int:
+def hash_tokens(tokens: Sequence[int], parent: int = NO_PARENT,
+                seed: int = HASH_SEED) -> int:
     """Chained content hash of one block of tokens."""
-    return _h64(struct.pack("<Q", parent)
-                + np.asarray(tokens, dtype=np.dtype("<u4")).tobytes())
+    data = (struct.pack("<Q", parent)
+            + np.asarray(tokens, dtype=np.dtype("<u4")).tobytes())
+    return xxh3_64(data, seed)
 
 
 def salt_hash(salt: str) -> int:
     """Root parent hash for a (model, lora, ...) namespace salt."""
     if not salt:
         return NO_PARENT
-    return _h64(salt.encode("utf-8"))
+    return xxh3_64(salt.encode("utf-8"), HASH_SEED)
+
+
+def compute_block_hashes(
+    tokens: Sequence[int], block_size: int, salt: str = ""
+) -> list[int]:
+    """Hashes of all *complete* blocks of a token sequence (the
+    router-side entry point): the trailing partial block is not hashed
+    because it cannot be cached."""
+    parent = salt_hash(salt)
+    out: list[int] = []
+    for start in range(0, len(tokens) - len(tokens) % block_size, block_size):
+        parent = hash_tokens(tokens[start:start + block_size], parent)
+        out.append(parent)
+    return out
 
 
 @dataclass(frozen=True)

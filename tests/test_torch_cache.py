@@ -1,7 +1,7 @@
 """The port's copies of the host-side planes against the JAX package's:
 the page allocator driven through the same operations must hand out the
 same pages and emit the same events, and the port's block hashing must
-keep the chained-prefix property with its own (blake2b) hash."""
+keep the chained-prefix property and give the reference's values."""
 import pytest
 
 from dynamo_tpu.engine.cache import PageAllocator as JAllocator
@@ -36,13 +36,14 @@ def test_page_allocator_matches_jax():
 
 @pytest.mark.parametrize("salt", ["", "model-a"])
 def test_block_hashes_chain_like_the_reference(salt):
-    """Same block structure as the reference; equal hashes exactly when
-    the whole prefix is equal (values differ: blake2b vs xxh3)."""
+    """Same block structure and hash values as the reference; equal
+    hashes exactly when the whole prefix is equal."""
     toks = list(range(1, 11))
     t, j = TSequence.from_tokens(toks, 4, salt), JSequence.from_tokens(toks, 4, salt)
     assert [(b.tokens, b.position) for b in t.blocks] == [
         (b.tokens, b.position) for b in j.blocks]
     assert t.partial == j.partial == [9, 10]
+    assert t.block_hashes() == j.block_hashes()
     assert t.blocks[1].parent_hash == t.blocks[0].block_hash
     same_tail = TSequence.from_tokens([0] + toks[1:], 4, salt)
     assert same_tail.blocks[1].tokens == t.blocks[1].tokens

@@ -124,18 +124,21 @@ def test_torch_engine_without_device_refuses_cpu(monkeypatch):
 
 
 def test_unported_engine_knobs_raise():
+    TEngineConfig(kv_quant="int8")  # ported
     with pytest.raises(ValueError, match="kv_quant"):
-        TEngineConfig(kv_quant="int8")
+        TEngineConfig(kv_quant="fp8")
     with pytest.raises(ValueError, match="round_pipeline"):
         TEngineConfig(round_pipeline=True)
 
 
 def test_logprobs_request_gets_a_clear_error():
+    """Logprobs are served (tests/test_torch_engine_int8.py); a negative
+    count is refused up front."""
     eng = TorchEngine(TConfig.tiny(dtype="float32"),
                       TEngineConfig(**ENGINE_KW), device="cpu")
     req = tproto.PreprocessedRequest(
         token_ids=[1, 2, 3],
-        output_options=tproto.OutputOptions(logprobs=2))
+        output_options=tproto.OutputOptions(logprobs=-1))
 
     async def run():
         async for _ in eng.generate(req):

@@ -1,6 +1,7 @@
 """Parity of the PyTorch port's ops with the JAX package's: rope, the
-plain flash-decode (against both the Pallas kernel in interpret mode and
-the pure-jnp reference) and the blocked prefill attention. Inputs are made
+plain flash-decode in its dense and int8 modes (against both the Pallas
+kernel in interpret mode and the pure-jnp reference), the blocked prefill
+attention and the dense single-request prefill attention. Inputs are made
 with numpy from a seed and fed to both sides."""
 import numpy as np
 import pytest
@@ -134,3 +135,67 @@ def test_prefill_attention_matches_jax(T, Sc, q_start, seq_len, with_ctx,
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     if seq_len == 0:
         assert not got.any()
+
+
+def _quantize_ctx(x, group):
+    """Per-(layer, lane, group) absmax int8, as tests/test_flash_decode.py
+    quantizes the region: (int8 [L, kvh, lanes, S, hd], f32 [L, lanes,
+    S/group])."""
+    lyr, kvh, lanes, s, hd = x.shape
+    grouped = x.reshape(lyr, kvh, lanes, s // group, group, hd)
+    scale = np.maximum(np.abs(grouped).max(axis=(1, 4, 5)) / 127.0,
+                       1e-8).astype(np.float32)
+    q = np.clip(np.rint(grouped / scale[:, None, :, :, None, None]),
+                -127, 127).astype(np.int8).reshape(x.shape)
+    return q, scale
+
+
+@pytest.mark.parametrize("group", [16, 64])
+@pytest.mark.parametrize("bases", [[1, 15, 31, 60], [15, 16, 17, 33]])
+def test_plain_int8_flash_decode_matches_jax(decode_data, group, bases):
+    """Int8 mode over group widths 16 and 64 (4 and 1 groups over S) and
+    ring bases that straddle group boundaries: the plain port vs the
+    quantized jnp reference (same f32 math: 1e-5) and vs the Pallas
+    kernel in interpret mode (5e-3, as the dense mode)."""
+    q, ck, cv, rk, rv = decode_data
+    ck_q, ks = _quantize_ctx(ck, group)
+    cv_q, vs = _quantize_ctx(cv, group)
+    base = np.asarray(bases, np.int32)
+    ctx = base + 2
+    j_in = [jnp.asarray(a) for a in (q, ck_q, cv_q, rk, rv)]
+    t_in = [torch.from_numpy(a) for a in (q, ck_q, cv_q, rk, rv)]
+    for layer in (0, L - 1):
+        want_ref = np.asarray(jfd.flash_decode_attention_reference(
+            *j_in, jnp.int32(layer), jnp.asarray(ctx), jnp.asarray(base),
+            ctx_k_scale=jnp.asarray(ks), ctx_v_scale=jnp.asarray(vs)))
+        want_kernel = np.asarray(jfd.flash_decode_attention(
+            *j_in, jnp.int32(layer), jnp.asarray(ctx), jnp.asarray(base),
+            chunk=group, interpret=True, ctx_k_scale=jnp.asarray(ks),
+            ctx_v_scale=jnp.asarray(vs)))
+        before = tfd.launches_int8
+        got = tfd.flash_decode_attention(
+            *t_in, layer, torch.from_numpy(ctx), torch.from_numpy(base),
+            torch.from_numpy(ks), torch.from_numpy(vs)).numpy()
+        assert tfd.launches_int8 == before
+        np.testing.assert_allclose(got, want_ref, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got, want_kernel, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("T,q_start,seq_len", [
+    (32, 0, 20),    # fresh prefill, padded tail rows
+    (16, 24, 35),   # continuation over prior context
+    (16, 40, 56),   # continuation, chunk fully valid
+    (16, 0, 0),     # every row fully masked
+])
+def test_ctx_prefill_attention_matches_jax(T, q_start, seq_len):
+    """Dense [T, S+T] softmax over the slot's whole region, f32 on both
+    sides: 1e-5."""
+    q, kc, vc, kn, vn = _prefill_inputs(T, S, seed=3)
+    want = np.asarray(jattn.ctx_prefill_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(kn),
+        jnp.asarray(vn), jnp.int32(q_start), jnp.int32(seq_len)))
+    got = tattn.ctx_prefill_attention(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+        torch.from_numpy(kn), torch.from_numpy(vn), q_start,
+        seq_len).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -1,19 +1,27 @@
 """Where a decode step's time goes in the PyTorch port, on one GPU.
 
-    python3 tools/torch_profile_decode.py
+    python3 tools/torch_profile_decode.py [--kv-quant int8] [--sample]
 
 Runs ``dynamo_tpu_torch.models.llama.decode_step`` at the full width of
 Llama-3.1-8B (32 layers, random bf16 weights from seed 0) for the default
 EngineConfig's 8 slots, with the serve phase's contexts of chip_smoke.py
-(prompts of 128..1024 tokens from seed 0, 17 tokens into decode). It
+(prompts of 128..1024 tokens from seed 0, 17 tokens into decode), over a
+dense bf16 region or, with ``--kv-quant int8``, an int8 one (random bytes
+and scales). ``--sample`` adds the sampler of a round at temperature 0.8
+(``sampling.sample_step``: penalties, top-k, threefry split and Gumbel
+draw) to each step. It
 prints the host-clock time per step around synchronized steps, the
 device time per step that torch.profiler attributes to CUDA kernels,
 the device's idle share, and the device time by kernel group (matmul,
-the flash-decode kernel, the rest) and by kernel name. The last line is
-a JSON object with the same numbers. Needs a CUDA device.
+the flash-decode kernel, the rest) and by kernel name; then the same
+wall and device time for one ring->ctx flush (``flush_ctx``, once per
+round of ``flush_every`` steps; the int8 region requantizes a window per
+lane there). The last line is a JSON object with the same numbers. Needs
+a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -39,10 +47,44 @@ def group_of(name: str) -> str:
     return "other"
 
 
+def measure(fn) -> tuple[float, dict[str, float]]:
+    """Host-clock ms per call around synchronized calls, and the device
+    ms per call by kernel name from torch.profiler (3 warm-up calls)."""
+    with torch.no_grad():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(STEPS):
+                fn()
+            torch.cuda.synchronize()
+    by_name: dict[str, float] = defaultdict(float)
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.key] += evt.self_device_time_total / 1e3 / STEPS
+    if not by_name:  # some builds attribute kernels to their CPU launchers
+        for evt in prof.key_averages():
+            if evt.self_device_time_total > 0 and not evt.key.startswith("aten::"):
+                by_name[evt.key] += evt.self_device_time_total / 1e3 / STEPS
+    return wall_ms, by_name
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kv-quant", choices=("none", "int8"), default="none")
+    ap.add_argument("--sample", action="store_true")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_decode: no CUDA device", file=sys.stderr)
         return 1
+    from dynamo_tpu_torch.engine import sampling
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import ModelConfig
@@ -54,60 +96,64 @@ def main() -> int:
     cfg, ecfg = ModelConfig.llama3_8b(), EngineConfig()
     B, dev = ecfg.max_decode_slots, "cuda"
     params = llama.init_params(cfg, 0, dev)
-    ctx = llama.init_ctx(cfg, B, ecfg.max_context, torch.bfloat16, dev)
+    ctx = llama.init_ctx(cfg, B, ecfg.max_context, torch.bfloat16, dev,
+                         kv_quant=args.kv_quant, group=ecfg.page_size)
     ring = llama.init_ring(cfg, B, ecfg.flush_every, torch.bfloat16, dev)
-    for t in (*ctx.values(), *ring.values()):
-        t.normal_(0.0, 0.5)
+    for name, t in (*ctx.items(), *ring.items()):
+        if t.dtype == torch.int8:
+            t.random_(-127, 128)
+        elif name.endswith("_scale"):
+            t.uniform_(0.01, 0.02)
+        else:
+            t.normal_(0.0, 0.5)
     lens = np.random.RandomState(0).randint(128, 1025, size=B) + 17
     ctx_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     ring_base = ctx_lens - 2
     tokens = torch.zeros(B, dtype=torch.int32, device=dev)
+    sp = sampling.default_params(B, dev)
+    sp.temperature.fill_(0.8)
+    counts = torch.zeros(B, cfg.vocab_size, dtype=torch.int32, device=dev)
+    keys = torch.zeros(B, 2, dtype=torch.int64, device=dev)
 
     def step():
-        return llama.decode_step(cfg, params, ctx, ring, tokens, ctx_lens,
-                                 ring_base, 1)
+        logits = llama.decode_step(cfg, params, ctx, ring, tokens, ctx_lens,
+                                   ring_base, 1)
+        if args.sample:
+            sampling.sample_step(logits, counts, sp, ecfg.max_top_k, keys)
 
-    with torch.no_grad():
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(STEPS):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(STEPS):
-                step()
-            torch.cuda.synchronize()
+    dest = torch.arange(B, dtype=torch.int32, device=dev)
+    valid = torch.full((B,), ecfg.flush_every, dtype=torch.int32, device=dev)
 
-    by_name: dict[str, float] = defaultdict(float)
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.key] += evt.self_device_time_total / 1e3 / STEPS
-    if not by_name:  # some builds attribute kernels to their CPU launchers
-        for evt in prof.key_averages():
-            if evt.self_device_time_total > 0 and not evt.key.startswith("aten::"):
-                by_name[evt.key] += evt.self_device_time_total / 1e3 / STEPS
+    def flush():
+        llama.flush_ctx(ctx, ring, dest, ring_base, valid)
+
+    wall_ms, by_name = measure(step)
+    flush_wall_ms, flush_by_name = measure(flush)
     device_ms = sum(by_name.values())
+    flush_device_ms = sum(flush_by_name.values())
     groups: dict[str, float] = defaultdict(float)
     for name, ms in by_name.items():
         groups[group_of(name)] += ms
     print(f"card: {smi}; torch {torch.__version__}")
-    print(f"decode_step at Llama-3.1-8B, B={B}, contexts {lens.tolist()}: "
+    mode = f"kv_quant={args.kv_quant}" + (", sampled" if args.sample else "")
+    print(f"decode_step ({mode}) at Llama-3.1-8B, B={B}, contexts "
+          f"{lens.tolist()}: "
           f"wall {wall_ms:.3f} ms/step, device {device_ms:.3f} ms/step, "
           f"device idle {1 - device_ms / wall_ms:.3f} of wall")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  group {g}: {ms:.3f} ms/step")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  kernel {ms:.4f} ms/step  {name[:110]}")
+    print(f"flush_ctx ({mode.split(',')[0]}, once per round of "
+          f"{ecfg.flush_every} steps): wall {flush_wall_ms:.3f} ms, device "
+          f"{flush_device_ms:.3f} ms")
     print(json.dumps({
-        "card": smi, "wall_ms_per_step": wall_ms,
+        "card": smi, "kv_quant": args.kv_quant, "sample": args.sample,
+        "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
         "idle_share": 1 - device_ms / wall_ms,
         "groups_ms_per_step": dict(groups),
+        "flush_wall_ms": flush_wall_ms, "flush_device_ms": flush_device_ms,
     }))
     return 0
 
