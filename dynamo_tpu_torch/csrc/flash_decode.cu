@@ -29,6 +29,15 @@
 // out, over 3.35 TB/s: about half of the dense bound at the serve shape,
 // so ~0.0036 ms against the dense kernel's 0.0072 ms.
 //
+// Which path runs which design:
+//   * int8 mode in bf16 (hd 64, 128), what kv_quant="int8" serves:
+//     flash_decode_int8_cluster_kernel, one launch (below, "Int8 mode in
+//     bf16, one launch");
+//   * the dense mode (bf16 hd 64/128, f32 hd 16/64/128) and the int8 mode
+//     in f32 (hd 16/64/128, the tiny model): flash_decode_split_kernel and
+//     flash_decode_combine_kernel, two launches (the split-K design that
+//     follows).
+//
 // Design. A TPU runs its grid in order on one core, so the Pallas kernel
 // walks a slot's chunks sequentially and carries (m, l, acc) in VMEM. On
 // Hopper blocks run in parallel on 132 SMs and nothing carries between
@@ -61,21 +70,75 @@
 //     the dense mode fills: the QK/PV loops, the online softmax, the early
 //     exit and the combine are the dense mode's. Dequantizing at staging
 //     does it once per element, not once per query head.
-// This first version is written to be right and simple: no cp.async / TMA
-// pipelining and no tensor-core products. Its measured time against the
-// bound is recorded in PERF.md.
+// That design stages with one synchronous 16-byte load per thread, takes
+// its products as scalar FMAs out of shared memory and merges in a second
+// launch. On an NVIDIA H100 80GB HBM3 at a 700 W power limit it took
+// 0.0371 ms (dense) and 0.0398 ms (int8) per call at the Llama-3.1-8B
+// serve shape, 5.1x and 10.9x their byte bounds; the combine launch was
+// a third of the int8 mode's device time (PERF.md).
+//
+// Int8 mode in bf16, one launch. Same split of the work and the same
+// semantics as above, plus P = exp(s - m) rounded to bf16 before P.V and
+// the denominator summing the unrounded values, as the TPU kernel rounds
+// them (flash_decode.py:154-161). What each part addresses:
+//   * The merge, in a thread-block cluster. The n_split + 1 <= 8 blocks of
+//     one (slot, KV head) form a cluster. Each keeps its (m, l, acc) in
+//     its own shared memory; after a cluster barrier, the cluster's blocks
+//     each take a share of the G * hd outputs, read every block's m, l and
+//     acc through distributed shared memory, merge with max rescaling and
+//     write out, and a second barrier keeps every block resident until its
+//     peers have read it. This removes the combine launch and the f32
+//     scratch in device memory. A block with an empty share still reaches
+//     both barriers (m = -inf, l = 0). The wrapper takes the largest
+//     cluster (<= 8) of which the card holds all B * n_kv at once
+//     (cudaOccupancyMaxActiveClusters): a cluster left for a second wave
+//     doubles the call. At the Llama-3.1-8B serve shape the H100 holds 62
+//     clusters of 8 of this 53.5 KB block and 69 of 7, so 6 context splits
+//     and the ring block (448 blocks); at Llama-3.2-1B, 8.
+//   * Bulk asynchronous copies. A 64-row int8 tile of one (layer, KV head,
+//     lane) is one contiguous run (8 KB at hd 128), so one thread asks for
+//     a tile's K and V with two cp.async.bulk copies into one of 2 stages,
+//     completed in bytes on an mbarrier; a stage is refilled as soon as
+//     both its tiles are dequantized, so a block's share of 1-3 tiles at
+//     the serve shape is in flight before its first products. A tail tile
+//     copies only its live rows; the rows past them are dequantized as
+//     zero, whatever stale bytes or scales they hold (p = 0 times a
+//     non-finite V would be NaN). Scales come with plain loads, a tile
+//     ahead, so their round trip overlaps the work before the tile.
+//   * Tensor-core products, mma.sync.m16n8k16 (bf16 in, f32 accumulate),
+//     keys on M and the G <= 8 query heads on N = 8: S^T = K q^T with q's
+//     fragments in registers for the whole block, O^T = V^T P^T with V^T
+//     read by ldmatrix.trans and P written to shared memory as bf16 in
+//     between. A landed int8 tile is dequantized once into a padded bf16
+//     tile (its 16-byte pad keeps ldmatrix conflict-free; a bulk copy
+//     cannot pad, and fragments read straight from the 128-byte int8 rows
+//     would conflict 8 ways), K first, then V into the same tile once the
+//     QK products have read it. wgmma is not needed: the work is byte-
+//     bound and N is 8.
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+// (chip_smoke.py, tools/torch_flash_decode_sweep.py, PERF.md): 0.0216 ms
+// per call at the Llama-3.1-8B serve shape (the dense kernel 0.0380 ms in
+// the same call, SDPA over the dequantized K/V 0.0221 ms, byte bound
+// 0.0036 ms), 0.0153 ms at Llama-3.2-1B (SDPA 0.0184 ms). Bytes do not
+// bind it: the sweep's own timeline shows a block bound by its per-tile
+// chain (dequantize K, QK, softmax, dequantize V, P.V, four barriers,
+// ~3 us a 64-row tile at hd 128 with ~3.4 blocks an SM), after a fixed
+// ~8 us of launch, the ctx_lens read, the first copy and the merge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxG = 8;  // query heads per KV head
+constexpr int kMaxG = 8;        // query heads per KV head
+constexpr int kMaxCluster = 8;  // portable thread-block cluster size
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -366,6 +429,534 @@ cudaError_t launch(const void* q, const void* ctx_k, const void* ctx_v, const fl
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Int8 mode in bf16, one launch (hd 64 and 128).
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// Bulk asynchronous copy of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) from global to this block's shared memory; completion
+// is counted in bytes on the mbarrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory, one row address per thread
+// (threads 8i..8i+7 give matrix i's rows); .trans delivers them transposed.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c[16x8] += a[16x16] b[16x8]: bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int HD>
+struct I8Layout {
+  static constexpr int kTile = 64;                  // rows per tile
+  static constexpr int kStages = 2;                 // int8 K+V tiles in flight
+  static constexpr int kStride = HD + 8;            // bf16 tile row: 16 B pad
+  static constexpr int kSStride = kTile + 4;        // f32 score row
+  static constexpr int kPStride = kTile + 8;        // bf16 probability row
+  static constexpr int kStageBytes = 2 * kTile * HD;
+  static constexpr int kChunks = kTile * HD / 16 / kThreads;  // 16 B per thread
+  // byte offsets into dynamic shared memory; after the tile loop the stage
+  // region holds this block's (m, l, acc) for the cluster merge
+  static constexpr int kOffTile = kStages * kStageBytes;
+  static constexpr int kOffS = kOffTile + kTile * kStride * 2;
+  static constexpr int kOffP = kOffS + kMaxG * kSStride * 4;
+  static constexpr int kOffAlpha = kOffP + kMaxG * kPStride * 2;
+  static constexpr int kOffBar = kOffAlpha + kMaxG * 4;
+  static constexpr int kBytes = kOffBar + kStages * 8;
+  static_assert(kStages * kStageBytes >= (2 + HD) * kMaxG * 4, "merge state fits the stages");
+};
+
+// Diagnostic timeline of the int8 bf16 kernel
+// (tools/torch_flash_decode_sweep.py): given a buffer, thread 0 of each
+// block stamps %globaltimer at its phases into kTraceSlots words; serving
+// passes none.
+constexpr int kTraceSlots = 12;
+unsigned long long* int8_trace = nullptr;  // host side, set for one launch
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Dequantize the int8 tile `src` ([kTile, HD], rows [0, n) landed) into
+// the padded bf16 tile `dst`, row r times its group scale sc[u] (the
+// thread's u-th 16-byte chunk) in f32 and rounded to bf16 as the
+// reference rounds it; rows from n on are zeroed, whatever their bytes or
+// scales hold (p = 0 times a non-finite V would be NaN).
+template <int HD>
+__device__ __forceinline__ void dequant_tile(bf16* dst, const int8_t* src,
+                                             const float (&sc)[I8Layout<HD>::kChunks], int n) {
+  using Lay = I8Layout<HD>;
+  constexpr int kPerRow = HD / 16;
+#pragma unroll
+  for (int u = 0; u < Lay::kChunks; ++u) {
+    const int c = threadIdx.x + u * kThreads;
+    const int r = c / kPerRow;
+    const int col = (c % kPerRow) * 16;
+    uint4 pair[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+    if (r < n) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + r * HD + col);
+      const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+      __align__(16) bf16 vals[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) vals[k] = __float2bfloat16(static_cast<float>(e[k]) * sc[u]);
+      pair[0] = reinterpret_cast<const uint4*>(vals)[0];
+      pair[1] = reinterpret_cast<const uint4*>(vals)[1];
+    }
+    // at hd 128 eight threads share a 272-byte row: odd quads store their
+    // second half first, so each quarter warp's 16-byte stores hit 32
+    // distinct banks
+    // (selected, not indexed: a register array indexed at run time would
+    // live in local memory)
+    const int w = HD == 128 ? (c >> 2) & 1 : 0;
+    uint4* d = reinterpret_cast<uint4*>(dst + r * Lay::kStride + col);
+    d[w] = w ? pair[1] : pair[0];
+    d[w ^ 1] = w ? pair[0] : pair[1];
+  }
+}
+
+// Ring rows [0, n) of a bf16 [rows, HD] slab into the padded tile; the
+// rest zeroed.
+template <int HD>
+__device__ __forceinline__ void stage_ring(bf16* dst, const bf16* src, int n) {
+  using Lay = I8Layout<HD>;
+  constexpr int kPerRow = HD / 8;
+  for (int c = threadIdx.x; c < Lay::kTile * kPerRow; c += kThreads) {
+    const int r = c / kPerRow;
+    const int col = (c % kPerRow) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < n) v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * HD + col);
+    *reinterpret_cast<uint4*>(dst + r * Lay::kStride + col) = v;
+  }
+}
+
+// The int8 mode in bf16 as one launch. Grid (B, n_kv, n_split + 1); the
+// n_split + 1 blocks of one (slot, KV head) form one thread-block cluster.
+// Block z < n_split streams its share of the live int8 context through
+// bulk async copies (2 stages of K+V tiles), block z = n_split the bf16
+// ring; each keeps its (m, l, acc) in shared memory and cluster rank 0
+// merges them through distributed shared memory and writes out.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_int8_cluster_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ ctx_k,
+                                 const int8_t* __restrict__ ctx_v,
+                                 const float* __restrict__ k_scale,
+                                 const float* __restrict__ v_scale, int group,
+                                 const bf16* __restrict__ ring_k, const bf16* __restrict__ ring_v,
+                                 const int* __restrict__ ctx_lens,
+                                 const int* __restrict__ ring_base, bf16* __restrict__ out,
+                                 int n_heads, int n_kv, int lanes, int S, int R, int layer,
+                                 int n_split, float scale, unsigned long long* trace) {
+  using Lay = I8Layout<HD>;
+  constexpr int TILE = Lay::kTile;
+  constexpr int kStages = Lay::kStages;
+  constexpr int kPerRow = HD / 16;
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* stage = reinterpret_cast<int8_t*>(smem);
+  bf16* t_s = reinterpret_cast<bf16*>(smem + Lay::kOffTile);
+  float* s_s = reinterpret_cast<float*>(smem + Lay::kOffS);
+  bf16* p_s = reinterpret_cast<bf16*>(smem + Lay::kOffP);
+  float* alpha_s = reinterpret_cast<float*>(smem + Lay::kOffAlpha);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Lay::kOffBar);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int z = blockIdx.z;
+  const int B = gridDim.x;
+  const int G = n_heads / n_kv;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  if (trace != nullptr) {  // stamps from thread 0 only
+    trace = tid == 0 ? trace + kTraceSlots * (b + B * (h + n_kv * z)) : nullptr;
+  }
+  auto stamp = [&](int slot) {
+    if (trace != nullptr) trace[slot] = global_ns();
+  };
+  stamp(0);
+  const int ctx = ctx_lens[b];
+  const int base = ring_base[b];
+
+  const bool is_ring = z == n_split;
+  const bf16* rk = nullptr;
+  const bf16* rv = nullptr;
+  const int8_t* ck = nullptr;
+  const int8_t* cv = nullptr;
+  const float* ksc = nullptr;
+  const float* vsc = nullptr;
+  int start, end;
+  if (is_ring) {
+    start = 0;
+    end = min(max(ctx - base, 0), R);
+    const size_t off = ((static_cast<size_t>(layer) * n_kv + h) * B + b) * R * HD;
+    rk = ring_k + off;
+    rv = ring_v + off;
+  } else {
+    const int live = min(max(min(base, ctx), 0), S);
+    int share = (live + n_split - 1) / n_split;
+    share = (share + TILE - 1) / TILE * TILE;
+    start = z * share;
+    end = min(start + share, live);
+    const size_t off = ((static_cast<size_t>(layer) * n_kv + h) * lanes + b) * S * HD;
+    ck = ctx_k + off;
+    cv = ctx_v + off;
+    const size_t soff = (static_cast<size_t>(layer) * lanes + b) * (S / group);
+    ksc = k_scale + soff;
+    vsc = v_scale + soff;
+  }
+  // an empty share still runs to both cluster barriers below
+  const int n_tiles = start < end ? (end - start + TILE - 1) / TILE : 0;
+
+  auto issue = [&](int i) {  // one thread: tile i's K and V into stage i % kStages
+    const int t0 = start + i * TILE;
+    const uint32_t bytes = static_cast<uint32_t>(min(TILE, end - t0) * HD);
+    int8_t* dst = stage + (i % kStages) * Lay::kStageBytes;
+    uint64_t* bar = &full[i % kStages];
+    mbar_expect_tx(bar, 2 * bytes);
+    bulk_load(dst, ck + static_cast<size_t>(t0) * HD, bytes, bar);
+    bulk_load(dst + TILE * HD, cv + static_cast<size_t>(t0) * HD, bytes, bar);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (!is_ring) {
+      for (int i = 0; i < min(kStages, n_tiles); ++i) issue(i);
+    }
+    stamp(1);
+    if (trace != nullptr) {
+      unsigned sm;
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+      trace[10] = n_tiles;
+      trace[11] = sm;
+    }
+  }
+  for (int i = tid; i < kMaxG * Lay::kPStride; i += kThreads) p_s[i] = __float2bfloat16(0.f);
+  if (tid < kMaxG) alpha_s[tid] = 1.f;
+
+  // mma.m16n8k16 fragments (PTX ISA: thread = 4 * grp + quad). Keys run
+  // along M and the G <= 8 query heads along N, so a fragment's column is
+  // head hq = 2 * quad (+1) and its rows grp (+8).
+  const int grp = lane / 4;
+  const int hq = 2 * (lane % 4);
+  const int mat = lane / 8;  // the ldmatrix matrix this thread addresses
+  // q^T as the B operand of S^T = K q^T, held for the whole block: head
+  // grp, dims 16 kk + hq (+1) and + 8; heads >= G are zero columns
+  uint32_t qf[HD / 16][2];
+  const bf16* q_src = q + (static_cast<size_t>(b) * n_heads + h * G + grp) * HD;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    qf[kk][0] = grp < G ? *reinterpret_cast<const uint32_t*>(q_src + 16 * kk + hq) : 0u;
+    qf[kk][1] = grp < G ? *reinterpret_cast<const uint32_t*>(q_src + 16 * kk + hq + 8) : 0u;
+  }
+  // running max and denominator of heads warp and warp + 4 (softmax owners)
+  float m_r[2] = {-INFINITY, -INFINITY};
+  float l_r[2] = {0.f, 0.f};
+  // O^T = V^T P^T: warp w owns dims [16 kMT w, 16 kMT (w + 1))
+  constexpr int kMT = HD / 64;
+  float acc[kMT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[mt][k] = 0.f;
+  }
+
+  // the group scales of this thread's 16-byte chunks of tile i, loaded a
+  // tile ahead so that their round trip overlaps the work before it
+  float ks[Lay::kChunks], vs[Lay::kChunks];
+  auto load_scales = [&](int i, float (&k_out)[Lay::kChunks], float (&v_out)[Lay::kChunks]) {
+    const int t0 = start + i * TILE;
+    const int n = min(TILE, end - t0);
+#pragma unroll
+    for (int u = 0; u < Lay::kChunks; ++u) {
+      const int r = (tid + u * kThreads) / kPerRow;
+      k_out[u] = r < n ? ksc[(t0 + r) / group] : 0.f;
+      v_out[u] = r < n ? vsc[(t0 + r) / group] : 0.f;
+    }
+  };
+  if (!is_ring && n_tiles > 0) load_scales(0, ks, vs);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t0 = start + i * TILE;
+    const int n = min(TILE, end - t0);
+    const int8_t* st = stage + (i % kStages) * Lay::kStageBytes;
+    float ks_next[Lay::kChunks] = {}, vs_next[Lay::kChunks] = {};
+    if (!is_ring && i + 1 < n_tiles) load_scales(i + 1, ks_next, vs_next);
+    __syncthreads();  // the previous tile's P.V is done with t_s and p_s
+    if (is_ring) {
+      stage_ring<HD>(t_s, rk + static_cast<size_t>(t0) * HD, n);
+    } else {
+      mbar_wait(&full[i % kStages], (i / kStages) & 1);
+      if (i < 4) stamp(2 + i);
+      dequant_tile<HD>(t_s, st, ks, n);
+    }
+    __syncthreads();
+
+    // S^T[keys, heads] = K q^T: warp w takes keys [16 w, 16 w + 16)
+    {
+      const int m0 = 16 * warp;
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      if (m0 < n) {
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          uint32_t a[4];
+          ldsm_x4(a, t_s + (m0 + 8 * (mat & 1) + (lane & 7)) * Lay::kStride + 16 * kk +
+                         8 * (mat >> 1));
+          mma_bf16(c, a, qf[kk][0], qf[kk][1]);
+        }
+      }
+      const int j = m0 + grp;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int g = hq + (k & 1);
+        const int row = j + 8 * (k >> 1);
+        if (g < G) s_s[g * Lay::kSStride + row] = row < n ? c[k] * scale : -INFINITY;
+      }
+    }
+    __syncthreads();  // scores are in; every warp is done reading K
+
+    // online softmax, one warp per head; P rounded to bf16 as the TPU
+    // kernel rounds it, the denominator summing the unrounded values
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int g = warp + 4 * k;
+      if (g < G) {
+        const float s0 = s_s[g * Lay::kSStride + lane];
+        const float s1 = s_s[g * Lay::kSStride + lane + 32];
+        float mx = fmaxf(s0, s1);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m_r[k], mx);  // finite: the tile has a valid row
+        const float p0 = expf(s0 - m_new);
+        const float p1 = expf(s1 - m_new);
+        float sum = p0 + p1;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        const float alpha = expf(m_r[k] - m_new);
+        l_r[k] = l_r[k] * alpha + sum;
+        m_r[k] = m_new;
+        p_s[g * Lay::kPStride + lane] = __float2bfloat16(p0);
+        p_s[g * Lay::kPStride + lane + 32] = __float2bfloat16(p1);
+        if (lane == 0) alpha_s[g] = alpha;
+      }
+    }
+    if (is_ring) {
+      stage_ring<HD>(t_s, rv + static_cast<size_t>(t0) * HD, n);
+    } else {
+      dequant_tile<HD>(t_s, st + TILE * HD, vs, n);
+    }
+    __syncthreads();
+    if (!is_ring && tid == 0 && i + kStages < n_tiles) {
+      // every thread has read this stage (barrier above): refill it
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue(i + kStages);
+    }
+
+    // O^T[d, heads] = O^T * alpha + V^T P^T (V^T through ldmatrix.trans)
+    {
+      const float al0 = alpha_s[hq];
+      const float al1 = alpha_s[hq + 1];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        acc[mt][0] *= al0;
+        acc[mt][1] *= al1;
+        acc[mt][2] *= al0;
+        acc[mt][3] *= al1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk) {
+        if (16 * kk < n) {  // rows from n on carry p = 0
+          const bf16* pk = p_s + grp * Lay::kPStride + 16 * kk + hq;
+          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(pk);
+          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(pk + 8);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            uint32_t a[4];
+            ldsm_x4_trans(a, t_s + (16 * kk + 8 * (mat >> 1) + (lane & 7)) * Lay::kStride +
+                                 16 * (kMT * warp + mt) + 8 * (mat & 1));
+            mma_bf16(acc[mt], a, b0, b1);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < Lay::kChunks; ++u) {
+      ks[u] = ks_next[u];
+      vs[u] = vs_next[u];
+    }
+  }
+
+  stamp(6);
+  // this block's (m, l, acc) into the stage region: all its copies have
+  // landed and been read
+  float* m_s = reinterpret_cast<float*>(smem);
+  float* l_s = m_s + kMaxG;
+  float* acc_s = l_s + kMaxG;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int g = warp + 4 * k;
+    if (g < G && lane == 0) {
+      m_s[g] = m_r[k];
+      l_s[g] = l_r[k];
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int g = hq + (k & 1);
+      if (g < G) acc_s[g * HD + 16 * (kMT * warp + mt) + grp + 8 * (k >> 1)] = acc[mt][k];
+    }
+  }
+  cluster.sync();
+  stamp(7);
+  // the merge, its G * HD outputs spread over the cluster's blocks: each
+  // thread reads every block's m, then l and acc, through distributed
+  // shared memory (two round trips) and writes one output
+  const int NS = n_split + 1;
+  for (int idx = cluster.block_rank() * kThreads + tid; idx < G * HD; idx += NS * kThreads) {
+    const int g = idx / HD;
+    float m_z[kMaxCluster];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      m_z[r] = r < NS ? cluster.map_shared_rank(m_s, r)[g] : -INFINITY;
+      mx = fmaxf(mx, m_z[r]);
+    }
+    float l = 0.f, o = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      if (r < NS) {  // an empty share has m = -inf, l = 0, acc = 0: weight 0
+        const float w = m_z[r] == -INFINITY ? 0.f : expf(m_z[r] - mx);
+        l += cluster.map_shared_rank(l_s, r)[g] * w;
+        o += cluster.map_shared_rank(acc_s, r)[idx] * w;
+      }
+    }
+    out[(static_cast<size_t>(b) * n_heads + h * G) * HD + idx] =
+        __float2bfloat16(o / fmaxf(l, 1e-30f));
+  }
+  stamp(8);
+  cluster.sync();  // every block stays resident until its peers have read it
+  stamp(9);
+}
+
+template <int HD>
+cudaError_t launch_int8_cluster(const void* q, const void* ctx_k, const void* ctx_v,
+                                const float* k_scale, const float* v_scale, int group,
+                                const void* ring_k, const void* ring_v, const int* ctx_lens,
+                                const int* ring_base, void* out, int B, int n_heads, int n_kv,
+                                int lanes, int S, int R, int layer, int n_split, float scale,
+                                cudaStream_t stream) {
+  constexpr int kBytes = I8Layout<HD>::kBytes;
+  if (n_split < 1 || n_split + 1 > kMaxCluster) return cudaErrorInvalidValue;
+  auto* kernel = flash_decode_int8_cluster_kernel<HD>;
+  static const cudaError_t smem_set =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (smem_set != cudaSuccess) return smem_set;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = n_split + 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B, n_kv, n_split + 1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kBytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const bf16*>(q), static_cast<const int8_t*>(ctx_k),
+      static_cast<const int8_t*>(ctx_v), k_scale, v_scale, group, static_cast<const bf16*>(ring_k),
+      static_cast<const bf16*>(ring_v), ctx_lens, ring_base, static_cast<bf16*>(out), n_heads,
+      n_kv, lanes, S, R, layer, n_split, scale, int8_trace);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int HD>
+int max_active_int8_clusters(int cluster) {
+  constexpr int kBytes = I8Layout<HD>::kBytes;
+  auto* kernel = flash_decode_int8_cluster_kernel<HD>;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes) !=
+      cudaSuccess) {
+    return -1;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cluster;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, 1, cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kBytes;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) return -1;
+  return n;
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16.
@@ -408,8 +999,11 @@ extern "C" int flash_decode_launch(const void* q, const void* ctx_k, const void*
 // are int8 [L, n_kv, lanes, S, hd] with k_scale/v_scale f32 [L, lanes,
 // S / group]; q, the ring and out are in the compute dtype (0 = float32,
 // 1 = bfloat16). The caller checks the shapes, S % group == 0 and the
-// rest as for the dense mode. Supported: bf16 with hd 64 or 128; f32 with
-// hd 16, 64 or 128. Returns the cudaError_t of the launches.
+// rest as for the dense mode. Supported: bf16 with hd 64 or 128, one
+// cluster launch (n_split + 1 <= 8; part_m/part_l/part_acc unused, may be
+// null); f32 with hd 16, 64 or 128, the split and combine launches.
+// Returns the cudaError_t of the launches (a refused cluster launch or
+// shared-memory attribute included).
 extern "C" int flash_decode_int8_launch(const void* q, const void* ctx_k, const void* ctx_v,
                                         const void* k_scale, const void* v_scale,
                                         const void* ring_k, const void* ring_v,
@@ -431,14 +1025,36 @@ extern "C" int flash_decode_int8_launch(const void* q, const void* ctx_k, const 
   return static_cast<int>(launch<T, int8_t, HD>(q, ctx_k, ctx_v, ks, vs, group, ring_k,     \
                                                 ring_v, cl, rb, out, pm, pl, pa, B, n_heads, \
                                                 n_kv, lanes, S, R, layer, n_split, scale, st))
+#define FD_LAUNCH_CLUSTER(HD)                                                              \
+  return static_cast<int>(launch_int8_cluster<HD>(q, ctx_k, ctx_v, ks, vs, group, ring_k,   \
+                                                  ring_v, cl, rb, out, B, n_heads, n_kv,    \
+                                                  lanes, S, R, layer, n_split, scale, st))
   if (dtype == 1) {
-    if (hd == 128) FD_LAUNCH_I8(__nv_bfloat16, 128);
-    if (hd == 64) FD_LAUNCH_I8(__nv_bfloat16, 64);
+    if (hd == 128) FD_LAUNCH_CLUSTER(128);
+    if (hd == 64) FD_LAUNCH_CLUSTER(64);
   } else if (dtype == 0) {
     if (hd == 128) FD_LAUNCH_I8(float, 128);
     if (hd == 64) FD_LAUNCH_I8(float, 64);
     if (hd == 16) FD_LAUNCH_I8(float, 16);
   }
 #undef FD_LAUNCH_I8
+#undef FD_LAUNCH_CLUSTER
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// How many clusters of `cluster` blocks of the int8 bf16 kernel at head
+// dim hd the card holds at once (cudaOccupancyMaxActiveClusters), for
+// tools/torch_flash_decode_sweep.py; -1 on an error or another hd.
+extern "C" int flash_decode_int8_max_active_clusters(int hd, int cluster) {
+  if (hd == 128) return max_active_int8_clusters<128>(cluster);
+  if (hd == 64) return max_active_int8_clusters<64>(cluster);
+  return -1;
+}
+
+// Give the next int8 bf16 launch a timeline buffer of kTraceSlots u64 per
+// block (B * n_kv * (n_split + 1) blocks), or none (null), for
+// tools/torch_flash_decode_sweep.py. Returns kTraceSlots.
+extern "C" int flash_decode_int8_set_trace(void* buf) {
+  int8_trace = static_cast<unsigned long long*>(buf);
+  return kTraceSlots;
 }

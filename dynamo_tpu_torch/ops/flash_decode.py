@@ -16,8 +16,12 @@ kernel dequantizes each chunk in VMEM. The ring stays in q's dtype.
 
 ``flash_decode_attention`` launches the hand-written Hopper kernel in
 ``csrc/flash_decode.cu`` for CUDA tensors and runs the plain PyTorch
-version for CPU tensors. ``launches`` counts dense-mode kernel launches,
-``launches_int8`` int8-mode ones.
+version for CPU tensors. The int8 mode in bf16 is one launch whose
+splits merge in a thread-block cluster (``cluster_splits``) and rounds
+the probabilities to bf16 before P.V as the TPU kernel does; the dense
+mode and the f32 int8 mode are a split launch and a combine launch
+(``pick_splits``) over f32 scratch. ``launches`` counts dense-mode calls
+that launched, ``launches_int8`` int8-mode ones.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (16, 64, 128)}
 _MAX_G = 8
 _SM_TARGET = 4 * 132  # split blocks to aim for: four per H100 SM
+MAX_CLUSTER = 8  # portable thread-block cluster size (csrc kMaxCluster)
 
 
 def flash_decode_attention_plain(
@@ -51,10 +56,16 @@ def flash_decode_attention_plain(
     ring_base: torch.Tensor,  # [B] int32, position of ring slot 0
     ctx_k_scale: Optional[torch.Tensor] = None,  # f32 [L, B(+1), S//group]
     ctx_v_scale: Optional[torch.Tensor] = None,  # (int8 ctx_k/ctx_v)
+    p_round: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version: a copy of the JAX package's
     ``flash_decode_attention_reference``. With scales, the int8 ctx is
-    dequantized in f32 and rounded to q's dtype first."""
+    dequantized in f32 and rounded to q's dtype first. The reference
+    rounds the normalized probabilities to V's dtype before P.V. With
+    ``p_round``, the probabilities are rounded as the TPU kernel rounds
+    them (dynamo_tpu/ops/flash_decode.py:154-161, over one chunk):
+    exp(s - max) rounded to ``p_round`` before P.V, the f32 sum of the
+    unrounded ones dividing after it."""
     B, n_heads, hd = q.shape
     S = ctx_k.shape[3]
     R = ring_k.shape[3]
@@ -81,9 +92,15 @@ def flash_decode_attention_plain(
     ring_ok = ring_pos < ctx_lens[:, None]
     mask = torch.cat([ctx_ok, ring_ok], dim=1)          # [B, S+R]
     scores = torch.where(mask[:, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum(
-        "bns,nbsh->bnh", probs.to(v.dtype).float(), v.float())
+    if p_round is None:
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum(
+            "bns,nbsh->bnh", probs.to(v.dtype).float(), v.float())
+    else:
+        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        out = torch.einsum(
+            "bns,nbsh->bnh", e.to(p_round).float(), v.float()
+        ) / e.sum(dim=-1, keepdim=True)
     return out.to(q.dtype)
 
 
@@ -92,6 +109,40 @@ def pick_splits(batch: int, kv_heads: int, S: int, tile: int) -> int:
     several times over, never more splits than tiles in the region."""
     want = -(-_SM_TARGET // max(1, batch * kv_heads))
     return max(1, min(want, -(-S // tile)))
+
+
+def cluster_splits(batch: int, kv_heads: int, S: int, tile: int,
+                   resident: Optional[dict] = None) -> int:
+    """Context splits per (slot, KV head) for the int8 bf16 kernel, whose
+    splits and ring block form one thread-block cluster: ``pick_splits``
+    capped so that splits + 1 stays within the portable cluster size.
+    Given ``resident`` (cluster size -> clusters the card holds at once),
+    the splits drop until all batch * kv_heads clusters fit at once: a
+    cluster left for a second wave doubles the call."""
+    n = min(pick_splits(batch, kv_heads, S, tile), MAX_CLUSTER - 1)
+    while resident and n > 1 and resident.get(n + 1, 0) < batch * kv_heads:
+        n -= 1
+    return n
+
+
+_resident: dict = {}  # (device, head_dim) -> {cluster size: clusters held}
+
+
+def _cluster_residency(lib, device: torch.device, hd: int) -> dict:
+    """How many clusters of each size of the int8 bf16 kernel the card
+    holds at once (cudaOccupancyMaxActiveClusters), asked once."""
+    key = (device.index, hd)
+    if key not in _resident:
+        fn = lib.flash_decode_int8_max_active_clusters
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(device):
+            got = {n: fn(hd, n) for n in range(2, MAX_CLUSTER + 1)}
+        if min(got.values()) < 0:
+            raise RuntimeError(
+                "flash_decode: the card's cluster occupancy query failed")
+        _resident[key] = got
+    return _resident[key]
 
 
 def _check(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base,
@@ -166,12 +217,18 @@ def _launch(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base,
     _, nkv, lanes, S, _ = ctx_k.shape
     R = ring_k.shape[3]
     G = n_heads // nkv
-    n_split = pick_splits(B, nkv, S, _TILE_ROWS[q.dtype])
     out = torch.empty_like(q)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_m = torch.empty(B, nkv, n_split + 1, G, **f32)
-    part_l = torch.empty(B, nkv, n_split + 1, G, **f32)
-    part_acc = torch.empty(B, nkv, n_split + 1, G, hd, **f32)
+    if quant and q.dtype == torch.bfloat16:
+        # one launch: the splits merge in a thread-block cluster, no scratch
+        n_split = cluster_splits(B, nkv, S, _TILE_ROWS[q.dtype],
+                                 _cluster_residency(lib, q.device, hd))
+        scratch = []
+    else:
+        n_split = pick_splits(B, nkv, S, _TILE_ROWS[q.dtype])
+        f32 = dict(dtype=torch.float32, device=q.device)
+        scratch = [torch.empty(B, nkv, n_split + 1, G, *extra, **f32)
+                   for extra in ((), (), (hd,))]  # partial m, l, acc
+    parts = [t.data_ptr() for t in scratch] or [None] * 3
     kv = [ctx_k.data_ptr(), ctx_v.data_ptr()]
     if quant:
         kv += [ctx_k_scale.data_ptr(), ctx_v_scale.data_ptr()]
@@ -179,8 +236,7 @@ def _launch(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base,
             int(layer), n_split] + ([group] if quant else [])
     err = fn(
         q.data_ptr(), *kv, ring_k.data_ptr(), ring_v.data_ptr(),
-        ctx_lens.data_ptr(), ring_base.data_ptr(), out.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+        ctx_lens.data_ptr(), ring_base.data_ptr(), out.data_ptr(), *parts,
         *dims, 1.0 / hd ** 0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -99,6 +99,28 @@ def test_pick_splits_fills_the_card():
     assert tfd.pick_splits(64, 64, 4096, 64) == 1
 
 
+def test_cluster_splits_fit_one_cluster():
+    """The int8 bf16 kernel's context splits and its ring block form one
+    thread-block cluster of at most 8 blocks."""
+    assert tfd.MAX_CLUSTER == 8
+    assert tfd.cluster_splits(8, 8, 4096, 64) == 7   # Llama-3.1-8B serve
+    assert tfd.cluster_splits(1, 1, 128, 64) == 2    # capped at the tile count
+    assert tfd.cluster_splits(1, 1, 64, 64) == 1
+    assert tfd.cluster_splits(64, 64, 4096, 64) == 1
+    for batch, kvh, s in [(1, 1, 4096), (2, 8, 4096), (4, 2, 640), (32, 8, 64)]:
+        n = tfd.cluster_splits(batch, kvh, s, 64)
+        assert 1 <= n <= min(tfd.MAX_CLUSTER - 1, -(-s // 64))
+    # given how many clusters of each size the card holds at once (here
+    # as an H100 reports it for the hd-128 kernel), the largest cluster
+    # whose B * n_kv copies all fit in one wave
+    held = {8: 62, 7: 69, 6: 79, 5: 94, 4: 124, 3: 170, 2: 264}
+    assert tfd.cluster_splits(8, 8, 4096, 64, held) == 6
+    assert tfd.cluster_splits(8, 8, 4096, 64, {n: 107 for n in held}) == 7
+    assert tfd.cluster_splits(4, 8, 4096, 64, held) == 7   # 32 clusters fit
+    assert tfd.cluster_splits(1, 1, 128, 64, held) == 2    # tile count first
+    assert tfd.cluster_splits(64, 8, 4096, 64, held) == 1  # 512 never fit
+
+
 def _prefill_inputs(T, Sc, seed=0):
     rng = np.random.RandomState(seed)
     return (
@@ -179,6 +201,57 @@ def test_plain_int8_flash_decode_matches_jax(decode_data, group, bases):
         assert tfd.launches_int8 == before
         np.testing.assert_allclose(got, want_ref, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(got, want_kernel, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("bases", [
+    [1, 15, 31, 60],    # mid-round, ctx and ring chunks
+    [63, 62, 40, 2],    # region nearly full beside a short context
+    [0, 0, 0, 0],       # ring only: one chunk holds the context
+])
+def test_plain_int8_flash_decode_bf16_matches_jax(bases):
+    """Int8 mode in bf16 with group 64 at head_dim 64, as the card serves
+    it. The plain port equals the jnp reference bit for bit (both round
+    the normalized probabilities to bf16). With p_round=bfloat16 it
+    rounds P as the Pallas kernel (interpret mode) and the card's int8
+    kernel do, exp(s - max) before P.V: exactly the Pallas output where
+    one chunk holds the context, and otherwise within one bf16 step of
+    the output (rtol 2**-7) plus 2**-9, the most that moving one
+    probability's rounding point (the kernel's running max over its two
+    chunks) can shift an output near zero."""
+    nl, nkv, nh, hd, b, s, r, group = 3, 2, 4, 64, 4, 64, 4, 64
+    rng = np.random.RandomState(1)
+    q, ck, cv, rk, rv = [(rng.randn(*shape) * 0.3).astype(np.float32)
+                         for shape in ((b, nh, hd), (nl, nkv, b + 1, s, hd),
+                                       (nl, nkv, b + 1, s, hd),
+                                       (nl, nkv, b, r, hd), (nl, nkv, b, r, hd))]
+    ck_q, ks = _quantize_ctx(ck, group)
+    cv_q, vs = _quantize_ctx(cv, group)
+    base = np.asarray(bases, np.int32)
+    ctx = base + 2
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, rk, rv)]
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, rk, rv)]
+    for layer in (0, nl - 1):
+        j_args = (jb[0], jnp.asarray(ck_q), jnp.asarray(cv_q), jb[1], jb[2],
+                  jnp.int32(layer), jnp.asarray(ctx), jnp.asarray(base))
+        j_scales = dict(ctx_k_scale=jnp.asarray(ks), ctx_v_scale=jnp.asarray(vs))
+        want_ref = np.asarray(jfd.flash_decode_attention_reference(
+            *j_args, **j_scales).astype(jnp.float32))
+        want_kernel = np.asarray(jfd.flash_decode_attention(
+            *j_args, chunk=group, interpret=True,
+            **j_scales).astype(jnp.float32))
+        t_args = (tb[0], torch.from_numpy(ck_q), torch.from_numpy(cv_q),
+                  tb[1], tb[2], layer, torch.from_numpy(ctx),
+                  torch.from_numpy(base), torch.from_numpy(ks),
+                  torch.from_numpy(vs))
+        got = tfd.flash_decode_attention(*t_args)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), want_ref)
+        got_p = tfd.flash_decode_attention_plain(
+            *t_args, p_round=torch.bfloat16).float().numpy()
+        if not base.any():
+            np.testing.assert_array_equal(got_p, want_kernel)
+        np.testing.assert_allclose(got_p, want_kernel, rtol=2**-7,
+                                   atol=2**-9)
 
 
 @pytest.mark.parametrize("T,q_start,seq_len", [
