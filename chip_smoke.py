@@ -12,13 +12,14 @@ Phases, each printing a line (any failure raises and exits non-zero):
      the shapes serving gives it (Llama-3.1-8B and Llama-3.2-1B decode
      shapes, several context/ring patterns; the plain version runs in f32
      on the same inputs, rounding P to bf16 before P.V where the kernel
-     does (the int8 bf16 kernel, as the TPU kernel), and per element
+     does (the bf16 kernels, as the TPU kernel), and per element
      |kernel - plain| <= atol + rtol * |plain|; controls that must fail
-     the check: a dropped row, and in int8 mode K scales off by 5%), with
-     the kernel's, the plain version's and one library call's times and
-     the kernel's least time (its byte or operation bound); the int8
-     check also times the dense kernel over the same K/V before
-     quantization, in the same call;
+     the check: a dropped row, and K scales off by 5% in int8 mode, V rows
+     off by 5% in dense mode), with the kernel's, the plain version's and
+     one library call's times and the kernel's least time (its byte or
+     operation bound); each mode's check also times the other mode's
+     kernel over the same K/V in the same call (dense over the region
+     before quantization, int8 over it quantized);
   4. tiny: TorchEngine on ModelConfig.tiny (f32) on the card must be
      greedy token-identical to the same engine on the CPU (which the CPU
      tests hold against the JAX TpuEngine); with int8 KV too, where a
@@ -54,20 +55,19 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12        # dense tensor-core bf16
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 # kernel vs plain, per element: |got - want| <= atol + rtol * |want|; the
-# plain version runs in f32 on the same inputs, so in bf16 the two differ
-# by the final rounding (at most one bf16 step, 2**-7 of |want|)
-BF16_TOL = (1e-4, 1e-2)
+# plain version runs in f32 on the same inputs, so in f32 the two differ
+# by the order of the sums
 F32_TOL = (1e-5, 1e-4)
-# where kernel and plain both round P to bf16 before P.V as the TPU
-# kernel does (the int8 bf16 kernel; plain_f32 with p_round): a split
-# rounds exp(s - m_split) and its cluster merge rescales by
-# exp(m_split - m) in f32, where the plain version rounds exp(s - m).
-# Each probability's rounding then differs by up to one bf16 step, and
-# what that does to an output is absolute (set by the V rows it
-# averages, ~2**-9 of their weighted |v|), not relative to the output:
-# hence the larger atol. A context that one block holds (ring only)
-# rounds exactly as the plain version. A dropped row and K scales off
-# by 5% still fail it.
+# bf16: kernel and plain both round P to bf16 before P.V as the TPU
+# kernel does (plain_f32 with p_round), and the output to bf16 (one bf16
+# step, 2**-7 of |want|). A split rounds exp(s - m_split) and its cluster
+# merge rescales by exp(m_split - m) in f32, where the plain version
+# rounds exp(s - m). Each probability's rounding then differs by up to
+# one bf16 step, and what that does to an output is absolute (set by the
+# V rows it averages, ~2**-9 of their weighted |v|), not relative to the
+# output: hence the atol. A context that one block holds (ring only)
+# rounds exactly as the plain version. A dropped row, K scales off by 5%
+# (int8) and V rows off by 5% (dense) still fail it.
 BF16_P_TOL = (5e-4, 1e-2)
 SEED = 0
 # a greedy token of the int8 engine may differ between devices only where
@@ -198,10 +198,10 @@ def plain_f32(fd, q, ck, cv, rk, rv, layer, ctx, base, ksc=None, vsc=None,
     as above) computed in f32, in q's dtype. With ``p_round`` the
     unnormalized probabilities exp(s - max) are rounded to it before P.V,
     as the TPU kernel rounds them (dynamo_tpu/ops/flash_decode.py:159);
-    without, they stay in f32. The dense kernel and the f32 kernels keep
-    P in f32, the int8 bf16 kernel rounds it to bf16. At a 3-row context
-    whose terms cancel, that rounding alone moves an output by ~2e-3, so
-    each kernel is held against the plain version with its own rounding."""
+    without, they stay in f32. The f32 kernels keep P in f32, the bf16
+    kernels of both modes round it to bf16. At a 3-row context whose
+    terms cancel, that rounding alone moves an output by ~2e-3, so each
+    kernel is held against the plain version with its own rounding."""
     f = [t.float() for t in (dense_layer(ck, ksc, layer, q.dtype),
                              dense_layer(cv, vsc, layer, q.dtype),
                              rk[layer:layer + 1], rv[layer:layer + 1])]
@@ -234,15 +234,17 @@ def sdpa_call(q, ck, cv, rk, rv, layer, ctx, base):
 def check_flash_decode(serve_lens, quant):
     """The kernel in dense mode, or in int8 mode with ``quant`` (inputs
     quantized with per-(layer, lane, group) absmax scales), against its
-    plain version; returns the kernels-line figures at the 8B shape."""
+    plain version; returns the kernels-line figures at the 8B shape. At
+    the bf16 serve shapes it also times the other mode's kernel over the
+    same K/V in the same call."""
     from dynamo_tpu_torch.ops import flash_decode as fd
 
     name = "flash_decode_int8" if quant else "flash_decode"
     cases = [  # (label, dtype, L, nkv, nh, hd, B, S, R, int8 group, tol)
         ("llama3_8b", torch.bfloat16, 32, 8, 32, 128, 8, 4096, 4, 64,
-         BF16_TOL),
+         BF16_P_TOL),
         ("llama3_1b", torch.bfloat16, 16, 8, 32, 64, 8, 4096, 4, 64,
-         BF16_TOL),
+         BF16_P_TOL),
         # f32: a ring of 40 rows spans two of the kernel's 32-row f32
         # tiles; the tiny engine's int8 group (page size 16)
         ("llama3_8b_f32", torch.float32, 2, 8, 32, 128, 8, 4096, 40, 16,
@@ -257,11 +259,9 @@ def check_flash_decode(serve_lens, quant):
             dense_kv = (ck, cv)  # the region before quantization
             ck, ksc = quantize_groups(ck, group)
             cv, vsc = quantize_groups(cv, group)
-        # the int8 bf16 kernel rounds P to bf16 before P.V, as the TPU
-        # kernel does, and so does its plain version here (BF16_P_TOL)
-        p_round = None
-        if quant and dtype == torch.bfloat16:
-            p_round, tol = torch.bfloat16, BF16_P_TOL
+        # the bf16 kernels round P to bf16 before P.V, as the TPU kernel
+        # does, and so does their plain version here
+        p_round = torch.bfloat16 if dtype == torch.bfloat16 else None
         what = f"{name} {label}" + (f" (group {group})" if quant else "")
         for pname, (ctx_l, base_l) in decode_patterns(S, R, serve_lens).items():
             ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
@@ -284,13 +284,19 @@ def check_flash_decode(serve_lens, quant):
                 if pname != "serve":
                     continue
                 # the check must see one dropped row (the plain output
-                # without each slot's current token) and K scales 5% off
+                # without each slot's current token), and K scales (int8)
+                # or ctx V rows (dense) 5% off
                 controls = {"a dropped row": plain_f32(
                     fd, *args, layer, ctx - 1, base, ksc, vsc, p_round)}
                 if quant:
                     controls["K scales x1.05"] = plain_f32(
                         fd, *args, layer, ctx, base, ksc * 1.05, vsc,
                         p_round)
+                else:
+                    one = [t[layer:layer + 1] for t in (ck, cv, rk, rv)]
+                    one[1] = one[1] * 1.05
+                    controls["V rows x1.05"] = plain_f32(
+                        fd, q, *one, 0, ctx, base, p_round=p_round)
                 for bad, out in controls.items():
                     if tol_excess(out, want, tol) <= 1.0:
                         raise AssertionError(
@@ -306,14 +312,20 @@ def check_flash_decode(serve_lens, quant):
                 continue
             ms = cuda_time_ms(lambda i: fd.flash_decode_attention(
                 *args, i % L, ctx, base, ksc, vsc), iters=100)
-            dense_note = ""
+            # the other mode in the same call, over the same K/V: dense
+            # over the region before quantization, int8 over it quantized
             if quant:
-                # the old design in the same call: the dense kernel
-                # (unchanged) over the same K/V before quantization
-                dense_ms = cuda_time_ms(lambda i: fd.flash_decode_attention(
-                    q, *dense_kv, rk, rv, i % L, ctx, base), iters=100)
-                dense_note = (f", dense kernel over the bf16 K/V {dense_ms:.4f}"
-                              f" ms, int8/dense {ms / dense_ms:.3f}")
+                other, o_args, o_sc = "dense", (q, *dense_kv, rk, rv), ()
+            else:
+                (kq, ks8), (vq, vs8) = (quantize_groups(ck, group),
+                                        quantize_groups(cv, group))
+                other, o_args, o_sc = "int8", (q, kq, vq, rk, rv), (ks8, vs8)
+            other_ms = cuda_time_ms(lambda i: fd.flash_decode_attention(
+                *o_args, i % L, ctx, base, *o_sc), iters=100)
+            other_note = (f", {other} kernel over the same K/V "
+                          f"{other_ms:.4f} ms, {name}/{other} "
+                          f"{ms / other_ms:.3f}")
+            del o_args, o_sc
             plain_ms = cuda_time_ms(lambda i: fd.flash_decode_attention_plain(
                 *args, i % L, ctx, base, ksc, vsc), iters=5, warmup=1)
             # yardstick: one SDPA call; in int8 mode over the ALREADY
@@ -330,7 +342,7 @@ def check_flash_decode(serve_lens, quant):
                 f"{plain_ms:.4f} ms, sdpa"
                 + (" over the dequantized bf16 K/V" if quant else "")
                 + f" {library_ms:.4f} ms, {bound_by} bound {bound_ms:.4f} ms"
-                + dense_note + ")")
+                + other_note + ")")
             if label == "llama3_8b":
                 report = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=library_ms)

@@ -30,13 +30,12 @@
 // so ~0.0036 ms against the dense kernel's 0.0072 ms.
 //
 // Which path runs which design:
-//   * int8 mode in bf16 (hd 64, 128), what kv_quant="int8" serves:
-//     flash_decode_int8_cluster_kernel, one launch (below, "Int8 mode in
-//     bf16, one launch");
-//   * the dense mode (bf16 hd 64/128, f32 hd 16/64/128) and the int8 mode
-//     in f32 (hd 16/64/128, the tiny model): flash_decode_split_kernel and
-//     flash_decode_combine_kernel, two launches (the split-K design that
-//     follows).
+//   * bf16 (hd 64, 128), both modes, what kv_quant="none" and "int8"
+//     serve: flash_decode_cluster_kernel<KV, HD> (KV = bf16 or int8_t),
+//     one launch (below, "Bf16, one launch");
+//   * f32 (hd 16/64/128, the tiny model and the f32 card check), both
+//     modes: flash_decode_split_kernel and flash_decode_combine_kernel, two
+//     launches (the split-K design that follows).
 //
 // Design. A TPU runs its grid in order on one core, so the Pallas kernel
 // walks a slot's chunks sequentially and carries (m, l, acc) in VMEM. On
@@ -72,15 +71,18 @@
 //     does it once per element, not once per query head.
 // That design stages with one synchronous 16-byte load per thread, takes
 // its products as scalar FMAs out of shared memory and merges in a second
-// launch. On an NVIDIA H100 80GB HBM3 at a 700 W power limit it took
-// 0.0371 ms (dense) and 0.0398 ms (int8) per call at the Llama-3.1-8B
-// serve shape, 5.1x and 10.9x their byte bounds; the combine launch was
-// a third of the int8 mode's device time (PERF.md).
+// launch. On an NVIDIA H100 80GB HBM3 at a 700 W power limit its bf16
+// instantiations took 0.0379 ms (dense) and 0.0398 ms (int8) per call at
+// the Llama-3.1-8B serve shape, 5.3x and 10.9x their byte bounds; the
+// combine launch was a third of each mode's device time (PERF.md). Only
+// the f32 instantiations remain.
 //
-// Int8 mode in bf16, one launch. Same split of the work and the same
-// semantics as above, plus P = exp(s - m) rounded to bf16 before P.V and
-// the denominator summing the unrounded values, as the TPU kernel rounds
-// them (flash_decode.py:154-161). What each part addresses:
+// Bf16, one launch. Same split of the work and the same semantics as
+// above, plus P = exp(s - m) rounded to bf16 before P.V and the
+// denominator summing the unrounded values, as the TPU kernel rounds them
+// (flash_decode.py:154-161). One template serves both modes; they differ
+// only in how a landed tile reaches the padded bf16 layout the products
+// read. What each part addresses:
 //   * The merge, in a thread-block cluster. The n_split + 1 <= 8 blocks of
 //     one (slot, KV head) form a cluster. Each keeps its (m, l, acc) in
 //     its own shared memory; after a cluster barrier, the cluster's blocks
@@ -89,41 +91,63 @@
 //     write out, and a second barrier keeps every block resident until its
 //     peers have read it. This removes the combine launch and the f32
 //     scratch in device memory. A block with an empty share still reaches
-//     both barriers (m = -inf, l = 0). The wrapper takes the largest
-//     cluster (<= 8) of which the card holds all B * n_kv at once
-//     (cudaOccupancyMaxActiveClusters): a cluster left for a second wave
-//     doubles the call. At the Llama-3.1-8B serve shape the H100 holds 62
-//     clusters of 8 of this 53.5 KB block and 69 of 7, so 6 context splits
-//     and the ring block (448 blocks); at Llama-3.2-1B, 8.
-//   * Bulk asynchronous copies. A 64-row int8 tile of one (layer, KV head,
-//     lane) is one contiguous run (8 KB at hd 128), so one thread asks for
-//     a tile's K and V with two cp.async.bulk copies into one of 2 stages,
-//     completed in bytes on an mbarrier; a stage is refilled as soon as
-//     both its tiles are dequantized, so a block's share of 1-3 tiles at
-//     the serve shape is in flight before its first products. A tail tile
-//     copies only its live rows; the rows past them are dequantized as
-//     zero, whatever stale bytes or scales they hold (p = 0 times a
-//     non-finite V would be NaN). Scales come with plain loads, a tile
-//     ahead, so their round trip overlaps the work before the tile.
+//     both barriers (m = -inf, l = 0). The wrapper asks the card, once per
+//     mode and head dim (the modes' blocks differ in shared memory), how
+//     many clusters of each size it holds at once
+//     (cudaOccupancyMaxActiveClusters) and takes the largest cluster
+//     (<= 8) of which all B * n_kv fit: a cluster left for a second wave
+//     doubles the call.
+//   * Asynchronous copies into 2 stages of K+V tiles (64 rows), completed
+//     on an mbarrier a stage, so a block's share of 1-4 tiles at the serve
+//     shape is in flight before its first products. A tail tile copies
+//     only its live rows.
 //   * Tensor-core products, mma.sync.m16n8k16 (bf16 in, f32 accumulate),
 //     keys on M and the G <= 8 query heads on N = 8: S^T = K q^T with q's
 //     fragments in registers for the whole block, O^T = V^T P^T with V^T
 //     read by ldmatrix.trans and P written to shared memory as bf16 in
-//     between. A landed int8 tile is dequantized once into a padded bf16
-//     tile (its 16-byte pad keeps ldmatrix conflict-free; a bulk copy
-//     cannot pad, and fragments read straight from the 128-byte int8 rows
-//     would conflict 8 ways), K first, then V into the same tile once the
-//     QK products have read it. wgmma is not needed: the work is byte-
-//     bound and N is 8.
+//     between. ldmatrix reads rows padded by 16 bytes (conflict-free).
+//     wgmma is not needed: the work is byte-bound and N is 8.
+//   * Int8: a 64-row int8 tile of one (layer, KV head, lane) is one
+//     contiguous run (8 KB at hd 128), so one thread asks for its K and V
+//     with two copies. A bulk copy cannot pad, and fragments read straight
+//     from the 128-byte int8 rows would conflict 8 ways, so each landed
+//     tile is dequantized once into one padded bf16 tile, K first, then V
+//     over it once the QK products have read it; the rows past a tail's
+//     live ones dequantize as zero whatever stale bytes or scales they
+//     hold (p = 0 times a non-finite V would be NaN). Scales come with
+//     plain loads, a tile ahead. The ring (bf16) is staged with plain
+//     16-byte loads. Four block barriers a tile.
+//   * Dense: a bf16 tile needs no conversion, so it lands at the padded
+//     row stride ((hd + 8) * 2 bytes: 272 at hd 128, 144 at hd 64) and
+//     ldmatrix reads K and V in the stage itself: no shared-to-shared
+//     pass, and V has its own tile. A bulk copy a row was tried first: a
+//     tile is 128 copies, and issuing a block's first two tiles took 8 us
+//     (an SM's copy engine spends ~10 ns a copy). So every thread issues
+//     16-byte cp.async copies instead (16 a tile at hd 128) and arrives on
+//     the stage's mbarrier once they land; rows from a tail's live ones to
+//     the next 16-row boundary, which P.V reads, are zero-filled by the
+//     same copies (src-size 0), whatever the stage held before (p = 0
+//     times a NaN would be NaN). The ring block copies its rows the same
+//     way. A stage is refilled once every warp is past the P.V that read
+//     it, which the QK barrier of the next tile shows: two block barriers
+//     a tile. 71.3 KB a block at hd 128, 3 blocks an SM.
 // Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit
-// (chip_smoke.py, tools/torch_flash_decode_sweep.py, PERF.md): 0.0216 ms
-// per call at the Llama-3.1-8B serve shape (the dense kernel 0.0380 ms in
-// the same call, SDPA over the dequantized K/V 0.0221 ms, byte bound
-// 0.0036 ms), 0.0153 ms at Llama-3.2-1B (SDPA 0.0184 ms). Bytes do not
-// bind it: the sweep's own timeline shows a block bound by its per-tile
-// chain (dequantize K, QK, softmax, dequantize V, P.V, four barriers,
-// ~3 us a 64-row tile at hd 128 with ~3.4 blocks an SM), after a fixed
-// ~8 us of launch, the ctx_lens read, the first copy and the merge.
+// (chip_smoke.py, tools/torch_flash_decode_sweep.py, PERF.md), at the
+// Llama-3.1-8B serve shape:
+//   * dense: 0.0173 ms per call (SDPA 0.0222 ms, byte bound 0.0072 ms),
+//     0.0131 ms at Llama-3.2-1B (SDPA 0.0187 ms). The card holds 69
+//     clusters of 5 of its block at hd 128 and 62 of 6, so 4 context
+//     splits and the ring block; 8 at hd 64. A block's later tiles land
+//     ~1.4 us apart, after a fixed ~6 us of launch, cluster barriers and
+//     merge.
+//   * int8: 0.0216 ms per call (SDPA over the dequantized K/V 0.0221 ms,
+//     byte bound 0.0036 ms), 0.0153 ms at Llama-3.2-1B (SDPA 0.0184 ms);
+//     the H100 holds 62 clusters of 8 of its 53.5 KB block and 69 of 7 at
+//     hd 128, so 6 context splits and the ring block. Bytes do not bind
+//     it: the sweep's own timeline shows a block bound by its per-tile
+//     chain (~3 us a 64-row tile at hd 128 with ~3.4 blocks an SM), after
+//     a fixed ~8 us of launch, the ctx_lens read, the first copy and the
+//     merge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -141,16 +165,11 @@ constexpr int kMaxG = 8;        // query heads per KV head
 constexpr int kMaxCluster = 8;  // portable thread-block cluster size
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void from_f(float v, float* o) { *o = v; }
-__device__ __forceinline__ void from_f(float v, __nv_bfloat16* o) { *o = __float2bfloat16(v); }
 
-template <typename T>
-struct Tile {
-  // 64 rows of bf16 or 32 rows of f32 keep the static shared memory of the
-  // largest instantiation (hd 128, G 8) under 48 KB
-  static constexpr int kRows = sizeof(T) == 2 ? 64 : 32;
-};
+// rows per tile of the split kernel (f32): 32 keep the static shared
+// memory of the largest instantiation (hd 128, G 8) under 48 KB
+constexpr int kSplitTile = 32;
 
 // Stage rows [0, n_valid) of a [rows, HD] slab into shared memory (row
 // stride `stride` elements) and zero the rest, so that masked rows never
@@ -216,7 +235,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ ctx_k,
                           float* __restrict__ part_acc, int B, int n_heads, int n_kv,
                           int lanes, int S, int R, int layer, int n_split, float scale) {
   constexpr bool kQuant = !std::is_same<T, KV>::value;
-  constexpr int TILE = Tile<T>::kRows;
+  constexpr int TILE = kSplitTile;
   constexpr int kVec = 16 / sizeof(T);
   constexpr int KSTRIDE = HD + kVec;  // 16 B pad: conflict-free row reads
   constexpr int GP = kThreads / HD;   // query-head groups in the PV phase
@@ -430,7 +449,7 @@ cudaError_t launch(const void* q, const void* ctx_k, const void* ctx_v, const fl
 }
 
 // ---------------------------------------------------------------------------
-// Int8 mode in bf16, one launch (hd 64 and 128).
+// Bf16, one launch, both modes (hd 64 and 128).
 
 using bf16 = __nv_bfloat16;
 
@@ -475,6 +494,21 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// Asynchronous 16-byte copy from global to shared memory that writes
+// `src_bytes` (16 or 0) of the source and zeros for the rest.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// One arrival on the mbarrier once all of this thread's earlier cp.async
+// copies have landed (the barrier's count includes it: .noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
 // Four 8x8 bf16 matrices from shared memory, one row address per thread
 // (threads 8i..8i+7 give matrix i's rows); .trans delivers them transposed.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
@@ -501,32 +535,42 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int HD>
-struct I8Layout {
+// Shared memory of the cluster kernel, keyed on the ctx storage type KV.
+// A stage holds one tile's K rows, then its V rows. Int8 rows land as they
+// lie in device memory (one bulk copy each for K and V; a bulk copy cannot
+// pad) and are dequantized into the one padded bf16 tile at kOffTile. Bf16
+// rows land by 16-byte async copies at the padded stride, so ldmatrix
+// reads K and V in the stage itself and there is no padded tile.
+template <typename KV, int HD>
+struct Layout {
+  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   static constexpr int kTile = 64;                  // rows per tile
-  static constexpr int kStages = 2;                 // int8 K+V tiles in flight
-  static constexpr int kStride = HD + 8;            // bf16 tile row: 16 B pad
+  static constexpr int kStages = 2;                 // K+V tiles in flight
+  static constexpr int kStride = HD + 8;            // padded bf16 row: 16 B pad
   static constexpr int kSStride = kTile + 4;        // f32 score row
   static constexpr int kPStride = kTile + 8;        // bf16 probability row
-  static constexpr int kStageBytes = 2 * kTile * HD;
-  static constexpr int kChunks = kTile * HD / 16 / kThreads;  // 16 B per thread
+  static constexpr int kKVBytes = kQuant ? kTile * HD : kTile * kStride * 2;  // K or V
+  static constexpr int kStageBytes = 2 * kKVBytes;
+  static constexpr int kChunks = kTile * HD / 16 / kThreads;  // int8: 16 B per thread
   // byte offsets into dynamic shared memory; after the tile loop the stage
   // region holds this block's (m, l, acc) for the cluster merge
   static constexpr int kOffTile = kStages * kStageBytes;
-  static constexpr int kOffS = kOffTile + kTile * kStride * 2;
+  static constexpr int kOffS = kOffTile + (kQuant ? kTile * kStride * 2 : 0);
   static constexpr int kOffP = kOffS + kMaxG * kSStride * 4;
   static constexpr int kOffAlpha = kOffP + kMaxG * kPStride * 2;
   static constexpr int kOffBar = kOffAlpha + kMaxG * 4;
   static constexpr int kBytes = kOffBar + kStages * 8;
   static_assert(kStages * kStageBytes >= (2 + HD) * kMaxG * 4, "merge state fits the stages");
+  static_assert((kStride * 2) % 16 == 0 && kOffTile % 16 == 0 && kOffBar % 8 == 0,
+                "async copies and ldmatrix need 16-byte rows, mbarriers 8 bytes");
 };
 
-// Diagnostic timeline of the int8 bf16 kernel
+// Diagnostic timeline of the bf16 cluster kernel
 // (tools/torch_flash_decode_sweep.py): given a buffer, thread 0 of each
 // block stamps %globaltimer at its phases into kTraceSlots words; serving
 // passes none.
 constexpr int kTraceSlots = 12;
-unsigned long long* int8_trace = nullptr;  // host side, set for one launch
+unsigned long long* cluster_trace = nullptr;  // host side, set for one launch
 
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
@@ -541,8 +585,9 @@ __device__ __forceinline__ unsigned long long global_ns() {
 // scales hold (p = 0 times a non-finite V would be NaN).
 template <int HD>
 __device__ __forceinline__ void dequant_tile(bf16* dst, const int8_t* src,
-                                             const float (&sc)[I8Layout<HD>::kChunks], int n) {
-  using Lay = I8Layout<HD>;
+                                             const float (&sc)[Layout<int8_t, HD>::kChunks],
+                                             int n) {
+  using Lay = Layout<int8_t, HD>;
   constexpr int kPerRow = HD / 16;
 #pragma unroll
   for (int u = 0; u < Lay::kChunks; ++u) {
@@ -575,7 +620,7 @@ __device__ __forceinline__ void dequant_tile(bf16* dst, const int8_t* src,
 // rest zeroed.
 template <int HD>
 __device__ __forceinline__ void stage_ring(bf16* dst, const bf16* src, int n) {
-  using Lay = I8Layout<HD>;
+  using Lay = Layout<int8_t, HD>;
   constexpr int kPerRow = HD / 8;
   for (int c = threadIdx.x; c < Lay::kTile * kPerRow; c += kThreads) {
     const int r = c / kPerRow;
@@ -586,31 +631,32 @@ __device__ __forceinline__ void stage_ring(bf16* dst, const bf16* src, int n) {
   }
 }
 
-// The int8 mode in bf16 as one launch. Grid (B, n_kv, n_split + 1); the
+// Both modes in bf16 as one launch. Grid (B, n_kv, n_split + 1); the
 // n_split + 1 blocks of one (slot, KV head) form one thread-block cluster.
-// Block z < n_split streams its share of the live int8 context through
-// bulk async copies (2 stages of K+V tiles), block z = n_split the bf16
-// ring; each keeps its (m, l, acc) in shared memory and cluster rank 0
-// merges them through distributed shared memory and writes out.
-template <int HD>
+// Block z < n_split streams its share of the live context through async
+// copies into 2 stages of K+V tiles, block z = n_split the ring (in dense
+// mode by the same copies; in int8 mode, whose ring is bf16 and its
+// stages int8, with plain loads). Each keeps its (m, l, acc) in shared
+// memory; the cluster's blocks merge them through distributed shared
+// memory and write out.
+template <typename KV, int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_int8_cluster_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ ctx_k,
-                                 const int8_t* __restrict__ ctx_v,
-                                 const float* __restrict__ k_scale,
-                                 const float* __restrict__ v_scale, int group,
-                                 const bf16* __restrict__ ring_k, const bf16* __restrict__ ring_v,
-                                 const int* __restrict__ ctx_lens,
-                                 const int* __restrict__ ring_base, bf16* __restrict__ out,
-                                 int n_heads, int n_kv, int lanes, int S, int R, int layer,
-                                 int n_split, float scale, unsigned long long* trace) {
-  using Lay = I8Layout<HD>;
+flash_decode_cluster_kernel(const bf16* __restrict__ q, const KV* __restrict__ ctx_k,
+                            const KV* __restrict__ ctx_v, const float* __restrict__ k_scale,
+                            const float* __restrict__ v_scale, int group,
+                            const bf16* __restrict__ ring_k, const bf16* __restrict__ ring_v,
+                            const int* __restrict__ ctx_lens, const int* __restrict__ ring_base,
+                            bf16* __restrict__ out, int n_heads, int n_kv, int lanes, int S,
+                            int R, int layer, int n_split, float scale,
+                            unsigned long long* trace) {
+  using Lay = Layout<KV, HD>;
+  constexpr bool kQuant = Lay::kQuant;
   constexpr int TILE = Lay::kTile;
   constexpr int kStages = Lay::kStages;
   constexpr int kPerRow = HD / 16;
   namespace cg = cooperative_groups;
   extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* stage = reinterpret_cast<int8_t*>(smem);
-  bf16* t_s = reinterpret_cast<bf16*>(smem + Lay::kOffTile);
+  bf16* t_s = reinterpret_cast<bf16*>(smem + Lay::kOffTile);  // int8 mode's padded tile
   float* s_s = reinterpret_cast<float*>(smem + Lay::kOffS);
   bf16* p_s = reinterpret_cast<bf16*>(smem + Lay::kOffP);
   float* alpha_s = reinterpret_cast<float*>(smem + Lay::kOffAlpha);
@@ -636,10 +682,10 @@ flash_decode_int8_cluster_kernel(const bf16* __restrict__ q, const int8_t* __res
   const int base = ring_base[b];
 
   const bool is_ring = z == n_split;
-  const bf16* rk = nullptr;
+  const bf16* rk = nullptr;  // the int8 mode's ring rows
   const bf16* rv = nullptr;
-  const int8_t* ck = nullptr;
-  const int8_t* cv = nullptr;
+  const KV* ck = nullptr;    // the rows this block copies asynchronously
+  const KV* cv = nullptr;
   const float* ksc = nullptr;
   const float* vsc = nullptr;
   int start, end;
@@ -647,8 +693,13 @@ flash_decode_int8_cluster_kernel(const bf16* __restrict__ q, const int8_t* __res
     start = 0;
     end = min(max(ctx - base, 0), R);
     const size_t off = ((static_cast<size_t>(layer) * n_kv + h) * B + b) * R * HD;
-    rk = ring_k + off;
-    rv = ring_v + off;
+    if constexpr (kQuant) {
+      rk = ring_k + off;
+      rv = ring_v + off;
+    } else {  // dense: the ring's rows are copied like the ctx rows
+      ck = ring_k + off;
+      cv = ring_v + off;
+    }
   } else {
     const int live = min(max(min(base, ctx), 0), S);
     int share = (live + n_split - 1) / n_split;
@@ -658,31 +709,65 @@ flash_decode_int8_cluster_kernel(const bf16* __restrict__ q, const int8_t* __res
     const size_t off = ((static_cast<size_t>(layer) * n_kv + h) * lanes + b) * S * HD;
     ck = ctx_k + off;
     cv = ctx_v + off;
-    const size_t soff = (static_cast<size_t>(layer) * lanes + b) * (S / group);
-    ksc = k_scale + soff;
-    vsc = v_scale + soff;
+    if constexpr (kQuant) {
+      const size_t soff = (static_cast<size_t>(layer) * lanes + b) * (S / group);
+      ksc = k_scale + soff;
+      vsc = v_scale + soff;
+    }
   }
   // an empty share still runs to both cluster barriers below
   const int n_tiles = start < end ? (end - start + TILE - 1) / TILE : 0;
 
-  auto issue = [&](int i) {  // one thread: tile i's K and V into stage i % kStages
+  auto issue = [&](int i) {  // tile i's K and V into stage i % kStages
     const int t0 = start + i * TILE;
-    const uint32_t bytes = static_cast<uint32_t>(min(TILE, end - t0) * HD);
-    int8_t* dst = stage + (i % kStages) * Lay::kStageBytes;
+    const int n = min(TILE, end - t0);
+    unsigned char* dst = smem + (i % kStages) * Lay::kStageBytes;
     uint64_t* bar = &full[i % kStages];
-    mbar_expect_tx(bar, 2 * bytes);
-    bulk_load(dst, ck + static_cast<size_t>(t0) * HD, bytes, bar);
-    bulk_load(dst + TILE * HD, cv + static_cast<size_t>(t0) * HD, bytes, bar);
+    if constexpr (kQuant) {
+      // a tile's int8 rows are one contiguous run: one copy each for K and V
+      if (lane == 0) {
+        const uint32_t bytes = static_cast<uint32_t>(n * HD);
+        mbar_expect_tx(bar, 2 * bytes);
+        bulk_load(dst, ck + static_cast<size_t>(t0) * HD, bytes, bar);
+        bulk_load(dst + Lay::kKVBytes, cv + static_cast<size_t>(t0) * HD, bytes, bar);
+      }
+    } else {
+      // every thread: 16-byte copies landing at the padded stride, rows
+      // from n up to the next 16-row boundary (which P.V reads) filled
+      // with zeros, then one arrival once they have landed
+      constexpr int kChunksPerRow = HD / 8;
+      const int rows = (n + 15) / 16 * 16;
+#pragma unroll
+      for (int u = 0; u < TILE * kChunksPerRow / kThreads; ++u) {
+        const int c = tid + u * kThreads;
+        const int r = c / kChunksPerRow;
+        const int col = (c % kChunksPerRow) * 8;
+        if (r < rows) {
+          const size_t src = static_cast<size_t>(t0 + (r < n ? r : 0)) * HD + col;
+          const int off = (r * Lay::kStride + col) * 2;
+          const uint32_t bytes = r < n ? 16u : 0u;
+          cp_async16(dst + off, ck + src, bytes);
+          cp_async16(dst + Lay::kKVBytes + off, cv + src, bytes);
+        }
+      }
+      cp_async_arrive(bar);
+    }
   };
 
-  if (tid == 0) {
+  if (warp == 0) {
+    if (lane == 0) {
+      // int8: one arrival (with the bytes expected); dense: every thread's
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (!is_ring) {
-      for (int i = 0; i < min(kStages, n_tiles); ++i) issue(i);
+      for (int s = 0; s < kStages; ++s) mbar_init(&full[s], kQuant ? 1 : kThreads);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    stamp(1);
+    __syncwarp();
+    if constexpr (kQuant) {
+      if (!is_ring) {
+        for (int i = 0; i < min(kStages, n_tiles); ++i) issue(i);
+      }
+      stamp(1);
+    }
     if (trace != nullptr) {
       unsigned sm;
       asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
@@ -690,6 +775,12 @@ flash_decode_int8_cluster_kernel(const bf16* __restrict__ q, const int8_t* __res
       trace[11] = sm;
     }
   }
+  __syncthreads();  // the mbarriers are initialised
+  if constexpr (!kQuant) {
+    for (int i = 0; i < min(kStages, n_tiles); ++i) issue(i);
+    stamp(1);
+  }
+  // p_s and alpha_s are read after the barriers of the first tile
   for (int i = tid; i < kMaxG * Lay::kPStride; i += kThreads) p_s[i] = __float2bfloat16(0.f);
   if (tid < kMaxG) alpha_s[tid] = 1.f;
 
@@ -720,8 +811,8 @@ flash_decode_int8_cluster_kernel(const bf16* __restrict__ q, const int8_t* __res
     for (int k = 0; k < 4; ++k) acc[mt][k] = 0.f;
   }
 
-  // the group scales of this thread's 16-byte chunks of tile i, loaded a
-  // tile ahead so that their round trip overlaps the work before it
+  // int8: the group scales of this thread's 16-byte chunks of tile i,
+  // loaded a tile ahead so that their round trip overlaps the work before it
   float ks[Lay::kChunks], vs[Lay::kChunks];
   auto load_scales = [&](int i, float (&k_out)[Lay::kChunks], float (&v_out)[Lay::kChunks]) {
     const int t0 = start + i * TILE;
@@ -733,23 +824,33 @@ flash_decode_int8_cluster_kernel(const bf16* __restrict__ q, const int8_t* __res
       v_out[u] = r < n ? vsc[(t0 + r) / group] : 0.f;
     }
   };
-  if (!is_ring && n_tiles > 0) load_scales(0, ks, vs);
+  if constexpr (kQuant) {
+    if (!is_ring && n_tiles > 0) load_scales(0, ks, vs);
+  }
 
   for (int i = 0; i < n_tiles; ++i) {
     const int t0 = start + i * TILE;
     const int n = min(TILE, end - t0);
-    const int8_t* st = stage + (i % kStages) * Lay::kStageBytes;
+    unsigned char* st = smem + (i % kStages) * Lay::kStageBytes;
+    // the padded bf16 K and V tiles that the products read
+    const bf16* k_t = kQuant ? t_s : reinterpret_cast<const bf16*>(st);
+    const bf16* v_t = kQuant ? t_s : reinterpret_cast<const bf16*>(st + Lay::kKVBytes);
     float ks_next[Lay::kChunks] = {}, vs_next[Lay::kChunks] = {};
-    if (!is_ring && i + 1 < n_tiles) load_scales(i + 1, ks_next, vs_next);
-    __syncthreads();  // the previous tile's P.V is done with t_s and p_s
-    if (is_ring) {
-      stage_ring<HD>(t_s, rk + static_cast<size_t>(t0) * HD, n);
+    if constexpr (kQuant) {
+      if (!is_ring && i + 1 < n_tiles) load_scales(i + 1, ks_next, vs_next);
+      __syncthreads();  // the previous tile's P.V is done with t_s and p_s
+      if (is_ring) {
+        stage_ring<HD>(t_s, rk + static_cast<size_t>(t0) * HD, n);
+      } else {
+        mbar_wait(&full[i % kStages], (i / kStages) & 1);
+        if (i < 4) stamp(2 + i);
+        dequant_tile<HD>(t_s, reinterpret_cast<const int8_t*>(st), ks, n);
+      }
+      __syncthreads();
     } else {
       mbar_wait(&full[i % kStages], (i / kStages) & 1);
       if (i < 4) stamp(2 + i);
-      dequant_tile<HD>(t_s, st, ks, n);
     }
-    __syncthreads();
 
     // S^T[keys, heads] = K q^T: warp w takes keys [16 w, 16 w + 16)
     {
@@ -759,7 +860,7 @@ flash_decode_int8_cluster_kernel(const bf16* __restrict__ q, const int8_t* __res
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           uint32_t a[4];
-          ldsm_x4(a, t_s + (m0 + 8 * (mat & 1) + (lane & 7)) * Lay::kStride + 16 * kk +
+          ldsm_x4(a, k_t + (m0 + 8 * (mat & 1) + (lane & 7)) * Lay::kStride + 16 * kk +
                          8 * (mat >> 1));
           mma_bf16(c, a, qf[kk][0], qf[kk][1]);
         }
@@ -773,6 +874,12 @@ flash_decode_int8_cluster_kernel(const bf16* __restrict__ q, const int8_t* __res
       }
     }
     __syncthreads();  // scores are in; every warp is done reading K
+    if constexpr (!kQuant) {
+      // every warp is past the previous tile's P.V (it came before the
+      // barrier above): refill that tile's stage
+      const int next = i - 1 + kStages;
+      if (i >= 1 && next < n_tiles) issue(next);
+    }
 
     // online softmax, one warp per head; P rounded to bf16 as the TPU
     // kernel rounds it, the denominator summing the unrounded values
@@ -799,16 +906,20 @@ flash_decode_int8_cluster_kernel(const bf16* __restrict__ q, const int8_t* __res
         if (lane == 0) alpha_s[g] = alpha;
       }
     }
-    if (is_ring) {
-      stage_ring<HD>(t_s, rv + static_cast<size_t>(t0) * HD, n);
-    } else {
-      dequant_tile<HD>(t_s, st + TILE * HD, vs, n);
+    if constexpr (kQuant) {  // V into the padded tile, over K
+      if (is_ring) {
+        stage_ring<HD>(t_s, rv + static_cast<size_t>(t0) * HD, n);
+      } else {
+        dequant_tile<HD>(t_s, reinterpret_cast<const int8_t*>(st + Lay::kKVBytes), vs, n);
+      }
     }
     __syncthreads();
-    if (!is_ring && tid == 0 && i + kStages < n_tiles) {
-      // every thread has read this stage (barrier above): refill it
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      issue(i + kStages);
+    if constexpr (kQuant) {
+      if (!is_ring && warp == 0 && i + kStages < n_tiles) {
+        // every thread has dequantized this stage (barrier above): refill it
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        issue(i + kStages);
+      }
     }
 
     // O^T[d, heads] = O^T * alpha + V^T P^T (V^T through ldmatrix.trans)
@@ -831,23 +942,26 @@ flash_decode_int8_cluster_kernel(const bf16* __restrict__ q, const int8_t* __res
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt) {
             uint32_t a[4];
-            ldsm_x4_trans(a, t_s + (16 * kk + 8 * (mat >> 1) + (lane & 7)) * Lay::kStride +
+            ldsm_x4_trans(a, v_t + (16 * kk + 8 * (mat >> 1) + (lane & 7)) * Lay::kStride +
                                  16 * (kMT * warp + mt) + 8 * (mat & 1));
             mma_bf16(acc[mt], a, b0, b1);
           }
         }
       }
     }
+    if constexpr (kQuant) {
 #pragma unroll
-    for (int u = 0; u < Lay::kChunks; ++u) {
-      ks[u] = ks_next[u];
-      vs[u] = vs_next[u];
+      for (int u = 0; u < Lay::kChunks; ++u) {
+        ks[u] = ks_next[u];
+        vs[u] = vs_next[u];
+      }
     }
   }
 
   stamp(6);
-  // this block's (m, l, acc) into the stage region: all its copies have
-  // landed and been read
+  // this block's (m, l, acc) into the stage region, once every warp's
+  // P.V has read it (dense mode reads V there) and all copies have landed
+  __syncthreads();
   float* m_s = reinterpret_cast<float*>(smem);
   float* l_s = m_s + kMaxG;
   float* acc_s = l_s + kMaxG;
@@ -899,60 +1013,59 @@ flash_decode_int8_cluster_kernel(const bf16* __restrict__ q, const int8_t* __res
   stamp(9);
 }
 
-template <int HD>
-cudaError_t launch_int8_cluster(const void* q, const void* ctx_k, const void* ctx_v,
-                                const float* k_scale, const float* v_scale, int group,
-                                const void* ring_k, const void* ring_v, const int* ctx_lens,
-                                const int* ring_base, void* out, int B, int n_heads, int n_kv,
-                                int lanes, int S, int R, int layer, int n_split, float scale,
-                                cudaStream_t stream) {
-  constexpr int kBytes = I8Layout<HD>::kBytes;
-  if (n_split < 1 || n_split + 1 > kMaxCluster) return cudaErrorInvalidValue;
-  auto* kernel = flash_decode_int8_cluster_kernel<HD>;
+// The cluster launch configuration of flash_decode_cluster_kernel<KV, HD>
+// with `cluster` blocks a cluster over grid (B, n_kv, cluster), its dynamic
+// shared memory attribute set; returns that attribute's error.
+template <typename KV, int HD>
+cudaError_t cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B, int n_kv,
+                           int cluster, cudaStream_t stream) {
+  constexpr int kBytes = Layout<KV, HD>::kBytes;
+  auto* kernel = flash_decode_cluster_kernel<KV, HD>;
   static const cudaError_t smem_set =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-  if (smem_set != cudaSuccess) return smem_set;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = cluster;
+  *cfg = {};
+  cfg->gridDim = dim3(B, n_kv, cluster);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = kBytes;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return smem_set;
+}
+
+template <typename KV, int HD>
+cudaError_t launch_cluster(const void* q, const void* ctx_k, const void* ctx_v,
+                           const float* k_scale, const float* v_scale, int group,
+                           const void* ring_k, const void* ring_v, const int* ctx_lens,
+                           const int* ring_base, void* out, int B, int n_heads, int n_kv,
+                           int lanes, int S, int R, int layer, int n_split, float scale,
+                           cudaStream_t stream) {
+  if (n_split < 1 || n_split + 1 > kMaxCluster) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = n_split + 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B, n_kv, n_split + 1);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kBytes;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  const cudaError_t smem_set = cluster_config<KV, HD>(&cfg, attr, B, n_kv, n_split + 1, stream);
+  if (smem_set != cudaSuccess) return smem_set;
+  auto* kernel = flash_decode_cluster_kernel<KV, HD>;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const bf16*>(q), static_cast<const int8_t*>(ctx_k),
-      static_cast<const int8_t*>(ctx_v), k_scale, v_scale, group, static_cast<const bf16*>(ring_k),
-      static_cast<const bf16*>(ring_v), ctx_lens, ring_base, static_cast<bf16*>(out), n_heads,
-      n_kv, lanes, S, R, layer, n_split, scale, int8_trace);
+      &cfg, kernel, static_cast<const bf16*>(q),
+      static_cast<const KV*>(ctx_k), static_cast<const KV*>(ctx_v), k_scale, v_scale, group,
+      static_cast<const bf16*>(ring_k), static_cast<const bf16*>(ring_v), ctx_lens, ring_base,
+      static_cast<bf16*>(out), n_heads, n_kv, lanes, S, R, layer, n_split, scale, cluster_trace);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int HD>
-int max_active_int8_clusters(int cluster) {
-  constexpr int kBytes = I8Layout<HD>::kBytes;
-  auto* kernel = flash_decode_int8_cluster_kernel<HD>;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes) !=
-      cudaSuccess) {
-    return -1;
-  }
+template <typename KV, int HD>
+int max_active_clusters(int cluster) {
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = cluster;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1, 1, cluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kBytes;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  if (cluster_config<KV, HD>(&cfg, attr, 1, 1, cluster, nullptr) != cudaSuccess) return -1;
   int n = 0;
+  auto* kernel = flash_decode_cluster_kernel<KV, HD>;
   if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) return -1;
   return n;
 }
@@ -964,9 +1077,11 @@ int max_active_int8_clusters(int cluster) {
 // ring_k/ring_v [L, n_kv, B, R, hd]; ctx_lens/ring_base int32 [B];
 // part_m/part_l f32 [B, n_kv, n_split+1, G]; part_acc f32 [.., G, hd].
 // The caller checks shapes, contiguity, 16-byte alignment and G <= 8.
-// Supported: bf16 with hd 64 or 128; f32 with hd 16, 64 or 128. Returns the
-// cudaError_t of the launches (0 on success); other dtype/hd combinations
-// return cudaErrorInvalidValue.
+// Supported: bf16 with hd 64 or 128, one cluster launch (n_split + 1 <= 8;
+// part_m/part_l/part_acc unused, may be null); f32 with hd 16, 64 or 128,
+// the split and combine launches. Returns the cudaError_t of the launches
+// (a refused cluster launch or shared-memory attribute included; 0 on
+// success); other dtype/hd combinations return cudaErrorInvalidValue.
 extern "C" int flash_decode_launch(const void* q, const void* ctx_k, const void* ctx_v,
                                    const void* ring_k, const void* ring_v,
                                    const void* ctx_lens, const void* ring_base, void* out,
@@ -979,19 +1094,26 @@ extern "C" int flash_decode_launch(const void* q, const void* ctx_k, const void*
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FD_LAUNCH(T, HD)                                                                  \
-  return static_cast<int>(launch<T, T, HD>(q, ctx_k, ctx_v, nullptr, nullptr, 1, ring_k,  \
-                                           ring_v, cl, rb, out, pm, pl, pa, B, n_heads,   \
-                                           n_kv, lanes, S, R, layer, n_split, scale, st))
+#define FD_LAUNCH(HD)                                                                         \
+  return static_cast<int>(launch<float, float, HD>(q, ctx_k, ctx_v, nullptr, nullptr, 1,      \
+                                                   ring_k, ring_v, cl, rb, out, pm, pl, pa, B, \
+                                                   n_heads, n_kv, lanes, S, R, layer, n_split, \
+                                                   scale, st))
+#define FD_LAUNCH_CLUSTER(HD)                                                                  \
+  return static_cast<int>(launch_cluster<bf16, HD>(q, ctx_k, ctx_v, nullptr, nullptr, 1,      \
+                                                   ring_k, ring_v, cl, rb, out, B, n_heads,    \
+                                                   n_kv, lanes, S, R, layer, n_split, scale,   \
+                                                   st))
   if (dtype == 1) {
-    if (hd == 128) FD_LAUNCH(__nv_bfloat16, 128);
-    if (hd == 64) FD_LAUNCH(__nv_bfloat16, 64);
+    if (hd == 128) FD_LAUNCH_CLUSTER(128);
+    if (hd == 64) FD_LAUNCH_CLUSTER(64);
   } else if (dtype == 0) {
-    if (hd == 128) FD_LAUNCH(float, 128);
-    if (hd == 64) FD_LAUNCH(float, 64);
-    if (hd == 16) FD_LAUNCH(float, 16);
+    if (hd == 128) FD_LAUNCH(128);
+    if (hd == 64) FD_LAUNCH(64);
+    if (hd == 16) FD_LAUNCH(16);
   }
 #undef FD_LAUNCH
+#undef FD_LAUNCH_CLUSTER
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1021,40 +1143,46 @@ extern "C" int flash_decode_int8_launch(const void* q, const void* ctx_k, const 
   float* pa = static_cast<float*>(part_acc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (group <= 0 || S % group != 0) return static_cast<int>(cudaErrorInvalidValue);
-#define FD_LAUNCH_I8(T, HD)                                                                  \
-  return static_cast<int>(launch<T, int8_t, HD>(q, ctx_k, ctx_v, ks, vs, group, ring_k,     \
-                                                ring_v, cl, rb, out, pm, pl, pa, B, n_heads, \
-                                                n_kv, lanes, S, R, layer, n_split, scale, st))
-#define FD_LAUNCH_CLUSTER(HD)                                                              \
-  return static_cast<int>(launch_int8_cluster<HD>(q, ctx_k, ctx_v, ks, vs, group, ring_k,   \
-                                                  ring_v, cl, rb, out, B, n_heads, n_kv,    \
-                                                  lanes, S, R, layer, n_split, scale, st))
+#define FD_LAUNCH_I8(HD)                                                                      \
+  return static_cast<int>(launch<float, int8_t, HD>(q, ctx_k, ctx_v, ks, vs, group, ring_k,   \
+                                                    ring_v, cl, rb, out, pm, pl, pa, B,       \
+                                                    n_heads, n_kv, lanes, S, R, layer,        \
+                                                    n_split, scale, st))
+#define FD_LAUNCH_CLUSTER(HD)                                                                  \
+  return static_cast<int>(launch_cluster<int8_t, HD>(q, ctx_k, ctx_v, ks, vs, group, ring_k, \
+                                                     ring_v, cl, rb, out, B, n_heads, n_kv,  \
+                                                     lanes, S, R, layer, n_split, scale, st))
   if (dtype == 1) {
     if (hd == 128) FD_LAUNCH_CLUSTER(128);
     if (hd == 64) FD_LAUNCH_CLUSTER(64);
   } else if (dtype == 0) {
-    if (hd == 128) FD_LAUNCH_I8(float, 128);
-    if (hd == 64) FD_LAUNCH_I8(float, 64);
-    if (hd == 16) FD_LAUNCH_I8(float, 16);
+    if (hd == 128) FD_LAUNCH_I8(128);
+    if (hd == 64) FD_LAUNCH_I8(64);
+    if (hd == 16) FD_LAUNCH_I8(16);
   }
 #undef FD_LAUNCH_I8
 #undef FD_LAUNCH_CLUSTER
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// How many clusters of `cluster` blocks of the int8 bf16 kernel at head
-// dim hd the card holds at once (cudaOccupancyMaxActiveClusters), for
-// tools/torch_flash_decode_sweep.py; -1 on an error or another hd.
-extern "C" int flash_decode_int8_max_active_clusters(int hd, int cluster) {
-  if (hd == 128) return max_active_int8_clusters<128>(cluster);
-  if (hd == 64) return max_active_int8_clusters<64>(cluster);
+// How many clusters of `cluster` blocks of the bf16 cluster kernel (quant:
+// 0 = dense, 1 = int8) at head dim hd the card holds at once
+// (cudaOccupancyMaxActiveClusters); -1 on an error or another hd.
+extern "C" int flash_decode_max_active_clusters(int quant, int hd, int cluster) {
+  if (quant) {
+    if (hd == 128) return max_active_clusters<int8_t, 128>(cluster);
+    if (hd == 64) return max_active_clusters<int8_t, 64>(cluster);
+  } else {
+    if (hd == 128) return max_active_clusters<bf16, 128>(cluster);
+    if (hd == 64) return max_active_clusters<bf16, 64>(cluster);
+  }
   return -1;
 }
 
-// Give the next int8 bf16 launch a timeline buffer of kTraceSlots u64 per
-// block (B * n_kv * (n_split + 1) blocks), or none (null), for
-// tools/torch_flash_decode_sweep.py. Returns kTraceSlots.
-extern "C" int flash_decode_int8_set_trace(void* buf) {
-  int8_trace = static_cast<unsigned long long*>(buf);
+// Give the next bf16 cluster launch of either mode a timeline buffer of
+// kTraceSlots u64 per block (B * n_kv * (n_split + 1) blocks), or none
+// (null), for tools/torch_flash_decode_sweep.py. Returns kTraceSlots.
+extern "C" int flash_decode_set_trace(void* buf) {
+  cluster_trace = static_cast<unsigned long long*>(buf);
   return kTraceSlots;
 }

@@ -16,10 +16,10 @@ kernel dequantizes each chunk in VMEM. The ring stays in q's dtype.
 
 ``flash_decode_attention`` launches the hand-written Hopper kernel in
 ``csrc/flash_decode.cu`` for CUDA tensors and runs the plain PyTorch
-version for CPU tensors. The int8 mode in bf16 is one launch whose
+version for CPU tensors. In bf16 either mode is one launch whose
 splits merge in a thread-block cluster (``cluster_splits``) and rounds
-the probabilities to bf16 before P.V as the TPU kernel does; the dense
-mode and the f32 int8 mode are a split launch and a combine launch
+the probabilities to bf16 before P.V as the TPU kernel does; in f32
+(the tiny model) either mode is a split launch and a combine launch
 (``pick_splits``) over f32 scratch. ``launches`` counts dense-mode calls
 that launched, ``launches_int8`` int8-mode ones.
 """
@@ -36,7 +36,8 @@ NEG_INF = -1e30
 launches = 0
 launches_int8 = 0
 
-_TILE_ROWS = {torch.bfloat16: 64, torch.float32: 32}  # csrc Tile<T>::kRows
+# rows per tile: csrc Layout::kTile (bf16), kSplitTile (f32)
+_TILE_ROWS = {torch.bfloat16: 64, torch.float32: 32}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the kernel is built for, per dtype (f32 hd 16 is the tiny model)
 _HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (16, 64, 128)}
@@ -113,7 +114,7 @@ def pick_splits(batch: int, kv_heads: int, S: int, tile: int) -> int:
 
 def cluster_splits(batch: int, kv_heads: int, S: int, tile: int,
                    resident: Optional[dict] = None) -> int:
-    """Context splits per (slot, KV head) for the int8 bf16 kernel, whose
+    """Context splits per (slot, KV head) for the bf16 kernel, whose
     splits and ring block form one thread-block cluster: ``pick_splits``
     capped so that splits + 1 stays within the portable cluster size.
     Given ``resident`` (cluster size -> clusters the card holds at once),
@@ -125,19 +126,23 @@ def cluster_splits(batch: int, kv_heads: int, S: int, tile: int,
     return n
 
 
-_resident: dict = {}  # (device, head_dim) -> {cluster size: clusters held}
+# (device, int8 mode, head_dim) -> {cluster size: clusters held}
+_resident: dict = {}
 
 
-def _cluster_residency(lib, device: torch.device, hd: int) -> dict:
-    """How many clusters of each size of the int8 bf16 kernel the card
-    holds at once (cudaOccupancyMaxActiveClusters), asked once."""
-    key = (device.index, hd)
+def _cluster_residency(lib, device: torch.device, quant: bool,
+                       hd: int) -> dict:
+    """How many clusters of each size of the bf16 kernel of this mode and
+    head dim the card holds at once (cudaOccupancyMaxActiveClusters),
+    asked once: the modes' blocks differ in shared memory."""
+    key = (device.index, bool(quant), hd)
     if key not in _resident:
-        fn = lib.flash_decode_int8_max_active_clusters
-        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn = lib.flash_decode_max_active_clusters
+        fn.argtypes = [ctypes.c_int] * 3
         fn.restype = ctypes.c_int
         with torch.cuda.device(device):
-            got = {n: fn(hd, n) for n in range(2, MAX_CLUSTER + 1)}
+            got = {n: fn(int(quant), hd, n)
+                   for n in range(2, MAX_CLUSTER + 1)}
         if min(got.values()) < 0:
             raise RuntimeError(
                 "flash_decode: the card's cluster occupancy query failed")
@@ -218,10 +223,11 @@ def _launch(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base,
     R = ring_k.shape[3]
     G = n_heads // nkv
     out = torch.empty_like(q)
-    if quant and q.dtype == torch.bfloat16:
-        # one launch: the splits merge in a thread-block cluster, no scratch
+    if q.dtype == torch.bfloat16:
+        # one launch in either mode: the splits merge in a thread-block
+        # cluster, no scratch
         n_split = cluster_splits(B, nkv, S, _TILE_ROWS[q.dtype],
-                                 _cluster_residency(lib, q.device, hd))
+                                 _cluster_residency(lib, q.device, quant, hd))
         scratch = []
     else:
         n_split = pick_splits(B, nkv, S, _TILE_ROWS[q.dtype])

@@ -3,6 +3,8 @@ plain flash-decode in its dense and int8 modes (against both the Pallas
 kernel in interpret mode and the pure-jnp reference), the blocked prefill
 attention and the dense single-request prefill attention. Inputs are made
 with numpy from a seed and fed to both sides."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -121,6 +123,41 @@ def test_cluster_splits_fit_one_cluster():
     assert tfd.cluster_splits(64, 8, 4096, 64, held) == 1  # 512 never fit
 
 
+def test_cluster_residency_per_mode_and_head_dim(monkeypatch):
+    """The card is asked once per (device, mode, head dim): the dense
+    kernel's larger blocks fit fewer clusters than the int8 kernel's, so
+    at the Llama-3.1-8B serve shape it takes fewer splits."""
+    tables = {  # (quant, hd) -> {cluster size: clusters held}
+        (1, 128): {8: 62, 7: 69, 6: 79, 5: 94, 4: 124, 3: 170, 2: 264},
+        (0, 128): {8: 46, 7: 52, 6: 60, 5: 70, 4: 90, 3: 124, 2: 190},
+        (1, 64): {n: 107 for n in range(2, 9)},
+        (0, 64): {n: 80 for n in range(2, 9)},
+    }
+    asked = []
+
+    def max_active_clusters(quant, hd, cluster):
+        asked.append((quant, hd, cluster))
+        return tables[quant, hd][cluster]
+
+    lib = type("Lib", (), {})()
+    lib.flash_decode_max_active_clusters = max_active_clusters
+    monkeypatch.setattr(tfd, "_resident", {})
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    dev = torch.device("cuda", 0)
+    for quant in (False, True):
+        for hd in (64, 128):
+            assert tfd._cluster_residency(lib, dev, quant, hd) == tables[int(quant), hd]
+    n_asked = len(asked)
+    tfd._cluster_residency(lib, dev, False, 128)  # asked once, then kept
+    assert len(asked) == n_asked == 4 * 7
+    dense = tfd._cluster_residency(lib, dev, False, 128)
+    int8 = tfd._cluster_residency(lib, dev, True, 128)
+    assert tfd.cluster_splits(8, 8, 4096, 64, dense) == 4  # 70 clusters of 5
+    assert tfd.cluster_splits(8, 8, 4096, 64, int8) == 6   # 69 clusters of 7
+    assert tfd.cluster_splits(8, 8, 4096, 64,
+                              tfd._cluster_residency(lib, dev, False, 64)) == 7
+
+
 def _prefill_inputs(T, Sc, seed=0):
     rng = np.random.RandomState(seed)
     return (
@@ -203,11 +240,63 @@ def test_plain_int8_flash_decode_matches_jax(decode_data, group, bases):
         np.testing.assert_allclose(got, want_kernel, rtol=5e-3, atol=5e-3)
 
 
-@pytest.mark.parametrize("bases", [
+# bf16 decode cases as the card serves them: head_dim 64, S = 64 (one
+# 64-row chunk of the Pallas kernel holds a slot's whole ctx region)
+BF16_NL, BF16_HD, BF16_S = 3, 64, 64
+BF16_BASES = [
     [1, 15, 31, 60],    # mid-round, ctx and ring chunks
     [63, 62, 40, 2],    # region nearly full beside a short context
     [0, 0, 0, 0],       # ring only: one chunk holds the context
-])
+]
+
+
+def _bf16_decode_data(seed):
+    """q, ctx_k, ctx_v, ring_k, ring_v in f32 for the bf16 cases."""
+    nkv, nh, b, r = 2, 4, 4, 4
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(*shape) * 0.3).astype(np.float32)
+            for shape in ((b, nh, BF16_HD),
+                          (BF16_NL, nkv, b + 1, BF16_S, BF16_HD),
+                          (BF16_NL, nkv, b + 1, BF16_S, BF16_HD),
+                          (BF16_NL, nkv, b, r, BF16_HD),
+                          (BF16_NL, nkv, b, r, BF16_HD))]
+
+
+@pytest.mark.parametrize("bases", BF16_BASES)
+def test_plain_flash_decode_bf16_matches_jax(bases):
+    """Dense mode in bf16 at head_dim 64, as the card serves it. The plain
+    port equals the jnp reference bit for bit (both round the normalized
+    probabilities to bf16). With p_round=bfloat16 it rounds P as the
+    Pallas kernel (interpret mode) and the card's dense bf16 kernel do,
+    exp(s - max) before P.V: exactly the Pallas output where one chunk
+    holds the context, and otherwise within one bf16 step of the output
+    (rtol 2**-7) plus 2**-9, as in the int8 mode."""
+    base = np.asarray(bases, np.int32)
+    ctx = base + 2
+    data = _bf16_decode_data(2)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in data]
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in data]
+    for layer in (0, BF16_NL - 1):
+        j_args = (*jb, jnp.int32(layer), jnp.asarray(ctx), jnp.asarray(base))
+        want_ref = np.asarray(jfd.flash_decode_attention_reference(
+            *j_args).astype(jnp.float32))
+        want_kernel = np.asarray(jfd.flash_decode_attention(
+            *j_args, chunk=BF16_S, interpret=True).astype(jnp.float32))
+        t_args = (*tb, layer, torch.from_numpy(ctx), torch.from_numpy(base))
+        before = tfd.launches
+        got = tfd.flash_decode_attention(*t_args)
+        assert tfd.launches == before  # CPU tensors take the plain version
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), want_ref)
+        got_p = tfd.flash_decode_attention_plain(
+            *t_args, p_round=torch.bfloat16).float().numpy()
+        if not base.any():
+            np.testing.assert_array_equal(got_p, want_kernel)
+        np.testing.assert_allclose(got_p, want_kernel, rtol=2**-7,
+                                   atol=2**-9)
+
+
+@pytest.mark.parametrize("bases", BF16_BASES)
 def test_plain_int8_flash_decode_bf16_matches_jax(bases):
     """Int8 mode in bf16 with group 64 at head_dim 64, as the card serves
     it. The plain port equals the jnp reference bit for bit (both round
@@ -218,12 +307,8 @@ def test_plain_int8_flash_decode_bf16_matches_jax(bases):
     the output (rtol 2**-7) plus 2**-9, the most that moving one
     probability's rounding point (the kernel's running max over its two
     chunks) can shift an output near zero."""
-    nl, nkv, nh, hd, b, s, r, group = 3, 2, 4, 64, 4, 64, 4, 64
-    rng = np.random.RandomState(1)
-    q, ck, cv, rk, rv = [(rng.randn(*shape) * 0.3).astype(np.float32)
-                         for shape in ((b, nh, hd), (nl, nkv, b + 1, s, hd),
-                                       (nl, nkv, b + 1, s, hd),
-                                       (nl, nkv, b, r, hd), (nl, nkv, b, r, hd))]
+    nl, group = BF16_NL, BF16_S
+    q, ck, cv, rk, rv = _bf16_decode_data(1)
     ck_q, ks = _quantize_ctx(ck, group)
     cv_q, vs = _quantize_ctx(cv, group)
     base = np.asarray(bases, np.int32)

@@ -1,12 +1,13 @@
-"""Where the int8 flash-decode kernel's time goes, on one GPU.
+"""Where the bf16 flash-decode kernel's time goes, on one GPU.
 
-    python3 tools/torch_flash_decode_sweep.py
+    python3 tools/torch_flash_decode_sweep.py [--mode dense|int8]
 
-Times the int8 bf16 kernel (``flash_decode_int8_launch``, one launch, its
-splits merged in a thread-block cluster) at the Llama-3.1-8B and
-Llama-3.2-1B serve shapes of chip_smoke.py (B = 8, 8 KV heads, 32 heads,
-S = 4096, R = 4, group 64, the serve phase's contexts) while one thing
-changes at a time:
+Times the bf16 cluster kernel of one mode (dense, ``flash_decode_launch``,
+or int8, ``flash_decode_int8_launch`` over K/V quantized with group 64;
+one launch, its splits merged in a thread-block cluster) at the
+Llama-3.1-8B and Llama-3.2-1B serve shapes of chip_smoke.py (B = 8, 8 KV
+heads, 32 heads, S = 4096, R = 4, the serve phase's contexts) while one
+thing changes at a time:
 
   * the cluster size (context splits + the ring block: 8, 7, 6, 5, 4, 2);
   * the contexts: the serve contexts, the same with every context share
@@ -14,7 +15,8 @@ changes at a time:
     slots at the longest serve context, and (at the cluster size the
     wrapper takes) exactly 1, 2 or 4 full tiles in every context split;
   * the cache: calls cycling through the layers (most K/V reads miss the
-    L2, as in a decode step) or repeating layer 0 (L2-warm).
+    L2, as in a decode step) or, at the serve contexts and the wrapper's
+    cluster size, repeating layer 0 (L2-warm).
 
 Each line gives ms per call (chip_smoke.cuda_time_ms) beside the call's
 byte bound, after how many clusters of each size the card holds at once
@@ -27,6 +29,7 @@ power limit come first. Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -46,17 +49,17 @@ def timeline(lib, call, B: int, nkv: int, ns: int) -> dict:
     medians and maxima over the blocks."""
     import numpy as np
 
-    lib.flash_decode_int8_set_trace.argtypes = [ctypes.c_void_p]
-    slots = lib.flash_decode_int8_set_trace(None)
+    lib.flash_decode_set_trace.argtypes = [ctypes.c_void_p]
+    slots = lib.flash_decode_set_trace(None)
     buf = torch.zeros(ns * nkv * B * slots, dtype=torch.int64, device="cuda")
     call()
     torch.cuda.synchronize()
-    lib.flash_decode_int8_set_trace(buf.data_ptr())
+    lib.flash_decode_set_trace(buf.data_ptr())
     try:
         call()
         torch.cuda.synchronize()
     finally:
-        lib.flash_decode_int8_set_trace(None)
+        lib.flash_decode_set_trace(None)
     t = buf.view(ns, nkv * B, slots).cpu().numpy().astype(np.float64)
     t0 = t[:, :, 0].min()
     us = (t[:, :, :10] - t0) / 1e3
@@ -89,6 +92,9 @@ def timeline(lib, call, B: int, nkv: int, ns: int) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", choices=("dense", "int8"), default="int8")
+    quant = ap.parse_args().mode == "int8"
     if not torch.cuda.is_available():
         print("torch_flash_decode_sweep: no CUDA device", file=sys.stderr)
         return 1
@@ -101,11 +107,12 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    print(f"card: {smi}; torch {torch.__version__}")
+    print(f"card: {smi}; torch {torch.__version__}; "
+          f"mode {'int8' if quant else 'dense'}")
     serve_lens = [len(p) for p in cs.serve_prompts(
         ModelConfig.llama3_8b().vocab_size)]
     lib = cuda_build.load("flash_decode")
-    lib.flash_decode_int8_max_active_clusters.argtypes = [ctypes.c_int] * 2
+    lib.flash_decode_max_active_clusters.argtypes = [ctypes.c_int] * 3
     pick = fd.cluster_splits
     rows = []
     resident = {}
@@ -113,16 +120,18 @@ def main() -> int:
     for label, L, hd in (("llama3_8b", 32, 128), ("llama3_1b", 16, 64)):
         B, nkv, nh, S, R, group = 8, 8, 32, 4096, 4, 64
         for cluster in SIZES:
-            n = lib.flash_decode_int8_max_active_clusters(hd, cluster)
+            n = lib.flash_decode_max_active_clusters(int(quant), hd, cluster)
             resident[f"{label} cluster {cluster}"] = n
             print(f"{label} cluster {cluster}: the card holds {n} clusters at "
                   f"once; a call launches {B * nkv}")
         q, ck, cv, rk, rv = cs.decode_inputs(torch.bfloat16, L, nkv, nh, hd,
                                              B, S, R)
-        ck, ksc = cs.quantize_groups(ck, group)
-        cv, vsc = cs.quantize_groups(cv, group)
-        chosen = pick(B, nkv, S, 64, fd._cluster_residency(lib, q.device,
-                                                           hd)) + 1
+        ksc = vsc = None
+        if quant:
+            ck, ksc = cs.quantize_groups(ck, group)
+            cv, vsc = cs.quantize_groups(cv, group)
+        chosen = pick(B, nkv, S, 64, fd._cluster_residency(
+            lib, q.device, quant, hd)) + 1
         resident[f"{label} wrapper's cluster"] = chosen
         print(f"{label}: the wrapper takes clusters of {chosen}")
         serve_ctx, serve_base = cs.decode_patterns(S, R, serve_lens)["serve"]
@@ -139,12 +148,13 @@ def main() -> int:
             ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
             base = torch.tensor(base_l, dtype=torch.int32, device="cuda")
             bound_ms, _ = cs.decode_bound_ms(ctx_l, base_l, nkv, nh, hd, R, 2,
-                                             group)
+                                             group if quant else None)
             for cluster in SIZES:
                 fd.cluster_splits = lambda *a, k=cluster - 1: k
                 for cache, layer_of in (("cold", lambda i: i % L),
                                         ("warm", lambda i: 0)):
-                    if cache == "warm" and (cluster != 8 or pname != "serve"):
+                    if cache == "warm" and (cluster != chosen
+                                            or pname != "serve"):
                         continue
                     if "tiles a split" in pname and cluster != chosen:
                         continue
@@ -165,7 +175,8 @@ def main() -> int:
                       f"blocks): " + json.dumps(tl))
         del q, ck, cv, rk, rv, ksc, vsc
         torch.cuda.empty_cache()
-    print(json.dumps({"card": smi, "max_active_clusters": resident,
+    print(json.dumps({"card": smi, "mode": "int8" if quant else "dense",
+                      "max_active_clusters": resident,
                       "timelines": timelines, "rows": rows}))
     return 0
 
