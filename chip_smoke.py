@@ -20,19 +20,36 @@ Phases, each printing a line (any failure raises and exits non-zero):
      operation bound); each mode's check also times the other mode's
      kernel over the same K/V in the same call (dense over the region
      before quantization, int8 over it quantized);
-  4. tiny: TorchEngine on ModelConfig.tiny (f32) on the card must be
-     greedy token-identical to the same engine on the CPU (which the CPU
-     tests hold against the JAX TpuEngine); with int8 KV too, where a
+  4. tiny: TorchEngine on ModelConfig.tiny (f32) on the card, its rounds
+     replayed CUDA graphs, must be greedy token-identical to the same
+     engine on the CPU, whose rounds run eagerly (the CPU tests hold it
+     against the JAX TpuEngine); with int8 KV too, where a
      greedy token may differ only at a CPU near-tie (top-2 logprob gap
      <= 0.05), and a seeded request at temperature 0.8 must draw the same
      stream on both devices;
-  5. serve: TorchEngine at the full width of Llama-3.1-8B (32 layers,
-     random bf16 weights from a seed, made once, default EngineConfig)
-     answers 8 concurrent greedy requests and a prefix-cache hit through
+  5. round_graph: for the tiny model (f32) and Llama-3.1-8B with dense
+     and with int8 KV, an engine admits the prompts, then one decode
+     round replayed from its CUDA graph and the same round run eagerly
+     (engine/graphs.py ``run_round``) on a clone of the same device state
+     must give identical tokens, greedy and with logprobs (the largest
+     logprob difference is printed); torch.profiler then counts the CUDA
+     runtime calls of one steady pipelined round (one graph launch, the
+     fetch copies, no kernel launched from the host) and the flash-decode
+     kernels inside the replay (one a layer a step; the kernel's own
+     count on the card must agree); each graph's capture
+     time and the graph pool's memory are printed;
+  6. serve: TorchEngine at the full width of Llama-3.1-8B (32 layers,
+     random bf16 weights from a seed, made once, default EngineConfig:
+     rounds pipelined, each round a replayed CUDA graph) answers 8
+     concurrent greedy requests and a prefix-cache hit through
      generate(), first with dense KV, then with int8 KV; launch counts
-     are zeroed just before each and read just after, and must show the
-     decode kernel of that mode ran on every layer of every decode step
-     (and the other mode's never).
+     are zeroed just before each and read just after: every round and
+     patch must have been a graph replay, the wrapper must have issued
+     no launch, and the count the kernel keeps on the card (block
+     (0, 0, 0) of each launch adds one, graph replays included) must show
+     the kernel of that mode ran on every layer of every decode step (and
+     the other mode's never), as the engine's count (the launches its
+     graphs recorded at capture, once a replay) does.
 The card line (nvidia-smi's name and power limit) comes third from last,
 the second-to-last line is a JSON object describing every kernel, and the
 last is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -47,6 +64,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -391,6 +409,17 @@ async def generate_all(engine, prompts, max_tokens, logprobs=None,
     return await asyncio.gather(*[one(p) for p in prompts])
 
 
+def check_replayed(eng, what):
+    """Every decode round and state patch ``eng`` ran on the card was a
+    CUDA graph replay (the engine issues no eager round there)."""
+    dc = eng.dispatch_counts
+    programs = dc["round"] + dc["round_seal"] + dc["patch"]
+    if not programs or eng.graphs.replays != programs:
+        raise AssertionError(
+            f"{what}: {eng.graphs.replays} graph replays for {programs} "
+            f"rounds and patches")
+
+
 def check_tiny_engine():
     """Greedy tokens of the tiny model on the card (flash-decode kernel,
     hd 16 f32) vs on the CPU (plain version)."""
@@ -398,6 +427,7 @@ def check_tiny_engine():
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import flash_decode as fd
 
     cfg = ModelConfig.tiny(dtype="float32")
     ecfg = dict(num_pages=64, page_size=16, max_pages_per_seq=8,
@@ -411,6 +441,8 @@ def check_tiny_engine():
         p = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
                  else v.to(dev)) for k, v in params.items()}
         eng = TorchEngine(cfg, EngineConfig(**ecfg), params=p, device=dev)
+        if dev == "cuda":
+            fd.executed(eng.device, reset=True)
 
         async def drive():
             res = await generate_all(eng, prompts, 12)
@@ -419,8 +451,13 @@ def check_tiny_engine():
             return res
 
         outs[dev] = [(t, f) for t, f, *_ in asyncio.run(drive())]
-        if dev == "cuda" and eng.kernel_launches == 0:
-            raise AssertionError("tiny engine on cuda launched no kernel")
+        if dev == "cuda":
+            dense, int8 = fd.executed(eng.device)
+            if not dense or int8 or eng.kernel_launches != dense:
+                raise AssertionError(
+                    f"tiny engine on cuda: the kernel ran {dense} times, "
+                    f"int8 {int8}, graphs recorded {eng.kernel_launches}")
+            check_replayed(eng, "tiny")
     if outs["cuda"] != outs["cpu"]:
         raise AssertionError(
             f"tiny engine: cuda {outs['cuda']} != cpu {outs['cpu']}")
@@ -451,7 +488,8 @@ def check_tiny_int8():
         p = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
                  else v.to(dev)) for k, v in params.items()}
         eng = TorchEngine(cfg, EngineConfig(**ecfg), params=p, device=dev)
-        before = fd.launches_int8
+        if dev == "cuda":
+            fd.executed(eng.device, reset=True)
 
         async def drive():
             greedy = await generate_all(eng, prompts, 12, logprobs=2)
@@ -463,9 +501,15 @@ def check_tiny_int8():
             return greedy, seeded
 
         outs[dev] = asyncio.run(drive())
-        if dev == "cuda" and fd.launches_int8 == before:
-            raise AssertionError("tiny int8 engine on cuda launched no "
-                                 "int8 kernel")
+        if dev == "cuda":
+            # the kernel's own count on the card: the rounds are replays
+            dense, int8 = fd.executed(eng.device)
+            if not int8 or dense or eng.kernel_launches != int8:
+                raise AssertionError(
+                    f"tiny int8 engine on cuda: int8 kernel ran {int8} "
+                    f"times, dense {dense}, graphs recorded "
+                    f"{eng.kernel_launches}")
+            check_replayed(eng, "tiny int8")
     compared = ties = 0
     for (tc, *_), (tg, fg, _, _, top) in zip(outs["cuda"][0], outs["cpu"][0]):
         if fg != "length" or len(tg) != 12 or len(tc) != 12:
@@ -489,6 +533,129 @@ def check_tiny_int8():
         f"positions ({ties} streams stop at a cpu near-tie, gap <= "
         f"{NEAR_TIE}); the seeded temperature-0.8 stream of 24 tokens is "
         f"identical on both devices")
+
+
+def check_round_graph(label, cfg, ecfg, params, prompts):
+    """An engine on the card admits ``prompts``; then one decode round
+    replayed from its CUDA graph must give the tokens (and the state) of
+    the same round run eagerly on a clone of the same device state,
+    greedy and with logprobs; then torch.profiler counts the CUDA runtime
+    calls of one steady pipelined round and the flash-decode kernels
+    inside its replay."""
+    from dynamo_tpu_torch.engine import graphs as eg
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest,
+        StopConditions,
+    )
+
+    eng = TorchEngine(cfg, ecfg, params=params, device="cuda")
+    # no engine loop: this thread runs the engine's steps one at a time
+    # (every graph was captured with the engine)
+    eng._started = True
+    g = eng.graphs
+    B, F = ecfg.max_decode_slots, ecfg.flush_every
+    ran = [0, 0]  # the kernel's own count over the profiled round
+
+    async def consume(p):
+        req = PreprocessedRequest(
+            token_ids=list(p),
+            stop_conditions=StopConditions(max_tokens=64, ignore_eos=True))
+        async for _ in eng.generate(req):
+            pass
+
+    def compare(want_lp):
+        ctx = {k: v.clone() for k, v in eng.ctx.items()}
+        ring = {k: v.clone() for k, v in eng.ring.items()}
+        dev = {k: v.clone() for k, v in eng._dev.items()}
+        out = {k: v.clone() for k, v in g.out.items()}
+        eg.run_round(cfg, ecfg, params, ctx, ring, eng.cache, dev, out,
+                     False, want_lp)
+        g.round(False, want_lp, None)
+        torch.cuda.synchronize()
+        if not torch.equal(out["toks"], g.out["toks"]):
+            raise AssertionError(
+                f"round_graph {label}: replayed tokens {g.out['toks']} != "
+                f"eager {out['toks']}")
+        def live(t):  # the slots' own lanes, not the scratch lane
+            return t[:, :, :B] if t.dim() == 5 else t[:, :B]
+
+        same = all(torch.equal(dev[k], eng._dev[k]) for k in dev) and all(
+            torch.equal(live(ctx[k]), live(eng.ctx[k])) for k in ctx)
+        if not same:
+            raise AssertionError(f"round_graph {label}: the replayed round "
+                                 f"left another state than the eager one")
+        return ((out["lp"] - g.out["lp"]).abs().max().item()
+                if want_lp else None)
+
+    async def drive():
+        tasks = [asyncio.ensure_future(consume(p)) for p in prompts]
+        while eng._intake.qsize() < len(prompts):
+            await asyncio.sleep(0)
+        eng._drain_intake()
+        for _ in range(200):
+            if not (eng._waiting or eng._prefilling):
+                break
+            eng._admit()
+        eng._flush_seals()
+        if int(eng._slot_active.sum()) != len(prompts):
+            raise AssertionError(f"round_graph {label}: prompts not admitted")
+        compare(False)
+        lp_diff = compare(True)
+        # steady pipelined rounds through the engine's own round
+        for _ in range(3):
+            eng._round()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        dispatched = eng.pipeline_stats()["pipelined_dispatches"]
+        fd.executed(eng.device, reset=True)
+        with torch.profiler.profile(activities=acts) as prof:
+            eng._round()
+            torch.cuda.synchronize()
+        ran[:] = fd.executed(eng.device)
+        if eng.pipeline_stats()["pipelined_dispatches"] != dispatched + 1:
+            raise AssertionError(f"round_graph {label}: the profiled round "
+                                 f"was not dispatched early")
+        for t in tasks:
+            t.cancel()
+        return lp_diff, prof
+
+    lp_diff, prof = asyncio.run(drive())
+    runtime: dict[str, int] = defaultdict(int)
+    kernels = 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if "flash_decode" in evt.key and "combine" not in evt.key:
+                kernels += evt.count
+        elif evt.key.startswith("cuda"):
+            runtime[evt.key] += evt.count
+    graph_launches = sum(n for k, n in runtime.items() if "GraphLaunch" in k)
+    host_kernels = sum(n for k, n in runtime.items() if "LaunchKernel" in k)
+    copies = sum(n for k, n in runtime.items() if "Memcpy" in k)
+    want_kernels = cfg.num_layers * F
+    log(f"round_graph {label}: replayed round == eager round (tokens and "
+        f"state, greedy and with logprobs; largest logprob difference "
+        f"{lp_diff:.3e}); one steady pipelined round: {graph_launches} graph "
+        f"launch, {host_kernels} kernels launched from the host, {copies} "
+        f"copies, {kernels} flash-decode kernels in the replay "
+        f"({cfg.num_layers} layers x {F} steps = {want_kernels}; the "
+        f"kernel's own count on the card {sum(ran)}); runtime calls "
+        f"{dict(sorted(runtime.items()))}")
+    log(f"round_graph {label}: captures " + ", ".join(
+        f"{k} {t:.3f} s ({g.recorded[k]} flash-decode launches recorded)"
+        for k, t in g.capture_s.items())
+        + f"; graph pool {g.pool_bytes / 2**20:.1f} MiB")
+    if (graph_launches != 1 or host_kernels or kernels != want_kernels
+            or sum(ran) != want_kernels):
+        raise AssertionError(
+            f"round_graph {label}: a steady round must be one graph launch "
+            f"with {want_kernels} flash-decode kernels inside and no kernel "
+            f"launched from the host")
+    del eng, g
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def time_block_hashes(prompts, page):
@@ -543,9 +710,16 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
     steps0 = eng.step_count
     # every kernel count to 0 just before the main path
     fd.launches = fd.launches_int8 = 0
+    eng.kernel_launches = 0
+    fd.executed(eng.device, reset=True)
     res, repeat, t_batch = asyncio.run(drive())
-    launched = fd.launches_int8 if quant else fd.launches
-    other = fd.launches if quant else fd.launches_int8
+    # every round replays a graph captured with the engine, so the
+    # wrapper issues nothing here: the kernel counts its executions on the
+    # card, and the engine the launches its graphs recorded at capture
+    # once a replay (the cross-check)
+    ran = fd.executed(eng.device)
+    launched, other = (ran[1], ran[0]) if quant else ran
+    issued = fd.launches + fd.launches_int8
     counts[name] = launched
     steps = eng.step_count - steps0
     for toks, finish, *_ in res + [repeat]:
@@ -559,10 +733,16 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
     if cached != want_cached:
         raise AssertionError(f"prefix repeat hit {cached} blocks, "
                              f"expected {want_cached}")
-    if launched < cfg.num_layers * steps or eng.kernel_launches < launched:
+    check_replayed(eng, f"serve {kv_quant}")
+    if launched != cfg.num_layers * steps:
         raise AssertionError(
-            f"{name} launched {launched} times over {steps} decode "
+            f"{name} ran {launched} times on the card over {steps} decode "
             f"steps of {cfg.num_layers} layers")
+    if eng.kernel_launches != launched or issued:
+        raise AssertionError(
+            f"serve {kv_quant}: the graphs recorded {eng.kernel_launches} "
+            f"launches and the wrapper issued {issued}, the card ran "
+            f"{launched}")
     if other:
         raise AssertionError(f"serve {kv_quant}: the other mode's kernel "
                              f"launched {other} times")
@@ -579,7 +759,13 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
         f"round's gap spread over its tokens); decode {decode_tps:.1f} "
         f"tok/s over the batch (tokens after the first / span from first "
         f"first-token to last finish); {steps} decode steps, {name} "
-        f"launches {launched}")
+        f"launches {launched} (counted by the kernel on the card) in "
+        f"{eng.graphs.replays} graph replays, {eng.kernel_launches} by the "
+        f"graphs' records at capture, {issued} issued eagerly")
+    log(f"serve {kv_quant}: pipeline {eng.pipeline_stats()}; dispatches "
+        f"{eng.dispatch_counts}; captures " + ", ".join(
+            f"{k} {t:.3f} s" for k, t in eng.graphs.capture_s.items())
+        + f"; graph pool {eng.graphs.pool_bytes / 2**20:.1f} MiB")
     log(f"serve {kv_quant}: prefix repeat hit {cached} cached blocks, TTFT "
         f"{repeat[2]['timing']['ttft_s']:.4f} s")
     tokens = [t for t, *_ in res + [repeat]]
@@ -632,14 +818,29 @@ def main() -> int:
     fd8_report = check_flash_decode(serve_lens, quant=True)
     check_tiny_engine()
     check_tiny_int8()
+    from dynamo_tpu_torch.engine.config import EngineConfig
+
+    tiny = ModelConfig.tiny(dtype="float32")
+    rng = np.random.RandomState(SEED)
+    check_round_graph(
+        "tiny f32", tiny, EngineConfig(
+            num_pages=64, page_size=16, max_pages_per_seq=8,
+            max_decode_slots=4, prefill_buckets=(32, 64),
+            cache_dtype="float32"),
+        llama.init_params(tiny, SEED, device="cuda"),
+        [rng.randint(1, 256, size=n).tolist() for n in (29, 40, 17, 100)])
     time_block_hashes(serve_prompts(cfg.vocab_size), 64)
     counts: dict[str, int] = {}
-    # the 8B weights are made once and serve both KV modes
+    # the 8B weights are made once and serve every 8B phase
     t0 = time.monotonic()
     params = llama.init_params(cfg, SEED, device="cuda")
     torch.cuda.synchronize()
     log(f"serve: Llama-3.1-8B bf16 weights made on the card in "
         f"{time.monotonic() - t0:.1f} s")
+    for kv_quant in ("none", "int8"):
+        check_round_graph(f"Llama-3.1-8B kv_quant={kv_quant}", cfg,
+                          EngineConfig(kv_quant=kv_quant), params,
+                          serve_prompts(cfg.vocab_size))
     dense_tokens = serve_llama3_8b(counts, params, "none")
     serve_llama3_8b(counts, params, "int8", dense_tokens)
     print(smi)

@@ -171,6 +171,18 @@ __device__ __forceinline__ void from_f(float v, float* o) { *o = v; }
 // memory of the largest instantiation (hd 128, G 8) under 48 KB
 constexpr int kSplitTile = 32;
 
+// Executions of the attention kernel per mode (0 dense, 1 int8) since the
+// library loaded or the last reset: thread 0 of block (0, 0, 0) adds one
+// at the start of every launch, so the count holds for launches replayed
+// from a CUDA graph, which no host counter sees (flash_decode_executed).
+__device__ unsigned long long g_executed[2];
+
+__device__ __forceinline__ void count_execution(bool quant) {
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && threadIdx.x == 0) {
+    atomicAdd(&g_executed[quant ? 1 : 0], 1ULL);
+  }
+}
+
 // Stage rows [0, n_valid) of a [rows, HD] slab into shared memory (row
 // stride `stride` elements) and zero the rest, so that masked rows never
 // feed NaN from uninitialised shared memory into p * V.
@@ -253,6 +265,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ ctx_k,
   const int G = n_heads / n_kv;
   const int NS = n_split + 1;
   const size_t part = (static_cast<size_t>(b) * n_kv + h) * NS + z;
+  count_execution(kQuant);
 
   const int ctx = ctx_lens[b];
   const int base = ring_base[b];
@@ -678,6 +691,7 @@ flash_decode_cluster_kernel(const bf16* __restrict__ q, const KV* __restrict__ c
     if (trace != nullptr) trace[slot] = global_ns();
   };
   stamp(0);
+  count_execution(kQuant);
   const int ctx = ctx_lens[b];
   const int base = ring_base[b];
 
@@ -1185,4 +1199,17 @@ extern "C" int flash_decode_max_active_clusters(int quant, int hd, int cluster) 
 extern "C" int flash_decode_set_trace(void* buf) {
   cluster_trace = static_cast<unsigned long long*>(buf);
   return kTraceSlots;
+}
+
+// The attention kernel's executions on the current device since the
+// library loaded or the last reset, into out[2] (dense, int8); with reset
+// != 0 both go back to 0 after the read. Copies through the legacy default
+// stream (the caller synchronises first). Returns the cudaError_t.
+extern "C" int flash_decode_executed(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_executed, sizeof(g_executed));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[2] = {0, 0};
+    err = cudaMemcpyToSymbol(g_executed, zero, sizeof(zero));
+  }
+  return static_cast<int>(err);
 }

@@ -1,11 +1,13 @@
 """Engine runtime configuration (a copy of the JAX package's
 engine/config.py, cut to the knobs the PyTorch engine honours).
 
-The reference's other planes (round pipelining, speculation, offload
-tiers, tenancy, overload budgets, sequence-parallel prefill) are not
-ported yet. Their knobs are kept here at the values that mean "off",
-and any other value raises, so a config written for the reference never
-silently runs something else.
+Decode rounds are pipelined by default (``round_pipeline``, as in the
+reference) and, on the card, each round shape is replayed as one CUDA
+graph (engine/graphs.py). The reference's other planes (speculation,
+offload tiers, tenancy quotas, overload budgets, sequence-parallel
+prefill) are not ported yet. Their knobs are kept here at the values
+that mean "off", and any other value raises, so a config written for
+the reference never silently runs something else.
 """
 from __future__ import annotations
 
@@ -29,7 +31,6 @@ def pow2_cover(n: int, lo: int = 1) -> int:
 # knobs of the reference that this engine does not serve yet, with the
 # only value it accepts (the reference's "off")
 _UNPORTED = {
-    "round_pipeline": False,
     "speculative": "off",
     "lora_adapters": 0,
     "host_offload_pages": 0,
@@ -86,8 +87,13 @@ class EngineConfig:
     # identity on the control plane
     worker_id: str = ""
 
+    # round pipelining: when nothing pending would patch slot state, the
+    # next round is dispatched BEFORE the previous round's tokens are
+    # consumed, so host processing overlaps device execution. False is
+    # the strict process-then-dispatch order (the differential baseline)
+    round_pipeline: bool = True
+
     # not ported yet: see _UNPORTED
-    round_pipeline: bool = False
     speculative: str = "off"
     lora_adapters: int = 0
     host_offload_pages: int = 0

@@ -1,38 +1,51 @@
 """TorchEngine: continuous batching over contiguous per-slot KV, in
 PyTorch (port of the JAX package's TpuEngine main path).
 
-The round structure is the reference's, run in its strict
-process-then-dispatch order (``round_pipeline=False``):
-
   - Serving context is contiguous per slot (``ctx``); the paged pool is
     prefix-cache storage, copied in at admission (load_ctx_pages) and out
     at block seal (seal_blocks). Decode attention goes through the Hopper
     flash-decode kernel (ops/flash_decode.py). With ``kv_quant="int8"``
     the region and the pool are int8 with per-group scales and decode
     runs the kernel's int8 mode; the ring stays in ``cache_dtype``.
-  - Decode state lives on the device: last tokens, context lengths, write
-    destinations, the sampler's threefry keys and counts and per-slot
-    sampling knobs. A round is ``flush_every`` decode+sample steps, then
-    the ring->ctx flush and the round's queued block seals; its tokens
-    [F, B] come back in ONE device->host copy into a pinned buffer (plus
-    one packed logprob copy [F, B, 1+2K] in rounds where a slot asked for
-    logprobs), which the host reads a bounded lag
+  - Decode state lives on the device at fixed addresses: last tokens,
+    context lengths, write destinations, the sampler's threefry keys and
+    counts and per-slot sampling knobs. A round is ``flush_every``
+    decode+sample steps, then the ring->ctx flush and the round's queued
+    block seals (engine/graphs.py): on the card each round shape is one
+    CUDA graph, captured when the engine is built and replayed, so a
+    round costs one graph launch; the CPU runs the same round function
+    eagerly. Its tokens [F, B] come back in ONE device->host copy into a
+    pinned buffer (plus one packed logprob copy [F, B, 1+2K] in rounds where a
+    slot asked for logprobs), which the host reads a bounded lag
     (``max_inflight_rounds``) behind dispatch. All-greedy rounds take a
     bare argmax and touch no key, as the reference's ``want_sample``
     gate does.
+  - Rounds are pipelined (``round_pipeline``, on by default as in the
+    reference): when nothing pending would patch slot state (no waiting
+    or fresh request, no release, no seal overflow) the next round is
+    dispatched before the previous round's tokens are processed, so the
+    host's processing overlaps the device's round; otherwise the round
+    runs the strict process-then-dispatch order.
   - Host processing (token emission, stop detection, block sealing,
     admission) runs on lagged results. Releases and admissions patch the
-    device state between rounds; a freed slot's lane is redirected to the
-    scratch lane so its in-flight garbage steps never touch a lane being
-    re-prefilled. One CUDA stream keeps every program in dispatch order.
+    device state between rounds, one fixed-shape program (a graph on the
+    card); a freed slot's lane is redirected to the scratch lane so its
+    in-flight garbage steps never touch a lane being re-prefilled. One
+    CUDA stream keeps every program in dispatch order.
+  - Intake follows the reference's overload rules that no knob turns on:
+    a request whose deadline has passed is shed with zero tokens and the
+    DEADLINE finish, at intake or while it still waits; a high-priority
+    arrival queues ahead of every not-started lower-priority entry; and
+    entries of one priority are ordered per tenant by start-time fair
+    queuing, every tenant at weight 1 (one tenant stays FIFO).
   - Prefill runs batched per prefill bucket (batch_prefill); a group of
     one runs the single-request prefill (llama.prefill), as the
     reference does. The first token is sampled on the device with its
     own key stream and patched into the slot without a host round trip.
 
-Not ported yet (ROADMAP.md): round pipelining, CUDA graphs, speculation,
-offload tiers, the transfer plane, tenancy, overload budgets and
-preemption, multimodal, w8a16, MoE.
+Not ported yet (ROADMAP.md): speculation, offload tiers, the transfer
+plane, tenant quotas and adapters, overload budgets and preemption,
+multimodal, w8a16, MoE.
 """
 from __future__ import annotations
 
@@ -48,13 +61,12 @@ from typing import Any, AsyncIterator, Callable, Optional
 import numpy as np
 import torch
 
-from dynamo_tpu_torch.engine import sampling
+from dynamo_tpu_torch.engine import graphs, sampling
 from dynamo_tpu_torch.engine.cache import PageAllocator
 from dynamo_tpu_torch.engine.config import EngineConfig, pow2_cover
 from dynamo_tpu_torch.kv_router.protocols import KvCacheEvent
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.ops import flash_decode
 from dynamo_tpu_torch.protocols.common import (
     FinishReason,
     LLMEngineOutput,
@@ -67,6 +79,11 @@ log = logging.getLogger(__name__)
 _FIRST_TOKEN_KEY_TAG = 0x46697273  # distinct PRNG stream for first tokens
 
 
+def _wall_time() -> float:
+    """Unix time: the clock request deadlines are stamped in."""
+    return time.time()
+
+
 @dataclass
 class _Request:
     req: PreprocessedRequest
@@ -76,6 +93,9 @@ class _Request:
     # the prompt — kept separate from req.token_ids so engine-side state
     # never mutates the caller's request object
     tokens: list[int] = field(default_factory=list)
+    tenant: str = "default"
+    # start-time fair queuing stamp: the tenant's virtual finish time
+    vft: float = 0.0
     matched_blocks: int = 0
     # prompt blocks already copy-committed into the prefix cache
     sealed_prefix: int = 0
@@ -207,6 +227,9 @@ class TorchEngine:
         self._slot_active = np.zeros(B, bool)
         self._slot_sampler = np.zeros(B, bool)
         self._slot_lp = np.zeros(B, bool)
+        # (active slots, want_lp, want_sample), cached until the next slot
+        # change
+        self._active_cache: Optional[tuple[list[int], bool, bool]] = None
         dev = self.device
         i32 = dict(dtype=torch.int32, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
@@ -230,6 +253,12 @@ class TorchEngine:
         # completing blocks the same round); larger bursts flush standalone
         self._seal_fuse_w = pow2_cover(max(
             B, B * e.flush_every // max(e.page_size, 1), 1))
+        # the round and patch programs on this state (CUDA graphs on the
+        # card, every one captured here)
+        self.graphs = graphs.DeviceGraphs(c, e, self.params, self.ctx,
+                                          self.ring, self.cache, self._dev,
+                                          self._seal_fuse_w)
+        self.graphs.prepare()
 
         self._intake: queue_mod.Queue = queue_mod.Queue()
         self._wake_evt = threading.Event()
@@ -242,9 +271,25 @@ class TorchEngine:
         self._thread: Optional[threading.Thread] = None
         self._started = False
         self.step_count = 0
-        # flash-decode kernel launches made by this engine's rounds (read
-        # from the kernel wrapper's own count around each round)
+        # flash-decode kernel launches made by this engine's rounds: on
+        # the card, the launches recorded in a round's graph at its
+        # capture, once per replay
         self.kernel_launches = 0
+        # intake: deadline sheds, and the fair-queuing virtual clocks
+        # (global, advanced at service start, and per tenant)
+        self.sheds = 0
+        self._vclock = 0.0
+        self._tenant_vnow: dict[str, float] = {}
+        # round pipelining (pipeline_stats): early dispatches, the rounds
+        # in flight summed right after each, host time of pipelined
+        # rounds and its part spent after the early dispatch, and why the
+        # pipeline fell back to the strict order, per flush point
+        self._pipe_dispatches = 0
+        self._pipe_depth_sum = 0
+        self._pipe_hidden_s = 0.0
+        self._pipe_host_s = 0.0
+        self.pipe_flushes: dict[str, int] = {
+            "admission": 0, "release": 0, "seal_overflow": 0}
         self.dispatch_counts: dict[str, int] = {
             "round": 0, "round_seal": 0, "seal": 0, "patch": 0,
             "prefill": 0, "prefill_batch": 0, "load_ctx": 0,
@@ -299,6 +344,16 @@ class TorchEngine:
             raise ValueError(
                 "LoRA adapters, multimodal inputs and disaggregated "
                 "prefill are not supported by the PyTorch engine yet")
+        if request.deadline is not None and _wall_time() > request.deadline:
+            # the deadline passed before intake: shed with zero tokens and
+            # the DEADLINE finish, never an error (the client's budget ran
+            # out, nothing failed)
+            self.sheds += 1
+            yield LLMEngineOutput(
+                token_ids=[], finish_reason=FinishReason.DEADLINE,
+                annotations={"shed": {"reason": "deadline",
+                                      "queued_s": 0.0}})
+            return
         if not self._started:
             self.start()
         r = _Request(
@@ -308,6 +363,7 @@ class TorchEngine:
             out=asyncio.Queue(),
             loop=asyncio.get_running_loop(),
             tokens=list(request.token_ids),
+            tenant=request.tenant or "default",
         )
         self._intake.put(r)
         self._wake_evt.set()
@@ -339,26 +395,53 @@ class TorchEngine:
                     self._wake_evt.clear()
 
     def _round(self) -> bool:
-        """One scheduling round in the strict order: process ready
-        results, apply releases, admit (prefill), dispatch a decode round
-        for the live slots, flush leftover seal copies."""
+        """One scheduling round. With ``round_pipeline`` and the pipeline
+        clear (``_pipeline_clear``), the next decode round is dispatched
+        FIRST, before this round's ready results are processed, so the
+        processing below runs while the device executes. Otherwise (or
+        with pipelining off) the strict order: process ready results,
+        apply releases, admit (prefill), dispatch a decode round for the
+        live slots. Seals queued by result processing ride the next
+        round; they are flushed standalone only when nothing was
+        dispatched, pipelining is off, or the queue outgrew the fused
+        width."""
         e = self.ecfg
+        t_round = time.monotonic()
         self._drain_intake()
-        in_flight = sum(1 for en in self._entries if en.kind == "round")
+        in_flight = self._rounds_in_flight()
+        dispatched = False
+        t_pipe = 0.0
+        if (e.round_pipeline and in_flight <= e.max_inflight_rounds
+                and self._pipeline_clear()):
+            active, want_lp, want_sample = self._active_slots()
+            if active:
+                self._dispatch_round(want_sample, want_lp)
+                dispatched = True
+                in_flight += 1
+                self._pipe_dispatches += 1
+                self._pipe_depth_sum += in_flight
+                t_pipe = time.monotonic()
         self._process_entries(block=in_flight > e.max_inflight_rounds)
         self._apply_releases()
         self._admit()
-        did_work = bool(self._entries) or bool(self._prefilling)
-        dispatched = False
-        in_flight = sum(1 for en in self._entries if en.kind == "round")
-        active = np.flatnonzero(self._slot_active)
-        if in_flight <= e.max_inflight_rounds and active.size:
-            self._dispatch_round(bool(self._slot_sampler[active].any()),
-                                 bool(self._slot_lp[active].any()))
-            did_work = dispatched = True
-        if self._seal_queue:
+        did_work = dispatched or bool(self._entries) or bool(self._prefilling)
+        if (not dispatched
+                and self._rounds_in_flight() <= e.max_inflight_rounds):
+            # the strict position: after every patch above
+            active, want_lp, want_sample = self._active_slots()
+            if active:
+                self._dispatch_round(want_sample, want_lp)
+                did_work = dispatched = True
+        if self._seal_queue and (
+                not e.round_pipeline or not dispatched
+                or len(self._seal_queue) > self._seal_fuse_w):
             self._flush_seals()
             did_work = True
+        if t_pipe:
+            # host time after the early dispatch ran with it in flight
+            now = time.monotonic()
+            self._pipe_hidden_s += now - t_pipe
+            self._pipe_host_s += now - t_round
         if (not dispatched and self._entries
                 and self._intake.empty() and not self._waiting):
             # nothing to overlap with the in-flight copies: block on the
@@ -366,12 +449,88 @@ class TorchEngine:
             self._process_entries(block=True)
         return did_work
 
+    def _rounds_in_flight(self) -> int:
+        return sum(1 for en in self._entries if en.kind == "round")
+
+    def _pipeline_clear(self) -> bool:
+        """True when the next round may be dispatched before this round's
+        results are processed: nothing pending may patch slot state under
+        the in-flight rounds. Each False counts its flush point in
+        ``pipe_flushes``: an admission (waiting, mid-prefill or fresh
+        intake), a pending release, or a seal queue past the fused
+        width."""
+        if self._waiting or self._prefilling or not self._intake.empty():
+            self.pipe_flushes["admission"] += 1
+            return False
+        if self._to_release:
+            self.pipe_flushes["release"] += 1
+            return False
+        if len(self._seal_queue) > self._seal_fuse_w:
+            self.pipe_flushes["seal_overflow"] += 1
+            return False
+        return True
+
+    def _active_slots(self) -> tuple[list[int], bool, bool]:
+        """(live slots, want_lp, want_sample) from the slot-state mirrors,
+        cached until the next slot change."""
+        if self._active_cache is None:
+            idx = np.flatnonzero(self._slot_active)
+            self._active_cache = (idx.tolist(),
+                                  bool(self._slot_lp[idx].any()),
+                                  bool(self._slot_sampler[idx].any()))
+        return self._active_cache
+
+    def pipeline_stats(self) -> dict:
+        """Round-pipelining counters (the reference's keys): the mean
+        rounds in flight right after an early dispatch, the share of a
+        pipelined round's host time spent after its early dispatch (while
+        the device runs it), and the fallbacks to the strict order by
+        flush point."""
+        n = self._pipe_dispatches
+        return {
+            "round_pipeline": bool(self.ecfg.round_pipeline),
+            "pipelined_dispatches": n,
+            "pipeline_depth": round(self._pipe_depth_sum / n, 4) if n else 0.0,
+            "overlap_ratio": (
+                round(self._pipe_hidden_s / self._pipe_host_s, 4)
+                if self._pipe_host_s > 0 else 0.0),
+            "pipe_flushes": dict(self.pipe_flushes),
+        }
+
     def _drain_intake(self) -> None:
         while True:
             try:
-                self._waiting.append(self._intake.get_nowait())
+                self._enqueue_waiting(self._intake.get_nowait())
             except queue_mod.Empty:
                 return
+
+    def _enqueue_waiting(self, r: _Request) -> None:
+        """Start-time fair queuing within a priority class; a
+        high-priority arrival queues ahead of every lower-priority entry
+        that has NOT started prefill (an entry holding a lane is active
+        work, never jumped). Each request is stamped with a virtual
+        finish time, its tenant's virtual clock advanced by its prompt
+        length (every tenant's weight is 1 until quotas are ported), and
+        goes before the first not-started same-priority entry with a
+        LARGER stamp. A tenant's fresh arrival starts at the global
+        virtual clock (advanced at service start, ``_prefill_begin``), so
+        a storming tenant's backlog cannot hold it back; one tenant's
+        stamps only grow, so its traffic stays FIFO."""
+        t = r.tenant
+        vstart = max(self._tenant_vnow.get(t, 0.0), self._vclock)
+        r.vft = vstart + max(1, len(r.tokens))
+        self._tenant_vnow[t] = r.vft
+        for i, w in enumerate(self._waiting):
+            if w.prefill_pos >= 0:
+                continue
+            if r.req.priority > 0:
+                jump = w.req.priority < r.req.priority
+            else:
+                jump = w.req.priority == r.req.priority and w.vft > r.vft
+            if jump:
+                self._waiting.insert(i, r)
+                return
+        self._waiting.append(r)
 
     def _slot_on(self, slot: int, r: _Request) -> None:
         """A slot becomes live. It needs the sampler if it samples OR
@@ -385,98 +544,44 @@ class TorchEngine:
             or (so.presence_penalty or 0.0) != 0.0
             or (so.repetition_penalty or 1.0) != 1.0
         )
+        self._active_cache = None
 
     def _slot_off(self, slot: int) -> None:
         self._slot_active[slot] = False
         self._slot_sampler[slot] = False
         self._slot_lp[slot] = False
+        self._active_cache = None
 
     # ---- dispatch side ----
 
     def _dispatch_round(self, want_sample: bool, want_lp: bool) -> None:
-        """``flush_every`` decode+sample steps, the ring->ctx flush, the
-        pending seal batch, and one stacked-token copy to the host (plus
-        one packed-logprob copy when ``want_lp``)."""
-        c, e = self.config, self.ecfg
-        n = e.flush_every
-        d = self._dev
+        """One round (``flush_every`` decode+sample steps, the ring->ctx
+        flush and the pending seal batch: a graph replay on the card),
+        then one stacked-token copy to the host (plus one packed-logprob
+        copy when ``want_lp``), queued right behind it."""
+        n = self.ecfg.flush_every
         seal = self._take_seal_batch(width=self._seal_fuse_w)
-        launches_before = self._kernel_count()
-        # the round's ring base is fixed at its start
-        ring_base = torch.clamp(d["ctx"] - 1, min=0)
-        toks_out = torch.empty(n, self._B, dtype=torch.int32,
-                               device=self.device)
-        lp_out = (torch.empty(n, self._B, 1 + 2 * e.max_logprobs,
-                              dtype=torch.float32, device=self.device)
-                  if want_lp else None)
-        sp = sampling.SamplingParams(
-            temperature=d["temp"], top_k=d["top_k"], top_p=d["top_p"],
-            frequency_penalty=d["freq"], presence_penalty=d["pres"],
-            repetition_penalty=d["rep"],
-        )
-        for s in range(n):
-            logits = llama.decode_step(
-                c, self.params, self.ctx, self.ring, d["tokens"], d["ctx"],
-                ring_base, s)
-            if want_sample:
-                toks = sampling.sample_step(
-                    logits, d["counts"], sp, e.max_top_k, d["keys"])
-            else:
-                toks = torch.argmax(logits, dim=-1).to(torch.int32)
-            toks_out[s] = toks
-            if want_lp:
-                lp_out[s] = sampling.pack_logprobs(*sampling.compute_logprobs(
-                    logits, toks, e.max_logprobs))
-            d["tokens"] = toks
-            d["ctx"] = torch.clamp(d["ctx"] + 1, max=e.max_context)
-        # round boundary: scatter the ring into the ctx region (after
-        # every read of the round)
-        valid = torch.clamp(e.max_context - ring_base, max=n)
-        llama.flush_ctx(self.ctx, self.ring, d["dest"], ring_base, valid)
-        if seal is not None:
-            self.dispatch_counts["round_seal"] += 1
-            self._seal_dispatch(seal)
-        else:
-            self.dispatch_counts["round"] += 1
-        self.kernel_launches += self._kernel_count() - launches_before
+        self.kernel_launches += self.graphs.round(want_sample, want_lp, seal)
+        self.dispatch_counts["round" if seal is None else "round_seal"] += 1
         self.step_count += n
         self.dispatch_counts["fetch"] += 1 + want_lp
+        out = self.graphs.out
         self._entries.append(_Entry(
-            kind="round", fetch=_Fetch(toks_out),
-            lp_fetch=_Fetch(lp_out) if want_lp else None,
+            kind="round", fetch=_Fetch(out["toks"]),
+            lp_fetch=_Fetch(out["lp"]) if want_lp else None,
             slots=list(self._slots), n_steps=n,
         ))
-
-    @staticmethod
-    def _kernel_count() -> int:
-        return flash_decode.launches + flash_decode.launches_int8
 
     def _dispatch_patch(
         self,
         clear_slots: list[int] = (),
         admit: Optional[dict[str, Any]] = None,
     ) -> None:
-        """State patch (releases and one admission), in place on the
-        device state. Freed slots park on the scratch lane so their
-        in-flight garbage steps cannot touch a lane being re-prefilled."""
-        d = self._dev
+        """State patch (releases and one admission): one fixed-shape
+        program on the device state (``graphs.run_patch``)."""
         self.dispatch_counts["patch"] += 1
-        if clear_slots:
-            idx = self._to_device(np.asarray(clear_slots, np.int64))
-            d["ctx"][idx] = 1
-            d["tokens"][idx] = 0
-            d["temp"][idx] = 0.0
-            d["counts"][idx] = 0
-            d["dest"][idx] = self._B
-        if admit is not None:
-            s = admit["slot"]
-            d["tokens"][s] = admit["tok"][0]  # device copy, no host trip
-            d["ctx"][s] = admit["ctx"]
-            d["dest"][s] = s
-            d["counts"][s] = 0
-            d["keys"][s, 0], d["keys"][s, 1] = admit["keys"]
-            for key in ("temp", "top_k", "top_p", "freq", "pres", "rep"):
-                d[key][s] = admit[key]
+        self.graphs.patch(graphs.pack_patch(self._B, clear_slots, admit),
+                          admit["tok"] if admit is not None else None)
 
     # ---- block sealing (ctx -> pool prefix-cache copies) ----
 
@@ -528,11 +633,6 @@ class TorchEngine:
             arr[:, i] = (s, st, pg)
         return arr
 
-    def _seal_dispatch(self, arr: np.ndarray) -> None:
-        slots, starts, pages = self._to_device(arr)
-        llama.seal_blocks(self.cache, self.ctx, slots, starts, pages,
-                          self.ecfg.page_size)
-
     def _flush_seals(self) -> None:
         """Dispatch the pending ctx->pool seal copies standalone. Stream
         order makes this safe: the sealed positions were written by
@@ -542,15 +642,23 @@ class TorchEngine:
         if arr is None:
             return
         self.dispatch_counts["seal"] += 1
-        self._seal_dispatch(arr)
+        slots, starts, pages = self._to_device(arr)
+        llama.seal_blocks(self.cache, self.ctx, slots, starts, pages,
+                          self.ecfg.page_size)
 
     # ---- admission / prefill ----
 
     def _admit(self) -> None:
+        now = _wall_time()
         kept = []
         for r in self._waiting:
             if r.cancelled:
                 self._abort_prefill(r)
+            elif (r.prefill_pos < 0 and r.req.deadline is not None
+                    and now > r.req.deadline):
+                # a still-WAITING request past its deadline would only
+                # prefill dead work; one that started is always served
+                self._shed_waiting(r)
             else:
                 kept.append(r)
         self._waiting = kept
@@ -569,6 +677,18 @@ class TorchEngine:
             budget -= len(group)
             for r in self._batch_prefill_group(group, width):
                 self._waiting.remove(r)
+
+    def _shed_waiting(self, r: _Request) -> None:
+        """Drop a waiting request whose deadline passed: zero tokens and
+        the DEADLINE finish (the budget ran out, nothing failed)."""
+        r.finished = True
+        self.sheds += 1
+        r.emit(LLMEngineOutput(
+            token_ids=[], finish_reason=FinishReason.DEADLINE,
+            annotations={"shed": {
+                "reason": "deadline",
+                "queued_s": round(time.monotonic() - r.enqueue_time, 3),
+            }}))
 
     def _chunk_width(self, remaining: int) -> int:
         """Padded (bucketed, page-aligned) width of the next chunk for a
@@ -682,6 +802,9 @@ class TorchEngine:
         r.slot = slot
         self._prefilling[slot] = r
         r.t_prefill_start = time.monotonic()
+        # fair queuing: service start advances the global virtual clock
+        # to this request's stamp, so later arrivals start from here
+        self._vclock = max(self._vclock, r.vft)
         hashes = r.seq.block_hashes()
         matchable = hashes[: max(0, (len(r.tokens) - 1) // ps)]
         matched_pages = self.allocator.match_prefix(matchable)
@@ -747,7 +870,8 @@ class TorchEngine:
         self.dispatch_counts["fetch"] += 1 + want_lp
         self._entries.append(_Entry(
             kind="first", fetch=_Fetch(first_tok),
-            lp_fetch=_Fetch(first_lp) if want_lp else None, request=r))
+            lp_fetch=_Fetch(first_lp) if want_lp else None,
+            request=r))
 
     # ---- processing side (lagged results) ----
 
@@ -938,6 +1062,7 @@ class TorchEngine:
         self._slot_active[:] = False
         self._slot_sampler[:] = False
         self._slot_lp[:] = False
+        self._active_cache = None
         for r in self._waiting:
             r.emit(err)
             self._abort_prefill(r)

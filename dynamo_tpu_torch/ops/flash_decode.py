@@ -21,7 +21,9 @@ splits merge in a thread-block cluster (``cluster_splits``) and rounds
 the probabilities to bf16 before P.V as the TPU kernel does; in f32
 (the tiny model) either mode is a split launch and a combine launch
 (``pick_splits``) over f32 scratch. ``launches`` counts dense-mode calls
-that launched, ``launches_int8`` int8-mode ones.
+that launched, ``launches_int8`` int8-mode ones; a launch replayed from
+a CUDA graph passes no wrapper, and ``executed`` reads the count the
+kernel keeps on the card, which sees it.
 """
 from __future__ import annotations
 
@@ -253,6 +255,26 @@ def _launch(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base,
     else:
         launches += 1
     return out
+
+
+def executed(device: torch.device, reset: bool = False) -> tuple[int, int]:
+    """(dense, int8): the attention kernel's executions on ``device``
+    since the library loaded or the last reset, graph replays included
+    (block (0, 0, 0) of every launch counts itself). Synchronises the
+    device; with ``reset`` both counts go back to 0."""
+    from dynamo_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.load("flash_decode").flash_decode_executed
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    got = (ctypes.c_ulonglong * 2)()
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        err = fn(got, int(reset))
+    if err != 0:
+        raise RuntimeError(f"flash_decode: reading the execution count "
+                           f"failed: cudaError {err}")
+    return int(got[0]), int(got[1])
 
 
 def flash_decode_attention(

@@ -125,10 +125,14 @@ def test_torch_engine_without_device_refuses_cpu(monkeypatch):
 
 def test_unported_engine_knobs_raise():
     TEngineConfig(kv_quant="int8")  # ported
+    assert TEngineConfig().round_pipeline is True  # ported, on by default
+    TEngineConfig(round_pipeline=False)  # the strict order stays reachable
     with pytest.raises(ValueError, match="kv_quant"):
         TEngineConfig(kv_quant="fp8")
-    with pytest.raises(ValueError, match="round_pipeline"):
-        TEngineConfig(round_pipeline=True)
+    with pytest.raises(ValueError, match="speculative"):
+        TEngineConfig(speculative="ngram")
+    with pytest.raises(ValueError, match="preempt_running"):
+        TEngineConfig(preempt_running=True)
 
 
 def test_logprobs_request_gets_a_clear_error():

@@ -12,12 +12,16 @@ and scales). ``--sample`` adds the sampler of a round at temperature 0.8
 draw) to each step. It
 prints the host-clock time per step around synchronized steps, the
 device time per step that torch.profiler attributes to CUDA kernels,
-the device's idle share, and the device time by kernel group (matmul,
+the device's idle share (1 - device / wall; one under IDLE_RESOLUTION
+is printed as unresolved), and the device time by kernel group (matmul,
 the flash-decode kernel, the rest) and by kernel name; then the same
 wall and device time for one ring->ctx flush (``flush_ctx``, once per
 round of ``flush_every`` steps; the int8 region requantizes a window per
-lane there). The last line is a JSON object with the same numbers. Needs
-a CUDA device.
+lane there). Then a whole engine round (``engine/graphs.py``:
+``flush_every`` steps, sampling or argmax, and the flush) replayed from
+its CUDA graph, as the engine runs it, beside the same round run
+eagerly: wall and device ms and the idle share per step. The last line
+is a JSON object with the same numbers. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -35,6 +39,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 STEPS = 10
+# the idle share is 1 - device / wall with the wall from an unprofiled
+# window and the device time from a profiled one (the profiler's own host
+# cost would inflate a profiled wall); a share smaller than this is below
+# the two windows' noise and is printed as unresolved
+IDLE_RESOLUTION = 0.02
 
 
 def group_of(name: str) -> str:
@@ -45,6 +54,12 @@ def group_of(name: str) -> str:
                               "cublas", "splitk")):
         return "matmul"
     return "other"
+
+
+def idle_text(share: float) -> str:
+    if abs(share) < IDLE_RESOLUTION:
+        return f"unresolved (|{share:.3f}| < {IDLE_RESOLUTION})"
+    return f"{share:.3f}"
 
 
 def measure(fn) -> tuple[float, dict[str, float]]:
@@ -84,7 +99,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_decode: no CUDA device", file=sys.stderr)
         return 1
-    from dynamo_tpu_torch.engine import sampling
+    from dynamo_tpu_torch.engine import graphs, sampling
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import ModelConfig
@@ -127,8 +142,44 @@ def main() -> int:
     def flush():
         llama.flush_ctx(ctx, ring, dest, ring_base, valid)
 
+    # a whole round on an engine's state: the slots' own lanes, the
+    # sampler's knobs as above, no seal (the pool is one scratch page)
+    state = {"tokens": tokens.clone(), "ctx": ctx_lens.clone(),
+             "dest": dest.clone(), "counts": counts.clone(),
+             "keys": keys.clone(), "temp": sp.temperature.clone(),
+             "top_k": sp.top_k.clone(), "top_p": sp.top_p.clone(),
+             "freq": sp.frequency_penalty.clone(),
+             "pres": sp.presence_penalty.clone(),
+             "rep": sp.repetition_penalty.clone()}
+    if not args.sample:
+        state["temp"].zero_()
+    cache = llama.init_cache(cfg, 1, ecfg.page_size, torch.bfloat16, dev,
+                             kv_quant=args.kv_quant)
+    programs = graphs.DeviceGraphs(cfg, ecfg, params, ctx, ring, cache,
+                                   state, seal_width=ecfg.max_decode_slots)
+    programs.prepare()
+
+    def graph_round():
+        programs.round(args.sample, False, None)
+
+    def eager_round():
+        graphs.run_round(cfg, ecfg, params, ctx, ring, cache, state,
+                         programs.out, args.sample, False)
+
     wall_ms, by_name = measure(step)
     flush_wall_ms, flush_by_name = measure(flush)
+    F = ecfg.flush_every
+    rounds = {}
+    for label, fn in (("graph", graph_round), ("eager", eager_round)):
+        r_wall, r_by = measure(fn)
+        r_dev = sum(r_by.values())
+        r_groups: dict[str, float] = defaultdict(float)
+        for name, ms in r_by.items():
+            r_groups[group_of(name)] += ms / F
+        rounds[label] = {"wall_ms_per_step": r_wall / F,
+                         "device_ms_per_step": r_dev / F,
+                         "idle_share": 1 - r_dev / r_wall,
+                         "groups_ms_per_step": dict(r_groups)}
     device_ms = sum(by_name.values())
     flush_device_ms = sum(flush_by_name.values())
     groups: dict[str, float] = defaultdict(float)
@@ -139,7 +190,7 @@ def main() -> int:
     print(f"decode_step ({mode}) at Llama-3.1-8B, B={B}, contexts "
           f"{lens.tolist()}: "
           f"wall {wall_ms:.3f} ms/step, device {device_ms:.3f} ms/step, "
-          f"device idle {1 - device_ms / wall_ms:.3f} of wall")
+          f"device idle {idle_text(1 - device_ms / wall_ms)} of wall")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  group {g}: {ms:.3f} ms/step")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
@@ -147,6 +198,19 @@ def main() -> int:
     print(f"flush_ctx ({mode.split(',')[0]}, once per round of "
           f"{ecfg.flush_every} steps): wall {flush_wall_ms:.3f} ms, device "
           f"{flush_device_ms:.3f} ms")
+    for label, r in rounds.items():
+        how = ("replayed from its CUDA graph" if label == "graph"
+               else "run eagerly")
+        print(f"round ({mode}, {F} steps + flush, {how}): wall "
+              f"{r['wall_ms_per_step']:.3f} ms/step, device "
+              f"{r['device_ms_per_step']:.3f} ms/step, device idle "
+              f"{idle_text(r['idle_share'])} of wall; groups " + ", ".join(
+                  f"{g} {ms:.3f}" for g, ms in sorted(
+                      r["groups_ms_per_step"].items(), key=lambda kv: -kv[1]))
+              + " ms/step")
+    print("round graph captures: " + ", ".join(
+        f"{k} {t:.3f} s" for k, t in programs.capture_s.items())
+        + f"; graph pool {programs.pool_bytes / 2**20:.1f} MiB")
     print(json.dumps({
         "card": smi, "kv_quant": args.kv_quant, "sample": args.sample,
         "wall_ms_per_step": wall_ms,
@@ -154,6 +218,7 @@ def main() -> int:
         "idle_share": 1 - device_ms / wall_ms,
         "groups_ms_per_step": dict(groups),
         "flush_wall_ms": flush_wall_ms, "flush_device_ms": flush_device_ms,
+        "graph_round": rounds["graph"], "eager_round": rounds["eager"],
     }))
     return 0
 
