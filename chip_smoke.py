@@ -49,7 +49,26 @@ Phases, each printing a line (any failure raises and exits non-zero):
      (0, 0, 0) of each launch adds one, graph replays included) must show
      the kernel of that mode ran on every layer of every decode step (and
      the other mode's never), as the engine's count (the launches its
-     graphs recorded at capture, once a replay) does.
+     graphs recorded at capture, once a replay) does. The burst is held
+     at the engine's intake until all 8 requests wait, so its prefill
+     groups do not depend on arrival timing;
+  7. http: the port's entry point on the same weights: launch.run's
+     build_chain (dense KV, default EngineConfig) behind the port's
+     HttpService on 127.0.0.1, driven by the port's HTTP client: the
+     serve phase's 8 prompts as streamed greedy /v1/completions requests
+     (token ids, 32 tokens, nvext.ignore_eos), sent in prompt order and
+     gated as in the serve phase. Every stream ends in [DONE] with
+     finish_reason length, its text (the test tokenizer with one word per
+     id) maps back to the serve phase's tokens, the kernel's own count on
+     the card rises by layers x decode steps (the kernels line's
+     launches_http), a unary chat completion returns 200 and /metrics
+     carries the TTFT, ITL and E2E series; TTFT, gaps and tok/s are
+     printed beside the serve phase's, with the event loop thread's CPU
+     time per streamed token and DecodeStream's cost per token;
+  8. cli: ``python -m dynamo_tpu_torch.launch.run in=text out=torch
+     --model-config tiny --cache-dtype float32 --prompt "w1 w2 w3"
+     --max-tokens 8`` in a subprocess, with no --device: it must run its
+     engine on cuda and exit 0.
 The card line (nvidia-smi's name and power limit) comes third from last,
 the second-to-last line is a JSON object describing every kernel, and the
 last is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -58,6 +77,7 @@ the rest of the repository beside it, the script fails.
 from __future__ import annotations
 
 import asyncio
+import faulthandler
 import gc
 import json
 import re
@@ -674,9 +694,31 @@ def time_block_hashes(prompts, page):
         f"{us:.1f} us per block over {n} blocks")
 
 
+class IntakeGate:
+    """Holds an engine's intake until ``n`` requests wait in it. A burst's
+    prefill groups (and with them the prefill numerics: a group of one
+    takes another path than a batch) then do not depend on when each
+    request arrived, so the serve and http phases admit the same prompts
+    in the same order and groups, and their greedy tokens can be held
+    equal."""
+
+    def __init__(self, eng, n):
+        self.eng, self.n, self.open = eng, n, False
+        self._drain = eng._drain_intake
+        eng._drain_intake = self.drain
+
+    def drain(self):
+        if not self.open:
+            if self.eng._intake.qsize() < self.n:
+                return
+            self.open = True
+        self._drain()
+
+
 def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
     """The serve burst on Llama-3.1-8B with the given weights and KV mode;
-    returns each request's tokens."""
+    returns each request's tokens (the burst's 8, then the repeat) and the
+    burst's figures (TTFT and gaps in s, decode tok/s)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.models.config import ModelConfig
@@ -712,6 +754,7 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
     fd.launches = fd.launches_int8 = 0
     eng.kernel_launches = 0
     fd.executed(eng.device, reset=True)
+    IntakeGate(eng, len(prompts))
     res, repeat, t_batch = asyncio.run(drive())
     # every round replays a graph captured with the engine, so the
     # wrapper issues nothing here: the kernel counts its executions on the
@@ -769,6 +812,7 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
     log(f"serve {kv_quant}: prefix repeat hit {cached} cached blocks, TTFT "
         f"{repeat[2]['timing']['ttft_s']:.4f} s")
     tokens = [t for t, *_ in res + [repeat]]
+    figures = dict(ttft=ttft, gaps=gaps, tps=decode_tps)
     if dense_tokens is not None:
         same = sum(a == b for x, y in zip(tokens, dense_tokens)
                    for a, b in zip(x, y))
@@ -784,7 +828,293 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return tokens
+    return tokens, figures
+
+
+def frontend_us_per_token(chain, prompts, streams, stream, reps=3):
+    """The frontend's host time per streamed token: ``streams`` (each
+    prompt's tokens) replayed through ``chain``'s preprocessor and backend
+    behind an HttpService and the port's client, from an engine that only
+    yields them (the first token alone, then 4 a round, as the engine
+    emits them); the whole burst's wall time over its tokens, median of
+    ``reps``. ``stream(client, prompt, model)`` sends one request."""
+    from dynamo_tpu_torch.frontend.http import HttpClient
+    from dynamo_tpu_torch.frontend.model_manager import ModelChain, ModelManager
+    from dynamo_tpu_torch.frontend.service import HttpService
+    from dynamo_tpu_torch.protocols.common import FinishReason, LLMEngineOutput
+
+    by_prompt = {tuple(p): s for p, s in zip(prompts, streams)}
+
+    class Replay:
+        async def generate(self, req):
+            toks = by_prompt[tuple(req.token_ids)]
+            for chunk in [toks[:1]] + [toks[i:i + 4]
+                                       for i in range(1, len(toks), 4)]:
+                await asyncio.sleep(0)
+                yield LLMEngineOutput(token_ids=chunk)
+            yield LLMEngineOutput(finish_reason=FinishReason.LENGTH)
+
+    manager = ModelManager()
+    manager.register(ModelChain(name="replay",
+                                preprocessor=chain.preprocessor,
+                                engine=Replay(), backend=chain.backend))
+
+    async def burst():
+        svc = HttpService(manager, host="127.0.0.1", port=0)
+        await svc.start()
+        try:
+            walls = []
+            for _ in range(reps):
+                clients = [HttpClient("127.0.0.1", svc.port) for _ in prompts]
+                t0 = time.perf_counter()
+                await asyncio.gather(*[stream(c, p, "replay")
+                                       for c, p in zip(clients, prompts)])
+                walls.append(time.perf_counter() - t0)
+                for c in clients:
+                    await c.close()
+            return float(np.median(walls))
+        finally:
+            await svc.stop()
+
+    return asyncio.run(burst()) / sum(map(len, streams)) * 1e6
+
+
+def check_http(params, direct_tokens, direct):
+    """The port's entry point at Llama-3.1-8B: launch.run's chain (dense
+    KV, default EngineConfig, the serve phase's weights) behind the
+    port's HttpService on 127.0.0.1, driven by the port's HTTP client:
+    the serve phase's 8 prompts as streamed greedy /v1/completions
+    requests (token ids, 32 tokens, nvext.ignore_eos), sent in prompt
+    order behind an intake gate as the serve phase admitted them. Every
+    stream must end in [DONE] with finish_reason length, its text must
+    map back to the serve phase's tokens, and the kernel's own count on
+    the card must rise by layers x decode steps (returned as the
+    launches of the http path). A unary chat request runs before the
+    burst, /metrics after it. Prints TTFT, gaps and tok/s beside the
+    serve phase's, each request's TTFT split at the engine's intake and
+    its first output, the frontend's host time per streamed token (the
+    same streams replayed through the service from an engine that only
+    yields them) and DecodeStream's cost per token."""
+    from dynamo_tpu_torch.frontend.http import HttpClient
+    from dynamo_tpu_torch.frontend.model_manager import ModelManager
+    from dynamo_tpu_torch.frontend.service import HttpService
+    from dynamo_tpu_torch.launch import run as launch
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.protocols.sse import SseDecoder
+    from dynamo_tpu_torch.tokenizer import DecodeStream, make_test_tokenizer
+
+    cfg = ModelConfig.llama3_8b()
+    # one word per id: a text maps back to its ids (0-2 decode to nothing)
+    tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
+    args = launch.build_parser().parse_intermixed_args(
+        ["in=http", "out=torch", "--model-config", "llama3_8b",
+         "--model-name", "llama3_8b"])
+    t0 = time.monotonic()
+    _, chain = launch.build_chain(args, params=params, tokenizer=tok)
+    eng = chain.engine
+    log(f"http: launch.run chain built in {time.monotonic() - t0:.1f} s "
+        f"(TorchEngine on {eng.device}, kv_quant {eng.ecfg.kv_quant}, "
+        f"{eng.ecfg.max_decode_slots} slots)")
+    manager = ModelManager()
+    manager.register(chain)
+    prompts = serve_prompts(cfg.vocab_size)
+    n_new = 32
+    # when each request reaches the engine and its first output reaches
+    # the event loop, and the engine's own timing annotation
+    marks: dict[tuple, dict] = {}
+    engine_generate = eng.generate
+
+    async def recording_generate(req):
+        m = marks[tuple(req.token_ids)] = {"in": time.monotonic()}
+        async for out in engine_generate(req):
+            if out.token_ids and "first" not in m:
+                m["first"] = time.monotonic()
+            if out.finish_reason is not None:
+                m["timing"] = out.annotations.get("timing", {})
+            yield out
+
+    eng.generate = recording_generate
+
+    async def stream(client, prompt, model="llama3_8b"):
+        t_send = time.monotonic()
+        r = await client.request("POST", "/v1/completions", json_body={
+            "model": model, "prompt": prompt, "max_tokens": n_new,
+            "temperature": 0, "stream": True,
+            "nvext": {"ignore_eos": True}}, stream=True)
+        if r.status != 200:
+            raise AssertionError(f"http: status {r.status}")
+        dec, events, arrivals = SseDecoder(), [], []
+        async for chunk in r.chunks():
+            for ev in dec.feed(chunk):
+                events.append(ev)
+                arrivals.append(time.monotonic())
+        return t_send, events, arrivals
+
+    async def drive():
+        svc = HttpService(manager, host="127.0.0.1", port=0)
+        await svc.start()
+        clients = [HttpClient("127.0.0.1", svc.port) for _ in prompts]
+        try:
+            # a unary chat request first: it ends before the counts are
+            # zeroed (no round is dispatched once its slot is released)
+            async with HttpClient("127.0.0.1", svc.port) as c:
+                chat = await c.request("POST", "/v1/chat/completions",
+                                       json_body={
+                    "model": "llama3_8b", "max_tokens": 4,
+                    "messages": [{"role": "user", "content": "t5 t6 t7"}]})
+            # every kernel count to 0 just before the main path
+            fd.launches = fd.launches_int8 = 0
+            eng.kernel_launches = 0
+            fd.executed(eng.device, reset=True)
+            steps0 = eng.step_count
+            gate = IntakeGate(eng, len(prompts))
+            tasks = []
+            for i, (c, p) in enumerate(zip(clients, prompts)):
+                tasks.append(asyncio.ensure_future(stream(c, p)))
+                # in prompt order, as the serve phase's burst arrived (the
+                # last arrival opens the gate, and the engine may drain
+                # the intake before this loop looks at it)
+                t_wait = time.monotonic()
+                while not gate.open and eng._intake.qsize() < i + 1:
+                    if tasks[-1].done():
+                        tasks[-1].result()  # its failure, if it failed
+                        raise AssertionError(f"http: request {i} ended "
+                                             f"before reaching the engine")
+                    if time.monotonic() - t_wait > 60:
+                        raise AssertionError(f"http: request {i} did not "
+                                             f"reach the engine in 60 s")
+                    await asyncio.sleep(0.0005)
+            res = await asyncio.wait_for(asyncio.gather(*tasks), 120)
+            # the counts once the engine's thread has stopped, as in serve
+            await eng.stop()
+            ran = fd.executed(eng.device)
+            steps = eng.step_count - steps0
+            async with HttpClient("127.0.0.1", svc.port) as c:
+                metrics = (await c.request("GET", "/metrics")).body.decode()
+            return res, ran, steps, chat, metrics
+        finally:
+            for c in clients:
+                await c.close()
+            await svc.stop()
+            await eng.stop()
+
+    eng.start()
+    # a hang here prints every thread's stack and exits, within the
+    # script's time limit
+    faulthandler.dump_traceback_later(300, exit=True)
+    try:
+        res, (dense, int8), steps, chat, metrics = asyncio.run(drive())
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    issued = fd.launches + fd.launches_int8
+    ttft, gaps, firsts, ends, texts = [], [], [], [], []
+    for t_send, events, arrivals in res:
+        if not events or not events[-1].is_done:
+            raise AssertionError("http: a stream did not end in [DONE]")
+        text, last, finish = "", None, None
+        for ev, t in zip(events[:-1], arrivals):
+            choice = ev.json()["choices"][0]
+            finish = choice["finish_reason"] or finish
+            piece = choice["text"]
+            if not piece:
+                continue
+            n = len(piece.split())  # one word per token
+            if last is None:
+                ttft.append(t - t_send)
+                firsts.append(t)
+            else:
+                gaps += [(t - last) / n] * n
+            last = t
+            text += piece
+        if finish != "length":
+            raise AssertionError(f"http: finish_reason {finish!r}")
+        ends.append(arrivals[-1])
+        texts.append(text)
+    for i, (text, want) in enumerate(zip(texts, direct_tokens)):
+        got = [int(w[1:]) for w in text.split()]
+        if got != [t for t in want if t > 2]:
+            raise AssertionError(
+                f"http: request {i} streamed {got}, the serve phase's "
+                f"generate() gave {want}")
+    check_replayed(eng, "http")
+    if dense != cfg.num_layers * steps or int8 or issued \
+            or eng.kernel_launches != dense:
+        raise AssertionError(
+            f"http: flash_decode ran {dense} times on the card (int8 "
+            f"{int8}, {issued} issued eagerly, graphs recorded "
+            f"{eng.kernel_launches}) over {steps} decode steps of "
+            f"{cfg.num_layers} layers")
+    if chat.status != 200 or not chat.json()["choices"]:
+        raise AssertionError(f"http: chat completion status {chat.status}")
+    for name in ("ttft", "itl", "e2e"):
+        m = re.search(rf"^dynamo_request_{name}_seconds_count (\d+)$",
+                      metrics, re.M)
+        if not m or int(m.group(1)) == 0:
+            raise AssertionError(f"http: /metrics has no {name} series")
+    tokens = n_new * len(prompts)
+    tps = (tokens - len(prompts)) / (max(ends) - min(firsts))
+    # each request's TTFT split: client send -> the engine's generate()
+    # (HTTP, JSON, validation, preprocessing), the engine's own TTFT
+    # (intake -> first token, on its thread), and its first output -> the
+    # client's first text (backend, SSE, socket, the loop's turn)
+    before, engine_ttft, after = [], [], []
+    for p, (t_send, _, _), t_first in zip(prompts, res, firsts):
+        m = marks[tuple(p)]
+        before.append(m["in"] - t_send)
+        engine_ttft.append(m["timing"]["ttft_s"])
+        after.append(t_first - m["first"])
+    replay_us = frontend_us_per_token(chain, prompts, direct_tokens, stream)
+    # DecodeStream's cost per token on these streams, this host
+    reps, n = 5, 0
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for p, want in zip(prompts, direct_tokens):
+            ds = DecodeStream(tok, p)
+            for t in want:
+                ds.step(t)
+                n += 1
+    ds_us = (time.perf_counter() - t0) / n * 1e6
+    log(f"http: 8 streamed /v1/completions requests x {n_new} tokens, "
+        f"token-identical to the serve phase's generate() run; TTFT "
+        f"median {np.median(ttft):.4f} s max {max(ttft):.4f} s (client: "
+        f"send to first text; generate(): intake to first token "
+        f"{np.median(direct['ttft']):.4f} s max {max(direct['ttft']):.4f} "
+        f"s); inter-token gap median {np.median(gaps) * 1e3:.2f} ms max "
+        f"{max(gaps) * 1e3:.2f} ms (generate(): "
+        f"{np.median(direct['gaps']) * 1e3:.2f} ms, max "
+        f"{max(direct['gaps']) * 1e3:.2f} ms); decode {tps:.1f} tok/s over "
+        f"the batch (generate(): {direct['tps']:.1f} tok/s)")
+    log(f"http: TTFT split, median (max) over the 8: send to the engine "
+        f"{np.median(before) * 1e3:.2f} ({max(before) * 1e3:.2f}) ms, the "
+        f"engine's intake to first token {np.median(engine_ttft):.4f} "
+        f"({max(engine_ttft):.4f}) s, first output to the client's first "
+        f"text {np.median(after) * 1e3:.2f} ({max(after) * 1e3:.2f}) ms")
+    log(f"http: frontend host time {replay_us:.1f} us per streamed token "
+        f"(the same 8 streams replayed through the service and client, "
+        f"no engine; median of 3); DecodeStream.step {ds_us:.1f} us per "
+        f"token; {steps} decode steps, flash_decode launches {dense} "
+        f"(counted by the kernel on the card) in {eng.graphs.replays} "
+        f"graph replays; unary chat 200")
+    del eng, chain, manager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dense
+
+
+def check_cli():
+    """The launcher as a user runs it, with no --device: it must serve a
+    prompt on the card (cuda) and exit 0."""
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.launch.run", "in=text",
+           "out=torch", "--model-config", "tiny", "--cache-dtype", "float32",
+           "--prompt", "w1 w2 w3", "--max-tokens", "8"]
+    t0 = time.monotonic()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if out.returncode != 0 or "on cuda" not in out.stderr:
+        raise AssertionError(f"cli: exit {out.returncode}\n{out.stderr}")
+    log(f"cli: {' '.join(cmd[1:])} exited 0 in "
+        f"{time.monotonic() - t0:.1f} s ({out.stderr.strip().splitlines()[0]}"
+        f"); printed {out.stdout.strip()!r}")
 
 
 def main() -> int:
@@ -841,14 +1171,20 @@ def main() -> int:
         check_round_graph(f"Llama-3.1-8B kv_quant={kv_quant}", cfg,
                           EngineConfig(kv_quant=kv_quant), params,
                           serve_prompts(cfg.vocab_size))
-    dense_tokens = serve_llama3_8b(counts, params, "none")
+    dense_tokens, direct = serve_llama3_8b(counts, params, "none")
     serve_llama3_8b(counts, params, "int8", dense_tokens)
+    http_launches = check_http(params, dense_tokens[:8], direct)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_cli()
     print(smi)
     source = "dynamo_tpu_torch/csrc/flash_decode.cu"
     kernels = [
         dict(name="flash_decode", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:210",
-             launches=counts["flash_decode"], **fd_report),
+             launches=counts["flash_decode"], launches_http=http_launches,
+             **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",
              launches=counts["flash_decode_int8"], **fd8_report),

@@ -337,6 +337,11 @@ class TorchEngine:
             raise ValueError(
                 f"prompt length {len(request.token_ids)} exceeds max context "
                 f"{self.ecfg.max_context}")
+        # ids from a client index the embedding table: one past its end
+        # would fault the device, so it is refused here
+        if not all(0 <= t < self.config.vocab_size for t in request.token_ids):
+            raise ValueError(
+                f"prompt token ids must be in [0, {self.config.vocab_size})")
         n_lp = request.output_options.logprobs
         if n_lp is not None and n_lp < 0:
             raise ValueError(f"logprobs must be >= 0, got {n_lp}")

@@ -1,0 +1,496 @@
+"""OpenAI HTTP service (a copy of the JAX package's frontend/service.py on
+the port's standard-library HTTP server; reference lib/llm/src/http/
+service: service_v2.rs:50 HttpService, openai.rs:133,287 handlers,
+metrics.rs:104).
+
+Endpoints:
+  POST /v1/chat/completions   (streamed SSE or aggregated JSON)
+  POST /v1/completions
+  GET  /v1/models
+  GET  /health, /live
+  GET  /metrics               (Prometheus text)
+
+Streaming honours client disconnect: the server cancels the handler when
+the connection drops, and the handler closes its response generators,
+which cancels the engine requests (the engine's drop-to-cancel contract —
+reference AsyncEngineContext::stop_generating).
+
+Not ported yet: /v1/responses, /v1/embeddings, /clear_kv_blocks, tool
+calls, the in-band llm_metrics annotation, tracing and the /debug/*
+routes, overload 429s (the engine has no admission budgets).
+"""
+from __future__ import annotations
+
+import asyncio
+import copy
+import logging
+import time
+import uuid
+from typing import Any, AsyncIterator, Optional
+
+from dynamo_tpu_torch.frontend.http import (
+    HttpServer,
+    Request,
+    Response,
+    StreamResponse,
+)
+from dynamo_tpu_torch.frontend.model_manager import ModelManager, ModelNotFound
+from dynamo_tpu_torch.overload.deadline import apply_request_hints
+from dynamo_tpu_torch.protocols.common import FinishReason, LLMEngineOutput
+from dynamo_tpu_torch.protocols.openai import (
+    ChatCompletionRequest,
+    CompletionRequest,
+    DeltaGenerator,
+    ValidationError,
+    chat_completion_response,
+    completion_logprobs,
+    completion_response,
+    make_id,
+    model_list_response,
+)
+from dynamo_tpu_torch.protocols.sse import encode_done, encode_event
+from dynamo_tpu_torch.telemetry import metrics as tmetrics
+from dynamo_tpu_torch.telemetry.metrics import (
+    Counter,
+    Gauge,
+    LabeledHistogram,
+    MetricsRegistry,
+    TelemetryRegistry,
+    request_histograms,
+)
+
+log = logging.getLogger(__name__)
+
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+
+class ServiceMetrics:
+    """Frontend Prometheus metrics (reference metrics.rs
+    nv_llm_http_service_{requests_total,inflight_requests,request_duration_seconds})."""
+
+    def __init__(self) -> None:
+        self.registry = MetricsRegistry()
+        self.requests_total = Counter(
+            "dynamo_http_service_requests_total",
+            "HTTP requests by model/endpoint/status",
+            ("model", "endpoint", "status"),
+            self.registry,
+        )
+        self.inflight = Gauge(
+            "dynamo_http_service_inflight_requests",
+            "In-flight requests",
+            ("model",),
+            self.registry,
+        )
+        self.duration = LabeledHistogram(
+            "dynamo_http_service_request_duration_seconds",
+            "Request duration",
+            ("model",),
+            self.registry,
+        )
+
+    def render(self) -> bytes:
+        return self.registry.render().encode()
+
+
+def _error(status: int, message: str,
+           err_type: str = "invalid_request_error") -> Response:
+    return Response.json(
+        {"error": {"message": message, "type": err_type, "code": status}},
+        status=status,
+    )
+
+
+class _ApiError(Exception):
+    """Endpoint-local error mapped to an OpenAI error response by
+    _run_endpoint (the shared request envelope)."""
+
+    def __init__(self, status: int, message: str,
+                 etype: str = "invalid_request_error"):
+        super().__init__(message)
+        self.status = status
+        self.message = message
+        self.etype = etype
+
+
+class _RequestTiming:
+    """Per-request latency bookkeeping shared by the unary and streaming
+    paths: frontend-observed TTFT / per-token ITL gaps / E2E into the
+    service histograms."""
+
+    def __init__(self, svc: "HttpService", t_start: float):
+        self.svc = svc
+        self.t_start = t_start
+        self.t_first: dict[int, float] = {}
+        self.t_last: dict[int, float] = {}
+        self._finished = False
+
+    def on_output(self, i: int, out: LLMEngineOutput) -> None:
+        if out.token_ids:
+            now = time.monotonic()
+            prev = self.t_last.get(i)
+            if prev is not None:
+                n = len(out.token_ids)
+                self.svc._h_itl.observe((now - prev) / n, n)
+            self.t_last[i] = now
+            self.t_first.setdefault(i, now)
+
+    @property
+    def ttft(self) -> Optional[float]:
+        if not self.t_first:
+            return None
+        return min(self.t_first.values()) - self.t_start
+
+    def finish(self) -> None:
+        """Observe the request-level histograms (once). Runs from the
+        finally paths too — a client that disconnects mid-stream already
+        contributed ITL gaps, so TTFT/E2E must count it as well; a
+        request that never produced a token contributes to none of the
+        three series (counts stay mutually consistent)."""
+        if self._finished:
+            return
+        self._finished = True
+        if not self.t_first:
+            return
+        self.svc._h_ttft.observe(self.ttft)
+        self.svc._h_e2e.observe(time.monotonic() - self.t_start)
+
+
+class HttpService:
+    """The OpenAI-compatible frontend over a ModelManager."""
+
+    def __init__(
+        self,
+        manager: Optional[ModelManager] = None,
+        *,
+        host: str = "0.0.0.0",
+        port: int = 8080,
+    ):
+        # `is not None`, NOT truthiness: an EMPTY manager (len 0 -> falsy)
+        # must be kept — models registered into it later must be served
+        self.manager = manager if manager is not None else ModelManager()
+        self.host = host
+        self.port = port
+        self.metrics = ServiceMetrics()
+        # request-latency histograms (TTFT / ITL / E2E), observed at the
+        # frontend's measurement points and appended to /metrics
+        self.telemetry = request_histograms(TelemetryRegistry())
+        self._h_ttft = self.telemetry.get(tmetrics.TTFT[0])
+        self._h_itl = self.telemetry.get(tmetrics.ITL[0])
+        self._h_e2e = self.telemetry.get(tmetrics.E2E[0])
+        self.server = HttpServer({
+            ("POST", "/v1/chat/completions"): self.handle_chat,
+            ("POST", "/v1/completions"): self.handle_completion,
+            ("GET", "/v1/models"): self.handle_models,
+            ("GET", "/health"): self.handle_health,
+            ("GET", "/live"): self.handle_health,
+            ("GET", "/metrics"): self.handle_metrics,
+        })
+        self._start_time = time.monotonic()
+
+    # ------------------------------------------------------------------
+    # lifecycle
+
+    async def start(self) -> None:
+        """Listen on host:port; with port 0 the bound port is set on
+        ``self.port``."""
+        self.port = await self.server.start(self.host, self.port)
+        log.info("http service listening on %s:%d", self.host, self.port)
+
+    async def stop(self) -> None:
+        await self.server.stop()
+
+    # ------------------------------------------------------------------
+    # handlers
+
+    async def handle_health(self, request: Request) -> Response:
+        return Response.json(
+            {
+                "status": "healthy",
+                "uptime_s": round(time.monotonic() - self._start_time, 3),
+                "models": self.manager.list_models(),
+            }
+        )
+
+    async def handle_models(self, request: Request) -> Response:
+        return Response.json(model_list_response(self.manager.list_models()))
+
+    async def handle_metrics(self, request: Request) -> Response:
+        body = self.metrics.render() + self.telemetry.render().encode()
+        return Response(body, content_type=PROMETHEUS_CONTENT_TYPE)
+
+    def _resolve_model(self, name: str, *, chat: bool = False,
+                       completion: bool = False):
+        try:
+            return self.manager.get(name, chat=chat, completion=completion)
+        except ModelNotFound:
+            raise _ApiError(404, f"model '{name}' not found",
+                            "not_found_error") from None
+
+    async def _run_endpoint(self, request: Request, endpoint: str, fn):
+        """Shared request envelope: JSON-parse, _ApiError mapping, metrics
+        accounting (requests_total/duration), 499 on cancellation.
+        `fn(body, env)` does the endpoint-specific work and sets
+        env["model"] as soon as it is known."""
+        env = {"model": "", "t0": time.monotonic()}
+        status = "500"
+        t0 = env["t0"]
+        try:
+            try:
+                body = request.json()
+            except ValueError:
+                status = "400"
+                return _error(400, "invalid JSON body")
+            try:
+                resp = await fn(body, env)
+            except _ApiError as e:
+                status = str(e.status)
+                return _error(e.status, e.message, e.etype)
+            status = str(resp.status)
+            return resp
+        except asyncio.CancelledError:
+            status = "499"
+            raise
+        except Exception:  # noqa: BLE001 — every request gets an answer
+            log.exception("%s handler failed", endpoint)
+            return _error(500, "internal error", "internal_server_error")
+        finally:
+            self.metrics.requests_total.labels(
+                env["model"], endpoint, status).inc()
+            self.metrics.duration.labels(env["model"]).observe(
+                time.monotonic() - t0)
+
+    async def handle_chat(self, request: Request):
+        return await self._handle_openai(request, chat=True)
+
+    async def handle_completion(self, request: Request):
+        return await self._handle_openai(request, chat=False)
+
+    # ------------------------------------------------------------------
+    # core request path
+
+    async def _handle_openai(self, request: Request, *, chat: bool):
+        endpoint = "chat_completions" if chat else "completions"
+
+        async def run(body: Any, env: dict):
+            try:
+                req = (ChatCompletionRequest if chat
+                       else CompletionRequest).from_dict(body)
+            except ValidationError as e:
+                raise _ApiError(400, e.msg) from None
+            env["model"] = req.model
+            chain = self._resolve_model(req.model, chat=chat,
+                                        completion=not chat)
+            try:
+                pre = chain.preprocess(req)
+            except ValueError as e:
+                raise _ApiError(400, str(e)) from None
+            # header hints land on top of the nvext fields the
+            # preprocessor already applied (headers win; nvext is NOT
+            # re-applied — re-minting its deadline here would silently
+            # extend it by the tokenize latency)
+            apply_request_hints(pre, request.headers, None)
+
+            self.metrics.inflight.labels(req.model).inc()
+            try:
+                if req.stream:
+                    return await self._stream_response(
+                        request, req, chain, pre, chat,
+                        t_received=env["t0"])
+                return await self._unary_response(
+                    req, chain, pre, chat, t_received=env["t0"])
+            finally:
+                self.metrics.inflight.labels(req.model).dec()
+
+        return await self._run_endpoint(request, endpoint, run)
+
+    def _fanout(self, req, chain, pre) -> list[AsyncIterator[LLMEngineOutput]]:
+        """n>1: run n independent engine streams (distinct seeds per choice,
+        like the reference's engines do for best-of/n sampling)."""
+        n = max(1, req.n)
+        return [chain.generate(_with_choice_seed(pre, i)) for i in range(n)]
+
+    async def _unary_response(
+        self, req, chain, pre, chat: bool,
+        t_received: Optional[float] = None,
+    ) -> Response:
+        streams = self._fanout(req, chain, pre)
+        texts = [""] * len(streams)
+        tokens = [0] * len(streams)
+        finishes: list[FinishReason] = [FinishReason.EOS] * len(streams)
+        lp_entries: list[list[dict]] = [[] for _ in streams]
+        t_start = t_received if t_received is not None else time.monotonic()
+        timing = _RequestTiming(self, t_start)
+
+        async def drain(i: int) -> None:
+            try:
+                async for out in streams[i]:
+                    if out.text:
+                        texts[i] += out.text
+                    tokens[i] += len(out.token_ids)
+                    timing.on_output(i, out)
+                    if out.logprob_entries:
+                        lp_entries[i].extend(out.logprob_entries)
+                    if out.finish_reason is not None:
+                        finishes[i] = out.finish_reason
+            finally:
+                await streams[i].aclose()
+
+        try:
+            results = await asyncio.gather(
+                *[drain(i) for i in range(len(streams))],
+                return_exceptions=True,
+            )
+            for r in results:
+                if isinstance(r, BaseException):
+                    raise r
+        finally:
+            timing.finish()
+        if chat:
+            choices = [
+                {
+                    "index": i,
+                    "message": {"role": "assistant", "content": texts[i]},
+                    "finish_reason": finishes[i].to_openai(),
+                    "logprobs": (
+                        {"content": lp_entries[i]} if lp_entries[i] else None
+                    ),
+                }
+                for i in range(len(streams))
+            ]
+            body = chat_completion_response(
+                rid=make_id("chatcmpl"),
+                model=req.model,
+                choices=choices,
+                prompt_tokens=len(pre.token_ids),
+                completion_tokens=sum(tokens),
+            )
+        else:
+            choices = [
+                {
+                    "index": i,
+                    "text": texts[i],
+                    "finish_reason": finishes[i].to_openai(),
+                    "logprobs": (
+                        completion_logprobs(lp_entries[i])
+                        if lp_entries[i] else None
+                    ),
+                }
+                for i in range(len(streams))
+            ]
+            body = completion_response(
+                rid=make_id("cmpl"),
+                model=req.model,
+                choices=choices,
+                prompt_tokens=len(pre.token_ids),
+                completion_tokens=sum(tokens),
+            )
+        return Response.json(body, headers={"X-Request-Id": pre.request_id})
+
+    async def _stream_response(
+        self, request: Request, req, chain, pre, chat: bool,
+        t_received: Optional[float] = None,
+    ) -> StreamResponse:
+        resp = StreamResponse(
+            status=200,
+            headers={
+                "Content-Type": "text/event-stream",
+                "Cache-Control": "no-cache",
+                "Connection": "keep-alive",
+                "X-Request-Id": pre.request_id,
+            },
+        )
+        gen = DeltaGenerator(req.model, chat=chat, n=max(1, req.n))
+        streams = self._fanout(req, chain, pre)
+        completion_tokens = 0
+        # per-stream first/last token times: ITL must be per generation,
+        # not the n-way interleave; TTFT runs from request RECEIPT
+        # (envelope entry — includes preprocess time, matching the
+        # reference's measurement point)
+        t_start = t_received if t_received is not None else time.monotonic()
+        timing = _RequestTiming(self, t_start)
+        queue: asyncio.Queue = asyncio.Queue()
+        DONE = object()
+
+        async def pump(i: int) -> None:
+            try:
+                async for out in streams[i]:
+                    await queue.put((i, out))
+            except Exception as e:  # noqa: BLE001 — surfaced in-band per choice
+                await queue.put((i, e))
+            finally:
+                await queue.put((i, DONE))
+
+        tasks = [asyncio.create_task(pump(i)) for i in range(len(streams))]
+        live = len(streams)
+        try:
+            await resp.prepare(request)
+            while live:
+                i, item = await queue.get()
+                if item is DONE:
+                    live -= 1
+                    continue
+                if isinstance(item, Exception):
+                    # the failed pump's DONE sentinel still arrives and
+                    # decrements `live`; just surface the error in-band
+                    log.warning("engine stream %d failed: %s", i, item)
+                    await resp.write(
+                        encode_event({"error": {"message": str(item)}})
+                    )
+                    continue
+                timing.on_output(i, item)
+                completion_tokens += len(item.token_ids)
+                if item.text or item.logprob_entries:
+                    # entries may arrive on a text-less output (final token
+                    # eaten by the stop jail / partial UTF-8) — still owed
+                    # to the client, one entry per token
+                    await resp.write(
+                        encode_event(gen.text_chunk(
+                            item.text or "", index=i,
+                            logprob_entries=item.logprob_entries,
+                        ))
+                    )
+                if item.finish_reason is not None:
+                    await resp.write(
+                        encode_event(gen.finish_chunk(
+                            item.finish_reason, index=i))
+                    )
+            if req.stream_options and req.stream_options.include_usage:
+                await resp.write(
+                    encode_event(
+                        gen.usage_chunk(len(pre.token_ids), completion_tokens)
+                    )
+                )
+            await resp.write(encode_done())
+        except ConnectionResetError:
+            # routine client disconnect: not an error; the prepared
+            # StreamResponse is all we can return
+            log.info("client disconnected mid-stream")
+        finally:
+            # disconnect/cancel paths too: tokens already streamed must
+            # count in TTFT/E2E alongside their observed ITL gaps
+            timing.finish()
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+            for s in streams:
+                try:
+                    await s.aclose()
+                except Exception:  # noqa: BLE001 — closing must not mask
+                    log.debug("stream close failed", exc_info=True)
+        return resp
+
+
+def _with_choice_seed(pre, i: int):
+    """Give choice i>0 a distinct sampling seed and request id so n
+    choices differ."""
+    if i == 0:
+        return pre
+    p = copy.copy(pre)
+    p.sampling_options = copy.copy(pre.sampling_options)
+    if p.sampling_options.seed is not None:
+        p.sampling_options.seed = p.sampling_options.seed + i
+    else:
+        p.sampling_options.seed = 0x5EED ^ (i * 0x9E3779B9)
+    p.request_id = uuid.uuid4().hex
+    return p
