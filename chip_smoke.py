@@ -5,9 +5,10 @@
 Phases, each printing a line (any failure raises and exits non-zero):
   1. card: name and power limit (nvidia-smi);
   2. build: the serving path's CUDA kernels (the dense and int8 modes of
-     flash decode), compiled with nvcc from
-     dynamo_tpu_torch/csrc/flash_decode.cu, with ptxas's register,
-     shared-memory and spill counts;
+     flash decode; the w8a16 GEMM), compiled with nvcc from
+     dynamo_tpu_torch/csrc/flash_decode.cu and w8a16_gemm.cu, one nvcc
+     each, started together, with ptxas's register, shared-memory and
+     spill counts;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes serving gives it (Llama-3.1-8B and Llama-3.2-1B decode
      shapes, several context/ring patterns; the plain version runs in f32
@@ -19,16 +20,25 @@ Phases, each printing a line (any failure raises and exits non-zero):
      one library call's times and the kernel's least time (its byte or
      operation bound); each mode's check also times the other mode's
      kernel over the same K/V in the same call (dense over the region
-     before quantization, int8 over it quantized);
+     before quantization, int8 over it quantized); the w8a16 GEMM in its
+     four uses (bf16 layer products, untied and tied bf16 logits, f32)
+     at every Llama-3.1-8B weight shape at M = 1, 8, 32 and 1024, the
+     Llama-3.2-1B tied logits and the tiny shapes, against its plain
+     version in f32 with the reference's rounding emulated (controls: one
+     channel's scale off by 5%, one k row zeroed), timed over weights too
+     large for L2 beside its byte bound and cuBLAS over a bf16 weight of
+     the same shape; and the dense logits' f32 product (aten::mm.dtype);
   4. tiny: TorchEngine on ModelConfig.tiny (f32) on the card, its rounds
      replayed CUDA graphs, must be greedy token-identical to the same
      engine on the CPU, whose rounds run eagerly (the CPU tests hold it
      against the JAX TpuEngine); with int8 KV too, where a
      greedy token may differ only at a CPU near-tie (top-2 logprob gap
      <= 0.05), and a seeded request at temperature 0.8 must draw the same
-     stream on both devices;
+     stream on both devices; and with w8a16 weights, where every step
+     must run the w8a16 kernel 7 times a layer and once for the logits;
   5. round_graph: for the tiny model (f32) and Llama-3.1-8B with dense
-     and with int8 KV, an engine admits the prompts, then one decode
+     and with int8 KV, and (after the http phase) with w8a16 weights, an
+     engine admits the prompts, then one decode
      round replayed from its CUDA graph and the same round run eagerly
      (engine/graphs.py ``run_round``) on a clone of the same device state
      must give identical tokens, greedy and with logprobs (the largest
@@ -36,7 +46,8 @@ Phases, each printing a line (any failure raises and exits non-zero):
      runtime calls of one steady pipelined round (one graph launch, the
      fetch copies, no kernel launched from the host) and the flash-decode
      kernels inside the replay (one a layer a step; the kernel's own
-     count on the card must agree); each graph's capture
+     count on the card must agree; w8a16: (7 x 32 + 1) x 4 = 900
+     w8a16_gemm kernels too); each graph's capture
      time and the graph pool's memory are printed;
   6. serve: TorchEngine at the full width of Llama-3.1-8B (32 layers,
      random bf16 weights from a seed, made once, default EngineConfig:
@@ -65,10 +76,19 @@ Phases, each printing a line (any failure raises and exits non-zero):
      carries the TTFT, ITL and E2E series; TTFT, gaps and tok/s are
      printed beside the serve phase's, with the event loop thread's CPU
      time per streamed token and DecodeStream's cost per token;
-  8. cli: ``python -m dynamo_tpu_torch.launch.run in=text out=torch
+  8. serve w8a16: the same weights quantized on the card
+     (quantize_params), the serve burst and repeat again at full width
+     and depth; every decode step must run both kernels on every layer
+     (and the w8a16 kernel for the logits), the prefill the w8a16 kernel
+     eagerly; TTFT, gaps, tok/s and the weights' GiB are printed beside
+     the dense serve's, with the share of greedy tokens equal to the
+     dense run's and the first step's largest logprob difference
+     (information: random weights have near-ties);
+  9. cli: ``python -m dynamo_tpu_torch.launch.run in=text out=torch
      --model-config tiny --cache-dtype float32 --prompt "w1 w2 w3"
-     --max-tokens 8`` in a subprocess, with no --device: it must run its
-     engine on cuda and exit 0.
+     --max-tokens 8`` in a subprocess, with no --device, and again with
+     ``--quantize int8``: each must run its engine on cuda and exit 0.
+Each phase prints its seconds.
 The card line (nvidia-smi's name and power limit) comes third from last,
 the second-to-last line is a JSON object describing every kernel, and the
 last is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -391,6 +411,218 @@ def check_flash_decode(serve_lens, quant):
 
 
 # ---------------------------------------------------------------------------
+# w8a16 GEMM
+
+# kernel vs plain (f32 product with the reference's rounding emulated), per
+# element: |got - want| <= atol_rel * rms(want) + rtol * |want|. bf16
+# outputs: the f32 sums of kernel and plain (another order) can round to
+# neighbouring bf16 values, and the product with the bf16 scale rounds
+# again: two bf16 steps, 2**-6 of |want|. f32 outputs: the two summation
+# orders differ by ~1e-6 of the output's scale. A scale off by 5% on one
+# channel and one zeroed k row of the weight must fail both.
+W8A16_BF16_TOL = (1e-4, 2.0 ** -6)
+W8A16_F32_TOL = (1e-4, 1e-4)
+# L2 is 50 MB: timed calls cycle over copies of the weight summing to
+# at least this, so each call streams its weight from device memory as a
+# layer's weight does in a decode step
+COLD_BYTES = 200 * 2**20
+
+
+def w8a16_want(x, q, s, out_dtype, layout):
+    """The plain version on the card, in f32 with the reference's
+    rounding: the f32-accumulated product (no TF32), then for a bf16
+    layer product bf16(bf16(acc) * bf16(s)), else acc * s."""
+    w = q.float() if layout == "kn" else q.float().t()
+    acc = x.float() @ w
+    if out_dtype == torch.bfloat16:
+        return (acc.to(torch.bfloat16).float()
+                * s.to(torch.bfloat16).float()).to(torch.bfloat16)
+    return acc * s
+
+
+def w8a16_excess(got, want):
+    atol_rel, rtol = (W8A16_BF16_TOL if want.dtype == torch.bfloat16
+                      else W8A16_F32_TOL)
+    want = want.float()
+    rms = want.pow(2).mean().sqrt().item()
+    return ((got.float() - want).abs()
+            / (atol_rel * rms + rtol * want.abs())).max().item()
+
+
+def w8a16_bound_ms(M, N, K, x_bytes, out_bytes):
+    """Least time of one call: the int8 weight, x and s read once and y
+    written once over HBM3's rate, against 2MNK operations at the bf16
+    tensor-core rate (f32 x: the f32 rate)."""
+    nbytes = K * N + M * K * x_bytes + 4 * N + M * N * out_bytes
+    peak = H100_BF16_FLOPS if x_bytes == 2 else H100_F32_FLOPS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 2.0 * M * N * K / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def w8a16_cases():
+    """(label, M, K, N, layout, x dtype, out dtype): every Llama-3.1-8B
+    weight shape at M = 1, 8 (a decode step), 32 and 1024 (prefill rows)
+    in bf16 (the layers' bf16 outputs, the lm_head's f32 logits); the
+    Llama-3.2-1B tied logits (the embedding [V, H] read as "nk") at M =
+    8; the tiny model's shapes in f32 (both layouts) and in bf16 (tails
+    narrower than a 128-channel tile)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for M in (1, 8, 32, 1024):
+        for name, K, N in (("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024),
+                           ("wg/wu", 4096, 14336), ("wd", 14336, 4096)):
+            cases.append((f"8b {name}", M, K, N, "kn", bf, bf))
+        cases.append(("8b lm_head", M, 4096, 128256, "kn", bf, f32))
+    cases.append(("1b tied logits", 8, 2048, 128256, "nk", bf, f32))
+    for M in (4, 37):
+        for name, K, N in (("wq", 64, 64), ("wk", 64, 32), ("wg", 64, 128),
+                           ("wd", 128, 64), ("lm_head", 64, 256)):
+            cases.append((f"tiny {name}", M, K, N, "kn", f32, f32))
+        cases.append(("tiny tied logits", M, 64, 256, "nk", f32, f32))
+        cases.append(("tiny wk bf16", M, 64, 32, "kn", bf, bf))
+        cases.append(("tiny lm_head bf16", M, 64, 256, "kn", bf, f32))
+    return cases
+
+
+def check_w8a16():
+    """The w8a16 kernel against its plain version on the card at every
+    case of ``w8a16_cases``, with both controls failing; at the bf16
+    8B/1B cases its time (over cold weights) beside its bound, the plain
+    version's and cuBLAS's over a bf16 weight of the same shape (what
+    dense serving pays). Returns the kernels-line figures: sums over the
+    225 products of one Llama-3.1-8B decode step (M = 8: 32 layers x 7 +
+    the lm_head), and every timed shape."""
+    from dynamo_tpu_torch.ops import w8a16
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    shapes, max_err = [], 0.0
+    tiny = [0, 0.0]  # tiny cases checked, their largest excess
+    # no fallback: a dtype the kernel lacks raises on the card
+    try:
+        w8a16.w8a16_matmul(torch.ones(8, 64, dtype=torch.float16,
+                                      device="cuda"),
+                           {"q": torch.ones(64, 64, dtype=torch.int8,
+                                            device="cuda"),
+                            "s": torch.ones(64, device="cuda")},
+                           torch.float16)
+        raise AssertionError("w8a16: an fp16 x did not raise")
+    except ValueError:
+        pass
+    for label, M, K, N, layout, xdt, odt in w8a16_cases():
+        x = torch.randn(M, K, generator=g, device="cuda").to(xdt)
+        qshape = (K, N) if layout == "kn" else (N, K)
+        q = torch.randint(-127, 128, qshape, generator=g, device="cuda",
+                          dtype=torch.int8)
+        s = (torch.rand(N, generator=g, device="cuda") + 0.5) / (73.3 * K ** 0.5)
+        w = {"q": q, "s": s}
+        got = w8a16.w8a16_matmul(x, w, odt, layout)
+        torch.cuda.synchronize()
+        want = w8a16_want(x, q, s, odt, layout)
+        if got.dtype != odt or got.shape != (M, N) or not torch.isfinite(
+                got).all():
+            raise AssertionError(f"w8a16 {label} M={M}: {got.dtype} "
+                                 f"{tuple(got.shape)}, finite "
+                                 f"{bool(torch.isfinite(got).all())}")
+        excess = w8a16_excess(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        if not excess <= 1.0:
+            raise AssertionError(
+                f"w8a16 {label} M={M} ({layout}, x {xdt}, out {odt}): "
+                f"|kernel - plain| {err:.3e} exceeds the tolerance by a "
+                f"factor {excess:.3f}")
+        s_bad = s.clone()
+        s_bad[N // 3] *= 1.05
+        q_bad = q.clone()
+        if layout == "kn":
+            q_bad[K // 2] = 0
+        else:
+            q_bad[:, K // 2] = 0
+        controls = {"one channel's scale x1.05": (q, s_bad),
+                    "one k row zeroed": (q_bad, s)}
+        for bad, (qc, sc) in controls.items():
+            if w8a16_excess(w8a16_want(x, qc, sc, odt, layout), want) <= 1.0:
+                raise AssertionError(f"w8a16 {label} M={M}: the tolerance "
+                                     f"cannot tell {bad}")
+        del q_bad, s_bad, controls
+        if xdt == torch.bfloat16:
+            max_err = max(max_err, err)
+        if label.startswith("tiny"):
+            tiny = [tiny[0] + 1, max(tiny[1], excess)]
+            del x, q, s, w, got, want
+            continue
+        # the 8B and 1B cases (bf16): timed
+        copies = max(1, -(-COLD_BYTES // (K * N)))
+        qs = [q] + [q.clone() for _ in range(copies - 1)]
+        ms = cuda_time_ms(lambda i: w8a16.w8a16_matmul(
+            x, {"q": qs[i % copies], "s": s}, odt, layout), iters=50)
+        del qs
+        plain_ms = cuda_time_ms(lambda i: w8a16.w8a16_matmul_plain(
+            x, q, s, odt, layout), iters=5, warmup=1)
+        wb = (q.float() * s[:, None] if layout == "nk"
+              else q.float() * s).to(torch.bfloat16)
+        copies_b = max(1, -(-COLD_BYTES // (2 * K * N)))
+        wbs = [wb] + [wb.clone() for _ in range(copies_b - 1)]
+        # cuBLAS over a bf16 weight of this shape, the same layout
+        # (the tied logits read the [V, H] table transposed)
+        lib_ms = cuda_time_ms(lambda i: torch.matmul(
+            x, wbs[i % copies_b] if layout == "kn"
+            else wbs[i % copies_b].t()), iters=50)
+        del wb, wbs
+        bound, by = w8a16_bound_ms(M, N, K, 2, odt.itemsize)
+        shapes.append(dict(shape=label, M=M, K=K, N=N, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by, library_ms=lib_ms))
+        log(f"kernel w8a16_gemm {label} M={M} K={K} N={N} ({layout}, out "
+            f"{str(odt)[6:]}): agrees with plain, at {excess:.3f} of the "
+            f"tolerance; the controls fail it; {ms:.4f} ms/call (plain "
+            f"{plain_ms:.4f} ms, cuBLAS bf16 {lib_ms:.4f} ms, {by} bound "
+            f"{bound:.4f} ms, {bound / ms:.2f} of it)")
+        del x, q, s, w, got, want
+    torch.cuda.empty_cache()
+    log(f"kernel w8a16_gemm tiny shapes: {tiny[0]} cases (M = 4 and 37; "
+        f"f32 in both layouts, bf16 narrower than a tile) agree with plain, "
+        f"at most {tiny[1]:.3f} of the tolerance; the controls fail each")
+    # one 8B decode step's 225 products at M = 8
+    per_step = {"8b wq/wo": 64, "8b wk/wv": 64, "8b wg/wu": 64, "8b wd": 32,
+                "8b lm_head": 1}
+    step = {k: sum(r[k] * per_step[r["shape"]] for r in shapes
+                   if r["M"] == 8 and r["shape"] in per_step)
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    log(f"kernel w8a16_gemm: one Llama-3.1-8B decode step's 225 products at "
+        f"M = 8: {step['ms']:.4f} ms (bytes bound {step['bound_ms']:.4f} ms; "
+        f"cuBLAS over bf16 weights {step['library_ms']:.4f} ms; plain "
+        f"{step['plain_ms']:.4f} ms)")
+    return dict(step, bound_by="bytes", max_abs_err=max_err, shapes=shapes)
+
+
+def check_logits_f32():
+    """A dense bf16 model's logits product (llama.matmul_f32, the f32
+    cuBLAS product of bf16 operands: the reference's
+    preferred_element_type=f32) at the 8B lm_head shape, untied and tied
+    (the table transposed): against the f32 product of the widened
+    operands, per element 1e-5 of the logits' scale."""
+    from dynamo_tpu_torch.models import llama
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    h = torch.randn(8, 4096, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(4096, 128256, generator=g, device="cuda")
+         * 0.02).to(torch.bfloat16)
+    for label, wt in (("untied", w), ("tied", w.t().contiguous().t())):
+        got = llama.matmul_f32(h, wt)
+        want = h.float() @ wt.float()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if got.dtype != torch.float32 or not err <= 1e-5 * scale:
+            raise AssertionError(f"logits f32 {label}: {got.dtype}, |got - "
+                                 f"want| {err:.3e} against {scale:.3e}")
+        ms = cuda_time_ms(lambda i: llama.matmul_f32(h, wt), iters=20)
+        log(f"logits f32 ({label}, 8B lm_head, aten::mm.dtype): equals the "
+            f"f32 product within {err / scale:.2e} of max |logit|; "
+            f"{ms:.4f} ms/call")
+
+
+# ---------------------------------------------------------------------------
 # engine
 
 async def generate_all(engine, prompts, max_tokens, logprobs=None,
@@ -458,9 +690,8 @@ def check_tiny_engine():
     params = llama.init_params(cfg, SEED, device="cpu")
     outs = {}
     for dev in ("cpu", "cuda"):
-        p = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
-                 else v.to(dev)) for k, v in params.items()}
-        eng = TorchEngine(cfg, EngineConfig(**ecfg), params=p, device=dev)
+        eng = TorchEngine(cfg, EngineConfig(**ecfg),
+                          params=to_device(params, dev), device=dev)
         if dev == "cuda":
             fd.executed(eng.device, reset=True)
 
@@ -505,9 +736,8 @@ def check_tiny_int8():
     params = llama.init_params(cfg, SEED, device="cpu")
     outs = {}
     for dev in ("cpu", "cuda"):
-        p = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
-                 else v.to(dev)) for k, v in params.items()}
-        eng = TorchEngine(cfg, EngineConfig(**ecfg), params=p, device=dev)
+        eng = TorchEngine(cfg, EngineConfig(**ecfg),
+                          params=to_device(params, dev), device=dev)
         if dev == "cuda":
             fd.executed(eng.device, reset=True)
 
@@ -530,21 +760,8 @@ def check_tiny_int8():
                     f"times, dense {dense}, graphs recorded "
                     f"{eng.kernel_launches}")
             check_replayed(eng, "tiny int8")
-    compared = ties = 0
-    for (tc, *_), (tg, fg, _, _, top) in zip(outs["cuda"][0], outs["cpu"][0]):
-        if fg != "length" or len(tg) != 12 or len(tc) != 12:
-            raise AssertionError(f"tiny int8: {len(tc)}/{len(tg)} tokens, "
-                                 f"finish {fg}")
-        for j, (a, b) in enumerate(zip(tc, tg)):
-            if a != b:
-                gap = top[j][0][1] - top[j][1][1]
-                if gap > NEAR_TIE:
-                    raise AssertionError(
-                        f"tiny int8: cuda token {a} != cpu token {b} at "
-                        f"step {j}, cpu top-2 gap {gap:.4f} > {NEAR_TIE}")
-                ties += 1
-                break  # past a divergence the streams are not comparable
-            compared += 1
+    compared, ties = compare_near_tie("tiny int8", outs["cuda"][0],
+                                      outs["cpu"][0], 12)
     seeded = {dev: o[1][0] for dev, o in outs.items()}
     if seeded["cuda"] != seeded["cpu"] or len(seeded["cpu"]) != 24:
         raise AssertionError(f"tiny int8 seeded stream: cuda "
@@ -555,16 +772,104 @@ def check_tiny_int8():
         f"identical on both devices")
 
 
+def compare_near_tie(what, cuda_res, cpu_res, n_new):
+    """Greedy streams of the card's engine against the CPU engine's (each
+    request's ``generate_all`` result with 2 top logprobs): equal, except
+    that a stream may leave the CPU one where the CPU's top-2 logprob gap
+    is at most NEAR_TIE. Returns (positions compared, streams stopped at
+    a near-tie)."""
+    compared = ties = 0
+    for (tc, *_), (tg, fg, _, _, top) in zip(cuda_res, cpu_res):
+        if fg != "length" or len(tg) != n_new or len(tc) != n_new:
+            raise AssertionError(f"{what}: {len(tc)}/{len(tg)} tokens, "
+                                 f"finish {fg}")
+        for j, (a, b) in enumerate(zip(tc, tg)):
+            if a != b:
+                gap = top[j][0][1] - top[j][1][1]
+                if gap > NEAR_TIE:
+                    raise AssertionError(
+                        f"{what}: cuda token {a} != cpu token {b} at "
+                        f"step {j}, cpu top-2 gap {gap:.4f} > {NEAR_TIE}")
+                ties += 1
+                break  # past a divergence the streams are not comparable
+            compared += 1
+    return compared, ties
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def check_tiny_w8a16():
+    """The tiny model with w8a16 weights (f32: the FMA instantiation of
+    the w8a16 kernel, both of its uses: the layer products and the
+    logits) on the card vs on the CPU (the plain version): greedy tokens
+    equal except at a CPU near-tie. On the card every decode step runs
+    the w8a16 kernel 7 times a layer and once for the logits inside the
+    replayed rounds, and the prefill launches it eagerly; the kernel's
+    own count must equal the two."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import w8a16
+
+    cfg = ModelConfig.tiny(quant="int8", dtype="float32")
+    ecfg = dict(num_pages=64, page_size=16, max_pages_per_seq=8,
+                max_decode_slots=4, prefill_buckets=(32, 64),
+                cache_dtype="float32")
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, 256, size=n).tolist() for n in (29, 40, 17, 100)]
+    params = llama.init_params(cfg, SEED, device="cpu")
+    outs, note = {}, ""
+    for dev in ("cpu", "cuda"):
+        eng = TorchEngine(cfg, EngineConfig(**ecfg),
+                          params=to_device(params, dev), device=dev)
+        if dev == "cuda":
+            w8a16.launches = 0
+            w8a16.executed(eng.device, reset=True)
+
+        async def drive():
+            res = await generate_all(eng, prompts, 12, logprobs=2)
+            res.append((await generate_all(eng, prompts[:1], 12,
+                                           logprobs=2))[0])
+            await eng.stop()
+            return res
+
+        outs[dev] = asyncio.run(drive())
+        if dev == "cuda":
+            ran = w8a16.executed(eng.device)
+            replayed, eager = eng.graphs.w8a16_replayed, w8a16.launches
+            want = (7 * cfg.num_layers + 1) * eng.step_count
+            if replayed != want or not eager or ran != replayed + eager:
+                raise AssertionError(
+                    f"tiny w8a16 on cuda: the kernel ran {ran} times, the "
+                    f"graphs recorded {replayed} over {eng.step_count} steps "
+                    f"(want {want}), the prefill launched {eager}")
+            check_replayed(eng, "tiny w8a16")
+            note = (f"; on the card w8a16_gemm ran {ran} times ({replayed} "
+                    f"in replayed rounds, {eager} in the eager prefill)")
+    compared, ties = compare_near_tie("tiny w8a16", outs["cuda"],
+                                      outs["cpu"], 12)
+    log(f"tiny w8a16: cuda engine agrees with cpu engine on {compared} "
+        f"greedy positions ({ties} streams stop at a cpu near-tie, gap <= "
+        f"{NEAR_TIE}){note}")
+
+
 def check_round_graph(label, cfg, ecfg, params, prompts):
     """An engine on the card admits ``prompts``; then one decode round
     replayed from its CUDA graph must give the tokens (and the state) of
     the same round run eagerly on a clone of the same device state,
     greedy and with logprobs; then torch.profiler counts the CUDA runtime
     calls of one steady pipelined round and the flash-decode kernels
-    inside its replay."""
+    inside its replay (and, for w8a16 weights, the w8a16 GEMM kernels:
+    7 a layer and the logits, a step)."""
     from dynamo_tpu_torch.engine import graphs as eg
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.ops import w8a16
     from dynamo_tpu_torch.protocols.common import (
         PreprocessedRequest,
         StopConditions,
@@ -577,6 +882,8 @@ def check_round_graph(label, cfg, ecfg, params, prompts):
     g = eng.graphs
     B, F = ecfg.max_decode_slots, ecfg.flush_every
     ran = [0, 0]  # the kernel's own count over the profiled round
+    ran_w8 = [0]  # the w8a16 kernel's own count over it
+    quant_w = cfg.quant == "int8"
 
     async def consume(p):
         req = PreprocessedRequest(
@@ -631,10 +938,14 @@ def check_round_graph(label, cfg, ecfg, params, prompts):
                 torch.profiler.ProfilerActivity.CUDA]
         dispatched = eng.pipeline_stats()["pipelined_dispatches"]
         fd.executed(eng.device, reset=True)
+        if quant_w:
+            w8a16.executed(eng.device, reset=True)
         with torch.profiler.profile(activities=acts) as prof:
             eng._round()
             torch.cuda.synchronize()
         ran[:] = fd.executed(eng.device)
+        if quant_w:
+            ran_w8[0] = w8a16.executed(eng.device)
         if eng.pipeline_stats()["pipelined_dispatches"] != dispatched + 1:
             raise AssertionError(f"round_graph {label}: the profiled round "
                                  f"was not dispatched early")
@@ -644,35 +955,43 @@ def check_round_graph(label, cfg, ecfg, params, prompts):
 
     lp_diff, prof = asyncio.run(drive())
     runtime: dict[str, int] = defaultdict(int)
-    kernels = 0
+    kernels = gemms = 0
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             if "flash_decode" in evt.key and "combine" not in evt.key:
                 kernels += evt.count
+            if "w8a16_gemm" in evt.key:
+                gemms += evt.count
         elif evt.key.startswith("cuda"):
             runtime[evt.key] += evt.count
     graph_launches = sum(n for k, n in runtime.items() if "GraphLaunch" in k)
     host_kernels = sum(n for k, n in runtime.items() if "LaunchKernel" in k)
     copies = sum(n for k, n in runtime.items() if "Memcpy" in k)
     want_kernels = cfg.num_layers * F
+    want_gemms = (7 * cfg.num_layers + 1) * F if quant_w else 0
     log(f"round_graph {label}: replayed round == eager round (tokens and "
         f"state, greedy and with logprobs; largest logprob difference "
         f"{lp_diff:.3e}); one steady pipelined round: {graph_launches} graph "
         f"launch, {host_kernels} kernels launched from the host, {copies} "
         f"copies, {kernels} flash-decode kernels in the replay "
         f"({cfg.num_layers} layers x {F} steps = {want_kernels}; the "
-        f"kernel's own count on the card {sum(ran)}); runtime calls "
-        f"{dict(sorted(runtime.items()))}")
+        f"kernel's own count on the card {sum(ran)})"
+        + (f", {gemms} w8a16_gemm kernels in the replay ((7 x "
+           f"{cfg.num_layers} + 1) x {F} = {want_gemms}; the kernel's own "
+           f"count {ran_w8[0]})" if quant_w else "")
+        + f"; runtime calls {dict(sorted(runtime.items()))}")
     log(f"round_graph {label}: captures " + ", ".join(
-        f"{k} {t:.3f} s ({g.recorded[k]} flash-decode launches recorded)"
-        for k, t in g.capture_s.items())
+        f"{k} {t:.3f} s ({g.recorded[k]} flash-decode"
+        + (f", {g.recorded_w8a16[k]} w8a16_gemm" if quant_w else "")
+        + " launches recorded)" for k, t in g.capture_s.items())
         + f"; graph pool {g.pool_bytes / 2**20:.1f} MiB")
     if (graph_launches != 1 or host_kernels or kernels != want_kernels
-            or sum(ran) != want_kernels):
+            or sum(ran) != want_kernels or gemms != want_gemms
+            or ran_w8[0] != want_gemms):
         raise AssertionError(
             f"round_graph {label}: a steady round must be one graph launch "
-            f"with {want_kernels} flash-decode kernels inside and no kernel "
-            f"launched from the host")
+            f"with {want_kernels} flash-decode and {want_gemms} w8a16_gemm "
+            f"kernels inside and no kernel launched from the host")
     del eng, g
     gc.collect()
     torch.cuda.empty_cache()
@@ -715,17 +1034,29 @@ class IntakeGate:
         self._drain()
 
 
-def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
-    """The serve burst on Llama-3.1-8B with the given weights and KV mode;
+def weights_gib(params) -> float:
+    def nbytes(t):
+        if isinstance(t, dict):
+            return sum(nbytes(v) for v in t.values())
+        return t.numel() * t.element_size()
+    return nbytes(params) / 2**30
+
+
+def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None):
+    """The serve burst on Llama-3.1-8B with the given weights and KV mode
+    (``cfg``: Llama-3.1-8B, or its w8a16 variant for quantized weights);
     returns each request's tokens (the burst's 8, then the repeat) and the
-    burst's figures (TTFT and gaps in s, decode tok/s)."""
+    burst's figures (TTFT and gaps in s, decode tok/s, weights GiB)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.ops import w8a16
 
-    cfg = ModelConfig.llama3_8b()
+    cfg = cfg or ModelConfig.llama3_8b()
     quant = kv_quant == "int8"
+    quant_w = cfg.quant == "int8"
+    tag = "w8a16" if quant_w else kv_quant
     name = "flash_decode_int8" if quant else "flash_decode"
     t0 = time.monotonic()
     eng = TorchEngine(cfg, EngineConfig(kv_quant=kv_quant), params=params,
@@ -734,10 +1065,12 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
     if quant and not (eng.ctx["k"].dtype == eng.cache["k"].dtype
                       == torch.int8):
         raise AssertionError("int8 engine: ctx or pool is not int8")
-    log(f"serve {kv_quant}: Llama-3.1-8B engine built in "
+    gib = weights_gib(params)
+    log(f"serve {tag}: Llama-3.1-8B engine built in "
         f"{time.monotonic() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated "
-        f"(ctx {eng.ctx['k'].dtype}, pool {eng.cache['k'].dtype})")
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, weights "
+        f"{gib:.2f} GiB (ctx {eng.ctx['k'].dtype}, pool "
+        f"{eng.cache['k'].dtype})")
     prompts = serve_prompts(cfg.vocab_size)
     n_new = 32
 
@@ -754,6 +1087,10 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
     fd.launches = fd.launches_int8 = 0
     eng.kernel_launches = 0
     fd.executed(eng.device, reset=True)
+    if quant_w:
+        w8a16.launches = 0
+        eng.graphs.w8a16_replayed = 0
+        w8a16.executed(eng.device, reset=True)
     IntakeGate(eng, len(prompts))
     res, repeat, t_batch = asyncio.run(drive())
     # every round replays a graph captured with the engine, so the
@@ -761,9 +1098,11 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
     # card, and the engine the launches its graphs recorded at capture
     # once a replay (the cross-check)
     ran = fd.executed(eng.device)
+    gemms = w8a16.executed(eng.device) if quant_w else 0
     launched, other = (ran[1], ran[0]) if quant else ran
     issued = fd.launches + fd.launches_int8
-    counts[name] = launched
+    if not quant_w:  # the kernels line's launches: the dense-weight runs
+        counts[name] = launched
     steps = eng.step_count - steps0
     for toks, finish, *_ in res + [repeat]:
         if len(toks) != n_new or finish != "length":
@@ -776,25 +1115,41 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
     if cached != want_cached:
         raise AssertionError(f"prefix repeat hit {cached} blocks, "
                              f"expected {want_cached}")
-    check_replayed(eng, f"serve {kv_quant}")
+    check_replayed(eng, f"serve {tag}")
     if launched != cfg.num_layers * steps:
         raise AssertionError(
             f"{name} ran {launched} times on the card over {steps} decode "
             f"steps of {cfg.num_layers} layers")
     if eng.kernel_launches != launched or issued:
         raise AssertionError(
-            f"serve {kv_quant}: the graphs recorded {eng.kernel_launches} "
+            f"serve {tag}: the graphs recorded {eng.kernel_launches} "
             f"launches and the wrapper issued {issued}, the card ran "
             f"{launched}")
     if other:
-        raise AssertionError(f"serve {kv_quant}: the other mode's kernel "
+        raise AssertionError(f"serve {tag}: the other mode's kernel "
                              f"launched {other} times")
+    gemm_note = ""
+    if quant_w:
+        # decode: 7 products a layer and the logits a step, all inside
+        # replayed graphs; prefill: the wrapper's eager launches
+        replayed, eager = eng.graphs.w8a16_replayed, w8a16.launches
+        want = (7 * cfg.num_layers + 1) * steps
+        if replayed != want or not eager or gemms != replayed + eager:
+            raise AssertionError(
+                f"serve {tag}: w8a16_gemm ran {gemms} times on the card; the "
+                f"graphs recorded {replayed} over {steps} decode steps (want "
+                f"{want}), the prefill launched {eager}")
+        counts["w8a16_gemm"] = gemms
+        gemm_note = (f"; w8a16_gemm {gemms} (counted by the kernel on the "
+                     f"card): {replayed} in the replays = (7 x "
+                     f"{cfg.num_layers} + 1) x {steps} steps, {eager} in "
+                     f"the eager prefill")
     ttft = [a["timing"]["ttft_s"] for _, _, a, *_ in res]
     e2e = [a["timing"]["e2e_s"] for _, _, a, *_ in res]
     gaps = [g for _, _, _, gs, _ in res for g in gs]
     decode_tokens = sum(len(t) - 1 for t, *_ in res)
     decode_tps = decode_tokens / (max(e2e) - min(ttft))
-    log(f"serve {kv_quant}: 8 requests x {n_new} tokens (prompts "
+    log(f"serve {tag}: 8 requests x {n_new} tokens (prompts "
         f"{min(map(len, prompts))}..{max(map(len, prompts))}) in "
         f"{t_batch:.3f} s; TTFT median {np.median(ttft):.4f} s max "
         f"{max(ttft):.4f} s; inter-token gap median "
@@ -804,15 +1159,15 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
         f"first-token to last finish); {steps} decode steps, {name} "
         f"launches {launched} (counted by the kernel on the card) in "
         f"{eng.graphs.replays} graph replays, {eng.kernel_launches} by the "
-        f"graphs' records at capture, {issued} issued eagerly")
-    log(f"serve {kv_quant}: pipeline {eng.pipeline_stats()}; dispatches "
+        f"graphs' records at capture, {issued} issued eagerly{gemm_note}")
+    log(f"serve {tag}: pipeline {eng.pipeline_stats()}; dispatches "
         f"{eng.dispatch_counts}; captures " + ", ".join(
             f"{k} {t:.3f} s" for k, t in eng.graphs.capture_s.items())
         + f"; graph pool {eng.graphs.pool_bytes / 2**20:.1f} MiB")
-    log(f"serve {kv_quant}: prefix repeat hit {cached} cached blocks, TTFT "
+    log(f"serve {tag}: prefix repeat hit {cached} cached blocks, TTFT "
         f"{repeat[2]['timing']['ttft_s']:.4f} s")
     tokens = [t for t, *_ in res + [repeat]]
-    figures = dict(ttft=ttft, gaps=gaps, tps=decode_tps)
+    figures = dict(ttft=ttft, gaps=gaps, tps=decode_tps, gib=gib)
     if dense_tokens is not None:
         same = sum(a == b for x, y in zip(tokens, dense_tokens)
                    for a, b in zip(x, y))
@@ -820,7 +1175,7 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None):
         # the step at which each stream first leaves the dense one
         split = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
                       len(x)) for x, y in zip(tokens, dense_tokens)]
-        log(f"serve {kv_quant}: {same}/{total} = {same / total:.4f} of the "
+        log(f"serve {tag}: {same}/{total} = {same / total:.4f} of the "
             f"token positions agree with the dense run (greedy, random "
             f"weights: a stream that leaves the dense one at a near-tie "
             f"stays apart); first differing step per request {split} "
@@ -1102,12 +1457,12 @@ def check_http(params, direct_tokens, direct):
     return dense
 
 
-def check_cli():
-    """The launcher as a user runs it, with no --device: it must serve a
-    prompt on the card (cuda) and exit 0."""
+def check_cli(extra=()):
+    """The launcher as a user runs it, with no --device (and ``extra``
+    flags): it must serve a prompt on the card (cuda) and exit 0."""
     cmd = [sys.executable, "-m", "dynamo_tpu_torch.launch.run", "in=text",
            "out=torch", "--model-config", "tiny", "--cache-dtype", "float32",
-           "--prompt", "w1 w2 w3", "--max-tokens", "8"]
+           "--prompt", "w1 w2 w3", "--max-tokens", "8", *extra]
     t0 = time.monotonic()
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if out.returncode != 0 or "on cuda" not in out.stderr:
@@ -1117,12 +1472,63 @@ def check_cli():
         f"); printed {out.stdout.strip()!r}")
 
 
+def first_step_logprob_diff(dense, quant, prompt):
+    """The largest difference of the first step's logprobs (over the
+    vocabulary) of ``prompt`` between Llama-3.1-8B with the dense weights
+    and with their w8a16 quantization (llama.prefill of the prompt into a
+    one-lane context)."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    toks = torch.tensor(prompt, dtype=torch.int32, device="cuda")
+    lps = []
+    for cfg, params in ((ModelConfig.llama3_8b(), dense),
+                        (ModelConfig.llama3_8b_int8(), quant)):
+        ctx = llama.init_ctx(cfg, 1, len(prompt), torch.bfloat16, "cuda")
+        logits = llama.prefill(cfg, params, ctx, toks, 0, 0, len(prompt))
+        lps.append(torch.log_softmax(logits, dim=-1))
+        del ctx
+    return (lps[0] - lps[1]).abs().max().item()
+
+
+def phase(name, fn, *args, **kw):
+    """Run one phase and print its seconds."""
+    t0 = time.monotonic()
+    out = fn(*args, **kw)
+    log(f"phase {name}: {time.monotonic() - t0:.1f} s")
+    return out
+
+
+def build_all():
+    """Both kernel libraries, one nvcc each, started together; prints
+    ptxas's registers, shared memory and spills per library."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.ops import cuda_build, w8a16
+
+    names = ("flash_decode", "w8a16_gemm")
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(names)) as ex:
+        outs = list(ex.map(cuda_build.build, names))
+    secs = time.monotonic() - t0
+    for name, ptxas in zip(names, outs):
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
+        smem = [int(b) for b in re.findall(r"(\d+) bytes smem", ptxas)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", ptxas))
+        dyn = ("; dynamic shared memory " + ", ".join(
+            f"{w8a16.smem_bytes(bm)} (BM {bm})" for bm in (8, 32, 64))
+            + " bytes a block" if name == "w8a16_gemm" else "")
+        log(f"build: {name} in {secs:.1f} s (built in parallel); " + (
+            f"{len(regs)} kernels, {min(regs)}..{max(regs)} registers, up to "
+            f"{max(smem, default=0)} bytes of static shared memory, {spills} "
+            f"bytes of spills{dyn}" if regs else "built before this run"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from dynamo_tpu_torch.ops import cuda_build
-
+    t_start = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -1130,29 +1536,26 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
-    t0 = time.monotonic()
-    ptxas = cuda_build.build("flash_decode")
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
-    smem = [int(b) for b in re.findall(r"(\d+) bytes smem", ptxas)]
-    spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", ptxas))
-    log(f"build: flash_decode in {time.monotonic() - t0:.1f} s; " + (
-        f"{len(regs)} kernels, {min(regs)}..{max(regs)} registers, up to "
-        f"{max(smem)} bytes of shared memory, {spills} bytes of spills"
-        if regs else "built before this run"))
+    phase("build", build_all)
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import ModelConfig
 
     cfg = ModelConfig.llama3_8b()
     serve_lens = [len(p) for p in serve_prompts(cfg.vocab_size)]
-    fd_report = check_flash_decode(serve_lens, quant=False)
-    fd8_report = check_flash_decode(serve_lens, quant=True)
-    check_tiny_engine()
-    check_tiny_int8()
+    fd_report = phase("kernels (flash_decode dense)", check_flash_decode,
+                      serve_lens, quant=False)
+    fd8_report = phase("kernels (flash_decode int8)", check_flash_decode,
+                       serve_lens, quant=True)
+    w8_report = phase("kernels (w8a16)", check_w8a16)
+    phase("logits f32", check_logits_f32)
+    phase("tiny", check_tiny_engine)
+    phase("tiny int8", check_tiny_int8)
+    phase("tiny w8a16", check_tiny_w8a16)
     from dynamo_tpu_torch.engine.config import EngineConfig
 
     tiny = ModelConfig.tiny(dtype="float32")
     rng = np.random.RandomState(SEED)
-    check_round_graph(
+    phase("round_graph tiny", check_round_graph,
         "tiny f32", tiny, EngineConfig(
             num_pages=64, page_size=16, max_pages_per_seq=8,
             max_decode_slots=4, prefill_buckets=(32, 64),
@@ -1161,23 +1564,60 @@ def main() -> int:
         [rng.randint(1, 256, size=n).tolist() for n in (29, 40, 17, 100)])
     time_block_hashes(serve_prompts(cfg.vocab_size), 64)
     counts: dict[str, int] = {}
-    # the 8B weights are made once and serve every 8B phase
+    # the 8B weights are made once and serve every 8B phase; the w8a16
+    # phases serve their quantization
     t0 = time.monotonic()
     params = llama.init_params(cfg, SEED, device="cuda")
     torch.cuda.synchronize()
     log(f"serve: Llama-3.1-8B bf16 weights made on the card in "
         f"{time.monotonic() - t0:.1f} s")
     for kv_quant in ("none", "int8"):
-        check_round_graph(f"Llama-3.1-8B kv_quant={kv_quant}", cfg,
-                          EngineConfig(kv_quant=kv_quant), params,
-                          serve_prompts(cfg.vocab_size))
-    dense_tokens, direct = serve_llama3_8b(counts, params, "none")
-    serve_llama3_8b(counts, params, "int8", dense_tokens)
-    http_launches = check_http(params, dense_tokens[:8], direct)
+        phase(f"round_graph 8B kv_quant={kv_quant}", check_round_graph,
+              f"Llama-3.1-8B kv_quant={kv_quant}", cfg,
+              EngineConfig(kv_quant=kv_quant), params,
+              serve_prompts(cfg.vocab_size))
+    dense_tokens, direct = phase("serve none", serve_llama3_8b, counts,
+                                 params, "none")
+    phase("serve int8", serve_llama3_8b, counts, params, "int8",
+          dense_tokens)
+    http_launches = phase("http", check_http, params, dense_tokens[:8],
+                          direct)
+    # w8a16: the same weights quantized per output channel on the card
+    t0 = time.monotonic()
+    qparams = llama.quantize_params(params)
+    torch.cuda.synchronize()
+    qcfg = ModelConfig.llama3_8b_int8()
+    log(f"w8a16: quantize_params of the bf16 weights on the card in "
+        f"{time.monotonic() - t0:.1f} s: {weights_gib(qparams):.2f} GiB "
+        f"(bf16 {weights_gib(params):.2f} GiB)")
+    lp_diff = first_step_logprob_diff(params, qparams,
+                                      serve_prompts(cfg.vocab_size)[0])
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    check_cli()
+    phase("round_graph 8B w8a16", check_round_graph,
+          "Llama-3.1-8B w8a16 kv_quant=none", qcfg, EngineConfig(),
+          qparams, serve_prompts(cfg.vocab_size))
+    _, w8 = phase("serve w8a16", serve_llama3_8b, counts, qparams, "none",
+                  dense_tokens, cfg=qcfg)
+    log(f"serve w8a16 beside dense (same run, same prompts): TTFT median "
+        f"{np.median(w8['ttft']):.4f} s max {max(w8['ttft']):.4f} s "
+        f"(dense {np.median(direct['ttft']):.4f}, "
+        f"{max(direct['ttft']):.4f}); gap median "
+        f"{np.median(w8['gaps']) * 1e3:.2f} ms max "
+        f"{max(w8['gaps']) * 1e3:.2f} ms (dense "
+        f"{np.median(direct['gaps']) * 1e3:.2f}, "
+        f"{max(direct['gaps']) * 1e3:.2f}); decode {w8['tps']:.1f} tok/s "
+        f"(dense {direct['tps']:.1f}); weights {w8['gib']:.2f} GiB (dense "
+        f"{direct['gib']:.2f}); the first step's largest logprob "
+        f"difference to the dense weights (prompt 0) {lp_diff:.4f} "
+        f"(information: random weights, quantized)")
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("cli", check_cli)
+    phase("cli w8a16", check_cli, ["--quantize", "int8"])
+    log(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
     print(smi)
     source = "dynamo_tpu_torch/csrc/flash_decode.cu"
     kernels = [
@@ -1188,6 +1628,13 @@ def main() -> int:
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",
              launches=counts["flash_decode_int8"], **fd8_report),
+        # no Pallas kernel: XLA's fused convert + dot of _mm and the
+        # quantized _logits; the figures are one 8B decode step's 225
+        # products at M = 8, per shape under "shapes"
+        dict(name="w8a16_gemm", route="cuda",
+             source="dynamo_tpu_torch/csrc/w8a16_gemm.cu",
+             replaces="dynamo_tpu/models/llama.py:409",
+             launches=counts["w8a16_gemm"], **w8_report),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ PyTorch (port of the JAX package's TpuEngine main path).
     at block seal (seal_blocks). Decode attention goes through the Hopper
     flash-decode kernel (ops/flash_decode.py). With ``kv_quant="int8"``
     the region and the pool are int8 with per-group scales and decode
-    runs the kernel's int8 mode; the ring stays in ``cache_dtype``.
+    runs the kernel's int8 mode; the ring stays in ``cache_dtype``. A
+    model with w8a16 weights (``config.quant="int8"``) runs every weight
+    product through the w8a16 GEMM kernel (ops/w8a16.py).
   - Decode state lives on the device at fixed addresses: last tokens,
     context lengths, write destinations, the sampler's threefry keys and
     counts and per-slot sampling knobs. A round is ``flush_every``

@@ -40,7 +40,10 @@ What capture requires, and how this module meets it:
 The flash-decode wrapper counts a launch where it issues one; inside a
 capture that records the kernel into the graph. Each graph keeps the
 launches recorded at its capture, and every call here returns the
-kernel launches it made (a replay: the recorded count).
+kernel launches it made (a replay: the recorded count). The w8a16 GEMM
+wrapper (a quantized model's weight products) counts its launches the
+same way; each graph keeps them as a separate count, and
+``w8a16_replayed`` sums them over the replays.
 """
 from __future__ import annotations
 
@@ -54,7 +57,7 @@ from dynamo_tpu_torch.engine import sampling
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.ops import flash_decode
+from dynamo_tpu_torch.ops import flash_decode, w8a16
 
 # the packed patch row (int64 [B + PATCH_FIELDS]): [0, B) the clear
 # mask, then the admitted slot (B: no admission), its context length,
@@ -195,12 +198,17 @@ class DeviceGraphs:
         self.patch_tok = torch.zeros(1, **i32)
         self._graphs: dict[tuple, torch.cuda.CUDAGraph] = {}
         self._pool = None
-        # per graph key: flash-decode launches recorded, capture seconds
+        # per graph key: flash-decode and w8a16 GEMM launches recorded,
+        # capture seconds
         self.recorded: dict[tuple, int] = {}
+        self.recorded_w8a16: dict[tuple, int] = {}
         self.capture_s: dict[tuple, float] = {}
         # device memory the captures reserved for the shared pool
         self.pool_bytes = 0
         self.replays = 0
+        # w8a16 GEMM launches of the replays: recorded at capture, once a
+        # replay
+        self.w8a16_replayed = 0
 
     def _upload(self, dst: torch.Tensor, a: np.ndarray) -> None:
         """A host array into a static buffer without a stream sync
@@ -280,6 +288,7 @@ class DeviceGraphs:
                                f"captures every program")
         g.replay()
         self.replays += 1
+        self.w8a16_replayed += self.recorded_w8a16[key]
         return self.recorded[key]
 
     def _capture(self, key: tuple, fn: Callable[[], None],
@@ -294,7 +303,7 @@ class DeviceGraphs:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         g = torch.cuda.CUDAGraph()
-        launches = _kernel_count()
+        launches, gemms = _kernel_count(), w8a16.launches
         # thread_local: the engine thread captures while other threads
         # may use the device
         with torch.cuda.graph(g, pool=self._pool,
@@ -305,6 +314,7 @@ class DeviceGraphs:
         self.pool_bytes += max(
             0, torch.cuda.memory_reserved(self.device) - reserved)
         self.recorded[key] = _kernel_count() - launches
+        self.recorded_w8a16[key] = w8a16.launches - gemms
         self._graphs[key] = g
         self.capture_s[key] = time.perf_counter() - t0
         return g

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import sys
 import time
@@ -34,13 +35,13 @@ from typing import Any, Optional
 # engines the reference serves that the port does not yet
 _UNPORTED_ENGINES = {"mocker": "the mocker engine", "tpu": "the JAX engine "
                      "(out=torch is the port's engine)"}
-_SERVED_CONFIGS = ("tiny", "llama3_1b", "llama3_8b")
+_SERVED_CONFIGS = ("tiny", "llama3_1b", "llama3_8b", "llama3_1b_int8",
+                   "llama3_8b_int8")
 
 # flags of the reference's parser for planes the port does not serve:
 # flag -> (argparse keywords with the reference's default, what it drives)
 UNPORTED_FLAGS: dict[str, tuple[dict, str]] = {
     "--model-path": (dict(default=None), "checkpoint serving"),
-    "--quantize": (dict(default=None, choices=["int8"]), "w8a16 weights"),
     "--trace-sample-rate": (dict(type=float, default=1.0),
                             "request tracing"),
     "--tensor-parallel-size": (dict(type=int, default=1),
@@ -147,6 +148,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-config", default=None,
                    help=f"canned config ({'|'.join(_SERVED_CONFIGS)}) for "
                         f"random-weight serving")
+    p.add_argument("--quantize", default=None, choices=["int8"],
+                   help="weight quantization (w8a16: int8 weights with a "
+                        "per-output-channel scale, served through the "
+                        "w8a16 GEMM kernel)")
     p.add_argument("--device", default=None,
                    help="torch device of out=torch (default cuda; the "
                         "engine does not fall back to the CPU)")
@@ -245,6 +250,8 @@ def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
         # the engine computes in one dtype: random weights are made in the
         # cache dtype (the reference promotes bf16 weights to it)
         cfg = getattr(ModelConfig, args.model_config)(dtype=args.cache_dtype)
+        if args.quantize:
+            cfg = dataclasses.replace(cfg, quant=args.quantize)
         ecfg = EngineConfig(
             num_pages=args.num_pages,
             page_size=args.page_size,

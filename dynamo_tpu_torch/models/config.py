@@ -28,10 +28,11 @@ class ModelConfig:
     tie_word_embeddings: bool = False
     model_type: str = "llama"
     dtype: str = "bfloat16"
-    # Mixture-of-Experts FFN and w8a16 weights: kept so configs match the
-    # reference field for field; the port serves neither yet
-    # (models/llama.py raises on them)
+    # Mixture-of-Experts FFN: kept so configs match the reference field
+    # for field; the port does not serve it yet (models/llama.py raises)
     moe: Optional[tuple[tuple[str, Any], ...]] = None
+    # "int8": w8a16 weights, symmetric per-output-channel int8 with f32
+    # scales (models/llama.py quantize_params, ops/w8a16.py)
     quant: Optional[str] = None
 
     @property
@@ -127,6 +128,15 @@ class ModelConfig:
         )
         base.update(kw)
         return cls(**base)
+
+    @classmethod
+    def llama3_8b_int8(cls, **kw) -> "ModelConfig":
+        """Llama-3.1-8B with w8a16 int8 weights (~8 GB)."""
+        return cls.llama3_8b(**{"quant": "int8", **kw})
+
+    @classmethod
+    def llama3_1b_int8(cls, **kw) -> "ModelConfig":
+        return cls.llama3_1b(**{"quant": "int8", **kw})
 
     def num_params(self) -> int:
         """Approximate parameter count (for memory planning)."""

@@ -1,10 +1,14 @@
 """Llama-family forward pass and serving-state programs (PyTorch port of
-the JAX package's models/llama.py, dense weights only).
+the JAX package's models/llama.py: dense or w8a16 weights, no MoE).
 
 Layouts stay byte-identical to the reference:
   - parameters are a dict whose per-layer leaves are STACKED on a leading
     layer axis, matmul weights stored ``[in, out]`` (``params_from_jax``
-    carries a JAX pytree across as numpy arrays);
+    carries a JAX pytree across as numpy arrays); with
+    ``config.quant="int8"`` each matmul weight is the leaf pair ``{"q":
+    int8 [..., in, out], "s": f32 [..., out]}`` (the embedding ``{"q":
+    int8 [V, H], "s": f32 [V]}``) and every product goes through the w8a16
+    kernel (``_mm``, ops/w8a16.py);
   - the serving context is contiguous per slot, ``ctx [L, kvh, B+1, S,
     hd]``, with lane B the scratch lane for freed slots' garbage steps;
   - decode steps write a small per-slot ring ``[L, kvh, B, R, hd]`` that
@@ -40,6 +44,7 @@ from dynamo_tpu_torch.ops.attention import (
     flash_prefill_attention,
 )
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
+from dynamo_tpu_torch.ops.w8a16 import w8a16_matmul
 
 Params = dict[str, Any]
 Cache = dict[str, torch.Tensor]
@@ -57,11 +62,12 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _check_dense(config: ModelConfig) -> None:
-    if config.moe is not None or config.quant is not None:
+def _check_supported(config: ModelConfig) -> None:
+    if config.moe is not None:
         raise NotImplementedError(
-            "the PyTorch port serves dense Llama weights only (no MoE, "
-            "no w8a16 quantization yet)")
+            "the PyTorch port serves dense Llama FFNs only (no MoE yet)")
+    if config.quant not in (None, "int8"):
+        raise ValueError(f"unsupported weight quantization {config.quant!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -72,22 +78,34 @@ def init_params(config: ModelConfig, seed: int = 0,
     """Random-init parameters in ``config.dtype``, drawn on the device from
     a ``torch.Generator`` seeded with ``seed`` (the same scales as the JAX
     init; the values themselves differ — use ``params_from_jax`` to share
-    weights with the reference)."""
-    _check_dense(config)
+    weights with the reference). With ``config.quant="int8"`` the int8
+    leaves are drawn directly, uniform in [-127, 127] with a constant
+    per-channel scale that recovers the dense init's std, as the
+    reference does: an 8B's dense weights are never made."""
+    _check_supported(config)
     c = config
     dtype = torch_dtype(c.dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    quant8 = c.quant == "int8"
 
-    def rnd(*shape, scale=None):
+    def rnd(*shape, scale=None, qaxis=-2):
         scale = scale or (1.0 / np.sqrt(shape[-2] if len(shape) > 1 else shape[-1]))
+        if quant8:
+            q = torch.randint(-127, 128, shape, generator=gen, device=device,
+                              dtype=torch.int8)
+            s_shape = tuple(np.delete(shape, len(shape) + qaxis))
+            # uniform[-127, 127] has std ~73.3; s recovers the dense std
+            s = torch.full(s_shape, scale / 73.3, dtype=torch.float32,
+                           device=device)
+            return {"q": q, "s": s}
         return torch.randn(shape, generator=gen, device=device,
                            dtype=dtype).mul_(scale)
 
     L, H, I, V = c.num_layers, c.hidden_size, c.intermediate_size, c.vocab_size
     ones = dict(dtype=dtype, device=device)
     params: Params = {
-        "embed": rnd(V, H, scale=0.02),
+        "embed": rnd(V, H, scale=0.02, qaxis=-1),
         "layers": {
             "ln1": torch.ones(L, H, **ones),
             "ln2": torch.ones(L, H, **ones),
@@ -118,18 +136,70 @@ def params_from_jax(np_params: Params,
                     device: str | torch.device = "cuda") -> Params:
     """Carry a JAX parameter pytree across, given as (nested dicts of)
     numpy arrays (``jax.tree.map(np.asarray, params)``). The layout is
-    already ours: ``[in, out]`` weights stacked on a leading layer axis."""
+    already ours: ``[in, out]`` weights stacked on a leading layer axis,
+    a w8a16 weight as its ``{"q", "s"}`` pair."""
 
     def conv(x):
         if isinstance(x, dict):
-            if "q" in x and "s" in x:
-                raise NotImplementedError("w8a16 weights are not ported yet")
             return {k: conv(v) for k, v in x.items()}
         return _tensor_from_numpy(x, device)
 
     if "adapters" in np_params:
         raise NotImplementedError("LoRA adapter banks are not ported yet")
     return conv(np_params)
+
+
+# ---------------------------------------------------------------------------
+# Quantization (w8a16: per-output-channel symmetric int8 weights)
+#
+# A quantized weight is the leaf pair {"q": int8 [..., in, out], "s": f32
+# [..., out]}; every matmul site routes through _mm/_embed_rows/_logits so
+# dense and quantized params are interchangeable. The int8 tensor is what
+# streams from device memory; the w8a16 kernel dequantizes on chip.
+
+_QUANT_AXIS = {
+    # reduction axis for the per-output-channel scale, per weight name
+    # (all weights are stored [in, out]-style; embed is row-gathered)
+    "wq": -2, "wk": -2, "wv": -2, "wo": -2,
+    "wg": -2, "wu": -2, "wd": -2,
+    "embed": -1, "lm_head": -2,
+}
+
+
+def _is_quant(w) -> bool:
+    return isinstance(w, dict) and "q" in w
+
+
+def quantize_tensor(w: torch.Tensor, axis: int) -> Params:
+    """Symmetric per-channel int8: scale = amax/127 over ``axis`` (floored
+    at 1e-10), q = clip(round(w / scale), -127, 127)."""
+    wf = w.to(torch.float32, copy=True)  # rounded in place below
+    s = torch.clamp(wf.abs().amax(dim=axis) / 127.0, min=1e-10)
+    q = wf.div_(s.unsqueeze(axis)).round_().clamp_(-127, 127)
+    return {"q": q.to(torch.int8), "s": s}
+
+
+def quantize_params(params: Params) -> Params:
+    """Dense params -> w8a16 (a post-load transform). Norms stay dense."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for name, axis in _QUANT_AXIS.items():
+        if name in layers:
+            layers[name] = quantize_tensor(layers[name], axis)
+    out["layers"] = layers
+    out["embed"] = quantize_tensor(params["embed"], _QUANT_AXIS["embed"])
+    if "lm_head" in params:
+        out["lm_head"] = quantize_tensor(params["lm_head"],
+                                         _QUANT_AXIS["lm_head"])
+    return out
+
+
+def _mm(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w for a dense or quantized weight (a layer product: the result
+    in x's dtype)."""
+    if _is_quant(w):
+        return w8a16_matmul(x, w, x.dtype)
+    return x @ w
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +343,8 @@ def init_ring(config: ModelConfig, batch: int, ring_len: int,
 # Forward pieces
 
 def _layer(params: Params, l: int) -> Params:
-    return {k: v[l] for k, v in params["layers"].items()}
+    return {k: ({n: t[l] for n, t in v.items()} if _is_quant(v) else v[l])
+            for k, v in params["layers"].items()}
 
 
 _INV_FREQ: dict[tuple, torch.Tensor] = {}
@@ -295,7 +366,11 @@ def _inv_freq(config: ModelConfig, device) -> torch.Tensor:
 
 
 def _embed_rows(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return params["embed"][tokens].to(dtype)
+    """Embedding gather for dense or quantized embed tables."""
+    e = params["embed"]
+    if _is_quant(e):
+        return e["q"][tokens].to(dtype) * e["s"][tokens][..., None].to(dtype)
+    return e[tokens].to(dtype)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -305,7 +380,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _mlp(h, wg, wu, wd):
-    return (F.silu(h @ wg) * (h @ wu)) @ wd
+    return _mm(F.silu(_mm(h, wg)) * _mm(h, wu), wd)
 
 
 def _layer_body(c: ModelConfig, lp: Params, h: torch.Tensor, cos, sin,
@@ -315,26 +390,41 @@ def _layer_body(c: ModelConfig, lp: Params, h: torch.Tensor, cos, sin,
     [N, H] (N = padded tokens for prefill, batch slots for decode)."""
     N = h.shape[0]
     x = rms_norm(h, lp["ln1"], c.rms_norm_eps)
-    q = (x @ lp["wq"]).view(N, c.num_heads, c.head_dim)
-    k = (x @ lp["wk"]).view(N, c.num_kv_heads, c.head_dim)
-    v = (x @ lp["wv"]).view(N, c.num_kv_heads, c.head_dim)
+    q = _mm(x, lp["wq"]).view(N, c.num_heads, c.head_dim)
+    k = _mm(x, lp["wk"]).view(N, c.num_kv_heads, c.head_dim)
+    v = _mm(x, lp["wv"]).view(N, c.num_kv_heads, c.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = attend(q, write_kv(k, v))
-    h = h + attn.reshape(N, c.q_dim) @ lp["wo"]
+    h = h + _mm(attn.reshape(N, c.q_dim), lp["wo"])
     x2 = rms_norm(h, lp["ln2"], c.rms_norm_eps)
     return h + _mlp(x2, lp["wg"], lp["wu"], lp["wd"])
 
 
+def matmul_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h [..., H] @ w [H, V]`` accumulated and returned in f32, never
+    rounded to h's dtype (the reference's ``preferred_element_type=f32``).
+    A bf16 product on the card is one cuBLAS call with an f32 output
+    (``aten::mm.dtype``), so no f32 copy of the [H, V] matrix is made; the
+    CPU, which lacks that overload, widens both operands."""
+    if h.dtype == torch.float32 and w.dtype == torch.float32:
+        return h @ w
+    if not h.is_cuda:
+        return h.float() @ w.float()
+    y = torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=torch.float32)
+    return y.view(*h.shape[:-1], w.shape[-1])
+
+
 def _logits(config: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
+    """f32 logits ``[..., V]``: for a quantized weight through the w8a16
+    kernel (the tied embedding table read as ``[V, H]``), for a dense one
+    an f32-accumulated product."""
     h = rms_norm(h, params["norm_f"], config.rms_norm_eps)
-    if config.tie_word_embeddings:
-        w = params["embed"].t()
-    else:
-        w = params["lm_head"]
-    # f32 result; a bf16 model's product is rounded to bf16 first (the
-    # f32 copy of the [H, V] matrix an f32 product needs is 2 GB at 8B)
-    return (h @ w).float()
+    tied = config.tie_word_embeddings
+    w = params["embed"] if tied else params["lm_head"]
+    if _is_quant(w):
+        return w8a16_matmul(h, w, torch.float32, "nk" if tied else "kn")
+    return matmul_f32(h, w.t() if tied else w)
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +445,7 @@ def prefill(
     dense causal softmax over the slot's whole region plus the chunk
     (``ctx_prefill_attention``). Returns the logits [V] (f32) of the last
     valid token (position seq_len-1)."""
-    _check_dense(config)
+    _check_supported(config)
     c = config
     T = tokens.shape[0]
     dev = tokens.device
@@ -491,7 +581,7 @@ def batch_prefill(
     q_start+T) IN PLACE after the last read. Returns logits [K, V] (f32)
     of each row's last valid token. Padding lanes point at the scratch
     lane with seq_len 0."""
-    _check_dense(config)
+    _check_supported(config)
     ks, vs, h = _batch_forward(config, params, ctx, tokens, slots, q_starts,
                                seq_lens, ctx_span)
     _write_chunks(ctx, ks, vs, slots, q_starts, seq_lens)

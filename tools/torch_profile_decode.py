@@ -1,9 +1,13 @@
 """Where a decode step's time goes in the PyTorch port, on one GPU.
 
-    python3 tools/torch_profile_decode.py [--kv-quant int8] [--sample]
+    python3 tools/torch_profile_decode.py [--kv-quant int8] [--quant int8]
+                                          [--sample]
 
 Runs ``dynamo_tpu_torch.models.llama.decode_step`` at the full width of
-Llama-3.1-8B (32 layers, random bf16 weights from seed 0) for the default
+Llama-3.1-8B (32 layers, random bf16 weights from seed 0; with ``--quant
+int8`` w8a16 weights, int8 with per-channel scales drawn on the card as
+``init_params`` draws them, every weight product a ``w8a16_gemm`` kernel,
+which the "gemm" in its name puts in the matmul group) for the default
 EngineConfig's 8 slots, with the serve phase's contexts of chip_smoke.py
 (prompts of 128..1024 tokens from seed 0, 17 tokens into decode), over a
 dense bf16 region or, with ``--kv-quant int8``, an int8 one (random bytes
@@ -94,6 +98,8 @@ def measure(fn) -> tuple[float, dict[str, float]]:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kv-quant", choices=("none", "int8"), default="none")
+    ap.add_argument("--quant", choices=("none", "int8"), default="none",
+                    help="weights: bf16, or w8a16 int8")
     ap.add_argument("--sample", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -108,7 +114,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    cfg, ecfg = ModelConfig.llama3_8b(), EngineConfig()
+    cfg = (ModelConfig.llama3_8b_int8() if args.quant == "int8"
+           else ModelConfig.llama3_8b())
+    ecfg = EngineConfig()
     B, dev = ecfg.max_decode_slots, "cuda"
     params = llama.init_params(cfg, 0, dev)
     ctx = llama.init_ctx(cfg, B, ecfg.max_context, torch.bfloat16, dev,
@@ -186,7 +194,9 @@ def main() -> int:
     for name, ms in by_name.items():
         groups[group_of(name)] += ms
     print(f"card: {smi}; torch {torch.__version__}")
-    mode = f"kv_quant={args.kv_quant}" + (", sampled" if args.sample else "")
+    mode = (f"kv_quant={args.kv_quant}"
+            + (", w8a16 weights" if args.quant == "int8" else "")
+            + (", sampled" if args.sample else ""))
     print(f"decode_step ({mode}) at Llama-3.1-8B, B={B}, contexts "
           f"{lens.tolist()}: "
           f"wall {wall_ms:.3f} ms/step, device {device_ms:.3f} ms/step, "
@@ -212,7 +222,8 @@ def main() -> int:
         f"{k} {t:.3f} s" for k, t in programs.capture_s.items())
         + f"; graph pool {programs.pool_bytes / 2**20:.1f} MiB")
     print(json.dumps({
-        "card": smi, "kv_quant": args.kv_quant, "sample": args.sample,
+        "card": smi, "kv_quant": args.kv_quant, "quant": args.quant,
+        "sample": args.sample,
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
         "idle_share": 1 - device_ms / wall_ms,
