@@ -22,12 +22,15 @@ Phases, each printing a line (any failure raises and exits non-zero):
      kernel over the same K/V in the same call (dense over the region
      before quantization, int8 over it quantized); the w8a16 GEMM in its
      four uses (bf16 layer products, untied and tied bf16 logits, f32)
-     at every Llama-3.1-8B weight shape at M = 1, 8, 32 and 1024, the
-     Llama-3.2-1B tied logits and the tiny shapes, against its plain
-     version in f32 with the reference's rounding emulated (controls: one
-     channel's scale off by 5%, one k row zeroed), timed over weights too
-     large for L2 beside its byte bound and cuBLAS over a bf16 weight of
-     the same shape; and the dense logits' f32 product (aten::mm.dtype);
+     at every Llama-3.1-8B layer weight shape at M = 1, 8, 32 (the mma
+     kernel) and 64, 128, 200, 512, 1024, 2048, 4096 (the wgmma kernel of
+     prefill), the lm_head at M = 1, 8, 32, 1024, the Llama-3.2-1B tied
+     logits and the tiny shapes, against its plain version in f32 with the
+     reference's rounding emulated (controls: one channel's scale off by
+     5%, one k row zeroed), timed over weights too large for L2 beside its
+     byte and tensor-core bounds, cuBLAS over a bf16 weight of the same
+     shape and torch._weight_int8pack_mm where it runs on CUDA (timed
+     only); and the dense logits' f32 product (aten::mm.dtype);
   4. tiny: TorchEngine on ModelConfig.tiny (f32) on the card, its rounds
      replayed CUDA graphs, must be greedy token-identical to the same
      engine on the CPU, whose rounds run eagerly (the CPU tests hold it
@@ -79,9 +82,10 @@ Phases, each printing a line (any failure raises and exits non-zero):
   8. serve w8a16: the same weights quantized on the card
      (quantize_params), the serve burst and repeat again at full width
      and depth; every decode step must run both kernels on every layer
-     (and the w8a16 kernel for the logits), the prefill the w8a16 kernel
-     eagerly; TTFT, gaps, tok/s and the weights' GiB are printed beside
-     the dense serve's, with the share of greedy tokens equal to the
+     (and the w8a16 kernel for the logits), the prefill the w8a16 kernels
+     eagerly (its 7 layer products a layer on the wgmma kernel, its
+     logits on the mma kernel); TTFT, gaps, tok/s and the weights' GiB
+     are printed beside the dense serve's, with the share of greedy tokens equal to the
      dense run's and the first step's largest logprob difference
      (information: random weights have near-ties);
   9. cli: ``python -m dynamo_tpu_torch.launch.run in=text out=torch
@@ -460,20 +464,31 @@ def w8a16_bound_ms(M, N, K, x_bytes, out_bytes):
                                        else "operations")
 
 
+# the 8B layer products' widths: a decode step (1, 8, 32) and prefill
+# rows (the serve's groups run 128..2048; 200 is ragged; 4096 a chunk at
+# the largest bucket)
+W8A16_LAYER_M = (1, 8, 32, 64, 128, 200, 512, 1024, 2048, 4096)
+W8A16_8B_LAYERS = (("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024),
+                   ("wg/wu", 4096, 14336), ("wd", 14336, 4096))
+# products a layer of each shape
+W8A16_PER_LAYER = {"8b wq/wo": 2, "8b wk/wv": 2, "8b wg/wu": 2, "8b wd": 1}
+
+
 def w8a16_cases():
     """(label, M, K, N, layout, x dtype, out dtype): every Llama-3.1-8B
-    weight shape at M = 1, 8 (a decode step), 32 and 1024 (prefill rows)
-    in bf16 (the layers' bf16 outputs, the lm_head's f32 logits); the
-    Llama-3.2-1B tied logits (the embedding [V, H] read as "nk") at M =
-    8; the tiny model's shapes in f32 (both layouts) and in bf16 (tails
-    narrower than a 128-channel tile)."""
+    layer weight shape at each M of ``W8A16_LAYER_M`` in bf16 (M >=
+    w8a16.WGMMA_MIN_M runs the wgmma kernel, below it the mma kernel); the
+    lm_head's f32 logits at M = 1, 8, 32 and 1024; the Llama-3.2-1B tied
+    logits (the embedding [V, H] read as "nk") at M = 8; the tiny model's
+    shapes in f32 (both layouts) and in bf16 (tails narrower than a
+    128-channel tile)."""
     bf, f32 = torch.bfloat16, torch.float32
     cases = []
-    for M in (1, 8, 32, 1024):
-        for name, K, N in (("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024),
-                           ("wg/wu", 4096, 14336), ("wd", 14336, 4096)):
+    for M in W8A16_LAYER_M:
+        for name, K, N in W8A16_8B_LAYERS:
             cases.append((f"8b {name}", M, K, N, "kn", bf, bf))
-        cases.append(("8b lm_head", M, 4096, 128256, "kn", bf, f32))
+        if M in (1, 8, 32, 1024):
+            cases.append(("8b lm_head", M, 4096, 128256, "kn", bf, f32))
     cases.append(("1b tied logits", 8, 2048, 128256, "nk", bf, f32))
     for M in (4, 37):
         for name, K, N in (("wq", 64, 64), ("wk", 64, 32), ("wg", 64, 128),
@@ -485,19 +500,46 @@ def w8a16_cases():
     return cases
 
 
+def int8pack_ms(x, q, s, odt, layout):
+    """One PyTorch call of the same function (``torch._weight_int8pack_mm``:
+    x @ (q * s) with q as [N, K]) timed over cold weights, or None where
+    it does not run on CUDA for these inputs. Timed only: the port never
+    calls it."""
+    if layout != "kn" or odt != torch.bfloat16:
+        return None
+    qt = q.t().contiguous()
+    sb = s.to(x.dtype)
+    try:
+        torch._weight_int8pack_mm(x, qt, sb)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"kernel w8a16_gemm: torch._weight_int8pack_mm does not run on "
+            f"CUDA here ({type(e).__name__}: {str(e).splitlines()[0][:120]})")
+        return None
+    copies = max(1, -(-COLD_BYTES // qt.numel()))
+    qts = [qt] + [qt.clone() for _ in range(copies - 1)]
+    # a few calls: it runs 10-1000x the kernel's time
+    return cuda_time_ms(lambda i: torch._weight_int8pack_mm(
+        x, qts[i % copies], sb), iters=5, warmup=1)
+
+
 def check_w8a16():
-    """The w8a16 kernel against its plain version on the card at every
+    """The w8a16 kernels against their plain version on the card at every
     case of ``w8a16_cases``, with both controls failing; at the bf16
-    8B/1B cases its time (over cold weights) beside its bound, the plain
+    8B/1B cases the time (over cold weights) beside the bound, the plain
     version's and cuBLAS's over a bf16 weight of the same shape (what
-    dense serving pays). Returns the kernels-line figures: sums over the
-    225 products of one Llama-3.1-8B decode step (M = 8: 32 layers x 7 +
-    the lm_head), and every timed shape."""
+    dense serving pays), and ``torch._weight_int8pack_mm``'s where it
+    runs on CUDA.
+    Returns the kernels-line figures: sums over the 225 products of one
+    Llama-3.1-8B decode step (M = 8: 32 layers x 7 + the lm_head), one
+    layer's 7 products at each M of the wgmma route, and every timed
+    shape."""
     from dynamo_tpu_torch.ops import w8a16
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     shapes, max_err = [], 0.0
     tiny = [0, 0.0]  # tiny cases checked, their largest excess
+    pack_runs = True  # torch._weight_int8pack_mm, until it fails once
     # no fallback: a dtype the kernel lacks raises on the card
     try:
         w8a16.w8a16_matmul(torch.ones(8, 64, dtype=torch.float16,
@@ -509,6 +551,12 @@ def check_w8a16():
         raise AssertionError("w8a16: an fp16 x did not raise")
     except ValueError:
         pass
+    for br in (128, 256):
+        if w8a16.kernel_smem(br) != w8a16.wgmma_smem_bytes(br):
+            raise AssertionError(
+                f"w8a16 wgmma BR={br}: the library's shared memory "
+                f"{w8a16.kernel_smem(br)} != the wrapper's "
+                f"{w8a16.wgmma_smem_bytes(br)}")
     for label, M, K, N, layout, xdt, odt in w8a16_cases():
         x = torch.randn(M, K, generator=g, device="cuda").to(xdt)
         qshape = (K, N) if layout == "kn" else (N, K)
@@ -516,8 +564,15 @@ def check_w8a16():
                           dtype=torch.int8)
         s = (torch.rand(N, generator=g, device="cuda") + 0.5) / (73.3 * K ** 0.5)
         w = {"q": q, "s": s}
+        kind, kplan = w8a16.route(M, N, K, layout, xdt, odt,
+                                  w8a16.card_clusters(x.device))
+        wg0 = w8a16.launches_wgmma
         got = w8a16.w8a16_matmul(x, w, odt, layout)
         torch.cuda.synchronize()
+        if w8a16.launches_wgmma - wg0 != (kind == "wgmma"):
+            raise AssertionError(f"w8a16 {label} M={M}: routed {kind}, the "
+                                 f"wgmma count moved by "
+                                 f"{w8a16.launches_wgmma - wg0}")
         want = w8a16_want(x, q, s, odt, layout)
         if got.dtype != odt or got.shape != (M, N) or not torch.isfinite(
                 got).all():
@@ -528,9 +583,9 @@ def check_w8a16():
         err = (got.float() - want.float()).abs().max().item()
         if not excess <= 1.0:
             raise AssertionError(
-                f"w8a16 {label} M={M} ({layout}, x {xdt}, out {odt}): "
-                f"|kernel - plain| {err:.3e} exceeds the tolerance by a "
-                f"factor {excess:.3f}")
+                f"w8a16 {label} M={M} ({kind} {kplan}, {layout}, x {xdt}, "
+                f"out {odt}): |kernel - plain| {err:.3e} exceeds the "
+                f"tolerance by a factor {excess:.3f}")
         s_bad = s.clone()
         s_bad[N // 3] *= 1.05
         q_bad = q.clone()
@@ -569,23 +624,32 @@ def check_w8a16():
             x, wbs[i % copies_b] if layout == "kn"
             else wbs[i % copies_b].t()), iters=50)
         del wb, wbs
+        pack_ms = int8pack_ms(x, q, s, odt, layout) if pack_runs else None
+        if pack_ms is None and layout == "kn" and odt == torch.bfloat16:
+            pack_runs = False
         bound, by = w8a16_bound_ms(M, N, K, 2, odt.itemsize)
-        shapes.append(dict(shape=label, M=M, K=K, N=N, ms=ms,
-                           plain_ms=plain_ms, bound_ms=bound,
-                           bound_by=by, library_ms=lib_ms))
+        tc_ms = 2.0 * M * N * K / H100_BF16_FLOPS * 1e3
+        shapes.append(dict(shape=label, M=M, K=K, N=N, kernel=kind,
+                           plan=list(kplan), ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=by, tc_bound_ms=tc_ms,
+                           library_ms=lib_ms, int8pack_ms=pack_ms))
+        extra = (f"; _weight_int8pack_mm {pack_ms:.4f} ms"
+                 if pack_ms is not None else "")
         log(f"kernel w8a16_gemm {label} M={M} K={K} N={N} ({layout}, out "
-            f"{str(odt)[6:]}): agrees with plain, at {excess:.3f} of the "
-            f"tolerance; the controls fail it; {ms:.4f} ms/call (plain "
-            f"{plain_ms:.4f} ms, cuBLAS bf16 {lib_ms:.4f} ms, {by} bound "
-            f"{bound:.4f} ms, {bound / ms:.2f} of it)")
+            f"{str(odt)[6:]}, {kind} {kplan}): agrees with plain, at "
+            f"{excess:.3f} of the tolerance; the controls fail it; "
+            f"{ms:.4f} ms/call (plain {plain_ms:.4f} ms, cuBLAS bf16 "
+            f"{lib_ms:.4f} ms = {ms / lib_ms:.2f}x, {by} bound "
+            f"{bound:.4f} ms, {bound / ms:.2f} of it; tensor-core bound "
+            f"{tc_ms:.4f} ms, {tc_ms / ms:.2f} of it){extra}")
         del x, q, s, w, got, want
     torch.cuda.empty_cache()
     log(f"kernel w8a16_gemm tiny shapes: {tiny[0]} cases (M = 4 and 37; "
         f"f32 in both layouts, bf16 narrower than a tile) agree with plain, "
         f"at most {tiny[1]:.3f} of the tolerance; the controls fail each")
     # one 8B decode step's 225 products at M = 8
-    per_step = {"8b wq/wo": 64, "8b wk/wv": 64, "8b wg/wu": 64, "8b wd": 32,
-                "8b lm_head": 1}
+    per_step = {k: 32 * v for k, v in W8A16_PER_LAYER.items()}
+    per_step["8b lm_head"] = 1
     step = {k: sum(r[k] * per_step[r["shape"]] for r in shapes
                    if r["M"] == 8 and r["shape"] in per_step)
             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
@@ -593,7 +657,23 @@ def check_w8a16():
         f"M = 8: {step['ms']:.4f} ms (bytes bound {step['bound_ms']:.4f} ms; "
         f"cuBLAS over bf16 weights {step['library_ms']:.4f} ms; plain "
         f"{step['plain_ms']:.4f} ms)")
-    return dict(step, bound_by="bytes", max_abs_err=max_err, shapes=shapes)
+    # one layer's 7 prefill products at each M of the wgmma route
+    prefill = {}
+    for M in W8A16_LAYER_M:
+        rows = [r for r in shapes if r["M"] == M
+                and r["shape"] in W8A16_PER_LAYER]
+        if not rows or rows[0]["kernel"] != "wgmma":
+            continue
+        layer = {k: sum(r[k] * W8A16_PER_LAYER[r["shape"]] for r in rows)
+                 for k in ("ms", "tc_bound_ms", "library_ms")}
+        prefill[M] = layer
+        log(f"kernel w8a16_gemm: one Llama-3.1-8B layer's 7 products at "
+            f"M = {M}: {layer['ms']:.4f} ms (tensor-core bound "
+            f"{layer['tc_bound_ms']:.4f} ms, {layer['tc_bound_ms'] / layer['ms']:.2f} "
+            f"of it; cuBLAS over bf16 weights {layer['library_ms']:.4f} ms, "
+            f"{layer['ms'] / layer['library_ms']:.2f}x)")
+    return dict(step, bound_by="bytes", max_abs_err=max_err,
+                prefill_layer=prefill, shapes=shapes)
 
 
 def check_logits_f32():
@@ -1088,7 +1168,7 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None):
     eng.kernel_launches = 0
     fd.executed(eng.device, reset=True)
     if quant_w:
-        w8a16.launches = 0
+        w8a16.launches = w8a16.launches_wgmma = 0
         eng.graphs.w8a16_replayed = 0
         w8a16.executed(eng.device, reset=True)
     IntakeGate(eng, len(prompts))
@@ -1131,19 +1211,30 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None):
     gemm_note = ""
     if quant_w:
         # decode: 7 products a layer and the logits a step, all inside
-        # replayed graphs; prefill: the wrapper's eager launches
+        # replayed graphs; prefill: the wrapper's eager launches, every
+        # layer product of which (every prefill group has >= WGMMA_MIN_M
+        # rows) takes the wgmma kernel and each call's logits the mma one
         replayed, eager = eng.graphs.w8a16_replayed, w8a16.launches
+        wg = w8a16.launches_wgmma
+        calls = eager - wg
         want = (7 * cfg.num_layers + 1) * steps
         if replayed != want or not eager or gemms != replayed + eager:
             raise AssertionError(
                 f"serve {tag}: w8a16_gemm ran {gemms} times on the card; the "
                 f"graphs recorded {replayed} over {steps} decode steps (want "
                 f"{want}), the prefill launched {eager}")
+        if not calls or wg != 7 * cfg.num_layers * calls:
+            raise AssertionError(
+                f"serve {tag}: the prefill launched {eager} w8a16 products, "
+                f"{wg} of them on the wgmma kernel (want 7 x "
+                f"{cfg.num_layers} for each of {calls} calls)")
         counts["w8a16_gemm"] = gemms
-        gemm_note = (f"; w8a16_gemm {gemms} (counted by the kernel on the "
+        counts["w8a16_gemm_prefill_wgmma"] = wg
+        gemm_note = (f"; w8a16_gemm {gemms} (counted by the kernels on the "
                      f"card): {replayed} in the replays = (7 x "
                      f"{cfg.num_layers} + 1) x {steps} steps, {eager} in "
-                     f"the eager prefill")
+                     f"the eager prefill = {wg} on the wgmma kernel (7 x "
+                     f"{cfg.num_layers} x {calls} calls) + {calls} logits")
     ttft = [a["timing"]["ttft_s"] for _, _, a, *_ in res]
     e2e = [a["timing"]["e2e_s"] for _, _, a, *_ in res]
     gaps = [g for _, _, _, gs, _ in res for g in gs]
@@ -1152,7 +1243,8 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None):
     log(f"serve {tag}: 8 requests x {n_new} tokens (prompts "
         f"{min(map(len, prompts))}..{max(map(len, prompts))}) in "
         f"{t_batch:.3f} s; TTFT median {np.median(ttft):.4f} s max "
-        f"{max(ttft):.4f} s; inter-token gap median "
+        f"{max(ttft):.4f} s (sorted: "
+        f"{', '.join(f'{t:.3f}' for t in sorted(ttft))}); inter-token gap median "
         f"{np.median(gaps) * 1e3:.2f} ms max {max(gaps) * 1e3:.2f} ms (a "
         f"round's gap spread over its tokens); decode {decode_tps:.1f} "
         f"tok/s over the batch (tokens after the first / span from first "
@@ -1516,7 +1608,11 @@ def build_all():
         smem = [int(b) for b in re.findall(r"(\d+) bytes smem", ptxas)]
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", ptxas))
         dyn = ("; dynamic shared memory " + ", ".join(
-            f"{w8a16.smem_bytes(bm)} (BM {bm})" for bm in (8, 32, 64))
+            f"{w8a16.smem_bytes(bm)} (mma BM {bm})" for bm in (8, 32, 64))
+            + ", " + ", ".join(
+                "{} (wgmma BR {}, {} stages)".format(
+                    *w8a16.wgmma_smem_bytes(br)[:1], br,
+                    w8a16.wgmma_smem_bytes(br)[1]) for br in (128, 256))
             + " bytes a block" if name == "w8a16_gemm" else "")
         log(f"build: {name} in {secs:.1f} s (built in parallel); " + (
             f"{len(regs)} kernels, {min(regs)}..{max(regs)} registers, up to "
@@ -1634,7 +1730,9 @@ def main() -> int:
         dict(name="w8a16_gemm", route="cuda",
              source="dynamo_tpu_torch/csrc/w8a16_gemm.cu",
              replaces="dynamo_tpu/models/llama.py:409",
-             launches=counts["w8a16_gemm"], **w8_report),
+             launches=counts["w8a16_gemm"],
+             launches_prefill_wgmma=counts["w8a16_gemm_prefill_wgmma"],
+             **w8_report),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

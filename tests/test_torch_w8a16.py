@@ -194,7 +194,7 @@ def _assert_product(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M", [1, 8, 33])
+@pytest.mark.parametrize("M", [1, 8, 33, 64, 200])
 def test_mm_matches_jax(dtype, M):
     """A layer product: the port's _mm (the wrapper's plain version on the
     CPU) against the reference's _mm, in x's dtype."""
@@ -284,6 +284,92 @@ def test_kernel_plan(M, N, K, want):
     k_tiles = -(-K // 64)
     per = -(-k_tiles // splits)
     assert (splits - 1) * per < k_tiles  # no split is empty
+
+
+_BF, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("M,N,K,layout,xdt,odt,want", [
+    # the serve's prefill groups (8B layer products): the wgmma kernel
+    (2048, 4096, 4096, "kn", _BF, _BF, "wgmma"),
+    (1024, 14336, 4096, "kn", _BF, _BF, "wgmma"),
+    (512, 4096, 14336, "kn", _BF, _BF, "wgmma"),
+    (128, 1024, 4096, "kn", _BF, _BF, "wgmma"),
+    # the threshold
+    (64, 4096, 4096, "kn", _BF, _BF, "wgmma"),
+    (33, 4096, 4096, "kn", _BF, _BF, "wgmma"),
+    # decode steps
+    (32, 4096, 4096, "kn", _BF, _BF, "mma"),
+    (8, 14336, 4096, "kn", _BF, _BF, "mma"),
+    (1, 1024, 4096, "kn", _BF, _BF, "mma"),
+    # the f32 logits (a prefill's last rows, and any M), untied and tied
+    (8, 128256, 4096, "kn", _BF, _F32, "mma"),
+    (1024, 128256, 4096, "kn", _BF, _F32, "mma"),
+    (1024, 128256, 2048, "nk", _BF, _F32, "mma"),
+    # layout NK with a bf16 output, and f32 x (the tiny model)
+    (1024, 4096, 4096, "nk", _BF, _BF, "mma"),
+    (1024, 64, 64, "kn", _F32, _F32, "fma"),
+    (4, 64, 64, "kn", _F32, _F32, "fma"),
+])
+def test_route(M, N, K, layout, xdt, odt, want):
+    """Which kernel a CUDA call takes: the wgmma kernel for the layer
+    products of prefill (bf16 x, "kn", bf16 out, M >= WGMMA_MIN_M), the
+    unchanged mma kernel for every other bf16 product, the FMA kernel for
+    f32 x; each with its own plan."""
+    kind, plan = w8a16.route(M, N, K, layout, xdt, odt)
+    assert kind == want
+    if kind == "wgmma":
+        assert plan == w8a16.wgmma_plan(M, N, K)
+    elif kind == "mma":
+        assert plan == w8a16.plan(M, N, K)
+    assert w8a16.WGMMA_MIN_M == 33
+
+
+@pytest.mark.parametrize("M,N,K,want", [
+    # the fastest plans of tools/torch_w8a16_sweep.py on an H100 at M =
+    # 1024 (the 8B layer shapes) and at the serve's smallest group
+    (1024, 4096, 4096, (256, 1)),
+    (1024, 1024, 4096, (128, 2)),    # 64 tiles, 64 clusters of 2 (66 fit)
+    (1024, 14336, 4096, (256, 1)),   # 448 tiles, 4 waves
+    (1024, 4096, 14336, (256, 1)),
+    (128, 4096, 4096, (128, 3)),     # 32 tiles, 32 clusters of 3 (39 fit)
+    (128, 1024, 4096, (128, 8)),
+    (64, 4096, 64, (128, 1)),        # one k tile: nothing to split
+])
+def test_wgmma_plan(M, N, K, want):
+    br, splits = w8a16.wgmma_plan(M, N, K)
+    assert (br, splits) == want
+    k_tiles = -(-K // 64)
+    per = -(-k_tiles // splits)
+    assert (splits - 1) * per < k_tiles  # no split is empty
+    tiles = -(-M // br) * -(-N // 128)
+    # one wave, unless the tiles alone fill the card more than once
+    assert tiles <= w8a16.H100_CLUSTERS[splits] or splits == 1
+
+
+def test_wgmma_plan_counts_the_cards_clusters():
+    """A card that runs fewer clusters at once moves the plan off split
+    K: wk/wv at M = 1024 with room for only 8 clusters of any size > 1
+    takes whole-K blocks."""
+    few = {sp: 132 if sp == 1 else 8 for sp in w8a16.WGMMA_SPLITS}
+    assert w8a16.wgmma_plan(1024, 1024, 4096, few)[1] == 1
+    # a cluster size the card cannot run is never planned
+    no_pairs = {**w8a16.H100_CLUSTERS, 2: 0}
+    assert w8a16.wgmma_plan(1024, 1024, 4096, no_pairs)[1] != 2
+    assert w8a16.route(1024, 1024, 4096, "kn", _BF, _BF, few) == (
+        "wgmma", w8a16.wgmma_plan(1024, 1024, 4096, few))
+
+
+@pytest.mark.parametrize("br", [128, 256])
+def test_wgmma_smem_fits_a_block(br):
+    """The wgmma kernel's shared memory: at most 227 KB a block, at least
+    4 stages, and the f32 output tile fits in the pipeline's bytes it
+    reuses."""
+    nbytes, stages = w8a16.wgmma_smem_bytes(br)
+    assert nbytes <= 232448
+    assert 4 <= stages <= 8
+    stage = br * 64 * 2 + 64 * 128
+    assert br * (128 + 4) * 4 <= 1024 + stages * stage <= nbytes
 
 
 # ---------------------------------------------------------------------------
