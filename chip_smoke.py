@@ -79,7 +79,30 @@ Phases, each printing a line (any failure raises and exits non-zero):
      carries the TTFT, ITL and E2E series; TTFT, gaps and tok/s are
      printed beside the serve phase's, with the event loop thread's CPU
      time per streamed token and DecodeStream's cost per token;
-  8. serve w8a16: the same weights quantized on the card
+  8. offload: the KV offload plane on Llama-3.1-8B with the same bf16
+     weights, a 96-page pool (768 MiB), a 128-page G2 in pinned host
+     memory and a 128-page G3 file in a temporary directory, in dense
+     and in int8 KV: wave A (the serve prompts), wave B (8 prompts of
+     the same lengths from seed 1, evicting most of A from HBM and A's
+     oldest blocks from G2 into G3), wave C (A again), 32 greedy tokens
+     a request, each wave held at the intake until all 8 wait, and G2
+     and G3 must hold every block sealed so far before the next wave.
+     Wave C must be token-identical to an engine whose 512-page pool
+     holds everything (the G1 reference, built after the last engine is
+     freed), every matchable block of C must be a G1 hit or onboarded
+     with no block failing verification or recomputed, and G3 must serve
+     a block of C; export_pages of 16 committed pages imported into 16
+     fresh pages and exported again must be byte-equal, and
+     clear_kv_blocks must return the G1 + G2 + G3 sizes before it. The
+     flash-decode kernel of the mode must run on every layer of every
+     decode step (the kernels line's launches_offload). A dense engine
+     without tiers at 96 pages recomputes what was evicted (the
+     baseline). Printed: wave C's TTFT onboarded, as G1 hits and
+     recomputed, wave B's decode gap with offload on and off, host ms a
+     page offloaded (on the engine's put thread: crc + copy + spill) and
+     onboarded (gather + verify + H2D issue), and the D2H and H2D copies'
+     GB/s;
+  9. serve w8a16: the same weights quantized on the card
      (quantize_params), the serve burst and repeat again at full width
      and depth; every decode step must run both kernels on every layer
      (and the w8a16 kernel for the logits), the prefill the w8a16 kernels
@@ -88,7 +111,7 @@ Phases, each printing a line (any failure raises and exits non-zero):
      are printed beside the dense serve's, with the share of greedy tokens equal to the
      dense run's and the first step's largest logprob difference
      (information: random weights have near-ties);
-  9. cli: ``python -m dynamo_tpu_torch.launch.run in=text out=torch
+  10. cli: ``python -m dynamo_tpu_torch.launch.run in=text out=torch
      --model-config tiny --cache-dtype float32 --prompt "w1 w2 w3"
      --max-tokens 8`` in a subprocess, with no --device, and again with
      ``--quantize int8``: each must run its engine on cuda and exit 0.
@@ -104,6 +127,7 @@ import asyncio
 import faulthandler
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1549,6 +1573,238 @@ def check_http(params, direct_tokens, direct):
     return dense
 
 
+def offload_prompts(vocab: int):
+    """Wave B of the offload phase: 8 prompts of the serve prompts'
+    lengths, from seed 1."""
+    rng = np.random.RandomState(1)
+    return [rng.randint(0, vocab, size=len(p)).tolist()
+            for p in serve_prompts(vocab)]
+
+
+def settle_offloads(eng, want_blocks, timeout_s=60.0):
+    """Wait until the engine's offload queue is empty and nothing is in
+    flight, with G2 and G3 holding ``want_blocks`` blocks at least."""
+    t0 = time.monotonic()
+    while True:
+        held = len(eng.offload) + len(eng.offload.spill)
+        busy = eng.offloads_pending()
+        if held >= want_blocks and not busy:
+            return
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(
+                f"offload: G2 + G3 hold {held} blocks after {timeout_s} s "
+                f"(want {want_blocks}); queue busy {bool(busy)}")
+        time.sleep(0.02)
+
+
+def offload_waves(eng, cfg, n_new=32):
+    """Waves A (the serve prompts), B (``offload_prompts``) and C (A
+    again) on ``eng``, each burst held at the intake until all 8 wait;
+    with tiers, G2 and G3 must hold the blocks sealed so far before the
+    next wave. Returns each wave's results (generate_all's tuples) and,
+    around wave C, the G3 onboard hits and the integrity counters."""
+    from dynamo_tpu_torch.kv_integrity import KV_INTEGRITY
+
+    waves = {}
+    c_g3 = None
+    before = after = None
+    for name, prompts in (("A", serve_prompts(cfg.vocab_size)),
+                          ("B", offload_prompts(cfg.vocab_size)),
+                          ("C", serve_prompts(cfg.vocab_size))):
+        if name == "C" and eng.offload is not None:
+            before = KV_INTEGRITY.snapshot()
+            g3_0 = eng.offload.spill.onboard_hits
+        IntakeGate(eng, len(prompts))
+        waves[name] = asyncio.run(generate_all(eng, prompts, n_new))
+        if eng.offload is not None:
+            if name == "C":
+                after = KV_INTEGRITY.snapshot()
+                c_g3 = eng.offload.spill.onboard_hits - g3_0
+            else:
+                settle_offloads(eng, eng.allocator.total_pages
+                                - len(eng.allocator._free))
+    for name, res in waves.items():
+        for toks, finish, *_ in res:
+            if len(toks) != n_new or finish != "length":
+                raise AssertionError(f"offload wave {name}: a request ended "
+                                     f"with {len(toks)} tokens, {finish}")
+    return waves, c_g3, before, after
+
+
+def check_export_import(eng, what):
+    """export_pages of 16 committed pages (the most recently parked),
+    imported into 16 fresh pages and exported again, must be byte-equal;
+    clear_kv_blocks must return the G1 + G2 + G3 sizes before it."""
+    from dynamo_tpu_torch.kv_integrity import tensor_bytes
+
+    def raw(x):
+        if hasattr(x, "scales"):
+            return bytes(tensor_bytes(x.data)) + bytes(tensor_bytes(x.scales))
+        return bytes(tensor_bytes(x))
+
+    a = eng.allocator
+    src = [a._registry[h].page for h in list(a._lru)[-16:]]
+    dst = a.allocate(16)
+    if len(src) != 16 or dst is None:
+        raise AssertionError(f"{what}: no 16 committed and 16 free pages")
+    t0 = time.monotonic()
+    first = eng.export_pages(src)
+    eng.import_pages(dst, first)
+    second = eng.export_pages(dst)
+    secs = time.monotonic() - t0
+    a.free(dst)
+    if raw(first) != raw(second) or raw(first) == raw(eng.export_pages(
+            [a._registry[h].page for h in list(a._lru)[:16]])):
+        raise AssertionError(f"{what}: export -> import -> export is not "
+                             f"byte-equal")
+    settle_offloads(eng, 0)
+    sizes = (len(a._lru), len(eng.offload), len(eng.offload.spill))
+    cleared = eng.clear_kv_blocks()
+    if cleared != sum(sizes) or len(eng.offload) or len(eng.offload.spill):
+        raise AssertionError(f"{what}: clear_kv_blocks returned {cleared}, "
+                             f"tiers held G1 {sizes[0]}, G2 {sizes[1]}, G3 "
+                             f"{sizes[2]}")
+    log(f"offload {what}: 16 pages exported, imported and exported again "
+        f"byte-equal ({secs:.3f} s for the three ops); clear_kv_blocks "
+        f"dropped {cleared} = G1 {sizes[0]} + G2 {sizes[1]} + G3 "
+        f"{sizes[2]}")
+
+
+def check_offload(params, counts, card):
+    """The offload phase: Llama-3.1-8B (the serve phase's bf16 weights)
+    with a 96-page pool, a 128-page G2 and a 128-page G3 in a temporary
+    directory, through waves A, B and C (``offload_waves``), in dense and
+    int8 KV. Wave C must be token-identical to a G1 reference (512 pages,
+    no tiers: every block of C a G1 hit), every matchable block of C a G1
+    hit or onboarded with no block recomputed or failed, and G3 must
+    serve a block of C; then export/import and clear_kv_blocks
+    (``check_export_import``). A dense engine without tiers at 96 pages
+    gives the recompute baseline. Prints wave C's TTFT by source, wave
+    B's decode gap with offload on and off, host ms a page and the
+    copies' GB/s, each line beside ``card`` (nvidia-smi's name and power
+    limit); returns the flash-decode launches of the offload
+    engines' waves (each mode's kernel on every layer of every step)."""
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import flash_decode as fd
+
+    cfg = ModelConfig.llama3_8b()
+    ps = EngineConfig().page_size
+    matchable = [(len(p) - 1) // ps for p in serve_prompts(cfg.vocab_size)]
+
+    def run(ecfg, label):
+        t0 = time.monotonic()
+        eng = TorchEngine(cfg, ecfg, params=params, device="cuda")
+        torch.cuda.synchronize()
+        steps0 = eng.step_count
+        fd.executed(eng.device, reset=True)
+        waves, c_g3, before, after = offload_waves(eng, cfg)
+        ran = fd.executed(eng.device)
+        steps = eng.step_count - steps0
+        check_replayed(eng, f"offload {label}")
+        out = dict(waves=waves, c_g3=c_g3, before=before, after=after,
+                   steps=steps, ran=ran, secs=time.monotonic() - t0)
+        if eng.offload is not None:
+            out["stats"] = eng.transfer_stats()
+            out["kv"] = eng.metrics().kv_stats
+            check_export_import(eng, label)
+        asyncio.run(eng.stop())
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    def ttft(res):
+        t = [a["timing"]["ttft_s"] for _, _, a, *_ in res]
+        return f"median {np.median(t):.4f} s max {max(t):.4f} s"
+
+    def gap(res):
+        return np.median([g for *_, gs, _ in res for g in gs]) * 1e3
+
+    launches = {}
+    figures = {}
+    for kv_quant in ("none", "int8"):
+        tmp = tempfile.mkdtemp(prefix="dynamo-torch-g3-")
+        try:
+            tiers = run(EngineConfig(
+                kv_quant=kv_quant, num_pages=96, host_offload_pages=128,
+                disk_offload_pages=128,
+                disk_offload_path=os.path.join(tmp, "g3.mmap")),
+                f"kv_quant={kv_quant}")
+        finally:
+            shutil.rmtree(tmp)
+        ref = run(EngineConfig(kv_quant=kv_quant, num_pages=512),
+                  f"G1 reference kv_quant={kv_quant}")
+        quant = kv_quant == "int8"
+        name = "flash_decode_int8" if quant else "flash_decode"
+        mine, other = (tiers["ran"][1], tiers["ran"][0]) if quant \
+            else tiers["ran"]
+        if mine != cfg.num_layers * tiers["steps"] or other:
+            raise AssertionError(
+                f"offload {kv_quant}: {name} ran {mine} times (the other "
+                f"mode {other}) over {tiers['steps']} steps")
+        launches[name] = mine
+        c_tiers = [t for t, *_ in tiers["waves"]["C"]]
+        c_ref = [t for t, *_ in ref["waves"]["C"]]
+        if c_tiers != c_ref:
+            same = sum(a == b for x, y in zip(c_tiers, c_ref)
+                       for a, b in zip(x, y))
+            raise AssertionError(
+                f"offload {kv_quant}: wave C differs from the G1 reference "
+                f"({same} of {sum(map(len, c_ref))} tokens agree)")
+        cached = [a["cached_blocks"] for _, _, a, *_ in tiers["waves"]["C"]]
+        ref_cached = [a["cached_blocks"] for _, _, a, *_ in ref["waves"]["C"]]
+        if cached != matchable or ref_cached != matchable:
+            raise AssertionError(
+                f"offload {kv_quant}: wave C matched {cached} blocks (G1 "
+                f"reference {ref_cached}), want {matchable}")
+        b, a = tiers["before"], tiers["after"]
+        recomputed = (a["dynamo_kv_integrity_recomputed_total"]
+                      - b["dynamo_kv_integrity_recomputed_total"])
+        failed = a["dynamo_kv_integrity_failed_total"]
+        verified = int(a["dynamo_kv_integrity_verified_total"]
+                       - b["dynamo_kv_integrity_verified_total"])
+        if recomputed or failed or not tiers["c_g3"]:
+            raise AssertionError(
+                f"offload {kv_quant}: wave C recomputed {recomputed} blocks, "
+                f"{failed} failed verification, G3 served {tiers['c_g3']}")
+        st = tiers["stats"]
+        log(f"offload kv_quant={kv_quant}: waves A, B, C x 8 requests x 32 "
+            f"tokens in {tiers['secs']:.1f} s (engine built in the time); "
+            f"wave C token-identical to the G1 reference (512 pages); every "
+            f"matchable block of C ({sum(matchable)}) a G1 hit or onboarded: "
+            f"{st['onboard_pages']} onboarded, {tiers['c_g3']} of them "
+            f"from G3, {verified} verified, 0 recomputed, 0 failed; "
+            f"kv_stats {tiers['kv']}; {name} ran {mine} times on the card "
+            f"= {cfg.num_layers} x {tiers['steps']} steps")
+        log(f"offload kv_quant={kv_quant} ({card}): wave C TTFT onboarded "
+            f"{ttft(tiers['waves']['C'])}, G1 hits {ttft(ref['waves']['C'])}"
+            f"; host ms a page: offload (put thread: crc + copy into G2 "
+            f"+ spill into G3) "
+            f"{st['offload_host_ms_per_page']:.3f} over "
+            f"{st['offload_pages']} pages, onboard (gather + verify + H2D "
+            f"issue) {st['onboard_host_ms_per_page']:.3f}; D2H "
+            f"{st['d2h_gb_s']:.2f} GB/s (copy stream), H2D "
+            f"{st['h2d_gb_s']:.2f} GB/s")
+        figures[kv_quant] = (tiers, ref)
+    base = run(EngineConfig(num_pages=96), "recompute baseline")
+    tiers, ref = figures["none"]
+    log(f"offload dense ({card}): wave C TTFT recomputed (96 pages, no "
+        f"tiers) "
+        f"{ttft(base['waves']['C'])}, onboarded "
+        f"{ttft(tiers['waves']['C'])}, G1 hits {ttft(ref['waves']['C'])}; "
+        f"wave B decode gap median with offload on "
+        f"{gap(tiers['waves']['B']):.2f} ms, off "
+        f"{gap(base['waves']['B']):.2f} ms (G1 reference "
+        f"{gap(ref['waves']['B']):.2f} ms)")
+    counts["flash_decode_offload"] = launches["flash_decode"]
+    counts["flash_decode_int8_offload"] = launches["flash_decode_int8"]
+
+
 def check_cli(extra=()):
     """The launcher as a user runs it, with no --device (and ``extra``
     flags): it must serve a prompt on the card (cuda) and exit 0."""
@@ -1678,6 +1934,7 @@ def main() -> int:
           dense_tokens)
     http_launches = phase("http", check_http, params, dense_tokens[:8],
                           direct)
+    phase("offload", check_offload, params, counts, smi)
     # w8a16: the same weights quantized per output channel on the card
     t0 = time.monotonic()
     qparams = llama.quantize_params(params)
@@ -1720,10 +1977,12 @@ def main() -> int:
         dict(name="flash_decode", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:210",
              launches=counts["flash_decode"], launches_http=http_launches,
-             **fd_report),
+             launches_offload=counts["flash_decode_offload"], **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",
-             launches=counts["flash_decode_int8"], **fd8_report),
+             launches=counts["flash_decode_int8"],
+             launches_offload=counts["flash_decode_int8_offload"],
+             **fd8_report),
         # no Pallas kernel: XLA's fused convert + dot of _mm and the
         # quantized _logits; the figures are one 8B decode step's 225
         # products at M = 8, per shape under "shapes"

@@ -31,6 +31,10 @@ class RuntimeConfig:
     cache_dtype: str = "bfloat16"
     kv_quant: str = "none"
     round_pipeline: bool = True
+    host_offload_pages: int = 0
+    disk_offload_pages: int = 0
+    disk_offload_path: Optional[str] = None
+    scrub_on_start: bool = False
 
 
 def _coerce(value: str, target_type) -> Any:

@@ -10,7 +10,9 @@ module owns which page holds what:
     prefix, dynamo_tpu_torch.tokens);
   - per-page refcounts; unreferenced committed pages park in an LRU from
     which they can be revived (prefix hit) or evicted (allocation pressure);
-  - stored/removed event emission for the KV-router plane.
+  - stored/removed/cleared event emission for the KV-router plane;
+  - the offload hook ``on_park``: a committed page that parks in the LRU
+    becomes a candidate for the host tier (engine/offload.py).
 """
 from __future__ import annotations
 
@@ -50,6 +52,11 @@ class PageAllocator:
         self.worker_id = worker_id
         self.on_event = on_event
         self.enable_prefix_caching = enable_prefix_caching
+        # offload hook: called (page, block_hash, parent_hash) when a
+        # committed page parks in the LRU; the engine queues it as a G2
+        # offload candidate. Called under the allocator lock: must be
+        # cheap and non-blocking
+        self.on_park: Optional[Callable[[int, int, int], None]] = None
 
         self._lock = threading.RLock()
         self._free: deque[int] = deque(range(1, num_pages))
@@ -63,9 +70,23 @@ class PageAllocator:
         self.lookup_blocks = 0
 
     @property
+    def total_pages(self) -> int:
+        return self.num_pages - 1
+
+    @property
+    def active_pages(self) -> int:
+        return self.total_pages - len(self._free) - len(self._lru)
+
+    @property
     def available_pages(self) -> int:
         """Pages obtainable right now (free + evictable)."""
         return len(self._free) + len(self._lru)
+
+    def usage(self) -> float:
+        return self.active_pages / max(self.total_pages, 1)
+
+    def hit_rate(self) -> float:
+        return self.hit_blocks / max(self.lookup_blocks, 1)
 
     # ---- allocation ----
 
@@ -85,6 +106,26 @@ class PageAllocator:
                 pages.append(rec.page)
             self.hit_blocks += len(pages)
             return pages
+
+    def page_for_hash(self, block_hash: int) -> Optional[int]:
+        """Which page holds this committed block now (None if evicted):
+        offload-candidate validation."""
+        with self._lock:
+            rec = self._registry.get(block_hash)
+            return None if rec is None else rec.page
+
+    def cached_prefix_len(self, block_hashes: list[int]) -> int:
+        """How many leading blocks are cached, without taking references
+        or touching the hit-rate counters."""
+        if not self.enable_prefix_caching:
+            return 0
+        with self._lock:
+            n = 0
+            for h in block_hashes:
+                if h not in self._registry:
+                    break
+                n += 1
+            return n
 
     def allocate(self, n: int) -> Optional[list[int]]:
         """n fresh pages (refcount 1 each), evicting LRU-parked committed
@@ -134,8 +175,21 @@ class PageAllocator:
                 if h is not None:
                     self._lru[h] = None
                     self._lru.move_to_end(h)
+                    if self.on_park is not None:
+                        self.on_park(p, h, self._registry[h].parent_hash)
                 else:
                     self._free.append(p)
+
+    def clear(self) -> int:
+        """Drop every reusable cached page (the /clear_kv_blocks
+        operation, reference http/service/clear_kv_blocks.rs); pages in
+        use survive. Returns the number of pages cleared."""
+        with self._lock:
+            n = len(self._lru)
+            while self._lru:
+                self._evict_one()
+            self._emit(KvCacheEvent(kind=KvEventKind.CLEARED))
+            return n
 
     # ---- internals ----
 

@@ -3,8 +3,9 @@ engine/config.py, cut to the knobs the PyTorch engine honours).
 
 Decode rounds are pipelined by default (``round_pipeline``, as in the
 reference) and, on the card, each round shape is replayed as one CUDA
-graph (engine/graphs.py). The reference's other planes (speculation,
-offload tiers, tenancy quotas, overload budgets, sequence-parallel
+graph (engine/graphs.py). The G2/G3 offload tiers and the engine-local
+page-transfer plane are served. The reference's other planes
+(speculation, tenancy quotas, overload budgets, sequence-parallel
 prefill) are not ported yet. Their knobs are kept here at the values
 that mean "off", and any other value raises, so a config written for
 the reference never silently runs something else.
@@ -33,8 +34,6 @@ def pow2_cover(n: int, lo: int = 1) -> int:
 _UNPORTED = {
     "speculative": "off",
     "lora_adapters": 0,
-    "host_offload_pages": 0,
-    "disk_offload_pages": 0,
     "sp_prefill_threshold": None,
     "max_waiting_requests": 0,
     "max_waiting_prefill_tokens": 0,
@@ -93,11 +92,40 @@ class EngineConfig:
     # the strict process-then-dispatch order (the differential baseline)
     round_pipeline: bool = True
 
+    # host-memory offload tier (KVBM G2): 0 disables. Pages parked in the
+    # LRU are copied to a host pool of this many pages behind compute;
+    # prefix misses in HBM onboard from it instead of recomputing
+    host_offload_pages: int = 0
+    # mmap-backed disk tier (KVBM G3, reference storage/disk.rs:25): 0
+    # disables. G2's LRU evictions spill into it; requires G2 (the tier
+    # hierarchy is strict: G1 -> G2 -> G3)
+    disk_offload_pages: int = 0
+    # backing file of the G3 pool (None = a fresh temporary file per
+    # engine). With a path the tier survives a restart: a manifest
+    # (<path>.manifest) journals slot -> (hash, crc) and is replayed at
+    # attach
+    disk_offload_path: Optional[str] = None
+    # eager G3 startup scrub: re-checksum every manifest entry against
+    # the file at attach, dropping mismatches. Off = verify at each
+    # onboard gather (the same safety, paid per hit)
+    scrub_on_start: bool = False
+    # offload gathers per scheduling round (pages)
+    offload_batch: int = 8
+    # page transfers in chunks of this many pages (onboard scatters,
+    # export streams): host staging O(chunk), not O(transfer). 0 = one
+    # chunk
+    kv_transfer_chunk_pages: int = 8
+    # chunk gathers in flight per export stream (the double-buffer depth)
+    kv_transfer_inflight_chunks: int = 2
+    # deadline of one queued page export/import op (engine._xfer_op)
+    xfer_op_timeout_s: float = 120.0
+    # an export stream that moved nothing for this long is abandoned: its
+    # page pins are released and its consumer gets an error
+    kv_transfer_stream_idle_timeout_s: float = 15.0
+
     # not ported yet: see _UNPORTED
     speculative: str = "off"
     lora_adapters: int = 0
-    host_offload_pages: int = 0
-    disk_offload_pages: int = 0
     sp_prefill_threshold: Optional[int] = None
     max_waiting_requests: int = 0
     max_waiting_prefill_tokens: int = 0
@@ -108,6 +136,10 @@ class EngineConfig:
             raise ValueError(
                 f"EngineConfig.kv_quant={self.kv_quant!r}: expected 'none' "
                 f"or 'int8'")
+        if self.disk_offload_pages > 0 and self.host_offload_pages <= 0:
+            raise ValueError(
+                "disk_offload_pages (G3) requires host_offload_pages (G2): "
+                "the tier hierarchy is strict (block_manager.rs:69-82)")
         for name, off in _UNPORTED.items():
             if getattr(self, name) != off:
                 raise ValueError(

@@ -45,9 +45,30 @@ PyTorch (port of the JAX package's TpuEngine main path).
     reference does. The first token is sampled on the device with its
     own key stream and patched into the slot without a host round trip.
 
-Not ported yet (ROADMAP.md): speculation, offload tiers, the transfer
-plane, tenant quotas and adapters, overload budgets and preemption,
-multimodal, w8a16, MoE.
+  - KV offload (``host_offload_pages``, ``disk_offload_pages``): a
+    committed page that parks in the pool's LRU is a candidate; once a
+    round the candidates still holding their block are gathered on the
+    card (after the queued seals, in stream order) and copied to pinned
+    host memory on a copy stream behind compute, then put into the G2
+    tier (engine/offload.py), which spills its LRU evictions into G3 on
+    disk. The puts (crc32s on a thread pool, copies, the spill) run on a
+    put thread, off the loop, under a lock the loop's onboards take. A
+    prefix that misses in HBM continues from G2/G3: each chunk of the run
+    is gathered on the host, verified against its crc and copied to the
+    card ahead of the admission's ``load_ctx_pages`` in stream order; a
+    block that fails its crc is quarantined and it and the rest of the
+    run are recomputed as prefill (kv_integrity.py).
+  - Page transfers (``export_pages``, ``import_pages``,
+    ``export_pages_by_hash``, the chunked ``export_pages_stream`` and
+    ``export_hash_stream``, ``clear_kv_blocks``) are thread-safe: each is
+    queued to the engine loop and serviced at a round boundary, in the
+    round order of the reference: transfers, export streams, offloads,
+    then admission. ``metrics()`` reports ``ForwardPassMetrics`` with the
+    G2/G3 occupancy.
+
+Not ported yet (ROADMAP.md): speculation, the transfer wire (frames,
+BlockTransferServer, G4 peers), disaggregation, tenant quotas and
+adapters, overload budgets and preemption, multimodal, MoE.
 """
 from __future__ import annotations
 
@@ -57,6 +78,8 @@ import os
 import queue as queue_mod
 import threading
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Callable, Optional
 
@@ -66,7 +89,19 @@ import torch
 from dynamo_tpu_torch.engine import graphs, sampling
 from dynamo_tpu_torch.engine.cache import PageAllocator
 from dynamo_tpu_torch.engine.config import EngineConfig, pow2_cover
-from dynamo_tpu_torch.kv_router.protocols import KvCacheEvent
+from dynamo_tpu_torch.engine.offload import DiskOffloadTier, HostOffloadTier
+from dynamo_tpu_torch.kv_integrity import (
+    KV_INTEGRITY,
+    KvQuarantine,
+    page_checksums,
+)
+from dynamo_tpu_torch.kv_quant import KV_QUANT, QuantizedPages, to_pool_dtype
+from dynamo_tpu_torch.kv_router.protocols import (
+    ForwardPassMetrics,
+    KvCacheEvent,
+    KvStats,
+    WorkerStats,
+)
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.protocols.common import (
@@ -133,35 +168,58 @@ class _Request:
 
 class _Fetch:
     """A device->host copy in flight: a pinned host buffer filled with a
-    non-blocking copy, and the CUDA event recorded after it. CPU results
-    are copied at once."""
+    non-blocking copy, and the CUDA event recorded after it. With a
+    ``stream`` (the engine's copy stream) the copy runs there, behind an
+    event recorded on the compute stream after ``src`` was made, so it
+    overlaps the rounds dispatched after it; ``src`` is kept for the copy
+    stream (``record_stream``) and the copy's start and end are timed.
+    CPU results are copied at once."""
 
-    def __init__(self, src: torch.Tensor):
+    def __init__(self, src: torch.Tensor,
+                 stream: Optional[torch.cuda.Stream] = None):
         self.event = None
-        if src.is_cuda:
-            self.host = torch.empty(src.shape, dtype=src.dtype,
-                                    pin_memory=True)
+        self.timing: Optional[tuple] = None
+        if not src.is_cuda:
+            self.host = src.clone()
+            return
+        self.host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        if stream is None:
             self.host.copy_(src, non_blocking=True)
             self.event = torch.cuda.Event()
             self.event.record()
-        else:
-            self.host = src.clone()
+            return
+        made = torch.cuda.Event()
+        made.record()
+        with torch.cuda.stream(stream):
+            stream.wait_event(made)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            self.host.copy_(src, non_blocking=True)
+            src.record_stream(stream)
+            self.event = torch.cuda.Event(enable_timing=True)
+            self.event.record()
+        self.timing = (t0, self.event)
 
     def ready(self) -> bool:
         return self.event is None or self.event.query()
 
-    def numpy(self) -> np.ndarray:
+    def wait(self) -> torch.Tensor:
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy()
+        return self.host
+
+    def numpy(self) -> np.ndarray:
+        return self.wait().numpy()
 
 
 @dataclass
 class _Entry:
-    """One in-flight fetch: a round of stacked step tokens or a request's
-    prefill first token, with its packed logprobs when asked for."""
+    """One in-flight fetch: a round of stacked step tokens, a request's
+    prefill first token (with its packed logprobs when asked for), or an
+    offload batch of gathered pool pages (with their scales in an int8
+    pool, in ``lp_fetch``)."""
 
-    kind: str                      # "round" | "first"
+    kind: str                      # "round" | "first" | "offload"
     fetch: _Fetch
     lp_fetch: Optional[_Fetch] = None
     # round: the slot snapshot at dispatch
@@ -169,6 +227,36 @@ class _Entry:
     n_steps: int = 0
     # first:
     request: Optional[_Request] = None
+    # offload: the batch's block hashes and their parents
+    hashes: list[int] = field(default_factory=list)
+    parents: list[int] = field(default_factory=list)
+
+
+# closes an export stream's chunk queue (engine loop -> consumer)
+_STREAM_EOS = object()
+
+
+@dataclass
+class _ExportStream:
+    """One chunked page export in flight: the engine loop advances it a
+    little every round (dispatching up to ``inflight`` chunk gathers and
+    copies, handing ready chunks to the consumer's queue) and never
+    blocks on the consumer."""
+
+    ids: list[int]
+    chunk_pages: int
+    inflight: int
+    out_q: queue_mod.Queue
+    pos: int = 0                      # next page index to gather
+    # (data fetch, scales fetch or None) per dispatched, unhanded chunk
+    pending: deque = field(default_factory=deque)
+    # hash-addressed exports pin their matched pages until every gather
+    # is dispatched (stream order then protects the reads)
+    free_pages: Optional[list[int]] = None
+    # the last time the stream moved: one whose consumer vanished parks
+    # with a full queue, and is reclaimed after
+    # ``kv_transfer_stream_idle_timeout_s``
+    last_progress: float = field(default_factory=time.monotonic)
 
 
 class TorchEngine:
@@ -217,6 +305,62 @@ class TorchEngine:
             on_event=on_kv_event,
             enable_prefix_caching=e.enable_prefix_caching,
         )
+        # KV integrity plane: one quarantine shared by every host tier (a
+        # block that failed verification is dropped everywhere and refused
+        # re-admission until its TTL lapses, so it is recomputed instead)
+        self.kv_quarantine = KvQuarantine()
+        # offload tiers (G2 host memory, G3 disk): parked pool pages are
+        # candidates, gathered once a round and copied to the host on the
+        # copy stream behind compute. A deque: on_park appends and the
+        # round drains with popleft
+        self.offload: Optional[HostOffloadTier] = None
+        self._offload_cands: deque = deque()
+        self._crc_pool: Optional[ThreadPoolExecutor] = None
+        # offload puts run on their own thread (_put_batch), FIFO; the tier
+        # lock serialises them with the loop's onboards and clears, and a
+        # clear bumps the generation so queued batches are dropped
+        self._put_pool: Optional[ThreadPoolExecutor] = None
+        self._puts: deque = deque()
+        self._tier_lock = threading.RLock()
+        self._offload_gen = 0
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        if e.host_offload_pages > 0:
+            page_shape = (2, c.num_layers, c.num_kv_heads, e.page_size,
+                          c.head_dim)
+            # the tiers store what the pool stores: int8 pages and a
+            # (k/v, layer) scale each under kv_quant
+            tier_dtype = torch.int8 if self.kv_quant else dtype
+            scale_shape = (2, c.num_layers) if self.kv_quant else ()
+            spill = None
+            if e.disk_offload_pages > 0:
+                spill = DiskOffloadTier(
+                    e.disk_offload_pages, page_shape, tier_dtype,
+                    path=e.disk_offload_path, scale_shape=scale_shape,
+                    quarantine=self.kv_quarantine,
+                    scrub_on_start=e.scrub_on_start)
+            self.offload = HostOffloadTier(
+                e.host_offload_pages, page_shape, tier_dtype, spill=spill,
+                scale_shape=scale_shape, quarantine=self.kv_quarantine,
+                pin_memory=self.device.type == "cuda")
+            # a batch's crcs (offload puts, onboard verifies) are computed
+            # side by side: a page's crc32 is the tiers' largest host cost
+            self._crc_pool = ThreadPoolExecutor(
+                min(8, os.cpu_count() or 1), thread_name_prefix="kv-crc")
+            for tier in (self.offload, spill):
+                if tier is not None:
+                    tier.crc_pool = self._crc_pool
+            self._put_pool = ThreadPoolExecutor(
+                1, thread_name_prefix="kv-offload-put")
+            self.allocator.on_park = (
+                lambda p, h, par: self._offload_cands.append((p, h, par)))
+        # offload and onboard figures (transfer_stats): pages, bytes, host
+        # seconds, and the copies' device-timed events
+        self._xstats = {"offload_pages": 0, "offload_bytes": 0,
+                        "offload_host_s": 0.0, "offload_copy_s": 0.0,
+                        "onboard_pages": 0, "onboard_bytes": 0,
+                        "onboard_host_s": 0.0, "onboard_copy_s": 0.0}
+        self._h2d_events: deque = deque()
         B = e.max_decode_slots
         self._B = B
         self._slots: list[Optional[_Request]] = [None] * B
@@ -229,6 +373,8 @@ class TorchEngine:
         self._slot_active = np.zeros(B, bool)
         self._slot_sampler = np.zeros(B, bool)
         self._slot_lp = np.zeros(B, bool)
+        # each slot's context length as of the last dispatch (metrics)
+        self._ctx_disp = np.ones(B, np.int64)
         # (active slots, want_lp, want_sample), cached until the next slot
         # change
         self._active_cache: Optional[tuple[list[int], bool, bool]] = None
@@ -263,6 +409,10 @@ class TorchEngine:
         self.graphs.prepare()
 
         self._intake: queue_mod.Queue = queue_mod.Queue()
+        # page transfer ops (export/import/clear), serviced by the loop
+        self._xfer: queue_mod.Queue = queue_mod.Queue()
+        self._xfer_streams: list[_ExportStream] = []
+        # the loop's doorbell: intake and transfer ops ring it
         self._wake_evt = threading.Event()
         self._waiting: list[_Request] = []
         self._entries: list[_Entry] = []
@@ -295,7 +445,8 @@ class TorchEngine:
         self.dispatch_counts: dict[str, int] = {
             "round": 0, "round_seal": 0, "seal": 0, "patch": 0,
             "prefill": 0, "prefill_batch": 0, "load_ctx": 0,
-            "sample_first": 0, "fetch": 0,
+            "sample_first": 0, "fetch": 0, "offload_gather": 0,
+            "xfer_gather": 0, "xfer_scatter": 0,
         }
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -325,6 +476,16 @@ class TorchEngine:
         self._wake_evt.set()
         if self._thread:
             await asyncio.to_thread(self._thread.join, 30.0)
+        # transfer ops that raced in after the loop's own exit drain
+        self._drain_xfer_queue()
+        if self._put_pool is not None:
+            # the puts still queued land before G3 closes
+            await asyncio.to_thread(self._put_pool.shutdown)
+            self._reap_puts()
+        if self.offload is not None and self.offload.spill is not None:
+            self.offload.spill.close()
+        if self._crc_pool is not None:
+            self._crc_pool.shutdown()
 
     # ------------------------------------------------------------------
     # AsyncEngine surface
@@ -400,6 +561,7 @@ class TorchEngine:
                 if not did_work:
                     self._wake_evt.wait(timeout=0.02)
                     self._wake_evt.clear()
+        self._drain_xfer_queue()
 
     def _round(self) -> bool:
         """One scheduling round. With ``round_pipeline`` and the pipeline
@@ -430,8 +592,15 @@ class TorchEngine:
                 t_pipe = time.monotonic()
         self._process_entries(block=in_flight > e.max_inflight_rounds)
         self._apply_releases()
+        self._reap_puts()
+        # the reference's order: transfers, export streams, offloads (pool
+        # readers, each flushing queued seals first), then admission
+        xfer_work = self._process_transfers()
+        stream_work = self._service_export_streams()
+        self._dispatch_offloads()
         self._admit()
-        did_work = dispatched or bool(self._entries) or bool(self._prefilling)
+        did_work = (dispatched or bool(self._entries) or xfer_work
+                    or stream_work or bool(self._prefilling))
         if (not dispatched
                 and self._rounds_in_flight() <= e.max_inflight_rounds):
             # the strict position: after every patch above
@@ -566,11 +735,22 @@ class TorchEngine:
         flush and the pending seal batch: a graph replay on the card),
         then one stacked-token copy to the host (plus one packed-logprob
         copy when ``want_lp``), queued right behind it."""
-        n = self.ecfg.flush_every
+        e = self.ecfg
+        n = e.flush_every
+        n_seal = min(len(self._seal_queue), self._seal_fuse_w)
         seal = self._take_seal_batch(width=self._seal_fuse_w)
         self.kernel_launches += self.graphs.round(want_sample, want_lp, seal)
         self.dispatch_counts["round" if seal is None else "round_seal"] += 1
         self.step_count += n
+        active = self._slot_active
+        self._ctx_disp[active] = np.minimum(self._ctx_disp[active] + n,
+                                            e.max_context)
+        self._count_kv_quant(n_seal)
+        if self.kv_quant:
+            # the ring flush requantized a window of scale groups a lane
+            g = max(1, e.page_size)
+            KV_QUANT.inc("dynamo_kv_quant_ctx_flush_groups_total",
+                         self._B * min(-(-n // g) + 1, -(-e.max_context // g)))
         self.dispatch_counts["fetch"] += 1 + want_lp
         out = self.graphs.out
         self._entries.append(_Entry(
@@ -645,6 +825,7 @@ class TorchEngine:
         order makes this safe: the sealed positions were written by
         already-dispatched programs, and any admission that reads these
         pool pages is dispatched after this."""
+        n_seal = len(self._seal_queue)
         arr = self._take_seal_batch()
         if arr is None:
             return
@@ -652,6 +833,599 @@ class TorchEngine:
         slots, starts, pages = self._to_device(arr)
         llama.seal_blocks(self.cache, self.ctx, slots, starts, pages,
                           self.ecfg.page_size)
+        self._count_kv_quant(n_seal)
+
+    def _count_kv_quant(self, n_seal: int) -> None:
+        """An int8 pool's sealed pages: raw int8 moves (the ctx region
+        shares the pool's representation)."""
+        if self.kv_quant and n_seal:
+            KV_QUANT.inc("dynamo_kv_quant_ctx_seal_raw_pages_total", n_seal)
+
+    # ---- page I/O (offload, onboard, transfers): exactly n pages ----
+
+    def _gather_pages(self, pages: list[int]):
+        """Whole pool pages gathered on the device, page-major:
+        ``(data [n, 2, L, kvh, ps, hd], scales [n, 2, L] or None)``, in
+        stream order after every program dispatched before."""
+        ids = self._to_device(np.asarray(pages, np.int64))
+        if self.kv_quant:
+            data, scales = llama.gather_pages_q(self.cache, ids)
+            return (data.permute(3, 0, 1, 2, 4, 5).contiguous(),
+                    scales.permute(2, 0, 1).contiguous())
+        return (llama.gather_pages(self.cache, ids)
+                .permute(3, 0, 1, 2, 4, 5).contiguous(), None)
+
+    def _fetch_pages(self, pages: list[int]) -> tuple:
+        """``_gather_pages`` copied to the host on the copy stream:
+        (data fetch, scales fetch or None)."""
+        data, scales = self._gather_pages(pages)
+        self.dispatch_counts["fetch"] += 1
+        return (_Fetch(data, self._copy_stream),
+                _Fetch(scales, self._copy_stream) if scales is not None
+                else None)
+
+    @staticmethod
+    def _host_pages(data_f: _Fetch, scales_f: Optional[_Fetch]):
+        """A fetched gather in the reference's layout: ``[2, L, kvh, n,
+        ps, hd]`` (a view of the page-major host buffer), or a
+        QuantizedPages bundle for an int8 pool."""
+        data = data_f.wait().permute(1, 2, 3, 0, 4, 5)
+        if scales_f is None:
+            return data
+        return QuantizedPages(data, scales_f.wait().permute(1, 2, 0))
+
+    def _scatter_pages(self, pages: list[int], data: torch.Tensor,
+                       scales: Optional[torch.Tensor]) -> None:
+        """Page-major host pages ``[n, 2, L, kvh, ps, hd]`` (scales ``[n,
+        2, L]``) into pool ``pages``, IN PLACE (the round graphs captured
+        the pool). The host->device copy runs on the compute stream, so it
+        precedes every later program (an admission's load_ctx_pages);
+        pinned sources stay alive until it ran (the caching host
+        allocator records the copy)."""
+        self.dispatch_counts["xfer_scatter"] += 1
+        ids = self._to_device(np.asarray(pages, np.int64))
+        if self.device.type == "cuda":
+            self._fold_h2d()
+            data = data.pin_memory()   # no copy when already pinned
+            t0 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            dev = data.to(self.device, non_blocking=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t1.record()
+            self._h2d_events.append(
+                (t0, t1, dev.numel() * dev.element_size()))
+            if scales is not None:
+                scales = scales.pin_memory().to(self.device,
+                                                non_blocking=True)
+        else:
+            dev = data
+        dev = dev.permute(1, 2, 3, 0, 4, 5)
+        if self.kv_quant:
+            llama.scatter_pages_q(self.cache, ids, dev,
+                                  scales.permute(1, 2, 0))
+        else:
+            llama.scatter_pages(self.cache, ids, dev)
+
+    def _fold_h2d(self) -> None:
+        """Fold the timed host->device copies that have run into the
+        onboard figures."""
+        with self._tier_lock:
+            ev = self._h2d_events
+            while ev and ev[0][1].query():
+                t0, t1, n = ev.popleft()
+                self._xstats["onboard_copy_s"] += t0.elapsed_time(t1) / 1e3
+                self._xstats["onboard_bytes"] += n
+
+    def _scatter_host(self, pages: list[int], data: Any) -> None:
+        """Host pages in the reference's layout (``[2, L, kvh, n, ps,
+        hd]`` or a QuantizedPages bundle) into the pool, converted to what
+        this pool stores (a dense payload into an int8 pool quantizes, a
+        bundle into a dense pool dequantizes)."""
+        data = to_pool_dtype(data, self.kv_quant, self.cache["k"].dtype)
+        if self.kv_quant:
+            self._scatter_pages(
+                pages, data.data.permute(3, 0, 1, 2, 4, 5).contiguous(),
+                data.scales.permute(2, 0, 1).contiguous())
+        else:
+            self._scatter_pages(
+                pages, data.permute(3, 0, 1, 2, 4, 5).contiguous(), None)
+
+    # ---- offload (G2/G3 tiers) ----
+
+    def _dispatch_offloads(self) -> None:
+        """Gather the park candidates that still hold their block and copy
+        them to the host behind compute. Runs BEFORE admission, so a
+        same-round allocation cannot recycle a candidate between its
+        validation and the gather (stream order would protect the gather's
+        read anyway; validation avoids wasted copies)."""
+        if self.offload is None or not self._offload_cands:
+            return
+        batch: list[tuple[int, int, int]] = []
+        while len(batch) < self.ecfg.offload_batch:
+            try:
+                cand = self._offload_cands.popleft()
+            except IndexError:
+                break
+            page, h, _parent = cand
+            if h in self.offload:
+                continue
+            if self.allocator.page_for_hash(h) != page:
+                continue  # evicted or recycled since parking
+            batch.append(cand)
+        if not batch:
+            return
+        if self._seal_queue:
+            # the gather reads the pool: queued seal copies first
+            self._flush_seals()
+        self.dispatch_counts["offload_gather"] += 1
+        data_f, scales_f = self._fetch_pages([p for p, _, _ in batch])
+        self._entries.append(_Entry(
+            kind="offload", fetch=data_f, lp_fetch=scales_f,
+            hashes=[h for _, h, _ in batch],
+            parents=[par for _, _, par in batch]))
+
+    def _put_offloaded(self, entry: _Entry) -> None:
+        """An offload batch landed on the host: its puts into G2 (each
+        page's crc, the copy into its slot, G2's spill into G3) go to the
+        put thread, off the engine loop; the batch carries the tiers'
+        generation, so a clear drops it."""
+        data = self._host_pages(entry.fetch, entry.lp_fetch)
+        xs = self._xstats
+        for f in (entry.fetch, entry.lp_fetch):
+            if f is not None and f.timing is not None:
+                xs["offload_bytes"] += f.host.numel() * f.host.element_size()
+                xs["offload_copy_s"] += f.timing[0].elapsed_time(
+                    f.timing[1]) / 1e3
+        self._puts.append(self._put_pool.submit(
+            self._put_batch, entry.hashes, entry.parents, data,
+            self._offload_gen))
+
+    def _put_batch(self, hashes: list[int], parents: list[int], data: Any,
+                   gen: int) -> None:
+        """On the put thread: mint the batch's crcs side by side, then put
+        page by page under the tier lock (the engine loop's onboards take
+        it between pages)."""
+        t0 = time.perf_counter()
+        scales = None
+        if isinstance(data, QuantizedPages):
+            data, scales = data.data, data.scales
+        crcs = page_checksums(data, scales, self._crc_pool)
+        for i, (h, parent) in enumerate(zip(hashes, parents)):
+            with self._tier_lock:
+                if gen != self._offload_gen:
+                    return  # cleared since the batch was gathered
+                self.offload.put_one(
+                    h, parent, data[:, :, :, i],
+                    scales[..., i] if scales is not None else None, crcs[i])
+        with self._tier_lock:
+            self._xstats["offload_host_s"] += time.perf_counter() - t0
+            self._xstats["offload_pages"] += len(hashes)
+
+    def _reap_puts(self) -> None:
+        """Drop the finished puts, raising a put thread's failure here."""
+        while self._puts and self._puts[0].done():
+            self._puts.popleft().result()
+
+    def offloads_pending(self) -> int:
+        """Offload work not yet in the tiers: park candidates, batches
+        whose copy is in flight, and batches queued or running on the put
+        thread."""
+        return (len(self._offload_cands)
+                + sum(en.kind == "offload" for en in list(self._entries))
+                + sum(not f.done() for f in list(self._puts)))
+
+    def _onboard_from_host(
+        self, hashes: list[int], matched_pages: list[int]
+    ) -> list[int]:
+        """Extend a G1 prefix match with the contiguous run the host tiers
+        hold: allocate pages, and chunk by chunk gather the run on the
+        host, verify it against its crcs and scatter it into the pool,
+        then commit the pages under the same chained hashes. A block that
+        fails verification is quarantined (dropped from every tier,
+        refused re-admission), and it and the rest of the run are left to
+        prefill: corruption costs latency, never wrong tokens."""
+        if self.offload is None:
+            return matched_pages
+        with self._tier_lock:
+            return matched_pages + self._onboard_run(
+                hashes[len(matched_pages):])
+
+    def _onboard_run(self, hashes: list[int]) -> list[int]:
+        """``_onboard_from_host`` under the tier lock: the pool pages the
+        run landed in, committed."""
+        run = self.offload.lookup_run(hashes)
+        if not run:
+            return []
+        pages = self.allocator.allocate(len(run))
+        if pages is None:
+            return []
+        t0 = time.perf_counter()
+        cp = self.ecfg.kv_transfer_chunk_pages or len(pages)
+        good = len(run)
+        pin = self.device.type == "cuda"
+        for i in range(0, len(pages), cp):
+            chunk = run[i:i + cp]
+            hs = [h for h, _ in chunk]
+            stage = torch.empty((len(hs),) + self.offload.page_shape,
+                                dtype=self.offload.dtype, pin_memory=pin)
+            data = self.offload.gather(hs, out=stage)
+            scales = self.offload.gather_scales(hs)
+            # verify BEFORE the scatter: corrupt tier bytes never reach
+            # the device pool
+            bad = self.offload.verify_pages(hs, data, scales)
+            k = bad[0] if bad else len(chunk)
+            if k:
+                self._scatter_pages(
+                    pages[i:i + k], stage[:k],
+                    scales.permute(2, 0, 1)[:k].contiguous()
+                    if scales is not None else None)
+            if bad:
+                # the chained run must stay contiguous: everything from
+                # the first bad block on is recomputed as prefill
+                for j in bad:
+                    self.kv_quarantine.add(hs[j])
+                    self.offload.drop_everywhere(hs[j])
+                good = i + k
+                KV_INTEGRITY.inc("dynamo_kv_integrity_recomputed_total",
+                                 len(run) - good)
+                log.warning(
+                    "KV integrity: %d corrupt block(s) in onboard run "
+                    "quarantined; %d of %d blocks recomputed as prefill",
+                    len(bad), len(run) - good, len(run))
+                break
+        if good < len(run):
+            self.allocator.free(pages[good:])
+            pages, run = pages[:good], run[:good]
+        for pg, (h, parent) in zip(pages, run):
+            self.allocator.commit(pg, h, parent)
+        xs = self._xstats
+        xs["onboard_host_s"] += time.perf_counter() - t0
+        xs["onboard_pages"] += len(pages)
+        return pages
+
+    def transfer_stats(self) -> dict:
+        """Offload and onboard figures since the engine was built: pages,
+        host ms a page (offload: the put thread's crc, copy into G2 and
+        spill into G3; onboard: the engine loop's gather, verify and copy
+        dispatch), and on the card the copies' device-timed GB/s (offload:
+        the copy stream's D2H; onboard: the H2D on the compute stream).
+        Synchronises the device."""
+        if self._h2d_events:
+            torch.cuda.synchronize(self.device)
+        with self._tier_lock:
+            self._fold_h2d()
+            xs = dict(self._xstats)
+
+        def per_page(s, n):
+            return s * 1e3 / n if n else None
+
+        return {
+            "offload_pages": xs["offload_pages"],
+            "offload_host_ms_per_page": per_page(xs["offload_host_s"],
+                                                 xs["offload_pages"]),
+            "d2h_gb_s": (xs["offload_bytes"] / xs["offload_copy_s"] / 1e9
+                         if xs["offload_copy_s"] else None),
+            "onboard_pages": xs["onboard_pages"],
+            "onboard_host_ms_per_page": per_page(xs["onboard_host_s"],
+                                                 xs["onboard_pages"]),
+            "h2d_gb_s": (xs["onboard_bytes"] / xs["onboard_copy_s"] / 1e9
+                         if xs["onboard_copy_s"] else None),
+        }
+
+    # ---- page transfers (thread-safe; serviced by the engine loop) ----
+
+    def export_pages(self, page_ids: list[int]):
+        """Whole pool pages on the host: ``[2, L, kvh, n, ps, hd]`` (a
+        QuantizedPages bundle of int8 pages and scales for an int8 pool).
+        Blocks the caller until the loop services it at a round boundary
+        (in stream order with the rounds in flight)."""
+        return self._xfer_op("export", page_ids, None)
+
+    def import_pages(self, page_ids: list[int], data: Any) -> None:
+        """Scatter host pages into the pool (the inverse of
+        export_pages)."""
+        self._xfer_op("import", page_ids, data)
+
+    def export_pages_by_hash(self, hashes: list[int]) -> tuple[int, Any]:
+        """The longest committed run of the chained-hash prefix this pool
+        holds, as (found, pages or None)."""
+        return self._xfer_op("export_hash", [int(h) for h in hashes], None)
+
+    def export_pages_stream(self, page_ids: list[int], chunk_pages: int = 0,
+                            inflight: int = 0):
+        """Chunked export: an iterator of host pages ``[2, L, kvh,
+        <=chunk_pages, ps, hd]`` covering ``page_ids`` in order. The loop
+        keeps ``inflight`` chunk copies in flight and serves between
+        chunks, so host staging is O(chunk)."""
+        out_q = self._start_stream("export_stream", list(page_ids),
+                                   chunk_pages, inflight)
+        return self._consume_stream(out_q)
+
+    def export_hash_stream(self, hashes: list[int], chunk_pages: int = 0,
+                           inflight: int = 0) -> tuple[int, Any]:
+        """export_pages_by_hash, chunked: (found, chunk iterator)."""
+        out_q = self._start_stream("export_hash_stream",
+                                   [int(h) for h in hashes], chunk_pages,
+                                   inflight)
+        first = self._next_stream_item(out_q)  # ("found", k) | Exception
+        if isinstance(first, Exception):
+            raise first
+        return int(first[1]), self._consume_stream(out_q)
+
+    def clear_kv_blocks(self) -> int:
+        """Drop every reusable cached page of every tier (G1 LRU, G2, G3):
+        the /clear_kv_blocks operation (reference
+        http/service/clear_kv_blocks.rs). Pages in use survive. Returns
+        the pages dropped."""
+        return self._xfer_op("clear", [], None)
+
+    def _start_stream(self, kind: str, ids: list[int], chunk_pages: int,
+                      inflight: int) -> queue_mod.Queue:
+        if self._stop.is_set():
+            raise RuntimeError("engine stopped")
+        if not self._started:
+            self.start()
+        e = self.ecfg
+        chunk_pages = int(chunk_pages or e.kv_transfer_chunk_pages
+                          or max(len(ids), 1))
+        inflight = max(1, int(inflight or e.kv_transfer_inflight_chunks))
+        out_q: queue_mod.Queue = queue_mod.Queue()
+        self._xfer.put((kind, ids, (chunk_pages, inflight, out_q),
+                        threading.Event(), {}))
+        self._wake_evt.set()
+        return out_q
+
+    def _wait_bounded(self, poll: Callable[[], Any], what: str) -> Any:
+        """Poll (1 s slices) until ``poll`` returns something other than
+        None, within ``xfer_op_timeout_s``; once the engine stops, within
+        a 10 s grace."""
+        deadline = time.monotonic() + self.ecfg.xfer_op_timeout_s
+        stop_grace: Optional[float] = None
+        while True:
+            got = poll()
+            if got is not None:
+                return got
+            now = time.monotonic()
+            if self._stop.is_set():
+                if stop_grace is None:
+                    stop_grace = now + 10.0
+                elif now > stop_grace:
+                    raise RuntimeError(f"engine stopped during page {what}")
+            elif now > deadline:
+                raise TimeoutError(f"page {what} timed out")
+
+    def _next_stream_item(self, out_q: queue_mod.Queue) -> Any:
+        def poll():
+            try:
+                item = out_q.get(timeout=1.0)
+            except queue_mod.Empty:
+                return None
+            # the pull freed an in-flight slot: ring the doorbell so a
+            # throttled stream dispatches its next chunk now
+            self._wake_evt.set()
+            return item
+
+        return self._wait_bounded(poll, "export stream")
+
+    def _consume_stream(self, out_q: queue_mod.Queue):
+        while True:
+            item = self._next_stream_item(out_q)
+            if item is _STREAM_EOS:
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield item
+
+    def _xfer_op(self, kind: str, page_ids: list[int], data: Any) -> Any:
+        if self._stop.is_set():
+            raise RuntimeError("engine stopped")
+        if not self._started:
+            self.start()
+        done = threading.Event()
+        box: dict[str, Any] = {}
+        self._xfer.put((kind, list(page_ids), data, done, box))
+        self._wake_evt.set()
+        # an op in flight at a stop completes and reports its real
+        # result; only the wait is bounded
+        self._wait_bounded(lambda: True if done.wait(1.0) else None, kind)
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
+
+    def _process_transfers(self) -> bool:
+        """Service the queued transfer ops; True when one was (transfer
+        traffic is work: it keeps the loop from its idle sleep)."""
+        processed = False
+        while True:
+            try:
+                kind, ids, data, done, box = self._xfer.get_nowait()
+            except queue_mod.Empty:
+                return processed
+            processed = True
+            if kind != "import" and self._seal_queue:
+                # pool readers must see the queued seal copies: a commit
+                # is matchable before its copy is dispatched
+                self._flush_seals()
+            try:
+                if kind == "export":
+                    self.dispatch_counts["xfer_gather"] += 1
+                    box["result"] = self._host_pages(*self._fetch_pages(ids))
+                elif kind == "export_stream":
+                    chunk_pages, inflight, out_q = data
+                    self._xfer_streams.append(_ExportStream(
+                        ids=ids, chunk_pages=chunk_pages, inflight=inflight,
+                        out_q=out_q))
+                elif kind == "export_hash_stream":
+                    # resolve and pin here; the stream drops the pins once
+                    # every gather is dispatched
+                    chunk_pages, inflight, out_q = data
+                    pages = self.allocator.match_prefix(ids)
+                    out_q.put(("found", len(pages)))
+                    if not pages:
+                        out_q.put(_STREAM_EOS)
+                    else:
+                        self._xfer_streams.append(_ExportStream(
+                            ids=pages, chunk_pages=chunk_pages,
+                            inflight=inflight, out_q=out_q,
+                            free_pages=pages))
+                elif kind == "export_hash":
+                    pages = self.allocator.match_prefix(ids)
+                    if not pages:
+                        box["result"] = (0, None)
+                    else:
+                        self.dispatch_counts["xfer_gather"] += 1
+                        out = self._host_pages(*self._fetch_pages(pages))
+                        self.allocator.free(pages)
+                        box["result"] = (len(pages), out)
+                elif kind == "clear":
+                    n = self.allocator.clear()
+                    self._offload_cands.clear()  # parked refs now stale
+                    if self.offload is not None:
+                        with self._tier_lock:
+                            n += self.offload.clear()
+                            # batches in flight or on the put thread would
+                            # repopulate the tiers after the clear
+                            self._offload_gen += 1
+                        self._entries = [en for en in self._entries
+                                         if en.kind != "offload"]
+                    box["result"] = n
+                else:
+                    self._scatter_host(ids, data)
+                    box["result"] = None
+            except Exception as exc:  # noqa: BLE001 — surfaced to the caller
+                box["error"] = exc
+                if kind in ("export_stream", "export_hash_stream"):
+                    data[2].put(exc)
+                    data[2].put(_STREAM_EOS)
+            finally:
+                done.set()
+
+    def _service_export_streams(self) -> bool:
+        """Advance every chunked export a little (once a round): hand
+        ready chunks to their consumers and dispatch new gathers up to
+        the in-flight depth; reclaim a stream that moved nothing for the
+        idle timeout. True if any stream made progress."""
+        if not self._xfer_streams:
+            return False
+        if self._seal_queue:
+            self._flush_seals()  # stream gathers read the pool
+        now = time.monotonic()
+        keep: list[_ExportStream] = []
+        progressed = False
+        for st in self._xfer_streams:
+            try:
+                moved = self._advance_stream(st)
+            except Exception as exc:  # noqa: BLE001 — to the consumer
+                self._end_stream(st, exc)
+                progressed = True
+                continue
+            if moved:
+                st.last_progress = now
+                progressed = True
+            if st.pos >= len(st.ids) and not st.pending:
+                st.out_q.put(_STREAM_EOS)
+                progressed = True
+            elif (not moved and now - st.last_progress
+                    > self.ecfg.kv_transfer_stream_idle_timeout_s):
+                # the consumer vanished mid-stream: release the page pins
+                # now rather than holding them for the op's deadline
+                self._end_stream(st, RuntimeError("export stream abandoned"))
+                progressed = True
+            else:
+                keep.append(st)
+        self._xfer_streams = keep
+        return progressed
+
+    def _end_stream(self, st: _ExportStream, exc: Exception) -> None:
+        if st.free_pages is not None:
+            self.allocator.free(st.free_pages)
+            st.free_pages = None
+        st.out_q.put(exc)
+        st.out_q.put(_STREAM_EOS)
+
+    def _advance_stream(self, st: _ExportStream) -> bool:
+        progressed = False
+        # ready heads, bounded by the consumer's pull so a stalled peer
+        # cannot grow host staging without bound
+        while (st.pending and all(f is None or f.ready()
+                                  for f in st.pending[0])
+               and st.out_q.qsize() < st.inflight):
+            st.out_q.put(self._host_pages(*st.pending.popleft()))
+            progressed = True
+        while (st.pos < len(st.ids) and len(st.pending) < st.inflight
+               and st.out_q.qsize() < st.inflight):
+            chunk = st.ids[st.pos: st.pos + st.chunk_pages]
+            self.dispatch_counts["xfer_gather"] += 1
+            st.pending.append(self._fetch_pages(chunk))
+            st.pos += len(chunk)
+            progressed = True
+        if st.pos >= len(st.ids) and st.free_pages is not None:
+            # every gather is dispatched: stream order protects the
+            # reads, so the pins go now
+            self.allocator.free(st.free_pages)
+            st.free_pages = None
+        return progressed
+
+    def _drain_xfer_queue(self) -> None:
+        """Fail the queued transfer ops (an op in flight finishes and
+        reports its real result) and close the streams in flight."""
+        while True:
+            try:
+                kind, _ids, data, done, box = self._xfer.get_nowait()
+            except queue_mod.Empty:
+                break
+            box["error"] = RuntimeError("engine stopped")
+            if kind in ("export_stream", "export_hash_stream"):
+                data[2].put(box["error"])
+                data[2].put(_STREAM_EOS)
+            done.set()
+        for st in self._xfer_streams:
+            st.out_q.put(RuntimeError("engine stopped"))
+            st.out_q.put(_STREAM_EOS)
+        self._xfer_streams = []
+
+    # ---- load metrics ----
+
+    def metrics(self) -> ForwardPassMetrics:
+        """The worker's load metrics (reference ``TpuEngine.metrics``):
+        slots, waiting requests, pool occupancy and hit rate, and the
+        G2/G3 tiers' occupancy. Fields of planes not ported stay at their
+        defaults."""
+        a = self.allocator
+        e = self.ecfg
+        # "gpu cache usage" is the live serving occupancy (the ctx
+        # region's tokens), floored by pool pressure: the pool holds
+        # parked prefix blocks, so its own usage reads ~0 under load
+        live_tokens = sum(int(self._ctx_disp[i])
+                          for i, r in enumerate(self._slots) if r is not None)
+        ctx_usage = live_tokens / float(self._B * e.max_context)
+        num_waiting = (sum(1 for r in self._waiting if r.slot < 0)
+                       + self._intake.qsize())
+        KV_QUANT.set("dynamo_kv_pool_capacity_blocks", a.total_pages)
+        off = self.offload
+        spill = off.spill if off is not None else None
+        return ForwardPassMetrics(
+            worker_id=e.worker_id,
+            worker_stats=WorkerStats(
+                request_active_slots=(sum(r is not None for r in self._slots)
+                                      + len(self._prefilling)),
+                request_total_slots=self._B,
+                num_requests_waiting=num_waiting,
+                max_waiting_requests=e.max_waiting_requests,
+                max_waiting_prefill_tokens=e.max_waiting_prefill_tokens,
+            ),
+            kv_stats=KvStats(
+                kv_active_blocks=a.active_pages,
+                kv_total_blocks=a.total_pages,
+                gpu_cache_usage_perc=max(a.usage(), ctx_usage),
+                gpu_prefix_cache_hit_rate=a.hit_rate(),
+                host_blocks=len(off) if off is not None else 0,
+                host_total_blocks=off.num_pages if off is not None else 0,
+                host_onboard_hits=off.onboard_hits if off is not None else 0,
+                disk_blocks=len(spill) if spill is not None else 0,
+                disk_total_blocks=spill.num_pages if spill is not None else 0,
+            ),
+        )
 
     # ---- admission / prefill ----
 
@@ -815,6 +1589,9 @@ class TorchEngine:
         hashes = r.seq.block_hashes()
         matchable = hashes[: max(0, (len(r.tokens) - 1) // ps)]
         matched_pages = self.allocator.match_prefix(matchable)
+        # a miss in HBM continues from the host tiers (scattered into the
+        # pool ahead of the load below, in stream order)
+        matched_pages = self._onboard_from_host(matchable, matched_pages)
         usable_pages = matched_pages[: self.ecfg.max_context // ps]
         r.matched_blocks = len(usable_pages)
         if usable_pages:
@@ -823,6 +1600,9 @@ class TorchEngine:
             self.dispatch_counts["load_ctx"] += 1
             llama.load_ctx_pages(self.ctx, self.cache, slot,
                                  self._to_device(padded))
+            if self.kv_quant:
+                KV_QUANT.inc("dynamo_kv_quant_ctx_admit_raw_pages_total",
+                             len(usable_pages))
         if matched_pages:
             # copy dispatched: stream order lets us drop the refs now
             self.allocator.free(matched_pages)
@@ -871,6 +1651,7 @@ class TorchEngine:
         del self._prefilling[slot]
         self._slots[slot] = r
         self._slot_on(slot, r)
+        self._ctx_disp[slot] = len(r.tokens) + 1
         self._dispatch_patch(admit=dict(
             slot=slot, ctx=len(r.tokens) + 1, tok=first_tok,
             keys=step_keys, **knobs))
@@ -901,6 +1682,9 @@ class TorchEngine:
             block = False  # at most one blocking wait
 
     def _consume_entry(self, entry: _Entry) -> None:
+        if entry.kind == "offload":
+            self._put_offloaded(entry)
+            return
         data = entry.fetch.numpy()
         lp = (self._unpack_lp(entry.lp_fetch.numpy())
               if entry.lp_fetch is not None else None)
@@ -1055,6 +1839,7 @@ class TorchEngine:
                 clear_slots.append(r.slot)
                 self._slots[r.slot] = None
                 self._slot_off(r.slot)
+                self._ctx_disp[r.slot] = 1
             r.slot = -1
         self._to_release = []
         if clear_slots:

@@ -8,16 +8,20 @@ Endpoints:
   POST /v1/completions
   GET  /v1/models
   GET  /health, /live
-  GET  /metrics               (Prometheus text)
+  GET  /metrics               (Prometheus text, with the KV planes'
+                               dynamo_kv_quant_* and dynamo_kv_integrity_*
+                               families)
+  POST /clear_kv_blocks       (every served engine's clear_kv_blocks:
+                               {"cleared": [model, ...]})
 
 Streaming honours client disconnect: the server cancels the handler when
 the connection drops, and the handler closes its response generators,
 which cancels the engine requests (the engine's drop-to-cancel contract —
 reference AsyncEngineContext::stop_generating).
 
-Not ported yet: /v1/responses, /v1/embeddings, /clear_kv_blocks, tool
-calls, the in-band llm_metrics annotation, tracing and the /debug/*
-routes, overload 429s (the engine has no admission budgets).
+Not ported yet: /v1/responses, /v1/embeddings, tool calls, the in-band
+llm_metrics annotation, tracing and the /debug/* routes, overload 429s
+(the engine has no admission budgets).
 """
 from __future__ import annotations
 
@@ -35,6 +39,8 @@ from dynamo_tpu_torch.frontend.http import (
     StreamResponse,
 )
 from dynamo_tpu_torch.frontend.model_manager import ModelManager, ModelNotFound
+from dynamo_tpu_torch.kv_integrity import KV_INTEGRITY
+from dynamo_tpu_torch.kv_quant import KV_QUANT
 from dynamo_tpu_torch.overload.deadline import apply_request_hints
 from dynamo_tpu_torch.protocols.common import FinishReason, LLMEngineOutput
 from dynamo_tpu_torch.protocols.openai import (
@@ -185,6 +191,7 @@ class HttpService:
             ("GET", "/health"): self.handle_health,
             ("GET", "/live"): self.handle_health,
             ("GET", "/metrics"): self.handle_metrics,
+            ("POST", "/clear_kv_blocks"): self.handle_clear_kv,
         })
         self._start_time = time.monotonic()
 
@@ -216,8 +223,24 @@ class HttpService:
         return Response.json(model_list_response(self.manager.list_models()))
 
     async def handle_metrics(self, request: Request) -> Response:
-        body = self.metrics.render() + self.telemetry.render().encode()
+        body = (self.metrics.render() + self.telemetry.render().encode()
+                + KV_QUANT.render().encode()
+                + KV_INTEGRITY.render().encode())
         return Response(body, content_type=PROMETHEUS_CONTENT_TYPE)
+
+    async def handle_clear_kv(self, request: Request) -> Response:
+        """Drop every reusable cached KV block of every served engine
+        that has a cache (reference clear_kv_blocks.rs); the engine's
+        clear blocks until its loop reaches a round boundary, so it runs
+        in a worker thread."""
+        cleared = []
+        for name in self.manager.list_models():
+            clear = getattr(self.manager.get(name).engine,
+                            "clear_kv_blocks", None)
+            if clear is not None:
+                await asyncio.to_thread(clear)
+                cleared.append(name)
+        return Response.json({"cleared": cleared})
 
     def _resolve_model(self, name: str, *, chat: bool = False,
                        completion: bool = False):

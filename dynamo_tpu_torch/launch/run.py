@@ -46,10 +46,6 @@ UNPORTED_FLAGS: dict[str, tuple[dict, str]] = {
                             "request tracing"),
     "--tensor-parallel-size": (dict(type=int, default=1),
                                "tensor parallelism"),
-    "--host-offload-pages": (dict(type=int, default=0), "KV offload tiers"),
-    "--disk-offload-pages": (dict(type=int, default=0), "KV offload tiers"),
-    "--disk-offload-path": (dict(default=None), "KV offload tiers"),
-    "--scrub-on-start": (dict(action="store_true"), "KV offload tiers"),
     "--kv-transfer-chunk-pages": (dict(type=int, default=8),
                                   "the KV transfer plane"),
     "--kv-transfer-inflight-chunks": (dict(type=int, default=2),
@@ -177,6 +173,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="KV quantization: int8 pool pages and int8 decode "
                         "ctx with per-group scales (the flash-decode "
                         "kernel's int8 mode); the ring stays --cache-dtype")
+    p.add_argument("--host-offload-pages", type=int,
+                   default=cfg.host_offload_pages,
+                   help="host-memory KV offload tier capacity in pages "
+                        "(KVBM G2); 0 disables")
+    p.add_argument("--disk-offload-pages", type=int,
+                   default=cfg.disk_offload_pages,
+                   help="mmap-backed disk KV tier capacity in pages "
+                        "(KVBM G3, spill target of G2); 0 disables")
+    p.add_argument("--disk-offload-path", default=cfg.disk_offload_path,
+                   help="backing file for the G3 pool (default: a fresh "
+                        "temporary file); with a path the tier journals a "
+                        "manifest and survives engine restarts")
+    p.add_argument("--scrub-on-start", action="store_true",
+                   default=cfg.scrub_on_start,
+                   help="verify every G3 manifest entry against its file "
+                        "at startup (default: at each onboard)")
     p.add_argument("--round-pipeline",
                    default="on" if cfg.round_pipeline else "off",
                    choices=["on", "off"],
@@ -258,6 +270,10 @@ def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
             max_decode_slots=args.max_decode_slots,
             cache_dtype=args.cache_dtype,
             kv_quant=args.kv_quant,
+            host_offload_pages=args.host_offload_pages,
+            disk_offload_pages=args.disk_offload_pages,
+            disk_offload_path=args.disk_offload_path,
+            scrub_on_start=args.scrub_on_start,
             round_pipeline=args.round_pipeline == "on",
         )
         engine = TorchEngine(cfg, ecfg, params=params, device=args.device)

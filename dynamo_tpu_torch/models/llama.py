@@ -21,7 +21,12 @@ Layouts stay byte-identical to the reference:
     page_size, so ctx<->pool copies move raw pages and scales); writes
     quantize on store (``_quant_store_span``, ``_flush_ctx_quant``), the
     decode kernel dequantizes, and prefill dequantizes on read
-    (``_ctx_slot_slab``). The ring stays in the compute dtype.
+    (``_ctx_slot_slab``). The ring stays in the compute dtype. A dense
+    pool beside an int8 region (or the reverse) quantizes (dequantizes)
+    in the copy;
+  - ``gather_pages`` / ``scatter_pages`` (``_q`` for an int8 pool) move
+    whole pages ``[2, L, kvh, n, ps, hd]`` for the offload tiers and page
+    export/import.
 
 The JAX programs are pure and donate their state buffers so XLA updates
 them in place. Here the state programs update the caller's tensors IN
@@ -36,7 +41,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dynamo_tpu_torch.kv_quant import dequantize_groups, requantize_groups
+from dynamo_tpu_torch.kv_quant import (
+    SCALE_EPS,
+    dequantize_groups,
+    requantize_groups,
+)
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops.attention import (
     ctx_decode_attention,
@@ -721,20 +730,22 @@ def _flush_ctx_quant(
 # ---------------------------------------------------------------------------
 # prefix-cache <-> context copies (admission / block seal)
 
-def _check_same_mode(cache: Cache, ctx: Cache, page_size: int) -> bool:
-    """True for an int8 pool beside an int8 region, False for two dense
-    ones. The cross-mode copies (a dense pool with an int8 region, or the
-    reverse) serve only the transfer plane and are not ported yet."""
-    quant = cache_is_quantized(cache)
-    if quant != ctx_is_quantized(ctx):
-        raise NotImplementedError(
-            "pool<->ctx copies across int8 and dense KV are not ported yet")
-    if quant:
-        g = ctx_group_size(ctx)
-        assert g == page_size, (
-            f"int8 ctx group ({g}) must equal pool page_size ({page_size}) "
-            "— init_ctx(group=page_size) is the engine contract")
-    return quant
+def _check_group(ctx: Cache, page_size: int) -> None:
+    g = ctx_group_size(ctx)
+    assert g == page_size, (
+        f"int8 ctx group ({g}) must equal pool page_size ({page_size}) — "
+        "init_ctx(group=page_size) is the engine contract")
+
+
+def _quantize_pages_dev(pages: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(layer, page) absmax int8 of dense pages [L, kvh, n, ps, hd]:
+    (int8 pages, f32 scales [L, n]), the reference's pool grid."""
+    pf = pages.float()
+    s = torch.clamp(pf.abs().amax(dim=(1, 3, 4)) / 127.0, min=SCALE_EPS)
+    q = torch.clamp(torch.round(pf / s[:, None, :, None, None]),
+                    -127, 127).to(torch.int8)
+    return q, s
 
 
 def load_ctx_pages(
@@ -747,7 +758,9 @@ def load_ctx_pages(
     region at [0, n*ps), in place. The page list is pow2-padded by the
     caller, so n*ps can exceed the region: the load is clamped to the
     region (only padding can overflow). An int8 pool into an int8 region
-    is a raw page copy plus a scale copy (the scale grids coincide)."""
+    is a raw page copy plus a scale copy (the scale grids coincide); a
+    dense pool into an int8 region quantizes per page on the way in, and
+    an int8 pool into a dense region dequantizes."""
     n = page_ids.shape[0]
     ps = cache["k"].shape[3]
     S = ctx["k"].shape[3]
@@ -755,17 +768,27 @@ def load_ctx_pages(
     if usable <= 0:
         return
     page_ids = page_ids[:usable]
-    if _check_same_mode(cache, ctx, ps):
+    pool_q = cache_is_quantized(cache)
+    if ctx_is_quantized(ctx):
+        _check_group(ctx, ps)
         for name in ("k", "v"):
             pages = cache[name][:, :, page_ids]   # [L, kvh, usable, ps, hd]
-            L, kvh, _, _, hd = pages.shape
-            ctx[name][:, :, slot, :usable * ps] = pages.reshape(
+            if pool_q:
+                q, sc = pages, cache[name + "_scale"][:, page_ids]
+            else:
+                q, sc = _quantize_pages_dev(pages)
+            L, kvh, _, _, hd = q.shape
+            ctx[name][:, :, slot, :usable * ps] = q.reshape(
                 L, kvh, usable * ps, hd)
-            ctx[name + "_scale"][:, slot, :usable] = (
-                cache[name + "_scale"][:, page_ids])
+            ctx[name + "_scale"][:, slot, :usable] = sc
         return
     for name in ("k", "v"):
         pages = cache[name][:, :, page_ids]   # [L, kvh, usable, ps, hd]
+        if pool_q:
+            # dequantize in the same copy: int8 pages x per-(layer, page)
+            # scale
+            sc = cache[name + "_scale"][:, page_ids]          # [L, usable]
+            pages = pages.float() * sc[:, None, :, None, None]
         L, kvh, _, _, hd = pages.shape
         ctx[name][:, :, slot, :usable * ps] = pages.reshape(
             L, kvh, usable * ps, hd).to(ctx[name].dtype)
@@ -783,16 +806,70 @@ def seal_blocks(
     ctx[:, :, slots[i], starts[i]:+ps] into pool page pages[i] (one gather
     over the (lane, position)-flattened axis). Padding rows target scratch
     page 0. An int8 region into an int8 pool moves the blocks and their
-    scales verbatim (starts are block starts and group == page_size)."""
+    scales verbatim (starts are block starts and group == page_size); an
+    int8 region into a dense pool dequantizes them, and a dense region
+    into an int8 pool quantizes each block with a per-(layer, page)
+    absmax scale."""
     ps = page_size
-    quant = _check_same_mode(cache, ctx, ps)
+    pool_q = cache_is_quantized(cache)
+    ctx_q = ctx_is_quantized(ctx)
+    if ctx_q:
+        _check_group(ctx, ps)
+    dst = pages.long()
     for name in ("k", "v"):
         src = ctx[name]
         L, kvh, lanes, S, hd = src.shape
         flat = src.view(L, kvh, lanes * S, hd)
         idx = ((slots.long() * S + starts.long())[:, None]
                + torch.arange(ps, device=src.device)[None, :])
-        cache[name][:, :, pages.long()] = flat[:, :, idx].to(cache[name].dtype)
-        if quant:
-            cache[name + "_scale"][:, pages.long()] = ctx[name + "_scale"][
-                :, slots.long(), starts.long() // ps]
+        blocks = flat[:, :, idx]                  # [L, kvh, n, ps, hd]
+        if ctx_q:
+            sc = ctx[name + "_scale"][:, slots.long(), starts.long() // ps]
+            if pool_q:
+                cache[name][:, :, dst] = blocks
+                cache[name + "_scale"][:, dst] = sc
+            else:
+                cache[name][:, :, dst] = (
+                    blocks.float() * sc[:, None, :, None, None]
+                ).to(cache[name].dtype)
+        elif pool_q:
+            q, sc = _quantize_pages_dev(blocks)
+            cache[name][:, :, dst] = q
+            cache[name + "_scale"][:, dst] = sc
+        else:
+            cache[name][:, :, dst] = blocks.to(cache[name].dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV page export/import (the page-transfer plane's device ops; the pool
+# is written IN PLACE: the round graphs captured its storage)
+
+def gather_pages(cache: Cache, page_ids: torch.Tensor) -> torch.Tensor:
+    """Whole pool pages, [2, L, kvh, n, ps, hd] (k then v)."""
+    return torch.stack([cache["k"][:, :, page_ids],
+                        cache["v"][:, :, page_ids]])
+
+
+def scatter_pages(cache: Cache, page_ids: torch.Tensor,
+                  data: torch.Tensor) -> None:
+    """Write whole pages into the pool, in place (the inverse of
+    gather_pages). Padding entries must point at scratch page 0."""
+    cache["k"][:, :, page_ids] = data[0].to(cache["k"].dtype)
+    cache["v"][:, :, page_ids] = data[1].to(cache["v"].dtype)
+
+
+def gather_pages_q(cache: Cache, page_ids: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """gather_pages of an int8 pool: (int8 pages [2, L, kvh, n, ps, hd],
+    scales [2, L, n])."""
+    return gather_pages(cache, page_ids), torch.stack(
+        [cache["k_scale"][:, page_ids], cache["v_scale"][:, page_ids]])
+
+
+def scatter_pages_q(cache: Cache, page_ids: torch.Tensor,
+                    data: torch.Tensor, scales: torch.Tensor) -> None:
+    """The inverse of gather_pages_q, in place."""
+    cache["k"][:, :, page_ids] = data[0]
+    cache["v"][:, :, page_ids] = data[1]
+    cache["k_scale"][:, page_ids] = scales[0]
+    cache["v_scale"][:, page_ids] = scales[1]

@@ -11,7 +11,10 @@ Two kinds of series, as in the reference frontend:
   default buckets;
 - the request-latency ``Histogram``s in a ``TelemetryRegistry``:
   ``dynamo_request_{ttft,itl,e2e}_seconds`` on the reference's
-  per-decade ladder of buckets.
+  per-decade ladder of buckets;
+- unlabelled process-wide families in a ``CounterRegistry``: the KV
+  planes' ``dynamo_kv_quant_*`` and ``dynamo_kv_integrity_*`` series
+  (``kv_quant.KV_QUANT``, ``kv_integrity.KV_INTEGRITY``).
 
 Buckets follow the Prometheus contract: ``le``-labelled CUMULATIVE
 counts with a ``+Inf`` terminal bucket, plus ``_sum`` and ``_count``.
@@ -268,3 +271,67 @@ class MetricsRegistry:
         for f in self._families:
             lines.extend(f.render())
         return "\n".join(lines) + ("\n" if lines else "")
+
+
+class CounterRegistry:
+    """Thread-safe fixed-family counter/gauge registry with optional
+    explicit-bucket histograms, rendered as one Prometheus text block (a
+    copy of the JAX package's, without exemplars). Families are ``(name,
+    type, help)`` tuples; histograms are ``(name, help)`` tuples on the
+    default time buckets."""
+
+    def __init__(
+        self,
+        families: tuple[tuple[str, str, str], ...],
+        histograms: tuple[tuple[str, str], ...] = (),
+        label: str = "registry",
+    ):
+        self._families = tuple(families)
+        self._known = {name for name, _, _ in self._families}
+        self._label = label
+        self._values: dict[str, float] = {n: 0.0 for n in self._known}
+        self._lock = threading.Lock()
+        self._hists: dict[str, Histogram] = {
+            name: Histogram(name, help_) for name, help_ in histograms
+        }
+
+    def _check(self, name: str) -> None:
+        if name not in self._known:
+            raise KeyError(f"unknown {self._label} series {name!r}")
+
+    def inc(self, name: str, n: float = 1.0) -> None:
+        self._check(name)
+        with self._lock:
+            self._values[name] += n
+
+    def set(self, name: str, v: float) -> None:
+        self._check(name)
+        with self._lock:
+            self._values[name] = float(v)
+
+    def get(self, name: str) -> float:
+        with self._lock:
+            return self._values[name]
+
+    def observe(self, name: str, value: float, n: int = 1) -> None:
+        self._hists[name].observe(value, n)
+
+    def histogram(self, name: str) -> Histogram:
+        return self._hists[name]
+
+    def snapshot(self) -> dict[str, float]:
+        with self._lock:
+            return dict(self._values)
+
+    def render(self) -> str:
+        """Prometheus text for every family (trailing newline included)."""
+        snap = self.snapshot()
+        lines: list[str] = []
+        for name, typ, help_ in self._families:
+            lines.append(f"# HELP {name} {help_}")
+            lines.append(f"# TYPE {name} {typ}")
+            v = snap[name]
+            lines.append(f"{name} {int(v) if v == int(v) else v}")
+        for h in self._hists.values():
+            lines.extend(h.render())
+        return "\n".join(lines) + "\n"

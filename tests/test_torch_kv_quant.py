@@ -180,10 +180,20 @@ def test_load_ctx_pages_int8_matches_jax(page_ids):
 
 
 def test_cross_mode_copies_are_refused():
-    _, tctx = _both(_int8_region(11, B + 1, S))
-    dense = tl.init_cache(CFG, P, PS, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError):
-        tl.load_ctx_pages(tctx, dense, 1, torch.tensor([3]))
+    """Until the transfer plane was ported a dense pool beside an int8
+    region was refused; it is now served as the reference serves it: the
+    dense pages quantize per (layer, page) on the way in, byte-equal to
+    the JAX package's load_ctx_pages_impl."""
+    jctx, tctx = _both(_int8_region(11, B + 1, S))
+    vals = np.random.RandomState(13).randn(LY, KVH, P, PS, HD).astype(
+        np.float32)
+    jdense = {n: jnp.asarray(vals * (1.0 if n == "k" else 0.5)) for n in "kv"}
+    tdense = {n: torch.from_numpy(np.array(a)) for n, a in jdense.items()}
+    ids = np.asarray([3, 5], np.int32)
+    jout = jl.load_ctx_pages_impl(jctx, jdense, jnp.int32(1),
+                                  jnp.asarray(ids))
+    tl.load_ctx_pages(tctx, tdense, 1, torch.from_numpy(ids))
+    _assert_equal(tctx, jout)
 
 
 def test_seal_load_roundtrip_within_half_a_step():
