@@ -77,8 +77,26 @@ Phases, each printing a line (any failure raises and exits non-zero):
      the card rises by layers x decode steps (the kernels line's
      launches_http), a unary chat completion returns 200 and /metrics
      carries the TTFT, ITL and E2E series; TTFT, gaps and tok/s are
-     printed beside the serve phase's, with the event loop thread's CPU
-     time per streamed token and DecodeStream's cost per token;
+     printed beside the serve phase's, with the event loop's host time
+     per streamed token (LoopMeter: its busy time at perf_counter's
+     resolution and its thread's CPU clock, whose step on the host is
+     printed too) and DecodeStream's cost per token;
+  7b. distributed: the same burst through the distributed runtime on
+     the same weights: the port's store (serve_store on 127.0.0.1, port
+     0), a worker (launch.run's build_chain, registered through
+     launch.run.serve_worker, the function in=endpoint runs, with
+     --router-mode round_robin) and a frontend (ModelWatcher +
+     HttpService), each on an event loop of its own thread, the client
+     on the main thread; streamed greedy /v1/completions gated at the
+     worker's intake as in the http phase. Every stream ends in [DONE]
+     and maps back to the serve phase's tokens, the kernel's own count
+     rises by layers x decode steps (the kernels line's
+     launches_distributed), the frontend's /clear_kv_blocks fan-out
+     returns the pages the worker's engine held, and a chat with tools
+     and a streamed chat with nvext.annotations ["llm_metrics"] answer
+     200 in the JAX package's shapes; TTFT, gaps and tok/s are printed
+     beside the http and serve phases', with each loop's host time per
+     streamed token (LoopMeter: frontend, worker, client);
   8. offload: the KV offload plane on Llama-3.1-8B with the same bf16
      weights, a 96-page pool (768 MiB), a 128-page G2 in pinned host
      memory and a 128-page G3 file in a temporary directory, in dense
@@ -114,7 +132,15 @@ Phases, each printing a line (any failure raises and exits non-zero):
   10. cli: ``python -m dynamo_tpu_torch.launch.run in=text out=torch
      --model-config tiny --cache-dtype float32 --prompt "w1 w2 w3"
      --max-tokens 8`` in a subprocess, with no --device, and again with
-     ``--quantize int8``: each must run its engine on cuda and exit 0.
+     ``--quantize int8``: each must run its engine on cuda and exit 0;
+     between the two, the distributed entry points in subprocesses:
+     ``python -m dynamo_tpu_torch.cli cp --port 0``, two ``launch.run
+     in=endpoint out=torch --model-config tiny --cache-dtype float32
+     --router-mode round_robin`` workers with no --device (each must run
+     on cuda) and a ``launch.run in=http --control-plane`` frontend; four
+     greedy chat completions must each equal in=text's output, both
+     workers must have served (each prints its count when SIGTERM stops
+     it), and every process must exit 0.
 Each phase prints its seconds.
 The card line (nvidia-smi's name and power limit) comes third from last,
 the second-to-last line is a JSON object describing every kernel, and the
@@ -131,6 +157,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from collections import defaultdict
 
@@ -1302,13 +1329,194 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None):
     return tokens, figures
 
 
-def frontend_us_per_token(chain, prompts, streams, stream, reps=3):
+N_NEW = 32  # tokens a streamed request of the http and distributed phases
+
+
+async def stream_completion(client, prompt, model, label):
+    """One streamed greedy /v1/completions request of the http and
+    distributed phases (token ids, N_NEW tokens, nvext.ignore_eos): its
+    send time, its SSE events and each event's arrival time."""
+    from dynamo_tpu_torch.protocols.sse import SseDecoder
+
+    t_send = time.monotonic()
+    r = await client.request("POST", "/v1/completions", json_body={
+        "model": model, "prompt": prompt, "max_tokens": N_NEW,
+        "temperature": 0, "stream": True,
+        "nvext": {"ignore_eos": True}}, stream=True)
+    if r.status != 200:
+        raise AssertionError(f"{label}: status {r.status}")
+    dec, events, arrivals = SseDecoder(), [], []
+    async for chunk in r.chunks():
+        for ev in dec.feed(chunk):
+            events.append(ev)
+            arrivals.append(time.monotonic())
+    return t_send, events, arrivals
+
+
+async def gated_burst(eng, port, prompts, model, label):
+    """The serve prompts as streamed requests to the HttpService on
+    ``port``, sent in prompt order behind an IntakeGate on ``eng``, as the
+    serve phase's burst arrived (the last arrival opens the gate, and the
+    engine may drain the intake before this loop looks at it). Returns
+    each request's (send time, events, arrivals)."""
+    from dynamo_tpu_torch.frontend.http import HttpClient
+
+    gate = IntakeGate(eng, len(prompts))
+    clients = [HttpClient("127.0.0.1", port) for _ in prompts]
+    try:
+        tasks = []
+        for i, (c, p) in enumerate(zip(clients, prompts)):
+            tasks.append(asyncio.ensure_future(
+                stream_completion(c, p, model, label)))
+            t_wait = time.monotonic()
+            while not gate.open and eng._intake.qsize() < i + 1:
+                if tasks[-1].done():
+                    tasks[-1].result()  # its failure, if it failed
+                    raise AssertionError(f"{label}: request {i} ended "
+                                         f"before reaching the engine")
+                if time.monotonic() - t_wait > 60:
+                    raise AssertionError(f"{label}: request {i} did not "
+                                         f"reach the engine in 60 s")
+                await asyncio.sleep(0.0005)
+        return await asyncio.wait_for(asyncio.gather(*tasks), 120)
+    finally:
+        for c in clients:
+            await c.close()
+
+
+def parse_streams(res, direct_tokens, label):
+    """Checks and times a burst's streams: each ends in [DONE] with
+    finish_reason length, and its text (one word per token id; ids 0-2
+    decode to nothing) maps back to the serve phase's tokens. Returns the
+    TTFTs (send to first text), the gaps (between text events, spread
+    evenly over the tokens an event carries) and each stream's first and
+    last arrival."""
+    ttft, gaps, firsts, ends = [], [], [], []
+    for i, ((t_send, events, arrivals), want) in enumerate(
+            zip(res, direct_tokens)):
+        if not events or not events[-1].is_done:
+            raise AssertionError(f"{label}: a stream did not end in [DONE]")
+        text, last, finish = "", None, None
+        for ev, t in zip(events[:-1], arrivals):
+            choice = ev.json()["choices"][0]
+            finish = choice["finish_reason"] or finish
+            piece = choice["text"]
+            if not piece:
+                continue
+            n = len(piece.split())  # one word per token
+            if last is None:
+                ttft.append(t - t_send)
+                firsts.append(t)
+            else:
+                gaps += [(t - last) / n] * n
+            last = t
+            text += piece
+        if finish != "length":
+            raise AssertionError(f"{label}: finish_reason {finish!r}")
+        ends.append(arrivals[-1])
+        got = [int(w[1:]) for w in text.split()]
+        if got != [t for t in want if t > 2]:
+            raise AssertionError(
+                f"{label}: request {i} streamed {got}, the serve phase's "
+                f"generate() gave {want}")
+    return ttft, gaps, firsts, ends
+
+
+class LoopMeter:
+    """An event loop thread's host time. ``busy``: the wall time the loop
+    spends outside its wait for I/O (each turn of the loop less its time
+    in select; waits for the GIL count), at perf_counter's resolution.
+    ``cpu``: its thread's CPU clock, whose step on this host
+    cpu_clock_step_ms() gives. Made by a coroutine on the loop it
+    measures; read() from any thread sees whole turns only."""
+
+    def __init__(self):
+        loop = asyncio.get_running_loop()
+        self.clock = time.pthread_getcpuclockid(threading.get_ident())
+        self.busy = self._wait = 0.0
+        selector, run_once = loop._selector, loop._run_once
+        select = selector.select
+
+        def timed_select(timeout=None):
+            t = time.perf_counter()
+            try:
+                return select(timeout)
+            finally:
+                self._wait += time.perf_counter() - t
+
+        def timed_run_once():
+            t, self._wait = time.perf_counter(), 0.0
+            try:
+                run_once()
+            finally:
+                self.busy += time.perf_counter() - t - self._wait
+
+        selector.select = timed_select
+        loop._run_once = timed_run_once
+
+    def read(self):
+        """(busy s, CPU s) so far."""
+        return self.busy, time.clock_gettime(self.clock)
+
+
+def cpu_clock_step_ms() -> float:
+    """The step of this host's thread CPU clock: spin until it has moved
+    twice and return the second move (the first may be partial)."""
+    t0 = time.thread_time()
+    while (t1 := time.thread_time()) == t0:
+        pass
+    while (t2 := time.thread_time()) == t1:
+        pass
+    return (t2 - t1) * 1e3
+
+
+def record_marks(eng):
+    """Wraps ``eng.generate`` to note, by prompt, when each request
+    reaches the engine, when its first output reaches the loop that
+    called generate(), and the engine's own timing annotation."""
+    marks: dict[tuple, dict] = {}
+    engine_generate = eng.generate
+
+    async def recording_generate(req):
+        m = marks[tuple(req.token_ids)] = {"in": time.monotonic()}
+        async for out in engine_generate(req):
+            if out.token_ids and "first" not in m:
+                m["first"] = time.monotonic()
+            if out.finish_reason is not None:
+                m["timing"] = out.annotations.get("timing", {})
+            yield out
+
+    eng.generate = recording_generate
+    return marks
+
+
+def ttft_split(prompts, res, firsts, marks):
+    """Each request's TTFT in three: the client's send to the engine's
+    generate() (HTTP, JSON, validation, preprocessing, and any hop), the
+    engine's own TTFT (intake to first token, on its thread), and its
+    first output to the client's first text (backend, SSE, sockets, the
+    loops' turns). Returns a line of medians and maxima."""
+    before, engine_ttft, after = [], [], []
+    for p, (t_send, _, _), t_first in zip(prompts, res, firsts):
+        m = marks[tuple(p)]
+        before.append(m["in"] - t_send)
+        engine_ttft.append(m["timing"]["ttft_s"])
+        after.append(t_first - m["first"])
+    return (f"TTFT split, median (max) over the {len(prompts)}: send to "
+            f"the engine {np.median(before) * 1e3:.2f} "
+            f"({max(before) * 1e3:.2f}) ms, the engine's intake to first "
+            f"token {np.median(engine_ttft):.4f} ({max(engine_ttft):.4f}) "
+            f"s, first output to the client's first text "
+            f"{np.median(after) * 1e3:.2f} ({max(after) * 1e3:.2f}) ms")
+
+
+def frontend_us_per_token(chain, prompts, streams, reps=3):
     """The frontend's host time per streamed token: ``streams`` (each
     prompt's tokens) replayed through ``chain``'s preprocessor and backend
     behind an HttpService and the port's client, from an engine that only
     yields them (the first token alone, then 4 a round, as the engine
     emits them); the whole burst's wall time over its tokens, median of
-    ``reps``. ``stream(client, prompt, model)`` sends one request."""
+    ``reps``."""
     from dynamo_tpu_torch.frontend.http import HttpClient
     from dynamo_tpu_torch.frontend.model_manager import ModelChain, ModelManager
     from dynamo_tpu_torch.frontend.service import HttpService
@@ -1338,8 +1546,9 @@ def frontend_us_per_token(chain, prompts, streams, stream, reps=3):
             for _ in range(reps):
                 clients = [HttpClient("127.0.0.1", svc.port) for _ in prompts]
                 t0 = time.perf_counter()
-                await asyncio.gather(*[stream(c, p, "replay")
-                                       for c, p in zip(clients, prompts)])
+                await asyncio.gather(*[
+                    stream_completion(c, p, "replay", "http replay")
+                    for c, p in zip(clients, prompts)])
                 walls.append(time.perf_counter() - t0)
                 for c in clients:
                     await c.close()
@@ -1355,24 +1564,22 @@ def check_http(params, direct_tokens, direct):
     KV, default EngineConfig, the serve phase's weights) behind the
     port's HttpService on 127.0.0.1, driven by the port's HTTP client:
     the serve phase's 8 prompts as streamed greedy /v1/completions
-    requests (token ids, 32 tokens, nvext.ignore_eos), sent in prompt
-    order behind an intake gate as the serve phase admitted them. Every
-    stream must end in [DONE] with finish_reason length, its text must
-    map back to the serve phase's tokens, and the kernel's own count on
-    the card must rise by layers x decode steps (returned as the
-    launches of the http path). A unary chat request runs before the
-    burst, /metrics after it. Prints TTFT, gaps and tok/s beside the
-    serve phase's, each request's TTFT split at the engine's intake and
-    its first output, the frontend's host time per streamed token (the
-    same streams replayed through the service from an engine that only
-    yields them) and DecodeStream's cost per token."""
+    requests (gated_burst, checked by parse_streams: [DONE], finish_reason
+    length, the serve phase's tokens), and the kernel's own count on the
+    card must rise by layers x decode steps (returned as the launches of
+    the http path). A unary chat request runs before the burst, /metrics
+    after it. Prints TTFT, gaps and tok/s beside the serve phase's, each
+    request's TTFT split at the engine's intake and its first output,
+    the event loop's host time per streamed token (LoopMeter: busy and
+    CPU; the loop runs service and client), the frontend's host time per
+    streamed token (the same streams replayed through the service from
+    an engine that only yields them) and DecodeStream's cost per token."""
     from dynamo_tpu_torch.frontend.http import HttpClient
     from dynamo_tpu_torch.frontend.model_manager import ModelManager
     from dynamo_tpu_torch.frontend.service import HttpService
     from dynamo_tpu_torch.launch import run as launch
     from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.ops import flash_decode as fd
-    from dynamo_tpu_torch.protocols.sse import SseDecoder
     from dynamo_tpu_torch.tokenizer import DecodeStream, make_test_tokenizer
 
     cfg = ModelConfig.llama3_8b()
@@ -1390,42 +1597,12 @@ def check_http(params, direct_tokens, direct):
     manager = ModelManager()
     manager.register(chain)
     prompts = serve_prompts(cfg.vocab_size)
-    n_new = 32
-    # when each request reaches the engine and its first output reaches
-    # the event loop, and the engine's own timing annotation
-    marks: dict[tuple, dict] = {}
-    engine_generate = eng.generate
-
-    async def recording_generate(req):
-        m = marks[tuple(req.token_ids)] = {"in": time.monotonic()}
-        async for out in engine_generate(req):
-            if out.token_ids and "first" not in m:
-                m["first"] = time.monotonic()
-            if out.finish_reason is not None:
-                m["timing"] = out.annotations.get("timing", {})
-            yield out
-
-    eng.generate = recording_generate
-
-    async def stream(client, prompt, model="llama3_8b"):
-        t_send = time.monotonic()
-        r = await client.request("POST", "/v1/completions", json_body={
-            "model": model, "prompt": prompt, "max_tokens": n_new,
-            "temperature": 0, "stream": True,
-            "nvext": {"ignore_eos": True}}, stream=True)
-        if r.status != 200:
-            raise AssertionError(f"http: status {r.status}")
-        dec, events, arrivals = SseDecoder(), [], []
-        async for chunk in r.chunks():
-            for ev in dec.feed(chunk):
-                events.append(ev)
-                arrivals.append(time.monotonic())
-        return t_send, events, arrivals
+    marks = record_marks(eng)
 
     async def drive():
         svc = HttpService(manager, host="127.0.0.1", port=0)
         await svc.start()
-        clients = [HttpClient("127.0.0.1", svc.port) for _ in prompts]
+        meter = LoopMeter()
         try:
             # a unary chat request first: it ends before the counts are
             # zeroed (no round is dispatched once its slot is released)
@@ -1439,34 +1616,18 @@ def check_http(params, direct_tokens, direct):
             eng.kernel_launches = 0
             fd.executed(eng.device, reset=True)
             steps0 = eng.step_count
-            gate = IntakeGate(eng, len(prompts))
-            tasks = []
-            for i, (c, p) in enumerate(zip(clients, prompts)):
-                tasks.append(asyncio.ensure_future(stream(c, p)))
-                # in prompt order, as the serve phase's burst arrived (the
-                # last arrival opens the gate, and the engine may drain
-                # the intake before this loop looks at it)
-                t_wait = time.monotonic()
-                while not gate.open and eng._intake.qsize() < i + 1:
-                    if tasks[-1].done():
-                        tasks[-1].result()  # its failure, if it failed
-                        raise AssertionError(f"http: request {i} ended "
-                                             f"before reaching the engine")
-                    if time.monotonic() - t_wait > 60:
-                        raise AssertionError(f"http: request {i} did not "
-                                             f"reach the engine in 60 s")
-                    await asyncio.sleep(0.0005)
-            res = await asyncio.wait_for(asyncio.gather(*tasks), 120)
+            host0 = meter.read()
+            res = await gated_burst(eng, svc.port, prompts, "llama3_8b",
+                                    "http")
+            host = [b - a for a, b in zip(host0, meter.read())]
             # the counts once the engine's thread has stopped, as in serve
             await eng.stop()
             ran = fd.executed(eng.device)
             steps = eng.step_count - steps0
             async with HttpClient("127.0.0.1", svc.port) as c:
                 metrics = (await c.request("GET", "/metrics")).body.decode()
-            return res, ran, steps, chat, metrics
+            return res, ran, steps, chat, metrics, host
         finally:
-            for c in clients:
-                await c.close()
             await svc.stop()
             await eng.stop()
 
@@ -1475,39 +1636,11 @@ def check_http(params, direct_tokens, direct):
     # script's time limit
     faulthandler.dump_traceback_later(300, exit=True)
     try:
-        res, (dense, int8), steps, chat, metrics = asyncio.run(drive())
+        res, (dense, int8), steps, chat, metrics, host = asyncio.run(drive())
     finally:
         faulthandler.cancel_dump_traceback_later()
     issued = fd.launches + fd.launches_int8
-    ttft, gaps, firsts, ends, texts = [], [], [], [], []
-    for t_send, events, arrivals in res:
-        if not events or not events[-1].is_done:
-            raise AssertionError("http: a stream did not end in [DONE]")
-        text, last, finish = "", None, None
-        for ev, t in zip(events[:-1], arrivals):
-            choice = ev.json()["choices"][0]
-            finish = choice["finish_reason"] or finish
-            piece = choice["text"]
-            if not piece:
-                continue
-            n = len(piece.split())  # one word per token
-            if last is None:
-                ttft.append(t - t_send)
-                firsts.append(t)
-            else:
-                gaps += [(t - last) / n] * n
-            last = t
-            text += piece
-        if finish != "length":
-            raise AssertionError(f"http: finish_reason {finish!r}")
-        ends.append(arrivals[-1])
-        texts.append(text)
-    for i, (text, want) in enumerate(zip(texts, direct_tokens)):
-        got = [int(w[1:]) for w in text.split()]
-        if got != [t for t in want if t > 2]:
-            raise AssertionError(
-                f"http: request {i} streamed {got}, the serve phase's "
-                f"generate() gave {want}")
+    ttft, gaps, firsts, ends = parse_streams(res, direct_tokens, "http")
     check_replayed(eng, "http")
     if dense != cfg.num_layers * steps or int8 or issued \
             or eng.kernel_launches != dense:
@@ -1523,19 +1656,9 @@ def check_http(params, direct_tokens, direct):
                       metrics, re.M)
         if not m or int(m.group(1)) == 0:
             raise AssertionError(f"http: /metrics has no {name} series")
-    tokens = n_new * len(prompts)
+    tokens = N_NEW * len(prompts)
     tps = (tokens - len(prompts)) / (max(ends) - min(firsts))
-    # each request's TTFT split: client send -> the engine's generate()
-    # (HTTP, JSON, validation, preprocessing), the engine's own TTFT
-    # (intake -> first token, on its thread), and its first output -> the
-    # client's first text (backend, SSE, socket, the loop's turn)
-    before, engine_ttft, after = [], [], []
-    for p, (t_send, _, _), t_first in zip(prompts, res, firsts):
-        m = marks[tuple(p)]
-        before.append(m["in"] - t_send)
-        engine_ttft.append(m["timing"]["ttft_s"])
-        after.append(t_first - m["first"])
-    replay_us = frontend_us_per_token(chain, prompts, direct_tokens, stream)
+    replay_us = frontend_us_per_token(chain, prompts, direct_tokens)
     # DecodeStream's cost per token on these streams, this host
     reps, n = 5, 0
     t0 = time.perf_counter()
@@ -1546,7 +1669,7 @@ def check_http(params, direct_tokens, direct):
                 ds.step(t)
                 n += 1
     ds_us = (time.perf_counter() - t0) / n * 1e6
-    log(f"http: 8 streamed /v1/completions requests x {n_new} tokens, "
+    log(f"http: 8 streamed /v1/completions requests x {N_NEW} tokens, "
         f"token-identical to the serve phase's generate() run; TTFT "
         f"median {np.median(ttft):.4f} s max {max(ttft):.4f} s (client: "
         f"send to first text; generate(): intake to first token "
@@ -1556,21 +1679,294 @@ def check_http(params, direct_tokens, direct):
         f"{np.median(direct['gaps']) * 1e3:.2f} ms, max "
         f"{max(direct['gaps']) * 1e3:.2f} ms); decode {tps:.1f} tok/s over "
         f"the batch (generate(): {direct['tps']:.1f} tok/s)")
-    log(f"http: TTFT split, median (max) over the 8: send to the engine "
-        f"{np.median(before) * 1e3:.2f} ({max(before) * 1e3:.2f}) ms, the "
-        f"engine's intake to first token {np.median(engine_ttft):.4f} "
-        f"({max(engine_ttft):.4f}) s, first output to the client's first "
-        f"text {np.median(after) * 1e3:.2f} ({max(after) * 1e3:.2f}) ms")
-    log(f"http: frontend host time {replay_us:.1f} us per streamed token "
-        f"(the same 8 streams replayed through the service and client, "
-        f"no engine; median of 3); DecodeStream.step {ds_us:.1f} us per "
-        f"token; {steps} decode steps, flash_decode launches {dense} "
-        f"(counted by the kernel on the card) in {eng.graphs.replays} "
-        f"graph replays; unary chat 200")
+    log(f"http: {ttft_split(prompts, res, firsts, marks)}")
+    step_ms = cpu_clock_step_ms()
+    busy_us, cpu_us = (v / tokens * 1e6 for v in host)
+    log(f"http: the event loop (service and client) over the burst, per "
+        f"streamed token: busy {busy_us:.2f} us (LoopMeter), CPU "
+        f"{cpu_us:.2f} us (thread CPU clock, step {step_ms:.4g} ms on "
+        f"this host: +-{step_ms * 1e3 / tokens:.2f} us a token); frontend "
+        f"host time {replay_us:.1f} us per streamed token (the same 8 "
+        f"streams replayed through the service and client, no engine; "
+        f"median of 3); DecodeStream.step {ds_us:.1f} us per token; "
+        f"{steps} decode steps, flash_decode launches {dense} (counted by "
+        f"the kernel on the card) in {eng.graphs.replays} graph replays; "
+        f"unary chat 200")
     del eng, chain, manager
     gc.collect()
     torch.cuda.empty_cache()
-    return dense
+    return dense, dict(ttft=ttft, gaps=gaps, tps=tps, replay_us=replay_us,
+                       busy_us=busy_us, cpu_us=cpu_us)
+
+
+class LoopThread:
+    """An asyncio event loop running on a thread of its own."""
+
+    def __init__(self, name):
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name=name, daemon=True)
+        self.thread.start()
+
+    def run(self, coro, timeout=300):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def close(self):
+        async def cancel_rest():
+            rest = [t for t in asyncio.all_tasks()
+                    if t is not asyncio.current_task()]
+            for t in rest:
+                t.cancel()
+            await asyncio.gather(*rest, return_exceptions=True)
+
+        if self.loop.is_running():
+            self.run(cancel_rest(), timeout=30)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+        self.loop.close()
+
+
+def check_distributed(params, direct_tokens, direct, http):
+    """The distributed runtime at Llama-3.1-8B: the port's store
+    (serve_store on 127.0.0.1, port 0), a worker (launch.run's
+    build_chain with the serve phase's weights, registered through
+    launch.run.serve_worker, the function in=endpoint runs, on
+    launch.run.connect_runtime's resyncing connection, with
+    --router-mode round_robin) and a frontend (ModelWatcher +
+    HttpService), each on an event loop of its own thread; the client on
+    the main thread. The serve phase's 8 prompts go out as in the http
+    phase (gated_burst at the worker's intake, checked by parse_streams),
+    and the kernel's own count on the card must rise by layers x decode
+    steps (returned as the distributed path's launches, with the
+    figures); /clear_kv_blocks
+    through the frontend must clear what the worker's engine held; a chat
+    request with tools and a streamed one with nvext.annotations
+    ["llm_metrics"] must return 200 in the JAX package's shapes. Prints
+    TTFT, gaps and tok/s beside the http and serve phases', each
+    request's TTFT split at the worker engine's intake and first output,
+    and each loop's host time per streamed token (LoopMeter: frontend,
+    worker, client)."""
+    from dynamo_tpu_torch.frontend.http import HttpClient
+    from dynamo_tpu_torch.frontend.model_manager import ModelManager
+    from dynamo_tpu_torch.frontend.service import HttpService
+    from dynamo_tpu_torch.frontend.watcher import ModelWatcher
+    from dynamo_tpu_torch.launch import run as launch
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.protocols.sse import SseDecoder
+    from dynamo_tpu_torch.runtime.store import serve_store
+    from dynamo_tpu_torch.tokenizer import make_test_tokenizer
+
+    cfg = ModelConfig.llama3_8b()
+    name = "llama3_8b"
+    tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
+    loops = {k: LoopThread(f"{k}-loop")
+             for k in ("store", "worker", "frontend")}
+    faulthandler.dump_traceback_later(600, exit=True)
+    try:
+        server, _ = loops["store"].run(serve_store("127.0.0.1", 0))
+        cp_port = server.sockets[0].getsockname()[1]
+        args = launch.build_parser().parse_intermixed_args(
+            ["in=endpoint", "out=torch", "--model-config", name,
+             "--model-name", name, "--router-mode", "round_robin",
+             "--control-plane", f"127.0.0.1:{cp_port}"])
+        t0 = time.monotonic()
+        _, chain = launch.build_chain(args, params=params, tokenizer=tok)
+        eng = chain.engine
+        marks = record_marks(eng)
+        worker_rt = loops["worker"].run(launch.connect_runtime(args))
+        served = loops["worker"].run(
+            launch.serve_worker(args, chain, worker_rt, lease_ttl_s=10.0))
+        t_worker = time.monotonic() - t0
+
+        async def frontend_up():
+            rt = await launch.connect_runtime(args)
+            manager = ModelManager()
+            watcher = await ModelWatcher(rt, manager, tokenizer=tok).start()
+            svc = HttpService(manager, host="127.0.0.1", port=0)
+            await svc.start()
+            for _ in range(600):
+                if manager.list_models() == [name]:
+                    break
+                await asyncio.sleep(0.05)
+            return rt, manager, watcher, svc
+
+        rt, manager, watcher, svc = loops["frontend"].run(frontend_up())
+        if manager.list_models() != [name]:
+            raise AssertionError(f"distributed: the frontend discovered "
+                                 f"{manager.list_models()}")
+        log(f"distributed: store on 127.0.0.1:{cp_port}, worker instance "
+            f"{served.lease_id} (TorchEngine on {eng.device}) built and "
+            f"registered in {t_worker:.1f} s, frontend on "
+            f"127.0.0.1:{svc.port} discovered {manager.list_models()}")
+        prompts = serve_prompts(cfg.vocab_size)
+
+        async def install_meter():
+            return LoopMeter()
+
+        meters = {k: loops[k].run(install_meter())
+                  for k in ("frontend", "worker")}
+
+        async def chats():
+            async with HttpClient("127.0.0.1", svc.port) as c:
+                tools = await c.request("POST", "/v1/chat/completions",
+                                        json_body={
+                    "model": name, "max_tokens": 4,
+                    "tools": [{"type": "function", "function": {
+                        "name": "get_w", "parameters": {}}}],
+                    "messages": [{"role": "user", "content": "t5 t6 t7"}]})
+                r = await c.request("POST", "/v1/chat/completions",
+                                    json_body={
+                    "model": name, "max_tokens": 4, "stream": True,
+                    "nvext": {"annotations": ["llm_metrics"]},
+                    "messages": [{"role": "user", "content": "t8 t9"}]},
+                    stream=True)
+                dec, events = SseDecoder(), []
+                async for chunk in r.chunks():
+                    events.extend(dec.feed(chunk))
+                return tools, r.status, events
+
+        async def burst():
+            meters["client"] = LoopMeter()
+            # every kernel count to 0 just before the main path
+            fd.launches = fd.launches_int8 = 0
+            eng.kernel_launches = 0
+            fd.executed(eng.device, reset=True)
+            steps0 = eng.step_count
+            host0 = {k: m.read() for k, m in meters.items()}
+            res = await gated_burst(eng, svc.port, prompts, name,
+                                    "distributed")
+            host = {k: [b - a for a, b in zip(host0[k], m.read())]
+                    for k, m in meters.items()}
+            # the engine goes idle once the last stream ended (a pipelined
+            # round may still be in flight): then the counts are final
+            quiet = 0
+            while quiet < 20:
+                busy = (eng._slot_active.any() or eng._entries
+                        or eng._waiting or eng._prefilling
+                        or eng._intake.qsize())
+                quiet = 0 if busy else quiet + 1
+                await asyncio.sleep(0.01)
+            torch.cuda.synchronize()
+            return res, fd.executed(eng.device), eng.step_count - steps0, host
+
+        tools, llm_status, llm_events = asyncio.run(chats())
+        res, (dense, int8), steps, host = asyncio.run(burst())
+        issued = fd.launches + fd.launches_int8
+        # /clear_kv_blocks: the frontend's remote engine fans the clear
+        # out to the worker, which returns what its engine held
+        held = len(eng.allocator._lru)
+        remote = manager.get(name).engine
+        cleared = loops["frontend"].run(remote.clear_kv_blocks())
+
+        async def clear_http():
+            async with HttpClient("127.0.0.1", svc.port) as c:
+                return await c.request("POST", "/clear_kv_blocks")
+
+        cleared_http = asyncio.run(clear_http())
+        left = len(eng.allocator._lru)
+
+        async def frontend_down():
+            await svc.stop()
+            await watcher.stop()
+            await rt.close()
+
+        loops["frontend"].run(frontend_down())
+        loops["worker"].run(served.shutdown())
+        loops["worker"].run(worker_rt.close())
+        loops["worker"].run(eng.stop())
+
+        async def store_down():
+            server.close()
+            await server.wait_closed()
+
+        loops["store"].run(store_down())
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        for lt in loops.values():
+            lt.close()
+    # the tool and llm_metrics requests, in the JAX package's shapes
+    if tools.status != 200:
+        raise AssertionError(f"distributed: tools chat status "
+                             f"{tools.status}")
+    tchoice = tools.json()["choices"][0]
+    msg = tchoice["message"]
+    if msg.get("role") != "assistant" or tchoice["finish_reason"] not in (
+            "length", "stop", "tool_calls"):
+        raise AssertionError(f"distributed: tools chat answered {tchoice}")
+    for call in msg.get("tool_calls") or []:
+        if call["type"] != "function" or not call["id"].startswith("call_") \
+                or set(call["function"]) != {"name", "arguments"}:
+            raise AssertionError(f"distributed: tool call {call}")
+    if (tchoice["finish_reason"] == "tool_calls") != bool(
+            msg.get("tool_calls")):
+        raise AssertionError(f"distributed: tools chat answered {tchoice}")
+    if llm_status != 200 or not llm_events or not llm_events[-1].is_done:
+        raise AssertionError(f"distributed: llm_metrics stream status "
+                             f"{llm_status}")
+    ann = llm_events[-2].json().get("nvext", {})
+    want_keys = {"prompt_tokens", "completion_tokens", "ttft_s",
+                 "itl_avg_s", "itl_p50_s", "itl_p95_s"}
+    if ann.get("annotation") != "llm_metrics" \
+            or set(ann.get("metrics", {})) != want_keys \
+            or ann["metrics"]["completion_tokens"] != 4:
+        raise AssertionError(f"distributed: llm_metrics event {ann}")
+    # the burst
+    ttft, gaps, firsts, ends = parse_streams(res, direct_tokens,
+                                             "distributed")
+    check_replayed(eng, "distributed")
+    if dense != cfg.num_layers * steps or int8 or issued \
+            or eng.kernel_launches != dense:
+        raise AssertionError(
+            f"distributed: flash_decode ran {dense} times on the card (int8 "
+            f"{int8}, {issued} issued eagerly, graphs recorded "
+            f"{eng.kernel_launches}) over {steps} decode steps of "
+            f"{cfg.num_layers} layers")
+    if not held or cleared != held or left \
+            or cleared_http.status != 200 \
+            or cleared_http.json() != {"cleared": [name]}:
+        raise AssertionError(
+            f"distributed: the worker held {held} cached pages, the "
+            f"frontend's clear returned {cleared} and left {left}; "
+            f"/clear_kv_blocks answered {cleared_http.status} "
+            f"{cleared_http.body!r}")
+    tokens = N_NEW * len(prompts)
+    tps = (tokens - len(prompts)) / (max(ends) - min(firsts))
+    log(f"distributed: 8 streamed /v1/completions requests x {N_NEW} "
+        f"tokens through store, worker and frontend, token-identical to "
+        f"the serve phase's generate() run; TTFT median "
+        f"{np.median(ttft):.4f} s max {max(ttft):.4f} s (http "
+        f"{np.median(http['ttft']):.4f}, {max(http['ttft']):.4f}; "
+        f"generate() {np.median(direct['ttft']):.4f}, "
+        f"{max(direct['ttft']):.4f}); inter-token gap median "
+        f"{np.median(gaps) * 1e3:.2f} ms max {max(gaps) * 1e3:.2f} ms "
+        f"(http {np.median(http['gaps']) * 1e3:.2f}, "
+        f"{max(http['gaps']) * 1e3:.2f}; generate() "
+        f"{np.median(direct['gaps']) * 1e3:.2f}, "
+        f"{max(direct['gaps']) * 1e3:.2f}); decode {tps:.1f} tok/s over "
+        f"the batch (http {http['tps']:.1f}, generate() "
+        f"{direct['tps']:.1f})")
+    log(f"distributed: {ttft_split(prompts, res, firsts, marks)}")
+    step_ms = cpu_clock_step_ms()
+    us = {k: [v / tokens * 1e6 for v in h] for k, h in host.items()}
+    each = "; ".join(f"{k} loop busy {b:.2f} us, CPU {c:.2f} us"
+                     for k, (b, c) in us.items())
+    log(f"distributed: host time per streamed token over the burst: "
+        f"{each} (LoopMeter; thread CPU clock step {step_ms:.4g} ms on "
+        f"this host: +-{step_ms * 1e3 / tokens:.2f} us a token); frontend "
+        f"+ client busy {us['frontend'][0] + us['client'][0]:.2f} us "
+        f"beside the http phase's one loop (service and client) "
+        f"{http['busy_us']:.2f} us (CPU {http['cpu_us']:.2f}); "
+        f"{steps} decode steps, flash_decode launches {dense} (counted by "
+        f"the kernel on the card) in {eng.graphs.replays} graph replays; "
+        f"/clear_kv_blocks cleared the worker's {cleared} cached pages; "
+        f"tools chat 200 (finish_reason {tchoice['finish_reason']!r}), "
+        f"llm_metrics {ann['metrics']}")
+    del eng, chain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dense, dict(ttft=ttft, gaps=gaps, tps=tps, us=us)
 
 
 def offload_prompts(vocab: int):
@@ -1818,6 +2214,139 @@ def check_cli(extra=()):
     log(f"cli: {' '.join(cmd[1:])} exited 0 in "
         f"{time.monotonic() - t0:.1f} s ({out.stderr.strip().splitlines()[0]}"
         f"); printed {out.stdout.strip()!r}")
+    return out.stdout[:-1]
+
+
+class Proc:
+    """A subprocess whose merged output lines a thread collects."""
+
+    def __init__(self, *argv):
+        self.argv = argv
+        self.p = subprocess.Popen(
+            [sys.executable, "-m", *argv], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.lines: list[str] = []
+        self._t = threading.Thread(target=self._read, daemon=True)
+        self._t.start()
+
+    def _read(self):
+        for line in self.p.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_for(self, text, timeout=300.0):
+        """The first output line holding ``text``."""
+        deadline = time.monotonic() + timeout
+        while True:
+            hit = next((ln for ln in list(self.lines) if text in ln), None)
+            if hit is not None:
+                return hit
+            if self.p.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(
+                    f"cli distributed: {' '.join(self.argv)} printed no "
+                    f"{text!r} (exit {self.p.poll()}):\n"
+                    + "\n".join(self.lines[-30:]))
+            time.sleep(0.05)
+
+    def stop(self, timeout=60.0):
+        """SIGTERM; the exit code."""
+        if self.p.poll() is None:
+            self.p.terminate()
+        try:
+            self.p.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.p.kill()
+            self.p.wait()
+        self._t.join(10)
+        return self.p.returncode
+
+
+def check_cli_distributed(text_out):
+    """The distributed entry points as a user runs them, in subprocesses
+    on the card: ``python -m dynamo_tpu_torch.cli cp --port 0``, two
+    ``launch.run in=endpoint out=torch --model-config tiny --cache-dtype
+    float32 --router-mode round_robin`` workers with no --device, and one
+    ``launch.run in=http --control-plane`` frontend. Four greedy chat
+    completions of the cli phase's prompt must each equal what in=text
+    printed (``text_out``); both workers must run on cuda and have served
+    at least one (each prints its own count when SIGTERM stops it); every
+    process must exit 0."""
+    import socket
+
+    from dynamo_tpu_torch.frontend.http import HttpClient
+
+    t0 = time.monotonic()
+    procs = []
+    try:
+        cp = Proc("dynamo_tpu_torch.cli", "cp", "--port", "0")
+        procs.append(cp)
+        addr = cp.wait_for("listening on").split()[-1]
+        workers = [Proc("dynamo_tpu_torch.launch.run", "in=endpoint",
+                        "out=torch", "--model-config", "tiny",
+                        "--cache-dtype", "float32", "--router-mode",
+                        "round_robin", "--model-name", "tiny",
+                        "--control-plane", addr) for _ in range(2)]
+        procs += workers
+        for w in workers:
+            if "on cuda" not in w.wait_for("TorchEngine on"):
+                raise AssertionError("cli distributed: a worker is not on "
+                                     "cuda")
+            w.wait_for("serving dynamo/backend/generate")
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            http_port = sk.getsockname()[1]
+        front = Proc("dynamo_tpu_torch.launch.run", "in=http",
+                     "--control-plane", addr, "--http-host", "127.0.0.1",
+                     "--http-port", str(http_port))
+        procs.append(front)
+        front.wait_for("dynamic frontend on")
+
+        async def ask():
+            async with HttpClient("127.0.0.1", http_port) as c:
+                for _ in range(1200):
+                    r = await c.request("GET", "/v1/models")
+                    if [m["id"] for m in r.json()["data"]] == ["tiny"]:
+                        break
+                    await asyncio.sleep(0.05)
+                texts = []
+                for _ in range(4):
+                    r = await c.request("POST", "/v1/chat/completions",
+                                        json_body={
+                        "model": "tiny", "max_tokens": 8, "messages": [
+                            {"role": "user", "content": "w1 w2 w3"}]})
+                    if r.status != 200:
+                        raise AssertionError(f"cli distributed: status "
+                                             f"{r.status} {r.body!r}")
+                    texts.append(r.json()["choices"][0]["message"]["content"])
+                return texts
+
+        texts = asyncio.run(asyncio.wait_for(ask(), 120))
+        if texts != [text_out] * 4:
+            raise AssertionError(f"cli distributed: {texts}, in=text "
+                                 f"printed {text_out!r}")
+        served = []
+        for w in workers:
+            rc = w.stop()
+            line = w.wait_for("served", timeout=10)
+            if rc != 0:
+                raise AssertionError(f"cli distributed: a worker exited "
+                                     f"{rc}")
+            served.append(int(line.split()[-2]))
+        if sum(served) != 4 or min(served) < 1:
+            raise AssertionError(f"cli distributed: the workers served "
+                                 f"{served} requests")
+        for p in (front, cp):
+            rc = p.stop()
+            if rc != 0:
+                raise AssertionError(f"cli distributed: {' '.join(p.argv)} "
+                                     f"exited {rc}:\n"
+                                     + "\n".join(p.lines[-20:]))
+    finally:
+        for p in procs:
+            p.stop()
+    log(f"cli distributed: cli cp ({addr}), two in=endpoint workers on "
+        f"cuda and in=http --control-plane in {time.monotonic() - t0:.1f} "
+        f"s; 4 chat completions equal to in=text's {text_out!r}, served "
+        f"{served} by the two workers; every process exited 0")
 
 
 def first_step_logprob_diff(dense, quant, prompt):
@@ -1932,8 +2461,10 @@ def main() -> int:
                                  params, "none")
     phase("serve int8", serve_llama3_8b, counts, params, "int8",
           dense_tokens)
-    http_launches = phase("http", check_http, params, dense_tokens[:8],
-                          direct)
+    http_launches, http_figs = phase("http", check_http, params,
+                                     dense_tokens[:8], direct)
+    dist_launches, _ = phase("distributed", check_distributed, params,
+                             dense_tokens[:8], direct, http_figs)
     phase("offload", check_offload, params, counts, smi)
     # w8a16: the same weights quantized per output channel on the card
     t0 = time.monotonic()
@@ -1968,7 +2499,8 @@ def main() -> int:
     del qparams
     gc.collect()
     torch.cuda.empty_cache()
-    phase("cli", check_cli)
+    text_out = phase("cli", check_cli)
+    phase("cli distributed", check_cli_distributed, text_out)
     phase("cli w8a16", check_cli, ["--quantize", "int8"])
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
     print(smi)
@@ -1977,6 +2509,7 @@ def main() -> int:
         dict(name="flash_decode", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:210",
              launches=counts["flash_decode"], launches_http=http_launches,
+             launches_distributed=dist_launches,
              launches_offload=counts["flash_decode_offload"], **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",

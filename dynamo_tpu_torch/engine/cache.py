@@ -180,6 +180,28 @@ class PageAllocator:
                 else:
                     self._free.append(p)
 
+    def snapshot_stored_events(
+        self, batch: int = 256
+    ) -> list[KvCacheEvent]:
+        """Authoritative cache state as an event stream: one CLEARED
+        followed by STORED events covering every committed block. Routers
+        that missed events (dropped on the lossy pub/sub plane) converge
+        by applying a periodic resync of this snapshot."""
+        with self._lock:
+            records = list(self._registry.values())
+        # events are returned UNSTAMPED: the publisher sink sets worker_id
+        # (same path as live events); event_id stays 0 — stamping here
+        # would race _emit's counter outside the lock
+        events: list[KvCacheEvent] = [KvCacheEvent(kind=KvEventKind.CLEARED)]
+        for i in range(0, len(records), batch):
+            chunk = records[i : i + batch]
+            events.append(KvCacheEvent(
+                kind=KvEventKind.STORED,
+                blocks=[StoredBlock(block_hash=r.block_hash)
+                        for r in chunk],
+            ))
+        return events
+
     def clear(self) -> int:
         """Drop every reusable cached page (the /clear_kv_blocks
         operation, reference http/service/clear_kv_blocks.rs); pages in

@@ -273,6 +273,7 @@ class TorchEngine:
         device: str | torch.device | None = None,
         rng_seed: int = 0,
         on_kv_event: Optional[Callable[[KvCacheEvent], None]] = None,
+        on_metrics: Optional[Callable[[ForwardPassMetrics], None]] = None,
     ):
         if device is None:
             if not torch.cuda.is_available():
@@ -299,6 +300,13 @@ class TorchEngine:
                                   group=e.page_size)
         self.ring = llama.init_ring(c, e.max_decode_slots, e.flush_every,
                                     dtype, self.device)
+        # load-metrics sink (the worker's WorkerMetricsPublisher): called
+        # with metrics() from the loop thread at most every 0.1 s of busy
+        # rounds and every 0.5 s while idle (the heartbeat). The snapshot
+        # is built only at that cadence, so a round between publishes
+        # pays one timestamp compare
+        self.on_metrics = on_metrics
+        self._last_metrics_pub = 0.0
         self.allocator = PageAllocator(
             e.num_pages, e.page_size,
             worker_id=e.worker_id,
@@ -550,6 +558,7 @@ class TorchEngine:
     # engine loop
 
     def _run_loop(self) -> None:
+        last_idle_beat = 0.0
         with torch.no_grad():
             while not self._stop.is_set():
                 try:
@@ -559,6 +568,17 @@ class TorchEngine:
                     self._fail_all(RuntimeError("engine step failed; see logs"))
                     did_work = False
                 if not did_work:
+                    # idle heartbeat: busy rounds publish metrics
+                    # themselves; an idle engine keeps beating so that
+                    # silence on the metrics plane means wedged
+                    now = time.monotonic()
+                    if (self.on_metrics is not None
+                            and now - last_idle_beat >= 0.5):
+                        last_idle_beat = now
+                        try:
+                            self.on_metrics(self.metrics())
+                        except Exception:  # noqa: BLE001 — never kill the loop
+                            log.exception("idle metrics publish failed")
                     self._wake_evt.wait(timeout=0.02)
                     self._wake_evt.clear()
         self._drain_xfer_queue()
@@ -618,6 +638,11 @@ class TorchEngine:
             now = time.monotonic()
             self._pipe_hidden_s += now - t_pipe
             self._pipe_host_s += now - t_round
+        if self.on_metrics is not None:
+            now = time.monotonic()
+            if now - self._last_metrics_pub >= 0.1:
+                self._last_metrics_pub = now
+                self.on_metrics(self.metrics())
         if (not dispatched and self._entries
                 and self._intake.empty() and not self._waiting):
             # nothing to overlap with the in-flight copies: block on the

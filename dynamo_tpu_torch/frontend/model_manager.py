@@ -12,7 +12,7 @@ Fine-tune variants (LoRA adapter rows) are not ported yet.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, AsyncIterator
+from typing import Any, AsyncIterator, Optional
 
 from dynamo_tpu_torch.backend import Backend
 from dynamo_tpu_torch.preprocessor import OpenAIPreprocessor
@@ -70,6 +70,9 @@ class ModelManager:
 
     def register(self, chain: ModelChain) -> None:
         self._models[chain.name] = chain
+
+    def unregister(self, name: str) -> Optional[ModelChain]:
+        return self._models.pop(name, None)
 
     def get(self, name: str, *, chat: bool = False, completion: bool = False) -> ModelChain:
         chain = self._models.get(name)

@@ -19,9 +19,15 @@ the connection drops, and the handler closes its response generators,
 which cancels the engine requests (the engine's drop-to-cancel contract —
 reference AsyncEngineContext::stop_generating).
 
-Not ported yet: /v1/responses, /v1/embeddings, tool calls, the in-band
-llm_metrics annotation, tracing and the /debug/* routes, overload 429s
-(the engine has no admission budgets).
+Chat requests that declare ``tools`` get the model's tool calls parsed
+(tool_calls.py): unary answers carry ``message.tool_calls`` with
+``finish_reason: "tool_calls"``; streams hold tool-shaped text back and
+send the calls before the finish. ``nvext.annotations: ["llm_metrics"]``
+adds one event before ``[DONE]`` with the request's token counts, TTFT
+and ITL figures.
+
+Not ported yet: /v1/responses, /v1/embeddings, tracing and the /debug/*
+routes, overload 429s (the engine has no admission budgets).
 """
 from __future__ import annotations
 
@@ -55,6 +61,8 @@ from dynamo_tpu_torch.protocols.openai import (
     model_list_response,
 )
 from dynamo_tpu_torch.protocols.sse import encode_done, encode_event
+from dynamo_tpu_torch.runtime.remote_engine import invoke_clear
+from dynamo_tpu_torch.runtime.store_metrics import STORE
 from dynamo_tpu_torch.telemetry import metrics as tmetrics
 from dynamo_tpu_torch.telemetry.metrics import (
     Counter,
@@ -63,6 +71,10 @@ from dynamo_tpu_torch.telemetry.metrics import (
     MetricsRegistry,
     TelemetryRegistry,
     request_histograms,
+)
+from dynamo_tpu_torch.tool_calls import (
+    ToolCallAccumulator,
+    parse_tool_calls_with_content,
 )
 
 log = logging.getLogger(__name__)
@@ -129,23 +141,41 @@ class _RequestTiming:
         self.t_start = t_start
         self.t_first: dict[int, float] = {}
         self.t_last: dict[int, float] = {}
+        self.tok_counts: dict[int, int] = {}
+        self.gaps: list[tuple[float, int]] = []   # (gap_s, n) all streams
         self._finished = False
 
     def on_output(self, i: int, out: LLMEngineOutput) -> None:
         if out.token_ids:
             now = time.monotonic()
             prev = self.t_last.get(i)
+            n = len(out.token_ids)
             if prev is not None:
-                n = len(out.token_ids)
-                self.svc._h_itl.observe((now - prev) / n, n)
+                gap = (now - prev) / n
+                self.svc._h_itl.observe(gap, n)
+                if len(self.gaps) < 4096:  # percentile fidelity cap
+                    self.gaps.append((gap, n))
             self.t_last[i] = now
             self.t_first.setdefault(i, now)
+            self.tok_counts[i] = self.tok_counts.get(i, 0) + n
 
     @property
     def ttft(self) -> Optional[float]:
         if not self.t_first:
             return None
         return min(self.t_first.values()) - self.t_start
+
+    def itl_avg(self) -> Optional[float]:
+        # per generation, not the n-way interleave
+        itls = [
+            (self.t_last[i] - self.t_first[i]) / (self.tok_counts[i] - 1)
+            for i in self.t_first
+            if self.tok_counts.get(i, 0) > 1
+        ]
+        return sum(itls) / len(itls) if itls else None
+
+    def itl_percentile(self, q: float) -> Optional[float]:
+        return tmetrics.weighted_percentile(self.gaps, q)
 
     def finish(self) -> None:
         """Observe the request-level histograms (once). Runs from the
@@ -225,20 +255,21 @@ class HttpService:
     async def handle_metrics(self, request: Request) -> Response:
         body = (self.metrics.render() + self.telemetry.render().encode()
                 + KV_QUANT.render().encode()
-                + KV_INTEGRITY.render().encode())
+                + KV_INTEGRITY.render().encode()
+                + STORE.render().encode())
         return Response(body, content_type=PROMETHEUS_CONTENT_TYPE)
 
     async def handle_clear_kv(self, request: Request) -> Response:
         """Drop every reusable cached KV block of every served engine
-        that has a cache (reference clear_kv_blocks.rs); the engine's
-        clear blocks until its loop reaches a round boundary, so it runs
-        in a worker thread."""
+        that has a cache (reference clear_kv_blocks.rs): a local engine's
+        clear runs in a worker thread, a remote engine fans the clear out
+        to its workers."""
         cleared = []
         for name in self.manager.list_models():
             clear = getattr(self.manager.get(name).engine,
                             "clear_kv_blocks", None)
             if clear is not None:
-                await asyncio.to_thread(clear)
+                await invoke_clear(clear)
                 cleared.append(name)
         return Response.json({"cleared": cleared})
 
@@ -370,17 +401,26 @@ class HttpService:
         finally:
             timing.finish()
         if chat:
-            choices = [
-                {
+            choices = []
+            for i in range(len(streams)):
+                message: dict = {"role": "assistant", "content": texts[i]}
+                finish = finishes[i].to_openai()
+                if req.tools:
+                    calls, content = parse_tool_calls_with_content(
+                        texts[i], _declared_tool_names(req)
+                    )
+                    if calls is not None:
+                        message = {"role": "assistant", "content": content,
+                                   "tool_calls": calls}
+                        finish = "tool_calls"
+                choices.append({
                     "index": i,
-                    "message": {"role": "assistant", "content": texts[i]},
-                    "finish_reason": finishes[i].to_openai(),
+                    "message": message,
+                    "finish_reason": finish,
                     "logprobs": (
                         {"content": lp_entries[i]} if lp_entries[i] else None
                     ),
-                }
-                for i in range(len(streams))
-            ]
+                })
             body = chat_completion_response(
                 rid=make_id("chatcmpl"),
                 model=req.model,
@@ -426,12 +466,23 @@ class HttpService:
         gen = DeltaGenerator(req.model, chat=chat, n=max(1, req.n))
         streams = self._fanout(req, chain, pre)
         completion_tokens = 0
+        # in-band per-request metrics annotation (reference
+        # ANNOTATION_LLM_METRICS, preprocessor.rs:68-90): opt in via
+        # nvext {"annotations": ["llm_metrics"]} — the preprocessor has
+        # already normalized them onto the request
+        want_llm_metrics = "llm_metrics" in pre.annotations
         # per-stream first/last token times: ITL must be per generation,
         # not the n-way interleave; TTFT runs from request RECEIPT
         # (envelope entry — includes preprocess time, matching the
         # reference's measurement point)
         t_start = t_received if t_received is not None else time.monotonic()
         timing = _RequestTiming(self, t_start)
+        # tool-call detection: hold back tool-shaped text until it parses
+        tool_accs: dict[int, ToolCallAccumulator] = {}
+        if chat and req.tools:
+            allowed = _declared_tool_names(req)
+            tool_accs = {i: ToolCallAccumulator(allowed)
+                         for i in range(len(streams))}
         queue: asyncio.Queue = asyncio.Queue()
         DONE = object()
 
@@ -455,7 +506,15 @@ class HttpService:
                     continue
                 if isinstance(item, Exception):
                     # the failed pump's DONE sentinel still arrives and
-                    # decrements `live`; just surface the error in-band
+                    # decrements `live`; just surface the error in-band.
+                    # Flush any tool-detection buffer first — held-back
+                    # text must not vanish with the error.
+                    if i in tool_accs:
+                        _calls, leftover = tool_accs[i].finalize()
+                        if leftover:
+                            await resp.write(encode_event(
+                                gen.text_chunk(leftover, index=i)
+                            ))
                     log.warning("engine stream %d failed: %s", i, item)
                     await resp.write(
                         encode_event({"error": {"message": str(item)}})
@@ -463,20 +522,38 @@ class HttpService:
                     continue
                 timing.on_output(i, item)
                 completion_tokens += len(item.token_ids)
-                if item.text or item.logprob_entries:
+                text = item.text or ""
+                if i in tool_accs and text:
+                    text = tool_accs[i].feed(text)
+                if text or item.logprob_entries:
                     # entries may arrive on a text-less output (final token
                     # eaten by the stop jail / partial UTF-8) — still owed
                     # to the client, one entry per token
                     await resp.write(
                         encode_event(gen.text_chunk(
-                            item.text or "", index=i,
+                            text, index=i,
                             logprob_entries=item.logprob_entries,
                         ))
                     )
                 if item.finish_reason is not None:
+                    finish_override = None
+                    if i in tool_accs:
+                        calls, leftover = tool_accs[i].finalize()
+                        if leftover:
+                            # hermes prose / text that wasn't a tool call
+                            await resp.write(encode_event(
+                                gen.text_chunk(leftover, index=i)
+                            ))
+                        if calls is not None:
+                            await resp.write(encode_event(
+                                gen.tool_calls_chunk(calls, index=i)
+                            ))
+                            finish_override = "tool_calls"
                     await resp.write(
                         encode_event(gen.finish_chunk(
-                            item.finish_reason, index=i))
+                            item.finish_reason, index=i,
+                            finish_override=finish_override,
+                        ))
                     )
             if req.stream_options and req.stream_options.include_usage:
                 await resp.write(
@@ -484,6 +561,9 @@ class HttpService:
                         gen.usage_chunk(len(pre.token_ids), completion_tokens)
                     )
                 )
+            if want_llm_metrics:
+                await resp.write(encode_event(_llm_metrics_event(
+                    timing, len(pre.token_ids), completion_tokens)))
             await resp.write(encode_done())
         except ConnectionResetError:
             # routine client disconnect: not an error; the prepared
@@ -502,6 +582,35 @@ class HttpService:
                 except Exception:  # noqa: BLE001 — closing must not mask
                     log.debug("stream close failed", exc_info=True)
         return resp
+
+
+def _llm_metrics_event(timing: _RequestTiming, prompt_tokens: int,
+                       completion_tokens: int) -> dict[str, Any]:
+    """The in-band ``llm_metrics`` annotation sent before ``[DONE]``."""
+
+    def r6(v: Optional[float]) -> Optional[float]:
+        return round(v, 6) if v is not None else None
+
+    return {"nvext": {"annotation": "llm_metrics", "metrics": {
+        "prompt_tokens": prompt_tokens,
+        "completion_tokens": completion_tokens,
+        "ttft_s": r6(timing.ttft),
+        "itl_avg_s": r6(timing.itl_avg()),
+        "itl_p50_s": r6(timing.itl_percentile(0.50)),
+        "itl_p95_s": r6(timing.itl_percentile(0.95)),
+    }}}
+
+
+def _declared_tool_names(req) -> Optional[set]:
+    """Function names declared in the request's tools (None when they
+    can't be extracted — then any well-formed call name is accepted)."""
+    names = set()
+    for t in req.tools or []:
+        if isinstance(t, dict):
+            n = (t.get("function") or {}).get("name") or t.get("name")
+            if n:
+                names.add(n)
+    return names or None
 
 
 def _with_choice_seed(pre, i: int):

@@ -3,7 +3,12 @@ port's launcher (a copy of the JAX package's launch/run.py, cut to local
 serving; reference `dynamo-run`, launch/dynamo-run/src/lib.rs:94-165).
 
 Inputs (reference entrypoint/input.rs:29-45):
-  in=http        OpenAI HTTP frontend on --http-host:--http-port
+  in=http        OpenAI HTTP frontend on --http-host:--http-port; with
+                 --control-plane HOST:PORT it serves the models that
+                 workers register there instead of a local engine
+  in=endpoint    a worker: serves the engine on the control plane at
+                 --namespace/--component/--endpoint-name and registers
+                 its model (--router-mode picks how frontends route it)
   in=text        one-shot prompt from --prompt (or interactive REPL)
   in=stdin       read prompts line-by-line from stdin
   in=batch:FILE  JSONL of {"prompt": ...} (or mooncake trace records);
@@ -86,14 +91,6 @@ UNPORTED_FLAGS: dict[str, tuple[dict, str]] = {
     "--spec-rearm-tokens": (dict(type=int, default=256),
                             "speculative decoding"),
     "--draft-model-config": (dict(default=None), "speculative decoding"),
-    "--control-plane": (dict(default=None, metavar="HOST:PORT"),
-                        "the control plane and discovery"),
-    "--namespace": (dict(default="dynamo"), "the control plane"),
-    "--component": (dict(default="backend"), "the control plane"),
-    "--endpoint-name": (dict(default="generate"), "the control plane"),
-    "--router-mode": (dict(default="kv",
-                           choices=["kv", "round_robin", "random"]),
-                      "the KV router"),
     "--record-kv-events": (dict(default=None, metavar="PATH"),
                            "the KV router"),
     "--system-port": (dict(type=int, default=None), "the system server"),
@@ -195,6 +192,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="round pipelining: dispatch round N+1 before "
                         "processing round N's tokens; off restores the "
                         "strict round order")
+    # distributed mode (runtime/, frontend/watcher.py)
+    p.add_argument("--control-plane", default=None, metavar="HOST:PORT",
+                   help="control-plane store address; in=endpoint "
+                        "registers a worker there, in=http discovers the "
+                        "models registered there")
+    p.add_argument("--namespace", default="dynamo")
+    p.add_argument("--component", default="backend")
+    p.add_argument("--endpoint-name", default="generate")
+    p.add_argument("--router-mode", default="kv",
+                   choices=["kv", "round_robin", "random"],
+                   help="how frontends route to this worker's model; the "
+                        "port's frontend serves round_robin and random, "
+                        "and refuses kv until the KV router is ported")
     for flag, (kw, what) in UNPORTED_FLAGS.items():
         p.add_argument(flag, help=f"not served by the port yet ({what})",
                        **kw)
@@ -460,6 +470,113 @@ def _trace_request(rec: dict, block_size: int = 64) -> "Any":
     )
 
 
+def _cp_addr(args) -> tuple[str, int]:
+    host, _, port = args.control_plane.partition(":")
+    return host or "127.0.0.1", int(port or 7111)
+
+
+async def connect_runtime(args):
+    """A resyncing connection to ``--control-plane``: a store bounce must
+    not unregister a serving worker (the session re-grants the lease and
+    re-puts the registration keys), and a frontend serves from
+    last-known state through it."""
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+
+    host, port = _cp_addr(args)
+    return await DistributedRuntime.connect(host=host, port=port,
+                                            resync=True)
+
+
+async def serve_worker(args, chain, rt, *, lease_ttl_s: float = 5.0):
+    """Register ``chain.engine`` on the runtime ``rt`` as an in=endpoint
+    worker (the reference's ``_serve_worker``, launch/run.py:839, for the
+    aggregated role): serve the engine, put its model entry under the
+    lease, publish its KV events (router mode kv) and load metrics.
+    Returns the ServedEndpoint."""
+    from dynamo_tpu_torch.frontend.watcher import ModelEntry, register_llm
+
+    entry = ModelEntry(
+        name=chain.name,
+        namespace=args.namespace,
+        component=args.component,
+        endpoint=args.endpoint_name,
+        block_size=args.page_size,
+        router_mode=args.router_mode,
+        model_path=args.model_path,
+    )
+    return await register_llm(rt, chain.engine, entry,
+                              lease_ttl_s=lease_ttl_s)
+
+
+def sigterm_event() -> asyncio.Event:
+    """An event the running loop sets on SIGTERM (a clean exit, code 0).
+    Call it before printing a ready line, so a SIGTERM sent on seeing
+    that line finds the handler in place."""
+    import signal
+
+    ev = asyncio.Event()
+    try:
+        asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, ev.set)
+    except (NotImplementedError, RuntimeError):
+        pass  # loops without signal support
+    return ev
+
+
+async def _serve_worker(args, chain) -> None:
+    """in=endpoint: serve until the lease is lost or SIGTERM arrives
+    (graceful drain comes with the resilience plane: SIGTERM revokes the
+    lease, which deregisters the worker, and exits)."""
+    rt = await connect_runtime(args)
+    served = await serve_worker(args, chain, rt)
+    stop = sigterm_event()
+    print(
+        f"worker {chain.name!r} instance {served.lease_id} "
+        f"({args.role}) serving "
+        f"{args.namespace}/{args.component}/{args.endpoint_name}",
+        flush=True,
+    )
+    lost = asyncio.ensure_future(served.lease.lost.wait())
+    term = asyncio.ensure_future(stop.wait())
+    try:
+        done, pending = await asyncio.wait(
+            {lost, term}, return_when=asyncio.FIRST_COMPLETED)
+        for t in pending:
+            t.cancel()
+        print("SIGTERM; shutting down" if term in done
+              else "lease lost; shutting down", flush=True)
+        print(f"worker instance {served.lease_id} served "
+              f"{served.server.handler.requests} requests", flush=True)
+    finally:
+        await served.shutdown()
+        await rt.close()
+
+
+async def _serve_http_dynamic(args) -> None:
+    """in=http + --control-plane: discover models instead of building a
+    local chain (reference _serve_http_dynamic, launch/run.py:1037)."""
+    from dynamo_tpu_torch.frontend.model_manager import ModelManager
+    from dynamo_tpu_torch.frontend.service import HttpService
+    from dynamo_tpu_torch.frontend.watcher import ModelWatcher
+
+    rt = await connect_runtime(args)
+    manager = ModelManager()
+    watcher = await ModelWatcher(rt, manager,
+                                 namespace=args.namespace).start()
+    svc = HttpService(manager, host=args.http_host, port=args.http_port)
+    await svc.start()
+    stop = sigterm_event()
+    print(
+        f"dynamic frontend on http://{args.http_host}:{svc.port} "
+        f"(namespace {args.namespace!r})", flush=True,
+    )
+    try:
+        await stop.wait()
+    finally:
+        await svc.stop()
+        await watcher.stop()
+        await rt.close()
+
+
 def _shutdown_chain(chain) -> None:
     """Stop the engine's loop thread before the interpreter exits."""
     if chain is None:
@@ -475,18 +592,25 @@ def run_cli(argv: Optional[list[str]] = None) -> int:
     args = build_parser().parse_intermixed_args(argv)
     refuse_unported(args)
     inp, _ = _parse_io(args.io)
-    if inp == "endpoint":
-        raise SystemExit("in=endpoint (a worker behind the control plane) "
-                         "is not served by the PyTorch port yet")
-    if not (inp in ("http", "text", "stdin") or inp.startswith("batch:")):
+    if not (inp in ("http", "text", "stdin", "endpoint")
+            or inp.startswith("batch:")):
         raise SystemExit(f"unknown input in={inp!r}")
+    if inp == "endpoint" and not args.control_plane:
+        raise SystemExit("in=endpoint requires --control-plane")
     chain = None
     try:
+        if inp == "http" and args.control_plane:
+            asyncio.run(_serve_http_dynamic(args))
+            return 0
         inp, chain = build_chain(args)
         device = getattr(chain.engine, "device", None)
         if device is not None:
             print(f"{type(chain.engine).__name__} on {device}",
                   file=sys.stderr, flush=True)
+        if inp == "endpoint":
+            # serve_engine starts the engine
+            asyncio.run(_serve_worker(args, chain))
+            return 0
         chain.engine.start()
         if inp == "http":
             asyncio.run(_serve_http(args, chain))

@@ -533,13 +533,30 @@ class DeltaGenerator:
                 choice["logprobs"] = completion_logprobs(logprob_entries)
         return self._chunk([choice])
 
-    def finish_chunk(self, reason: FinishReason, index: int = 0) -> dict[str, Any]:
-        fr = reason.to_openai()
+    def finish_chunk(self, reason: FinishReason, index: int = 0,
+                     finish_override: Optional[str] = None) -> dict[str, Any]:
+        fr = finish_override or reason.to_openai()
         if self.chat:
             choice = {"index": index, "delta": {}, "finish_reason": fr}
         else:
             choice = {"index": index, "text": "", "finish_reason": fr}
         return self._chunk([choice])
+
+    def tool_calls_chunk(self, tool_calls: list[dict[str, Any]],
+                         index: int = 0) -> dict[str, Any]:
+        """Streamed tool-call delta (arguments delivered in one chunk,
+        valid per the OpenAI streaming contract)."""
+        delta: dict[str, Any] = {
+            "tool_calls": [
+                {"index": i, **call} for i, call in enumerate(tool_calls)
+            ],
+        }
+        if not self._first_sent[index]:
+            delta["role"] = "assistant"
+            self._first_sent[index] = True
+        return self._chunk([
+            {"index": index, "delta": delta, "finish_reason": None}
+        ])
 
     def usage_chunk(self, prompt_tokens: int, completion_tokens: int) -> dict[str, Any]:
         return self._chunk([], usage=_usage(prompt_tokens, completion_tokens))

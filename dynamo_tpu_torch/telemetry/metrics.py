@@ -152,6 +152,26 @@ def request_histograms(reg: TelemetryRegistry) -> TelemetryRegistry:
 # labelled families (prometheus_client's Counter, Gauge and Histogram)
 
 
+def weighted_percentile(
+    pairs: list, q: float
+) -> Optional[float]:
+    """q-th percentile (0..1) over (value, weight) pairs — the
+    per-request ITL estimator of the frontend's llm_metrics event."""
+    if not pairs:
+        return None
+    pairs = sorted(pairs)
+    total = sum(n for _, n in pairs)
+    if total <= 0:
+        return None
+    rank = q * total
+    seen = 0
+    for value, n in pairs:
+        seen += n
+        if seen >= rank:
+            return value
+    return pairs[-1][0]
+
+
 def _escape(value: str) -> str:
     return (str(value).replace("\\", "\\\\").replace("\n", "\\n")
             .replace('"', '\\"'))

@@ -156,11 +156,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     root = Path(__file__).resolve().parent.parent
     code = (
         "import sys, pkgutil, importlib, dynamo_tpu_torch\n"
+        "import dynamo_tpu_torch.runtime, dynamo_tpu_torch.frontend.watcher\n"
+        "import dynamo_tpu_torch.cli\n"
         "for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, "
         "'dynamo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'dynamo_tpu' or m.startswith('dynamo_tpu.')]\n"
+        " or m == 'dynamo_tpu' or m.startswith('dynamo_tpu.')"
+        " or m == 'aiohttp' or m.startswith('aiohttp.')]\n"
         "assert len([m for m in sys.modules if m.startswith("
         "'dynamo_tpu_torch.')]) >= 15, sorted(sys.modules)\n"
         "print(bad)\n"

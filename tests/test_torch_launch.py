@@ -48,8 +48,11 @@ def test_parser_takes_every_reference_flag_with_its_default(monkeypatch):
         assert port[flag].choices == ref[flag].choices, flag
     for flag in ("--http-host", "--http-port", "--num-pages", "--page-size",
                  "--max-decode-slots", "--cache-dtype", "--kv-quant",
-                 "--round-pipeline", "--max-tokens", "--trace-block-size"):
+                 "--round-pipeline", "--max-tokens", "--trace-block-size",
+                 "--control-plane", "--namespace", "--component",
+                 "--endpoint-name", "--router-mode"):
         assert port[flag].default == ref[flag].default, flag
+        assert port[flag].choices == ref[flag].choices, flag
     args = prun.build_parser().parse_intermixed_args(
         ["--prompt", "x", "in=text", "--max-tokens", "3", "out=echo"])
     assert (args.io, args.prompt, args.max_tokens) == (
@@ -73,13 +76,13 @@ def test_parse_io_refuses_other_words():
 
 @pytest.mark.parametrize("argv,match", [
     (["--speculative", "ngram"], "--speculative='ngram'"),
-    (["--control-plane", "localhost:7111"], "--control-plane"),
+    (["in=endpoint"], "in=endpoint requires --control-plane"),
     (["--model-path", "/models/x"], "--model-path"),
     (["--tensor-parallel-size", "2"], "--tensor-parallel-size=2"),
     (["--num-nodes", "2", "--role", "decode"], "--num-nodes=2"),
     (["--remote-kv"], "--remote-kv=True"),
     (["--preempt-running", "on"], "running preemption"),
-    (["in=endpoint"], "in=endpoint"),
+    (["--system-port", "9000"], "--system-port=9000"),
     (["out=mocker"], "mocker"),
     (["out=torch", "--model-config", "llama3_70b"], "llama3_70b"),
     (["out=torch"], "needs --model-config"),
@@ -180,6 +183,8 @@ def test_port_runs_with_reference_packages_unimportable():
         "    else:\n"
         "        raise SystemExit(f'{b} was importable')\n"
         "import dynamo_tpu_torch\n"
+        "import dynamo_tpu_torch.runtime, dynamo_tpu_torch.frontend.watcher\n"
+        "import dynamo_tpu_torch.cli\n"
         "mods = [m.name for m in pkgutil.walk_packages("
         "dynamo_tpu_torch.__path__, 'dynamo_tpu_torch.')]\n"
         "for m in mods:\n"
@@ -193,3 +198,12 @@ def test_port_runs_with_reference_packages_unimportable():
                          timeout=120)
     assert out.returncode == 0, out.stderr + out.stdout
     assert len(out.stdout.splitlines()) == 1
+
+
+@pytest.mark.parametrize("cmd", ["serve", "metrics", "router", "planner",
+                                 "llmctl"])
+def test_cli_refuses_the_reference_commands_by_name(cmd, capsys):
+    from dynamo_tpu_torch import cli
+
+    assert cli.main([cmd]) == 2
+    assert f"{cmd}: " in capsys.readouterr().err
