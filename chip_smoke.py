@@ -97,6 +97,35 @@ Phases, each printing a line (any failure raises and exits non-zero):
      200 in the JAX package's shapes; TTFT, gaps and tok/s are printed
      beside the http and serve phases', with each loop's host time per
      streamed token (LoopMeter: frontend, worker, client);
+  7c. kv router: the KV router on the same weights: the port's store, two
+     workers (launch.run's build_chain sharing the one weight copy, each
+     registered through launch.run.serve_worker with the launcher's
+     default --router-mode kv, each on its own loop thread beside its
+     engine's thread) and a frontend (ModelWatcher with
+     KvRouterConfig(router_temperature=0.0) + HttpService); every request
+     asks top-2 logprobs. Wave A: the serve prompts gated at both
+     workers' intakes; wave C, once the frontend's indexer holds every
+     sealed prompt block under its worker's lease id: the 8 one at a
+     time, each to the worker that served it in wave A, the router's
+     overlap the prompt's full blocks and the engine's matched blocks
+     that overlap (less a last block the prefill needs); wave C': the 8
+     one at a time straight to the other worker's endpoint (recomputed);
+     failover: one worker shut down, a prompt it held served by the
+     survivor, its blocks out of the indexer. Every stream maps back to
+     the engine's tokens, which must be identical to generate() on one
+     engine along the same prefill paths (each worker's wave A share as
+     one gated burst, then its wave C prompts one at a time; each wave C'
+     prompt alone on a cold cache; the failover prompt cold, then as a
+     prefix hit), and may leave the serve phase's generate() stream (where
+     pairs prefilled together) only where their top-2 swap (part_ways: a
+     prompt prefilled alone, or a prefix hit that prefills only its tail,
+     sums in another order; the gaps are printed); the kernel's own count
+     rises by layers x the decode steps of both engines over the waves
+     (the kernels line's launches_kv_router). Printed: memory
+     with both workers up, wave A's TTFT, gaps and tok/s beside the http
+     phase's, the matched blocks, and each prompt's TTFT in wave C
+     against C' (the engine's own, intake to first token, and the
+     client's);
   8. offload: the KV offload plane on Llama-3.1-8B with the same bf16
      weights, a 96-page pool (768 MiB), a 128-page G2 in pinned host
      memory and a 128-page G3 file in a temporary directory, in dense
@@ -1145,24 +1174,31 @@ def time_block_hashes(prompts, page):
 
 
 class IntakeGate:
-    """Holds an engine's intake until ``n`` requests wait in it. A burst's
-    prefill groups (and with them the prefill numerics: a group of one
-    takes another path than a batch) then do not depend on when each
-    request arrived, so the serve and http phases admit the same prompts
-    in the same order and groups, and their greedy tokens can be held
-    equal."""
+    """Holds an engine's intake (or the intakes of several engines, as
+    one) until ``n`` requests wait in it. A burst's prefill groups (and
+    with them the prefill numerics: a group of one takes another path
+    than a batch) then do not depend on when each request arrived, so the
+    serve and http phases admit the same prompts in the same order and
+    groups, and their greedy tokens can be held equal."""
 
-    def __init__(self, eng, n):
-        self.eng, self.n, self.open = eng, n, False
-        self._drain = eng._drain_intake
-        eng._drain_intake = self.drain
+    def __init__(self, engines, n):
+        self.engines = (list(engines) if isinstance(engines, (list, tuple))
+                        else [engines])
+        self.n, self.open = n, False
+        for eng in self.engines:
+            eng._drain_intake = self._gated(eng._drain_intake)
 
-    def drain(self):
-        if not self.open:
-            if self.eng._intake.qsize() < self.n:
-                return
-            self.open = True
-        self._drain()
+    def waiting(self) -> int:
+        return sum(e._intake.qsize() for e in self.engines)
+
+    def _gated(self, drain):
+        def gated():
+            if not self.open:
+                if self.waiting() < self.n:
+                    return
+                self.open = True
+            drain()
+        return gated
 
 
 def weights_gib(params) -> float:
@@ -1332,17 +1368,18 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None):
 N_NEW = 32  # tokens a streamed request of the http and distributed phases
 
 
-async def stream_completion(client, prompt, model, label):
-    """One streamed greedy /v1/completions request of the http and
-    distributed phases (token ids, N_NEW tokens, nvext.ignore_eos): its
-    send time, its SSE events and each event's arrival time."""
+async def stream_completion(client, prompt, model, label, **extra):
+    """One streamed greedy /v1/completions request of the http,
+    distributed and kv router phases (token ids, N_NEW tokens,
+    nvext.ignore_eos, and any ``extra`` body fields): its send time, its
+    SSE events and each event's arrival time."""
     from dynamo_tpu_torch.protocols.sse import SseDecoder
 
     t_send = time.monotonic()
     r = await client.request("POST", "/v1/completions", json_body={
         "model": model, "prompt": prompt, "max_tokens": N_NEW,
         "temperature": 0, "stream": True,
-        "nvext": {"ignore_eos": True}}, stream=True)
+        "nvext": {"ignore_eos": True}, **extra}, stream=True)
     if r.status != 200:
         raise AssertionError(f"{label}: status {r.status}")
     dec, events, arrivals = SseDecoder(), [], []
@@ -1353,12 +1390,14 @@ async def stream_completion(client, prompt, model, label):
     return t_send, events, arrivals
 
 
-async def gated_burst(eng, port, prompts, model, label):
+async def gated_burst(eng, port, prompts, model, label, **extra):
     """The serve prompts as streamed requests to the HttpService on
-    ``port``, sent in prompt order behind an IntakeGate on ``eng``, as the
+    ``port``, sent in prompt order behind an IntakeGate on ``eng`` (an
+    engine, or the list of engines a router spreads them over), as the
     serve phase's burst arrived (the last arrival opens the gate, and the
-    engine may drain the intake before this loop looks at it). Returns
-    each request's (send time, events, arrivals)."""
+    engine may drain the intake before this loop looks at it); each
+    request reaches an intake before the next is sent. Returns each
+    request's (send time, events, arrivals)."""
     from dynamo_tpu_torch.frontend.http import HttpClient
 
     gate = IntakeGate(eng, len(prompts))
@@ -1367,9 +1406,9 @@ async def gated_burst(eng, port, prompts, model, label):
         tasks = []
         for i, (c, p) in enumerate(zip(clients, prompts)):
             tasks.append(asyncio.ensure_future(
-                stream_completion(c, p, model, label)))
+                stream_completion(c, p, model, label, **extra)))
             t_wait = time.monotonic()
-            while not gate.open and eng._intake.qsize() < i + 1:
+            while not gate.open and gate.waiting() < i + 1:
                 if tasks[-1].done():
                     tasks[-1].result()  # its failure, if it failed
                     raise AssertionError(f"{label}: request {i} ended "
@@ -1473,17 +1512,24 @@ def cpu_clock_step_ms() -> float:
 def record_marks(eng):
     """Wraps ``eng.generate`` to note, by prompt, when each request
     reaches the engine, when its first output reaches the loop that
-    called generate(), and the engine's own timing annotation."""
+    called generate(), the engine's own timing annotation and the blocks
+    it matched at admission, the router's prefix-hit hint the request
+    carried, and the tokens and top logprobs the engine gave."""
     marks: dict[tuple, dict] = {}
     engine_generate = eng.generate
 
     async def recording_generate(req):
-        m = marks[tuple(req.token_ids)] = {"in": time.monotonic()}
+        m = marks[tuple(req.token_ids)] = {
+            "in": time.monotonic(), "tokens": [], "top": [],
+            "hint": req.estimated_prefix_hit_num_blocks}
         async for out in engine_generate(req):
             if out.token_ids and "first" not in m:
                 m["first"] = time.monotonic()
+            m["tokens"].extend(out.token_ids)
+            m["top"].extend(out.top_logprobs or [])
             if out.finish_reason is not None:
                 m["timing"] = out.annotations.get("timing", {})
+                m["cached"] = out.annotations.get("cached_blocks")
             yield out
 
     eng.generate = recording_generate
@@ -1699,6 +1745,19 @@ def check_http(params, direct_tokens, direct):
                        busy_us=busy_us, cpu_us=cpu_us)
 
 
+async def settle_engines(*engines):
+    """Waits until every engine is idle: once the last stream ended a
+    pipelined round may still be in flight; after it the kernel counts
+    are final."""
+    quiet = 0
+    while quiet < 20:
+        busy = any(eng._slot_active.any() or eng._entries or eng._waiting
+                   or eng._prefilling or eng._intake.qsize()
+                   for eng in engines)
+        quiet = 0 if busy else quiet + 1
+        await asyncio.sleep(0.01)
+
+
 class LoopThread:
     """An asyncio event loop running on a thread of its own."""
 
@@ -1839,15 +1898,7 @@ def check_distributed(params, direct_tokens, direct, http):
                                     "distributed")
             host = {k: [b - a for a, b in zip(host0[k], m.read())]
                     for k, m in meters.items()}
-            # the engine goes idle once the last stream ended (a pipelined
-            # round may still be in flight): then the counts are final
-            quiet = 0
-            while quiet < 20:
-                busy = (eng._slot_active.any() or eng._entries
-                        or eng._waiting or eng._prefilling
-                        or eng._intake.qsize())
-                quiet = 0 if busy else quiet + 1
-                await asyncio.sleep(0.01)
+            await settle_engines(eng)
             torch.cuda.synchronize()
             return res, fd.executed(eng.device), eng.step_count - steps0, host
 
@@ -1967,6 +2018,519 @@ def check_distributed(params, direct_tokens, direct, http):
     gc.collect()
     torch.cuda.empty_cache()
     return dense, dict(ttft=ttft, gaps=gaps, tps=tps, us=us)
+
+
+def part_ways(label, got, want):
+    """Greedy streams (each request's engine tokens and its top-2
+    logprobs) against the serve phase's generate() tokens for the same
+    prompts. A stream whose prefill took another path (a group of one
+    where the serve phase batched a pair, a prefix hit that prefills only
+    the tail) sums in another order and may leave generate()'s stream
+    where the two runs' top-2 swap: at the first step where they differ,
+    its top-1 is its own token and its runner-up generate()'s. Returns,
+    per request, None (identical) or (step, top-2 gap), and the streams
+    that part otherwise (wrong blocks or state, not rounding)."""
+    splits, problems = [], []
+    for i, ((toks, top), w) in enumerate(zip(got, want)):
+        if len(toks) != len(w):
+            problems.append(f"{label}: request {i} gave {len(toks)} tokens, "
+                            f"generate() {len(w)}")
+            splits.append(None)
+            continue
+        j = next((j for j, (a, b) in enumerate(zip(toks, w)) if a != b),
+                 None)
+        if j is None:
+            splits.append(None)
+            continue
+        (t1, l1), (t2, l2) = top[j][0], top[j][1]
+        splits.append((j, l1 - l2))
+        if t1 != toks[j] or t2 != w[j]:
+            problems.append(
+                f"{label}: request {i} left generate()'s stream at step {j} "
+                f"({toks[j]} for {w[j]}), where its top-2 were {top[j][:2]}")
+    return splits, problems
+
+
+def rerun(eng, prompts, burst):
+    """The prompts through ``eng.generate()`` with top-2 logprobs, greedy,
+    N_NEW tokens each: as one burst behind an IntakeGate (burst=True),
+    else one at a time. Returns each request's tokens."""
+    async def go():
+        if burst:
+            IntakeGate(eng, len(prompts))
+            return [t for t, *_ in await generate_all(eng, prompts, N_NEW,
+                                                      logprobs=2)]
+        out = []
+        for p in prompts:
+            out.append((await generate_all(eng, [p], N_NEW,
+                                           logprobs=2))[0][0])
+        return out
+
+    return asyncio.run(go())
+
+
+def describe_splits(splits):
+    same = sum(s is None for s in splits)
+    away = ", ".join(f"step {j} gap {g:.4f}" for j, g in
+                     (s for s in splits if s is not None))
+    return f"{same}/{len(splits)} identical" + (
+        f" (the others part where its top-2 swap: {away})" if away else "")
+
+
+def check_kv_launches(label, engines, dense, int8, issued, steps, layers):
+    """The dense kernel ran on every layer of every decode step of the
+    engines, inside replayed graphs (each engine's graphs recorded what
+    the card ran), and nothing else launched."""
+    recorded = sum(e.kernel_launches for e in engines)
+    if dense != layers * steps or int8 or issued or recorded != dense:
+        raise AssertionError(
+            f"{label}: flash_decode ran {dense} times on the card (int8 "
+            f"{int8}, {issued} issued eagerly, graphs recorded {recorded}) "
+            f"over {steps} decode steps of {layers} layers")
+    for i, e in enumerate(engines):
+        check_replayed(e, f"{label} worker {i}")
+
+
+def check_kv_router(params, direct_tokens, direct, http):
+    """The KV router at Llama-3.1-8B: the port's store, two workers
+    (launch.run's build_chain sharing the serve phase's weights, each
+    registered through launch.run.serve_worker with the launcher's default
+    --router-mode kv, each on its own loop thread with its own engine
+    thread) and a frontend (ModelWatcher with KvRouterConfig(
+    router_temperature=0.0) + HttpService); the client on the main thread.
+    Every request asks top-2 logprobs.
+
+    Wave A: the serve phase's 8 prompts as streamed requests, gated at
+    both workers' intakes (gated_burst over both engines). Then, once the
+    frontend's indexer holds every sealed prompt block under its worker's
+    lease id, wave C: the 8 again, one at a time: each must go to the
+    worker that served it in wave A, with the router's overlap the
+    prompt's full blocks and the engine's matched blocks that overlap
+    (less the last block when the prompt ends on one: a prefill needs a
+    token). Wave C': the 8 one at a time straight to the other worker's
+    endpoint (the frontend's RemoteWorkerEngine), which recomputes them.
+    Failover: one worker shut down (its lease revoked); a prompt it held
+    is served by the survivor and its blocks leave the indexer. Every
+    HTTP stream maps back to the engine's tokens; every stream must be
+    identical to generate() on one engine along the same prefill paths
+    (the histories replayed on the survivor once the waves are counted),
+    and may leave the serve phase's generate() stream only where their
+    top-2 swap (part_ways). The kernel's own count must rise by layers x
+    the decode steps of both engines over the waves. Prints memory with
+    both workers up,
+    TTFT, gaps and tok/s beside the http phase's, the matched blocks, and
+    the TTFT of wave C against C' per prompt (the engine's own: intake to
+    first token; and the client's)."""
+    import random
+
+    from dynamo_tpu_torch.frontend.http import HttpClient
+    from dynamo_tpu_torch.frontend.model_manager import ModelManager
+    from dynamo_tpu_torch.frontend.service import HttpService
+    from dynamo_tpu_torch.frontend.watcher import ModelWatcher
+    from dynamo_tpu_torch.kv_router.scheduler import KvRouterConfig
+    from dynamo_tpu_torch.launch import run as launch
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.protocols.common import (
+        OutputOptions,
+        PreprocessedRequest,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.resilience.metrics import RESILIENCE
+    from dynamo_tpu_torch.runtime.store import serve_store
+    from dynamo_tpu_torch.tokenizer import make_test_tokenizer
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+
+    cfg = ModelConfig.llama3_8b()
+    name = "llama3_8b"
+    tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
+    prompts = serve_prompts(cfg.vocab_size)
+    lp = {"logprobs": 2}
+    problems: list[str] = []
+    loops = {k: LoopThread(f"{k}-loop")
+             for k in ("store", "worker0", "worker1", "frontend")}
+    faulthandler.dump_traceback_later(900, exit=True)
+    try:
+        server, _ = loops["store"].run(serve_store("127.0.0.1", 0))
+        cp_port = server.sockets[0].getsockname()[1]
+        args = launch.build_parser().parse_intermixed_args(
+            ["in=endpoint", "out=torch", "--model-config", name,
+             "--model-name", name, "--control-plane",
+             f"127.0.0.1:{cp_port}"])
+        if args.router_mode != "kv":
+            raise AssertionError(f"the launcher's default router mode is "
+                                 f"{args.router_mode!r}")
+        ps = args.page_size
+        t0 = time.monotonic()
+        engs, marks, chains, rts, served = [], [], [], [], []
+        for k in range(2):
+            # each engine captures its round graphs as it is built, before
+            # the other serves anything
+            _, chain = launch.build_chain(args, params=params,
+                                          tokenizer=tok)
+            chains.append(chain)
+            engs.append(chain.engine)
+            marks.append(record_marks(chain.engine))
+        for k, chain in enumerate(chains):
+            lt = loops[f"worker{k}"]
+            rts.append(lt.run(launch.connect_runtime(args)))
+            served.append(lt.run(launch.serve_worker(
+                args, chain, rts[k], lease_ttl_s=10.0)))
+        torch.cuda.synchronize()
+        t_workers = time.monotonic() - t0
+        mem = torch.cuda.memory_allocated()
+        wids = [str(s.lease_id) for s in served]
+        shared = all(e.params is params for e in engs)
+
+        async def frontend_up():
+            rt = await launch.connect_runtime(args)
+            manager = ModelManager()
+            watcher = await ModelWatcher(
+                rt, manager,
+                router_config=KvRouterConfig(router_temperature=0.0),
+                tokenizer=tok).start()
+            svc = HttpService(manager, host="127.0.0.1", port=0)
+            await svc.start()
+            for _ in range(600):
+                push = watcher._routers.get(name)
+                if push is not None and sorted(push.workers) == sorted(wids):
+                    break
+                await asyncio.sleep(0.05)
+            return rt, manager, watcher, svc
+
+        rt, manager, watcher, svc = loops["frontend"].run(frontend_up())
+        push = watcher._routers.get(name)
+        if push is None or sorted(push.workers) != sorted(wids):
+            raise AssertionError(
+                f"kv router: the frontend routes {name} over "
+                f"{None if push is None else sorted(push.workers)}, the "
+                f"workers are {wids}")
+        log(f"kv router: store on 127.0.0.1:{cp_port}, workers {wids} "
+            f"(TorchEngine on {engs[0].device} each, router mode "
+            f"{args.router_mode!r}) built and registered in {t_workers:.1f} "
+            f"s; {mem / 2**30:.2f} GiB allocated with both up (the weights "
+            f"{weights_gib(params):.2f} GiB, {'one copy shared' if shared else 'NOT shared'}; "
+            f"each engine's pool {engs[0].cache['k'].nbytes * 2 / 2**30:.2f} "
+            f"GiB, ctx {engs[0].ctx['k'].nbytes * 2 / 2**30:.2f} GiB, graph "
+            f"pool {engs[0].graphs.pool_bytes / 2**20:.1f} MiB); frontend on "
+            f"127.0.0.1:{svc.port}")
+        if not shared:
+            problems.append("kv router: the engines copied the weights")
+        # ties at temperature 0 break by the selector's draws: seeded
+        push.router.scheduler.selector.rng = random.Random(SEED)
+        hits: list = []
+        push.router.scheduler.on_hit_rate = hits.append
+
+        def take_marks():
+            out = [dict(m) for m in marks]
+            for m in marks:
+                m.clear()
+            return out
+
+        def engine_streams(wave, ps_list, worker_of):
+            return [(wave[worker_of[i]][tuple(p)]["tokens"],
+                     wave[worker_of[i]][tuple(p)]["top"])
+                    for i, p in enumerate(ps_list)]
+
+        # every kernel count to 0 just before the main path
+        fd.launches = fd.launches_int8 = 0
+        for e in engs:
+            e.kernel_launches = 0
+        fd.executed(engs[0].device, reset=True)
+        steps0 = [e.step_count for e in engs]
+
+        # ---- wave A: the burst, gated at both intakes
+        async def wave_a():
+            res = await gated_burst(engs, svc.port, prompts, name,
+                                    "kv router wave A", **lp)
+            await settle_engines(*engs)
+            return res
+
+        res_a = asyncio.run(wave_a())
+        ma = take_marks()
+        worker_of = []
+        for i, p in enumerate(prompts):
+            ks = [k for k in range(2) if tuple(p) in ma[k]]
+            if len(ks) != 1:
+                raise AssertionError(f"kv router wave A: prompt {i} reached "
+                                     f"workers {ks}")
+            worker_of.append(ks[0])
+        got_a = engine_streams(ma, prompts, worker_of)
+        marks_a = {**ma[0], **ma[1]}
+        ttft_a, gaps_a, firsts_a, ends_a = parse_streams(
+            res_a, [t for t, _ in got_a], "kv router wave A")
+        split_a, bad = part_ways("kv router wave A", got_a,
+                                     direct_tokens)
+        problems += bad
+        tps_a = (N_NEW - 1) * len(prompts) / (max(ends_a) - min(firsts_a))
+        took = [worker_of.count(k) for k in range(2)]
+
+        # ---- the indexer holds every sealed prompt block of each worker
+        want = {w: set() for w in wids}
+        for i, p in enumerate(prompts):
+            want[wids[worker_of[i]]].update(
+                compute_block_hashes(p, ps, salt=name))
+
+        async def indexed():
+            idx = push.router.indexer
+            for _ in range(1200):
+                if all(want[w] <= idx._by_worker.get(w, set())
+                       for w in wids):
+                    return {w: len(idx._by_worker.get(w, ())) for w in wids}
+                await asyncio.sleep(0.05)
+            raise AssertionError(
+                f"kv router: the indexer holds "
+                f"{ {w: len(idx._by_worker.get(w, ())) for w in wids} } "
+                f"blocks, the workers sealed "
+                f"{ {w: len(want[w]) for w in wids} } prompt blocks")
+
+        t0 = time.monotonic()
+        held = loops["frontend"].run(indexed(), timeout=120)
+        t_indexed = time.monotonic() - t0
+
+        # ---- wave C: one at a time, each to its warm worker
+        async def one_by_one(label):
+            out = []
+            async with HttpClient("127.0.0.1", svc.port) as c:
+                for p in prompts:
+                    out.append(await stream_completion(c, p, name, label,
+                                                       **lp))
+                    await settle_engines(*engs)
+            return out
+
+        del hits[:]
+        res_c = asyncio.run(one_by_one("kv router wave C"))
+        mc = take_marks()
+        hits_c = list(hits)
+        matched, matchable = [], []
+        for i, p in enumerate(prompts):
+            k = worker_of[i]
+            m = mc[k].get(tuple(p))
+            hit = hits_c[i] if i < len(hits_c) else None
+            if m is None or hit is None or hit.worker_id != wids[k]:
+                raise AssertionError(
+                    f"kv router wave C: prompt {i} went to "
+                    f"{None if hit is None else hit.worker_id}, wave A's "
+                    f"worker was {wids[k]}")
+            full = len(p) // ps
+            can = (len(p) - 1) // ps
+            if hit.overlap_blocks != full or m["hint"] != full \
+                    or m["cached"] != min(hit.overlap_blocks, can):
+                problems.append(
+                    f"kv router wave C: prompt {i} ({len(p)} tokens): router "
+                    f"overlap {hit.overlap_blocks} (hint at the worker "
+                    f"{m['hint']}), the engine matched {m['cached']}, the "
+                    f"prompt has {full} full blocks and {can} matchable")
+            matched.append(m["cached"])
+            matchable.append(can)
+        got_c = engine_streams(mc, prompts, worker_of)
+        ttft_c, _, _, _ = parse_streams(res_c, [t for t, _ in got_c],
+                                        "kv router wave C")
+        split_c, bad = part_ways("kv router wave C", got_c,
+                                     direct_tokens)
+        problems += bad
+        eng_c = [mc[worker_of[i]][tuple(p)]["timing"]["ttft_s"]
+                 for i, p in enumerate(prompts)]
+
+        # ---- wave C': one at a time straight to the other worker
+        async def straight(k, p):
+            req = PreprocessedRequest(
+                token_ids=list(p), model=name,
+                stop_conditions=StopConditions(max_tokens=N_NEW,
+                                               ignore_eos=True),
+                output_options=OutputOptions(logprobs=2))
+            t = time.monotonic()
+            first = None
+            async for out in push.workers[wids[k]].generate(req):
+                if out.token_ids and first is None:
+                    first = time.monotonic() - t
+            await settle_engines(*engs)
+            return first
+
+        ttft_c2 = [loops["frontend"].run(straight(1 - worker_of[i], p))
+                   for i, p in enumerate(prompts)]
+        mc2 = take_marks()
+        other = [1 - k for k in worker_of]
+        got_c2 = engine_streams(mc2, prompts, other)
+        split_c2, bad = part_ways("kv router wave C'", got_c2,
+                                      direct_tokens)
+        problems += bad
+        eng_c2 = [mc2[other[i]][tuple(p)]["timing"]["ttft_s"]
+                  for i, p in enumerate(prompts)]
+        cached_c2 = [mc2[other[i]][tuple(p)]["cached"]
+                     for i, p in enumerate(prompts)]
+        if any(cached_c2):
+            problems.append(f"kv router wave C': the other workers matched "
+                            f"{cached_c2} blocks of prompts they never saw")
+
+        # ---- failover: worker 0 goes; a prompt it held
+        dead = 0
+        i_dead = worker_of.index(dead)
+        reroutes0 = RESILIENCE.get("dynamo_resilience_reroute_total")
+        loops[f"worker{dead}"].run(served[dead].shutdown())
+        t0 = time.monotonic()
+
+        async def removed():
+            idx = push.router.indexer
+            for _ in range(600):
+                if wids[dead] not in push.workers \
+                        and wids[dead] not in idx._by_worker:
+                    return
+                await asyncio.sleep(0.02)
+            raise AssertionError(
+                f"kv router failover: worker {wids[dead]} still routed "
+                f"({sorted(push.workers)}) or indexed "
+                f"({sorted(idx._by_worker)})")
+
+        loops["frontend"].run(removed())
+        t_removed = time.monotonic() - t0
+        del hits[:]
+
+        async def failover():
+            async with HttpClient("127.0.0.1", svc.port) as c:
+                r = await stream_completion(c, prompts[i_dead], name,
+                                            "kv router failover", **lp)
+            await settle_engines(*engs)
+            return r
+
+        res_f = asyncio.run(failover())
+        mf = take_marks()
+        survivor = 1 - dead
+        if tuple(prompts[i_dead]) not in mf[survivor] or not hits \
+                or hits[-1].worker_id != wids[survivor]:
+            raise AssertionError(
+                f"kv router failover: prompt {i_dead} was not served by the "
+                f"survivor {wids[survivor]}")
+        mfd = mf[survivor][tuple(prompts[i_dead])]
+        parse_streams([res_f], [mfd["tokens"]], "kv router failover")
+        split_f, bad = part_ways("kv router failover",
+                                     [(mfd["tokens"], mfd["top"])],
+                                     [direct_tokens[i_dead]])
+        problems += bad
+        reroutes = RESILIENCE.get("dynamo_resilience_reroute_total") \
+            - reroutes0
+
+        # ---- the counts, once both engines idle
+        loops["frontend"].run(settle_engines(*engs))
+        torch.cuda.synchronize()
+        dense, int8 = fd.executed(engs[0].device)
+        issued = fd.launches + fd.launches_int8
+        steps = sum(e.step_count - s for e, s in zip(engs, steps0))
+        check_kv_launches("kv router", engs, dense, int8, issued, steps,
+                          cfg.num_layers)
+
+        # ---- the same histories through generate() on one engine: each
+        # worker's wave A share as one gated burst, then its wave C
+        # prompts one at a time; each wave C' prompt alone on a cold
+        # cache; the failover prompt cold, then again as a prefix hit.
+        # The prefill groups and cached blocks are then the waves' own,
+        # so every stream must be identical
+        ref = engs[survivor]
+        same = {"A": 0, "C": 0, "C'": 0, "failover": 0}
+
+        def hold(wave, i, got, want):
+            if got == want:
+                same[wave] += 1
+            else:
+                j = next(j for j, (a, b) in enumerate(zip(got, want))
+                         if a != b)
+                problems.append(
+                    f"kv router {wave}: prompt {i} streamed {got[j]} at step "
+                    f"{j} where generate() on the same prefill path gave "
+                    f"{want[j]}")
+
+        t0 = time.monotonic()
+        for k in range(2):
+            mine = [i for i in range(len(prompts)) if worker_of[i] == k]
+            ref.clear_kv_blocks()
+            a_ref = rerun(ref, [prompts[i] for i in mine], burst=True)
+            c_ref = rerun(ref, [prompts[i] for i in mine], burst=False)
+            for i, ta, tc in zip(mine, a_ref, c_ref):
+                hold("A", i, got_a[i][0], ta)
+                hold("C", i, got_c[i][0], tc)
+        for i, p in enumerate(prompts):
+            ref.clear_kv_blocks()
+            hold("C'", i, got_c2[i][0], rerun(ref, [p], burst=False)[0])
+        ref.clear_kv_blocks()
+        hold("failover", i_dead, mfd["tokens"],
+             rerun(ref, [prompts[i_dead]] * 2, burst=False)[1])
+        take_marks()
+        t_replay = time.monotonic() - t0
+
+        async def frontend_down():
+            await svc.stop()
+            await watcher.stop()
+            await rt.close()
+
+        loops["frontend"].run(frontend_down())
+        loops[f"worker{survivor}"].run(served[survivor].shutdown())
+        for k in range(2):
+            loops[f"worker{k}"].run(rts[k].close())
+            loops[f"worker{k}"].run(engs[k].stop())
+
+        async def store_down():
+            server.close()
+            await server.wait_closed()
+
+        loops["store"].run(store_down())
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        for lt in loops.values():
+            lt.close()
+
+    ratio = [a / b for a, b in zip(eng_c, eng_c2)]
+    log(f"kv router wave A: 8 streamed /v1/completions (top-2 logprobs) "
+        f"over 2 workers, gated at both intakes: {took[0]} and {took[1]} "
+        f"requests; {describe_splits(split_a)} to the serve phase's "
+        f"generate(); TTFT median {np.median(ttft_a):.4f} s max "
+        f"{max(ttft_a):.4f} s (http {np.median(http['ttft']):.4f}, "
+        f"{max(http['ttft']):.4f}; generate() "
+        f"{np.median(direct['ttft']):.4f}, {max(direct['ttft']):.4f}); gap "
+        f"median {np.median(gaps_a) * 1e3:.2f} ms max "
+        f"{max(gaps_a) * 1e3:.2f} ms (http "
+        f"{np.median(http['gaps']) * 1e3:.2f}, "
+        f"{max(http['gaps']) * 1e3:.2f}); decode {tps_a:.1f} tok/s over "
+        f"the batch (http {http['tps']:.1f}, generate() "
+        f"{direct['tps']:.1f})")
+    log(f"kv router wave A: "
+        f"{ttft_split(prompts, res_a, firsts_a, marks_a)}")
+    log(f"kv router: the indexer held every sealed prompt block "
+        f"{t_indexed:.2f} s after wave A ({held} blocks by worker)")
+    log(f"kv router wave C: 8 of 8 one at a time to the worker that served "
+        f"them in wave A, router overlap = the engine's matched blocks: "
+        f"matched {sum(matched)} of {sum(matchable)} matchable "
+        f"({matched} of {matchable}); {describe_splits(split_c)}; TTFT "
+        f"(client) median {np.median(ttft_c):.4f} s max {max(ttft_c):.4f} "
+        f"s; engine intake to first token median {np.median(eng_c):.4f} s "
+        f"max {max(eng_c):.4f} s")
+    log(f"kv router wave C': 8 one at a time straight to the other "
+        f"worker, recomputed (0 blocks matched); "
+        f"{describe_splits(split_c2)}; TTFT (the frontend's call) median "
+        f"{np.median(ttft_c2):.4f} s max {max(ttft_c2):.4f} s; engine "
+        f"intake to first token median {np.median(eng_c2):.4f} s max "
+        f"{max(eng_c2):.4f} s; wave C / C' engine TTFT per prompt "
+        f"{', '.join(f'{r:.3f}' for r in ratio)} (median "
+        f"{np.median(ratio):.3f})")
+    log(f"kv router failover: worker {wids[dead]} shut down (lease revoked): "
+        f"out of the router and its blocks out of the indexer "
+        f"{t_removed:.3f} s later (lease-driven removal; reroutes "
+        f"{int(reroutes)}); prompt {i_dead}, which it held, served by "
+        f"{wids[survivor]} ({mfd['cached']} blocks matched there from wave "
+        f"C'), {describe_splits(split_f)}")
+    same_c2 = same["C'"]
+    log(f"kv router: {steps} decode steps over both engines, flash_decode "
+        f"launches {dense} (counted by the kernel on the card) = "
+        f"{cfg.num_layers} x {steps}; identical to generate() on one "
+        f"engine along the same prefill paths: wave A {same['A']}/8, wave "
+        f"C {same['C']}/8, wave C' {same_c2}/8, failover "
+        f"{same['failover']}/1 (replayed in {t_replay:.1f} s)")
+    if problems:
+        raise AssertionError("kv router: " + "; ".join(problems))
+    del engs, chains
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dense, dict(ttft_a=ttft_a, ttft_c=ttft_c, eng_c=eng_c,
+                       eng_c2=eng_c2)
 
 
 def offload_prompts(vocab: int):
@@ -2465,6 +3029,8 @@ def main() -> int:
                                      dense_tokens[:8], direct)
     dist_launches, _ = phase("distributed", check_distributed, params,
                              dense_tokens[:8], direct, http_figs)
+    kv_launches, _ = phase("kv router", check_kv_router, params,
+                           dense_tokens[:8], direct, http_figs)
     phase("offload", check_offload, params, counts, smi)
     # w8a16: the same weights quantized per output channel on the card
     t0 = time.monotonic()
@@ -2510,6 +3076,7 @@ def main() -> int:
              replaces="dynamo_tpu/ops/flash_decode.py:210",
              launches=counts["flash_decode"], launches_http=http_launches,
              launches_distributed=dist_launches,
+             launches_kv_router=kv_launches,
              launches_offload=counts["flash_decode_offload"], **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",

@@ -10,10 +10,16 @@ Commands:
         ``cp --port 7111 [--store-journal PATH] [--store-fsync
         always|batch]``; with --port 0 it prints the port it bound;
         SIGTERM stops it with exit code 0
+  router
+        the standalone KV router (router_service.py): ``router
+        --control-plane HOST:PORT [--namespace N] [--component C]
+        [--endpoint-name E] [--block-size 64] [--router-temperature
+        0.0]`` serves find_best on {component}-router; SIGTERM stops it
+        with exit code 0
 
-The JAX package's other commands (serve, metrics, router, planner,
-llmctl, profile, datagen, operator) are refused by name: their planes
-are not ported yet.
+The JAX package's other commands (serve, metrics, planner, llmctl,
+profile, datagen, operator) are refused by name: their planes are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +28,6 @@ import sys
 _UNPORTED = {
     "serve": "the serving-graph supervisor",
     "metrics": "the load-metrics exporter",
-    "router": "the standalone KV router",
     "planner": "the planner",
     "llmctl": "model registration by hand",
     "profile": "the profiler",
@@ -80,6 +85,29 @@ def _run_cp(rest: list[str]) -> int:
     return 0
 
 
+def _run_router(rest: list[str]) -> int:
+    """Standalone KV-router service (reference components/router binary,
+    src/main.rs:53-77), with the JAX package's flags."""
+    import argparse
+    import asyncio
+
+    p = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.cli router")
+    p.add_argument("--control-plane", required=True, metavar="HOST:PORT")
+    p.add_argument("--namespace", default="dynamo")
+    p.add_argument("--component", default="backend")
+    p.add_argument("--endpoint-name", default="generate")
+    p.add_argument("--block-size", type=int, default=64)
+    p.add_argument("--router-temperature", type=float, default=0.0)
+    args = p.parse_args(rest)
+    from dynamo_tpu_torch.router_service import run_router
+
+    try:
+        asyncio.run(run_router(args))
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     import logging
 
@@ -97,6 +125,8 @@ def main(argv: list[str] | None = None) -> int:
         return run_cli(rest)
     if cmd == "cp":
         return _run_cp(rest)
+    if cmd == "router":
+        return _run_router(rest)
     if cmd in _UNPORTED:
         print(f"{cmd}: {_UNPORTED[cmd]} is not served by the PyTorch port "
               f"yet", file=sys.stderr)

@@ -10,9 +10,14 @@ Endpoints:
   GET  /health, /live
   GET  /metrics               (Prometheus text, with the KV planes'
                                dynamo_kv_quant_* and dynamo_kv_integrity_*
-                               families)
+                               families, the store's dynamo_store_*, and
+                               the KV router's dynamo_resilience_*,
+                               dynamo_migration_* and
+                               dynamo_overload_router_spills_total)
   POST /clear_kv_blocks       (every served engine's clear_kv_blocks:
-                               {"cleared": [model, ...]})
+                               {"cleared": [model, ...]}; a KV-routed
+                               model's router fans it out to its workers
+                               and empties its indexer)
 
 Streaming honours client disconnect: the server cancels the handler when
 the connection drops, and the handler closes its response generators,
@@ -48,6 +53,7 @@ from dynamo_tpu_torch.frontend.model_manager import ModelManager, ModelNotFound
 from dynamo_tpu_torch.kv_integrity import KV_INTEGRITY
 from dynamo_tpu_torch.kv_quant import KV_QUANT
 from dynamo_tpu_torch.overload.deadline import apply_request_hints
+from dynamo_tpu_torch.overload.metrics import OVERLOAD
 from dynamo_tpu_torch.protocols.common import FinishReason, LLMEngineOutput
 from dynamo_tpu_torch.protocols.openai import (
     ChatCompletionRequest,
@@ -61,6 +67,7 @@ from dynamo_tpu_torch.protocols.openai import (
     model_list_response,
 )
 from dynamo_tpu_torch.protocols.sse import encode_done, encode_event
+from dynamo_tpu_torch.resilience.metrics import RESILIENCE
 from dynamo_tpu_torch.runtime.remote_engine import invoke_clear
 from dynamo_tpu_torch.runtime.store_metrics import STORE
 from dynamo_tpu_torch.telemetry import metrics as tmetrics
@@ -256,14 +263,16 @@ class HttpService:
         body = (self.metrics.render() + self.telemetry.render().encode()
                 + KV_QUANT.render().encode()
                 + KV_INTEGRITY.render().encode()
-                + STORE.render().encode())
+                + STORE.render().encode()
+                + RESILIENCE.render().encode()
+                + OVERLOAD.render().encode())
         return Response(body, content_type=PROMETHEUS_CONTENT_TYPE)
 
     async def handle_clear_kv(self, request: Request) -> Response:
         """Drop every reusable cached KV block of every served engine
         that has a cache (reference clear_kv_blocks.rs): a local engine's
-        clear runs in a worker thread, a remote engine fans the clear out
-        to its workers."""
+        clear runs in a worker thread, a remote engine or a KV router fans
+        the clear out to its workers."""
         cleared = []
         for name in self.manager.list_models():
             clear = getattr(self.manager.get(name).engine,

@@ -1,7 +1,6 @@
 """Model discovery: watch registrations, build chains, update the manager
-(the port's copy of the JAX package's frontend/watcher.py, cut to the
-round-robin and random routes; reference lib/llm/src/discovery/
-watcher.rs:187-300 ModelWatcher).
+(the port's copy of the JAX package's frontend/watcher.py; reference
+lib/llm/src/discovery/watcher.rs:187-300 ModelWatcher).
 
 Model entries live at ``dynamo://{namespace}/_models/{model_name}/
 {lease_id}`` (value: JSON ModelEntry, the JAX package's format) and
@@ -12,33 +11,56 @@ package's workers and frontends discover each other through one store.
 worker-side half: serve the engine endpoint, put the model entry, and
 publish the allocator's KV events and the engine's load metrics.
 
+A ``kv`` entry is served through a ``KvPushRouter`` (kv_router/): the
+watcher follows the ``kv_events.>`` plane into the indexer of the router
+that owns each worker (events that race a worker's discovery wait in a
+bounded buffer and replay when it appears), and the ``load_metrics.>``
+plane into one health tracker and one load view shared by every model's
+router; both freeze while the control-plane session is degraded.
+``round_robin`` and ``random`` entries are served through a
+``RemoteEngine``.
+
 What the port's frontend refuses, and does not register (a request for
-such a model gets 404): an entry with ``router_mode == "kv"`` (the KV
-router, the health tracker and the shared breakers are not ported yet),
-and an entry that names a checkpoint (``model_path`` or ``card_ref``:
-the port has no tokenizer for a model directory yet; serving it through
-the test tokenizer would answer differently). Its workers still publish
-everything a KV-routing frontend of the JAX package needs.
+such a model gets 404): an entry that names a checkpoint (``model_path``
+or ``card_ref``: the port has no tokenizer for a model directory yet,
+ROADMAP Queue 1 item 9; serving it through the test tokenizer would
+answer differently). Left out of the KV path: the fleet view and the
+prefetch controller (item 6), the shared breaker board and heartbeat
+TTLs (item 5), and the fleet-merged latency feed (item 10).
 """
 from __future__ import annotations
 
 import asyncio
 import json
 import logging
+import time
+from collections import deque
 from dataclasses import asdict, dataclass
 from typing import Any, Optional
 
 from dynamo_tpu_torch.backend import Backend
 from dynamo_tpu_torch.frontend.model_manager import ModelChain, ModelManager
+from dynamo_tpu_torch.kv_router.protocols import (
+    ForwardPassMetrics,
+    KvCacheEvent,
+)
+from dynamo_tpu_torch.kv_router.router import KvPushRouter, KvRouter
+from dynamo_tpu_torch.kv_router.scheduler import KvRouterConfig
+from dynamo_tpu_torch.overload.load import WorkerLoadView
 from dynamo_tpu_torch.preprocessor import OpenAIPreprocessor, PromptFormatter
-from dynamo_tpu_torch.runtime.component import DistributedRuntime
+from dynamo_tpu_torch.resilience.health import WorkerHealthTracker
+from dynamo_tpu_torch.runtime.component import DistributedRuntime, Instance
 from dynamo_tpu_torch.runtime.publisher import (
     KV_EVENTS_TOPIC,
     METRICS_TOPIC,
     KvEventPublisher,
     WorkerMetricsPublisher,
 )
-from dynamo_tpu_torch.runtime.remote_engine import RemoteEngine, serve_engine
+from dynamo_tpu_torch.runtime.remote_engine import (
+    RemoteEngine,
+    RemoteWorkerEngine,
+    serve_engine,
+)
 from dynamo_tpu_torch.tokenizer import Tokenizer, make_test_tokenizer
 
 log = logging.getLogger(__name__)
@@ -47,6 +69,11 @@ MODEL_PREFIX = "_models/"
 # how often a KV-routed worker republishes its whole cache (the pub/sub
 # plane is lossy; the reference's register_llm default)
 KV_RESYNC_INTERVAL_S = 60.0
+# KV events of a worker the frontend has not discovered yet: how many wait,
+# and how long before one is dropped as belonging to a worker that will
+# never be claimed (departed, or a model this frontend does not route)
+UNCLAIMED_EVENTS = 4096
+UNCLAIMED_TTL_S = 30.0
 
 
 def model_key(namespace: str, name: str) -> str:
@@ -170,14 +197,10 @@ async def register_llm(
 
 def refusal(entry: ModelEntry) -> Optional[str]:
     """Why the port's frontend does not serve this entry, or None."""
-    if entry.router_mode == "kv":
-        return ("router_mode 'kv' needs the KV router, which is not "
-                "ported yet (ROADMAP Queue 1 item 2); register the model "
-                "with --router-mode round_robin or random")
     if entry.model_path or entry.card_ref:
         return ("a checkpoint's tokenizer (model_path / card_ref) is not "
                 "ported yet (ROADMAP Queue 1 item 9)")
-    if entry.router_mode not in ("round_robin", "random"):
+    if entry.router_mode not in ("kv", "round_robin", "random"):
         return f"unknown router_mode {entry.router_mode!r}"
     return None
 
@@ -190,18 +213,33 @@ class ModelWatcher:
         rt: DistributedRuntime,
         manager: ModelManager,
         namespace: str = "dynamo",
+        router_config: Optional[KvRouterConfig] = None,
+        kv_recorder: Optional[Any] = None,  # KvRecorder: tees kv_events
         tokenizer: Optional[Tokenizer] = None,
     ):
         self.rt = rt
         self.manager = manager
         self.namespace = namespace
+        self.router_config = router_config
+        self.kv_recorder = kv_recorder
         # every discovered model's tokenizer: the test tokenizer, as the
         # JAX package's watcher uses for an entry without a checkpoint
         # (programmatic callers may pass another, as to build_chain)
         self.tokenizer = tokenizer
+        # one health tracker shared by every model's router (per-worker
+        # circuit breakers, heartbeats off the load-metrics plane) and one
+        # live queue-depth view (routing spills away from saturating
+        # workers), fed by the same metrics subscription
+        self.health = WorkerHealthTracker()
+        self.load = WorkerLoadView()
         self._task: Optional[asyncio.Task] = None
+        self._kv_sub_task: Optional[asyncio.Task] = None
+        self._metrics_sub_task: Optional[asyncio.Task] = None
         self._models: dict[str, dict[int, ModelEntry]] = {}  # name -> lease -> entry
         self._chains: dict[str, Any] = {}
+        self._routers: dict[str, KvPushRouter] = {}
+        # KV events that raced worker discovery, replayed on sync
+        self._unclaimed_events: deque = deque(maxlen=UNCLAIMED_EVENTS)
         # models whose entries the port does not serve: name -> reason
         self.refused: dict[str, str] = {}
 
@@ -215,13 +253,32 @@ class ModelWatcher:
                 # must not abort frontend startup (the _follow loop has
                 # the same protection for live events)
                 log.exception("model watcher failed applying snapshot %s", k)
-        self._task = asyncio.get_running_loop().create_task(self._follow(watch))
+        loop = asyncio.get_running_loop()
+        self._task = loop.create_task(self._follow(watch))
+        self._kv_sub_task = loop.create_task(self._follow_kv_events())
+        self._metrics_sub_task = loop.create_task(self._follow_metrics())
+        # degraded-mode serving: when the control-plane session loses its
+        # store, freeze the health/load views (stale-while-revalidate —
+        # keep routing off the last-known fleet picture) instead of aging
+        # every worker out while the metrics stream is paused
+        add_listener = getattr(self.rt.kv, "add_state_listener", None)
+        if add_listener is not None:
+            def _on_store_state(degraded: bool) -> None:
+                if degraded:
+                    self.health.freeze()
+                    self.load.freeze()
+                else:
+                    self.health.thaw()
+                    self.load.thaw()
+
+            add_listener(_on_store_state)
         return self
 
     async def stop(self) -> None:
-        if self._task is not None:
-            self._task.cancel()
-            self._task = None
+        for t in (self._task, self._kv_sub_task, self._metrics_sub_task):
+            if t is not None:
+                t.cancel()
+        self._task = self._kv_sub_task = self._metrics_sub_task = None
         for name in list(self._chains):
             await self._remove_model(name)
 
@@ -231,6 +288,71 @@ class ModelWatcher:
                 await self._apply(ev["event"], ev["key"], ev.get("value"))
             except Exception:  # noqa: BLE001
                 log.exception("model watcher failed applying %s", ev)
+
+    async def _follow_kv_events(self) -> None:
+        """Feed worker KV events into the indexer of the router that OWNS
+        that worker (reference: NATS kv_events subject -> KvIndexer).
+        Broadcast-to-all would accumulate unbounded foreign-worker state in
+        every model's indexer; events for a not-yet-discovered worker wait
+        in a bounded buffer and are replayed when the worker appears."""
+        sub = await self.rt.kv.subscribe(f"{KV_EVENTS_TOPIC}.>")
+        async for ev in sub:
+            try:
+                event = KvCacheEvent.from_dict(json.loads(ev["value"]))
+            except (KeyError, ValueError, TypeError):
+                continue
+            if self.kv_recorder is not None:
+                try:
+                    self.kv_recorder(event)
+                except Exception:  # noqa: BLE001 — a debug feature must
+                    # never take down routing; disable and keep going
+                    log.exception("kv recorder failed; disabling recording")
+                    self.kv_recorder = None
+            self._route_kv_event(event)
+
+    async def _follow_metrics(self) -> None:
+        """Tap on the load-metrics plane: every worker publication is a
+        heartbeat in the shared health tracker and a reading of its queue
+        in the shared load view."""
+        sub = await self.rt.kv.subscribe(f"{METRICS_TOPIC}.>")
+        async for ev in sub:
+            try:
+                m = ForwardPassMetrics.from_dict(json.loads(ev["value"]))
+            except (KeyError, ValueError, TypeError):
+                continue
+            self.health.observe_metrics(m)
+            self.load.observe(m)
+
+    def _route_kv_event(self, event: KvCacheEvent, *,
+                        buffer_unclaimed: bool = True) -> bool:
+        """Apply to EVERY router owning the worker (a legacy untagged
+        instance can be in several models' routers). Returns claimed."""
+        claimed = False
+        for router in self._routers.values():
+            if event.worker_id in router.workers:
+                router.router.indexer.apply_event(event)
+                claimed = True
+        if not claimed and buffer_unclaimed:
+            # worker not discovered yet (event raced registration): buffer
+            self._unclaimed_events.append((time.monotonic(), event))
+        return claimed
+
+    def _replay_unclaimed(self) -> None:
+        """Called after a router gains workers: re-route buffered events.
+        Entries older than the TTL are dropped — they belong to workers
+        that will never be claimed (departed, or non-kv models), and must
+        not evict genuinely raced events."""
+        if not self._unclaimed_events:
+            return
+        now = time.monotonic()
+        pending, self._unclaimed_events = self._unclaimed_events, deque(
+            maxlen=self._unclaimed_events.maxlen
+        )
+        for ts, event in pending:
+            if now - ts > UNCLAIMED_TTL_S:
+                continue
+            if not self._route_kv_event(event, buffer_unclaimed=False):
+                self._unclaimed_events.append((ts, event))
 
     async def _apply(self, event: str, key: str, value: Optional[str]) -> None:
         # key: dynamo://{ns}/_models/{name}/{lease_id}
@@ -270,13 +392,45 @@ class ModelWatcher:
         client = await self.rt.namespace(entry.namespace).component(
             entry.component
         ).endpoint(entry.endpoint).client()
-        # instances carry their model in metadata: two models sharing a
-        # component must not route into each other's workers (legacy
-        # instances without the tag serve any model)
-        client.instance_filter = (
-            lambda inst, name=name: inst.metadata.get("model", name) == name
-        )
-        engine = RemoteEngine(client, mode=entry.router_mode)
+        if entry.router_mode == "kv":
+            router = KvRouter(entry.block_size, self.router_config)
+            push = KvPushRouter(router, health=self.health, load=self.load)
+            self._routers[name] = push
+
+            def sync_workers(instances: list[Instance], push=push,
+                             client=client, name=name):
+                # instances carry their model in metadata: two models
+                # sharing a component must not route into each other's
+                # workers (legacy instances without the tag serve any
+                # model)
+                instances = [
+                    i for i in instances
+                    if i.metadata.get("model", name) == name
+                ]
+                current = {str(i.id) for i in instances}
+                for wid in list(push.workers):
+                    if wid not in current:
+                        push.remove_worker(wid)
+                added = False
+                for inst in instances:
+                    wid = str(inst.id)
+                    if wid not in push.workers:
+                        push.add_worker(wid,
+                                        RemoteWorkerEngine(client, inst.id))
+                        added = True
+                if added:
+                    self._replay_unclaimed()
+
+            client.on_change = sync_workers
+            sync_workers(list(client.instances.values()))
+            engine: Any = push
+        else:
+            # as sync_workers: route only to this model's instances
+            client.instance_filter = (
+                lambda inst, name=name:
+                inst.metadata.get("model", name) == name
+            )
+            engine = RemoteEngine(client, mode=entry.router_mode)
         tok = self.tokenizer or make_test_tokenizer()
         chain = ModelChain(
             name=name,
@@ -295,6 +449,7 @@ class ModelWatcher:
     async def _remove_model(self, name: str) -> None:
         log.info("model %s removed (last instance gone)", name)
         chain_client = self._chains.pop(name, None)
+        self._routers.pop(name, None)
         self.manager.unregister(name)
         if chain_client is not None:
             await chain_client[1].stop()

@@ -91,8 +91,6 @@ UNPORTED_FLAGS: dict[str, tuple[dict, str]] = {
     "--spec-rearm-tokens": (dict(type=int, default=256),
                             "speculative decoding"),
     "--draft-model-config": (dict(default=None), "speculative decoding"),
-    "--record-kv-events": (dict(default=None, metavar="PATH"),
-                           "the KV router"),
     "--system-port": (dict(type=int, default=None), "the system server"),
     "--chaos": (dict(default=None, metavar="SPEC"), "fault injection"),
     "--health-heartbeat-ttl": (dict(type=float, default=None),
@@ -202,9 +200,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--endpoint-name", default="generate")
     p.add_argument("--router-mode", default="kv",
                    choices=["kv", "round_robin", "random"],
-                   help="how frontends route to this worker's model; the "
-                        "port's frontend serves round_robin and random, "
-                        "and refuses kv until the KV router is ported")
+                   help="how frontends route to this worker's model: kv "
+                        "(prefix overlap and load), round_robin, random")
+    p.add_argument("--record-kv-events", default=None, metavar="PATH",
+                   help="in=http --control-plane: record the KV-event "
+                        "stream feeding the router (JSONL, the JAX "
+                        "package's format; replay with "
+                        "recorder.KvRecorder.replay)")
     for flag, (kw, what) in UNPORTED_FLAGS.items():
         p.add_argument(flag, help=f"not served by the port yet ({what})",
                        **kw)
@@ -560,8 +562,13 @@ async def _serve_http_dynamic(args) -> None:
 
     rt = await connect_runtime(args)
     manager = ModelManager()
-    watcher = await ModelWatcher(rt, manager,
-                                 namespace=args.namespace).start()
+    kv_recorder = None
+    if args.record_kv_events:
+        from dynamo_tpu_torch.recorder import KvRecorder
+
+        kv_recorder = KvRecorder(args.record_kv_events)
+    watcher = await ModelWatcher(rt, manager, namespace=args.namespace,
+                                 kv_recorder=kv_recorder).start()
     svc = HttpService(manager, host=args.http_host, port=args.http_port)
     await svc.start()
     stop = sigterm_event()
@@ -575,6 +582,8 @@ async def _serve_http_dynamic(args) -> None:
         await svc.stop()
         await watcher.stop()
         await rt.close()
+        if kv_recorder is not None:
+            kv_recorder.close()
 
 
 def _shutdown_chain(chain) -> None:

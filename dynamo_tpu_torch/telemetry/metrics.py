@@ -139,6 +139,10 @@ ITL = ("dynamo_request_itl_seconds",
        "inter-token latency (per-token gaps within one generation)")
 E2E = ("dynamo_request_e2e_seconds",
        "end-to-end request latency (receipt to finish)")
+# a worker's admission-queue series: the KV router's load view reads its
+# median from the worker's published snapshot (overload/load.py)
+QUEUE = ("dynamo_request_queue_seconds",
+         "admission queue wait (enqueue to prefill start)")
 
 
 def request_histograms(reg: TelemetryRegistry) -> TelemetryRegistry:
@@ -150,6 +154,31 @@ def request_histograms(reg: TelemetryRegistry) -> TelemetryRegistry:
 
 # ---------------------------------------------------------------------------
 # labelled families (prometheus_client's Counter, Gauge and Histogram)
+
+
+def percentile_from_snapshot(
+    snap: dict[str, Any], q: float
+) -> Optional[float]:
+    """Estimate the q-th percentile (0..1) from cumulative bucket counts
+    by linear interpolation inside the target bucket (the standard
+    ``histogram_quantile`` estimator). None when empty; observations in
+    the +Inf bucket clamp to the top finite edge."""
+    total = snap.get("count", 0)
+    buckets = snap.get("buckets") or []
+    counts = snap.get("counts") or []
+    if not total or not buckets or len(counts) != len(buckets) + 1:
+        return None
+    rank = q * total
+    prev_cum = 0
+    lo = 0.0
+    for edge, cum in zip(buckets, counts[:-1]):
+        if rank <= cum:
+            in_bucket = cum - prev_cum
+            frac = (rank - prev_cum) / in_bucket if in_bucket else 0.0
+            return lo + (edge - lo) * frac
+        prev_cum = cum
+        lo = edge
+    return buckets[-1]
 
 
 def weighted_percentile(

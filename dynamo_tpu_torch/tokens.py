@@ -86,6 +86,10 @@ class TokenBlockSequence:
         return seq
 
     @property
+    def total_tokens(self) -> int:
+        return len(self.blocks) * self.block_size + len(self.partial)
+
+    @property
     def last_hash(self) -> int:
         return self.blocks[-1].block_hash if self.blocks else salt_hash(self.salt)
 

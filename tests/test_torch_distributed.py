@@ -9,6 +9,7 @@ KV-routing frontend over a port worker, a port frontend over a
 JAX-package worker. Everything runs on 127.0.0.1 with port 0."""
 import asyncio
 import os
+import random
 import socket
 import subprocess
 import sys
@@ -31,6 +32,7 @@ from dynamo_tpu_torch.frontend.watcher import ModelEntry as PModelEntry
 from dynamo_tpu_torch.frontend.watcher import ModelWatcher as PModelWatcher
 from dynamo_tpu_torch.frontend.watcher import model_key
 from dynamo_tpu_torch.frontend.watcher import register_llm as p_register_llm
+from dynamo_tpu_torch.kv_router.scheduler import KvRouterConfig
 from dynamo_tpu_torch.runtime.component import DistributedRuntime as PRuntime
 from dynamo_tpu_torch.runtime.store import serve_store as p_serve_store
 from tests.test_torch_frontend import (
@@ -301,6 +303,8 @@ async def test_clear_kv_fans_out_to_every_worker(engines):
 
 
 async def test_port_frontend_refuses_kv_and_checkpoint_entries(tmp_path):
+    """Checkpoint entries are refused (404, with the reason); a kv entry,
+    refused before the KV router was ported, is served."""
     async with Stack() as s:
         await s.add_worker("port", PEcho(delay_s=0.0), name="kvm",
                            router_mode="kv")
@@ -309,21 +313,26 @@ async def test_port_frontend_refuses_kv_and_checkpoint_entries(tmp_path):
         await s.add_worker("port", PEcho(delay_s=0.0), name="card",
                            card_ref="bucket")
         await s.add_worker("port", PEcho(delay_s=0.0), name="ok")
-        await s.wait_models(["ok"])
+        await s.wait_models(["kvm", "ok"])
         deadline = asyncio.get_running_loop().time() + 30
-        while len(s.watcher.refused) < 3:
+        while len(s.watcher.refused) < 2:
             assert asyncio.get_running_loop().time() < deadline
             await asyncio.sleep(0.02)
-        assert "KV router" in s.watcher.refused["kvm"]
+        assert set(s.watcher.refused) == {"ckpt", "card"}
         assert "tokenizer" in s.watcher.refused["ckpt"]
         assert "tokenizer" in s.watcher.refused["card"]
         st, _, body = await s.http.call("GET", "/v1/models")
-        assert [m["id"] for m in body["data"]] == ["ok"]
-        for name in ("kvm", "ckpt", "card"):
+        assert [m["id"] for m in body["data"]] == ["kvm", "ok"]
+        for name in ("ckpt", "card"):
             st, _, _ = await s.http.call("POST", CHAT, {
                 "model": name,
                 "messages": [{"role": "user", "content": "w1"}]})
             assert st == 404
+        st, _, body = await s.http.call("POST", CHAT, {
+            "model": "kvm", "max_tokens": 3,
+            "messages": [{"role": "user", "content": "w1 w2"}]})
+        assert st == 200 and body["model"] == "kvm"
+        assert set(s.watcher._routers) == {"kvm"}
         # the entries in the store are the JAX package's format
         kvs = await s.front_rt.kv.get_prefix(model_key("t", "kvm"))
         assert RModelEntry.from_json(kvs[0][1]).router_mode == "kv"
@@ -374,6 +383,193 @@ async def test_on_metrics_beats_and_stored_event_snapshots(engines):
         snaps.append([e.to_dict() for e in a.snapshot_stored_events(batch=4)])
     assert snaps[0] == snaps[1]
     assert [e["kind"] for e in snaps[0]] == ["cleared", "stored", "stored"]
+
+
+# ---------------------------------------------------------------------------
+# the KV router on the port's frontend
+
+
+async def _wait_for(pred, what, timeout=30.0):
+    deadline = asyncio.get_running_loop().time() + timeout
+    while not pred():
+        assert asyncio.get_running_loop().time() < deadline, what
+        await asyncio.sleep(0.02)
+
+
+async def _fresh(engines, *keys):
+    """Drop the engines' cached blocks, so the next request's blocks are
+    stored anew (their STORED events go out while a publisher listens)."""
+    for k in keys:
+        await asyncio.to_thread(engines[k].clear_kv_blocks)
+
+
+async def _kv_reference_answer(engines, path, body):
+    async with Stack("ref", "ref") as s:
+        await s.add_worker("ref", engines["ref"], router_mode="kv")
+        await s.wait_models(["tiny"])
+        return await s.http.call("POST", path, body,
+                                 stream=bool(body.get("stream")))
+
+
+@pytest.mark.parametrize("label,path,body", REQUESTS,
+                         ids=[r[0] for r in REQUESTS])
+async def test_port_kv_stack_matches_reference_kv_stack(engines, label,
+                                                        path, body):
+    """A port frontend KV-routing over two port workers answers as the
+    JAX package's KV-routed stack over TpuEngine."""
+    want = await _kv_reference_answer(engines, path, body)
+    async with Stack() as s:
+        for k in ("port", "port2"):
+            await s.add_worker("port", engines[k], router_mode="kv")
+        await s.wait_instances("tiny", 2)
+        push = s.watcher._routers["tiny"]
+        await _wait_for(lambda: len(push.workers) == 2, "two workers")
+        got = await s.http.call("POST", path, body,
+                                stream=bool(body.get("stream")))
+    _same(path, body, got, want)
+
+
+async def test_repeated_prompt_routes_to_its_warm_worker(engines):
+    """The second time a prompt comes, the router sends it to the worker
+    that served it, with the blocks that worker sealed as the overlap
+    (the router salts with the model name, as the engine hashes)."""
+    path, body = COMPL, {"model": "tiny", "max_tokens": 8,
+                         "prompt": list(range(100, 150))}
+    want = await _kv_reference_answer(engines, path, body)
+    await _fresh(engines, "port", "port2")
+    async with Stack() as s:
+        # the router's argmin (temperature 0: no sampling)
+        s.watcher.router_config = KvRouterConfig(router_temperature=0.0)
+        served = [await s.add_worker("port", engines[k], router_mode="kv")
+                  for k in ("port", "port2")]
+        await s.wait_instances("tiny", 2)
+        push = s.watcher._routers["tiny"]
+        await _wait_for(lambda: len(push.workers) == 2, "two workers")
+        hits = []
+        push.router.scheduler.on_hit_rate = hits.append
+        _same(path, body, await s.http.call("POST", path, body), want)
+        first = [str(x.lease_id) for x in served
+                 if x.server.handler.requests == 1]
+        assert len(first) == 1 and hits[-1].worker_id == first[0]
+        # 50 prompt tokens: 3 sealed blocks of 16 under the lease id
+        idx = push.router.indexer
+        await _wait_for(lambda: len(idx._by_worker.get(first[0], ())) >= 3,
+                        "the warm worker's blocks")
+        for _ in range(3):
+            _same(path, body, await s.http.call("POST", path, body), want)
+            assert hits[-1].worker_id == first[0]
+            assert hits[-1].overlap_blocks >= 3
+        assert sorted(x.server.handler.requests for x in served) == [0, 4]
+        # the metrics tap: both workers heartbeat into the shared views
+        wids = {str(x.lease_id) for x in served}
+        await _wait_for(lambda: set(s.watcher.health._last_seen) >= wids,
+                        "heartbeats")
+        assert set(s.watcher.load._load) >= wids
+
+
+async def test_port_kv_frontend_over_reference_worker(engines):
+    """The port's KV-routing frontend serves a JAX-package worker and
+    holds that worker's blocks under its lease id."""
+    path, body = COMPL, {"model": "tiny", "max_tokens": 8,
+                         "prompt": list(range(150, 190))}
+    want = await _kv_reference_answer(engines, path, body)
+    await _fresh(engines, "ref")
+    async with Stack("port", "port") as s:
+        served = await s.add_worker("ref", engines["ref"], router_mode="kv")
+        await s.wait_models(["tiny"])
+        push = s.watcher._routers["tiny"]
+        await _wait_for(lambda: len(push.workers) == 1, "the worker")
+        _same(path, body, await s.http.call("POST", path, body), want)
+        wid = str(served.lease_id)
+        idx = push.router.indexer
+        await _wait_for(lambda: len(idx._by_worker.get(wid, ())) >= 2,
+                        "the reference worker's blocks")
+        assert set(idx._by_worker) == {wid}
+        # its lease gone, the model goes with its router
+        await served.lease.revoke()
+        await s.wait_models([])
+        assert not s.watcher._routers
+
+
+async def test_clear_kv_through_a_kv_routed_port_frontend(engines):
+    await _fresh(engines, "port", "port2")
+    async with Stack() as s:
+        for k in ("port", "port2"):
+            await s.add_worker("port", engines[k], router_mode="kv")
+        await s.wait_instances("tiny", 2)
+        push = s.watcher._routers["tiny"]
+        await _wait_for(lambda: len(push.workers) == 2, "two workers")
+        # prompts of their own family each, spread by the seeded draws
+        push.router.scheduler.selector.rng = random.Random(1)
+        for i in range(4):
+            st, _, _ = await s.http.call("POST", COMPL, {
+                "model": "tiny", "max_tokens": 4,
+                "prompt": list(range(20 + 50 * i, 70 + 50 * i))})
+            assert st == 200
+        idx = push.router.indexer
+        await _wait_for(lambda: len(idx._by_worker) == 2,
+                        "both workers' blocks")
+        allocs = [engines[k].allocator for k in ("port", "port2")]
+        assert all(len(a._lru) for a in allocs)
+        st, _, body = await s.http.call("POST", "/clear_kv_blocks")
+        assert (st, body) == (200, {"cleared": ["tiny"]})
+        assert [len(a._lru) for a in allocs] == [0, 0]
+        assert idx._by_worker == {} and idx.total_blocks() == 0
+
+
+async def test_kv_events_racing_discovery_are_buffered_and_replayed():
+    """An event for a worker the frontend has not discovered yet waits in
+    the bounded buffer (never in a foreign router's indexer), and is
+    applied when the worker appears; one past the TTL is dropped; the
+    store session's degraded state freezes the health and load views."""
+    from dynamo_tpu_torch.frontend import watcher as pw
+    from dynamo_tpu_torch.kv_router.protocols import (
+        KvCacheEvent,
+        KvEventKind,
+        StoredBlock,
+    )
+    from dynamo_tpu_torch.runtime.component import Instance
+
+    async with Stack() as s:
+        await s.add_worker("port", PEcho(delay_s=0.0), router_mode="kv")
+        await s.wait_models(["tiny"])
+        push = s.watcher._routers["tiny"]
+        await _wait_for(lambda: len(push.workers) == 1, "the worker")
+
+        def ev(wid, h):
+            return KvCacheEvent(kind=KvEventKind.STORED, worker_id=wid,
+                                blocks=[StoredBlock(block_hash=h)])
+
+        assert not s.watcher._route_kv_event(ev("777", 11))
+        assert not s.watcher._route_kv_event(ev("888", 12))
+        s.watcher._unclaimed_events[1] = (
+            s.watcher._unclaimed_events[1][0] - pw.UNCLAIMED_TTL_S - 1,
+            s.watcher._unclaimed_events[1][1])
+        assert push.router.indexer.total_blocks() == 0
+        chain = s.watcher._chains["tiny"][1]
+        late = [Instance(namespace="t", component="backend",
+                         endpoint="generate", lease_id=lid, host="127.0.0.1",
+                         port=1, metadata={"model": "tiny"})
+                for lid in (777, 888)]
+        chain.on_change(list(chain.instances.values()) + late)
+        assert push.router.indexer._by_worker.get("777") == {11}
+        assert "888" not in push.router.indexer._by_worker
+        assert not s.watcher._unclaimed_events
+    # the store-state listener
+    srv, _ = await p_serve_store(port=0, sweep_interval_s=0.05)
+    rt = await PRuntime.connect(port=srv.sockets[0].getsockname()[1],
+                                resync=True)
+    w = await PModelWatcher(rt, PManager(), namespace="t2").start()
+    try:
+        rt.kv._set_degraded(True)
+        assert w.health._frozen_at is not None
+        assert w.load._frozen_at is not None
+        rt.kv._set_degraded(False)
+        assert w.health._frozen_at is None and w.load._frozen_at is None
+    finally:
+        await w.stop()
+        await rt.close()
+        srv.close()
 
 
 # ---------------------------------------------------------------------------
@@ -471,3 +667,83 @@ def test_entry_points_serve_from_two_workers():
             if p.poll() is None:
                 p.kill()
                 p.wait()
+
+
+def test_kv_entry_points_serve_and_record_the_event_plane(tmp_path):
+    """The launcher's default --router-mode kv: cli cp, two in=endpoint
+    workers and in=http --control-plane --record-kv-events as processes
+    (jax, the JAX package and aiohttp unimportable): the chats answer as
+    in=text does, and the recording replays into the JAX package's
+    indexer with the serving workers' blocks under their instance ids."""
+    from dynamo_tpu.kv_router.indexer import KvIndexer as RIndexer
+    from dynamo_tpu.recorder import KvRecorder as RKvRecorder
+
+    cp_port, http_port = _free_port(), _free_port()
+    record = tmp_path / "kv.jsonl"
+    tiny = ["out=torch", "--model-config", "tiny", "--cache-dtype",
+            "float32", "--device", "cpu", "--model-name", "tiny"]
+    procs = [_spawn("dynamo_tpu_torch.cli", "cp", "--port", str(cp_port))]
+    try:
+        assert "listening on 127.0.0.1:" in procs[0].stdout.readline()
+        cp = ["--control-plane", f"127.0.0.1:{cp_port}"]
+        workers = [_spawn("dynamo_tpu_torch.launch.run", "in=endpoint",
+                          *tiny, *cp) for _ in range(2)]
+        procs += workers
+        ids = []
+        for w in workers:
+            lines = [w.stdout.readline() for _ in range(2)]
+            assert "serving dynamo/backend/generate" in lines[1], lines
+            ids.append(lines[1].split("instance ")[1].split()[0])
+        front = _spawn("dynamo_tpu_torch.launch.run", "in=http",
+                       "--http-host", "127.0.0.1", "--http-port",
+                       str(http_port), "--record-kv-events", str(record),
+                       *cp)
+        procs.append(front)
+        assert "dynamic frontend on" in front.stdout.readline()
+
+        async def ask():
+            async with HttpClient("127.0.0.1", http_port) as c:
+                for _ in range(600):
+                    r = await c.request("GET", "/v1/models")
+                    if r.json()["data"]:
+                        break
+                    await asyncio.sleep(0.05)
+                await asyncio.sleep(0.5)  # both instances discovered
+                texts = []
+                for i in range(4):
+                    r = await c.request("POST", CHAT, json_body={
+                        "model": "tiny", "max_tokens": 6, "messages": [
+                            {"role": "user", "content": "w1 w2 w3 " * 30}]})
+                    assert r.status == 200, r.json()
+                    texts.append(r.json()["choices"][0]["message"]["content"])
+                return texts
+
+        texts = asyncio.run(asyncio.wait_for(ask(), 120))
+        text = _spawn("dynamo_tpu_torch.launch.run", "in=text", *tiny,
+                      "--prompt", "w1 w2 w3 " * 30, "--max-tokens", "6")
+        out, _ = text.communicate(timeout=120)
+        assert text.returncode == 0, out
+        assert texts == [out.splitlines()[-1]] * 4, (texts, out)
+        for p in workers:
+            p.terminate()
+        counts = {}
+        for i, w in zip(ids, workers):
+            out, _ = w.communicate(timeout=60)
+            assert w.returncode == 0, out
+            counts[i] = [int(line.split()[-2]) for line in out.splitlines()
+                         if line.startswith("worker instance")][0]
+        assert sum(counts.values()) == 4, counts
+        for p in (front, procs[0]):
+            p.terminate()
+            out, _ = p.communicate(timeout=60)
+            assert p.returncode == 0, out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    # the launcher's page of 64 tokens: the 90-word prompt seals a block
+    idx = RIndexer(64)
+    assert RKvRecorder.replay(str(record), idx) > 0
+    assert {w for w, hs in idx._by_worker.items() if hs} == {
+        i for i, n in counts.items() if n}

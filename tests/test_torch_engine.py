@@ -155,9 +155,26 @@ def test_logprobs_request_gets_a_clear_error():
 def test_port_imports_neither_jax_nor_the_jax_package():
     root = Path(__file__).resolve().parent.parent
     code = (
-        "import sys, pkgutil, importlib, dynamo_tpu_torch\n"
+        "import sys, pkgutil, importlib\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'dynamo_tpu'):\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import dynamo_tpu_torch\n"
         "import dynamo_tpu_torch.runtime, dynamo_tpu_torch.frontend.watcher\n"
         "import dynamo_tpu_torch.cli\n"
+        "import dynamo_tpu_torch.kv_router, dynamo_tpu_torch.kv_router.router\n"
+        "import dynamo_tpu_torch.kv_router.indexer\n"
+        "import dynamo_tpu_torch.kv_router.scheduler\n"
+        "import dynamo_tpu_torch.kv_router.sequence\n"
+        "import dynamo_tpu_torch.kv_router.metrics_aggregator\n"
+        "import dynamo_tpu_torch.resilience.health\n"
+        "import dynamo_tpu_torch.resilience.migration\n"
+        "import dynamo_tpu_torch.resilience.metrics\n"
+        "import dynamo_tpu_torch.overload.load\n"
+        "import dynamo_tpu_torch.overload.metrics\n"
+        "import dynamo_tpu_torch.recorder, dynamo_tpu_torch.router_service\n"
         "for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, "
         "'dynamo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

@@ -50,7 +50,7 @@ def test_parser_takes_every_reference_flag_with_its_default(monkeypatch):
                  "--max-decode-slots", "--cache-dtype", "--kv-quant",
                  "--round-pipeline", "--max-tokens", "--trace-block-size",
                  "--control-plane", "--namespace", "--component",
-                 "--endpoint-name", "--router-mode"):
+                 "--endpoint-name", "--router-mode", "--record-kv-events"):
         assert port[flag].default == ref[flag].default, flag
         assert port[flag].choices == ref[flag].choices, flag
     args = prun.build_parser().parse_intermixed_args(
@@ -184,7 +184,9 @@ def test_port_runs_with_reference_packages_unimportable():
         "        raise SystemExit(f'{b} was importable')\n"
         "import dynamo_tpu_torch\n"
         "import dynamo_tpu_torch.runtime, dynamo_tpu_torch.frontend.watcher\n"
-        "import dynamo_tpu_torch.cli\n"
+        "import dynamo_tpu_torch.cli, dynamo_tpu_torch.kv_router\n"
+        "import dynamo_tpu_torch.router_service, dynamo_tpu_torch.recorder\n"
+        "import dynamo_tpu_torch.resilience, dynamo_tpu_torch.overload.load\n"
         "mods = [m.name for m in pkgutil.walk_packages("
         "dynamo_tpu_torch.__path__, 'dynamo_tpu_torch.')]\n"
         "for m in mods:\n"
@@ -200,7 +202,7 @@ def test_port_runs_with_reference_packages_unimportable():
     assert len(out.stdout.splitlines()) == 1
 
 
-@pytest.mark.parametrize("cmd", ["serve", "metrics", "router", "planner",
+@pytest.mark.parametrize("cmd", ["serve", "metrics", "profile", "planner",
                                  "llmctl"])
 def test_cli_refuses_the_reference_commands_by_name(cmd, capsys):
     from dynamo_tpu_torch import cli
