@@ -126,6 +126,39 @@ Phases, each printing a line (any failure raises and exits non-zero):
      phase's, the matched blocks, and each prompt's TTFT in wave C
      against C' (the engine's own, intake to first token, and the
      client's);
+  7d. disagg: disaggregated prefill/decode on the same weights, dense KV:
+     the port's store, a --role decode worker (engine D, launch.run's
+     serve_worker with --max-local-prefill-length 64 --prefill-timeout 5:
+     every serve prompt goes remote), a --role prefill worker (engine P,
+     serve_prefill_worker: it prefills each job and streams its pages
+     over the KV transfer plane into D's pool as prefill advances, 8
+     pages a chunk) and a KV-routing frontend, each on its own loop
+     thread. Wave A: the 8 prompts one at a time through the frontend: 8
+     remote prefills, none local, no fallback, D's admission matching
+     exactly the blocks P sent, D's and P's pages byte-equal for two
+     prompts, every stream identical to generate() along the same path
+     (the prompt prefilled alone with max_tokens=1, then served from
+     that prefix hit). Wave B: both caches cleared, the 8 as one
+     ungated burst: 16 remote prefills in all. Fallback: P stopped, one
+     prompt falls back after the timeout, counted once in
+     remote_fallbacks and dynamo_disagg_fallback_total, with a local
+     prefill's tokens. The kernel's own count rises by layers x the
+     decode steps of D and P (the kernels line's launches_disagg).
+     Printed: TTFT beside kv router C' (a whole-prompt recompute),
+     each prompt's prefill ms, chunks and overlap ratio, wire GB/s, D's
+     tail prefill, wave B's gaps beside kv router wave A's, memory;
+  7e. remote kv: KVBM G4 on the same weights, int8 KV: two aggregated
+     workers (serve_worker with --remote-kv --kv-quant int8
+     --host-offload-pages 128), W1 and W2. Wave A: the 8 prompts one at
+     a time straight to W1's engine (its probe of W2 misses; recompute);
+     wave G: the same on W2, whose every prefix is fetched from W1's
+     pool over the wire into its G2 and onboarded (every matchable
+     block, pages and scales byte-equal to W1's, streams identical to
+     W1's prefix-hit replay); miss: W1's transfer server stopped, a
+     fresh prompt on W2 costs at most one probe timeout and recomputes.
+     The int8 kernel's own count rises by layers x both engines' decode
+     steps (launches_remote_kv). Printed: TTFT per wave and G/A per
+     prompt, probe and fetch ms, wire GB/s, memory;
   8. offload: the KV offload plane on Llama-3.1-8B with the same bf16
      weights, a 96-page pool (768 MiB), a 128-page G2 in pinned host
      memory and a 128-page G3 file in a temporary directory, in dense
@@ -170,7 +203,9 @@ Phases, each printing a line (any failure raises and exits non-zero):
      greedy chat completions must each equal in=text's output, both
      workers must have served (each prints its count when SIGTERM stops
      it), and every process must exit 0.
-Each phase prints its seconds.
+Each phase prints its seconds, and at the end one summary line (its
+name, seconds and key figures), all together before the card line, so
+that the last 24 KB of the output hold every phase's result.
 The card line (nvidia-smi's name and power limit) comes third from last,
 the second-to-last line is a JSON object describing every kernel, and the
 last is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -217,8 +252,22 @@ SEED = 0
 NEAR_TIE = 0.05
 
 
+# the running phase's key figures and last line, and each finished
+# phase's summary line (printed together before the kernels line, so the
+# end of the output holds every phase's result)
+_PHASE = {"figures": None, "last": ""}
+SUMMARY: list[str] = []
+
+
 def log(*a):
-    print(*a, flush=True)
+    line = " ".join(str(x) for x in a)
+    print(line, flush=True)
+    _PHASE["last"] = line
+
+
+def figures(text):
+    """The running phase's key figures, for its summary line."""
+    _PHASE["figures"] = text
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1346,7 +1395,7 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None):
     log(f"serve {tag}: prefix repeat hit {cached} cached blocks, TTFT "
         f"{repeat[2]['timing']['ttft_s']:.4f} s")
     tokens = [t for t, *_ in res + [repeat]]
-    figures = dict(ttft=ttft, gaps=gaps, tps=decode_tps, gib=gib)
+    figs = dict(ttft=ttft, gaps=gaps, tps=decode_tps, gib=gib)
     if dense_tokens is not None:
         same = sum(a == b for x, y in zip(tokens, dense_tokens)
                    for a, b in zip(x, y))
@@ -1362,7 +1411,7 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return tokens, figures
+    return tokens, figs
 
 
 N_NEW = 32  # tokens a streamed request of the http and distributed phases
@@ -2077,12 +2126,15 @@ def describe_splits(splits):
         f" (the others part where its top-2 swap: {away})" if away else "")
 
 
-def check_kv_launches(label, engines, dense, int8, issued, steps, layers):
-    """The dense kernel ran on every layer of every decode step of the
-    engines, inside replayed graphs (each engine's graphs recorded what
-    the card ran), and nothing else launched."""
+def check_kv_launches(label, engines, dense, int8, issued, steps, layers,
+                      quant=False):
+    """The dense kernel (the int8 one with ``quant``) ran on every layer
+    of every decode step of the engines, inside replayed graphs (each
+    engine's graphs recorded what the card ran), and nothing else
+    launched."""
     recorded = sum(e.kernel_launches for e in engines)
-    if dense != layers * steps or int8 or issued or recorded != dense:
+    ran, other = (int8, dense) if quant else (dense, int8)
+    if ran != layers * steps or other or issued or recorded != ran:
         raise AssertionError(
             f"{label}: flash_decode ran {dense} times on the card (int8 "
             f"{int8}, {issued} issued eagerly, graphs recorded {recorded}) "
@@ -2529,8 +2581,628 @@ def check_kv_router(params, direct_tokens, direct, http):
     del engs, chains
     gc.collect()
     torch.cuda.empty_cache()
-    return dense, dict(ttft_a=ttft_a, ttft_c=ttft_c, eng_c=eng_c,
-                       eng_c2=eng_c2)
+    figures(f"wave A TTFT median {np.median(ttft_a):.4f} s, gap max "
+            f"{max(gaps_a) * 1e3:.2f} ms; C engine {np.median(eng_c):.4f} "
+            f"s, C' {np.median(eng_c2):.4f} s (C/C' {np.median(ratio):.3f});"
+            f" matched {sum(matched)}/{sum(matchable)}; same path A "
+            f"{same['A']}/8 C {same['C']}/8 C' {same_c2}/8; launches "
+            f"{dense}")
+    return dense, dict(ttft_a=ttft_a, gaps_a=gaps_a, ttft_c=ttft_c,
+                       eng_c=eng_c, eng_c2=eng_c2, ttft_c2=ttft_c2)
+
+
+def same_bytes(a, b) -> bool:
+    """Two host page payloads (dense, or int8 bundles with their scales)
+    hold the same bytes."""
+    if hasattr(a, "scales"):
+        return same_bytes(a.data, b.data) and same_bytes(a.scales, b.scales)
+    return tuple(a.shape) == tuple(b.shape) and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def wire_totals():
+    """The transfer plane's bytes sent and received, and the seconds its
+    whole moves took (dynamo_kv_transfer_seconds), so far."""
+    from dynamo_tpu_torch.kv_transfer_metrics import KV_TRANSFER
+
+    return (KV_TRANSFER.get("dynamo_kv_transfer_tx_bytes_total"),
+            KV_TRANSFER.get("dynamo_kv_transfer_rx_bytes_total"),
+            KV_TRANSFER.histogram("dynamo_kv_transfer_seconds")
+            .snapshot()["sum"])
+
+
+def check_disagg(params, direct_tokens, kv, smi):
+    """Disaggregated prefill/decode at Llama-3.1-8B, dense KV: the port's
+    store, a ``--role decode`` worker (engine D: launch.run's build_chain
+    and serve_worker with ``--max-local-prefill-length 64 --prefill-timeout
+    5``, so every serve prompt goes remote), a ``--role prefill`` worker
+    (engine P: serve_prefill_worker) and a KV-routing frontend, each on
+    its own loop thread, both engines on the serve phase's weights. Every
+    request asks top-2 logprobs.
+
+    Wave A: the 8 prompts one at a time through the frontend: 8 remote
+    prefills, no local prefill, no fallback (dynamo_disagg_fallback_total
+    unmoved), and D's admission matches exactly the blocks P sent. For
+    two prompts, D's pages and P's for the same hashes are byte-equal.
+    Every stream must equal generate() along the same path (one engine
+    that prefilled the prompt alone, max_tokens=1, then serves it from
+    that prefix hit), and may leave the serve phase's only where their
+    top-2 swap (part_ways). Wave B: both caches cleared, the 8 as one
+    ungated burst: 16 remote prefills in all, 0 local, 0 fallbacks.
+    Fallback: P stopped, one prompt (D's cache cleared) falls back after
+    the 5 s timeout, counted once in remote_fallbacks and in
+    dynamo_disagg_fallback_total, with the tokens of a local prefill.
+    The kernel's own count rises by layers x the decode steps of D and P.
+    Prints TTFT beside the kv router phase's C' (a whole-prompt recompute
+    on one engine), each prompt's prefill_ms, chunks and overlap ratio,
+    wire GB/s, D's tail prefill, wave B's gaps beside kv router wave A's
+    and memory with both engines up."""
+    from dynamo_tpu_torch.frontend.http import HttpClient
+    from dynamo_tpu_torch.frontend.model_manager import ModelManager
+    from dynamo_tpu_torch.frontend.service import HttpService
+    from dynamo_tpu_torch.frontend.watcher import ModelWatcher
+    from dynamo_tpu_torch.kv_router.scheduler import KvRouterConfig
+    from dynamo_tpu_torch.kv_transfer_metrics import KV_TRANSFER
+    from dynamo_tpu_torch.launch import run as launch
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.runtime.store import serve_store
+    from dynamo_tpu_torch.tokenizer import make_test_tokenizer
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+
+    cfg = ModelConfig.llama3_8b()
+    name = "llama3_8b"
+    tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
+    prompts = serve_prompts(cfg.vocab_size)
+    lp = {"logprobs": 2}
+    problems: list[str] = []
+    loops = {k: LoopThread(f"{k}-loop")
+             for k in ("store", "decode", "prefill", "frontend")}
+    faulthandler.dump_traceback_later(900, exit=True)
+    try:
+        server, _ = loops["store"].run(serve_store("127.0.0.1", 0))
+        cp_port = server.sockets[0].getsockname()[1]
+        base = ["in=endpoint", "out=torch", "--model-config", name,
+                "--model-name", name, "--control-plane",
+                f"127.0.0.1:{cp_port}"]
+        parse = launch.build_parser().parse_intermixed_args
+        args_d = parse(base + ["--role", "decode",
+                               "--max-local-prefill-length", "64",
+                               "--prefill-timeout", "5"])
+        args_p = parse(base + ["--role", "prefill"])
+        ps = args_d.page_size
+        t0 = time.monotonic()
+        _, chain_d = launch.build_chain(args_d, params=params, tokenizer=tok)
+        _, chain_p = launch.build_chain(args_p, params=params, tokenizer=tok)
+        eng_d, eng_p = chain_d.engine, chain_p.engine
+        marks = record_marks(eng_d)
+        rt_d = loops["decode"].run(launch.connect_runtime(args_d))
+        served = loops["decode"].run(launch.serve_worker(
+            args_d, chain_d, rt_d, lease_ttl_s=10.0))
+        dis = served.engine
+        rt_p = loops["prefill"].run(launch.connect_runtime(args_p))
+        pworker = loops["prefill"].run(launch.serve_prefill_worker(
+            args_p, chain_p, rt_p))
+        torch.cuda.synchronize()
+        t_up = time.monotonic() - t0
+        mem = torch.cuda.memory_allocated()
+
+        async def frontend_up():
+            rt = await launch.connect_runtime(args_d)
+            manager = ModelManager()
+            watcher = await ModelWatcher(
+                rt, manager,
+                router_config=KvRouterConfig(router_temperature=0.0),
+                tokenizer=tok).start()
+            svc = HttpService(manager, host="127.0.0.1", port=0)
+            await svc.start()
+            for _ in range(600):
+                if manager.list_models() == [name]:
+                    break
+                await asyncio.sleep(0.05)
+            return rt, watcher, svc, manager.list_models()
+
+        rt, watcher, svc, models = loops["frontend"].run(frontend_up())
+        if models != [name] or type(dis).__name__ != "DisaggDecodeEngine":
+            raise AssertionError(f"disagg: the frontend serves {models}, "
+                                 f"the decode worker {type(dis).__name__}")
+        log(f"disagg: store on 127.0.0.1:{cp_port}, decode worker "
+            f"{served.lease_id} (DisaggDecodeEngine over TorchEngine on "
+            f"{eng_d.device}, max_local_prefill_length "
+            f"{dis.conf.current.max_local_prefill_length}, prefill timeout "
+            f"{dis.prefill_timeout_s} s, kv_transfer_chunk_pages "
+            f"{eng_p.ecfg.kv_transfer_chunk_pages}) and prefill worker up in "
+            f"{t_up:.1f} s; {mem / 2**30:.2f} GiB allocated with both "
+            f"engines up (one weight copy: "
+            f"{eng_d.params is params and eng_p.params is params}); {smi}")
+
+        def take_marks():
+            out = dict(marks)
+            marks.clear()
+            return out
+
+        async def one_by_one(label, ps_list):
+            out, done = [], []
+            async with HttpClient("127.0.0.1", svc.port) as c:
+                for p in ps_list:
+                    out.append(await stream_completion(c, p, name, label,
+                                                       **lp))
+                    done.append(dict(dis.last_done or {}))
+                    await settle_engines(eng_d, eng_p)
+            return out, done
+
+        async def burst(label):
+            clients = [HttpClient("127.0.0.1", svc.port) for _ in prompts]
+            try:
+                return await asyncio.wait_for(asyncio.gather(*[
+                    stream_completion(c, p, name, label, **lp)
+                    for c, p in zip(clients, prompts)]), 120)
+            finally:
+                for c in clients:
+                    await c.close()
+
+        fb0 = KV_TRANSFER.get("dynamo_disagg_fallback_total")
+        # every kernel count to 0 just before the main path
+        fd.launches = fd.launches_int8 = 0
+        eng_d.kernel_launches = eng_p.kernel_launches = 0
+        fd.executed(eng_d.device, reset=True)
+        steps0 = (eng_d.step_count, eng_p.step_count)
+
+        # ---- wave A: one at a time
+        w0 = wire_totals()
+        res_a, done_a = asyncio.run(one_by_one("disagg wave A", prompts))
+        w1 = wire_totals()
+        ma = take_marks()
+        got_a = [(ma[tuple(p)]["tokens"], ma[tuple(p)]["top"])
+                 for p in prompts]
+        ttft_a, _, _, _ = parse_streams(res_a, [t for t, _ in got_a],
+                                        "disagg wave A")
+        split_a, bad = part_ways("disagg wave A", got_a, direct_tokens)
+        problems += bad
+        tail_a = [ma[tuple(p)]["timing"]["ttft_s"] for p in prompts]
+        sent = [d.get("blocks") for d in done_a]
+        matched = [ma[tuple(p)]["cached"] for p in prompts]
+        matchable = [(len(p) - 1) // ps for p in prompts]
+        if sent != matchable or matched != matchable:
+            problems.append(f"disagg wave A: P sent {sent} blocks, D "
+                            f"matched {matched}, the prompts have "
+                            f"{matchable} matchable")
+        counts_a = (dis.remote_prefills, dis.local_prefills,
+                    dis.remote_fallbacks)
+        if counts_a != (8, 0, 0):
+            problems.append(f"disagg wave A: remote, local, fallbacks "
+                            f"{counts_a}, want (8, 0, 0)")
+        # ---- the wire's own check: D's pages are P's, byte for byte
+        byte_equal = []
+        for i in (0, len(prompts) - 1):
+            hs = compute_block_hashes(prompts[i], ps, salt=name)[
+                :matchable[i]]
+            nd, dd = eng_d.export_pages_by_hash(hs)
+            np_, pd = eng_p.export_pages_by_hash(hs)
+            byte_equal.append(nd == np_ == len(hs) and same_bytes(dd, pd))
+        if not all(byte_equal):
+            problems.append(f"disagg: D's and P's pages byte-equal for "
+                            f"prompts 0 and 7: {byte_equal}")
+
+        # ---- wave B: both caches cleared, one ungated burst
+        eng_d.clear_kv_blocks()
+        eng_p.clear_kv_blocks()
+        res_b = asyncio.run(burst("disagg wave B"))
+        loops["frontend"].run(settle_engines(eng_d, eng_p))
+        mb = take_marks()
+        got_b = [(mb[tuple(p)]["tokens"], mb[tuple(p)]["top"])
+                 for p in prompts]
+        ttft_b, gaps_b, _, _ = parse_streams(
+            res_b, [t for t, _ in got_b], "disagg wave B")
+        split_b, bad = part_ways("disagg wave B", got_b,
+                                 [t for t, _ in got_a])
+        problems += bad
+        counts_b = (dis.remote_prefills, dis.local_prefills,
+                    dis.remote_fallbacks)
+        if counts_b != (16, 0, 0) or KV_TRANSFER.get(
+                "dynamo_disagg_fallback_total") != fb0:
+            problems.append(f"disagg wave B: remote, local, fallbacks "
+                            f"{counts_b}, want (16, 0, 0); fallback total "
+                            f"moved {KV_TRANSFER.get('dynamo_disagg_fallback_total') - fb0}")
+
+        # ---- fallback: the prefill worker stopped
+        loops["prefill"].run(pworker.stop())
+        eng_d.clear_kv_blocks()
+        t0 = time.monotonic()
+        res_f, _ = asyncio.run(one_by_one("disagg fallback", prompts[:1]))
+        t_fallback = time.monotonic() - t0
+        mf = take_marks()
+        got_f = mf[tuple(prompts[0])]["tokens"]
+        parse_streams(res_f, [got_f], "disagg fallback")
+        fell = (dis.remote_fallbacks - counts_b[2],
+                KV_TRANSFER.get("dynamo_disagg_fallback_total") - fb0)
+        if fell != (1, 1):
+            problems.append(f"disagg fallback: remote_fallbacks and "
+                            f"dynamo_disagg_fallback_total rose by {fell}, "
+                            f"want (1, 1)")
+
+        # ---- the counts, once both engines idle
+        loops["frontend"].run(settle_engines(eng_d, eng_p))
+        torch.cuda.synchronize()
+        dense, int8 = fd.executed(eng_d.device)
+        issued = fd.launches + fd.launches_int8
+        steps_d = eng_d.step_count - steps0[0]
+        steps_p = eng_p.step_count - steps0[1]
+        check_kv_launches("disagg", [eng_d, eng_p], dense, int8, issued,
+                          steps_d + steps_p, cfg.num_layers)
+
+        # ---- the same paths through generate() on one engine: the
+        # prompt prefilled alone (max_tokens=1, as P runs it), then
+        # served from that prefix hit (as D serves it); the fallback
+        # prompt alone on a cold cache
+        same = {"A": 0, "fallback": 0}
+
+        def hold(wave, i, got, want):
+            if got == want:
+                same[wave] += 1
+                return
+            j = next((j for j, (a, b) in enumerate(zip(got, want))
+                      if a != b), min(len(got), len(want)))
+            problems.append(
+                f"disagg {wave}: prompt {i} streamed {got[j:j + 1]} at "
+                f"step {j} where generate() on the same path gave "
+                f"{want[j:j + 1]}")
+
+        t0 = time.monotonic()
+        for i, p in enumerate(prompts):
+            eng_d.clear_kv_blocks()
+            asyncio.run(generate_all(eng_d, [p], 1))
+            hold("A", i, got_a[i][0], rerun(eng_d, [p], burst=False)[0])
+        eng_d.clear_kv_blocks()
+        hold("fallback", 0, got_f, rerun(eng_d, prompts[:1], burst=False)[0])
+        take_marks()
+        t_replay = time.monotonic() - t0
+
+        async def frontend_down():
+            await svc.stop()
+            await watcher.stop()
+            await rt.close()
+
+        loops["frontend"].run(frontend_down())
+        loops["decode"].run(served.shutdown())
+        loops["decode"].run(rt_d.close())
+        loops["prefill"].run(rt_p.close())
+        loops["decode"].run(eng_d.stop())
+        loops["prefill"].run(eng_p.stop())
+
+        async def store_down():
+            server.close()
+            await server.wait_closed()
+
+        loops["store"].run(store_down())
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        for lt in loops.values():
+            lt.close()
+
+    c2 = kv["ttft_c2"]
+    wire_bytes = w1[0] - w0[0]
+    wire_s = w1[2] - w0[2]
+    gbs = wire_bytes / wire_s / 1e9 if wire_s else float("nan")
+    per = "; ".join(
+        f"{len(p)} tok: {d.get('prefill_ms', float('nan')):.1f} ms, "
+        f"{d.get('chunks')} chunks, overlap {d.get('overlap_ratio')}"
+        for p, d in zip(prompts, done_a))
+    log(f"disagg wave A: 8 streamed /v1/completions one at a time, each "
+        f"prefilled on P and streamed into D ({counts_a[0]} remote, "
+        f"{counts_a[1]} local, {counts_a[2]} fallbacks); blocks sent = D's "
+        f"matched = {sum(sent)} of {sum(matchable)} matchable; "
+        f"{describe_splits(split_a)} to the serve phase's generate(); TTFT "
+        f"(client) median {np.median(ttft_a):.4f} s max {max(ttft_a):.4f} "
+        f"s beside kv router C' (a whole-prompt recompute on one engine, "
+        f"at the frontend) {np.median(c2):.4f} s max {max(c2):.4f} s: "
+        f"ratio {np.median(ttft_a) / np.median(c2):.3f}; D's tail prefill "
+        f"(intake to first token, after the transfer) median "
+        f"{np.median(tail_a):.4f} s max {max(tail_a):.4f} s; {smi}")
+    log(f"disagg wave A per prompt (P's done message): {per}")
+    log(f"disagg wire: {wire_bytes / 2**20:.1f} MiB sent in wave A over "
+        f"{wire_s:.3f} s of whole moves (dynamo_kv_transfer_seconds): "
+        f"{gbs:.2f} GB/s; D's pages byte-equal to P's for prompts 0 and 7: "
+        f"{byte_equal}")
+    log(f"disagg wave B: 8 as one ungated burst, caches cleared: "
+        f"{counts_b[0]} remote in all, {counts_b[1]} local, {counts_b[2]} "
+        f"fallbacks; {describe_splits(split_b)} to wave A; TTFT median "
+        f"{np.median(ttft_b):.4f} s max {max(ttft_b):.4f} s; D's gap "
+        f"median {np.median(gaps_b) * 1e3:.2f} ms max "
+        f"{max(gaps_b) * 1e3:.2f} ms beside kv router wave A's "
+        f"{np.median(kv['gaps_a']) * 1e3:.2f} ms, "
+        f"{max(kv['gaps_a']) * 1e3:.2f} ms")
+    log(f"disagg fallback: P stopped; prompt 0 fell back to a local prefill "
+        f"after the {dis.prefill_timeout_s} s timeout ({t_fallback:.2f} s "
+        f"in all); remote_fallbacks and dynamo_disagg_fallback_total rose "
+        f"by {fell[0]} and {fell[1]}")
+    why_p = (" (P's max_tokens=1 requests: a pipelined decode round is "
+             "dispatched for the slot before its first token is read)"
+             if steps_p else "")
+    log(f"disagg: {steps_d} decode steps on D and {steps_p} on P{why_p}, "
+        f"flash_decode launches "
+        f"{dense} (counted by the kernel on the card) = {cfg.num_layers} x "
+        f"{steps_d + steps_p}; identical to generate() along the same path: "
+        f"wave A {same['A']}/8, fallback {same['fallback']}/1 (replayed in "
+        f"{t_replay:.1f} s)")
+    if problems:
+        raise AssertionError("disagg: " + "; ".join(problems))
+    figures(f"16/16 remote, 0 fallbacks, fallback counted 1; matched = sent "
+            f"{sum(sent)}/{sum(matchable)}; pages byte-equal; same path "
+            f"{same['A']}/8; TTFT median {np.median(ttft_a):.4f} s (C' "
+            f"{np.median(c2):.4f}); overlap "
+            f"{np.median([d.get('overlap_ratio') or 0 for d in done_a]):.3f}"
+            f"; wire {gbs:.2f} GB/s; wave B gap max {max(gaps_b) * 1e3:.1f} "
+            f"ms; launches {dense} = {cfg.num_layers} x ({steps_d} D + "
+            f"{steps_p} P); "
+            f"{mem / 2**30:.2f} GiB")
+    del eng_d, eng_p, chain_d, chain_p, dis
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dense, dict(ttft=ttft_a, tail=tail_a, gbs=gbs)
+
+
+async def timed_generate(eng, prompt, model="llama3_8b"):
+    """One greedy request of N_NEW tokens with top-2 logprobs straight to
+    ``eng.generate()``: (tokens, top logprobs, seconds from the call to
+    the first token, final annotations)."""
+    from dynamo_tpu_torch.protocols.common import (
+        OutputOptions,
+        PreprocessedRequest,
+        StopConditions,
+    )
+
+    req = PreprocessedRequest(
+        token_ids=list(prompt), model=model,
+        stop_conditions=StopConditions(max_tokens=N_NEW, ignore_eos=True),
+        output_options=OutputOptions(logprobs=2))
+    toks, top, first, ann = [], [], None, {}
+    t0 = time.monotonic()
+    async for out in eng.generate(req):
+        if out.token_ids and first is None:
+            first = time.monotonic() - t0
+        toks.extend(out.token_ids)
+        top.extend(out.top_logprobs or [])
+        if out.finish_reason is not None:
+            ann = out.annotations
+    return toks, top, first, ann
+
+
+def check_remote_kv(params, smi):
+    """KVBM G4 at Llama-3.1-8B, int8 KV: the port's store and two
+    aggregated in=endpoint workers (launch.run's build_chain and
+    serve_worker with ``--remote-kv --kv-quant int8 --host-offload-pages
+    128``: each serves its pool on the transfer plane and fetches prefix
+    misses from its peer's), W1 and W2, each on its own loop thread, on
+    the serve phase's weights. Wave A: the 8 prompts one at a time
+    straight to W1's engine: W1 probes W2, misses and recomputes. Wave G:
+    the 8 one at a time straight to W2's engine: each prefix is fetched
+    from W1 over the wire into W2's G2 and onboarded (remote_onboard_
+    blocks reaches every matchable block, the engine matches them all and
+    prefills only the tail), the onboarded pages and scales are
+    byte-equal to W1's, and the streams are identical to W1's same-path
+    replay (the prompt again on W1, from its G1 prefix hit); wave A's
+    streams to a cold replay on W1 without G4. Miss: W1's transfer server
+    stopped, a fresh prompt on W2 costs at most one probe timeout, then
+    recomputes, with the tokens of a cold replay. The int8 kernel's own
+    count rises by layers x both engines' decode steps. Prints TTFT per
+    wave and G/A per prompt, the probe round's and the fetches' ms, wire
+    GB/s, and memory with both engines up."""
+    from dynamo_tpu_torch.kv_transfer import BlockTransferServer
+    from dynamo_tpu_torch.launch import run as launch
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.runtime.store import serve_store
+    from dynamo_tpu_torch.tokenizer import make_test_tokenizer
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+
+    cfg = ModelConfig.llama3_8b()
+    name = "llama3_8b"
+    tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
+    prompts = serve_prompts(cfg.vocab_size)
+    fresh = offload_prompts(cfg.vocab_size)[0]
+    problems: list[str] = []
+    loops = {k: LoopThread(f"{k}-loop") for k in ("store", "w1", "w2")}
+    faulthandler.dump_traceback_later(900, exit=True)
+    try:
+        server, _ = loops["store"].run(serve_store("127.0.0.1", 0))
+        cp_port = server.sockets[0].getsockname()[1]
+        args = launch.build_parser().parse_intermixed_args(
+            ["in=endpoint", "out=torch", "--model-config", name,
+             "--model-name", name, "--control-plane", f"127.0.0.1:{cp_port}",
+             "--remote-kv", "--kv-quant", "int8", "--host-offload-pages",
+             "128"])
+        ps = args.page_size
+        t0 = time.monotonic()
+        chains = [launch.build_chain(args, params=params, tokenizer=tok)[1]
+                  for _ in range(2)]
+        engs = [c.engine for c in chains]
+        ws = ("w1", "w2")
+        rts = [loops[w].run(launch.connect_runtime(args)) for w in ws]
+        served = [loops[w].run(launch.serve_worker(
+            args, c, r, lease_ttl_s=10.0)) for w, c, r in zip(ws, chains, rts)]
+        torch.cuda.synchronize()
+        t_up = time.monotonic() - t0
+        mem = torch.cuda.memory_allocated()
+        probe_timeout = engs[0].remote_kv.timeout_s
+        fetches: list[list] = []
+        for e in engs:
+            rec: list = []
+            fetch = e.remote_kv.fetch
+
+            async def timed_fetch(hashes, on_chunk=None, fetch=fetch,
+                                  rec=rec):
+                t = time.monotonic()
+                got = await fetch(hashes, on_chunk=on_chunk)
+                rec.append(((time.monotonic() - t) * 1e3, got[0],
+                            len(hashes)))
+                return got
+
+            e.remote_kv.fetch = timed_fetch
+            fetches.append(rec)
+        log(f"remote kv: store on 127.0.0.1:{cp_port}, workers "
+            f"{[s.lease_id for s in served]} (TorchEngine on "
+            f"{engs[0].device}, kv_quant int8, G2 "
+            f"{engs[0].offload.num_pages} pages, G4 chunk pages "
+            f"{engs[0].remote_kv.chunk_pages}, probe timeout "
+            f"{engs[0].remote_kv.timeout_s} s) up in {t_up:.1f} s; "
+            f"{mem / 2**30:.2f} GiB allocated with both engines up; {smi}")
+
+        def wave(k, ps_list):
+            out = []
+            for p in ps_list:
+                out.append(loops[ws[k]].run(timed_generate(engs[k], p)))
+                loops[ws[k]].run(settle_engines(*engs))
+            return out
+
+        # every kernel count to 0 just before the main path
+        fd.launches = fd.launches_int8 = 0
+        for e in engs:
+            e.kernel_launches = 0
+        fd.executed(engs[0].device, reset=True)
+        steps0 = [e.step_count for e in engs]
+        res_a = wave(0, prompts)
+        onboard0 = engs[1].remote_onboard_blocks
+        w0 = wire_totals()
+        res_g = wave(1, prompts)
+        w1 = wire_totals()
+        onboarded = engs[1].remote_onboard_blocks - onboard0
+        # ---- miss: W1's transfer server down, a fresh prompt on W2
+        srv1 = next(p for p in served[0].parts
+                    if isinstance(p, BlockTransferServer))
+        loops["w1"].run(srv1.stop())
+        n_fetch = len(fetches[1])
+        res_m = wave(1, [fresh])[0]
+        miss_fetch = fetches[1][n_fetch:]
+        # ---- the counts, once both engines idle
+        loops["w1"].run(settle_engines(*engs))
+        torch.cuda.synchronize()
+        dense, int8 = fd.executed(engs[0].device)
+        issued = fd.launches + fd.launches_int8
+        steps = sum(e.step_count - s for e, s in zip(engs, steps0))
+        check_kv_launches("remote kv", engs, dense, int8, issued, steps,
+                          cfg.num_layers, quant=True)
+        # ---- wave G's pages and scales are W1's, byte for byte
+        matchable = [(len(p) - 1) // ps for p in prompts]
+        byte_equal = 0
+        for p, n in zip(prompts, matchable):
+            hs = compute_block_hashes(p, ps, salt=name)[:n]
+            f1, d1 = engs[0].export_pages_by_hash(hs)
+            f2, d2 = engs[1].export_pages_by_hash(hs)
+            byte_equal += f1 == f2 == n and same_bytes(d1, d2)
+        matched_g = [r[3].get("cached_blocks") for r in res_g]
+        if onboarded != sum(matchable) or matched_g != matchable \
+                or byte_equal != len(prompts):
+            problems.append(
+                f"remote kv wave G: W2 onboarded {onboarded} blocks from W1 "
+                f"and matched {matched_g}; the prompts have {matchable} "
+                f"matchable; pages byte-equal for {byte_equal} of 8")
+        found_a = [f[1] for f in fetches[0][:len(prompts)]]
+        found_g = [f[1] for f in fetches[1][:len(prompts)]]
+        if any(found_a) or found_g != matchable:
+            problems.append(f"remote kv: wave A's probes found {found_a}, "
+                            f"wave G's fetches {found_g}")
+        if len(miss_fetch) != 1 or miss_fetch[0][1] != 0 or \
+                miss_fetch[0][0] > probe_timeout * 1e3 + 250:
+            problems.append(f"remote kv miss: fetches {miss_fetch} (ms, "
+                            f"found, asked), want one miss within the "
+                            f"{probe_timeout} s probe timeout")
+        # ---- the same paths through generate() on one engine: wave G
+        # as W1's prefix hit; wave A and the miss cold, without G4
+        same = {"G": 0, "A": 0, "miss": 0}
+
+        def hold(wave_name, i, got, want):
+            if got == want:
+                same[wave_name] += 1
+                return
+            j = next((j for j, (a, b) in enumerate(zip(got, want))
+                      if a != b), min(len(got), len(want)))
+            problems.append(
+                f"remote kv {wave_name}: prompt {i} streamed {got[j:j + 1]} "
+                f"at step {j} where generate() on the same path gave "
+                f"{want[j:j + 1]}")
+
+        t0 = time.monotonic()
+        for i, p in enumerate(prompts):
+            hold("G", i, res_g[i][0],
+                 loops["w1"].run(timed_generate(engs[0], p))[0])
+        for e in engs:
+            e.remote_kv = None
+        for i, p in enumerate(prompts):
+            engs[0].clear_kv_blocks()
+            hold("A", i, res_a[i][0],
+                 loops["w1"].run(timed_generate(engs[0], p))[0])
+        engs[1].clear_kv_blocks()
+        hold("miss", 0, res_m[0],
+             loops["w2"].run(timed_generate(engs[1], fresh))[0])
+        t_replay = time.monotonic() - t0
+        split_g, _ = part_ways("remote kv wave G",
+                               [(t, top) for t, top, _, _ in res_g],
+                               [t for t, _, _, _ in res_a])
+        for k, w in enumerate(ws):
+            loops[w].run(served[k].shutdown())
+            loops[w].run(rts[k].close())
+            loops[w].run(engs[k].stop())
+
+        async def store_down():
+            server.close()
+            await server.wait_closed()
+
+        loops["store"].run(store_down())
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        for lt in loops.values():
+            lt.close()
+
+    ttft_a = [r[2] for r in res_a]
+    ttft_g = [r[2] for r in res_g]
+    ratio = [g / a for g, a in zip(ttft_g, ttft_a)]
+    probe_a = [f[0] for f in fetches[0][:len(prompts)]]
+    fetch_g = [f[0] for f in fetches[1][:len(prompts)]]
+    rx = w1[1] - w0[1]
+    gbs = rx / (sum(fetch_g) / 1e3) / 1e9
+    log(f"remote kv wave A: 8 one at a time straight to W1: each probe of "
+        f"W2 missed (found {sum(found_a)}), recomputed; TTFT (the call to "
+        f"the first token) median {np.median(ttft_a):.4f} s max "
+        f"{max(ttft_a):.4f} s; the probe round median "
+        f"{np.median(probe_a):.2f} ms max {max(probe_a):.2f} ms; {smi}")
+    log(f"remote kv wave G: 8 one at a time straight to W2: each prefix "
+        f"fetched from W1's pool into W2's G2 and onboarded: "
+        f"{onboarded} of {sum(matchable)} matchable blocks, matched "
+        f"{sum(matched_g)}, pages and scales byte-equal to W1's for "
+        f"{byte_equal}/8 prompts; TTFT median {np.median(ttft_g):.4f} s max "
+        f"{max(ttft_g):.4f} s; G/A per prompt "
+        f"{', '.join(f'{r:.3f}' for r in ratio)} (median "
+        f"{np.median(ratio):.3f}); fetch median {np.median(fetch_g):.2f} ms "
+        f"max {max(fetch_g):.2f} ms; {rx / 2**20:.1f} MiB received over "
+        f"{sum(fetch_g) / 1e3:.3f} s of fetches: {gbs:.2f} GB/s; "
+        f"{describe_splits(split_g)} to wave A")
+    log(f"remote kv miss: W1's transfer server stopped; a fresh "
+        f"{len(fresh)}-token prompt on W2: fetch "
+        f"{miss_fetch[0][0] if miss_fetch else float('nan'):.2f} ms "
+        f"(probe timeout {probe_timeout} s), found 0, recomputed, TTFT "
+        f"{res_m[2]:.4f} s")
+    log(f"remote kv: {steps} decode steps over both engines, int8 "
+        f"flash_decode launches {int8} (counted by the kernel on the card) "
+        f"= {cfg.num_layers} x {steps}; identical to generate() along the "
+        f"same path: wave G {same['G']}/8 (W1's prefix hit), wave A "
+        f"{same['A']}/8 (cold), miss {same['miss']}/1 (replayed in "
+        f"{t_replay:.1f} s)")
+    if problems:
+        raise AssertionError("remote kv: " + "; ".join(problems))
+    figures(f"onboarded {onboarded}/{sum(matchable)} from the peer, pages "
+            f"byte-equal {byte_equal}/8, same path G {same['G']}/8 A "
+            f"{same['A']}/8 miss {same['miss']}/1; TTFT A "
+            f"{np.median(ttft_a):.4f} s, G {np.median(ttft_g):.4f} s (G/A "
+            f"{np.median(ratio):.3f}); fetch {np.median(fetch_g):.1f} ms, "
+            f"{gbs:.2f} GB/s; miss "
+            f"{miss_fetch[0][0] if miss_fetch else float('nan'):.1f} ms; "
+            f"int8 launches {int8} = {cfg.num_layers} x {steps}; "
+            f"{mem / 2**30:.2f} GiB")
+    del engs, chains
+    gc.collect()
+    torch.cuda.empty_cache()
+    return int8, dict(ttft_a=ttft_a, ttft_g=ttft_g, gbs=gbs)
 
 
 def offload_prompts(vocab: int):
@@ -2686,7 +3358,7 @@ def check_offload(params, counts, card):
         return np.median([g for *_, gs, _ in res for g in gs]) * 1e3
 
     launches = {}
-    figures = {}
+    by_mode = {}
     for kv_quant in ("none", "int8"):
         tmp = tempfile.mkdtemp(prefix="dynamo-torch-g3-")
         try:
@@ -2750,9 +3422,9 @@ def check_offload(params, counts, card):
             f"issue) {st['onboard_host_ms_per_page']:.3f}; D2H "
             f"{st['d2h_gb_s']:.2f} GB/s (copy stream), H2D "
             f"{st['h2d_gb_s']:.2f} GB/s")
-        figures[kv_quant] = (tiers, ref)
+        by_mode[kv_quant] = (tiers, ref)
     base = run(EngineConfig(num_pages=96), "recompute baseline")
-    tiers, ref = figures["none"]
+    tiers, ref = by_mode["none"]
     log(f"offload dense ({card}): wave C TTFT recomputed (96 pages, no "
         f"tiers) "
         f"{ttft(base['waves']['C'])}, onboarded "
@@ -2933,10 +3605,21 @@ def first_step_logprob_diff(dense, quant, prompt):
 
 
 def phase(name, fn, *args, **kw):
-    """Run one phase and print its seconds."""
+    """Run one phase, print its seconds, and keep its summary line: its
+    key figures (figures()), else its last line, shortened. What the
+    phase built (engines in reference cycles) is freed before the next
+    phase starts."""
+    _PHASE.update(figures=None, last="")
     t0 = time.monotonic()
     out = fn(*args, **kw)
-    log(f"phase {name}: {time.monotonic() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.monotonic() - t0
+    figs = _PHASE["figures"] or _PHASE["last"]
+    if len(figs) > 320:   # the summaries must fit the output's last 24 KB
+        figs = figs[:317] + "..."
+    SUMMARY.append(f"summary {name}: {secs:.1f} s; {figs}")
+    log(f"phase {name}: {secs:.1f} s")
     return out
 
 
@@ -3029,8 +3712,11 @@ def main() -> int:
                                      dense_tokens[:8], direct)
     dist_launches, _ = phase("distributed", check_distributed, params,
                              dense_tokens[:8], direct, http_figs)
-    kv_launches, _ = phase("kv router", check_kv_router, params,
-                           dense_tokens[:8], direct, http_figs)
+    kv_launches, kv_figs = phase("kv router", check_kv_router, params,
+                                 dense_tokens[:8], direct, http_figs)
+    dis_launches, _ = phase("disagg", check_disagg, params, dense_tokens[:8],
+                            kv_figs, smi)
+    g4_launches, _ = phase("remote kv", check_remote_kv, params, smi)
     phase("offload", check_offload, params, counts, smi)
     # w8a16: the same weights quantized per output channel on the card
     t0 = time.monotonic()
@@ -3069,6 +3755,8 @@ def main() -> int:
     phase("cli distributed", check_cli_distributed, text_out)
     phase("cli w8a16", check_cli, ["--quantize", "int8"])
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
+    for line in SUMMARY:
+        print(line, flush=True)
     print(smi)
     source = "dynamo_tpu_torch/csrc/flash_decode.cu"
     kernels = [
@@ -3076,11 +3764,12 @@ def main() -> int:
              replaces="dynamo_tpu/ops/flash_decode.py:210",
              launches=counts["flash_decode"], launches_http=http_launches,
              launches_distributed=dist_launches,
-             launches_kv_router=kv_launches,
+             launches_kv_router=kv_launches, launches_disagg=dis_launches,
              launches_offload=counts["flash_decode_offload"], **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",
              launches=counts["flash_decode_int8"],
+             launches_remote_kv=g4_launches,
              launches_offload=counts["flash_decode_int8_offload"],
              **fd8_report),
         # no Pallas kernel: XLA's fused convert + dot of _mm and the

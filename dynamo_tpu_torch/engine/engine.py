@@ -63,12 +63,22 @@ PyTorch (port of the JAX package's TpuEngine main path).
     ``export_hash_stream``, ``clear_kv_blocks``) are thread-safe: each is
     queued to the engine loop and serviced at a round boundary, in the
     round order of the reference: transfers, export streams, offloads,
-    then admission. ``metrics()`` reports ``ForwardPassMetrics`` with the
-    G2/G3 occupancy.
+    then admission. Exports gather in the wire's layout (``[2, L, kvh,
+    n, ps, hd]``, contiguous), so the transfer plane (kv_transfer.py)
+    sends them without a copy. ``metrics()`` reports
+    ``ForwardPassMetrics`` with the G2/G3 occupancy.
+  - Commit events (``subscribe_commits``): a callback fires on the engine
+    thread when prefill commits prompt blocks and when a seal batch's
+    copies are dispatched; the disagg prefill worker (disagg.py) streams
+    each new run of blocks to the decode worker on it.
+  - G4 (``remote_kv``, a kv_transfer.RemoteKvFetcher): with a G2 tier, a
+    request whose prefix misses G1/G2/G3 first fetches it from a peer
+    worker's pool; the pages land in G2 on the loop ahead of admission
+    and onboard from there (``remote_onboard_blocks`` counts them).
 
-Not ported yet (ROADMAP.md): speculation, the transfer wire (frames,
-BlockTransferServer, G4 peers), disaggregation, tenant quotas and
-adapters, overload budgets and preemption, multimodal, MoE.
+Not ported yet (ROADMAP.md): speculation, the fleet view's G4 hints and
+prefetch, tenant quotas and adapters, overload budgets and preemption,
+multimodal, MoE.
 """
 from __future__ import annotations
 
@@ -248,7 +258,8 @@ class _ExportStream:
     inflight: int
     out_q: queue_mod.Queue
     pos: int = 0                      # next page index to gather
-    # (data fetch, scales fetch or None) per dispatched, unhanded chunk
+    # (data fetch, scales fetch or None, page_major) per dispatched,
+    # unhanded chunk
     pending: deque = field(default_factory=deque)
     # hash-addressed exports pin their matched pages until every gather
     # is dispatched (stream order then protects the reads)
@@ -416,6 +427,16 @@ class TorchEngine:
                                           self._seal_fuse_w)
         self.graphs.prepare()
 
+        # prefix-commit event plane (subscribe_commits): callbacks fired on
+        # the engine thread when the committed prefix grew
+        self._commit_lock = threading.Lock()
+        self._commit_cbs: list[Callable[[], None]] = []
+        # G4 remote tier (kv_transfer.RemoteKvFetcher, set by the
+        # launcher's --remote-kv): fetched pages wait in _host_ingest for
+        # the loop to put them into G2 ahead of admission
+        self.remote_kv: Any = None
+        self.remote_onboard_blocks = 0
+        self._host_ingest: queue_mod.Queue = queue_mod.Queue()
         self._intake: queue_mod.Queue = queue_mod.Queue()
         # page transfer ops (export/import/clear), serviced by the loop
         self._xfer: queue_mod.Queue = queue_mod.Queue()
@@ -541,6 +562,8 @@ class TorchEngine:
             tokens=list(request.token_ids),
             tenant=request.tenant or "default",
         )
+        if self.remote_kv is not None and self.offload is not None:
+            await self._remote_prefetch(r)
         self._intake.put(r)
         self._wake_evt.set()
         try:
@@ -618,6 +641,7 @@ class TorchEngine:
         xfer_work = self._process_transfers()
         stream_work = self._service_export_streams()
         self._dispatch_offloads()
+        self._drain_host_ingest()  # G4 pages land before admission
         self._admit()
         did_work = (dispatched or bool(self._entries) or xfer_work
                     or stream_work or bool(self._prefilling))
@@ -648,6 +672,8 @@ class TorchEngine:
             # nothing to overlap with the in-flight copies: block on the
             # head entry instead of spinning
             self._process_entries(block=True)
+        if not did_work and self._wait_stream_copy():
+            did_work = True
         return did_work
 
     def _rounds_in_flight(self) -> int:
@@ -766,6 +792,8 @@ class TorchEngine:
         seal = self._take_seal_batch(width=self._seal_fuse_w)
         self.kernel_launches += self.graphs.round(want_sample, want_lp, seal)
         self.dispatch_counts["round" if seal is None else "round_seal"] += 1
+        if seal is not None:
+            self._notify_commits()
         self.step_count += n
         active = self._slot_active
         self._ctx_disp[active] = np.minimum(self._ctx_disp[active] + n,
@@ -823,6 +851,13 @@ class TorchEngine:
         )
         for blk in r.seq.blocks[r.sealed_prefix:done_blocks]:
             self._queue_seal(r, blk.position, blk.block_hash, blk.parent_hash)
+        if done_blocks > r.sealed_prefix:
+            # the blocks are MATCHABLE once _queue_seal committed them:
+            # notify now, not when their copy dispatches (a prefill-only
+            # engine dispatches no round to carry them, and the disagg
+            # export stream would wait out its safety timeout a chunk).
+            # Every pool reader of the loop flushes queued seals first
+            self._notify_commits()
         r.sealed_prefix = max(r.sealed_prefix, done_blocks)
 
     def _take_seal_batch(self, width: Optional[int] = None):
@@ -859,6 +894,7 @@ class TorchEngine:
         llama.seal_blocks(self.cache, self.ctx, slots, starts, pages,
                           self.ecfg.page_size)
         self._count_kv_quant(n_seal)
+        self._notify_commits()
 
     def _count_kv_quant(self, n_seal: int) -> None:
         """An int8 pool's sealed pages: raw int8 moves (the ctx region
@@ -868,45 +904,57 @@ class TorchEngine:
 
     # ---- page I/O (offload, onboard, transfers): exactly n pages ----
 
-    def _gather_pages(self, pages: list[int]):
-        """Whole pool pages gathered on the device, page-major:
-        ``(data [n, 2, L, kvh, ps, hd], scales [n, 2, L] or None)``, in
-        stream order after every program dispatched before."""
+    def _gather_pages(self, pages: list[int], page_major: bool = True):
+        """Whole pool pages gathered on the device, in stream order after
+        every program dispatched before: page-major ``(data [n, 2, L,
+        kvh, ps, hd], scales [n, 2, L] or None)`` for the host tiers (a
+        page is one run of bytes), else in the wire's layout ``(data [2,
+        L, kvh, n, ps, hd], scales [2, L, n] or None)``."""
         ids = self._to_device(np.asarray(pages, np.int64))
         if self.kv_quant:
             data, scales = llama.gather_pages_q(self.cache, ids)
-            return (data.permute(3, 0, 1, 2, 4, 5).contiguous(),
-                    scales.permute(2, 0, 1).contiguous())
-        return (llama.gather_pages(self.cache, ids)
-                .permute(3, 0, 1, 2, 4, 5).contiguous(), None)
+        else:
+            data, scales = llama.gather_pages(self.cache, ids), None
+        if not page_major:
+            return data, scales
+        return (data.permute(3, 0, 1, 2, 4, 5).contiguous(),
+                scales.permute(2, 0, 1).contiguous()
+                if scales is not None else None)
 
-    def _fetch_pages(self, pages: list[int]) -> tuple:
+    def _fetch_pages(self, pages: list[int], page_major: bool = True
+                     ) -> tuple:
         """``_gather_pages`` copied to the host on the copy stream:
-        (data fetch, scales fetch or None)."""
-        data, scales = self._gather_pages(pages)
+        (data fetch, scales fetch or None, page_major)."""
+        data, scales = self._gather_pages(pages, page_major)
         self.dispatch_counts["fetch"] += 1
         return (_Fetch(data, self._copy_stream),
                 _Fetch(scales, self._copy_stream) if scales is not None
-                else None)
+                else None, page_major)
 
     @staticmethod
-    def _host_pages(data_f: _Fetch, scales_f: Optional[_Fetch]):
+    def _host_pages(data_f: _Fetch, scales_f: Optional[_Fetch],
+                    page_major: bool = True):
         """A fetched gather in the reference's layout: ``[2, L, kvh, n,
-        ps, hd]`` (a view of the page-major host buffer), or a
-        QuantizedPages bundle for an int8 pool."""
-        data = data_f.wait().permute(1, 2, 3, 0, 4, 5)
-        if scales_f is None:
-            return data
-        return QuantizedPages(data, scales_f.wait().permute(1, 2, 0))
+        ps, hd]`` (a view of a page-major host buffer, or the contiguous
+        buffer of a wire-layout gather), or a QuantizedPages bundle for an
+        int8 pool."""
+        data, scales = data_f.wait(), scales_f.wait() if scales_f else None
+        if page_major:
+            data = data.permute(1, 2, 3, 0, 4, 5)
+            scales = scales.permute(1, 2, 0) if scales is not None else None
+        return data if scales is None else QuantizedPages(data, scales)
 
     def _scatter_pages(self, pages: list[int], data: torch.Tensor,
-                       scales: Optional[torch.Tensor]) -> None:
+                       scales: Optional[torch.Tensor],
+                       page_major: bool = True) -> None:
         """Page-major host pages ``[n, 2, L, kvh, ps, hd]`` (scales ``[n,
-        2, L]``) into pool ``pages``, IN PLACE (the round graphs captured
-        the pool). The host->device copy runs on the compute stream, so it
-        precedes every later program (an admission's load_ctx_pages);
-        pinned sources stay alive until it ran (the caching host
-        allocator records the copy)."""
+        2, L]``), or with ``page_major`` False pages in the wire's layout
+        ``[2, L, kvh, n, ps, hd]`` (scales ``[2, L, n]``), into pool
+        ``pages``, IN PLACE (the round graphs captured the pool). The
+        host->device copy runs on the compute stream, so it precedes every
+        later program (an admission's load_ctx_pages); pinned sources stay
+        alive until it ran (the caching host allocator records the
+        copy)."""
         self.dispatch_counts["xfer_scatter"] += 1
         ids = self._to_device(np.asarray(pages, np.int64))
         if self.device.type == "cuda":
@@ -924,10 +972,11 @@ class TorchEngine:
                                                 non_blocking=True)
         else:
             dev = data
-        dev = dev.permute(1, 2, 3, 0, 4, 5)
+        if page_major:
+            dev = dev.permute(1, 2, 3, 0, 4, 5)
+            scales = scales.permute(1, 2, 0) if scales is not None else None
         if self.kv_quant:
-            llama.scatter_pages_q(self.cache, ids, dev,
-                                  scales.permute(1, 2, 0))
+            llama.scatter_pages_q(self.cache, ids, dev, scales)
         else:
             llama.scatter_pages(self.cache, ids, dev)
 
@@ -948,12 +997,11 @@ class TorchEngine:
         bundle into a dense pool dequantizes)."""
         data = to_pool_dtype(data, self.kv_quant, self.cache["k"].dtype)
         if self.kv_quant:
-            self._scatter_pages(
-                pages, data.data.permute(3, 0, 1, 2, 4, 5).contiguous(),
-                data.scales.permute(2, 0, 1).contiguous())
+            self._scatter_pages(pages, data.data.contiguous(),
+                                data.scales.contiguous(), page_major=False)
         else:
-            self._scatter_pages(
-                pages, data.permute(3, 0, 1, 2, 4, 5).contiguous(), None)
+            self._scatter_pages(pages, data.contiguous(), None,
+                                page_major=False)
 
     # ---- offload (G2/G3 tiers) ----
 
@@ -983,7 +1031,7 @@ class TorchEngine:
             # the gather reads the pool: queued seal copies first
             self._flush_seals()
         self.dispatch_counts["offload_gather"] += 1
-        data_f, scales_f = self._fetch_pages([p for p, _, _ in batch])
+        data_f, scales_f, _ = self._fetch_pages([p for p, _, _ in batch])
         self._entries.append(_Entry(
             kind="offload", fetch=data_f, lp_fetch=scales_f,
             hashes=[h for _, h, _ in batch],
@@ -1274,7 +1322,8 @@ class TorchEngine:
             try:
                 if kind == "export":
                     self.dispatch_counts["xfer_gather"] += 1
-                    box["result"] = self._host_pages(*self._fetch_pages(ids))
+                    box["result"] = self._host_pages(
+                        *self._fetch_pages(ids, page_major=False))
                 elif kind == "export_stream":
                     chunk_pages, inflight, out_q = data
                     self._xfer_streams.append(_ExportStream(
@@ -1299,7 +1348,8 @@ class TorchEngine:
                         box["result"] = (0, None)
                     else:
                         self.dispatch_counts["xfer_gather"] += 1
-                        out = self._host_pages(*self._fetch_pages(pages))
+                        out = self._host_pages(
+                            *self._fetch_pages(pages, page_major=False))
                         self.allocator.free(pages)
                         box["result"] = (len(pages), out)
                 elif kind == "clear":
@@ -1361,6 +1411,18 @@ class TorchEngine:
         self._xfer_streams = keep
         return progressed
 
+    def _wait_stream_copy(self) -> bool:
+        """With nothing else to do, block on the oldest chunk copy an
+        export stream waits for, rather than the idle sleep (up to 20 ms
+        a chunk of a disagg push or a G4 fetch); True if there was one."""
+        for st in self._xfer_streams:
+            if st.pending and st.out_q.qsize() < st.inflight:
+                for f in st.pending[0][:2]:
+                    if f is not None:
+                        f.wait()
+                return True
+        return False
+
     def _end_stream(self, st: _ExportStream, exc: Exception) -> None:
         if st.free_pages is not None:
             self.allocator.free(st.free_pages)
@@ -1373,7 +1435,7 @@ class TorchEngine:
         # ready heads, bounded by the consumer's pull so a stalled peer
         # cannot grow host staging without bound
         while (st.pending and all(f is None or f.ready()
-                                  for f in st.pending[0])
+                                  for f in st.pending[0][:2])
                and st.out_q.qsize() < st.inflight):
             st.out_q.put(self._host_pages(*st.pending.popleft()))
             progressed = True
@@ -1381,7 +1443,7 @@ class TorchEngine:
                and st.out_q.qsize() < st.inflight):
             chunk = st.ids[st.pos: st.pos + st.chunk_pages]
             self.dispatch_counts["xfer_gather"] += 1
-            st.pending.append(self._fetch_pages(chunk))
+            st.pending.append(self._fetch_pages(chunk, page_major=False))
             st.pos += len(chunk)
             progressed = True
         if st.pos >= len(st.ids) and st.free_pages is not None:
@@ -1408,6 +1470,95 @@ class TorchEngine:
             st.out_q.put(RuntimeError("engine stopped"))
             st.out_q.put(_STREAM_EOS)
         self._xfer_streams = []
+
+    # ---- prefix-commit event plane ----
+
+    def subscribe_commits(self, cb: Callable[[], None]) -> None:
+        """Register a callback fired on the engine thread whenever the
+        committed prefix grew: sealed blocks became matchable
+        (_seal_prefilled) or a seal batch's pool copies were dispatched.
+        Exporting on this signal is safe in stream order: every pool
+        reader of the loop flushes queued seal copies first. Callbacks
+        must be cheap and must not block (bounce to your own loop)."""
+        with self._commit_lock:
+            if cb not in self._commit_cbs:
+                self._commit_cbs.append(cb)
+
+    def unsubscribe_commits(self, cb: Callable[[], None]) -> None:
+        with self._commit_lock:
+            if cb in self._commit_cbs:
+                self._commit_cbs.remove(cb)
+
+    def _notify_commits(self) -> None:
+        with self._commit_lock:
+            cbs = list(self._commit_cbs)
+        for cb in cbs:
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 — never kill the loop
+                log.exception("commit listener failed")
+
+    # ---- G4 remote tier (kv_transfer.RemoteKvFetcher) ----
+
+    async def _remote_prefetch(self, r: _Request) -> None:
+        """Before intake: when the prompt's block-hash run is not covered
+        by G1/G2/G3, ask the peer workers for it (G4). Fetched pages are
+        queued for the engine loop to put into the G2 host tier, where the
+        onboard path (_onboard_from_host) picks them up at admission: the
+        remote tier needs no scatter of its own. The coverage checks here
+        are hints read from another thread; a stale answer costs one
+        wasted fetch or one recompute, never correctness. The fleet
+        view's holder hints wait for ROADMAP Queue 1 item 6."""
+        ps = self.ecfg.page_size
+        matchable = r.seq.blocks[: max(0, (len(r.tokens) - 1) // ps)]
+        if not matchable:
+            return
+        i = self.allocator.cached_prefix_len(
+            [b.block_hash for b in matchable])
+        off = self.offload
+        with self._tier_lock:
+            while i < len(matchable) and (
+                    matchable[i].block_hash in off
+                    or (off.spill is not None
+                        and matchable[i].block_hash in off.spill)):
+                i += 1
+        missing = matchable[i:]
+        if not missing:
+            return
+
+        def land(offset: int, arr: Any) -> None:
+            # one chunk into the ingest queue at once: G2 fills while
+            # later chunks are still on the wire. An int8 peer's bundle
+            # lands as-is in an int8 tier; a payload of the other mode
+            # converts here
+            sub = missing[offset:offset + int(arr.shape[3])]
+            payload = to_pool_dtype(arr, self.kv_quant, off.dtype)
+            if not isinstance(payload, QuantizedPages):
+                payload = payload.to(off.dtype)
+            self._host_ingest.put(([b.block_hash for b in sub],
+                                   [b.parent_hash for b in sub], payload))
+            self._wake_evt.set()
+
+        try:
+            # every fetch path (streamed, a probe's full reply, the
+            # monolithic race) delivers its pages through land
+            await self.remote_kv.fetch([b.block_hash for b in missing],
+                                       on_chunk=land)
+        except Exception:  # noqa: BLE001 — G4 is best-effort
+            log.exception("G4 remote fetch failed")
+
+    def _drain_host_ingest(self) -> None:
+        """Put the G4 pages fetched so far into G2 (on the loop, before
+        admission, so a request's own fetch is in G2 when it is begun)."""
+        while True:
+            try:
+                hashes, parents, data = self._host_ingest.get_nowait()
+            except queue_mod.Empty:
+                return
+            crcs = page_checksums(data, pool=self._crc_pool)
+            with self._tier_lock:
+                self.remote_onboard_blocks += self.offload.put_batch(
+                    hashes, parents, data, checksums=crcs)
 
     # ---- load metrics ----
 
@@ -1675,11 +1826,16 @@ class TorchEngine:
             logits[None], first_tok, e.max_logprobs)) if want_lp else None)
         del self._prefilling[slot]
         self._slots[slot] = r
-        self._slot_on(slot, r)
         self._ctx_disp[slot] = len(r.tokens) + 1
-        self._dispatch_patch(admit=dict(
-            slot=slot, ctx=len(r.tokens) + 1, tok=first_tok,
-            keys=step_keys, **knobs))
+        if r.max_new_tokens(e.max_context) > 1:
+            self._slot_on(slot, r)
+            self._dispatch_patch(admit=dict(
+                slot=slot, ctx=len(r.tokens) + 1, tok=first_tok,
+                keys=step_keys, **knobs))
+        # else the first token is the last: the lane stays parked and no
+        # decode round runs for it (a disagg prefill worker's
+        # max_tokens=1 jobs); the slot is released once that token is
+        # processed
         self.dispatch_counts["fetch"] += 1 + want_lp
         self._entries.append(_Entry(
             kind="first", fetch=_Fetch(first_tok),

@@ -9,6 +9,7 @@ Endpoints:
   GET  /v1/models
   GET  /health, /live
   GET  /metrics               (Prometheus text, with the KV planes'
+                               dynamo_kv_transfer_*, dynamo_disagg_*,
                                dynamo_kv_quant_* and dynamo_kv_integrity_*
                                families, the store's dynamo_store_*, and
                                the KV router's dynamo_resilience_*,
@@ -52,6 +53,7 @@ from dynamo_tpu_torch.frontend.http import (
 from dynamo_tpu_torch.frontend.model_manager import ModelManager, ModelNotFound
 from dynamo_tpu_torch.kv_integrity import KV_INTEGRITY
 from dynamo_tpu_torch.kv_quant import KV_QUANT
+from dynamo_tpu_torch.kv_transfer_metrics import KV_TRANSFER
 from dynamo_tpu_torch.overload.deadline import apply_request_hints
 from dynamo_tpu_torch.overload.metrics import OVERLOAD
 from dynamo_tpu_torch.protocols.common import FinishReason, LLMEngineOutput
@@ -261,6 +263,7 @@ class HttpService:
 
     async def handle_metrics(self, request: Request) -> Response:
         body = (self.metrics.render() + self.telemetry.render().encode()
+                + KV_TRANSFER.render().encode()
                 + KV_QUANT.render().encode()
                 + KV_INTEGRITY.render().encode()
                 + STORE.render().encode()

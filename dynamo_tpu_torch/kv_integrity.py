@@ -21,8 +21,9 @@ block; the stream still completes, so nothing else would notice.
 
 Checksums are zlib.crc32 over the C-order bytes, so a page's crc equals
 the JAX package's for the same bytes (a bf16 page: its raw 2-byte
-words). Pages here are torch CPU tensors. The wire half (per-frame crc
-lists, receiver verify) waits for the transfer wire (ROADMAP).
+words). Pages here are torch CPU tensors. The wire half stamps each page
+frame of the transfer plane (kv_transfer.py) with its pages' crcs
+(``kv_crc``), which the receiver verifies before anything is scattered.
 """
 from __future__ import annotations
 
@@ -118,6 +119,42 @@ def page_checksums(data: Any, scales: Optional[torch.Tensor] = None,
     if pool is None or n < 2:
         return [one(i) for i in range(n)]
     return list(pool.map(one, range(n)))
+
+
+# ---------------------------------------------------------------------------
+# wire form: per-page crc list in the two-part frame's JSON header
+
+
+def attach_wire_checksums(header: dict, data: Any,
+                          pool: Optional[Executor] = None) -> None:
+    """Stamp an outgoing page frame with per-page content checksums. Call
+    it on the pre-serialization value (the QuantizedPages bundle, not its
+    raw int8 payload) so the scales are covered."""
+    header["kv_crc"] = page_checksums(data, pool=pool)
+
+
+def verify_wire_payload(header: dict, data: Any, *, context: str = "wire",
+                        pool: Optional[Executor] = None) -> None:
+    """Receiver-side verify of a decoded page payload against the frame's
+    ``kv_crc`` list. Frames without ``kv_crc`` pass unverified (the
+    reference's behaviour for peers that predate the integrity plane)."""
+    want = header.get("kv_crc")
+    if want is None:
+        return
+    got = page_checksums(data, pool=pool)
+    if len(want) != len(got):
+        KV_INTEGRITY.inc("dynamo_kv_integrity_failed_total", len(got))
+        raise KvIntegrityError(
+            f"{context}: kv_crc count {len(want)} != {len(got)} pages")
+    bad = tuple(i for i, (w, g) in enumerate(zip(want, got)) if int(w) != g)
+    if bad:
+        KV_INTEGRITY.inc("dynamo_kv_integrity_failed_total", len(bad))
+        KV_INTEGRITY.inc("dynamo_kv_integrity_verified_total",
+                         len(got) - len(bad))
+        raise KvIntegrityError(
+            f"{context}: checksum mismatch on pages {list(bad)} "
+            f"of {len(got)}", bad_pages=bad)
+    KV_INTEGRITY.inc("dynamo_kv_integrity_verified_total", len(got))
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,10 @@ The host half serves the offload tiers and page export/import: the page
 bundle ``QuantizedPages`` (int8 pages and their f32 scales, torch CPU
 tensors), host quantize/dequantize at a mode boundary (dense pages into
 an int8 pool, or the reverse), and the ``dynamo_kv_quant_*`` families
-that /metrics renders. The wire form of the scales (``from_wire``,
-``attach_wire_scales``) waits for the transfer wire (ROADMAP).
+that /metrics renders, and the wire form of the scales
+(``attach_wire_scales``, ``from_wire``): a JSON float list in the frame
+header of the transfer plane (kv_transfer.py), as the JAX package sends
+it.
 """
 from __future__ import annotations
 
@@ -145,6 +147,30 @@ def to_pool_dtype(data: Any, quantized_pool: bool,
     if is_quantized(data):
         return data.dequantize(dtype)
     return data
+
+
+# wire form: int8 payload + scales in the frame header (kv_transfer.py
+# two-part frames). The scale sidecar is small enough for the JSON header:
+# [2, L, n] f32 beside a [2, L, kvh, n, ps, hd] int8 payload
+
+def attach_wire_scales(header: dict, qp: QuantizedPages) -> None:
+    """Add the scale sidecar to an outgoing frame header, as a JSON float
+    list and its shape (the frame's shape/dtype describe ``qp.data``, the
+    payload)."""
+    header["kv_scales"] = qp.scales.reshape(-1).tolist()
+    header["kv_scales_shape"] = list(qp.scales.shape)
+    KV_QUANT.inc("dynamo_kv_quant_scale_bytes_total",
+                 qp.scales.numel() * qp.scales.element_size())
+
+
+def from_wire(arr: torch.Tensor, header: dict) -> Any:
+    """The receive-side value: a QuantizedPages when the frame carried
+    scales, the plain tensor otherwise."""
+    if "kv_scales" not in header:
+        return arr
+    scales = torch.tensor(header["kv_scales"], dtype=torch.float32).reshape(
+        [int(d) for d in header["kv_scales_shape"]])
+    return QuantizedPages(arr, scales)
 
 
 def dequantize_groups(

@@ -8,7 +8,11 @@ Inputs (reference entrypoint/input.rs:29-45):
                  workers register there instead of a local engine
   in=endpoint    a worker: serves the engine on the control plane at
                  --namespace/--component/--endpoint-name and registers
-                 its model (--router-mode picks how frontends route it)
+                 its model (--router-mode picks how frontends route it);
+                 --role decode hands long prompts to the prefill queue
+                 (disagg.py), --role prefill consumes that queue and
+                 registers no model, and --remote-kv serves the KV pool
+                 to peers and fetches prefix misses from theirs (G4)
   in=text        one-shot prompt from --prompt (or interactive REPL)
   in=stdin       read prompts line-by-line from stdin
   in=batch:FILE  JSONL of {"prompt": ...} (or mooncake trace records);
@@ -51,14 +55,6 @@ UNPORTED_FLAGS: dict[str, tuple[dict, str]] = {
                             "request tracing"),
     "--tensor-parallel-size": (dict(type=int, default=1),
                                "tensor parallelism"),
-    "--kv-transfer-chunk-pages": (dict(type=int, default=8),
-                                  "the KV transfer plane"),
-    "--kv-transfer-inflight-chunks": (dict(type=int, default=2),
-                                      "the KV transfer plane"),
-    "--xfer-op-timeout": (dict(type=float, default=120.0),
-                          "the KV transfer plane"),
-    "--kv-transfer-stream-idle-timeout": (dict(type=float, default=15.0),
-                                          "the KV transfer plane"),
     "--max-waiting-requests": (dict(type=int, default=0),
                                "overload budgets"),
     "--max-waiting-prefill-tokens": (dict(type=int, default=0),
@@ -100,14 +96,6 @@ UNPORTED_FLAGS: dict[str, tuple[dict, str]] = {
     "--node-rank": (dict(type=int, default=0), "multi-host engines"),
     "--leader-addr": (dict(default=None, metavar="HOST:PORT"),
                       "multi-host engines"),
-    "--role": (dict(default="aggregated",
-                    choices=["aggregated", "decode", "prefill"]),
-               "disaggregated serving"),
-    "--max-local-prefill-length": (dict(type=int, default=None),
-                                   "disaggregated serving"),
-    "--max-prefill-queue-size": (dict(type=int, default=None),
-                                 "disaggregated serving"),
-    "--remote-kv": (dict(action="store_true"), "KV tier G4"),
     "--kv-replication-target": (dict(type=int, default=2),
                                 "the fleet prefix economy"),
     "--kv-prefetch-hot-k": (dict(type=int, default=8),
@@ -118,8 +106,6 @@ UNPORTED_FLAGS: dict[str, tuple[dict, str]] = {
                            "the fleet prefix economy"),
     "--no-kv-dedup-admission": (dict(action="store_true"),
                                 "the fleet prefix economy"),
-    "--prefill-timeout": (dict(type=float, default=60.0),
-                          "disaggregated serving"),
 }
 
 
@@ -184,6 +170,23 @@ def build_parser() -> argparse.ArgumentParser:
                    default=cfg.scrub_on_start,
                    help="verify every G3 manifest entry against its file "
                         "at startup (default: at each onboard)")
+    # chunk-pipelined KV transfer plane (kv_transfer.py)
+    p.add_argument("--kv-transfer-chunk-pages", type=int, default=8,
+                   help="pages per streamed KV-transfer chunk (disagg "
+                        "remote prefill, G4 peer fetch, G2/G3 onboard); "
+                        "0 = monolithic single-blob transfers")
+    p.add_argument("--kv-transfer-inflight-chunks", type=int, default=2,
+                   help="chunk gathers/D2H copies in flight per export "
+                        "stream (double-buffer depth)")
+    p.add_argument("--xfer-op-timeout", type=float, default=120.0,
+                   help="deadline in seconds for one queued page "
+                        "export/import op (raise for multi-GiB chunked "
+                        "imports on slow host links)")
+    p.add_argument("--kv-transfer-stream-idle-timeout", type=float,
+                   default=15.0,
+                   help="idle-timeout in seconds reclaiming a chunked "
+                        "export stream whose receiver stalled (page refs "
+                        "freed)")
     p.add_argument("--round-pipeline",
                    default="on" if cfg.round_pipeline else "off",
                    choices=["on", "off"],
@@ -202,6 +205,23 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["kv", "round_robin", "random"],
                    help="how frontends route to this worker's model: kv "
                         "(prefix overlap and load), round_robin, random")
+    # disaggregated prefill/decode (disagg.py; reference flags.rs +
+    # disagg_router.rs) and the G4 remote tier
+    p.add_argument("--role", default="aggregated",
+                   choices=["aggregated", "decode", "prefill"],
+                   help="worker role for disaggregated serving")
+    p.add_argument("--max-local-prefill-length", type=int, default=None,
+                   help="prompts with more uncached tokens go to the "
+                        "prefill queue (writes the store-watched conf)")
+    p.add_argument("--max-prefill-queue-size", type=int, default=None)
+    p.add_argument("--prefill-timeout", type=float, default=60.0,
+                   help="--role decode: seconds to wait for a remote "
+                        "prefill before prefilling locally")
+    p.add_argument("--remote-kv", action="store_true",
+                   help="KVBM G4: serve this worker's sealed KV pool to "
+                        "peers and fall through the local tiers to peer "
+                        "pools on prefix misses (requires --control-plane "
+                        "and a G2 tier via --host-offload-pages)")
     p.add_argument("--record-kv-events", default=None, metavar="PATH",
                    help="in=http --control-plane: record the KV-event "
                         "stream feeding the router (JSONL, the JAX "
@@ -287,6 +307,11 @@ def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
             disk_offload_path=args.disk_offload_path,
             scrub_on_start=args.scrub_on_start,
             round_pipeline=args.round_pipeline == "on",
+            kv_transfer_chunk_pages=args.kv_transfer_chunk_pages,
+            kv_transfer_inflight_chunks=args.kv_transfer_inflight_chunks,
+            xfer_op_timeout_s=args.xfer_op_timeout,
+            kv_transfer_stream_idle_timeout_s=(
+                args.kv_transfer_stream_idle_timeout),
         )
         engine = TorchEngine(cfg, ecfg, params=params, device=args.device)
     elif out in _UNPORTED_ENGINES:
@@ -491,11 +516,62 @@ async def connect_runtime(args):
 
 async def serve_worker(args, chain, rt, *, lease_ttl_s: float = 5.0):
     """Register ``chain.engine`` on the runtime ``rt`` as an in=endpoint
-    worker (the reference's ``_serve_worker``, launch/run.py:839, for the
-    aggregated role): serve the engine, put its model entry under the
-    lease, publish its KV events (router mode kv) and load metrics.
-    Returns the ServedEndpoint."""
+    worker (the reference's ``_serve_worker``, launch/run.py:839): serve
+    the engine, put its model entry under the lease, publish its KV events
+    (router mode kv) and load metrics. ``--role decode`` wraps the engine
+    in the disagg decision (disagg.DisaggDecodeEngine) and serves its pool
+    on the block-transfer plane; ``--remote-kv`` serves the pool too and
+    fetches prefix misses from peers (G4). The data plane and its
+    descriptor are up before the endpoint serves. Returns the
+    ServedEndpoint, with the engine it serves (``served.engine``: the
+    wrapper under --role decode); its shutdown stops the data plane and
+    the config watch (``served.parts``)."""
+    import uuid
+
     from dynamo_tpu_torch.frontend.watcher import ModelEntry, register_llm
+
+    if args.role == "prefill":
+        raise ValueError("--role prefill registers no model: use "
+                         "serve_prefill_worker")
+    engine = chain.engine
+    if (args.remote_kv and args.role != "decode"
+            and getattr(engine, "offload", None) is None):
+        raise SystemExit(
+            "--remote-kv needs a G2 host tier (--host-offload-pages > 0)")
+    parts = []
+    if args.role == "decode":
+        from dynamo_tpu_torch.disagg import (
+            DisaggConfig,
+            DisaggConfigWatcher,
+            DisaggDecodeEngine,
+            set_disagg_config,
+        )
+
+        if (args.max_local_prefill_length is not None
+                or args.max_prefill_queue_size is not None):
+            conf = DisaggConfig()
+            if args.max_local_prefill_length is not None:
+                conf.max_local_prefill_length = args.max_local_prefill_length
+            if args.max_prefill_queue_size is not None:
+                conf.max_prefill_queue_size = args.max_prefill_queue_size
+            await set_disagg_config(rt.kv, args.namespace, conf)
+        watcher = await DisaggConfigWatcher(rt.kv, args.namespace).start()
+        parts.append(watcher)
+        engine = DisaggDecodeEngine(
+            engine, rt, namespace=args.namespace, conf=watcher,
+            prefill_timeout_s=args.prefill_timeout)
+    if args.role == "decode" or args.remote_kv:
+        # the descriptor key is a fresh id, independent of the lease: a
+        # request must not enqueue a prefill job nobody can address
+        parts.append(await _attach_data_plane(args, rt, engine,
+                                              uuid.uuid4().hex))
+    inner = getattr(engine, "engine", engine)
+    if args.remote_kv and getattr(inner, "offload", None) is not None:
+        from dynamo_tpu_torch.kv_transfer import RemoteKvFetcher
+
+        inner.remote_kv = RemoteKvFetcher(
+            rt.kv, args.namespace, engine.worker_id,
+            chunk_pages=args.kv_transfer_chunk_pages)
 
     entry = ModelEntry(
         name=chain.name,
@@ -506,8 +582,52 @@ async def serve_worker(args, chain, rt, *, lease_ttl_s: float = 5.0):
         router_mode=args.router_mode,
         model_path=args.model_path,
     )
-    return await register_llm(rt, chain.engine, entry,
-                              lease_ttl_s=lease_ttl_s)
+    served = await register_llm(rt, engine, entry, lease_ttl_s=lease_ttl_s)
+    served.engine, served.parts = engine, parts
+    return served
+
+
+async def _attach_data_plane(args, rt, engine, worker_id: str):
+    """Serve the engine's KV pool on the block-transfer plane and publish
+    its blockset descriptor under ``worker_id``; returns the server."""
+    from dynamo_tpu_torch.kv_transfer import (
+        BlocksetDescriptor,
+        BlockTransferServer,
+        KvCacheLayout,
+        publish_descriptor,
+    )
+
+    inner = getattr(engine, "engine", engine)
+    engine.worker_id = worker_id
+    srv = BlockTransferServer(
+        read_fn=inner.export_pages,
+        write_fn=getattr(engine, "guarded_import", inner.import_pages),
+        read_hashes_fn=inner.export_pages_by_hash,
+        # chunk-pipelined G4 serving: cheap probes and streamed hash reads
+        count_hashes_fn=inner.allocator.cached_prefix_len,
+        read_hashes_stream_fn=inner.export_hash_stream)
+    host, port = await srv.start()
+    cfg, ecfg = inner.config, inner.ecfg
+    await publish_descriptor(rt.kv, args.namespace, BlocksetDescriptor(
+        worker_id=worker_id, host=host, port=port,
+        layout=KvCacheLayout(
+            num_layers=cfg.num_layers, num_kv_heads=cfg.num_kv_heads,
+            page_size=ecfg.page_size, head_dim=cfg.head_dim,
+            # what moves on the wire: int8 payloads (+ header scales) for
+            # a quantized pool
+            dtype=("int8" if ecfg.kv_quant == "int8"
+                   else ecfg.cache_dtype))))
+    return srv
+
+
+async def serve_prefill_worker(args, chain, rt):
+    """``--role prefill``: consume the prefill queue of ``--namespace``
+    with ``chain.engine`` (no model registration, as the reference's
+    prefill_worker.py). Returns the started disagg.PrefillWorker."""
+    from dynamo_tpu_torch.disagg import PrefillWorker
+
+    return await PrefillWorker(rt, chain.engine,
+                               namespace=args.namespace).start()
 
 
 def sigterm_event() -> asyncio.Event:
@@ -550,6 +670,21 @@ async def _serve_worker(args, chain) -> None:
               f"{served.server.handler.requests} requests", flush=True)
     finally:
         await served.shutdown()
+        await rt.close()
+
+
+async def _serve_prefill_worker(args, chain) -> None:
+    """in=endpoint --role prefill: serve until SIGTERM."""
+    rt = await connect_runtime(args)
+    worker = await serve_prefill_worker(args, chain, rt)
+    stop = sigterm_event()
+    print(f"prefill worker consuming {args.namespace}.prefill", flush=True)
+    try:
+        await stop.wait()
+        print(f"SIGTERM; shutting down (prefill worker handled "
+              f"{worker.jobs_handled} jobs)", flush=True)
+    finally:
+        await worker.stop()
         await rt.close()
 
 
@@ -617,8 +752,10 @@ def run_cli(argv: Optional[list[str]] = None) -> int:
             print(f"{type(chain.engine).__name__} on {device}",
                   file=sys.stderr, flush=True)
         if inp == "endpoint":
-            # serve_engine starts the engine
-            asyncio.run(_serve_worker(args, chain))
+            # serve_engine (or the prefill worker) starts the engine
+            asyncio.run(_serve_prefill_worker(args, chain)
+                        if args.role == "prefill"
+                        else _serve_worker(args, chain))
             return 0
         chain.engine.start()
         if inp == "http":

@@ -175,6 +175,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import dynamo_tpu_torch.overload.load\n"
         "import dynamo_tpu_torch.overload.metrics\n"
         "import dynamo_tpu_torch.recorder, dynamo_tpu_torch.router_service\n"
+        "import dynamo_tpu_torch.kv_transfer, dynamo_tpu_torch.disagg\n"
+        "import dynamo_tpu_torch.kv_transfer_metrics\n"
         "for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, "
         "'dynamo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

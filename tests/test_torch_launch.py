@@ -80,7 +80,7 @@ def test_parse_io_refuses_other_words():
     (["--model-path", "/models/x"], "--model-path"),
     (["--tensor-parallel-size", "2"], "--tensor-parallel-size=2"),
     (["--num-nodes", "2", "--role", "decode"], "--num-nodes=2"),
-    (["--remote-kv"], "--remote-kv=True"),
+    (["--chaos", "kill_worker"], "--chaos='kill_worker'"),
     (["--preempt-running", "on"], "running preemption"),
     (["--system-port", "9000"], "--system-port=9000"),
     (["out=mocker"], "mocker"),
@@ -209,3 +209,66 @@ def test_cli_refuses_the_reference_commands_by_name(cmd, capsys):
 
     assert cli.main([cmd]) == 2
     assert f"{cmd}: " in capsys.readouterr().err
+
+
+ROLE_FLAGS = ("--kv-transfer-chunk-pages", "--kv-transfer-inflight-chunks",
+              "--xfer-op-timeout", "--kv-transfer-stream-idle-timeout",
+              "--role", "--max-local-prefill-length",
+              "--max-prefill-queue-size", "--remote-kv", "--prefill-timeout")
+
+
+def test_role_and_transfer_flags_parse_with_the_reference_defaults(
+        monkeypatch):
+    for k in list(os.environ):
+        if k.startswith("DYNTPU_"):
+            monkeypatch.delenv(k)
+    ref, port = _options(rrun.build_parser()), _options(prun.build_parser())
+    for flag in ROLE_FLAGS:
+        assert flag not in prun.UNPORTED_FLAGS, flag
+        assert port[flag].default == ref[flag].default, flag
+        assert port[flag].choices == ref[flag].choices, flag
+        assert type(port[flag]) is type(ref[flag]), flag
+    for role in ("prefill", "decode"):
+        argv = ["in=endpoint", "out=torch", "--role", role,
+                "--max-local-prefill-length", "64",
+                "--kv-transfer-chunk-pages", "0", "--prefill-timeout", "5"]
+        args = prun.build_parser().parse_intermixed_args(argv)
+        want = rrun.build_parser().parse_intermixed_args(argv)
+        for flag in ROLE_FLAGS:
+            key = flag[2:].replace("-", "_")
+            assert getattr(args, key) == getattr(want, key), flag
+        prun.refuse_unported(args)
+    # the transfer flags reach the engine's config
+    args = prun.build_parser().parse_intermixed_args(
+        ["in=text", "out=torch", "--model-config", "tiny", "--device", "cpu",
+         "--cache-dtype", "float32", "--kv-transfer-chunk-pages", "3",
+         "--kv-transfer-inflight-chunks", "4", "--xfer-op-timeout", "9",
+         "--kv-transfer-stream-idle-timeout", "7"])
+    _, chain = prun.build_chain(args)
+    try:
+        e = chain.engine.ecfg
+        assert (e.kv_transfer_chunk_pages, e.kv_transfer_inflight_chunks,
+                e.xfer_op_timeout_s, e.kv_transfer_stream_idle_timeout_s) \
+            == (3, 4, 9.0, 7.0)
+    finally:
+        import asyncio
+
+        asyncio.run(chain.engine.stop())
+
+
+def test_remote_kv_without_a_g2_tier_exits_with_the_reference_message():
+    import asyncio
+
+    args = prun.build_parser().parse_intermixed_args(
+        ["in=endpoint", "out=echo", "--remote-kv", "--control-plane",
+         "127.0.0.1:1"])
+    _, chain = prun.build_chain(args)
+    with pytest.raises(SystemExit) as e:
+        asyncio.run(prun.serve_worker(args, chain, None))
+    assert str(e.value) == (
+        "--remote-kv needs a G2 host tier (--host-offload-pages > 0)")
+    # the reference's message, from its launcher's source
+    import inspect
+
+    assert str(e.value).split(" (")[0] in inspect.getsource(
+        rrun._serve_worker)
