@@ -159,6 +159,26 @@ Phases, each printing a line (any failure raises and exits non-zero):
      The int8 kernel's own count rises by layers x both engines' decode
      steps (launches_remote_kv). Printed: TTFT per wave and G/A per
      prompt, probe and fetch ms, wire GB/s, memory;
+  7f. resilience: two 8B workers on the same weights, dense KV, each
+     through serve_worker with --system-port 0 and --drain-timeout 30 (a
+     system server and a drain controller each), and a KV-routing
+     frontend with --health-heartbeat-ttl 2 (its shared breaker board
+     running). Migration: kill_worker armed (after 3 outputs: 9 tokens,
+     once) through a worker's POST /chaos; one prompt streamed for 32
+     tokens must end whole, migrated once (the chaos and migration
+     counters +1), its tokens before the kill generate()'s for the prompt
+     alone and the rest generate()'s for the replay request. Drain: 4 prompts gated at both
+     intakes; with their first tokens out, POST /drain to the worker
+     holding most: its streams finish whole (identical to generate() on
+     one engine along the same path), its lease is revoked, /drain reads
+     draining then drained, 4 new prompts all land on the other worker,
+     a request to the drained engine raises WorkerDrainingError, and the
+     drain counter rises by 1; the live worker's /metrics carries uptime,
+     its gauges and the resilience families. The kernel's own count
+     rises by layers x both engines' decode steps (launches_resilience);
+     no chaos point is left armed. Printed: the migrated stream's TTFT
+     and the gap at the kill beside the median gap, and the drain's
+     seconds;
   8. offload: the KV offload plane on Llama-3.1-8B with the same bf16
      weights, a 96-page pool (768 MiB), a 128-page G2 in pinned host
      memory and a 128-page G3 file in a temporary directory, in dense
@@ -177,8 +197,14 @@ Phases, each printing a line (any failure raises and exits non-zero):
      flash-decode kernel of the mode must run on every layer of every
      decode step (the kernels line's launches_offload). A dense engine
      without tiers at 96 pages recomputes what was evicted (the
-     baseline). Printed: wave C's TTFT onboarded, as G1 hits and
-     recomputed, wave B's decode gap with offload on and off, host ms a
+     baseline). In int8, wave F follows wave C: a fresh 4000-token
+     prompt evicts a serve prompt's blocks from G1; that prompt, replayed
+     with the flip_kv_bits chaos point armed once, must have exactly one
+     onboarded page fail its crc, be quarantined in every tier and
+     recomputed, token-identical to the G1 reference's recompute of it
+     alone (its decode steps count in launches_offload). Printed: wave
+     C's TTFT onboarded, as G1 hits and recomputed, wave F's beside it,
+     wave B's decode gap with offload on and off, host ms a
      page offloaded (on the engine's put thread: crc + copy + spill) and
      onboarded (gather + verify + H2D issue), and the D2H and H2D copies'
      GB/s;
@@ -202,7 +228,9 @@ Phases, each printing a line (any failure raises and exits non-zero):
      on cuda) and a ``launch.run in=http --control-plane`` frontend; four
      greedy chat completions must each equal in=text's output, both
      workers must have served (each prints its count when SIGTERM stops
-     it), and every process must exit 0.
+     it), each worker runs with --system-port 0 (/health must answer 200)
+     and SIGTERM must drain it ("drained; shutting down"), and every
+     process must exit 0.
 Each phase prints its seconds, and at the end one summary line (its
 name, seconds and key figures), all together before the card line, so
 that the last 24 KB of the output hold every phase's result.
@@ -3205,6 +3233,470 @@ def check_remote_kv(params, smi):
     return int8, dict(ttft_a=ttft_a, ttft_g=ttft_g, gbs=gbs)
 
 
+def check_resilience(params):
+    """The resilience plane at Llama-3.1-8B, dense KV: the port's store,
+    two workers W1 and W2 (launch.run's build_chain on the one weight
+    copy, each through launch.run.serve_worker with --system-port 0 and
+    --drain-timeout 30, so each runs a system server and a drain
+    controller, each on its own loop thread) and a KV-routing frontend
+    with --health-heartbeat-ttl 2 (ModelWatcher with
+    KvRouterConfig(router_temperature=0.0), its shared breaker board
+    running); every request asks top-2 logprobs.
+
+    Migration: kill_worker armed with after=3 (outputs: the first token,
+    then two rounds of 4), once, through a worker's POST /chaos; one
+    serve prompt streamed for 32 tokens through the frontend must end in
+    [DONE] with 32 tokens and finish_reason length; the point fires once
+    and dynamo_resilience_chaos_injections_total and
+    dynamo_migration_total each rise by 1; the k tokens before the kill
+    must equal generate()'s for the prompt alone and the other 32 - k
+    generate()'s for the replay request (prompt + the k tokens), each on
+    a cold cache on one engine (the paths the two workers took).
+
+    Drain: 4 serve prompts through the frontend, gated at both workers'
+    intakes; as soon as one worker's share all has its first token out of
+    its engine and none has finished (the workers prefill their shares
+    at their own pace on one card), POST /drain to that worker's system
+    server (W1). Its streams finish whole, equal to generate() on one engine along the
+    same path (its share as one gated burst); its lease is revoked (the
+    router drops it); GET /drain reads draining, then drained; 4 new
+    prompts then all land on W2 and none fails; a request straight to
+    W1's engine raises WorkerDrainingError; dynamo_resilience_drains_total
+    rises by 1. Scrape: W2's GET /metrics carries the uptime, W2's
+    ForwardPassMetrics gauges and the resilience families. The kernel's
+    own count on the card rises by layers x both workers' decode steps
+    (the kernels line's launches_resilience). No chaos point is left
+    armed. Returns (launches, figures)."""
+    import random
+
+    from dynamo_tpu_torch.frontend.http import HttpClient
+    from dynamo_tpu_torch.frontend.model_manager import ModelManager
+    from dynamo_tpu_torch.frontend.service import HttpService
+    from dynamo_tpu_torch.frontend.watcher import ModelWatcher
+    from dynamo_tpu_torch.kv_router.scheduler import KvRouterConfig
+    from dynamo_tpu_torch.launch import run as launch
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+    from dynamo_tpu_torch.resilience.chaos import CHAOS
+    from dynamo_tpu_torch.resilience.drain import WorkerDrainingError
+    from dynamo_tpu_torch.resilience.metrics import RESILIENCE
+    from dynamo_tpu_torch.resilience.migration import build_replay_request
+    from dynamo_tpu_torch.runtime.store import serve_store
+    from dynamo_tpu_torch.tokenizer import make_test_tokenizer
+
+    cfg = ModelConfig.llama3_8b()
+    name = "llama3_8b"
+    tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
+    prompts = serve_prompts(cfg.vocab_size)
+    fresh = offload_prompts(cfg.vocab_size)[:4]
+    lp = {"logprobs": 2}
+    # the point counts outputs: the engine sends the first token alone and
+    # then a round's flush_every tokens as one output, so a kill after 3
+    # outputs lands after 1 + 2 x 4 = 9 tokens, with 23 left to replay
+    kill_after = 3
+    loops = {k: LoopThread(f"{k}-loop")
+             for k in ("store", "worker0", "worker1", "frontend")}
+    faulthandler.dump_traceback_later(900, exit=True)
+    try:
+        server, _ = loops["store"].run(serve_store("127.0.0.1", 0))
+        cp = f"127.0.0.1:{server.sockets[0].getsockname()[1]}"
+        args = launch.build_parser().parse_intermixed_args(
+            ["in=endpoint", "out=torch", "--model-config", name,
+             "--model-name", name, "--control-plane", cp,
+             "--system-port", "0", "--drain-timeout", "30"])
+        fargs = launch.build_parser().parse_intermixed_args(
+            ["in=http", "--control-plane", cp, "--health-heartbeat-ttl",
+             "2"])
+        t0 = time.monotonic()
+        engs, marks, chains, rts, served = [], [], [], [], []
+        for k in range(2):
+            _, chain = launch.build_chain(args, params=params,
+                                          tokenizer=tok)
+            chains.append(chain)
+            engs.append(chain.engine)
+            marks.append(record_marks(chain.engine))
+        for k, chain in enumerate(chains):
+            lt = loops[f"worker{k}"]
+            rts.append(lt.run(launch.connect_runtime(args)))
+            served.append(lt.run(launch.serve_worker(
+                args, chain, rts[k], lease_ttl_s=10.0)))
+        torch.cuda.synchronize()
+        t_workers = time.monotonic() - t0
+        wids = [str(s.lease_id) for s in served]
+        sys_ports = [s.system.port for s in served]
+
+        async def frontend_up():
+            rt = await launch.connect_runtime(fargs)
+            manager = ModelManager()
+            watcher = await ModelWatcher(
+                rt, manager,
+                router_config=KvRouterConfig(router_temperature=0.0),
+                tokenizer=tok,
+                heartbeat_ttl_s=fargs.health_heartbeat_ttl).start()
+            svc = HttpService(manager, host="127.0.0.1", port=0)
+            await svc.start()
+            for _ in range(600):
+                push = watcher._routers.get(name)
+                if push is not None and sorted(push.workers) == sorted(wids):
+                    break
+                await asyncio.sleep(0.05)
+            return rt, watcher, svc
+
+        rt, watcher, svc = loops["frontend"].run(frontend_up())
+        push = watcher._routers.get(name)
+        if push is None or sorted(push.workers) != sorted(wids):
+            raise AssertionError(f"resilience: the frontend routes over "
+                                 f"{None if push is None else push.workers}"
+                                 f", the workers are {wids}")
+        if (watcher.health.heartbeat_ttl_s != 2.0
+                or watcher._breaker_board is None):
+            raise AssertionError("resilience: the frontend runs no heartbeat "
+                                 "TTL or breaker board")
+        push.router.scheduler.selector.rng = random.Random(SEED)
+        log(f"resilience: store on {cp}, workers {wids} with system servers "
+            f"on ports {sys_ports} (drain timeout {args.drain_timeout} s) "
+            f"built and registered in {t_workers:.1f} s; frontend on "
+            f"127.0.0.1:{svc.port} (heartbeat TTL "
+            f"{fargs.health_heartbeat_ttl} s, breaker board on)")
+
+        async def call(port, method, path, body=None):
+            async with HttpClient("127.0.0.1", port) as c:
+                r = await c.request(method, path, json_body=body)
+            return r.status, (r.json() if r.headers.get(
+                "content-type", "").startswith("application/json")
+                else r.body.decode())
+
+        def take_marks():
+            out = [dict(m) for m in marks]
+            for m in marks:
+                m.clear()
+            return out
+
+        # every kernel count to 0 just before the main path
+        fd.launches = fd.launches_int8 = 0
+        for e in engs:
+            e.kernel_launches = 0
+        fd.executed(engs[0].device, reset=True)
+        steps0 = [e.step_count for e in engs]
+        inj0 = RESILIENCE.get("dynamo_resilience_chaos_injections_total")
+        mig0 = RESILIENCE.get("dynamo_migration_total")
+        drains0 = RESILIENCE.get("dynamo_resilience_drains_total")
+        try:
+            # ---- migration: a kill after 8 outputs, armed over HTTP
+            status, point = asyncio.run(call(
+                sys_ports[1], "POST", "/chaos", {
+                    "point": "kill_worker", "after_outputs": kill_after,
+                    "once": True}))
+            if status != 200 or not point["armed"]:
+                raise AssertionError(f"resilience: POST /chaos gave {status} "
+                                     f"{point}")
+
+            async def one(p):
+                async with HttpClient("127.0.0.1", svc.port) as c:
+                    r = await stream_completion(c, p, name,
+                                                "resilience migration", **lp)
+                await settle_engines(*engs)
+                return r
+
+            res_m = asyncio.run(one(prompts[0]))
+            mm = take_marks()
+            injected = CHAOS.points["kill_worker"].injected_total
+            if CHAOS.any_armed() or injected != 1:
+                raise AssertionError(f"resilience: kill_worker fired "
+                                     f"{injected} times, armed "
+                                     f"{CHAOS.any_armed()}")
+            orig = [k for k in range(2) if tuple(prompts[0]) in mm[k]]
+            replays = [(k, key) for k in range(2) for key in mm[k]
+                       if len(key) > len(prompts[0])
+                       and key[:len(prompts[0])] == tuple(prompts[0])]
+            if len(orig) != 1 or len(replays) != 1 \
+                    or replays[0][0] == orig[0]:
+                raise AssertionError(f"resilience: the prompt reached "
+                                     f"workers {orig}, its replay "
+                                     f"{[k for k, _ in replays]}")
+            k_orig, (k_rep, rep_key) = orig[0], replays[0]
+            m0 = mm[k_orig][tuple(prompts[0])]
+            # the TTFT split: send to the engine's intake, intake to the
+            # engine's first output
+            split_m = (m0["in"] - res_m[0], m0["first"] - m0["in"])
+            emitted = list(rep_key[len(prompts[0]):])
+            first = mm[k_orig][tuple(prompts[0])]["tokens"][:len(emitted)]
+            rest = mm[k_rep][rep_key]["tokens"]
+            migrated = first + rest
+            ttft_m, gaps_m, _, _ = parse_streams(
+                [res_m], [migrated], "resilience migration")
+            k_tok = len(emitted)
+            if emitted != first or not 0 < k_tok < N_NEW \
+                    or len(migrated) != N_NEW:
+                raise AssertionError(
+                    f"resilience: the replay carried {len(emitted)} tokens "
+                    f"(the killed stream gave {first}), the client "
+                    f"{len(migrated)} in all")
+            inj = RESILIENCE.get(
+                "dynamo_resilience_chaos_injections_total") - inj0
+            mig = RESILIENCE.get("dynamo_migration_total") - mig0
+            if (inj, mig) != (1, 1):
+                raise AssertionError(f"resilience: chaos injections +{inj}, "
+                                     f"migrations +{mig}")
+            # the gap at the kill: the client's wait for the first token
+            # after it
+            t_send, events, arrivals = res_m
+            n_seen, t_prev, kill_gap = 0, None, None
+            for ev, t in zip(events[:-1], arrivals):
+                n = len(ev.json()["choices"][0]["text"].split())
+                if n and n_seen <= k_tok < n_seen + n:
+                    kill_gap = t - t_prev
+                if n:
+                    n_seen, t_prev = n_seen + n, t
+
+            # ---- drain: 4 in flight, then POST /drain to the busier
+            # worker
+            burst = prompts[1:5]
+            gate = IntakeGate(engs, len(burst))
+
+            async def drain_wave():
+                clients = [HttpClient("127.0.0.1", svc.port)
+                           for _ in burst]
+                try:
+                    tasks = [asyncio.ensure_future(stream_completion(
+                        c, p, name, "resilience drain", **lp))
+                        for c, p in zip(clients, burst)]
+
+                    def ready():
+                        """The worker whose share of the burst all has a
+                        first token and none has finished, if any."""
+                        where = [[k for k in range(2) if tuple(p) in marks[k]]
+                                 for p in burst]
+                        if any(len(w) != 1 for w in where):
+                            return None
+                        for k in range(2):
+                            ms = [marks[k][tuple(p)] for p in burst
+                                  if tuple(p) in marks[k]]
+                            if ms and all("first" in m and "timing" not in m
+                                          for m in ms):
+                                return k
+                        return None
+
+                    deadline = time.monotonic() + 120
+                    while (d := ready()) is None:
+                        done = [i for i, t in enumerate(tasks) if t.done()]
+                        for i in done:
+                            tasks[i].result()   # its failure, if it failed
+                        if time.monotonic() > deadline or len(done) == len(
+                                tasks):
+                            seen = [{k: sorted(m[tuple(p)]) for k, m
+                                     in enumerate(marks) if tuple(p) in m}
+                                    for p in burst]
+                            raise AssertionError(
+                                f"resilience drain: no worker had its share "
+                                f"of the burst in flight (marks {seen})")
+                        await asyncio.sleep(0.001)
+                    share = [sum(tuple(p) in marks[k] for p in burst)
+                             for k in range(2)]
+                    t_post = time.monotonic()
+                    st, body = await call(sys_ports[d], "POST", "/drain")
+                    st2, body2 = await call(sys_ports[d], "GET", "/drain")
+                    if (st, body["state"], st2, body2["state"]) != (
+                            200, "draining", 200, "draining"):
+                        raise AssertionError(
+                            f"resilience: POST /drain {st} {body}, GET "
+                            f"/drain {st2} {body2} with streams in flight")
+                    # polled while the streams run: POST to drained
+                    while True:
+                        st, body = await call(sys_ports[d], "GET", "/drain")
+                        if body["state"] == "drained":
+                            drain_s = time.monotonic() - t_post
+                            break
+                        if time.monotonic() - t_post > 60:
+                            raise AssertionError(f"resilience: drain state "
+                                                 f"{body}")
+                        await asyncio.sleep(0.005)
+                    res = await asyncio.wait_for(asyncio.gather(*tasks), 120)
+                    return res, d, share, drain_s
+                finally:
+                    for c in clients:
+                        await c.close()
+
+            res_d, d, share, drain_s = asyncio.run(drain_wave())
+            if not gate.open:
+                raise AssertionError("resilience drain: the gate never "
+                                     "opened")
+            md = take_marks()
+            live = 1 - d
+            got_d = [md[k][tuple(p)]["tokens"] for p in burst
+                     for k in range(2) if tuple(p) in md[k]]
+            ttft_d, gaps_d, _, _ = parse_streams(res_d, got_d,
+                                                 "resilience drain")
+            mine = [i for i, p in enumerate(burst) if tuple(p) in md[d]]
+
+            # ---- deregistered: the router drops W1; 4 new prompts on W2
+            async def dropped():
+                for _ in range(600):
+                    if list(push.workers) == [wids[live]]:
+                        return
+                    await asyncio.sleep(0.02)
+                raise AssertionError(f"resilience: the frontend still routes "
+                                     f"over {list(push.workers)}")
+
+            loops["frontend"].run(dropped())
+
+            async def after():
+                out = []
+                async with HttpClient("127.0.0.1", svc.port) as c:
+                    for p in fresh:
+                        out.append(await stream_completion(
+                            c, p, name, "resilience after drain", **lp))
+                await settle_engines(*engs)
+                return out
+
+            res_a = asyncio.run(after())
+            ma = take_marks()
+            if any(tuple(p) not in ma[live] or tuple(p) in ma[d]
+                   for p in fresh):
+                raise AssertionError("resilience: a request after the drain "
+                                     "did not land on the live worker")
+            parse_streams(res_a, [ma[live][tuple(p)]["tokens"]
+                                  for p in fresh], "resilience after drain")
+
+            async def refused():
+                try:
+                    async for _ in engs[d].generate(PreprocessedRequest(
+                            token_ids=list(fresh[0]), model=name)):
+                        pass
+                except WorkerDrainingError:
+                    return True
+                return False
+
+            if not asyncio.run(refused()):
+                raise AssertionError("resilience: the drained engine took a "
+                                     "request")
+            drains = RESILIENCE.get("dynamo_resilience_drains_total") \
+                - drains0
+            if drains != 1 or not engs[d].drained():
+                raise AssertionError(f"resilience: drains +{drains}, "
+                                     f"engine drained {engs[d].drained()}")
+
+            # ---- scrape the live worker
+            st, text = asyncio.run(call(sys_ports[live], "GET", "/metrics"))
+            want_lines = (
+                "# TYPE dynamo_system_uptime_seconds gauge",
+                f'dynamo_worker_total_slots{{worker="{wids[live]}"}} '
+                f'{engs[live].ecfg.max_decode_slots}',
+                f'dynamo_kv_total_blocks{{worker="{wids[live]}"}}',
+                "# TYPE dynamo_migration_total counter",
+                "# TYPE dynamo_resilience_drains_total counter",
+                "# TYPE dynamo_resilience_chaos_injections_total counter")
+            missing = [w for w in want_lines if w not in text]
+            st_h, health = asyncio.run(call(sys_ports[live], "GET",
+                                            "/health"))
+            if st != 200 or missing or st_h != 200:
+                raise AssertionError(f"resilience: /metrics {st} lacks "
+                                     f"{missing}; /health {st_h}")
+        finally:
+            CHAOS.reset()
+
+        # ---- the counts, once both engines idle
+        loops["frontend"].run(settle_engines(*engs))
+        torch.cuda.synchronize()
+        dense, int8 = fd.executed(engs[0].device)
+        issued = fd.launches + fd.launches_int8
+        steps = sum(e.step_count - s for e, s in zip(engs, steps0))
+        check_kv_launches("resilience", engs, dense, int8, issued, steps,
+                          cfg.num_layers)
+
+        # ---- the same paths through generate() on the live engine
+        ref = engs[live]
+        problems = []
+
+        def hold(what, got, want):
+            if got != want:
+                j = next((j for j, (a, b) in enumerate(zip(got, want))
+                          if a != b), min(len(got), len(want)))
+                problems.append(f"resilience {what}: step {j} gave "
+                                f"{got[j:j + 1]} where generate() on the "
+                                f"same path gave {want[j:j + 1]}")
+
+        t0 = time.monotonic()
+        ref.clear_kv_blocks()
+        alone = rerun(ref, [prompts[0]], burst=False)[0]
+        hold("migration (before the kill)", first, alone[:k_tok])
+        ref.clear_kv_blocks()
+        replay = build_replay_request(PreprocessedRequest(
+            token_ids=list(prompts[0]), model=name), emitted)
+
+        async def replay_alone():
+            return (await generate_all(ref, [replay.token_ids],
+                                       N_NEW - k_tok, logprobs=2))[0][0]
+
+        hold("migration (the replay)", rest, asyncio.run(replay_alone()))
+        ref.clear_kv_blocks()
+        drained_ref = rerun(ref, [burst[i] for i in mine], burst=True)
+        for i, want in zip(mine, drained_ref):
+            hold(f"drain (prompt {i + 1})", md[d][tuple(burst[i])]["tokens"],
+                 want)
+        take_marks()
+        t_ref = time.monotonic() - t0
+
+        async def frontend_down():
+            await svc.stop()
+            await watcher.stop()
+            await rt.close()
+
+        loops["frontend"].run(frontend_down())
+        for k in range(2):
+            loops[f"worker{k}"].run(served[k].shutdown())
+            loops[f"worker{k}"].run(rts[k].close())
+            loops[f"worker{k}"].run(engs[k].stop())
+
+        async def store_down():
+            server.close()
+            await server.wait_closed()
+
+        loops["store"].run(store_down())
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        for lt in loops.values():
+            lt.close()
+    if CHAOS.any_armed():
+        raise AssertionError("resilience: a chaos point is left armed")
+    med_gap = float(np.median(gaps_d))
+    log(f"resilience migration: kill_worker (after {kill_after} outputs, "
+        f"once) armed through worker {wids[1]}'s POST /chaos fired once on "
+        f"{wids[k_orig]} after {k_tok} tokens; the stream migrated to "
+        f"{wids[k_rep]} ({N_NEW - k_tok} tokens replayed there) and ended "
+        f"[DONE] with {N_NEW} tokens, finish length (injections +1, "
+        f"migrations +1); TTFT {ttft_m[0]:.4f} s (send to the engine's "
+        f"intake {split_m[0]:.4f} s, intake to its first output "
+        f"{split_m[1]:.4f} s: the first request of two fresh engines); "
+        f"the client's gap at the "
+        f"kill {kill_gap * 1e3:.1f} ms (detection + the replay's prefill "
+        f"of {len(replay.token_ids)} tokens) against the drain wave's "
+        f"median gap {med_gap * 1e3:.2f} ms")
+    log(f"resilience drain: 4 streams gated at both intakes ({share[0]} on "
+        f"{wids[0]}, {share[1]} on {wids[1]}); POST /drain to {wids[d]} with "
+        f"{len(mine)} in flight: drained {drain_s:.3f} s after the POST, "
+        f"every stream whole; the router dropped it; 4 new prompts all on "
+        f"{wids[live]}; a request to the drained engine refused "
+        f"(WorkerDrainingError); drains +1; {wids[live]}'s /metrics "
+        f"carries uptime, its gauges and the resilience families")
+    log(f"resilience: {steps} decode steps over both engines, flash_decode "
+        f"ran {dense} times on the card = {cfg.num_layers} x {steps}; "
+        f"identical to generate() on one engine along the same paths "
+        f"(checked in {t_ref:.1f} s)")
+    if problems:
+        raise AssertionError("resilience: " + "; ".join(problems))
+    del engs, chains
+    gc.collect()
+    torch.cuda.empty_cache()
+    figures(f"migrated TTFT {ttft_m[0]:.4f} s, gap at the kill "
+            f"{kill_gap * 1e3:.1f} ms vs median {med_gap * 1e3:.2f} ms; "
+            f"drain {drain_s:.3f} s with {len(mine)} in flight, none lost; "
+            f"launches {dense}")
+    return dense, dict(ttft_m=ttft_m[0], kill_gap=kill_gap,
+                       med_gap=med_gap, drain_s=drain_s)
+
+
 def offload_prompts(vocab: int):
     """Wave B of the offload phase: 8 prompts of the serve prompts'
     lengths, from seed 1."""
@@ -3311,11 +3803,15 @@ def check_offload(params, counts, card):
     hit or onboarded with no block recomputed or failed, and G3 must
     serve a block of C; then export/import and clear_kv_blocks
     (``check_export_import``). A dense engine without tiers at 96 pages
-    gives the recompute baseline. Prints wave C's TTFT by source, wave
-    B's decode gap with offload on and off, host ms a page and the
-    copies' GB/s, each line beside ``card`` (nvidia-smi's name and power
-    limit); returns the flash-decode launches of the offload
-    engines' waves (each mode's kernel on every layer of every step)."""
+    gives the recompute baseline. In int8, wave F (``wave_f``): a serve
+    prompt evicted from G1 and replayed with flip_kv_bits armed once must
+    have one onboarded page quarantined in every tier and recomputed,
+    token-identical to the G1 reference's recompute of it alone. Prints
+    wave C's TTFT by source, wave F's, wave B's decode gap with offload
+    on and off, host ms a page and the copies' GB/s, each line beside
+    ``card`` (nvidia-smi's name and power limit); sets the flash-decode
+    launches of the offload engines' waves in ``counts`` (each mode's
+    kernel on every layer of every step)."""
     import shutil
     import tempfile
 
@@ -3328,21 +3824,29 @@ def check_offload(params, counts, card):
     ps = EngineConfig().page_size
     matchable = [(len(p) - 1) // ps for p in serve_prompts(cfg.vocab_size)]
 
-    def run(ecfg, label):
+    def run(ecfg, label, f_prompt=None):
         t0 = time.monotonic()
         eng = TorchEngine(cfg, ecfg, params=params, device="cuda")
         torch.cuda.synchronize()
         steps0 = eng.step_count
         fd.executed(eng.device, reset=True)
         waves, c_g3, before, after = offload_waves(eng, cfg)
-        ran = fd.executed(eng.device)
-        steps = eng.step_count - steps0
-        check_replayed(eng, f"offload {label}")
-        out = dict(waves=waves, c_g3=c_g3, before=before, after=after,
-                   steps=steps, ran=ran, secs=time.monotonic() - t0)
+        out = dict(waves=waves, c_g3=c_g3, before=before, after=after, f=None)
         if eng.offload is not None:
+            # waves A-C's transfers, before wave F adds its own
             out["stats"] = eng.transfer_stats()
             out["kv"] = eng.metrics().kv_stats
+            if ecfg.kv_quant == "int8":
+                out["f"] = wave_f(eng, label)
+        elif f_prompt is not None:
+            # the G1 reference recomputes the prompt alone, as wave F does
+            eng.clear_kv_blocks()
+            out["f"] = asyncio.run(generate_all(eng, [f_prompt], 32))[0]
+        out.update(ran=fd.executed(eng.device),
+                   steps=eng.step_count - steps0)
+        check_replayed(eng, f"offload {label}")
+        out["secs"] = time.monotonic() - t0
+        if eng.offload is not None:
             check_export_import(eng, label)
         asyncio.run(eng.stop())
         del eng
@@ -3353,6 +3857,60 @@ def check_offload(params, counts, card):
     def ttft(res):
         t = [a["timing"]["ttft_s"] for _, _, a, *_ in res]
         return f"median {np.median(t):.4f} s max {max(t):.4f} s"
+
+    def wave_f(eng, label):
+        """Wave F: a fresh 4000-token prompt evicts wave A's blocks from
+        G1; the first serve prompt whose blocks all left G1 for G2/G3 is
+        replayed with flip_kv_bits armed once: the first onboarded page
+        fails its crc and is quarantined in every tier, and it and the
+        rest of the run are recomputed. Returns (prompt index, the
+        replay's tokens, its TTFT, the integrity deltas)."""
+        from dynamo_tpu_torch.kv_integrity import KV_INTEGRITY
+        from dynamo_tpu_torch.resilience.chaos import CHAOS
+        from dynamo_tpu_torch.tokens import compute_block_hashes
+
+        rng = np.random.RandomState(2)
+        evict = rng.randint(0, cfg.vocab_size, size=4000).tolist()
+        asyncio.run(generate_all(eng, [evict], 1))
+        settle_offloads(eng, 0)
+        off, a = eng.offload, eng.allocator
+        pick = None
+        for i, p in enumerate(serve_prompts(cfg.vocab_size)):
+            hs = compute_block_hashes(p, ps)[:(len(p) - 1) // ps]
+            if a.cached_prefix_len(hs) == 0 and all(
+                    h in off or h in off.spill for h in hs):
+                pick = i, p, hs
+                break
+        if pick is None:
+            raise AssertionError(f"offload {label} wave F: no serve prompt "
+                                 f"left G1 whole for the lower tiers")
+        i, p, hs = pick
+        before = KV_INTEGRITY.snapshot()
+        CHAOS.arm("flip_kv_bits", once=True)
+        try:
+            toks, finish, ann, *_ = asyncio.run(
+                generate_all(eng, [p], 32))[0]
+        finally:
+            injected = CHAOS.points["flip_kv_bits"].injected_total
+            CHAOS.reset()
+        after = KV_INTEGRITY.snapshot()
+        delta = {k.replace("dynamo_kv_integrity_", ""): int(after[k]
+                                                            - before[k])
+                 for k in ("dynamo_kv_integrity_failed_total",
+                           "dynamo_kv_integrity_quarantined_total",
+                           "dynamo_kv_integrity_recomputed_total")}
+        q = hs[0]
+        if (injected != 1 or delta["failed_total"] != 1
+                or delta["quarantined_total"] != 1
+                or delta["recomputed_total"] < 1
+                or q not in eng.kv_quarantine or q in off or q in off.spill
+                or len(toks) != 32 or finish != "length"):
+            raise AssertionError(
+                f"offload {label} wave F: flip_kv_bits fired {injected} "
+                f"times; integrity deltas {delta}; the flipped block "
+                f"quarantined {q in eng.kv_quarantine}, in G2 {q in off}, "
+                f"in G3 {q in off.spill}; {len(toks)} tokens, {finish}")
+        return i, toks, ann["timing"]["ttft_s"], delta
 
     def gap(res):
         return np.median([g for *_, gs, _ in res for g in gs]) * 1e3
@@ -3370,7 +3928,9 @@ def check_offload(params, counts, card):
         finally:
             shutil.rmtree(tmp)
         ref = run(EngineConfig(kv_quant=kv_quant, num_pages=512),
-                  f"G1 reference kv_quant={kv_quant}")
+                  f"G1 reference kv_quant={kv_quant}",
+                  f_prompt=(serve_prompts(cfg.vocab_size)[tiers["f"][0]]
+                            if tiers["f"] else None))
         quant = kv_quant == "int8"
         name = "flash_decode_int8" if quant else "flash_decode"
         mine, other = (tiers["ran"][1], tiers["ran"][0]) if quant \
@@ -3422,6 +3982,19 @@ def check_offload(params, counts, card):
             f"issue) {st['onboard_host_ms_per_page']:.3f}; D2H "
             f"{st['d2h_gb_s']:.2f} GB/s (copy stream), H2D "
             f"{st['h2d_gb_s']:.2f} GB/s")
+        if tiers["f"]:
+            fi, ftoks, fttft, fdelta = tiers["f"]
+            if ftoks != ref["f"][0]:
+                raise AssertionError(
+                    f"offload {kv_quant} wave F: prompt {fi} after the "
+                    f"quarantine differs from the G1 reference's recompute")
+            log(f"offload kv_quant={kv_quant} wave F ({card}): a fresh "
+                f"4000-token prompt evicted serve prompt {fi} from G1; "
+                f"replayed with flip_kv_bits armed once: one onboarded page "
+                f"failed its crc, quarantined in every tier, integrity "
+                f"{fdelta}; 32 tokens identical to the G1 reference's "
+                f"recompute; TTFT {fttft:.4f} s (wave C onboarded "
+                f"{ttft(tiers['waves']['C'])})")
         by_mode[kv_quant] = (tiers, ref)
     base = run(EngineConfig(num_pages=96), "recompute baseline")
     tiers, ref = by_mode["none"]
@@ -3435,6 +4008,12 @@ def check_offload(params, counts, card):
         f"{gap(ref['waves']['B']):.2f} ms)")
     counts["flash_decode_offload"] = launches["flash_decode"]
     counts["flash_decode_int8_offload"] = launches["flash_decode_int8"]
+    fi, _, fttft, fdelta = by_mode["int8"][0]["f"]
+    figures(f"wave C TTFT onboarded {ttft(tiers['waves']['C'])}, recomputed "
+            f"{ttft(base['waves']['C'])}; int8 wave F (flip_kv_bits once, "
+            f"prompt {fi}): 1 page quarantined, "
+            f"{fdelta['recomputed_total']} blocks recomputed, TTFT "
+            f"{fttft:.4f} s, tokens = G1 reference")
 
 
 def check_cli(extra=()):
@@ -3504,8 +4083,10 @@ def check_cli_distributed(text_out):
     ``launch.run in=http --control-plane`` frontend. Four greedy chat
     completions of the cli phase's prompt must each equal what in=text
     printed (``text_out``); both workers must run on cuda and have served
-    at least one (each prints its own count when SIGTERM stops it); every
-    process must exit 0."""
+    at least one (each prints its own count when SIGTERM stops it); each
+    worker runs with --system-port 0, its /health must answer 200, and
+    SIGTERM must drain it ("drained; shutting down"); every process must
+    exit 0."""
     import socket
 
     from dynamo_tpu_torch.frontend.http import HttpClient
@@ -3520,13 +4101,28 @@ def check_cli_distributed(text_out):
                         "out=torch", "--model-config", "tiny",
                         "--cache-dtype", "float32", "--router-mode",
                         "round_robin", "--model-name", "tiny",
-                        "--control-plane", addr) for _ in range(2)]
+                        "--control-plane", addr, "--system-port", "0")
+                   for _ in range(2)]
         procs += workers
+        sys_ports = []
         for w in workers:
             if "on cuda" not in w.wait_for("TorchEngine on"):
                 raise AssertionError("cli distributed: a worker is not on "
                                      "cuda")
+            sys_ports.append(int(w.wait_for("system server on :").rsplit(
+                ":", 1)[1]))
             w.wait_for("serving dynamo/backend/generate")
+
+        async def health():
+            out = []
+            for port in sys_ports:
+                async with HttpClient("127.0.0.1", port) as c:
+                    out.append((await c.request("GET", "/health")).status)
+            return out
+
+        if asyncio.run(asyncio.wait_for(health(), 60)) != [200, 200]:
+            raise AssertionError("cli distributed: a worker's system server "
+                                 "did not answer /health")
         with socket.socket() as sk:
             sk.bind(("127.0.0.1", 0))
             http_port = sk.getsockname()[1]
@@ -3563,9 +4159,11 @@ def check_cli_distributed(text_out):
         for w in workers:
             rc = w.stop()
             line = w.wait_for("served", timeout=10)
-            if rc != 0:
+            if rc != 0 or not any("drained; shutting down" in ln
+                                  for ln in w.lines):
                 raise AssertionError(f"cli distributed: a worker exited "
-                                     f"{rc}")
+                                     f"{rc} after SIGTERM:\n"
+                                     + "\n".join(w.lines[-20:]))
             served.append(int(line.split()[-2]))
         if sum(served) != 4 or min(served) < 1:
             raise AssertionError(f"cli distributed: the workers served "
@@ -3580,9 +4178,11 @@ def check_cli_distributed(text_out):
         for p in procs:
             p.stop()
     log(f"cli distributed: cli cp ({addr}), two in=endpoint workers on "
-        f"cuda and in=http --control-plane in {time.monotonic() - t0:.1f} "
+        f"cuda (--system-port 0: /health 200 on ports {sys_ports}) and "
+        f"in=http --control-plane in {time.monotonic() - t0:.1f} "
         f"s; 4 chat completions equal to in=text's {text_out!r}, served "
-        f"{served} by the two workers; every process exited 0")
+        f"{served} by the two workers; SIGTERM drained each worker "
+        f"('drained; shutting down'); every process exited 0")
 
 
 def first_step_logprob_diff(dense, quant, prompt):
@@ -3635,6 +4235,7 @@ def build_all():
     with ThreadPoolExecutor(len(names)) as ex:
         outs = list(ex.map(cuda_build.build, names))
     secs = time.monotonic() - t0
+    figs = []
     for name, ptxas in zip(names, outs):
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
         smem = [int(b) for b in re.findall(r"(\d+) bytes smem", ptxas)]
@@ -3650,6 +4251,9 @@ def build_all():
             f"{len(regs)} kernels, {min(regs)}..{max(regs)} registers, up to "
             f"{max(smem, default=0)} bytes of static shared memory, {spills} "
             f"bytes of spills{dyn}" if regs else "built before this run"))
+        figs.append(f"{name} {len(regs)} kernels, {spills} bytes of spills")
+    # the summary stays short: the whole tail must fit 24 KB
+    figures(f"built in parallel in {secs:.1f} s; " + "; ".join(figs))
 
 
 def main() -> int:
@@ -3717,6 +4321,7 @@ def main() -> int:
     dis_launches, _ = phase("disagg", check_disagg, params, dense_tokens[:8],
                             kv_figs, smi)
     g4_launches, _ = phase("remote kv", check_remote_kv, params, smi)
+    res_launches, _ = phase("resilience", check_resilience, params)
     phase("offload", check_offload, params, counts, smi)
     # w8a16: the same weights quantized per output channel on the card
     t0 = time.monotonic()
@@ -3765,6 +4370,7 @@ def main() -> int:
              launches=counts["flash_decode"], launches_http=http_launches,
              launches_distributed=dist_launches,
              launches_kv_router=kv_launches, launches_disagg=dis_launches,
+             launches_resilience=res_launches,
              launches_offload=counts["flash_decode_offload"], **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",

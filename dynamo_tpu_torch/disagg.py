@@ -17,10 +17,13 @@ The prefill queue and the done notifications ride the store's durable
 FIFO queues. Job and config JSON are the JAX package's, so either
 package's prefill worker takes the other's jobs.
 
+The decode wrapper passes a graceful drain through to its engine and
+refuses a draining request before the remote-prefill decision; the
+``stall_stream`` chaos point wedges a prefill worker's chunk push (the
+decode side's timeout then falls back to a local prefill).
+
 Left out: the ``remote_prefill``/``kv_chunk``/``disagg_kv_transfer`` spans
-and the stream timeline (ROADMAP Queue 1 item 10); the graceful-drain
-passthrough (``begin_drain``, ``drained``, ``WorkerDrainingError``) and
-the chaos stall of a stream (item 5).
+and the stream timeline (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -38,6 +41,8 @@ from dynamo_tpu_torch.kv_transfer import (
     write_remote_pages,
 )
 from dynamo_tpu_torch.kv_transfer_metrics import KV_TRANSFER
+from dynamo_tpu_torch.resilience.chaos import CHAOS
+from dynamo_tpu_torch.resilience.drain import WorkerDrainingError
 from dynamo_tpu_torch.protocols.common import (
     LLMEngineOutput,
     PreprocessedRequest,
@@ -470,6 +475,10 @@ class PrefillWorker:
                         xfer_hidden += min(dur, max(0.0, t_pf_end - tc))
                     chunks += 1
                     sent = hi
+                    # mid-stream chaos (stall_stream): a wedged link; the
+                    # decode side's timeout must fire and fall back
+                    await CHAOS.maybe_stall("stall_stream",
+                                            writer.chunks_sent)
                     continue
                 if pending is None and (evicted
                                         or (prefill_done and avail <= sent)):
@@ -537,8 +546,9 @@ class DisaggDecodeEngine:
 
     On the remote path the transferred blocks enter the local prefix
     cache before intake, so the wrapped engine computes only the sub-page
-    tail. It delegates ``allocator``, ``on_metrics``, ``start``, ``stop``
-    and ``metrics``, so register_llm serves it as the engine."""
+    tail. It delegates ``allocator``, ``on_metrics``, ``start``, ``stop``,
+    ``metrics`` and the drain contract, so register_llm serves it as the
+    engine."""
 
     def __init__(self, engine: Any, rt: DistributedRuntime,
                  namespace: str = "dynamo", worker_id: str = "",
@@ -567,6 +577,7 @@ class DisaggDecodeEngine:
         # the last remote job's done message (blocks, chunks, prefill_ms,
         # overlap_ratio)
         self.last_done: Optional[dict] = None
+        self._draining = False
 
     @property
     def allocator(self):
@@ -584,6 +595,20 @@ class DisaggDecodeEngine:
         start = getattr(self.engine, "start", None)
         if start is not None:
             start()
+
+    # graceful-drain passthrough (resilience/drain.py contract): the
+    # wrapper keeps its own flag so generate() refuses BEFORE the
+    # remote-prefill decision; a draining worker would otherwise pay a
+    # whole cross-worker KV transfer for a request it then refuses
+    def begin_drain(self) -> None:
+        self._draining = True
+        begin = getattr(self.engine, "begin_drain", None)
+        if begin is not None:
+            begin()
+
+    def drained(self) -> bool:
+        fn = getattr(self.engine, "drained", None)
+        return bool(fn()) if fn is not None else True
 
     async def stop(self) -> None:
         await self.engine.stop()
@@ -617,6 +642,9 @@ class DisaggDecodeEngine:
     async def generate(
         self, request: PreprocessedRequest
     ) -> AsyncIterator[LLMEngineOutput]:
+        if self._draining:
+            raise WorkerDrainingError(
+                "worker draining: not admitting new requests")
         if await self._maybe_remote_prefill(request):
             self.remote_prefills += 1
         else:

@@ -74,7 +74,12 @@ PyTorch (port of the JAX package's TpuEngine main path).
   - G4 (``remote_kv``, a kv_transfer.RemoteKvFetcher): with a G2 tier, a
     request whose prefix misses G1/G2/G3 first fetches it from a peer
     worker's pool; the pages land in G2 on the loop ahead of admission
-    and onboard from there (``remote_onboard_blocks`` counts them).
+    and onboard from there (``remote_onboard_blocks`` counts them); the
+    ``corrupt_prefetch`` chaos point rots one landed page there.
+  - Graceful drain (``begin_drain``, ``drained``): admissions are refused
+    with WorkerDrainingError, the pipeline falls back to the strict order
+    (``pipe_flushes["drain"]``), and ``drained()`` holds once no request
+    and no round is left in flight.
 
 Not ported yet (ROADMAP.md): speculation, the fleet view's G4 hints and
 prefetch, tenant quotas and adapters, overload budgets and preemption,
@@ -106,6 +111,8 @@ from dynamo_tpu_torch.kv_integrity import (
     page_checksums,
 )
 from dynamo_tpu_torch.kv_quant import KV_QUANT, QuantizedPages, to_pool_dtype
+from dynamo_tpu_torch.resilience.chaos import CHAOS
+from dynamo_tpu_torch.resilience.drain import WorkerDrainingError
 from dynamo_tpu_torch.kv_router.protocols import (
     ForwardPassMetrics,
     KvCacheEvent,
@@ -451,6 +458,10 @@ class TorchEngine:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._started = False
+        # graceful drain (resilience/drain.py): admissions refused once
+        # set; the loop sets the event once nothing is in flight
+        self._draining = False
+        self._drained_evt = threading.Event()
         self.step_count = 0
         # flash-decode kernel launches made by this engine's rounds: on
         # the card, the launches recorded in a round's graph at its
@@ -470,7 +481,7 @@ class TorchEngine:
         self._pipe_hidden_s = 0.0
         self._pipe_host_s = 0.0
         self.pipe_flushes: dict[str, int] = {
-            "admission": 0, "release": 0, "seal_overflow": 0}
+            "drain": 0, "admission": 0, "release": 0, "seal_overflow": 0}
         self.dispatch_counts: dict[str, int] = {
             "round": 0, "round_seal": 0, "seal": 0, "patch": 0,
             "prefill": 0, "prefill_batch": 0, "load_ctx": 0,
@@ -516,6 +527,20 @@ class TorchEngine:
         if self._crc_pool is not None:
             self._crc_pool.shutdown()
 
+    # ---- graceful drain (resilience/drain.py DrainController contract) --
+
+    def begin_drain(self) -> None:
+        """Stop admitting: later generate() calls raise the retriable
+        WorkerDrainingError; requests already accepted run to completion."""
+        self._draining = True
+        self._wake_evt.set()
+        if not self._started:
+            # the loop never ran: nothing can be in flight
+            self._drained_evt.set()
+
+    def drained(self) -> bool:
+        return self._drained_evt.is_set()
+
     # ------------------------------------------------------------------
     # AsyncEngine surface
 
@@ -523,6 +548,9 @@ class TorchEngine:
         self, request: PreprocessedRequest
     ) -> AsyncIterator[LLMEngineOutput]:
         """Stream engine outputs (token-id deltas) for one request."""
+        if self._draining:
+            raise WorkerDrainingError(
+                "worker draining: not admitting new requests")
         if len(request.token_ids) == 0:
             raise ValueError("empty prompt")
         if len(request.token_ids) >= self.ecfg.max_context:
@@ -674,6 +702,11 @@ class TorchEngine:
             self._process_entries(block=True)
         if not did_work and self._wait_stream_copy():
             did_work = True
+        if (self._draining
+                and not self._entries and not self._waiting
+                and not self._prefilling and self._intake.empty()
+                and all(r is None for r in self._slots)):
+            self._drained_evt.set()
         return did_work
 
     def _rounds_in_flight(self) -> int:
@@ -683,9 +716,13 @@ class TorchEngine:
         """True when the next round may be dispatched before this round's
         results are processed: nothing pending may patch slot state under
         the in-flight rounds. Each False counts its flush point in
-        ``pipe_flushes``: an admission (waiting, mid-prefill or fresh
+        ``pipe_flushes``: a drain (no round may be left in flight when
+        the worker exits), an admission (waiting, mid-prefill or fresh
         intake), a pending release, or a seal queue past the fused
         width."""
+        if self._draining:
+            self.pipe_flushes["drain"] += 1
+            return False
         if self._waiting or self._prefilling or not self._intake.empty():
             self.pipe_flushes["admission"] += 1
             return False
@@ -1557,8 +1594,15 @@ class TorchEngine:
                 return
             crcs = page_checksums(data, pool=self._crc_pool)
             with self._tier_lock:
-                self.remote_onboard_blocks += self.offload.put_batch(
-                    hashes, parents, data, checksums=crcs)
+                n = self.offload.put_batch(hashes, parents, data,
+                                           checksums=crcs)
+                self.remote_onboard_blocks += n
+                if n and CHAOS.fire("corrupt_prefetch"):
+                    # rot a landed page AFTER its crc was sealed at put
+                    # (silent corruption of fetched content): the
+                    # onboard verify must quarantine it before it can
+                    # reach the device pool
+                    self.offload.rot_page(hashes[0])
 
     # ---- load metrics ----
 

@@ -36,8 +36,11 @@ package attaches in the other. A startup scrub (lazy by default, eager
 with ``scrub_on_start``) verifies or drops entries: torn writes come back
 as misses.
 
-The fleet-replica eviction hook and the fault-injection hooks of the
-reference wait for the fleet and resilience planes (ROADMAP).
+Fault injection (resilience/chaos.py): ``flip_kv_bits`` flips bits of a
+gather's output (the staging copy, never the pool), and ``truncate_g3``
+zeroes G3's tail half before a G3 gather or page read (G2's fall-through
+reads G3 page-wise, so both paths reach it). The fleet-replica eviction
+hook of the reference waits for the fleet plane (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -68,6 +71,14 @@ _JOURNAL_SLACK = 4
 # a tier's element type, its name in the G3 manifest (numpy's, as the JAX
 # package writes it) and the numpy type of the same width the G3 file is
 # mapped as (numpy has no bf16 without ml_dtypes)
+def _chaos():
+    # lazy: the tiers stay importable standalone and pay one module-dict
+    # lookup per gather
+    from dynamo_tpu_torch.resilience.chaos import CHAOS
+
+    return CHAOS
+
+
 _DTYPE_NAME = {torch.bfloat16: "bfloat16", torch.float16: "float16",
                torch.float32: "float32", torch.int8: "int8"}
 _MMAP_DTYPE = {torch.bfloat16: np.int16, torch.float16: np.float16,
@@ -250,7 +261,9 @@ class _PageTier:
         else:
             for i in range(len(pages)):
                 one(i)
-        return out.permute(1, 2, 3, 0, 4, 5)
+        batch = out.permute(1, 2, 3, 0, 4, 5)
+        _chaos().maybe_flip_bits(batch)
+        return batch
 
     def _scale(self, block_hash: int) -> torch.Tensor:
         return self._ensure_scales()[self._index[block_hash][0]]
@@ -372,6 +385,23 @@ class DiskOffloadTier(_PageTier):
 
     def _slot(self, slot: int) -> torch.Tensor:
         return self._pool[:, :, :, slot]
+
+    def _maybe_chaos_truncate(self) -> None:
+        # chaos truncate_g3: the backing file loses its tail region
+        # (dropped writes); live-safe (an ftruncate under the mmap would
+        # SIGBUS) and caught by the crc verify
+        if _chaos().fire("truncate_g3"):
+            self._ensure_pool()[:, :, :, self.num_pages // 2:] = 0
+
+    def gather(self, hashes: list[int],
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        self._maybe_chaos_truncate()
+        return super().gather(hashes, out)
+
+    def read_page(self, block_hash: int) -> torch.Tensor:
+        # the G2 tier's fall-through gather reads G3 page-wise
+        self._maybe_chaos_truncate()
+        return super().read_page(block_hash)
 
     # -- manifest journal --
 

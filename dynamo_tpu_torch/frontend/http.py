@@ -23,7 +23,7 @@ import json
 import logging
 from http import HTTPStatus
 from typing import Any, AsyncIterator, Awaitable, Callable, Optional, Union
-from urllib.parse import urlsplit
+from urllib.parse import parse_qsl, urlsplit
 
 log = logging.getLogger(__name__)
 
@@ -163,7 +163,9 @@ class Request:
     def __init__(self, method: str, target: str, headers: Headers,
                  body: bytes, writer: asyncio.StreamWriter):
         self.method = method
-        self.path = urlsplit(target).path
+        url = urlsplit(target)
+        self.path = url.path
+        self.query = dict(parse_qsl(url.query))
         self.headers = headers
         self.body = body
         self._writer = writer

@@ -24,9 +24,11 @@ What the port's frontend refuses, and does not register (a request for
 such a model gets 404): an entry that names a checkpoint (``model_path``
 or ``card_ref``: the port has no tokenizer for a model directory yet,
 ROADMAP Queue 1 item 9; serving it through the test tokenizer would
-answer differently). Left out of the KV path: the fleet view and the
-prefetch controller (item 6), the shared breaker board and heartbeat
-TTLs (item 5), and the fleet-merged latency feed (item 10).
+answer differently). With ``heartbeat_ttl_s`` a worker whose metrics go
+silent is blocked before its lease expires, and a SharedBreakerBoard
+(resilience/shared.py) exchanges breaker trips with sibling frontends
+over the store. Left out of the KV path: the fleet view and the prefetch
+controller (item 6), and the fleet-merged latency feed (item 10).
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ from dynamo_tpu_torch.kv_router.scheduler import KvRouterConfig
 from dynamo_tpu_torch.overload.load import WorkerLoadView
 from dynamo_tpu_torch.preprocessor import OpenAIPreprocessor, PromptFormatter
 from dynamo_tpu_torch.resilience.health import WorkerHealthTracker
+from dynamo_tpu_torch.resilience.shared import SharedBreakerBoard
 from dynamo_tpu_torch.runtime.component import DistributedRuntime, Instance
 from dynamo_tpu_torch.runtime.publisher import (
     KV_EVENTS_TOPIC,
@@ -216,6 +219,7 @@ class ModelWatcher:
         router_config: Optional[KvRouterConfig] = None,
         kv_recorder: Optional[Any] = None,  # KvRecorder: tees kv_events
         tokenizer: Optional[Tokenizer] = None,
+        heartbeat_ttl_s: Optional[float] = None,
     ):
         self.rt = rt
         self.manager = manager
@@ -227,11 +231,16 @@ class ModelWatcher:
         # (programmatic callers may pass another, as to build_chain)
         self.tokenizer = tokenizer
         # one health tracker shared by every model's router (per-worker
-        # circuit breakers, heartbeats off the load-metrics plane) and one
-        # live queue-depth view (routing spills away from saturating
-        # workers), fed by the same metrics subscription
-        self.health = WorkerHealthTracker()
+        # circuit breakers, heartbeats off the load-metrics plane, blocking
+        # a worker silent for ``heartbeat_ttl_s``: engines publish on idle
+        # ticks too, so silence means wedged) and one live queue-depth
+        # view (routing spills away from saturating workers), fed by the
+        # same metrics subscription
+        self.health = WorkerHealthTracker(heartbeat_ttl_s=heartbeat_ttl_s)
         self.load = WorkerLoadView()
+        # breaker trips observed here publish on the store's pub/sub plane
+        # so sibling frontends stop routing to the dead worker too
+        self._breaker_board: Optional[SharedBreakerBoard] = None
         self._task: Optional[asyncio.Task] = None
         self._kv_sub_task: Optional[asyncio.Task] = None
         self._metrics_sub_task: Optional[asyncio.Task] = None
@@ -257,6 +266,8 @@ class ModelWatcher:
         self._task = loop.create_task(self._follow(watch))
         self._kv_sub_task = loop.create_task(self._follow_kv_events())
         self._metrics_sub_task = loop.create_task(self._follow_metrics())
+        self._breaker_board = await SharedBreakerBoard(
+            self.rt.kv, self.health, namespace=self.namespace).start()
         # degraded-mode serving: when the control-plane session loses its
         # store, freeze the health/load views (stale-while-revalidate —
         # keep routing off the last-known fleet picture) instead of aging
@@ -275,6 +286,9 @@ class ModelWatcher:
         return self
 
     async def stop(self) -> None:
+        if self._breaker_board is not None:
+            await self._breaker_board.stop()
+            self._breaker_board = None
         for t in (self._task, self._kv_sub_task, self._metrics_sub_task):
             if t is not None:
                 t.cancel()

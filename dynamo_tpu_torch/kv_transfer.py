@@ -39,8 +39,9 @@ Ops:
 
 Left out: ``ArrayFrameServer`` and ``take_remote_array``, which carry
 multimodal embeddings (ROADMAP Queue 1 item 12); the fleet view's
-``holders`` hint of ``RemoteKvFetcher.fetch`` (item 6); the chaos hook
-that corrupts frames (item 5); the per-frame stream timeline (item 10).
+``holders`` hint of ``RemoteKvFetcher.fetch`` (item 6); the per-frame
+stream timeline (item 10). The ``corrupt_frame`` chaos point
+(resilience/chaos.py) flips a byte of an outgoing payload's copy.
 """
 from __future__ import annotations
 
@@ -199,6 +200,12 @@ def _write_array_frame(writer, header: dict[str, Any], data) -> None:
     data, fields = _array_header(data)
     header = {**header, **fields}
     data = data.contiguous()   # no copy for an export's contiguous pages
+    # chaos corrupt_frame: wire corruption on a COPY, after the crc was
+    # stamped: the receiver's verify must catch it, and the sender's pages
+    # (which ``data`` may alias) stay clean
+    from dynamo_tpu_torch.resilience.chaos import CHAOS
+
+    data = CHAOS.maybe_corrupt_frame(data)
     payload = memoryview(data.reshape(-1).view(torch.uint8).numpy())
     writer.write(encode_frame2_header(header, payload.nbytes))
     writer.write(payload)

@@ -3,10 +3,9 @@ the JAX package's kv_transfer_metrics.py).
 
 Every bulk KV move (chunk-streamed disagg prefill pushes, monolithic page
 writes and reads, G4 hash-addressed peer fetches) increments counters
-and observes histograms here; the frontend's ``/metrics`` appends
-``render()``'s Prometheus text, so the series exist there. The worker's
-system server, the reference's second surface, waits for ROADMAP Queue 1
-item 5.
+and observes histograms here; the frontend's ``/metrics`` and each
+worker's system server (runtime/system_server.py) append ``render()``'s
+Prometheus text, so the series exist on both surfaces.
 
 tx_* families count the SENDING side of a move (frames written to a
 peer), rx_* the RECEIVING side (frames scattered into the local pool);

@@ -37,6 +37,7 @@ import argparse
 import asyncio
 import dataclasses
 import json
+import os
 import sys
 import time
 from typing import Any, Optional
@@ -87,11 +88,6 @@ UNPORTED_FLAGS: dict[str, tuple[dict, str]] = {
     "--spec-rearm-tokens": (dict(type=int, default=256),
                             "speculative decoding"),
     "--draft-model-config": (dict(default=None), "speculative decoding"),
-    "--system-port": (dict(type=int, default=None), "the system server"),
-    "--chaos": (dict(default=None, metavar="SPEC"), "fault injection"),
-    "--health-heartbeat-ttl": (dict(type=float, default=None),
-                               "worker health tracking"),
-    "--drain-timeout": (dict(type=float, default=60.0), "graceful drain"),
     "--num-nodes": (dict(type=int, default=1), "multi-host engines"),
     "--node-rank": (dict(type=int, default=0), "multi-host engines"),
     "--leader-addr": (dict(default=None, metavar="HOST:PORT"),
@@ -227,6 +223,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "stream feeding the router (JSONL, the JAX "
                         "package's format; replay with "
                         "recorder.KvRecorder.replay)")
+    p.add_argument("--system-port", type=int, default=None,
+                   help="per-process /metrics + /health server port "
+                        "(reference http_server.rs); 0 = ephemeral")
+    # resilience plane (resilience/)
+    p.add_argument("--chaos", default=None, metavar="SPEC",
+                   help="arm fault-injection points on the worker serving "
+                        "path, e.g. 'kill_worker:p=0.1:after=3,delay:t=0.05'"
+                        " (also via DYNAMO_CHAOS; python -m "
+                        "dynamo_tpu_torch.tools.chaos arms a running "
+                        "worker over HTTP)")
+    p.add_argument("--health-heartbeat-ttl", type=float, default=None,
+                   help="frontend soft-lease TTL in seconds: a worker "
+                        "whose load-metrics heartbeats go silent longer "
+                        "than this stops receiving traffic before its "
+                        "hard store lease expires (engines heartbeat on "
+                        "idle ticks too; set well above ~1s). Default: "
+                        "breaker-only health tracking")
+    p.add_argument("--drain-timeout", type=float, default=60.0,
+                   help="graceful-drain budget: in-flight requests get "
+                        "this long to finish after SIGTERM or POST /drain "
+                        "before the worker exits anyway")
     for flag, (kw, what) in UNPORTED_FLAGS.items():
         p.add_argument(flag, help=f"not served by the port yet ({what})",
                        **kw)
@@ -522,10 +539,14 @@ async def serve_worker(args, chain, rt, *, lease_ttl_s: float = 5.0):
     in the disagg decision (disagg.DisaggDecodeEngine) and serves its pool
     on the block-transfer plane; ``--remote-kv`` serves the pool too and
     fetches prefix misses from peers (G4). The data plane and its
-    descriptor are up before the endpoint serves. Returns the
-    ServedEndpoint, with the engine it serves (``served.engine``: the
-    wrapper under --role decode); its shutdown stops the data plane and
-    the config watch (``served.parts``)."""
+    descriptor are up before the endpoint serves. A DrainController
+    (``served.drain``; deregister = revoke the lease, budget
+    --drain-timeout) drains the served engine on request, and with
+    --system-port a SystemServer (``served.system``, else None) serves
+    /metrics, /health, /drain and /chaos. Returns the ServedEndpoint,
+    with the engine it serves (``served.engine``: the wrapper under
+    --role decode); its shutdown stops the data plane, the config watch
+    and the system server (``served.parts``)."""
     import uuid
 
     from dynamo_tpu_torch.frontend.watcher import ModelEntry, register_llm
@@ -584,6 +605,21 @@ async def serve_worker(args, chain, rt, *, lease_ttl_s: float = 5.0):
     )
     served = await register_llm(rt, engine, entry, lease_ttl_s=lease_ttl_s)
     served.engine, served.parts = engine, parts
+    # graceful drain (resilience/drain.py): SIGTERM and POST /drain stop
+    # admissions, deregister, let in-flight requests finish, then exit,
+    # instead of killing warm KV and live streams
+    from dynamo_tpu_torch.resilience.drain import DrainController
+
+    served.drain = DrainController(engine, on_deregister=served.lease.revoke,
+                                   timeout_s=args.drain_timeout)
+    served.system = None
+    if args.system_port is not None:
+        from dynamo_tpu_torch.runtime.system_server import SystemServer
+
+        served.system = await SystemServer(
+            engine, port=args.system_port, worker_id=str(served.lease_id),
+            drain=served.drain).start()
+        parts.append(served.system)   # stopped with the other parts
     return served
 
 
@@ -645,12 +681,22 @@ def sigterm_event() -> asyncio.Event:
 
 
 async def _serve_worker(args, chain) -> None:
-    """in=endpoint: serve until the lease is lost or SIGTERM arrives
-    (graceful drain comes with the resilience plane: SIGTERM revokes the
-    lease, which deregisters the worker, and exits)."""
+    """in=endpoint: serve until the lease is lost or a drain completes.
+    SIGTERM (and POST /drain on the system server) requests the drain:
+    admissions stop, the lease is revoked, in-flight streams finish (up
+    to --drain-timeout), then the worker exits with code 0."""
+    import signal
+
     rt = await connect_runtime(args)
     served = await serve_worker(args, chain, rt)
-    stop = sigterm_event()
+    drain = served.drain
+    try:
+        asyncio.get_running_loop().add_signal_handler(
+            signal.SIGTERM, lambda: drain.request_drain(reason="SIGTERM"))
+    except (NotImplementedError, RuntimeError):
+        pass  # loops without signal support: /drain still works
+    if served.system is not None:
+        print(f"system server on :{served.system.port}", flush=True)
     print(
         f"worker {chain.name!r} instance {served.lease_id} "
         f"({args.role}) serving "
@@ -658,13 +704,13 @@ async def _serve_worker(args, chain) -> None:
         flush=True,
     )
     lost = asyncio.ensure_future(served.lease.lost.wait())
-    term = asyncio.ensure_future(stop.wait())
+    drained = asyncio.ensure_future(drain.wait_drained())
     try:
         done, pending = await asyncio.wait(
-            {lost, term}, return_when=asyncio.FIRST_COMPLETED)
+            {lost, drained}, return_when=asyncio.FIRST_COMPLETED)
         for t in pending:
             t.cancel()
-        print("SIGTERM; shutting down" if term in done
+        print("drained; shutting down" if drained in done
               else "lease lost; shutting down", flush=True)
         print(f"worker instance {served.lease_id} served "
               f"{served.server.handler.requests} requests", flush=True)
@@ -702,8 +748,9 @@ async def _serve_http_dynamic(args) -> None:
         from dynamo_tpu_torch.recorder import KvRecorder
 
         kv_recorder = KvRecorder(args.record_kv_events)
-    watcher = await ModelWatcher(rt, manager, namespace=args.namespace,
-                                 kv_recorder=kv_recorder).start()
+    watcher = await ModelWatcher(
+        rt, manager, namespace=args.namespace, kv_recorder=kv_recorder,
+        heartbeat_ttl_s=args.health_heartbeat_ttl).start()
     svc = HttpService(manager, host=args.http_host, port=args.http_port)
     await svc.start()
     stop = sigterm_event()
@@ -735,6 +782,12 @@ def run_cli(argv: Optional[list[str]] = None) -> int:
     # intermixed: in=/out= positionals may appear between/after flags
     args = build_parser().parse_intermixed_args(argv)
     refuse_unported(args)
+    # fault injection armed before anything starts serving
+    chaos_spec = args.chaos or os.environ.get("DYNAMO_CHAOS")
+    if chaos_spec:
+        from dynamo_tpu_torch.resilience.chaos import CHAOS
+
+        CHAOS.configure(chaos_spec)
     inp, _ = _parse_io(args.io)
     if not (inp in ("http", "text", "stdin", "endpoint")
             or inp.startswith("batch:")):

@@ -9,11 +9,11 @@ routing after consecutive request failures — a worker can be lease-alive
 yet unable to serve (wedged device, stalled streams), and waiting for the
 lease to expire would feed it traffic the whole time.
 
-Left out until ROADMAP Queue 1 item 5 (resilience): the heartbeat TTL
-that blocks a worker whose metrics went silent (``--health-heartbeat-ttl``;
-the heartbeats are recorded, nothing reads them for staleness yet), and
-the shared-breaker hooks (``note_remote_open``, ``clear_remote_open``,
-``on_state_change``) that let sibling frontends exchange trips.
+With ``heartbeat_ttl_s`` (the launcher's ``--health-heartbeat-ttl``) a
+worker whose metrics went silent longer than the TTL is blocked before its
+lease expires. ``note_remote_open``, ``clear_remote_open`` and
+``on_state_change`` are the hooks of the shared breaker board
+(resilience/shared.py), through which sibling frontends exchange trips.
 """
 from __future__ import annotations
 
@@ -28,23 +28,40 @@ log = logging.getLogger(__name__)
 
 
 class WorkerHealthTracker:
-    """Per-worker breaker + last-heartbeat table."""
+    """Per-worker breaker + last-heartbeat table.
+
+    ``heartbeat_ttl_s`` only applies to workers that have heartbeated at
+    least once: a fleet without a wired metrics stream (unit tests,
+    embedded local engines) stays routable on breaker state alone.
+    """
 
     def __init__(
         self,
         *,
         failure_threshold: int = 3,
         reset_timeout_s: float = 5.0,
+        heartbeat_ttl_s: Optional[float] = None,
         clock: Callable[[], float] = time.monotonic,
     ):
         self.failure_threshold = failure_threshold
         self.reset_timeout_s = reset_timeout_s
+        self.heartbeat_ttl_s = heartbeat_ttl_s
         self.clock = clock
         self._breakers: dict[str, CircuitBreaker] = {}
         self._last_seen: dict[str, float] = {}
+        # trips observed by SIBLING frontends block routing here until
+        # their window ends; local trips and closes fire the hook so a
+        # board can publish them. Remote state never feeds the local
+        # breaker's failure counts (another frontend's view of a worker
+        # is not this frontend's evidence)
+        self._remote_open: dict[str, float] = {}   # wid -> blocked until
+        self.on_state_change: Optional[
+            Callable[[str, str, float], None]
+        ] = None    # (worker_id, "open"|"closed", window_s)
         # control-plane degraded mode (StoreSession listener): while
-        # frozen, the metrics stream's silence says nothing about worker
-        # health — it rides the store (stale-while-revalidate)
+        # frozen, heartbeat staleness never blocks — the metrics stream
+        # rides the store, so its silence says nothing about worker
+        # health (stale-while-revalidate)
         self._frozen_at: Optional[float] = None
 
     def breaker(self, worker_id: str) -> CircuitBreaker:
@@ -65,6 +82,14 @@ class WorkerHealthTracker:
         wid = getattr(m, "worker_id", "") or ""
         if wid:
             self.heartbeat(wid)
+
+    def stale(self, worker_id: str) -> bool:
+        if self.heartbeat_ttl_s is None or self._frozen_at is not None:
+            return False
+        seen = self._last_seen.get(worker_id)
+        if seen is None:
+            return False  # never heartbeated: no signal, not stale
+        return self.clock() - seen > self.heartbeat_ttl_s
 
     # ---- control-plane degraded mode ----
 
@@ -95,7 +120,17 @@ class WorkerHealthTracker:
         it here would starve a recovered worker whenever the scheduler
         picked someone else for that decision."""
         out = set()
+        now = self.clock()
         for wid in worker_ids:
+            if self.stale(wid):
+                out.add(wid)
+                continue
+            until = self._remote_open.get(wid)
+            if until is not None:
+                if until > now:
+                    out.add(wid)
+                    continue
+                del self._remote_open[wid]   # window over: probe freely
             b = self._breakers.get(wid)
             if b is not None and not b.peek_allow():
                 out.add(wid)
@@ -113,17 +148,51 @@ class WorkerHealthTracker:
     def record_success(self, worker_id: str) -> None:
         b = self._breakers.get(worker_id)
         if b is not None:
+            was_open = b.state is not BreakerState.CLOSED
             b.record_success()
+            if was_open and b.state is BreakerState.CLOSED:
+                # the probe succeeded: lift any remote block too and tell
+                # sibling frontends the worker recovered
+                self._remote_open.pop(worker_id, None)
+                self._fire(worker_id, "closed", 0.0)
             self._export_open_gauge()
 
     def record_failure(self, worker_id: str) -> None:
-        self.breaker(worker_id).record_failure()
+        b = self.breaker(worker_id)
+        trips_before = b.trips
+        b.record_failure()
+        if b.trips > trips_before:
+            self._fire(worker_id, "open", self.reset_timeout_s)
         self._export_open_gauge()
 
+    # ---- cross-frontend sharing (resilience/shared.py) ----
+
+    def note_remote_open(self, worker_id: str, window_s: float) -> None:
+        """A sibling frontend's breaker tripped for this worker: block
+        routing here for the rest of its reset window."""
+        if window_s <= 0:
+            return
+        self._remote_open[worker_id] = self.clock() + window_s
+        self._export_open_gauge()
+
+    def clear_remote_open(self, worker_id: str) -> None:
+        self._remote_open.pop(worker_id, None)
+
+    def _fire(self, worker_id: str, state: str, window_s: float) -> None:
+        if self.on_state_change is None:
+            return
+        try:
+            self.on_state_change(worker_id, state, window_s)
+        except Exception:  # noqa: BLE001 — publishing is best-effort
+            log.warning("breaker state-change publish failed for %s",
+                        worker_id, exc_info=True)
+
     def forget(self, worker_id: str) -> None:
-        """Worker left the fleet: drop its breaker + heartbeat."""
+        """Worker left the fleet: drop its breaker, heartbeat and remote
+        block."""
         self._breakers.pop(worker_id, None)
         self._last_seen.pop(worker_id, None)
+        self._remote_open.pop(worker_id, None)
         self._export_open_gauge()
 
     def states(self) -> dict[str, str]:

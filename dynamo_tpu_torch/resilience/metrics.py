@@ -1,10 +1,9 @@
 """Resilience counters: one process-wide registry (a copy of the JAX
-package's resilience/metrics.py, cut to the families the router, the
-health tracker and the retry policy increment; drain and chaos bring
-theirs with ROADMAP Queue 1 item 5).
+package's resilience/metrics.py, with all of its families).
 
-The frontend's ``/metrics`` appends ``render()``'s Prometheus text, so
-the series exist there, zero-valued until their event happens.
+The frontend's ``/metrics`` and each worker's system server append
+``render()``'s Prometheus text, so the series exist on both surfaces,
+zero-valued until their event happens.
 """
 from __future__ import annotations
 
@@ -28,8 +27,14 @@ FAMILIES: tuple[tuple[str, str, str], ...] = (
      "workers currently tripped out of routing (breaker OPEN or HALF_OPEN)"),
     ("dynamo_resilience_retries_total", "counter",
      "retry attempts made under a RetryPolicy (backoff sleeps taken)"),
+    ("dynamo_resilience_chaos_injections_total", "counter",
+     "chaos faults injected by armed injection points"),
+    ("dynamo_resilience_draining", "gauge",
+     "1 while this process is draining (stop admitting, finish in-flight)"),
+    ("dynamo_resilience_drains_total", "counter",
+     "graceful drains completed by this process"),
 )
 
-# process-wide registry: routers, health trackers and retry policies in
-# one process share it
+# process-wide registry: routers, health trackers, retry policies, the
+# drain controller and the chaos hooks in one process share it
 RESILIENCE = CounterRegistry(FAMILIES, label="resilience")

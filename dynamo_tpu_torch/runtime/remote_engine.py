@@ -1,6 +1,6 @@
 """Engine <-> endpoint adapters: serve a local engine over the runtime, or
 consume a remote endpoint as an AsyncEngine (the port's copy of the JAX
-package's runtime/remote_engine.py, without the chaos wrap).
+package's runtime/remote_engine.py).
 
 Parity: worker side mirrors the reference PushEndpoint binding an
 AsyncEngine to the network (pipeline/network/ingress/push_endpoint.rs:26);
@@ -15,6 +15,7 @@ from typing import Any, AsyncIterator, Optional
 
 from dynamo_tpu_torch.runtime.component import Endpoint, EndpointClient, ServedEndpoint
 from dynamo_tpu_torch.protocols.common import LLMEngineOutput, PreprocessedRequest
+from dynamo_tpu_torch.resilience.chaos import CHAOS
 
 log = logging.getLogger(__name__)
 
@@ -37,7 +38,11 @@ def engine_handler(engine: Any):
     Beyond generate, the handler services control verbs sent as
     ``{"__op__": ...}`` payloads — currently ``clear_kv``, the worker side
     of the frontend's /clear_kv_blocks fan-out (reference
-    http/service/clear_kv_blocks.rs posts to every instance)."""
+    http/service/clear_kv_blocks.rs posts to every instance).
+
+    Armed chaos points (resilience/chaos.py) wrap the response stream
+    here, where a real worker death shows: a kill drops the connection
+    with no done frame, and the router re-routes or migrates."""
 
     async def handler(payload: dict[str, Any]) -> AsyncIterator[dict[str, Any]]:
         if payload.get("__op__") == "clear_kv":
@@ -48,6 +53,8 @@ def engine_handler(engine: Any):
         req = PreprocessedRequest.from_dict(payload)
         handler.requests += 1
         src = engine.generate(req)
+        if CHAOS.any_armed():
+            src = CHAOS.wrap_stream(src)
         try:
             async for out in src:
                 yield out.to_dict()

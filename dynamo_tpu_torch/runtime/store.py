@@ -1,5 +1,6 @@
 """Control-plane KV store with leases and prefix watches (the port's copy
-of the JAX package's runtime/store.py, without its chaos hooks).
+of the JAX package's runtime/store.py; its serving loop carries the
+``kill_store`` and ``partition_store`` chaos points).
 
 etcd-shaped semantics (reference transports/etcd.rs:44-148): every key may
 be bound to a lease; leases expire unless kept alive; expiry deletes the
@@ -636,11 +637,19 @@ async def serve_store(
     conn_writers: set[asyncio.StreamWriter] = set()
 
     async def on_conn(reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
+        from dynamo_tpu_torch.resilience.chaos import CHAOS
+
         conn = _Conn(store, writer)
         conn_writers.add(writer)
         try:
             while True:
                 req = await read_frame(reader)
+                if CHAOS.fire("kill_store"):
+                    crash_store(server)
+                    raise ConnectionResetError("chaos: store killed")
+                # a partition holds replies: the TCP connection stays up
+                # but the store goes silent (against kill's hard RST)
+                await CHAOS.maybe_stall("partition_store", 0)
                 try:
                     resp = conn.handle(req)
                 except Exception as e:  # noqa: BLE001 — answer in-band;
@@ -697,7 +706,7 @@ def crash_store(server: asyncio.AbstractServer) -> None:
     live connection (clients see ConnectionResetError, not a clean FIN),
     kill the sweeper. The KvStore object — and its journal — survive only
     on disk; restart with ``serve_store(store=KvStore(journal_path=...))``.
-    Used by the restart tests."""
+    Used by the kill_store chaos point and the restart tests."""
     task = getattr(server, "_dcp_sweeper", None)
     if task is not None and not task.done():
         task.cancel()

@@ -75,6 +75,12 @@ class Histogram:
             self._sum += value * n
             self._count += n
 
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = [0] * (len(self.buckets) + 1)
+            self._sum = 0.0
+            self._count = 0
+
     def snapshot(self) -> dict[str, Any]:
         """Cumulative counts aligned with ``buckets`` + +Inf."""
         with self._lock:
@@ -367,6 +373,14 @@ class CounterRegistry:
 
     def histogram(self, name: str) -> Histogram:
         return self._hists[name]
+
+    def reset(self) -> None:
+        """Zero every series (tests)."""
+        with self._lock:
+            for name in self._values:
+                self._values[name] = 0.0
+        for h in self._hists.values():
+            h.reset()
 
     def snapshot(self) -> dict[str, float]:
         with self._lock:

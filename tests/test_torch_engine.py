@@ -177,6 +177,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import dynamo_tpu_torch.recorder, dynamo_tpu_torch.router_service\n"
         "import dynamo_tpu_torch.kv_transfer, dynamo_tpu_torch.disagg\n"
         "import dynamo_tpu_torch.kv_transfer_metrics\n"
+        "import dynamo_tpu_torch.resilience.chaos\n"
+        "import dynamo_tpu_torch.resilience.drain\n"
+        "import dynamo_tpu_torch.resilience.shared\n"
+        "import dynamo_tpu_torch.runtime.system_server\n"
+        "import dynamo_tpu_torch.tools.chaos\n"
+        "import dynamo_tpu_torch.tools.scrub_kv\n"
         "for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, "
         "'dynamo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

@@ -610,10 +610,15 @@ class Bouncer:
             yield out
 
 
-def make_push(pk, engines, bs=BS, **kw):
+def make_push(pk, engines, bs=BS, rng=None, **kw):
+    """A KvPushRouter over ``engines`` at temperature 0; with ``rng`` (a
+    random.Random) the selector breaks ties by its draws, else by the
+    process's unseeded ``random``."""
     m = PK[pk]
     router = m["router"].KvRouter(bs, m["sched"].KvRouterConfig(
         router_temperature=0.0))
+    if rng is not None:
+        router.scheduler.selector.rng = rng
     push = m["router"].KvPushRouter(router, dict(engines), **kw)
     push.retry.base_delay_s = 0.001
     return push
@@ -763,11 +768,15 @@ async def test_breaker_excludes_failing_worker(pk):
             raise ConnectionError("mid-stream death")
 
     bad, ok = DiesEveryTime(), LcgEngine(c)
-    push = make_push(pk, {"bad": bad, "ok": ok}, health=h)
+    # seeded ties: the breaker opens only if ``bad`` is chosen twice (under
+    # seed 1 it is, in both packages; seed 0 sends it one request)
+    push = make_push(pk, {"bad": bad, "ok": ok}, health=h,
+                     rng=random.Random(1))
     for i in range(8):
         prompt = list(range(i * 7 + 1, i * 7 + 9))
         toks, _ = await _drive(push, _req(pk, prompt, 4))
         assert toks == lcg_sequence(prompt, 4)
+    assert bad.calls >= 2, bad.calls
     assert h.breaker("bad").state.value == "open"
     calls = bad.calls
     for i in range(3):

@@ -80,9 +80,9 @@ def test_parse_io_refuses_other_words():
     (["--model-path", "/models/x"], "--model-path"),
     (["--tensor-parallel-size", "2"], "--tensor-parallel-size=2"),
     (["--num-nodes", "2", "--role", "decode"], "--num-nodes=2"),
-    (["--chaos", "kill_worker"], "--chaos='kill_worker'"),
+    (["--forensics-sample-rate", "0.5"], "--forensics-sample-rate=0.5"),
     (["--preempt-running", "on"], "running preemption"),
-    (["--system-port", "9000"], "--system-port=9000"),
+    (["--kv-replication-target", "3"], "--kv-replication-target=3"),
     (["out=mocker"], "mocker"),
     (["out=torch", "--model-config", "llama3_70b"], "llama3_70b"),
     (["out=torch"], "needs --model-config"),
@@ -254,6 +254,49 @@ def test_role_and_transfer_flags_parse_with_the_reference_defaults(
         import asyncio
 
         asyncio.run(chain.engine.stop())
+
+
+RESILIENCE_FLAGS = ("--system-port", "--chaos", "--health-heartbeat-ttl",
+                    "--drain-timeout")
+
+
+def test_resilience_flags_parse_with_the_reference_defaults(monkeypatch):
+    for k in list(os.environ):
+        if k.startswith("DYNTPU_"):
+            monkeypatch.delenv(k)
+    ref, port = _options(rrun.build_parser()), _options(prun.build_parser())
+    for flag in RESILIENCE_FLAGS:
+        assert flag not in prun.UNPORTED_FLAGS, flag
+        assert port[flag].default == ref[flag].default, flag
+        assert port[flag].type == ref[flag].type, flag
+        assert port[flag].help == ref[flag].help or flag == "--chaos", flag
+    argv = ["in=endpoint", "--system-port", "0", "--chaos",
+            "delay:t=0.01", "--health-heartbeat-ttl", "2",
+            "--drain-timeout", "5"]
+    args = prun.build_parser().parse_intermixed_args(argv)
+    want = rrun.build_parser().parse_intermixed_args(argv)
+    for flag in RESILIENCE_FLAGS:
+        key = flag[2:].replace("-", "_")
+        assert getattr(args, key) == getattr(want, key), flag
+    prun.refuse_unported(args)
+
+
+def test_chaos_spec_is_armed_before_serving(monkeypatch):
+    """--chaos (or DYNAMO_CHAOS) arms the process's points before the
+    chain runs; a bad spec exits before anything starts."""
+    from dynamo_tpu_torch.resilience.chaos import CHAOS
+
+    CHAOS.reset()
+    try:
+        monkeypatch.setenv("DYNAMO_CHAOS", "delay:t=0.001:once")
+        assert prun.run_cli(["in=text", "out=echo", "--prompt", "w1"]) == 0
+        d = CHAOS.points["delay"]
+        assert d.armed and d.once and d.delay_s == 0.001
+        with pytest.raises(ValueError, match="unknown chaos point"):
+            prun.run_cli(["in=text", "out=echo", "--prompt", "w1",
+                          "--chaos", "explode"])
+    finally:
+        CHAOS.reset()
 
 
 def test_remote_kv_without_a_g2_tier_exits_with_the_reference_message():

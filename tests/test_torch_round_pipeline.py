@@ -11,7 +11,8 @@ the reference's (tests/test_round_pipeline.py). Also held here: the
 round and patch functions that the card captures as CUDA graphs
 (engine/graphs.py), run eagerly, against the round and patch they
 replace (indexed writes and rebinding, as the engine issued them
-before)."""
+before); and, as in the reference, a graceful drain (pipelined against
+strict) and a chaos kill landing with rounds in flight."""
 import asyncio
 
 import jax
@@ -134,6 +135,126 @@ def test_differential_admission_burst_and_releases(weights, kv_quant):
 def test_differential_mid_stream_prefix_hit_patch(weights, kv_quant):
     on, off, stats = _both_modes(weights, _prefix_jobs(), kv_quant=kv_quant)
     assert on == off
+    assert stats["pipelined_dispatches"] > 0, stats
+
+
+# ---------------------------------------------------------------------------
+# graceful drain and a chaos kill with rounds in flight
+
+
+def _req(prompt, max_tokens):
+    return tproto.PreprocessedRequest(
+        token_ids=list(prompt),
+        stop_conditions=tproto.StopConditions(max_tokens=max_tokens,
+                                              ignore_eos=True))
+
+
+async def _stream_into(eng, prompt, max_tokens, sink):
+    async for out in eng.generate(_req(prompt, max_tokens)):
+        sink.extend(out.token_ids)
+    return sink
+
+
+def test_differential_drain(weights):
+    """begin_drain with requests decoding: both modes run the in-flight
+    work to completion (identical tokens), refuse new admissions with
+    WorkerDrainingError, and report drained with no round left in
+    flight; the pipelined mode counts its drain flushes."""
+    from dynamo_tpu_torch.resilience.drain import WorkerDrainingError
+
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, 256, 32).tolist() for _ in range(3)]
+
+    async def run(mode):
+        eng = _torch_engine(weights, round_pipeline=mode)
+        sinks = [[] for _ in prompts]
+        tasks = [asyncio.ensure_future(_stream_into(eng, p, 48, s))
+                 for p, s in zip(prompts, sinks)]
+        try:
+            for _ in range(2000):        # every stream is decoding
+                if all(sinks):
+                    break
+                await asyncio.sleep(0.002)
+            assert not eng.drained()
+            eng.begin_drain()
+            with pytest.raises(WorkerDrainingError):
+                await _stream_into(eng, prompts[0], 4, [])
+            toks = await asyncio.wait_for(asyncio.gather(*tasks), 60)
+            for _ in range(2000):
+                if eng.drained():
+                    break
+                await asyncio.sleep(0.005)
+            assert eng.drained(), mode
+            assert not eng._entries and not eng._slot_active.any()
+            return toks, eng.pipeline_stats()
+        finally:
+            await eng.stop()
+
+    on, stats = asyncio.run(run(True))
+    off, off_stats = asyncio.run(run(False))
+    assert on == off
+    assert all(len(t) == 48 for t in on)
+    assert stats["pipe_flushes"]["drain"] > 0, stats
+    assert off_stats["pipe_flushes"]["drain"] == 0
+
+
+def test_chaos_kill_with_a_round_in_flight_replays_identically(weights):
+    """A chaos kill fired while the pipelined engine has rounds in flight
+    leaves the migrated client with the stream of an uninterrupted run
+    (and TpuEngine's): the replay prefill over prompt + emitted tokens
+    picks up where the dead stream stopped."""
+    from dynamo_tpu_torch.kv_router.router import KvPushRouter, KvRouter
+    from dynamo_tpu_torch.kv_router.scheduler import KvRouterConfig
+    from dynamo_tpu_torch.resilience.chaos import CHAOS
+    from dynamo_tpu_torch.resilience.metrics import RESILIENCE
+
+    rng = np.random.RandomState(5)
+    prompt = rng.randint(1, 256, 40).tolist()
+    want = asyncio.run(_run_jobs(_torch_engine(weights), tproto,
+                                 [(prompt, 24, 0.0)]))[0]
+    ref = TpuEngine(JConfig.tiny(dtype="float32"), JEngineConfig(**ENGINE_KW),
+                    params=weights[0], mesh_config=MeshConfig(tp=1))
+    assert asyncio.run(_run_jobs(ref, jproto, [(prompt, 24, 0.0)]))[0] == want
+
+    class ChaosWorker:
+        """The remote-engine handler's shape: the engine stream runs
+        through the chaos hooks when any point is armed."""
+
+        def __init__(self, inner):
+            self.inner = inner
+
+        async def generate(self, req):
+            src = self.inner.generate(req)
+            if CHAOS.any_armed():
+                src = CHAOS.wrap_stream(src)
+            async for out in src:
+                yield out
+
+    async def run():
+        eng = _torch_engine(weights)
+        # one live engine behind two worker ids: the replay lands on a
+        # warm engine whose pipeline is already running
+        push = KvPushRouter(KvRouter(PS, KvRouterConfig(
+            router_temperature=0.0)), {"w0": ChaosWorker(eng),
+                                       "w1": ChaosWorker(eng)})
+        migrations0 = RESILIENCE.get("dynamo_migration_total")
+        CHAOS.reset()
+        CHAOS.arm("kill_worker", after_outputs=6, once=True)
+        try:
+            got = []
+            async for out in push.generate(_req(prompt, 24)):
+                got.extend(out.token_ids)
+            return (got, CHAOS.points["kill_worker"].injected_total,
+                    push.migrations,
+                    RESILIENCE.get("dynamo_migration_total") - migrations0,
+                    eng.pipeline_stats())
+        finally:
+            CHAOS.reset()
+            await eng.stop()
+
+    got, injected, migrations, counted, stats = asyncio.run(run())
+    assert got == want, "the migrated stream diverged from the clean run"
+    assert (injected, migrations, counted) == (1, 1, 1)
     assert stats["pipelined_dispatches"] > 0, stats
 
 
