@@ -179,6 +179,32 @@ Phases, each printing a line (any failure raises and exits non-zero):
      no chaos point is left armed. Printed: the migrated stream's TTFT
      and the gap at the kill beside the median gap, and the drain's
      seconds;
+  7g. prefix economy: the fleet prefix economy on the same weights, dense
+     KV: the port's store, a KV-routing frontend with
+     --kv-replication-target 2 --kv-prefetch-interval 0.5
+     --kv-prefetch-hot-k 64 (its replication controller running; router
+     temperature 0) and worker W1 (serve_worker with --remote-kv
+     --host-offload-pages 128 --system-port 0). Wave H: the 8 prompts
+     through the frontend to W1, twice (the second pass is routed onto
+     the stored blocks and gives them heat). Wave W: W2 registers with
+     W1's flags and gets no request: within 3 controller ticks it is
+     warm-started (warm starts +1, hint pushes +2 or more), every block
+     of the hot chains (covering every matchable block) lands in its G2,
+     byte-equal to W1's pages, and its /debug/kv_fleet shows the hints
+     applied. Wave O: the 8 straight to W2: no G4 fetch, every matchable
+     block onboarded from G2, none recomputed, streams identical to W1's
+     G1 prefix-hit replay. Wave D, the controller stopped: a fresh prompt
+     on W1, routed once for heat, the view's digest published to W2,
+     then the prompt on W2 is fetched by hash (recompute avoided by its
+     matchable blocks), identical to W1's replay; an unknown prompt on
+     W2 skips the probe round (+1, no fetch), identical to W1's cold
+     compute. ``python -m dynamo_tpu_torch.tools.kv_fleet`` exits 0 and
+     names W1 among the hottest block's holders. The dense kernel's own
+     count rises by layers x both engines' decode steps
+     (launches_prefix_economy). Printed: each prompt's TTFT on W2
+     (onboarded) beside W1's recompute and G1 hit, the warm start's
+     seconds from registration to the last landed page, blocks fetched
+     and GB/s, the dedup arms' TTFTs, memory;
   8. offload: the KV offload plane on Llama-3.1-8B with the same bf16
      weights, a 96-page pool (768 MiB), a 128-page G2 in pinned host
      memory and a 128-page G3 file in a temporary directory, in dense
@@ -3058,10 +3084,10 @@ def check_remote_kv(params, smi):
             rec: list = []
             fetch = e.remote_kv.fetch
 
-            async def timed_fetch(hashes, on_chunk=None, fetch=fetch,
-                                  rec=rec):
+            async def timed_fetch(hashes, on_chunk=None, holders=None,
+                                  fetch=fetch, rec=rec):
                 t = time.monotonic()
-                got = await fetch(hashes, on_chunk=on_chunk)
+                got = await fetch(hashes, on_chunk=on_chunk, holders=holders)
                 rec.append(((time.monotonic() - t) * 1e3, got[0],
                             len(hashes)))
                 return got
@@ -3697,6 +3723,441 @@ def check_resilience(params):
                        med_gap=med_gap, drain_s=drain_s)
 
 
+def check_prefix_economy(params, smi):
+    """The fleet prefix economy at Llama-3.1-8B, dense KV: the port's
+    store, a KV-routing frontend (ModelWatcher with the flags
+    ``--kv-replication-target 2 --kv-prefetch-interval 0.5
+    --kv-prefetch-hot-k 64`` through launch.run.fleet_configs, at router
+    temperature 0, and HttpService serving /debug/kv_fleet) and worker
+    W1, then W2 (launch.run's build_chain on the one weight copy and
+    serve_worker with ``--remote-kv --host-offload-pages 128
+    --system-port 0``), each on its own loop thread.
+
+    Wave H: the 8 serve prompts streamed through the frontend one at a
+    time, twice (only W1 exists: the first pass stores their blocks, the
+    second is routed onto them, which gives them heat). Wave W: W2
+    registers and gets no request; within 3 controller ticks the
+    controller warm-starts it (dynamo_kv_fleet_warm_starts_total +1,
+    hint pushes +2 or more), every block of its hot chains (which cover
+    every matchable block of the 8 prompts) lands in W2's G2, each page
+    byte-equal to W1's export_pages_by_hash, and W2's /debug/kv_fleet
+    shows the hints applied. Wave O: the 8 straight to W2's engine: no
+    G4 fetch, every matchable block onboarded from G2 and none
+    recomputed, streams identical to W1's same-path replay (the prompt
+    again on W1, a G1 prefix hit). Wave D, with the controller stopped:
+    a fresh prompt served by W1 and routed once through the frontend
+    (heat), the view's digest published on kv_fleet.{W2's lease} and
+    applied, then the prompt straight to W2 is fetched from W1 (its
+    matchable blocks counted as recompute avoided; the hint names W1's
+    lease id, which no descriptor carries, so the probe falls back to the
+    fleet), identical to W1's replay; a second fresh prompt straight to
+    W2 skips the probe round (dedup_skipped_probes +1, no fetch),
+    identical to W1's cold compute. The kv_fleet tool exits 0 and names
+    W1 among the holders of the hottest block. The dense kernel's own
+    count rises by layers x both engines' decode steps. Returns
+    (launches, figures)."""
+    from dynamo_tpu_torch import kv_transfer as kt
+    from dynamo_tpu_torch.frontend.http import HttpClient
+    from dynamo_tpu_torch.frontend.model_manager import ModelManager
+    from dynamo_tpu_torch.frontend.service import HttpService
+    from dynamo_tpu_torch.frontend.watcher import ModelWatcher
+    from dynamo_tpu_torch.kv_fleet_metrics import KV_FLEET
+    from dynamo_tpu_torch.kv_integrity import KV_INTEGRITY
+    from dynamo_tpu_torch.kv_router.prefetch import KV_FLEET_TOPIC
+    from dynamo_tpu_torch.launch import run as launch
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.runtime.store import serve_store
+    from dynamo_tpu_torch.tokenizer import make_test_tokenizer
+    from dynamo_tpu_torch.tokens import compute_block_hashes
+
+    cfg = ModelConfig.llama3_8b()
+    name = "llama3_8b"
+    tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
+    prompts = serve_prompts(cfg.vocab_size)
+    late, unknown = offload_prompts(cfg.vocab_size)[:2]
+    problems: list[str] = []
+
+    def fleet(key):
+        return int(KV_FLEET.get(f"dynamo_kv_fleet_{key}_total"))
+
+    # every G4 fetch, by the fetching worker's descriptor id: (start, end,
+    # found, asked, holders hint); a class-level wrapper, so a fetch that
+    # races W2's registration is timed too
+    fetch_log: list[tuple] = []
+    plain_fetch = kt.RemoteKvFetcher.fetch
+
+    async def timed_fetch(self, hashes, on_chunk=None, holders=None):
+        t = time.monotonic()
+        got = await plain_fetch(self, hashes, on_chunk=on_chunk,
+                                holders=holders)
+        fetch_log.append((self.self_id, t, time.monotonic(), got[0],
+                          len(hashes), holders))
+        return got
+
+    loops = {k: LoopThread(f"{k}-loop")
+             for k in ("store", "w1", "w2", "frontend")}
+    faulthandler.dump_traceback_later(900, exit=True)
+    kt.RemoteKvFetcher.fetch = timed_fetch
+    try:
+        server, _ = loops["store"].run(serve_store("127.0.0.1", 0))
+        cp = f"127.0.0.1:{server.sockets[0].getsockname()[1]}"
+        args = launch.build_parser().parse_intermixed_args(
+            ["in=endpoint", "out=torch", "--model-config", name,
+             "--model-name", name, "--control-plane", cp, "--remote-kv",
+             "--host-offload-pages", "128", "--system-port", "0"])
+        fargs = launch.build_parser().parse_intermixed_args(
+            ["in=http", "--control-plane", cp, "--kv-replication-target",
+             "2", "--kv-prefetch-interval", "0.5", "--kv-prefetch-hot-k",
+             "64"])
+        ps = args.page_size
+        chains = [launch.build_chain(args, params=params, tokenizer=tok)[1]
+                  for _ in range(2)]
+        engs = [c.engine for c in chains]
+        marks = record_marks(engs[0])
+        ws = ("w1", "w2")
+        rts, served = [None, None], [None, None]
+        rts[0] = loops["w1"].run(launch.connect_runtime(args))
+        served[0] = loops["w1"].run(launch.serve_worker(
+            args, chains[0], rts[0], lease_ttl_s=10.0))
+        wid1 = str(served[0].lease_id)
+
+        async def frontend_up():
+            rt = await launch.connect_runtime(fargs)
+            conf = launch.fleet_configs(fargs)
+            conf["router_config"].router_temperature = 0.0
+            watcher = await ModelWatcher(rt, ModelManager(), tokenizer=tok,
+                                         **conf).start()
+            svc = HttpService(watcher.manager, host="127.0.0.1", port=0)
+            svc.fleet_views = watcher.fleet_views
+            await svc.start()
+            for _ in range(600):
+                push = watcher._routers.get(name)
+                if push is not None and list(push.workers) == [wid1]:
+                    break
+                await asyncio.sleep(0.05)
+            return rt, watcher, svc
+
+        frt, watcher, svc = loops["frontend"].run(frontend_up())
+        push = watcher._routers.get(name)
+        ctrl = watcher._prefetchers.get(name)
+        if push is None or list(push.workers) != [wid1] or ctrl is None:
+            raise AssertionError(
+                f"prefix economy: the frontend routes over "
+                f"{None if push is None else list(push.workers)} with "
+                f"controller {ctrl}")
+        view = watcher.fleet_views[name]
+        interval = ctrl.cfg.interval_s
+
+        def on_frontend(fn):
+            async def call():
+                return fn()
+            return loops["frontend"].run(call())
+
+        def indexed(p, wid):
+            hs = compute_block_hashes(p, ps, salt=name)
+            return on_frontend(lambda: all(
+                wid in view.holders(h) for h in hs))
+
+        def wait_for(pred, what, timeout):
+            deadline = time.monotonic() + timeout
+            while not pred():
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"prefix economy: {what} after "
+                                         f"{timeout} s")
+                time.sleep(0.005)
+            return time.monotonic()
+
+        async def through_frontend(ps_list, label):
+            out = []
+            async with HttpClient("127.0.0.1", svc.port) as c:
+                for p in ps_list:
+                    out.append(await stream_completion(c, p, name, label))
+                    await settle_engines(*engs)
+            return out
+
+        # every kernel count to 0 just before the main path
+        fd.launches = fd.launches_int8 = 0
+        for e in engs:
+            e.kernel_launches = 0
+        fd.executed(engs[0].device, reset=True)
+        steps0 = [e.step_count for e in engs]
+        # ---- wave H: the hot set on W1, then routed onto it for heat
+        res_h1 = asyncio.run(through_frontend(prompts, "economy wave H"))
+        mh1 = {k: dict(v) for k, v in marks.items()}
+        marks.clear()
+        for p in prompts:
+            wait_for(lambda p=p: indexed(p, wid1), "W1's blocks indexed",
+                     30)
+        res_h2 = asyncio.run(through_frontend(prompts, "economy wave H'"))
+        mh2 = {k: dict(v) for k, v in marks.items()}
+        marks.clear()
+        parse_streams(res_h1, [mh1[tuple(p)]["tokens"] for p in prompts],
+                      "economy wave H")
+        parse_streams(res_h2, [mh2[tuple(p)]["tokens"] for p in prompts],
+                      "economy wave H'")
+        hot_hit = [mh2[tuple(p)]["cached"] for p in prompts]
+        # ---- wave W: W2 joins cold and is warm-started; the time W2's
+        # loop spends landing fetched pages (crc32s and the G2 puts) is
+        # summed beside the fetches
+        ingest = {"s": 0.0, "calls": 0}
+        drain_ingest = engs[1]._drain_host_ingest
+
+        def timed_ingest():
+            if engs[1]._host_ingest.empty():
+                return drain_ingest()
+            t = time.monotonic()
+            drain_ingest()
+            ingest["s"] += time.monotonic() - t
+            ingest["calls"] += 1
+
+        engs[1]._drain_host_ingest = timed_ingest
+        warm0, hints0, pf0 = (fleet("warm_starts"), fleet("hint_pushes"),
+                              fleet("prefetched_blocks"))
+        rx0 = wire_totals()[1]
+        rts[1] = loops["w2"].run(launch.connect_runtime(args))
+        served[1] = loops["w2"].run(launch.serve_worker(
+            args, chains[1], rts[1], lease_ttl_s=10.0))
+        t_reg = time.monotonic()
+        wid2 = str(served[1].lease_id)
+        t_warm = wait_for(lambda: fleet("warm_starts") > warm0,
+                          "no warm start", 3 * interval)
+        hot = on_frontend(lambda: view.hot_chains(ctrl.cfg.hot_k))
+        chain_blocks = {h for c in hot for h in c}
+        matchable = [compute_block_hashes(p, ps, salt=name)[
+            :(len(p) - 1) // ps] for p in prompts]
+        uncovered = sum(h not in chain_blocks for hs in matchable
+                        for h in hs)
+        off2 = engs[1].offload
+
+        def landed():
+            with engs[1]._tier_lock:
+                return all(h in off2 for h in chain_blocks)
+
+        t_landed = wait_for(landed, "the hot chains not in W2's G2", 120)
+        warm_s = t_landed - t_reg
+        rx_warm = wire_totals()[1] - rx0
+        pushed = fleet("prefetched_blocks") - pf0
+        w2_fetches = [f for f in fetch_log
+                      if f[0] == engs[1].remote_kv.self_id]
+        fetch_s = sum(f[2] - f[1] for f in w2_fetches)
+        if fleet("warm_starts") - warm0 != 1 or \
+                fleet("hint_pushes") - hints0 < 2 or uncovered:
+            problems.append(
+                f"prefix economy wave W: warm starts "
+                f"+{fleet('warm_starts') - warm0}, hint pushes "
+                f"+{fleet('hint_pushes') - hints0}; {uncovered} matchable "
+                f"blocks outside the {len(hot)} hot chains")
+        byte_equal = 0
+        for hs in matchable:
+            f1, d1 = engs[0].export_pages_by_hash(hs)
+            with engs[1]._tier_lock:
+                d2 = off2.gather(hs)
+            byte_equal += f1 == len(hs) and same_bytes(d1, d2)
+        st, body = asyncio.run(call_json(served[1].system.port,
+                                         "/debug/kv_fleet"))
+        hints_applied = (body.get("hints") or {}).get("applied", 0)
+        if byte_equal != len(prompts) or st != 200 or hints_applied < 1:
+            problems.append(
+                f"prefix economy wave W: pages byte-equal for {byte_equal} "
+                f"of {len(prompts)} prompts; W2's /debug/kv_fleet {st} "
+                f"{body}")
+        # ---- wave O: the 8 straight to W2, onboarded from G2
+        f0 = engs[1].remote_kv.fetches
+        recomputed0 = KV_INTEGRITY.get("dynamo_kv_integrity_recomputed_total")
+        res_o = []
+        for p in prompts:
+            res_o.append(loops["w2"].run(timed_generate(engs[1], p)))
+            loops["w2"].run(settle_engines(*engs))
+        matched_o = [r[3].get("cached_blocks") for r in res_o]
+        xs_o = engs[1].transfer_stats()
+        ingest_warm = dict(ingest)
+        want_m = [len(hs) for hs in matchable]
+        if engs[1].remote_kv.fetches != f0 or matched_o != want_m or \
+                KV_INTEGRITY.get("dynamo_kv_integrity_recomputed_total") \
+                != recomputed0:
+            problems.append(
+                f"prefix economy wave O: W2 fetched "
+                f"{engs[1].remote_kv.fetches - f0} times and matched "
+                f"{matched_o} of {want_m}")
+        res_r = []   # W1's same-path replay: its G1 prefix hit
+        for p in prompts:
+            res_r.append(loops["w1"].run(timed_generate(engs[0], p)))
+            loops["w1"].run(settle_engines(*engs))
+        same_o = 0
+        for i, (o, r) in enumerate(zip(res_o, res_r)):
+            if o[0] == r[0]:
+                same_o += 1
+            else:
+                j = next(j for j, (a, b) in enumerate(zip(o[0], r[0]))
+                         if a != b)
+                problems.append(
+                    f"prefix economy wave O: prompt {i} streamed "
+                    f"{o[0][j]} at step {j} where W1's replay gave {r[0][j]}")
+        # ---- wave D: the demand path with the controller stopped
+        loops["frontend"].run(ctrl.stop())
+        lh = compute_block_hashes(late, ps, salt=name)[:(len(late) - 1) // ps]
+        late_w1 = loops["w1"].run(timed_generate(engs[0], late))
+        loops["w1"].run(settle_engines(*engs))
+        wait_for(lambda: indexed(late, wid1), "the late prompt indexed", 30)
+        res_hl = asyncio.run(through_frontend([late], "economy late-hot"))
+        parse_streams(res_hl, [marks[tuple(late)]["tokens"]],
+                      "economy late-hot")
+        digest = on_frontend(view.digest)
+        applied0 = engs[1].fleet_hints.applied
+        loops["frontend"].run(frt.kv.publish(
+            f"{KV_FLEET_TOPIC}.{wid2}", json.dumps({"hints": digest})))
+        wait_for(lambda: engs[1].fleet_hints.applied > applied0,
+                 "the published digest not applied", 10)
+        known = [engs[1].fleet_hints.holders(h) for h in lh]
+        avoided0, skipped0 = fleet("recompute_avoided_blocks"), \
+            fleet("dedup_skipped_probes")
+        n_log = len(fetch_log)
+        hinted = loops["w2"].run(timed_generate(engs[1], late))
+        loops["w2"].run(settle_engines(*engs))
+        hinted_fetch = [f for f in fetch_log[n_log:]
+                        if f[0] == engs[1].remote_kv.self_id]
+        avoided = fleet("recompute_avoided_blocks") - avoided0
+        late_rep = loops["w1"].run(timed_generate(engs[0], late))
+        loops["w1"].run(settle_engines(*engs))
+        if (avoided != len(lh) or len(hinted_fetch) != 1
+                or hinted_fetch[0][5] != [wid1]
+                or any(k != [wid1] for k in known)
+                or hinted[0] != late_rep[0]):
+            problems.append(
+                f"prefix economy dedup (hinted): recompute avoided "
+                f"+{avoided} of {len(lh)}, fetches {hinted_fetch}, the "
+                f"digest's holders {known[:2]}..., tokens "
+                f"{'equal' if hinted[0] == late_rep[0] else 'differ'}")
+        f0 = engs[1].remote_kv.fetches
+        unk = loops["w2"].run(timed_generate(engs[1], unknown))
+        loops["w2"].run(settle_engines(*engs))
+        skipped = fleet("dedup_skipped_probes") - skipped0
+        unk_ref = loops["w1"].run(timed_generate(engs[0], unknown))
+        loops["w1"].run(settle_engines(*engs))
+        if skipped != 1 or engs[1].remote_kv.fetches != f0 or \
+                unk[0] != unk_ref[0]:
+            problems.append(
+                f"prefix economy dedup (unknown): skipped probes "
+                f"+{skipped}, W2 fetches +{engs[1].remote_kv.fetches - f0},"
+                f" tokens {'equal' if unk[0] == unk_ref[0] else 'differ'} "
+                f"to W1's cold compute")
+        # ---- the counts, once both engines idle
+        loops["w1"].run(settle_engines(*engs))
+        torch.cuda.synchronize()
+        dense, int8 = fd.executed(engs[0].device)
+        issued = fd.launches + fd.launches_int8
+        steps = sum(e.step_count - s for e, s in zip(engs, steps0))
+        check_kv_launches("prefix economy", engs, dense, int8, issued,
+                          steps, cfg.num_layers)
+        # ---- the operator tool against the frontend
+        tool = subprocess.run(
+            [sys.executable, "-m", "dynamo_tpu_torch.tools.kv_fleet",
+             "--frontend", f"127.0.0.1:{svc.port}", "--model", name,
+             "--top", "4"], capture_output=True, text=True, timeout=60,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        top = json.loads(tool.stdout)["models"][name]["hot"] \
+            if tool.returncode == 0 else []
+        if tool.returncode != 0 or not top or wid1 not in top[0]["holders"]:
+            problems.append(f"prefix economy: the kv_fleet tool exited "
+                            f"{tool.returncode} ({tool.stderr[-200:]}), "
+                            f"hottest {top[:1]}")
+        mem = torch.cuda.memory_allocated()
+
+        async def frontend_down():
+            await svc.stop()
+            await watcher.stop()
+            await frt.close()
+
+        loops["frontend"].run(frontend_down())
+        for k, w in enumerate(ws):
+            loops[w].run(served[k].shutdown())
+            loops[w].run(rts[k].close())
+            loops[w].run(engs[k].stop())
+
+        async def store_down():
+            server.close()
+            await server.wait_closed()
+
+        loops["store"].run(store_down())
+    finally:
+        kt.RemoteKvFetcher.fetch = plain_fetch
+        faulthandler.cancel_dump_traceback_later()
+        for lt in loops.values():
+            lt.close()
+
+    def call_first(m):
+        return m["first"] - m["in"]
+
+    ttft_h = [call_first(mh1[tuple(p)]) for p in prompts]
+    ttft_o = [r[2] for r in res_o]
+    ttft_r = [r[2] for r in res_r]
+    gbs = rx_warm / fetch_s / 1e9 if fetch_s else float("nan")
+    hinted_ms = ((hinted_fetch[0][2] - hinted_fetch[0][1]) * 1e3
+                 if hinted_fetch else float("nan"))
+    log(f"prefix economy wave H: the 8 through the frontend to W1 "
+        f"({wid1}) twice: the call to the first token, recomputed, median "
+        f"{np.median(ttft_h):.4f} s max {max(ttft_h):.4f} s; the second "
+        f"pass matched {sum(hot_hit)} blocks; {smi}")
+    log(f"prefix economy wave W: W2 ({wid2}) warm-started "
+        f"{t_warm - t_reg:.3f} s after registering (tick {interval} s); "
+        f"{len(hot)} hot chains of {len(chain_blocks)} blocks (every one of "
+        f"the {sum(want_m)} matchable blocks) in its G2 "
+        f"{warm_s:.3f} s after registering; {pushed} blocks fetched "
+        f"over {len(w2_fetches)} fetches, {rx_warm / 2**20:.1f} MiB in "
+        f"{fetch_s:.3f} s of fetches: {gbs:.2f} GB/s; W2's loop landed "
+        f"them in {ingest_warm['calls']} drains taking "
+        f"{ingest_warm['s']:.3f} s (crc32s and G2 puts); pages byte-equal "
+        f"to W1's for {byte_equal}/8 prompts; W2's /debug/kv_fleet applied "
+        f"{hints_applied}")
+    log(f"prefix economy wave O: the 8 straight to W2: no fetch, matched "
+        f"{sum(matched_o)} of {sum(want_m)} from G2, none recomputed; the "
+        f"call to the first token per prompt (W2 onboarded / W1 "
+        f"recomputed / W1 G1 hit): " + "; ".join(
+            f"{o:.4f}/{h:.4f}/{r:.4f}" for o, h, r in
+            zip(ttft_o, ttft_h, ttft_r)) + f"; medians "
+        f"{np.median(ttft_o):.4f} / {np.median(ttft_h):.4f} / "
+        f"{np.median(ttft_r):.4f} s; identical to W1's replay {same_o}/8; "
+        f"W2's own TTFT (intake to first token) median "
+        f"{np.median([r[3]['timing']['ttft_s'] for r in res_o]):.4f} s, W1's "
+        f"replay {np.median([r[3]['timing']['ttft_s'] for r in res_r]):.4f}"
+        f" s; W2 onboarded {xs_o['onboard_pages']} pages at "
+        f"{xs_o['onboard_host_ms_per_page'] or float('nan'):.2f} host ms a "
+        f"page (gather, verify, copy issue), H2D "
+        f"{xs_o['h2d_gb_s'] or float('nan'):.1f} GB/s")
+    log(f"prefix economy wave D: late-hot prompt ({len(late)} tokens, "
+        f"{len(lh)} matchable blocks): W1 cold {late_w1[2]:.4f} s, W2 "
+        f"hinted fetch {hinted[2]:.4f} s (recompute avoided +{avoided}, "
+        f"fetch {hinted_ms:.1f} ms), W1 G1 hit {late_rep[2]:.4f} s; unknown prompt: W2 "
+        f"{unk[2]:.4f} s with the probe skipped (+{skipped}), W1 cold "
+        f"{unk_ref[2]:.4f} s; the tool named {wid1} among the hottest "
+        f"block's holders")
+    log(f"prefix economy: {steps} decode steps over both engines, "
+        f"flash_decode ran {dense} times on the card = {cfg.num_layers} x "
+        f"{steps}; {mem / 2**30:.2f} GiB allocated with both engines up")
+    if problems:
+        raise AssertionError("prefix economy: " + "; ".join(problems))
+    del engs, chains
+    gc.collect()
+    torch.cuda.empty_cache()
+    figures(f"warm start {warm_s:.3f} s, {len(chain_blocks)} blocks in G2, "
+            f"{gbs:.2f} GB/s, byte-equal {byte_equal}/8; wave O TTFT "
+            f"{np.median(ttft_o):.4f} s (recompute {np.median(ttft_h):.4f}, "
+            f"G1 hit {np.median(ttft_r):.4f}), same {same_o}/8; dedup "
+            f"hinted {hinted[2]:.4f} s avoided {avoided}, unknown "
+            f"{unk[2]:.4f} s skipped {skipped}; launches {dense}")
+    return dense, dict(ttft_o=ttft_o, warm_s=warm_s, gbs=gbs)
+
+
+async def call_json(port, path):
+    """GET ``path`` on 127.0.0.1:``port``: (status, JSON body)."""
+    from dynamo_tpu_torch.frontend.http import HttpClient
+
+    async with HttpClient("127.0.0.1", port) as c:
+        r = await c.request("GET", path)
+    return r.status, r.json()
+
+
 def offload_prompts(vocab: int):
     """Wave B of the offload phase: 8 prompts of the serve prompts'
     lengths, from seed 1."""
@@ -4322,6 +4783,8 @@ def main() -> int:
                             kv_figs, smi)
     g4_launches, _ = phase("remote kv", check_remote_kv, params, smi)
     res_launches, _ = phase("resilience", check_resilience, params)
+    eco_launches, _ = phase("prefix economy", check_prefix_economy, params,
+                            smi)
     phase("offload", check_offload, params, counts, smi)
     # w8a16: the same weights quantized per output channel on the card
     t0 = time.monotonic()
@@ -4371,6 +4834,7 @@ def main() -> int:
              launches_distributed=dist_launches,
              launches_kv_router=kv_launches, launches_disagg=dis_launches,
              launches_resilience=res_launches,
+             launches_prefix_economy=eco_launches,
              launches_offload=counts["flash_decode_offload"], **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",

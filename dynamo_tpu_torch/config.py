@@ -1,6 +1,6 @@
 """Runtime configuration of the port's launcher (a copy of the JAX
 package's config.py, cut to the fields the local launcher reads: the
-HTTP address and the engine defaults).
+HTTP address, the engine defaults and the fleet prefix economy's).
 
 Layers, later ones winning: dataclass defaults <- TOML file
 (``DYNTPU_CONFIG`` or ./dynamo_tpu.toml, a ``[runtime]`` table or flat
@@ -35,6 +35,16 @@ class RuntimeConfig:
     disk_offload_pages: int = 0
     disk_offload_path: Optional[str] = None
     scrub_on_start: bool = False
+    # the fleet prefix economy (kv_router/fleet.py, prefetch.py): desired
+    # fleet copies of a hot block (<= 1 turns the replication controller
+    # off), hot chains examined and pushed a tick, the controller's tick
+    # period, the indexer's access-heat half-life (0 = raw undecayed
+    # counters), and the dedup-admission gate
+    kv_replication_target: int = 2
+    kv_prefetch_hot_k: int = 8
+    kv_prefetch_interval_s: float = 2.0
+    kv_freq_halflife_s: float = 600.0
+    kv_dedup_admission: bool = True
 
 
 def _coerce(value: str, target_type) -> Any:

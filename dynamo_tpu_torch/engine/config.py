@@ -122,6 +122,12 @@ class EngineConfig:
     # an export stream that moved nothing for this long is abandoned: its
     # page pins are released and its consumer gets an error
     kv_transfer_stream_idle_timeout_s: float = 15.0
+    # fleet prefix economy (kv_router/fleet.py): once the frontend's hint
+    # digest is applied, dedup-by-hash admission consults it before a G4
+    # probe round: fleet-known holders are probed first, and a demand
+    # miss whose blocks the fleet hot set does not know at all skips the
+    # probe. False restores hint-blind G4
+    kv_dedup_admission: bool = True
 
     # not ported yet: see _UNPORTED
     speculative: str = "off"

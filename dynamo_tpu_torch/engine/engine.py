@@ -76,14 +76,21 @@ PyTorch (port of the JAX package's TpuEngine main path).
     worker's pool; the pages land in G2 on the loop ahead of admission
     and onboard from there (``remote_onboard_blocks`` counts them); the
     ``corrupt_prefetch`` chaos point rots one landed page there.
+  - The fleet prefix economy: ``apply_fleet_hints`` keeps the frontend's
+    replica and holder digest (``fleet_hints``, a kv_router/fleet.py
+    FleetHints) and wires its replica counts into G2/G3 eviction; dedup
+    admission (``kv_dedup_admission``) probes the hinted holders first
+    and skips the probe round for a prefix the fleet does not know; the
+    frontend's controller pushes hot prefixes through ``prefetch_hashes``,
+    whose pages land through the same ingest queue as demand fetches.
   - Graceful drain (``begin_drain``, ``drained``): admissions are refused
     with WorkerDrainingError, the pipeline falls back to the strict order
     (``pipe_flushes["drain"]``), and ``drained()`` holds once no request
     and no round is left in flight.
 
-Not ported yet (ROADMAP.md): speculation, the fleet view's G4 hints and
-prefetch, tenant quotas and adapters, overload budgets and preemption,
-multimodal, MoE.
+Not ported yet (ROADMAP.md): speculation, tenant quotas and adapters,
+overload budgets and preemption, multimodal, MoE, and the ``g4_fetch``
+and ``g4_chunk`` spans of a fetch (item 10).
 """
 from __future__ import annotations
 
@@ -110,6 +117,7 @@ from dynamo_tpu_torch.kv_integrity import (
     KvQuarantine,
     page_checksums,
 )
+from dynamo_tpu_torch.kv_fleet_metrics import KV_FLEET
 from dynamo_tpu_torch.kv_quant import KV_QUANT, QuantizedPages, to_pool_dtype
 from dynamo_tpu_torch.resilience.chaos import CHAOS
 from dynamo_tpu_torch.resilience.drain import WorkerDrainingError
@@ -444,6 +452,11 @@ class TorchEngine:
         self.remote_kv: Any = None
         self.remote_onboard_blocks = 0
         self._host_ingest: queue_mod.Queue = queue_mod.Queue()
+        # fleet prefix economy: the frontend's replica and holder digest
+        # (kv_router/fleet.py FleetHints), set by apply_fleet_hints and
+        # read by dedup admission and tier eviction; None until the first
+        # hint push arrives
+        self.fleet_hints: Any = None
         self._intake: queue_mod.Queue = queue_mod.Queue()
         # page transfer ops (export/import/clear), serviced by the loop
         self._xfer: queue_mod.Queue = queue_mod.Queue()
@@ -1544,8 +1557,7 @@ class TorchEngine:
         onboard path (_onboard_from_host) picks them up at admission: the
         remote tier needs no scatter of its own. The coverage checks here
         are hints read from another thread; a stale answer costs one
-        wasted fetch or one recompute, never correctness. The fleet
-        view's holder hints wait for ROADMAP Queue 1 item 6."""
+        wasted fetch or one recompute, never correctness."""
         ps = self.ecfg.page_size
         matchable = r.seq.blocks[: max(0, (len(r.tokens) - 1) // ps)]
         if not matchable:
@@ -1562,6 +1574,24 @@ class TorchEngine:
         missing = matchable[i:]
         if not missing:
             return
+        # dedup-by-hash admission: consult the fleet hint digest before
+        # probing. The fleet-known holders are probed first; a miss none
+        # of whose blocks the fleet hot set knows skips the probe round
+        # (recomputing a prefix unique to this worker is the right call,
+        # probing every peer for it is wasted wire)
+        holder_hint: Optional[list[str]] = None
+        hints = self.fleet_hints
+        if (self.ecfg.kv_dedup_admission and hints is not None
+                and hints.applied):
+            known = [h for b in missing
+                     for h in hints.holders(b.block_hash)]
+            if known:
+                # dedupe in first-seen order (leading blocks first)
+                holder_hint = list(dict.fromkeys(known))
+            elif all(hints.replicas(b.block_hash) is None
+                     for b in missing):
+                KV_FLEET.inc("dynamo_kv_fleet_dedup_skipped_probes_total")
+                return
 
         def land(offset: int, arr: Any) -> None:
             # one chunk into the ingest queue at once: G2 fills while
@@ -1579,10 +1609,17 @@ class TorchEngine:
         try:
             # every fetch path (streamed, a probe's full reply, the
             # monolithic race) delivers its pages through land
-            await self.remote_kv.fetch([b.block_hash for b in missing],
-                                       on_chunk=land)
+            found, _ = await self.remote_kv.fetch(
+                [b.block_hash for b in missing], on_chunk=land,
+                holders=holder_hint)
         except Exception:  # noqa: BLE001 — G4 is best-effort
             log.exception("G4 remote fetch failed")
+            return
+        if found:
+            # every fetched block is a prefill block this worker did not
+            # recompute: the dedup economy's headline counter
+            KV_FLEET.inc("dynamo_kv_fleet_recompute_avoided_blocks_total",
+                         int(found))
 
     def _drain_host_ingest(self) -> None:
         """Put the G4 pages fetched so far into G2 (on the loop, before
@@ -1603,6 +1640,72 @@ class TorchEngine:
                     # onboard verify must quarantine it before it can
                     # reach the device pool
                     self.offload.rot_page(hashes[0])
+
+    def apply_fleet_hints(self, digest: dict) -> None:
+        """The frontend's hint push (kv_router/prefetch.py): keep the
+        fleet replica and holder digest for dedup admission and wire the
+        replica counts into G2/G3 eviction. The hint maps are swapped
+        whole, so the engine thread evicting beside a push sees the old
+        digest or the new one, never a torn one."""
+        from dynamo_tpu_torch.kv_router.fleet import FleetHints
+
+        if self.fleet_hints is None:
+            self.fleet_hints = FleetHints(digest)
+        else:
+            self.fleet_hints.apply(digest)
+        if self.offload is not None:
+            self.offload.fleet_replicas = self.fleet_hints.replicas
+            if self.offload.spill is not None:
+                self.offload.spill.fleet_replicas = self.fleet_hints.replicas
+
+    async def prefetch_hashes(
+        self, hashes: list[int], parents: Optional[list[int]] = None
+    ) -> int:
+        """The fleet's replication push (kv_router/prefetch.py): pull the
+        given chained-hash run from peer pools into the G2 host tier
+        AHEAD of demand. Blocks held in G1/G2/G3 are skipped; the fetched
+        pages ride the same ingest queue as demand G4 fetches (so
+        ``corrupt_prefetch`` guards them too). The loop is started here if
+        it is not running yet, so a cold worker's warm-start pages land
+        before its first request (the JAX package's wait in the queue
+        until then). Returns the blocks fetched."""
+        off = self.offload
+        if self.remote_kv is None or off is None or not hashes:
+            return 0
+        if not self._started:
+            self.start()
+        if parents is None:
+            # best-effort chain: within the run each block's parent is
+            # its predecessor; the head's true parent is unknown here
+            parents = [0, *hashes[:-1]]
+        par = dict(zip(hashes, parents))
+        with self._tier_lock:
+            missing = [
+                h for h in hashes
+                if h not in off
+                and (off.spill is None or h not in off.spill)
+                and self.allocator.page_for_hash(h) is None
+            ]
+        if not missing:
+            return 0
+
+        def land(offset: int, arr: Any) -> None:
+            sub = missing[offset:offset + int(arr.shape[3])]
+            payload = to_pool_dtype(arr, self.kv_quant, off.dtype)
+            if not isinstance(payload, QuantizedPages):
+                payload = payload.to(off.dtype)
+            self._host_ingest.put((sub, [par[h] for h in sub], payload))
+            self._wake_evt.set()
+
+        try:
+            found, _ = await self.remote_kv.fetch(missing, on_chunk=land)
+        except Exception:  # noqa: BLE001 — prefetch is best-effort
+            log.exception("fleet prefetch fetch failed")
+            return 0
+        found = int(found or 0)
+        if found:
+            KV_FLEET.inc("dynamo_kv_fleet_prefetched_blocks_total", found)
+        return found
 
     # ---- load metrics ----
 

@@ -39,22 +39,29 @@ as misses.
 Fault injection (resilience/chaos.py): ``flip_kv_bits`` flips bits of a
 gather's output (the staging copy, never the pool), and ``truncate_g3``
 zeroes G3's tail half before a G3 gather or page read (G2's fall-through
-reads G3 page-wise, so both paths reach it). The fleet-replica eviction
-hook of the reference waits for the fleet plane (ROADMAP Queue 1 item 6).
+reads G3 page-wise, so both paths reach it).
+
+Replication-aware eviction: once the engine applies the frontend's fleet
+hints (``TorchEngine.apply_fleet_hints``), ``fleet_replicas`` maps a hash
+to its known fleet replica count, and eviction drops the best-replicated
+of the LRU-oldest entries before the fleet's last copy of a block
+(``_pick_victim``, counted in kv_fleet_metrics.py).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
 import tempfile
 from collections import OrderedDict
 from concurrent.futures import Executor
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from dynamo_tpu_torch.kv_fleet_metrics import KV_FLEET
 from dynamo_tpu_torch.kv_integrity import (
     KV_INTEGRITY,
     KvQuarantine,
@@ -67,6 +74,11 @@ log = logging.getLogger(__name__)
 # journal compaction threshold: rewrite the manifest once the journal
 # carries this many times more lines than live entries could need
 _JOURNAL_SLACK = 4
+
+# replication-aware eviction scans this many LRU-oldest entries for a
+# well-replicated victim before it falls back to the LRU head, so an
+# eviction stays O(1)-ish under pressure
+_EVICT_SCAN = 8
 
 # a tier's element type, its name in the G3 manifest (numpy's, as the JAX
 # package writes it) and the numpy type of the same width the G3 file is
@@ -111,6 +123,10 @@ class _PageTier:
         # threads that gather and verify a run's pages side by side (the
         # engine's; None: one page after another on the caller's thread)
         self.crc_pool: Optional[Executor] = None
+        # fleet prefix economy: once wired (engine.apply_fleet_hints),
+        # maps hash -> known fleet replica count (None = unknown), and
+        # eviction prefers well-replicated blocks over the last copy
+        self.fleet_replicas: Optional[Callable[[int], Optional[int]]] = None
         self.pages_offloaded = 0
         self.onboard_hits = 0
         self.lookups = 0
@@ -148,9 +164,43 @@ class _PageTier:
     def _on_drop(self, h: int) -> None:
         pass
 
+    def _pick_victim(self) -> int:
+        """The hash to evict: the LRU head, unless the fleet replica hook
+        is wired; then the best-replicated of the ``_EVICT_SCAN`` oldest
+        entries (>= 2 known fleet copies, the oldest wins ties), so the
+        fleet's LAST copy of a warm block outlives the eighth copy of a
+        shared system prompt."""
+        head = next(iter(self._index))
+        fn = self.fleet_replicas
+        if fn is None:
+            return head
+        best_h = None
+        best_r = 1
+        for h in itertools.islice(self._index, _EVICT_SCAN):
+            try:
+                r = fn(h)
+            except Exception:  # noqa: BLE001 — stale hints must not block eviction
+                log.debug("fleet replica lookup failed for %#x", h,
+                          exc_info=True)
+                r = None
+            if r is not None and r > best_r:
+                best_h, best_r = h, r
+        if best_h is not None:
+            KV_FLEET.inc("dynamo_kv_fleet_replicated_evictions_total")
+            return best_h
+        try:
+            head_r = fn(head)
+        except Exception:  # noqa: BLE001 — stale hints must not block eviction
+            log.debug("fleet replica lookup failed for %#x", head,
+                      exc_info=True)
+            head_r = None
+        if head_r is not None and head_r <= 1:
+            KV_FLEET.inc("dynamo_kv_fleet_last_copy_evictions_total")
+        return head
+
     def _evict_one(self) -> None:
-        """Drop the LRU-oldest entry to free a slot (G2 spills it)."""
-        old_h = next(iter(self._index))
+        """Drop one entry to free a slot (_pick_victim; G2 spills it)."""
+        old_h = self._pick_victim()
         old_slot, _, _ = self._index.pop(old_h)
         self._free.append(old_slot)
         self._on_drop(old_h)
@@ -620,7 +670,7 @@ class HostOffloadTier(_PageTier):
         return self._pool[slot]
 
     def _evict_one(self) -> None:
-        old_h = next(iter(self._index))
+        old_h = self._pick_victim()
         old_slot, old_parent, old_crc = self._index.pop(old_h)
         if self.spill is not None:
             # the crc travels with the block down the spill: G3 inherits

@@ -14,11 +14,15 @@ Endpoints:
                                families, the store's dynamo_store_*, and
                                the KV router's dynamo_resilience_*,
                                dynamo_migration_* and
-                               dynamo_overload_router_spills_total)
+                               dynamo_overload_router_spills_total, and
+                               the fleet's dynamo_kv_fleet_*)
   POST /clear_kv_blocks       (every served engine's clear_kv_blocks:
                                {"cleared": [model, ...]}; a KV-routed
                                model's router fans it out to its workers
                                and empties its indexer)
+  GET  /debug/kv_fleet[?model=NAME][&top=K]
+                              (each KV-routed model's fleet view:
+                               replica map and top-K hot prefixes)
 
 Streaming honours client disconnect: the server cancels the handler when
 the connection drops, and the handler closes its response generators,
@@ -32,8 +36,8 @@ send the calls before the finish. ``nvext.annotations: ["llm_metrics"]``
 adds one event before ``[DONE]`` with the request's token counts, TTFT
 and ITL figures.
 
-Not ported yet: /v1/responses, /v1/embeddings, tracing and the /debug/*
-routes, overload 429s (the engine has no admission budgets).
+Not ported yet: /v1/responses, /v1/embeddings, tracing and the other
+/debug/* routes, overload 429s (the engine has no admission budgets).
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ from dynamo_tpu_torch.frontend.http import (
 from dynamo_tpu_torch.frontend.model_manager import ModelManager, ModelNotFound
 from dynamo_tpu_torch.kv_integrity import KV_INTEGRITY
 from dynamo_tpu_torch.kv_quant import KV_QUANT
+from dynamo_tpu_torch.kv_fleet_metrics import KV_FLEET
 from dynamo_tpu_torch.kv_transfer_metrics import KV_TRANSFER
 from dynamo_tpu_torch.overload.deadline import apply_request_hints
 from dynamo_tpu_torch.overload.metrics import OVERLOAD
@@ -216,6 +221,10 @@ class HttpService:
         self.manager = manager if manager is not None else ModelManager()
         self.host = host
         self.port = port
+        # the fleet prefix economy: per-model FleetKvView registry served
+        # at /debug/kv_fleet; the launcher points it at the ModelWatcher's
+        # live dict, so discovered KV-routed models appear in it
+        self.fleet_views: dict[str, Any] = {}
         self.metrics = ServiceMetrics()
         # request-latency histograms (TTFT / ITL / E2E), observed at the
         # frontend's measurement points and appended to /metrics
@@ -231,6 +240,7 @@ class HttpService:
             ("GET", "/live"): self.handle_health,
             ("GET", "/metrics"): self.handle_metrics,
             ("POST", "/clear_kv_blocks"): self.handle_clear_kv,
+            ("GET", "/debug/kv_fleet"): self.handle_kv_fleet,
         })
         self._start_time = time.monotonic()
 
@@ -268,8 +278,32 @@ class HttpService:
                 + KV_INTEGRITY.render().encode()
                 + STORE.render().encode()
                 + RESILIENCE.render().encode()
-                + OVERLOAD.render().encode())
+                + OVERLOAD.render().encode()
+                + KV_FLEET.render().encode())
         return Response(body, content_type=PROMETHEUS_CONTENT_TYPE)
+
+    async def handle_kv_fleet(self, request: Request) -> Response:
+        """GET /debug/kv_fleet[?model=NAME][&top=K]: the live fleet prefix
+        economy per KV-routed model, its replica map and top-K hot
+        prefixes (kv_router/fleet.py FleetKvView.to_dict)."""
+        try:
+            top = int(request.query.get("top", 32))
+        except ValueError:
+            top = 32
+        want = request.query.get("model")
+        views = self.fleet_views
+        if want is not None:
+            if want not in views:
+                return Response.json(
+                    {"error": f"no fleet view for model {want!r}"},
+                    status=404)
+            views = {want: views[want]}
+        return Response.json({
+            "models": {
+                name: view.to_dict(top=top)
+                for name, view in sorted(views.items())
+            },
+        })
 
     async def handle_clear_kv(self, request: Request) -> Response:
         """Drop every reusable cached KV block of every served engine

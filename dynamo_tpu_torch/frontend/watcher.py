@@ -8,8 +8,10 @@ worker instances under the component prefix the entry names, so either
 package's workers and frontends discover each other through one store.
 
 ``register_llm`` (reference lib/bindings/python rust/lib.rs:134) is the
-worker-side half: serve the engine endpoint, put the model entry, and
-publish the allocator's KV events and the engine's load metrics.
+worker-side half: serve the engine endpoint, put the model entry, publish
+the allocator's KV events and the engine's load metrics, and (for an
+engine with ``apply_fleet_hints``) take the fleet controller's hint and
+prefetch payloads off ``kv_fleet.{lease_id}``.
 
 A ``kv`` entry is served through a ``KvPushRouter`` (kv_router/): the
 watcher follows the ``kv_events.>`` plane into the indexer of the router
@@ -27,8 +29,11 @@ ROADMAP Queue 1 item 9; serving it through the test tokenizer would
 answer differently). With ``heartbeat_ttl_s`` a worker whose metrics go
 silent is blocked before its lease expires, and a SharedBreakerBoard
 (resilience/shared.py) exchanges breaker trips with sibling frontends
-over the store. Left out of the KV path: the fleet view and the prefetch
-controller (item 6), and the fleet-merged latency feed (item 10).
+over the store. Each KV-routed model gets a FleetKvView over its
+router's indexer (``fleet_views``, served at ``/debug/kv_fleet``) and,
+with a ``prefetch_config``, a KvPrefetchController that publishes hints
+and hot prefixes to its workers over the store. Left out of the KV path:
+the fleet-merged latency feed (item 10).
 """
 from __future__ import annotations
 
@@ -42,6 +47,12 @@ from typing import Any, Optional
 
 from dynamo_tpu_torch.backend import Backend
 from dynamo_tpu_torch.frontend.model_manager import ModelChain, ModelManager
+from dynamo_tpu_torch.kv_router.fleet import FleetKvView
+from dynamo_tpu_torch.kv_router.prefetch import (
+    KV_FLEET_TOPIC,
+    KvPrefetchController,
+    PrefetchConfig,
+)
 from dynamo_tpu_torch.kv_router.protocols import (
     ForwardPassMetrics,
     KvCacheEvent,
@@ -121,7 +132,11 @@ async def register_llm(
     exactly when the last instance's lease dies. For a KV-routed model the
     allocator's KV events are published under the instance's lease id
     (the id routers use as the worker key), with a periodic resync of the
-    whole cache; the engine's load metrics are published either way."""
+    whole cache, and an engine with ``apply_fleet_hints`` takes the fleet
+    controller's hint and prefetch payloads off ``kv_fleet.{lease_id}``
+    (one bad payload is logged, not fatal; the loop stops with
+    ``served.shutdown``); the engine's load metrics are published either
+    way."""
     ep = rt.namespace(entry.namespace).component(entry.component).endpoint(
         entry.endpoint
     )
@@ -129,10 +144,18 @@ async def register_llm(
         ep, engine, worker_id=entry.name, lease_ttl_s=lease_ttl_s,
         metadata={"model": entry.name},
     )
+    allocator = getattr(engine, "allocator", None)
+    fleet_sub = None
+    if (entry.router_mode == "kv" and allocator is not None
+            and hasattr(engine, "apply_fleet_hints")):
+        # subscribed as soon as the lease id is known: a frontend sees
+        # the instance from here on, and a warm-start push that arrives
+        # before the subscription would be lost
+        fleet_sub = await rt.kv.subscribe(
+            f"{KV_FLEET_TOPIC}.{served.lease_id}")
     key = model_key(entry.namespace, entry.name) + f"/{served.lease_id}"
     await rt.kv.put(key, entry.to_json(), lease=served.lease_id)
 
-    allocator = getattr(engine, "allocator", None)
     # resync sessions re-grant a lost lease under a NEW id when the old one
     # can't be reclaimed; everything keyed by lease id follows the rekey
     on_rekey: Optional[list] = getattr(served.lease, "on_rekey", None)
@@ -183,6 +206,33 @@ async def register_llm(
         served.kv_resync_task = asyncio.get_running_loop().create_task(
             resync_loop()
         )
+    if fleet_sub is not None:
+        # the fleet prefix economy: the frontend controller's hint digests
+        # and prefetch pushes (kv_router/prefetch.py publishes them on
+        # kv_fleet.{worker_id} for workers it cannot call in-process)
+        async def fleet_loop(sub=fleet_sub, wid=str(served.lease_id)):
+            async for ev in sub:
+                try:
+                    msg = json.loads(ev["value"])
+                except (KeyError, ValueError, TypeError):
+                    continue
+                try:
+                    if msg.get("hints") is not None:
+                        engine.apply_fleet_hints(msg["hints"])
+                    pf = msg.get("prefetch")
+                    if pf and hasattr(engine, "prefetch_hashes"):
+                        await engine.prefetch_hashes(
+                            [int(h) for h in pf.get("hashes", [])],
+                            parents=[
+                                int(p) for p in pf.get("parents", [])
+                            ] or None,
+                        )
+                except Exception:  # noqa: BLE001 — one bad payload must
+                    # not end fleet-hint delivery
+                    log.exception("fleet payload failed for %s", wid)
+
+        served.kv_fleet_task = asyncio.get_running_loop().create_task(
+            fleet_loop())
     # load-metrics plane (a KV router's load view, the planner)
     if hasattr(engine, "on_metrics"):
         mpub = WorkerMetricsPublisher(rt.kv, str(served.lease_id))
@@ -220,12 +270,16 @@ class ModelWatcher:
         kv_recorder: Optional[Any] = None,  # KvRecorder: tees kv_events
         tokenizer: Optional[Tokenizer] = None,
         heartbeat_ttl_s: Optional[float] = None,
+        # the fleet replication controller of each KV-routed model (None:
+        # the reactive G4 path only)
+        prefetch_config: Optional[PrefetchConfig] = None,
     ):
         self.rt = rt
         self.manager = manager
         self.namespace = namespace
         self.router_config = router_config
         self.kv_recorder = kv_recorder
+        self.prefetch_config = prefetch_config
         # every discovered model's tokenizer: the test tokenizer, as the
         # JAX package's watcher uses for an entry without a checkpoint
         # (programmatic callers may pass another, as to build_chain)
@@ -247,6 +301,11 @@ class ModelWatcher:
         self._models: dict[str, dict[int, ModelEntry]] = {}  # name -> lease -> entry
         self._chains: dict[str, Any] = {}
         self._routers: dict[str, KvPushRouter] = {}
+        # the fleet prefix economy: each KV-routed model's read view over
+        # its router's indexer (served at /debug/kv_fleet) and its
+        # replication controller (with a prefetch_config)
+        self.fleet_views: dict[str, FleetKvView] = {}
+        self._prefetchers: dict[str, KvPrefetchController] = {}
         # KV events that raced worker discovery, replayed on sync
         self._unclaimed_events: deque = deque(maxlen=UNCLAIMED_EVENTS)
         # models whose entries the port does not serve: name -> reason
@@ -289,6 +348,9 @@ class ModelWatcher:
         if self._breaker_board is not None:
             await self._breaker_board.stop()
             self._breaker_board = None
+        for ctrl in list(self._prefetchers.values()):
+            await ctrl.stop()
+        self._prefetchers.clear()
         for t in (self._task, self._kv_sub_task, self._metrics_sub_task):
             if t is not None:
                 t.cancel()
@@ -410,6 +472,18 @@ class ModelWatcher:
             router = KvRouter(entry.block_size, self.router_config)
             push = KvPushRouter(router, health=self.health, load=self.load)
             self._routers[name] = push
+            view = FleetKvView(router.indexer)
+            self.fleet_views[name] = view
+            if self.prefetch_config is not None:
+                async def publish(wid: str, msg: dict) -> None:
+                    await self.rt.kv.publish(f"{KV_FLEET_TOPIC}.{wid}",
+                                             json.dumps(msg))
+
+                ctrl = KvPrefetchController(
+                    view, lambda push=push: push.workers,
+                    self.prefetch_config, publish=publish)
+                self._prefetchers[name] = ctrl
+                ctrl.start()
 
             def sync_workers(instances: list[Instance], push=push,
                              client=client, name=name):
@@ -464,6 +538,10 @@ class ModelWatcher:
         log.info("model %s removed (last instance gone)", name)
         chain_client = self._chains.pop(name, None)
         self._routers.pop(name, None)
+        self.fleet_views.pop(name, None)
+        ctrl = self._prefetchers.pop(name, None)
+        if ctrl is not None:
+            await ctrl.stop()
         self.manager.unregister(name)
         if chain_client is not None:
             await chain_client[1].stop()

@@ -6,11 +6,12 @@ per-worker active-sequence tracking predicts load (sequence.py); the
 scheduler scores workers by ``overlap_weight * prefill_blocks +
 potential_active_blocks`` and softmax-samples one (scheduler.py);
 KvPushRouter routes and streams (router.py); MetricsAggregator collects
-worker load (metrics_aggregator.py).
-
-The fleet view and the prefetch controller (fleet.py, prefetch.py) come
-with ROADMAP Queue 1 item 6.
+worker load (metrics_aggregator.py). The fleet prefix economy reads
+the same indexer: FleetKvView (fleet.py) ranks hot prefixes and their
+replicas, and KvPrefetchController (prefetch.py) pushes hints and hot
+prefixes to the workers.
 """
+from dynamo_tpu_torch.kv_router.fleet import FleetHints, FleetKvView
 from dynamo_tpu_torch.kv_router.indexer import (
     ApproxKvIndexer,
     KvIndexer,
@@ -43,6 +44,7 @@ from dynamo_tpu_torch.kv_router.sequence import (
 )
 
 __all__ = [
+    "FleetHints", "FleetKvView",
     "ApproxKvIndexer", "KvIndexer", "OverlapScores",
     "MetricsAggregator", "ProcessedEndpoints",
     "ForwardPassMetrics", "KvCacheEvent", "KvEventKind", "KvStats",

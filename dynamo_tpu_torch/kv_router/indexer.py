@@ -16,8 +16,9 @@ Access heat is an EWMA, not a raw counter: each touch adds 1 and the value
 halves every ``freq_halflife_s`` seconds, so a hot-set ranking tracks the
 CURRENT workload instead of all history, and cold entries decay to where
 the periodic prune drops them instead of accumulating forever. The fleet
-view that ranks blocks by it (``FleetKvView``, the prefetch controller)
-comes with ROADMAP Queue 1 item 6; the read accessors it uses are here.
+view (kv_router/fleet.py ``FleetKvView``) and the prefetch controller
+(kv_router/prefetch.py) rank blocks by it through the read accessors
+here.
 """
 from __future__ import annotations
 

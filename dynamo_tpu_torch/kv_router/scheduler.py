@@ -29,7 +29,7 @@ class KvRouterConfig:
     router_temperature: float = 0.5
     # access-heat EWMA decay half-life for the indexer's per-block
     # frequency counters (None = raw counters, no decay) — the hot-set
-    # ranking the fleet prefix economy (ROADMAP Queue 1 item 6) builds on
+    # ranking the fleet prefix economy (kv_router/fleet.py) builds on
     freq_halflife_s: Optional[float] = 600.0
 
 

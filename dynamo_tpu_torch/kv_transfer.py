@@ -38,9 +38,8 @@ Ops:
          {"seq": i, "shape": [...], "dtype": "...", "eof": bool} + payload
 
 Left out: ``ArrayFrameServer`` and ``take_remote_array``, which carry
-multimodal embeddings (ROADMAP Queue 1 item 12); the fleet view's
-``holders`` hint of ``RemoteKvFetcher.fetch`` (item 6); the per-frame
-stream timeline (item 10). The ``corrupt_frame`` chaos point
+multimodal embeddings (ROADMAP Queue 1 item 12); the per-frame stream
+timeline (item 10). The ``corrupt_frame`` chaos point
 (resilience/chaos.py) flips a byte of an outgoing payload's copy.
 """
 from __future__ import annotations
@@ -983,8 +982,8 @@ class RemoteKvFetcher:
     With ``chunk_pages`` > 0 peers answer a cheap probe (the committed
     prefix length, no export), then the winner streams its run chunk by
     chunk and each chunk lands through ``on_chunk`` while later ones are
-    still on the wire. The fleet view's ``holders`` hint waits for
-    ROADMAP Queue 1 item 6: every fetch probes every peer."""
+    still on the wire. A ``holders`` hint (the fleet view's, through
+    dedup admission) narrows the probe round to the hinted peers first."""
 
     def __init__(self, kv: KvClient, namespace: str, self_worker_id: str,
                  timeout_s: float = 3.0, chunk_pages: int = 0):
@@ -1013,17 +1012,35 @@ class RemoteKvFetcher:
     async def fetch(
         self, hashes: list[int],
         on_chunk: Optional[Callable[[int, Any], None]] = None,
+        holders: Optional[list[str]] = None,
     ) -> tuple[int, Any]:
         """Probe every peer CONCURRENTLY; the longest prefix wins; (0,
         None) if no peer holds anything. ``timeout_s`` bounds the WHOLE
         probe round, not each peer: this runs before a request's intake,
         so dead peers cost one timeout in all. With ``on_chunk`` the
         winning run is delivered as (page_offset, pages) and the returned
-        pages are None."""
+        pages are None. ``holders`` is the fleet view's hint of which
+        worker ids hold the run: the hinted peers are probed alone first,
+        and the rest only when the hint comes back empty."""
         self.fetches += 1
         peers = await self._peers()
         if not peers:
             return 0, None
+        if holders:
+            hinted_ids = set(holders)
+            hinted = [d for d in peers if d.worker_id in hinted_ids]
+            rest = [d for d in peers if d.worker_id not in hinted_ids]
+            if hinted:
+                got = await self._fetch_from(hinted, hashes, on_chunk)
+                if got[0] or not rest:
+                    return got
+                peers = rest  # a stale hint: the un-hinted peers
+        return await self._fetch_from(peers, hashes, on_chunk)
+
+    async def _fetch_from(
+        self, peers: list[BlocksetDescriptor], hashes: list[int],
+        on_chunk: Optional[Callable[[int, Any], None]] = None,
+    ) -> tuple[int, Any]:
         if self.chunk_pages > 0 and on_chunk is not None:
             got = await self._fetch_chunked(peers, hashes, on_chunk)
             if got is not None:

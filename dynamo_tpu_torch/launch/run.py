@@ -5,7 +5,11 @@ serving; reference `dynamo-run`, launch/dynamo-run/src/lib.rs:94-165).
 Inputs (reference entrypoint/input.rs:29-45):
   in=http        OpenAI HTTP frontend on --http-host:--http-port; with
                  --control-plane HOST:PORT it serves the models that
-                 workers register there instead of a local engine
+                 workers register there instead of a local engine, each
+                 KV-routed one with a fleet view (/debug/kv_fleet) and,
+                 with --kv-replication-target above 1, a replication
+                 controller that pushes hints and hot prefixes to its
+                 workers
   in=endpoint    a worker: serves the engine on the control plane at
                  --namespace/--component/--endpoint-name and registers
                  its model (--router-mode picks how frontends route it);
@@ -92,16 +96,6 @@ UNPORTED_FLAGS: dict[str, tuple[dict, str]] = {
     "--node-rank": (dict(type=int, default=0), "multi-host engines"),
     "--leader-addr": (dict(default=None, metavar="HOST:PORT"),
                       "multi-host engines"),
-    "--kv-replication-target": (dict(type=int, default=2),
-                                "the fleet prefix economy"),
-    "--kv-prefetch-hot-k": (dict(type=int, default=8),
-                            "the fleet prefix economy"),
-    "--kv-prefetch-interval": (dict(type=float, default=2.0),
-                               "the fleet prefix economy"),
-    "--kv-freq-halflife": (dict(type=float, default=600.0),
-                           "the fleet prefix economy"),
-    "--no-kv-dedup-admission": (dict(action="store_true"),
-                                "the fleet prefix economy"),
 }
 
 
@@ -218,6 +212,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "peers and fall through the local tiers to peer "
                         "pools on prefix misses (requires --control-plane "
                         "and a G2 tier via --host-offload-pages)")
+    # fleet prefix economy (kv_router/fleet.py + prefetch.py)
+    p.add_argument("--kv-replication-target", type=int,
+                   default=cfg.kv_replication_target,
+                   help="desired fleet copies of a hot KV block: the "
+                        "frontend's replication controller pushes "
+                        "under-replicated hot prefix chains into workers' "
+                        "G2 tiers ahead of demand and warm-starts cold "
+                        "joiners from the fleet hot set (<= 1 disables "
+                        "the controller)")
+    p.add_argument("--kv-prefetch-hot-k", type=int,
+                   default=cfg.kv_prefetch_hot_k,
+                   help="hot prefix chains examined per controller tick "
+                        "and pushed to a cold joiner")
+    p.add_argument("--kv-prefetch-interval", type=float,
+                   default=cfg.kv_prefetch_interval_s, metavar="SECONDS",
+                   help="replication-controller tick period")
+    p.add_argument("--kv-freq-halflife", type=float,
+                   default=cfg.kv_freq_halflife_s, metavar="SECONDS",
+                   help="KV indexer access-heat decay half-life (0 = raw "
+                        "undecayed counters, the legacy behavior)")
+    p.add_argument("--no-kv-dedup-admission", action="store_true",
+                   help="disable dedup-by-hash admission hints: G4 "
+                        "probes ignore the fleet holder digest")
     p.add_argument("--record-kv-events", default=None, metavar="PATH",
                    help="in=http --control-plane: record the KV-event "
                         "stream feeding the router (JSONL, the JAX "
@@ -329,6 +346,7 @@ def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
             xfer_op_timeout_s=args.xfer_op_timeout,
             kv_transfer_stream_idle_timeout_s=(
                 args.kv_transfer_stream_idle_timeout),
+            kv_dedup_admission=not args.no_kv_dedup_admission,
         )
         engine = TorchEngine(cfg, ecfg, params=params, device=args.device)
     elif out in _UNPORTED_ENGINES:
@@ -734,6 +752,27 @@ async def _serve_prefill_worker(args, chain) -> None:
         await rt.close()
 
 
+def fleet_configs(args) -> dict:
+    """The dynamic frontend's router and fleet-controller configs from the
+    flags (the ModelWatcher's ``router_config`` and ``prefetch_config``):
+    the indexer's heat half-life (0: raw counters), and a replication
+    controller only when --kv-replication-target > 1 ("one copy is
+    enough" runs none)."""
+    from dynamo_tpu_torch.kv_router.prefetch import PrefetchConfig
+    from dynamo_tpu_torch.kv_router.scheduler import KvRouterConfig
+
+    prefetch = None
+    if args.kv_replication_target > 1:
+        prefetch = PrefetchConfig(
+            replication_target=args.kv_replication_target,
+            hot_k=args.kv_prefetch_hot_k,
+            interval_s=args.kv_prefetch_interval)
+    return dict(
+        router_config=KvRouterConfig(
+            freq_halflife_s=args.kv_freq_halflife or None),
+        prefetch_config=prefetch)
+
+
 async def _serve_http_dynamic(args) -> None:
     """in=http + --control-plane: discover models instead of building a
     local chain (reference _serve_http_dynamic, launch/run.py:1037)."""
@@ -750,8 +789,11 @@ async def _serve_http_dynamic(args) -> None:
         kv_recorder = KvRecorder(args.record_kv_events)
     watcher = await ModelWatcher(
         rt, manager, namespace=args.namespace, kv_recorder=kv_recorder,
-        heartbeat_ttl_s=args.health_heartbeat_ttl).start()
+        heartbeat_ttl_s=args.health_heartbeat_ttl,
+        **fleet_configs(args)).start()
     svc = HttpService(manager, host=args.http_host, port=args.http_port)
+    # /debug/kv_fleet serves the watcher's live per-model fleet views
+    svc.fleet_views = watcher.fleet_views
     await svc.start()
     stop = sigterm_event()
     print(

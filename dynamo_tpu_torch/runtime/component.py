@@ -68,14 +68,15 @@ class ServedEndpoint:
 
     async def shutdown(self) -> None:
         """Graceful drain: revoke lease (deregisters) then stop serving.
-        The publishers register_llm attached and the worker's ``parts``
-        (the launcher's disagg config watch and block-transfer server)
-        stop with it."""
+        The publishers and loops register_llm attached and the worker's
+        ``parts`` (the launcher's disagg config watch and block-transfer
+        server) stop with it."""
         for part in getattr(self, "parts", ()):
             await part.stop()
-        task = getattr(self, "kv_resync_task", None)
-        if task is not None:
-            task.cancel()
+        for name in ("kv_resync_task", "kv_fleet_task"):
+            task = getattr(self, name, None)
+            if task is not None:
+                task.cancel()
         for name in ("kv_publisher", "metrics_publisher"):
             pub = getattr(self, name, None)
             if pub is not None:

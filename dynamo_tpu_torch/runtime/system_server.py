@@ -14,13 +14,14 @@ operators scrape workers directly, apart from the frontend's metrics:
                               admitting, finish in-flight, exit)
   GET/POST/DELETE /chaos      list / arm / disarm fault-injection points
                               (``python -m dynamo_tpu_torch.tools.chaos``)
+  GET /debug/kv_fleet         this worker's fleet hints (the last digest
+                              the frontend's controller applied)
 
-Left out, with the planes that bring them (ROADMAP Queue 1): the
+Left out, with the planes that bring them (ROADMAP Queue 1): the other
 ``/debug/*`` routes, which answer 404 with a body naming the item
-(flight, prof, trace and outliers: item 10; kv_fleet: item 6; tenants:
-item 8); the families of the planes the port lacks (PROF, PLANNER,
-KV_FLEET, SPEC, FLEET_FEED, TENANT, FORENSICS) and the engine's latency
-histograms (item 10).
+(flight, prof, trace and outliers: item 10; tenants: item 8); the
+families of the planes the port lacks (PROF, PLANNER, SPEC, FLEET_FEED,
+TENANT, FORENSICS) and the engine's latency histograms (item 10).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import time
 from typing import Any
 
 from dynamo_tpu_torch.frontend.http import HttpServer, Request, Response
+from dynamo_tpu_torch.kv_fleet_metrics import KV_FLEET
 from dynamo_tpu_torch.kv_integrity import KV_INTEGRITY
 from dynamo_tpu_torch.kv_quant import KV_QUANT
 from dynamo_tpu_torch.kv_transfer_metrics import KV_TRANSFER
@@ -45,7 +47,7 @@ OPENMETRICS_CONTENT_TYPE = "application/openmetrics-text"
 # /debug routes of the reference and the ROADMAP Queue 1 item bringing each
 _DEBUG_ROUTES = {
     "/debug/flight": 10, "/debug/prof": 10, "/debug/trace": 10,
-    "/debug/outliers": 10, "/debug/kv_fleet": 6, "/debug/tenants": 8,
+    "/debug/outliers": 10, "/debug/tenants": 8,
 }
 
 
@@ -80,6 +82,7 @@ class SystemServer:
             ("GET", "/chaos"): self.handle_chaos_list,
             ("POST", "/chaos"): self.handle_chaos_arm,
             ("DELETE", "/chaos"): self.handle_chaos_disarm,
+            ("GET", "/debug/kv_fleet"): self.handle_kv_fleet,
         }
         for path in _DEBUG_ROUTES:
             routes[("GET", path)] = self.handle_debug
@@ -161,7 +164,7 @@ class SystemServer:
         return ("\n".join(lines) + "\n" + RESILIENCE.render()
                 + KV_TRANSFER.render() + KV_QUANT.render()
                 + KV_INTEGRITY.render() + OVERLOAD.render()
-                + STORE.render())
+                + STORE.render() + KV_FLEET.render())
 
     async def handle_metrics(self, request: Request) -> Response:
         if OPENMETRICS_CONTENT_TYPE in request.headers.get("Accept", ""):
@@ -183,6 +186,15 @@ class SystemServer:
             "error": f"{request.path} is not served by the PyTorch port "
                      f"yet (ROADMAP Queue 1 item {item})",
             "worker_id": self.worker_id}, status=404)
+
+    async def handle_kv_fleet(self, request: Request) -> Response:
+        """GET /debug/kv_fleet: this WORKER's view of the fleet prefix
+        economy, the last hint digest the frontend's controller applied
+        (the frontend's own /debug/kv_fleet serves the whole fleet map)."""
+        hints = getattr(self.engine, "fleet_hints", None)
+        return Response.json({
+            "worker_id": self.worker_id,
+            "hints": None if hints is None else hints.to_dict()})
 
     # ---- resilience controls ----
 

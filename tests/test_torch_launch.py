@@ -82,7 +82,7 @@ def test_parse_io_refuses_other_words():
     (["--num-nodes", "2", "--role", "decode"], "--num-nodes=2"),
     (["--forensics-sample-rate", "0.5"], "--forensics-sample-rate=0.5"),
     (["--preempt-running", "on"], "running preemption"),
-    (["--kv-replication-target", "3"], "--kv-replication-target=3"),
+    (["--spec-tree", "on"], "--spec-tree='on'"),
     (["out=mocker"], "mocker"),
     (["out=torch", "--model-config", "llama3_70b"], "llama3_70b"),
     (["out=torch"], "needs --model-config"),
@@ -187,6 +187,9 @@ def test_port_runs_with_reference_packages_unimportable():
         "import dynamo_tpu_torch.cli, dynamo_tpu_torch.kv_router\n"
         "import dynamo_tpu_torch.router_service, dynamo_tpu_torch.recorder\n"
         "import dynamo_tpu_torch.resilience, dynamo_tpu_torch.overload.load\n"
+        "import dynamo_tpu_torch.kv_router.prefetch\n"
+        "import dynamo_tpu_torch.kv_fleet_metrics\n"
+        "import dynamo_tpu_torch.tools.kv_fleet\n"
         "mods = [m.name for m in pkgutil.walk_packages("
         "dynamo_tpu_torch.__path__, 'dynamo_tpu_torch.')]\n"
         "for m in mods:\n"
@@ -315,3 +318,116 @@ def test_remote_kv_without_a_g2_tier_exits_with_the_reference_message():
 
     assert str(e.value).split(" (")[0] in inspect.getsource(
         rrun._serve_worker)
+
+
+FLEET_FLAGS = ("--kv-replication-target", "--kv-prefetch-hot-k",
+               "--kv-prefetch-interval", "--kv-freq-halflife",
+               "--no-kv-dedup-admission")
+FLEET_FIELDS = ("kv_replication_target", "kv_prefetch_hot_k",
+                "kv_prefetch_interval_s", "kv_freq_halflife_s",
+                "kv_dedup_admission")
+# what the parser still refuses: the reference's flags of planes the port
+# does not serve yet (the fleet economy's five left this list)
+REFUSED = {
+    "--model-path", "--trace-sample-rate", "--tensor-parallel-size",
+    "--max-waiting-requests", "--max-waiting-prefill-tokens",
+    "--preempt-running", "--prof-attribution", "--slo-ttft-target",
+    "--slo-itl-target", "--slo-objective", "--forensics-sample-rate",
+    "--speculative", "--num-speculative-tokens", "--spec-adaptive",
+    "--spec-min-k", "--spec-tree", "--spec-branches", "--spec-tree-budget",
+    "--spec-gate-acceptance", "--spec-gate-window", "--spec-rearm-tokens",
+    "--draft-model-config", "--num-nodes", "--node-rank", "--leader-addr",
+}
+
+
+@pytest.mark.parametrize("layer", ["defaults", "toml", "env"])
+def test_fleet_flags_parse_with_the_reference_defaults_and_layering(
+        layer, monkeypatch, tmp_path):
+    from dynamo_tpu.config import load_config as rload
+    from dynamo_tpu_torch.config import load_config as pload
+
+    for k in list(os.environ):
+        if k.startswith("DYNTPU_"):
+            monkeypatch.delenv(k)
+    monkeypatch.chdir(tmp_path)   # no ./dynamo_tpu.toml in the way
+    if layer == "toml":
+        path = tmp_path / "fleet.toml"
+        path.write_text("[runtime]\nkv_replication_target = 3\n"
+                        "kv_prefetch_hot_k = 24\n"
+                        "kv_prefetch_interval_s = 0.5\n"
+                        "kv_freq_halflife_s = 0.0\n"
+                        "kv_dedup_admission = false\n")
+        monkeypatch.setenv("DYNTPU_CONFIG", str(path))
+    elif layer == "env":
+        for k, v in (("KV_REPLICATION_TARGET", "1"),
+                     ("KV_PREFETCH_HOT_K", "4"),
+                     ("KV_PREFETCH_INTERVAL_S", "0.25"),
+                     ("KV_FREQ_HALFLIFE_S", "60"),
+                     ("KV_DEDUP_ADMISSION", "0")):
+            monkeypatch.setenv("DYNTPU_" + k, v)
+    want, got = rload(), pload()
+    assert [getattr(got, f) for f in FLEET_FIELDS] == \
+        [getattr(want, f) for f in FLEET_FIELDS]
+    if layer != "defaults":
+        assert got.kv_replication_target != 2 and not got.kv_dedup_admission
+    ref, port = _options(rrun.build_parser()), _options(prun.build_parser())
+    for flag in FLEET_FLAGS:
+        assert flag not in prun.UNPORTED_FLAGS, flag
+        assert port[flag].default == ref[flag].default, flag
+        assert port[flag].type == ref[flag].type, flag
+        assert port[flag].help == ref[flag].help, flag
+    argv = ["in=http", "--control-plane", "127.0.0.1:1",
+            "--kv-replication-target", "3", "--kv-prefetch-hot-k", "16",
+            "--kv-prefetch-interval", "0.5", "--kv-freq-halflife", "0",
+            "--no-kv-dedup-admission"]
+    args = prun.build_parser().parse_intermixed_args(argv)
+    ref_args = rrun.build_parser().parse_intermixed_args(argv)
+    for flag in FLEET_FLAGS:
+        key = flag[2:].replace("-", "_")
+        assert getattr(args, key) == getattr(ref_args, key), flag
+    prun.refuse_unported(args)
+
+
+def test_the_refused_flags_lost_exactly_the_fleet_five():
+    assert set(prun.UNPORTED_FLAGS) == REFUSED
+    assert not set(FLEET_FLAGS) & set(prun.UNPORTED_FLAGS)
+    parsed = set(_options(prun.build_parser()))
+    assert set(FLEET_FLAGS) <= parsed
+
+
+@pytest.mark.parametrize("argv,controller", [
+    ([], (2, 8, 2.0)),
+    (["--kv-replication-target", "1"], None),
+    (["--kv-replication-target", "0"], None),
+    (["--kv-replication-target", "3", "--kv-prefetch-hot-k", "24",
+      "--kv-prefetch-interval", "0.5"], (3, 24, 0.5)),
+])
+def test_the_frontend_builds_a_controller_only_above_one_copy(
+        argv, controller, monkeypatch):
+    for k in list(os.environ):
+        if k.startswith("DYNTPU_"):
+            monkeypatch.delenv(k)
+    args = prun.build_parser().parse_intermixed_args(
+        ["in=http", "--control-plane", "127.0.0.1:1"] + argv)
+    got = prun.fleet_configs(args)
+    assert got["router_config"].freq_halflife_s == 600.0
+    p = got["prefetch_config"]
+    assert (None if p is None else (p.replication_target, p.hot_k,
+                                    p.interval_s)) == controller
+    args.kv_freq_halflife = 0.0   # raw counters
+    assert prun.fleet_configs(args)["router_config"].freq_halflife_s is None
+
+
+@pytest.mark.parametrize("flag,want", [([], True),
+                                       (["--no-kv-dedup-admission"], False)])
+def test_no_kv_dedup_admission_reaches_the_engine_config(flag, want):
+    import asyncio
+
+    args = prun.build_parser().parse_intermixed_args(
+        ["in=text", "out=torch", "--model-config", "tiny", "--device", "cpu",
+         "--cache-dtype", "float32"] + flag)
+    _, chain = prun.build_chain(args)
+    try:
+        assert chain.engine.ecfg.kv_dedup_admission is want
+    finally:
+        asyncio.run(chain.engine.stop())

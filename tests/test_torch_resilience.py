@@ -612,11 +612,15 @@ async def test_system_server_chaos_drain_health_and_metrics():
             "Accept": "application/openmetrics-text"})
         assert h["content-type"] == "application/openmetrics-text"
         assert b.decode().endswith("# EOF\n")
-        # the debug plane names the ROADMAP item that brings it
+        # the debug plane names the ROADMAP item that brings it; the
+        # fleet hints are served (none applied yet)
         s, _, b = await _call(p, "GET", "/debug/flight")
         assert s == 404 and "item 10" in json.loads(b)["error"]
+        s, _, b = await _call(p, "GET", "/debug/tenants")
+        assert s == 404 and "item 8" in json.loads(b)["error"]
         s, _, b = await _call(p, "GET", "/debug/kv_fleet")
-        assert s == 404 and "item 6" in json.loads(b)["error"]
+        assert s == 200 and json.loads(b) == {"worker_id": "w0",
+                                              "hints": None}
     finally:
         await srv.stop()
         await bare.stop()
