@@ -24,7 +24,8 @@ Phases, each printing a line (any failure raises and exits non-zero):
      four uses (bf16 layer products, untied and tied bf16 logits, f32)
      at every Llama-3.1-8B layer weight shape at M = 1, 8, 32 (the mma
      kernel) and 64, 128, 200, 512, 1024, 2048, 4096 (the wgmma kernel of
-     prefill), the lm_head at M = 1, 8, 32, 1024, the Llama-3.2-1B tied
+     prefill), the lm_head at M = 1, 8, 32, 40 (a speculative verify's
+     rows), 1024, the Llama-3.2-1B tied
      logits and the tiny shapes, against its plain version in f32 with the
      reference's rounding emulated (controls: one channel's scale off by
      5%, one k row zeroed), timed over weights too large for L2 beside its
@@ -39,9 +40,11 @@ Phases, each printing a line (any failure raises and exits non-zero):
      <= 0.05), and a seeded request at temperature 0.8 must draw the same
      stream on both devices; and with w8a16 weights, where every step
      must run the w8a16 kernel 7 times a layer and once for the logits;
-  5. round_graph: for the tiny model (f32) and Llama-3.1-8B with dense
-     and with int8 KV, and (after the http phase) with w8a16 weights, an
-     engine admits the prompts, then one decode
+  5. round_graph, in a process of its own (``chip_smoke.py
+     --profiled-checks``) started after the 8B phases, as what ran
+     before in a process moves torch.profiler's counts: for the tiny
+     model (f32) and Llama-3.1-8B with dense and with int8 KV, and with
+     w8a16 weights, an engine admits the prompts, then one decode
      round replayed from its CUDA graph and the same round run eagerly
      (engine/graphs.py ``run_round``) on a clone of the same device state
      must give identical tokens, greedy and with logprobs (the largest
@@ -234,6 +237,31 @@ Phases, each printing a line (any failure raises and exits non-zero):
      page offloaded (on the engine's put thread: crc + copy + spill) and
      onboarded (gather + verify + H2D issue), and the D2H and H2D copies'
      GB/s;
+  8b. speculation: linear speculative decoding on the bf16 weights
+     (default EngineConfig, K = 4, adaptive K): the serve phase's 8
+     prompts (2 asking for top-2 logprobs, which stay in the fused round)
+     and 2 built to repeat (a 64-token span four times), 64 greedy tokens
+     each, gated at the intake, in four arms: N (dense KV, ngram), Q (int8
+     KV, ngram), D (dense, draft: Llama-3.2-1B with random weights from
+     seed 1, batched drafting) and S (dense, self-draft: the target's own
+     weights as the draft). Each stream equals the plain engine's
+     (speculative off, same KV mode) up to a step where the plain
+     stream's top-2 logprob gap is at most SPEC_TIE (the streams stopped
+     there are counted); the 8 serve prompts' plain dense streams,
+     teacher-forced through the verify's scorer at its shape, move no
+     top-2 logprob and no top-2 gap of the plain decode's by more than
+     SPEC_LP_TOL, and the same scorer on the w8a16 weights moves one by
+     more; the flash-decode kernel of the mode runs on
+     every layer of every fused step inside replayed graphs (the kernels
+     line's launches_spec); N accepts tokens, D de-speculates, and a
+     seeded temperature-0.8 request run on two N engines draws one
+     stream. Printed per arm: acceptance, tokens a slot's verify step,
+     effective K (mean, p50, p95), despecs (gated), draft and verify ms a
+     dispatch (host wall and device, CUDA events) beside a fused round's
+     ms a step, and decode tok/s beside the plain run's; then one
+     verify's scorer at the burst's shape with the span bounded to the
+     attention's 256-key block and over the whole region: bit-equal, each
+     one's wall and device ms;
   9. serve w8a16: the same weights quantized on the card
      (quantize_params), the serve burst and repeat again at full width
      and depth; every decode step must run both kernels on every layer
@@ -242,7 +270,12 @@ Phases, each printing a line (any failure raises and exits non-zero):
      logits on the mma kernel); TTFT, gaps, tok/s and the weights' GiB
      are printed beside the dense serve's, with the share of greedy tokens equal to the
      dense run's and the first step's largest logprob difference
-     (information: random weights have near-ties);
+     (information: random weights have near-ties); then speculation
+     w8a16: arm W, the speculation phase's burst with n-gram speculation
+     on the w8a16 weights, held to its plain run as the other arms, the
+     verifies' products and logits on the w8a16 kernels (its executions
+     over the burst, counted from after the engine's graph captures, are
+     the w8a16 record's launches_spec);
   10. cli: ``python -m dynamo_tpu_torch.launch.run in=text out=torch
      --model-config tiny --cache-dtype float32 --prompt "w1 w2 w3"
      --max-tokens 8`` in a subprocess, with no --device, and again with
@@ -258,12 +291,17 @@ Phases, each printing a line (any failure raises and exits non-zero):
      and SIGTERM must drain it ("drained; shutting down"), and every
      process must exit 0.
 Each phase prints its seconds, and at the end one summary line (its
-name, seconds and key figures), all together before the card line, so
-that the last 24 KB of the output hold every phase's result.
-The card line (nvidia-smi's name and power limit) comes third from last,
-the second-to-last line is a JSON object describing every kernel, and the
-last is {"ok": true, "device": {...}}. Without a CUDA device, or without
-the rest of the repository beside it, the script fails.
+name, seconds and key figures), all together before the card line. The
+block from the first summary line to the last line is at most
+SUMMARY_BUDGET (16,000) bytes, so the last 22,000 bytes of the output,
+all a short log keeps, hold every phase's result (summary_block); two
+padding lines before it make the last 22,000 and 24,000 bytes each start
+at a line (tail_padding). The card line (nvidia-smi's name and power limit) comes fourth from last,
+then the block's byte count, a JSON object describing every kernel (its
+floats to 4 significant digits; the w8a16 per-shape figures are a log
+line of their own earlier), and last {"ok": true, "device": {...}}.
+Without a CUDA device, or without the rest of the repository beside it,
+the script fails.
 """
 from __future__ import annotations
 
@@ -301,6 +339,11 @@ F32_TOL = (1e-5, 1e-4)
 # (int8) and V rows off by 5% (dense) still fail it.
 BF16_P_TOL = (5e-4, 1e-2)
 SEED = 0
+# the output's last block (summaries to the ok line) in bytes, and one
+# summary line's figures in characters: a short log keeps 22,000 bytes of
+# the output, and the rest leaves room for later phases' summaries
+SUMMARY_BUDGET = 16000
+SUMMARY_LINE = 320
 # a greedy token of the int8 engine may differ between devices only where
 # the CPU's top-2 logprob gap is this small (tests/test_kv_quant.py)
 NEAR_TIE = 0.05
@@ -661,7 +704,8 @@ def w8a16_cases():
     """(label, M, K, N, layout, x dtype, out dtype): every Llama-3.1-8B
     layer weight shape at each M of ``W8A16_LAYER_M`` in bf16 (M >=
     w8a16.WGMMA_MIN_M runs the wgmma kernel, below it the mma kernel); the
-    lm_head's f32 logits at M = 1, 8, 32 and 1024; the Llama-3.2-1B tied
+    lm_head's f32 logits at M = 1, 8, 32, 40 (a speculative verify of 8
+    slots at K = 4) and 1024; the Llama-3.2-1B tied
     logits (the embedding [V, H] read as "nk") at M = 8; the tiny model's
     shapes in f32 (both layouts) and in bf16 (tails narrower than a
     128-channel tile)."""
@@ -672,6 +716,8 @@ def w8a16_cases():
             cases.append((f"8b {name}", M, K, N, "kn", bf, bf))
         if M in (1, 8, 32, 1024):
             cases.append(("8b lm_head", M, 4096, 128256, "kn", bf, f32))
+    # a speculative verify's logits: B x (K+1) = 8 x 5 rows
+    cases.append(("8b lm_head", 40, 4096, 128256, "kn", bf, f32))
     cases.append(("1b tied logits", 8, 2048, 128256, "nk", bf, f32))
     for M in (4, 37):
         for name, K, N in (("wq", 64, 64), ("wk", 64, 32), ("wg", 64, 128),
@@ -855,6 +901,9 @@ def check_w8a16():
             f"{layer['tc_bound_ms']:.4f} ms, {layer['tc_bound_ms'] / layer['ms']:.2f} "
             f"of it; cuBLAS over bf16 weights {layer['library_ms']:.4f} ms, "
             f"{layer['ms'] / layer['library_ms']:.2f}x)")
+    # every timed shape, as one line of the log (summary_block leaves
+    # "shapes" out of the kernels line)
+    log("kernel w8a16_gemm shapes: " + json.dumps(sig4(shapes)))
     return dict(step, bound_by="bytes", max_abs_err=max_err,
                 prefill_layer=prefill, shapes=shapes)
 
@@ -1218,9 +1267,11 @@ def check_round_graph(label, cfg, ecfg, params, prompts):
 
     lp_diff, prof = asyncio.run(drive())
     runtime: dict[str, int] = defaultdict(int)
+    device: dict[str, int] = defaultdict(int)   # every kernel, by name
     kernels = gemms = 0
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
+            device[evt.key[:72]] += evt.count
             if "flash_decode" in evt.key and "combine" not in evt.key:
                 kernels += evt.count
             if "w8a16_gemm" in evt.key:
@@ -1254,7 +1305,9 @@ def check_round_graph(label, cfg, ecfg, params, prompts):
         raise AssertionError(
             f"round_graph {label}: a steady round must be one graph launch "
             f"with {want_kernels} flash-decode and {want_gemms} w8a16_gemm "
-            f"kernels inside and no kernel launched from the host")
+            f"kernels inside and no kernel launched from the host; the "
+            f"profile's {sum(device.values())} device kernels by name: "
+            f"{dict(sorted(device.items()))}")
     del eng, g
     gc.collect()
     torch.cuda.empty_cache()
@@ -4158,6 +4211,511 @@ async def call_json(port, path):
     return r.status, r.json()
 
 
+# ---------------------------------------------------------------------------
+# speculation
+
+SPEC_K = 4          # num_speculative_tokens (adaptive K on, its cap)
+SPEC_NEW = 64       # new tokens a request
+SPEC_LP = (1, 5)    # the requests that ask for logprobs (the fused round)
+# a greedy token of a speculating stream may leave the plain (speculative
+# "off") stream only where the plain stream's top-2 logprob gap is at most
+# this: the verify's forward (batch_score: products at M = rows x (K+1),
+# the plain blocked attention) sums in another order than the decode
+# round's (products at M = 8, the flash-decode kernel)
+SPEC_TIE = 0.1
+# teacher-forced through the verify's scorer, neither the logprob of
+# either of the plain stream's top-2 tokens nor their gap may move by more
+# than this. On the card the bf16 paths moved a logprob by 0.0825 and a
+# gap by 0.1185, and the w8a16 weights (a lower precision) a logprob by
+# 0.2549 (PERF.md). A gap in (SPEC_TIE, 0.1185] can thus swap
+# legitimately, which the stream check above would fail: none has
+SPEC_LP_TOL = 0.15
+
+
+def spec_prompts(vocab: int):
+    """The serve phase's 8 prompts and two built to repeat (a 64-token
+    span four times), so that the n-gram proposer finds matches."""
+    rng = np.random.RandomState(SEED + 16)
+    return serve_prompts(vocab) + [
+        rng.randint(0, vocab, size=64).tolist() * 4 for _ in range(2)]
+
+
+class SpecMeter:
+    """Records, on a speculating engine: the host wall and device time
+    (CUDA events around the call) of each fused round's graph replay, of
+    each draft call (the batched draft, or each per-slot proposal) and of
+    each verify, and the effective K of every slot that joined a verify
+    round."""
+
+    def __init__(self, eng):
+        self.rounds, self.drafts, self.verifies, self.ks = [], [], [], []
+        spec = eng.spec
+        eng.graphs.round = self._timed(eng.graphs.round, self.rounds)
+        spec.propose = self._timed(spec.propose, self.drafts)
+        spec.propose_batch = self._timed(spec.propose_batch, self.drafts)
+        spec.verify = self._timed(spec.verify, self.verifies)
+        k_for = spec.k_for
+
+        def k_seen(slot):
+            k = k_for(slot)
+            self.ks.append(k)
+            return k
+
+        spec.k_for = k_seen
+
+    @staticmethod
+    def _timed(fn, into):
+        def timed(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            wall = time.perf_counter() - t0
+            e1.record()
+            into.append((e0, e1, wall))
+            return out
+        return timed
+
+    @staticmethod
+    def ms(calls, per):
+        """(wall, device) ms summed over ``calls``, over ``per``."""
+        torch.cuda.synchronize()
+        per = max(per, 1)
+        return (sum(w for _, _, w in calls) * 1e3 / per,
+                sum(a.elapsed_time(b) for a, b, _ in calls) / per)
+
+
+def spec_burst(eng, prompts, lps):
+    """The prompts through generate() as one burst held at the intake
+    until all wait; ``lps[i]`` top logprobs for request i (None: none).
+    Returns (each request's (tokens, finish, annotations, gaps, top)),
+    decode tok/s over the burst)."""
+    IntakeGate(eng, len(prompts))
+
+    async def go():
+        res = await asyncio.gather(*[
+            generate_all(eng, [p], SPEC_NEW, logprobs=lp)
+            for p, lp in zip(prompts, lps)])
+        await eng.stop()
+        return [r[0] for r in res]
+
+    res = asyncio.run(go())
+    for toks, finish, *_ in res:
+        if len(toks) != SPEC_NEW or finish != "length":
+            raise AssertionError(f"speculation: a request ended with "
+                                 f"{len(toks)} tokens, finish {finish}")
+    ttft = [a["timing"]["ttft_s"] for _, _, a, *_ in res]
+    e2e = [a["timing"]["e2e_s"] for _, _, a, *_ in res]
+    tps = sum(len(t) - 1 for t, *_ in res) / (max(e2e) - min(ttft))
+    return res, tps
+
+
+def hold_to_plain(label, got, plain):
+    """Greedy speculating streams against the plain engine's (with its
+    top-2 logprobs): equal up to the first step where they differ, which
+    must be a near-tie of the plain stream (gap <= SPEC_TIE). Returns
+    (positions compared, streams stopped at a near-tie, their gaps)."""
+    compared, gaps = 0, []
+    for i, ((toks, *_), (want, _, _, _, top)) in enumerate(zip(got, plain)):
+        for j, (a, b) in enumerate(zip(toks, want)):
+            if a != b:
+                gap = top[j][0][1] - top[j][1][1]
+                if gap > SPEC_TIE:
+                    raise AssertionError(
+                        f"{label}: request {i} gave {a} for the plain "
+                        f"stream's {b} at step {j}, where the plain top-2 "
+                        f"gap is {gap:.4f} > {SPEC_TIE}")
+                gaps.append(round(gap, 4))
+                break  # past a divergence the streams are not comparable
+            compared += 1
+    return compared, len(gaps), gaps
+
+
+def score_plain(cfg, params, prompts, plain, ecfg=None):
+    """The plain greedy streams of ``prompts`` teacher-forced through the
+    verify's scorer (llama.batch_score) at its shape, one row a stream of
+    K+1 tokens: each prompt but its last token prefilled (batch_prefill),
+    then the stream in chunks of K+1 from the last prompt token on, as a
+    verify feeds them, into a region of ``ecfg``'s context (default
+    EngineConfig), the span bounded as the engine bounds it. Returns
+    the largest difference between the scorer's logprob and the plain
+    decode's over each step's top-2 tokens, and the largest between
+    their top-2 gaps, each as (difference, (stream, step))."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.models import llama
+
+    S = (ecfg or EngineConfig()).max_context
+    B, T = len(prompts), SPEC_K + 1
+    dev, dtype = params["norm_f"].device, params["norm_f"].dtype
+    seqs = [list(p) + list(toks) for p, (toks, *_) in zip(prompts, plain)]
+    worst, worst_gap = (0.0, None), (0.0, None)
+    with torch.no_grad():
+        ctx = llama.init_ctx(cfg, B, S, dtype, dev)
+        for i, p in enumerate(prompts):
+            n = len(p) - 1
+            llama.batch_prefill(cfg, params, ctx, torch.tensor(
+                [p[:n]], device=dev), [i], [0], [n])
+        for s in range(0, SPEC_NEW, T):
+            q = [len(p) - 1 + s for p in prompts]
+            toks = torch.tensor([seq[j:j + T] for seq, j in zip(seqs, q)],
+                                device=dev)
+            logits = llama.batch_score(cfg, params, ctx, toks, list(range(B)),
+                                       q, [j + T for j in q],
+                                       llama.spec_span(max(q), S))
+            lp = (logits - torch.logsumexp(logits, -1, keepdim=True)).cpu()
+            for i, (*_, top) in enumerate(plain):
+                for r in range(min(T, SPEC_NEW - s)):
+                    (a, want_a), (b, want_b) = top[s + r][:2]
+                    got_a, got_b = lp[i, r, a].item(), lp[i, r, b].item()
+                    at = (i, s + r)
+                    d = max(abs(got_a - want_a), abs(got_b - want_b))
+                    worst = max(worst, (d, at), key=lambda w: w[0])
+                    d = abs((got_a - got_b) - (want_a - want_b))
+                    worst_gap = max(worst_gap, (d, at), key=lambda w: w[0])
+        del ctx
+    torch.cuda.empty_cache()
+    return worst, worst_gap
+
+
+def check_teacher_forced(cfg, params, prompts, plain):
+    """score_plain on the 8 serve prompts' plain dense streams must move
+    no logprob of a step's top-2 tokens and no top-2 gap by more than
+    SPEC_LP_TOL; the same scorer with the w8a16 quantization of the
+    weights, a lower precision, must move a logprob by more (the check
+    sees a fault of that size). Returns the three largest differences."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    (err, at), (gap, gap_at) = score_plain(cfg, params, prompts, plain)
+    qparams = llama.quantize_params(params)
+    (q_err, q_at), _ = score_plain(ModelConfig.llama3_8b_int8(), qparams,
+                                   prompts, plain)
+    del qparams
+    torch.cuda.empty_cache()
+    log(f"speculation: the plain dense streams of {len(prompts)} prompts "
+        f"teacher-forced through the verify's scorer ({len(prompts)} rows x "
+        f"{SPEC_K + 1} tokens a call, {SPEC_NEW} steps): largest logprob "
+        f"difference over each step's top-2 tokens {err:.4f} (stream, step "
+        f"{at}), largest top-2 gap difference {gap:.4f} ({gap_at}); "
+        f"tolerance {SPEC_LP_TOL}; with the w8a16 weights, logprob "
+        f"{q_err:.4f} ({q_at})")
+    if max(err, gap) > SPEC_LP_TOL:
+        raise AssertionError(
+            f"speculation: teacher-forced, the verify's scorer moves a "
+            f"logprob by {err:.4f} and a top-2 gap by {gap:.4f} "
+            f"(tolerance {SPEC_LP_TOL})")
+    if q_err <= SPEC_LP_TOL:
+        raise AssertionError(
+            f"speculation: teacher-forced with the w8a16 weights the "
+            f"logprobs move only {q_err:.4f} <= {SPEC_LP_TOL}: the tolerance "
+            f"cannot tell a lower precision")
+    return err, gap, q_err
+
+
+def spec_engine(cfg, params, kv_quant, mode, draft=None):
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    kw = {}
+    if draft is not None:
+        kw = dict(draft_config=draft[0], draft_params=draft[1])
+    return TorchEngine(cfg, EngineConfig(
+        kv_quant=kv_quant, speculative=mode, num_speculative_tokens=SPEC_K,
+        spec_adaptive=True), params=params, device="cuda", **kw)
+
+
+def spec_plain(cfg, params, kv, prompts, lps):
+    """The burst on plain engines (speculative off) of the KV mode, twice:
+    every request asking for top-2 logprobs (the gaps that hold_to_plain
+    reads; a round computing logprobs picks the same greedy tokens), then
+    the arms' request mix (the time). Returns (the first run's streams,
+    the second's decode tok/s)."""
+    eng = spec_engine(cfg, params, kv, "off")
+    plain, _ = spec_burst(eng, prompts, [2] * len(prompts))
+    del eng
+    eng = spec_engine(cfg, params, kv, "off")
+    res, tps = spec_burst(eng, prompts, lps)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if [t for t, *_ in res] != [t for t, *_ in plain]:
+        raise AssertionError(f"speculation: the plain kv {kv} engine's "
+                             f"greedy tokens depend on logprobs asked")
+    log(f"speculation: plain {cfg.quant or 'bf16'} weights, kv {kv}: "
+        f"decode {tps:.1f} tok/s over the burst")
+    return plain, tps
+
+
+def spec_arm(name, cfg, params, kv, mode, draft, prompts, lps, plain,
+             plain_tps, reset=None):
+    """One speculative arm's burst on a fresh engine, held to the plain
+    run's streams, its fused rounds' kernel launches checked. ``reset``
+    zeroes other kernels' counts, as the flash-decode ones are, after the
+    engine is built (its graph captures run rounds) and before the burst.
+    Returns (spec stats, the mode's kernel launches, a short summary)."""
+    from dynamo_tpu_torch.ops import flash_decode as fd
+
+    L = cfg.num_layers
+    eng = spec_engine(cfg, params, kv, mode, draft)
+    meter = SpecMeter(eng)
+    steps0 = eng.step_count
+    fd.launches = fd.launches_int8 = 0
+    eng.kernel_launches = 0
+    fd.executed(eng.device, reset=True)
+    if reset is not None:
+        reset()
+    res, tps = spec_burst(eng, prompts, lps)
+    dense, int8 = fd.executed(eng.device)
+    issued = fd.launches + fd.launches_int8
+    steps = eng.step_count - steps0
+    ran, other = (int8, dense) if kv == "int8" else (dense, int8)
+    if (not ran or ran != L * steps or other or issued
+            or eng.kernel_launches != ran):
+        raise AssertionError(
+            f"speculation {name}: flash_decode ran {dense} times on the "
+            f"card (int8 {int8}, {issued} issued eagerly, graphs recorded "
+            f"{eng.kernel_launches}) over {steps} fused decode steps of "
+            f"{L} layers")
+    check_replayed(eng, f"speculation {name}")
+    st = eng.spec.stats()
+    compared, ties, gaps = hold_to_plain(f"speculation {name}", res, plain)
+    for i in SPEC_LP:
+        if "spec" in res[i][2]:
+            raise AssertionError(f"speculation {name}: logprob request {i} "
+                                 f"speculated")
+    vsteps = st["spec_verify_steps"]
+    acc = st["spec_acceptance_rate"]
+    per_step = (st["spec_accepted_total"] + vsteps) / max(vsteps, 1)
+    ks = np.asarray(meter.ks, np.float64)
+    k_dist = ((ks.mean(), np.percentile(ks, 50), np.percentile(ks, 95))
+              if len(ks) else (0.0, 0.0, 0.0))
+    n = len(meter.verifies)
+    draft_ms = meter.ms(meter.drafts, n)
+    verify_ms = meter.ms(meter.verifies, n)
+    steps_a_round = eng.ecfg.flush_every
+    rnd = ("no fused round" if not meter.rounds else
+           "fused round {:.2f} ms wall, {:.2f} ms device a step".format(
+               *meter.ms(meter.rounds, len(meter.rounds) * steps_a_round)))
+    what = ("" if draft is None else ", draft " + (
+        "self" if draft[0] is cfg else "Llama-3.2-1B"))
+    log(f"speculation {name} (kv {kv}, {mode}{what}): acceptance {acc:.4f} "
+        f"({st['spec_accepted_total']}/{st['spec_proposed_total']}), "
+        f"{per_step:.3f} tokens a slot's verify step over {vsteps} slot "
+        f"steps in {n} verify dispatches; effective K mean "
+        f"{k_dist[0]:.3f} p50 {k_dist[1]:.1f} p95 {k_dist[2]:.1f}; despecs "
+        f"{st['spec_despec_total']} (gated {st['spec_gated_despec_total']})"
+        f"; a verify dispatch: draft {draft_ms[0]:.2f} ms wall "
+        f"{draft_ms[1]:.2f} ms device, verify {verify_ms[0]:.2f} ms wall "
+        f"{verify_ms[1]:.2f} ms device; {rnd}; decode {tps:.1f} tok/s "
+        f"(plain {plain_tps:.1f}); {compared} greedy positions equal to the "
+        f"plain run, {ties} streams stop at a near-tie {gaps}; {ran} "
+        f"{'int8' if kv == 'int8' else 'dense'} flash-decode launches over "
+        f"{steps} fused steps")
+    del eng, meter
+    gc.collect()
+    torch.cuda.empty_cache()
+    return st, ran, (f"{name} acc {acc:.3f} {per_step:.2f} tok/step "
+                     f"{tps:.0f}/{plain_tps:.0f} tok/s verify "
+                     f"{verify_ms[1]:.0f} ms ties {ties}")
+
+
+def time_verify_span(cfg, params, lens):
+    """One verify's scorer (llama.batch_score) at the burst's shape, 8
+    rows of K+1 = 5 tokens at the given context lengths over a zeroed
+    region, under no_grad as the engine runs it, with the span bounded to
+    the attention's key block (llama.spec_span) and over the whole region
+    as the JAX version reads it: logits and the region bit-equal, each
+    one's host wall and device ms (CUDA events; median of 3). Returns
+    (bounded, full) as (wall, device). (Its kernels and their device ms:
+    python -m dynamo_tpu_torch.tools.profile_verify, in a process of its
+    own.)"""
+    from dynamo_tpu_torch.models import llama
+
+    S = 4096
+    B, T = len(lens), SPEC_K + 1
+    dev = params["embed"].device
+    toks = torch.randint(0, cfg.vocab_size, (B, T), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             SEED))
+    slots, q_starts = list(range(B)), [n - 1 for n in lens]
+    seq_lens = [q + T for q in q_starts]
+    bounded = llama.spec_span(max(q_starts), S)
+    out, times = [], []
+    with torch.no_grad():
+        for span in (bounded, S):
+            ctx = llama.init_ctx(cfg, B, S, params["embed"].dtype, dev)
+
+            def call(ctx=ctx, span=span):
+                return llama.batch_score(cfg, params, ctx, toks, slots,
+                                         q_starts, seq_lens, span)
+
+            wall, device = [], []
+            for _ in range(3):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e0.record()
+                logits = call()
+                e1.record()
+                wall.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                device.append(e0.elapsed_time(e1))
+            out.append((logits, ctx["k"][:, :, :B].clone()))
+            times.append((float(np.median(wall)), float(np.median(device))))
+            del ctx
+    if not (torch.equal(out[0][0], out[1][0])
+            and torch.equal(out[0][1], out[1][1])):
+        raise AssertionError("speculation: the bounded span's verify "
+                             "differs from the full region's")
+    del out
+    torch.cuda.empty_cache()
+    log(f"speculation: one verify's scorer, 8 rows x {T} tokens at "
+        f"contexts {min(lens)}..{max(lens)}: span {bounded} keys "
+        f"{times[0][0]:.1f} ms wall {times[0][1]:.1f} ms device; the whole "
+        f"region ({S}) "
+        f"{times[1][0]:.1f} ms wall {times[1][1]:.1f} ms device; logits "
+        f"and region bit-equal (median of 3)")
+    return times
+
+
+def check_seeded_spec(cfg, params, prompt):
+    """A seeded temperature-0.8 request on two fresh N engines (dense,
+    ngram) must draw one stream, speculating."""
+    seeded = []
+    for _ in range(2):
+        eng = spec_engine(cfg, params, "none", "ngram")
+
+        async def go(eng=eng):
+            out = await generate_all(eng, [prompt], SPEC_NEW,
+                                     temperature=0.8, seed=7)
+            await eng.stop()
+            return out[0]
+        seeded.append(asyncio.run(go()))
+        del eng
+    if (seeded[0][0] != seeded[1][0] or len(seeded[0][0]) != SPEC_NEW
+            or "spec" not in seeded[0][2]):
+        raise AssertionError("speculation N: the seeded temperature-0.8 "
+                             "streams differ")
+    log(f"speculation N: a seeded temperature-0.8 request on two engines "
+        f"drew one stream of {SPEC_NEW} tokens (acceptance "
+        f"{seeded[0][2]['spec']['acceptance_rate']:.4f})")
+
+
+def check_speculation(params):
+    """Linear speculation on Llama-3.1-8B (the serve weights, default
+    EngineConfig, K = 4, adaptive K on): the 8 serve prompts (2 asking for
+    logprobs, which stay in the fused round) and 2 repeating prompts, 64
+    tokens each, in four arms: N (dense, ngram), Q (int8 KV, ngram), D
+    (dense, draft: Llama-3.2-1B, random weights from seed 1, batched
+    drafting) and S (dense, self-draft: the target's own weights as the
+    draft). Each arm's streams are held against the same engine's plain
+    run (speculative off, top-2 logprobs asked); the flash-decode kernel
+    of the mode must run on every layer of every fused decode step (the
+    kernels line's launches_spec) inside replayed graphs; N must accept
+    tokens and D de-speculate; a seeded temperature-0.8 request twice on
+    N must draw one stream. Returns the (dense, int8) kernel launches of
+    the speculative arms."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    # the verify is host-bound: threads earlier phases left behind
+    # compete with it for the interpreter
+    log(f"speculation: {threading.active_count()} threads in this "
+        f"process")
+    cfg = ModelConfig.llama3_8b()
+    prompts = spec_prompts(cfg.vocab_size)
+    lps = [2 if i in SPEC_LP else None for i in range(len(prompts))]
+    t0 = time.monotonic()
+    draft_1b = (ModelConfig.llama3_1b(),
+                llama.init_params(ModelConfig.llama3_1b(), SEED + 1,
+                                  device="cuda"))
+    log(f"speculation: Llama-3.2-1B draft weights (seed {SEED + 1}) made "
+        f"on the card in {time.monotonic() - t0:.1f} s; "
+        f"{len(prompts)} prompts ({min(map(len, prompts))}.."
+        f"{max(map(len, prompts))} tokens), {SPEC_NEW} new tokens each, "
+        f"requests {list(SPEC_LP)} ask for top-2 logprobs; K = {SPEC_K}, "
+        f"adaptive; the tie threshold {SPEC_TIE}")
+    plain, plain_tps = {}, {}
+    for kv in ("none", "int8"):
+        plain[kv], plain_tps[kv] = spec_plain(cfg, params, kv, prompts, lps)
+    tf_err, tf_gap, tf_q = check_teacher_forced(cfg, params, prompts[:8],
+                                                plain["none"][:8])
+    arms = (("N", "none", "ngram", None),
+            ("Q", "int8", "ngram", None),
+            ("D", "none", "draft", draft_1b),
+            ("S", "none", "draft", (cfg, params)))
+    launches = {"none": 0, "int8": 0}
+    short = []
+    for name, kv, mode, draft in arms:
+        st, ran, line = spec_arm(name, cfg, params, kv, mode, draft, prompts,
+                                 lps, plain[kv], plain_tps[kv])
+        launches[kv] += ran
+        short.append(line)
+        if name == "N":
+            if not st["spec_accepted_total"]:
+                raise AssertionError("speculation N: no token accepted")
+            check_seeded_spec(cfg, params, prompts[-1])
+        if name == "D" and not st["spec_despec_total"]:
+            raise AssertionError("speculation D: no slot de-speculated")
+    del draft_1b
+    bounded, full = time_verify_span(
+        cfg, params, [len(p) for p in prompts[:8]])
+    short.append(f"span {bounded[1]:.0f}/{full[1]:.0f} ms; forced lp "
+                 f"{tf_err:.3f} gap {tf_gap:.3f} (w8a16 lp {tf_q:.3f})")
+    figures("; ".join(short))
+    return launches["none"], launches["int8"]
+
+
+def check_speculation_w8a16(qparams):
+    """Arm W: n-gram speculation with the w8a16 weights (dense KV), the
+    speculation phase's burst held against the same engine's plain run;
+    the verify's products and logits run on the w8a16 kernels at M =
+    rows x (K+1), eagerly, and must have launched some. Returns
+    (flash-decode launches, w8a16_gemm executions counted by the kernels
+    on the card) of the arm."""
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import w8a16
+
+    qcfg = ModelConfig.llama3_8b_int8()
+    prompts = spec_prompts(qcfg.vocab_size)
+    lps = [2 if i in SPEC_LP else None for i in range(len(prompts))]
+    plain, plain_tps = spec_plain(qcfg, qparams, "none", prompts, lps)
+    from dynamo_tpu_torch.spec import decoder
+
+    verify_launches = [0]
+    verify = decoder.SpecDecoder.verify
+
+    def counted(self, *a, **kw):
+        n0 = w8a16.launches
+        out = verify(self, *a, **kw)
+        verify_launches[0] += w8a16.launches - n0
+        return out
+
+    decoder.SpecDecoder.verify = counted
+
+    def reset():
+        w8a16.launches = w8a16.launches_wgmma = 0
+        w8a16.executed(torch.device("cuda"), reset=True)
+
+    try:
+        st, ran, line = spec_arm("W", qcfg, qparams, "none", "ngram", None,
+                                 prompts, lps, plain, plain_tps, reset)
+    finally:
+        decoder.SpecDecoder.verify = verify
+    gemms = w8a16.executed(torch.device("cuda"))
+    if not verify_launches[0] or not st["spec_verify_steps"]:
+        raise AssertionError(f"speculation W: the verifies launched "
+                             f"{verify_launches[0]} w8a16 products")
+    log(f"speculation W: w8a16_gemm ran {gemms} times on the card, "
+        f"{verify_launches[0]} of them launched by {st['spec_verify_dispatch_total']} "
+        f"verify dispatches ({w8a16.launches_wgmma} of all eager launches "
+        f"on the wgmma kernel)")
+    figures(line + f"; w8a16 {gemms}, verify {verify_launches[0]}")
+    return ran, gemms
+
+
 def offload_prompts(vocab: int):
     """Wave B of the offload phase: 8 prompts of the serve prompts'
     lengths, from seed 1."""
@@ -4676,12 +5234,133 @@ def phase(name, fn, *args, **kw):
     gc.collect()
     torch.cuda.empty_cache()
     secs = time.monotonic() - t0
-    figs = _PHASE["figures"] or _PHASE["last"]
-    if len(figs) > 320:   # the summaries must fit the output's last 24 KB
-        figs = figs[:317] + "..."
-    SUMMARY.append(f"summary {name}: {secs:.1f} s; {figs}")
+    SUMMARY.append(summary_line(name, secs,
+                                _PHASE["figures"] or _PHASE["last"]))
     log(f"phase {name}: {secs:.1f} s")
     return out
+
+
+def summary_line(name, secs, figs):
+    """A phase's summary line, its figures cut to SUMMARY_LINE characters
+    (the block must fit SUMMARY_BUDGET)."""
+    if len(figs) > SUMMARY_LINE:
+        figs = figs[:SUMMARY_LINE - 3] + "..."
+    return f"summary {name}: {secs:.1f} s; {figs}"
+
+
+def sig4(x):
+    """``x`` with every float rounded to 4 significant digits, through
+    dicts and lists (the kernels line's figures)."""
+    if isinstance(x, float):
+        return float(f"{x:.4g}")
+    if isinstance(x, dict):
+        return {k: sig4(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [sig4(v) for v in x]
+    return x
+
+
+def summary_block(summary, card, kernels, device):
+    """The lines that end the output: each phase's summary line, the card
+    line, the block's byte count, the kernels line (floats to 4
+    significant digits) and the ok line. The count line states the
+    bytes (newlines included) from the first summary line to the ok line,
+    its own line counted. The block must fit SUMMARY_BUDGET (a short log
+    keeps the last 22,000 bytes of the output, and the rest is room for
+    later phases); past it, this raises."""
+    # one record a kernel: per-shape lists are log lines of their own
+    kern = json.dumps({"kernels": sig4([
+        {k: v for k, v in r.items() if k != "shapes"} for r in kernels])})
+    ok = json.dumps({"ok": True, "device": device})
+    n = 0
+    while True:
+        count = (f"block bytes: {n} from the first summary line to the ok "
+                 f"line (budget {SUMMARY_BUDGET})")
+        lines = list(summary) + [card, count, kern, ok]
+        size = sum(len(line.encode()) + 1 for line in lines)
+        if size == n:
+            break
+        n = size
+    if n > SUMMARY_BUDGET:
+        raise AssertionError(f"the summary block takes {n} bytes, over the "
+                             f"{SUMMARY_BUDGET}-byte budget")
+    return lines
+
+
+def tail_padding(block_bytes, keeps=(24000, 22000)):
+    """Lines printed just before the summary block (of ``block_bytes``
+    bytes) so that the last ``keeps[i]`` bytes of the output each start
+    at a line: a short log keeps the last 22,000 bytes of a run's output,
+    a longer one the last 24,000. One line a window, ASCII, its
+    newline counted."""
+    lines, after = [], block_bytes
+    for keep in sorted(keeps):
+        label = f"(the last {keep} bytes of the output start at this line) "
+        n = keep - after - 1
+        if n < len(label):
+            raise AssertionError(f"{after} bytes leave no room for a line "
+                                 f"that starts the last {keep}")
+        lines.insert(0, label + "." * (n - len(label)))
+        after = keep
+    return lines
+
+
+def profiled_checks():
+    """Every check that counts kernels with torch.profiler: the
+    round_graph phases of the tiny model (f32) and of Llama-3.1-8B with
+    dense and int8 KV and with w8a16 weights, on weights made here from
+    the seed. run_profiled_checks runs them in a process of its own: in
+    a process that has served, torch.profiler may lose kernels of a
+    graph replay (PERF.md, "torch.profiler"), so these counts must not
+    depend on what ran before them."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    tiny = ModelConfig.tiny(dtype="float32")
+    rng = np.random.RandomState(SEED)
+    phase("round_graph tiny", check_round_graph,
+          "tiny f32", tiny, EngineConfig(
+              num_pages=64, page_size=16, max_pages_per_seq=8,
+              max_decode_slots=4, prefill_buckets=(32, 64),
+              cache_dtype="float32"),
+          llama.init_params(tiny, SEED, device="cuda"),
+          [rng.randint(1, 256, size=n).tolist() for n in (29, 40, 17, 100)])
+    cfg = ModelConfig.llama3_8b()
+    prompts = serve_prompts(cfg.vocab_size)
+    params = llama.init_params(cfg, SEED, device="cuda")
+    for kv_quant in ("none", "int8"):
+        phase(f"round_graph 8B kv_quant={kv_quant}", check_round_graph,
+              f"Llama-3.1-8B kv_quant={kv_quant}", cfg,
+              EngineConfig(kv_quant=kv_quant), params, prompts)
+    qparams = llama.quantize_params(params)
+    del params
+    phase("round_graph 8B w8a16", check_round_graph,
+          "Llama-3.1-8B w8a16 kv_quant=none",
+          ModelConfig.llama3_8b_int8(), EngineConfig(), qparams, prompts)
+
+
+def run_profiled_checks(timeout_s=600):
+    """profiled_checks in a fresh process on the same card (``chip_smoke.py
+    --profiled-checks``): its output passes through, and its phases'
+    summary lines join this run's; it raises if the process fails."""
+    sys.stdout.flush()
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--profiled-checks"],
+        capture_output=True, text=True, timeout=timeout_s)
+    lines = proc.stdout.splitlines()
+    done = (proc.returncode == 0 and lines
+            and lines[-1].startswith('{"summary": '))
+    for line in lines[:-1] if done else lines:
+        print(line, flush=True)
+    sys.stderr.write(proc.stderr)
+    if not done:
+        raise AssertionError(f"profiled_checks, in a process of its own, "
+                             f"exited {proc.returncode}")
+    SUMMARY.extend(json.loads(lines[-1])["summary"])
+    log(f"profiled_checks: a process of its own, "
+        f"{time.monotonic() - t0:.1f} s")
 
 
 def build_all():
@@ -4713,7 +5392,7 @@ def build_all():
             f"{max(smem, default=0)} bytes of static shared memory, {spills} "
             f"bytes of spills{dyn}" if regs else "built before this run"))
         figs.append(f"{name} {len(regs)} kernels, {spills} bytes of spills")
-    # the summary stays short: the whole tail must fit 24 KB
+    # the summary stays short: the whole block must fit SUMMARY_BUDGET
     figures(f"built in parallel in {secs:.1f} s; " + "; ".join(figs))
 
 
@@ -4724,6 +5403,10 @@ def main() -> int:
     t_start = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--profiled-checks"]:   # run_profiled_checks
+        profiled_checks()
+        print(json.dumps({"summary": SUMMARY}), flush=True)
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4744,17 +5427,6 @@ def main() -> int:
     phase("tiny", check_tiny_engine)
     phase("tiny int8", check_tiny_int8)
     phase("tiny w8a16", check_tiny_w8a16)
-    from dynamo_tpu_torch.engine.config import EngineConfig
-
-    tiny = ModelConfig.tiny(dtype="float32")
-    rng = np.random.RandomState(SEED)
-    phase("round_graph tiny", check_round_graph,
-        "tiny f32", tiny, EngineConfig(
-            num_pages=64, page_size=16, max_pages_per_seq=8,
-            max_decode_slots=4, prefill_buckets=(32, 64),
-            cache_dtype="float32"),
-        llama.init_params(tiny, SEED, device="cuda"),
-        [rng.randint(1, 256, size=n).tolist() for n in (29, 40, 17, 100)])
     time_block_hashes(serve_prompts(cfg.vocab_size), 64)
     counts: dict[str, int] = {}
     # the 8B weights are made once and serve every 8B phase; the w8a16
@@ -4764,11 +5436,6 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"serve: Llama-3.1-8B bf16 weights made on the card in "
         f"{time.monotonic() - t0:.1f} s")
-    for kv_quant in ("none", "int8"):
-        phase(f"round_graph 8B kv_quant={kv_quant}", check_round_graph,
-              f"Llama-3.1-8B kv_quant={kv_quant}", cfg,
-              EngineConfig(kv_quant=kv_quant), params,
-              serve_prompts(cfg.vocab_size))
     dense_tokens, direct = phase("serve none", serve_llama3_8b, counts,
                                  params, "none")
     phase("serve int8", serve_llama3_8b, counts, params, "int8",
@@ -4786,6 +5453,7 @@ def main() -> int:
     eco_launches, _ = phase("prefix economy", check_prefix_economy, params,
                             smi)
     phase("offload", check_offload, params, counts, smi)
+    spec_launches = phase("speculation", check_speculation, params)
     # w8a16: the same weights quantized per output channel on the card
     t0 = time.monotonic()
     qparams = llama.quantize_params(params)
@@ -4796,14 +5464,9 @@ def main() -> int:
         f"(bf16 {weights_gib(params):.2f} GiB)")
     lp_diff = first_step_logprob_diff(params, qparams,
                                       serve_prompts(cfg.vocab_size)[0])
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase("round_graph 8B w8a16", check_round_graph,
-          "Llama-3.1-8B w8a16 kv_quant=none", qcfg, EngineConfig(),
-          qparams, serve_prompts(cfg.vocab_size))
     _, w8 = phase("serve w8a16", serve_llama3_8b, counts, qparams, "none",
                   dense_tokens, cfg=qcfg)
+    spec_w8 = phase("speculation w8a16", check_speculation_w8a16, qparams)
     log(f"serve w8a16 beside dense (same run, same prompts): TTFT median "
         f"{np.median(w8['ttft']):.4f} s max {max(w8['ttft']):.4f} s "
         f"(dense {np.median(direct['ttft']):.4f}, "
@@ -4816,16 +5479,14 @@ def main() -> int:
         f"{direct['gib']:.2f}); the first step's largest logprob "
         f"difference to the dense weights (prompt 0) {lp_diff:.4f} "
         f"(information: random weights, quantized)")
-    del qparams
+    del qparams, params
     gc.collect()
     torch.cuda.empty_cache()
+    run_profiled_checks()
     text_out = phase("cli", check_cli)
     phase("cli distributed", check_cli_distributed, text_out)
     phase("cli w8a16", check_cli, ["--quantize", "int8"])
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
-    for line in SUMMARY:
-        print(line, flush=True)
-    print(smi)
     source = "dynamo_tpu_torch/csrc/flash_decode.cu"
     kernels = [
         dict(name="flash_decode", route="cuda", source=source,
@@ -4835,27 +5496,32 @@ def main() -> int:
              launches_kv_router=kv_launches, launches_disagg=dis_launches,
              launches_resilience=res_launches,
              launches_prefix_economy=eco_launches,
-             launches_offload=counts["flash_decode_offload"], **fd_report),
+             launches_offload=counts["flash_decode_offload"],
+             launches_spec=spec_launches[0] + spec_w8[0], **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",
              launches=counts["flash_decode_int8"],
              launches_remote_kv=g4_launches,
              launches_offload=counts["flash_decode_int8_offload"],
-             **fd8_report),
+             launches_spec=spec_launches[1], **fd8_report),
         # no Pallas kernel: XLA's fused convert + dot of _mm and the
         # quantized _logits; the figures are one 8B decode step's 225
-        # products at M = 8, per shape under "shapes"
+        # products at M = 8 (per shape: the "kernel w8a16_gemm shapes"
+        # log line)
         dict(name="w8a16_gemm", route="cuda",
              source="dynamo_tpu_torch/csrc/w8a16_gemm.cu",
              replaces="dynamo_tpu/models/llama.py:409",
              launches=counts["w8a16_gemm"],
              launches_prefill_wgmma=counts["w8a16_gemm_prefill_wgmma"],
+             launches_spec=spec_w8[1],
              **w8_report),
     ]
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
+    block = summary_block(SUMMARY, smi, kernels, {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()})
+    size = sum(len(line.encode()) + 1 for line in block)
+    for line in tail_padding(size) + block:
+        print(line, flush=True)
     return 0
 
 

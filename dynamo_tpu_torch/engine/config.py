@@ -3,12 +3,13 @@ engine/config.py, cut to the knobs the PyTorch engine honours).
 
 Decode rounds are pipelined by default (``round_pipeline``, as in the
 reference) and, on the card, each round shape is replayed as one CUDA
-graph (engine/graphs.py). The G2/G3 offload tiers and the engine-local
-page-transfer plane are served. The reference's other planes
-(speculation, tenancy quotas, overload budgets, sequence-parallel
-prefill) are not ported yet. Their knobs are kept here at the values
-that mean "off", and any other value raises, so a config written for
-the reference never silently runs something else.
+graph (engine/graphs.py). The G2/G3 offload tiers, the engine-local
+page-transfer plane and linear speculative decoding (``speculative``
+"ngram" or "draft", adaptive K and the acceptance gate) are served. The
+reference's other planes (tree speculation, tenancy quotas, overload
+budgets, sequence-parallel prefill) are not ported yet. Their knobs are
+kept here at the values that mean "off", and any other value raises, so
+a config written for the reference never silently runs something else.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ def pow2_cover(n: int, lo: int = 1) -> int:
 # knobs of the reference that this engine does not serve yet, with the
 # only value it accepts (the reference's "off")
 _UNPORTED = {
-    "speculative": "off",
+    "spec_tree": False,
     "lora_adapters": 0,
     "sp_prefill_threshold": None,
     "max_waiting_requests": 0,
@@ -129,8 +130,49 @@ class EngineConfig:
     # probe. False restores hint-blind G4
     kv_dedup_admission: bool = True
 
-    # not ported yet: see _UNPORTED
+    # speculative decoding (spec/): "off" | "ngram" | "draft". ngram needs
+    # no extra model (prompt lookup against the request's own history);
+    # draft needs a draft_config (and optionally draft_params) passed to
+    # TorchEngine, a small model sharing the target's vocabulary. Eligible
+    # slots (no logprobs) verify K proposed tokens per target forward
+    # instead of taking the fused decode round
     speculative: str = "off"
+    num_speculative_tokens: int = 4   # K a verify step (the cap when
+                                      # spec_adaptive is on)
+    spec_ngram_max: int = 3           # longest tail n-gram to match
+    spec_ngram_min: int = 1
+    # acceptance-adaptive K (spec/decoder.py AdaptiveKController): each
+    # slot's effective K walks within [spec_min_k, num_speculative_tokens]
+    # on an EWMA of its per-step acceptance, growing above
+    # grow_threshold and shrinking below shrink_threshold; a slot whose
+    # rate stays at or below despec_threshold after
+    # spec_min_observations verify steps goes back to the fused round.
+    # The round's width is the bucketed max of the participants' K
+    spec_adaptive: bool = True
+    spec_min_k: int = 1
+    spec_grow_threshold: float = 0.8
+    spec_shrink_threshold: float = 0.4
+    spec_despec_threshold: float = 0.125
+    spec_rate_ewma: float = 0.75      # weight of history in the rate
+    spec_min_observations: int = 8    # verify steps before despec may fire
+    # draft for every speculating slot in one batched program a round
+    # (False: the per-slot loop, 1 + (k-1) programs a slot)
+    spec_batch_draft: bool = True
+    # tree speculation (not ported: spec_tree is in _UNPORTED); the two
+    # knobs below matter only under a tree
+    spec_tree: bool = False
+    spec_branches: int = 4
+    spec_tree_budget: int = 0
+    # acceptance gate: a stream whose acceptance EWMA stays below
+    # spec_gate_acceptance for spec_gate_window consecutive verify steps
+    # goes back to the fused round (0.0: no gate); it may re-arm after
+    # spec_rearm_tokens emitted tokens, doubling each time it re-gates
+    # (0: never re-arms)
+    spec_gate_acceptance: float = 0.0
+    spec_gate_window: int = 4
+    spec_rearm_tokens: int = 256
+
+    # not ported yet: see _UNPORTED
     lora_adapters: int = 0
     sp_prefill_threshold: Optional[int] = None
     max_waiting_requests: int = 0

@@ -87,10 +87,24 @@ PyTorch (port of the JAX package's TpuEngine main path).
     with WorkerDrainingError, the pipeline falls back to the strict order
     (``pipe_flushes["drain"]``), and ``drained()`` holds once no request
     and no round is left in flight.
+  - Speculative decoding (``speculative`` "ngram" or "draft", spec/): an
+    eligible request (no logprobs) is admitted with its lane PARKED on
+    the scratch lane, as a freed slot's is, so the fused round (and its
+    graph) treats it as free; its state lives on the host and it advances
+    through verify dispatches (``_dispatch_spec``): one batched draft
+    (draft mode) and one score + accept program for every ready slot,
+    run eagerly, whose packed result comes back in one copy. Adaptive K
+    sets the round's width; a slot whose acceptance collapses, or that
+    nears the region's end, goes back to the fused round through an
+    admission patch that restores its token, context, keys and penalty
+    counts (``_despeculate``); the acceptance gate does the same and may
+    re-arm it later. Rounds are not pipelined while a slot speculates
+    (``pipe_flushes["spec"]``).
 
-Not ported yet (ROADMAP.md): speculation, tenant quotas and adapters,
-overload budgets and preemption, multimodal, MoE, and the ``g4_fetch``
-and ``g4_chunk`` spans of a fetch (item 10).
+Not ported yet (ROADMAP.md): tree speculation (item 7b), tenant quotas
+and adapters, overload budgets and preemption, multimodal, MoE, and the
+``g4_fetch`` and ``g4_chunk`` spans of a fetch and the ``spec_draft`` and
+``spec_verify`` spans of a round (item 10).
 """
 from __future__ import annotations
 
@@ -134,6 +148,8 @@ from dynamo_tpu_torch.protocols.common import (
     LLMEngineOutput,
     PreprocessedRequest,
 )
+from dynamo_tpu_torch.spec.decoder import SpecDecoder
+from dynamo_tpu_torch.spec.metrics import SPEC
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 log = logging.getLogger(__name__)
@@ -144,6 +160,18 @@ _FIRST_TOKEN_KEY_TAG = 0x46697273  # distinct PRNG stream for first tokens
 def _wall_time() -> float:
     """Unix time: the clock request deadlines are stamped in."""
     return time.time()
+
+
+def _sampling_knobs(so) -> dict[str, Any]:
+    """A request's sampler knobs, as the device state holds them."""
+    return dict(
+        temp=float(so.temperature or 0.0),
+        top_k=int(so.top_k or 0),
+        top_p=float(so.top_p if so.top_p is not None else 1.0),
+        freq=float(so.frequency_penalty or 0.0),
+        pres=float(so.presence_penalty or 0.0),
+        rep=float(so.repetition_penalty or 1.0),
+    )
 
 
 @dataclass
@@ -172,6 +200,31 @@ class _Request:
     enqueue_time: float = field(default_factory=time.monotonic)
     first_token_time: Optional[float] = None
     t_prefill_start: Optional[float] = None
+    # speculative decoding (spec/): a speculating slot's lane stays PARKED
+    # on the scratch lane; its real state lives here and in the ctx
+    # region, advanced by verify dispatches instead of the fused round
+    spec: bool = False
+    spec_ready: bool = False       # the host knows the pending token
+    spec_inflight: bool = False    # a verify dispatch is outstanding
+    # the full sequence incl. the pending token (the region holds KV for
+    # all but the last): the proposers' lookup corpus
+    spec_tokens: list[int] = field(default_factory=list)
+    spec_keys: Optional[np.ndarray] = None  # [2] threefry key (uint32s)
+    # host mirror of the sampler's output-token counts [V], for penalized
+    # requests only (the penalized accept path reads it; a despec
+    # restores it onto the device)
+    spec_counts: Optional[np.ndarray] = None
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    # acceptance gate: a gated stream runs on the fused round (spec False)
+    # but keeps mirroring its sequence and counts (_spec_gated_advance) so
+    # speculation can re-arm mid-stream
+    spec_gated: bool = False
+    spec_rearm_left: int = 0     # fused tokens until a re-arm attempt
+    spec_gate_backoff: int = 1   # re-arm budget multiplier (doubles)
+    # re-arm drain: in-flight rounds whose snapshot still steps this lane
+    # (their tokens are real and must be mirrored first)
+    spec_rearm_wait: int = 0
 
     @property
     def prompt_len(self) -> int:
@@ -244,7 +297,7 @@ class _Entry:
     offload batch of gathered pool pages (with their scales in an int8
     pool, in ``lp_fetch``)."""
 
-    kind: str                      # "round" | "first" | "offload"
+    kind: str                      # "round" | "first" | "offload" | "spec"
     fetch: _Fetch
     lp_fetch: Optional[_Fetch] = None
     # round: the slot snapshot at dispatch
@@ -255,6 +308,8 @@ class _Entry:
     # offload: the batch's block hashes and their parents
     hashes: list[int] = field(default_factory=list)
     parents: list[int] = field(default_factory=list)
+    # spec: (slot, request, history length at dispatch) per row
+    rows: list[tuple] = field(default_factory=list)
 
 
 # closes an export stream's chunk queue (engine loop -> consumer)
@@ -300,6 +355,8 @@ class TorchEngine:
         rng_seed: int = 0,
         on_kv_event: Optional[Callable[[KvCacheEvent], None]] = None,
         on_metrics: Optional[Callable[[ForwardPassMetrics], None]] = None,
+        draft_config: Optional[ModelConfig] = None,
+        draft_params: Any = None,
     ):
         if device is None:
             if not torch.cuda.is_available():
@@ -401,10 +458,12 @@ class TorchEngine:
         # lanes reserved by an in-progress (multi-chunk) prefill: occupied
         # but not decoding until the admission patch
         self._prefilling: dict[int, _Request] = {}
-        # slot-state mirrors: live (decoding) lanes, lanes that need the
-        # full sampler (temperature or penalties) rather than argmax, and
-        # lanes whose request asked for logprobs
+        # slot-state mirrors: live (decoding) lanes, speculating lanes
+        # (parked, verify-driven), lanes that need the full sampler
+        # (temperature or penalties) rather than argmax, and lanes whose
+        # request asked for logprobs
         self._slot_active = np.zeros(B, bool)
+        self._slot_spec = np.zeros(B, bool)
         self._slot_sampler = np.zeros(B, bool)
         self._slot_lp = np.zeros(B, bool)
         # each slot's context length as of the last dispatch (metrics)
@@ -441,6 +500,14 @@ class TorchEngine:
                                           self.ring, self.cache, self._dev,
                                           self._seal_fuse_w)
         self.graphs.prepare()
+        # speculative decoding (spec/): the proposer, the verifier and the
+        # acceptance counters; eligible slots bypass the fused round
+        self.spec: Optional[SpecDecoder] = None
+        if e.speculative != "off":
+            self.spec = SpecDecoder(c, e, device=self.device,
+                                    draft_config=draft_config,
+                                    draft_params=draft_params,
+                                    rng_seed=rng_seed)
 
         # prefix-commit event plane (subscribe_commits): callbacks fired on
         # the engine thread when the committed prefix grew
@@ -494,12 +561,16 @@ class TorchEngine:
         self._pipe_hidden_s = 0.0
         self._pipe_host_s = 0.0
         self.pipe_flushes: dict[str, int] = {
-            "drain": 0, "admission": 0, "release": 0, "seal_overflow": 0}
+            "drain": 0, "admission": 0, "release": 0, "seal_overflow": 0,
+            "spec": 0}
         self.dispatch_counts: dict[str, int] = {
             "round": 0, "round_seal": 0, "seal": 0, "patch": 0,
             "prefill": 0, "prefill_batch": 0, "load_ctx": 0,
             "sample_first": 0, "fetch": 0, "offload_gather": 0,
             "xfer_gather": 0, "xfer_scatter": 0,
+            # the batched draft and the verify programs (the per-slot
+            # draft loop's are in spec.stats()["spec_draft_dispatch_total"])
+            "spec_draft": 0, "spec_verify": 0,
         }
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -693,6 +764,9 @@ class TorchEngine:
             if active:
                 self._dispatch_round(want_sample, want_lp)
                 did_work = dispatched = True
+        if self.spec is not None and self._slot_spec.any():
+            if self._dispatch_spec():
+                did_work = dispatched = True
         if self._seal_queue and (
                 not e.round_pipeline or not dispatched
                 or len(self._seal_queue) > self._seal_fuse_w):
@@ -731,8 +805,8 @@ class TorchEngine:
         the in-flight rounds. Each False counts its flush point in
         ``pipe_flushes``: a drain (no round may be left in flight when
         the worker exits), an admission (waiting, mid-prefill or fresh
-        intake), a pending release, or a seal queue past the fused
-        width."""
+        intake), a pending release, a seal queue past the fused width, or
+        a speculating slot."""
         if self._draining:
             self.pipe_flushes["drain"] += 1
             return False
@@ -744,6 +818,10 @@ class TorchEngine:
             return False
         if len(self._seal_queue) > self._seal_fuse_w:
             self.pipe_flushes["seal_overflow"] += 1
+            return False
+        if self.spec is not None and self._slot_spec.any():
+            # verify results re-shape the next round
+            self.pipe_flushes["spec"] += 1
             return False
         return True
 
@@ -814,6 +892,7 @@ class TorchEngine:
         carries penalties (the counts histogram must advance for them)."""
         so = r.req.sampling_options
         self._slot_active[slot] = True
+        self._slot_spec[slot] = False
         self._slot_lp[slot] = r.req.output_options.logprobs is not None
         self._slot_sampler[slot] = (
             (so.temperature or 0.0) > 0.0
@@ -823,8 +902,11 @@ class TorchEngine:
         )
         self._active_cache = None
 
-    def _slot_off(self, slot: int) -> None:
+    def _slot_off(self, slot: int, spec: bool = False) -> None:
+        """A slot leaves the fused round: finish, release, or with
+        ``spec`` speculative admission (its lane stays parked)."""
         self._slot_active[slot] = False
+        self._slot_spec[slot] = spec
         self._slot_sampler[slot] = False
         self._slot_lp[slot] = False
         self._active_cache = None
@@ -859,7 +941,12 @@ class TorchEngine:
         self._entries.append(_Entry(
             kind="round", fetch=_Fetch(out["toks"]),
             lp_fetch=_Fetch(out["lp"]) if want_lp else None,
-            slots=list(self._slots), n_steps=n,
+            # the snapshot leaves speculating slots out: their parked
+            # lanes' columns are garbage (the filter must be made at
+            # dispatch: a slot's spec flag may flip before processing)
+            slots=[r if r is None or not r.spec else None
+                   for r in self._slots],
+            n_steps=n,
         ))
 
     def _dispatch_patch(
@@ -872,6 +959,248 @@ class TorchEngine:
         self.dispatch_counts["patch"] += 1
         self.graphs.patch(graphs.pack_patch(self._B, clear_slots, admit),
                           admit["tok"] if admit is not None else None)
+
+    # ---- speculative decoding (spec/): propose -> verify ----
+
+    def _dispatch_spec(self) -> bool:
+        """Collect the spec-ready slots, draft K tokens for all of them
+        (one batched draft program, or the host n-gram lookup), and
+        dispatch one score + accept program over them. The verify writes
+        K+1 KV rows a slot optimistically; the host commits only the
+        accepted prefix (rollback is pointer truncation). K is the ROUND
+        width: the bucketed max of the participants' effective K. Returns
+        True if anything was dispatched."""
+        e = self.ecfg
+        K_cap = self.spec.k
+        rows: list[tuple[int, _Request, int]] = []
+        ks: list[int] = []
+        dispatched = False
+        for slot, r in enumerate(self._slots):
+            if (r is None or not r.spec or not r.spec_ready or r.finished
+                    or r.cancelled or r.spec_inflight):
+                continue
+            n_hist = len(r.spec_tokens)
+            # the verify writes up to K_cap+1 rows at [N-1, N+K): when that
+            # no longer fits the region, the slot's last tokens come from
+            # the fused round (checked against the cap: the round's width
+            # is not known yet)
+            if (n_hist - 1) + K_cap + 1 > e.max_context:
+                self._despeculate(slot, r)
+                dispatched = True
+                continue
+            rows.append((slot, r, n_hist))
+            ks.append(self.spec.k_for(slot))
+        if not rows:
+            return dispatched
+        K = self.spec.round_k(ks)
+        n = len(rows)
+        toks = np.zeros((n, K + 1), np.int32)
+        keys = np.zeros((n, 2), np.int64)
+        temps = np.zeros(n, np.float32)
+        top_ks = np.zeros(n, np.int32)
+        top_ps = np.ones(n, np.float32)
+        slots = [slot for slot, _, _ in rows]
+        q_starts = [n_hist - 1 for _, _, n_hist in rows]
+        seq_lens = [n_hist + K for _, _, n_hist in rows]
+        # penalties only when a row carries them: the [n, V] counts upload
+        # and the row-by-row accept cost nothing on other rounds
+        pen = None
+        if any(r.spec_counts is not None for _, r, _ in rows):
+            pen = (np.zeros((n, self.config.vocab_size), np.int32),
+                   np.zeros(n, np.float32), np.zeros(n, np.float32),
+                   np.ones(n, np.float32))
+        for j, (slot, r, _) in enumerate(rows):
+            toks[j, 0] = r.spec_tokens[-1]    # the pending token
+            keys[j] = r.spec_keys
+            kn = _sampling_knobs(r.req.sampling_options)
+            temps[j], top_ks[j], top_ps[j] = kn["temp"], kn["top_k"], \
+                kn["top_p"]
+            if pen is not None and r.spec_counts is not None:
+                pen[0][j] = r.spec_counts
+                pen[1][j], pen[2][j], pen[3][j] = kn["freq"], kn["pres"], \
+                    kn["rep"]
+        drafted = None
+        if self.spec.draft is not None and e.spec_batch_draft:
+            # one batched draft; its [n, K] device result is spliced into
+            # the verify's tokens on the device
+            self.dispatch_counts["spec_draft"] += 1
+            drafted = self.spec.propose_batch(
+                [(slot, r.spec_tokens) for slot, r, _ in rows], K)
+        else:
+            parts = []
+            for j, (slot, r, _) in enumerate(rows):
+                proposal = self.spec.propose(slot, r.spec_tokens, K)
+                if isinstance(proposal, list):    # n-gram: host tokens
+                    toks[j, 1:] = proposal
+                else:                             # per-slot draft
+                    parts.append(proposal)
+            if parts:
+                drafted = torch.stack(parts)
+        self.dispatch_counts["spec_verify"] += 1
+        packed = self.spec.verify(
+            self.params, self.ctx, self._to_device(toks), drafted, slots,
+            q_starts, seq_lens, self._to_device(keys),
+            self._to_device(temps), self._to_device(top_ks),
+            self._to_device(top_ps),
+            penalties=(None if pen is None
+                       else tuple(self._to_device(a) for a in pen)))
+        self.dispatch_counts["fetch"] += 1
+        for _, r, _ in rows:
+            r.spec_ready = False
+            r.spec_inflight = True
+        self._entries.append(_Entry(kind="spec", fetch=_Fetch(packed),
+                                    rows=rows, n_steps=K))
+        return True
+
+    def _despeculate(self, slot: int, r: _Request,
+                     gated: bool = False) -> None:
+        """Hand a speculating slot back to the fused round: an admission
+        patch restores the device state the fused path would carry
+        (pending token, context length, keys, knobs) and the penalty
+        counts are copied after it, so the continuation is what a fused
+        run gives. ``gated`` marks an acceptance-gate despec: the stream
+        keeps mirroring its sequence on the fused round and re-arms after
+        ``spec_rearm_tokens`` fused tokens, a budget that doubles at each
+        re-gate."""
+        r.spec = False
+        r.spec_ready = False
+        if gated:
+            r.spec_gated = True
+            r.spec_rearm_left = (self.ecfg.spec_rearm_tokens
+                                 * r.spec_gate_backoff)
+            r.spec_gate_backoff *= 2
+            SPEC.inc("dynamo_spec_tree_gated_despecs_total")
+            self.spec.on_gated_despec(slot)
+        else:
+            self.spec.on_despec(slot)
+        self._slot_on(slot, r)
+        ctx = len(r.spec_tokens)
+        self._ctx_disp[slot] = ctx
+        self._dispatch_patch(admit=dict(
+            slot=slot, ctx=ctx,
+            tok=self._to_device(np.asarray([r.spec_tokens[-1]], np.int32)),
+            keys=[int(k) for k in r.spec_keys],
+            **_sampling_knobs(r.req.sampling_options)))
+        if r.spec_counts is not None:
+            # the patch zeroed the lane's counts: the fused continuation
+            # must see the histogram the verifies advanced
+            self._dev["counts"][slot].copy_(
+                self._to_device(r.spec_counts.astype(np.int32)))
+
+    def _process_spec(self, entry: _Entry, packed: np.ndarray) -> None:
+        """Consume one verify result: emit each row's accepted prefix and
+        bonus, advance the host history and keys, roll the draft KV back
+        to the accepted length. Every verified token is emitted;
+        acceptance is counted at the round's width, and the adaptive
+        rate, the gate and the despec decision act on the next round."""
+        K = entry.n_steps
+        for j, (slot, r, hist_len) in enumerate(entry.rows):
+            r.spec_inflight = False
+            if r.finished or self._slots[slot] is not r:
+                continue
+            if r.cancelled:
+                self._finish(r, None)
+                continue
+            n = int(packed[j, K + 1])
+            accepted = n - 1
+            self.spec.on_result(slot, hist_len, accepted, K)
+            r.spec_proposed += K
+            r.spec_accepted += accepted
+            toks = [int(t) for t in packed[j, :n]]
+            batch: list[int] = []
+            finish: Optional[FinishReason] = None
+            for tok in toks:
+                finish = self._advance_token(r, tok)
+                if finish is FinishReason.EOS:
+                    break  # the stop token itself is not emitted
+                batch.append(tok)
+                if finish is not None:
+                    break
+            if batch or finish is not None:
+                extra = ({"annotations": self._final_annotations(r)}
+                         if finish is not None else {})
+                r.emit(LLMEngineOutput(token_ids=batch, finish_reason=finish,
+                                       **extra))
+            if finish is not None:
+                self._finish(r, None)
+                continue
+            if r.spec_counts is not None:
+                # every emitted token counts, as the fused sampler's
+                # per-token advance does
+                for t in toks:
+                    r.spec_counts[t] += 1
+            r.spec_tokens.extend(toks)
+            r.spec_keys = packed[j, K + 2:K + 4].copy()
+            if self.spec.should_gate(slot):
+                self._despeculate(slot, r, gated=True)
+                continue
+            if self.spec.should_despec(slot):
+                # acceptance collapsed: a verify costs a full forward for
+                # about one token, worse than the fused round
+                self._despeculate(slot, r)
+                continue
+            r.spec_ready = True
+            self._ctx_disp[slot] = len(r.spec_tokens)
+
+    def _spec_gated_advance(self, slot: int, r: _Request,
+                            batch: list[int]) -> None:
+        """Fused-round bookkeeping of a gated (or re-arming) stream: the
+        host sequence and counts stay current, so speculation resumes
+        where the fused round leaves off."""
+        if batch:
+            r.spec_tokens.extend(batch)
+            if r.spec_counts is not None:
+                for t in batch:
+                    r.spec_counts[t] += 1
+        if r.spec_rearm_wait > 0:
+            # the re-arm drain: one more in-flight round that stepped this
+            # lane is consumed; after the last, the clear patch has run in
+            # stream order and the first verify may go
+            r.spec_rearm_wait -= 1
+            if r.spec_rearm_wait == 0:
+                r.spec_ready = True
+            return
+        if self.ecfg.spec_rearm_tokens <= 0:
+            return  # the gate is permanent
+        r.spec_rearm_left -= len(batch)
+        if r.spec_rearm_left <= 0:
+            self._rearm_spec(slot, r)
+
+    def _rearm_spec(self, slot: int, r: _Request) -> None:
+        """Re-arm speculation on a gated stream: back to spec mode with
+        the lane parked by a clear patch. Rounds already dispatched keep
+        stepping the lane until that patch runs, so the first verify
+        waits until every in-flight round whose snapshot holds the lane
+        was consumed (their tokens are real; _spec_gated_advance mirrors
+        them). The device key advanced privately on the fused round: the
+        host reseeds from the stale key and the produced count, as the
+        JAX version does (greedy streams never read it)."""
+        r.spec = True
+        r.spec_gated = False
+        r.spec_ready = False
+        self.spec.on_rearm(slot)
+        self._slot_off(slot, spec=True)
+        self._dispatch_patch(clear_slots=[slot])
+        self._ctx_disp[slot] = len(r.spec_tokens)
+        stale = [int(k) for k in r.spec_keys]
+        fold = (r.produced * 2654435761 + 0x9E3779B9) & 0xFFFFFFFF
+        r.spec_keys = np.asarray([stale[0] ^ fold, stale[1] ^ (fold >> 1)],
+                                 np.int64)
+        r.spec_rearm_wait = sum(
+            1 for en in self._entries
+            if en.kind == "round" and en.slots[slot] is r)
+        if r.spec_rearm_wait == 0:
+            r.spec_ready = True
+
+    def _spec_annotations(self, r: _Request) -> dict:
+        """A request's speculation counters on its finishing output."""
+        if r.spec_proposed <= 0:
+            return {}
+        return {"spec": {
+            "proposed": r.spec_proposed,
+            "accepted": r.spec_accepted,
+            "acceptance_rate": r.spec_accepted / r.spec_proposed,
+        }}
 
     # ---- block sealing (ctx -> pool prefix-cache copies) ----
 
@@ -1711,9 +2040,10 @@ class TorchEngine:
 
     def metrics(self) -> ForwardPassMetrics:
         """The worker's load metrics (reference ``TpuEngine.metrics``):
-        slots, waiting requests, pool occupancy and hit rate, and the
-        G2/G3 tiers' occupancy. Fields of planes not ported stay at their
-        defaults."""
+        slots, waiting requests, pool occupancy and hit rate, the G2/G3
+        tiers' occupancy, and the speculation counters with the effective
+        K's distribution over the speculating slots. Fields of planes not
+        ported stay at their defaults."""
         a = self.allocator
         e = self.ecfg
         # "gpu cache usage" is the live serving occupancy (the ctx
@@ -1727,6 +2057,12 @@ class TorchEngine:
         KV_QUANT.set("dynamo_kv_pool_capacity_blocks", a.total_pages)
         off = self.offload
         spill = off.spill if off is not None else None
+        sp = self.spec
+        k_mean = k_p50 = k_p95 = 0.0
+        if sp is not None:
+            k_mean, k_p50, k_p95 = sp.effective_k_dist(
+                np.flatnonzero(self._slot_spec))
+            SPEC.set("dynamo_spec_accept_rate", sp.acceptance_rate())
         return ForwardPassMetrics(
             worker_id=e.worker_id,
             worker_stats=WorkerStats(
@@ -1736,6 +2072,14 @@ class TorchEngine:
                 num_requests_waiting=num_waiting,
                 max_waiting_requests=e.max_waiting_requests,
                 max_waiting_prefill_tokens=e.max_waiting_prefill_tokens,
+                spec_proposed_total=sp.proposed_total if sp else 0,
+                spec_accepted_total=sp.accepted_total if sp else 0,
+                spec_acceptance_rate=sp.acceptance_rate() if sp else 0.0,
+                spec_effective_k=k_mean,
+                spec_effective_k_p50=k_p50,
+                spec_effective_k_p95=k_p95,
+                spec_gated_despecs_total=(
+                    sp.gated_despec_total if sp else 0),
             ),
             kv_stats=KvStats(
                 kv_active_blocks=a.active_pages,
@@ -1948,14 +2292,7 @@ class TorchEngine:
             # sample identically
             step_keys = np.frombuffer(os.urandom(8), np.uint32).tolist()
             first_key = [_FIRST_TOKEN_KEY_TAG ^ step_keys[0], step_keys[1]]
-        knobs = dict(
-            temp=float(so.temperature or 0.0),
-            top_k=int(so.top_k or 0),
-            top_p=float(so.top_p if so.top_p is not None else 1.0),
-            freq=float(so.frequency_penalty or 0.0),
-            pres=float(so.presence_penalty or 0.0),
-            rep=float(so.repetition_penalty or 1.0),
-        )
+        knobs = _sampling_knobs(so)
         # the first token: sampler knobs only, no penalties (nothing
         # generated yet)
         sp1 = sampling.default_params(1, self.device)
@@ -1974,7 +2311,17 @@ class TorchEngine:
         del self._prefilling[slot]
         self._slots[slot] = r
         self._ctx_disp[slot] = len(r.tokens) + 1
-        if r.max_new_tokens(e.max_context) > 1:
+        more = r.max_new_tokens(e.max_context) > 1
+        if more and self.spec is not None and self.spec.eligible(r.req):
+            # speculative admission: the lane stays PARKED (as a freed
+            # slot's); the slot advances through verify dispatches once
+            # its first token has landed (_process_first marks it ready)
+            r.spec = True
+            self._slot_off(slot, spec=True)
+            r.spec_keys = np.asarray(step_keys, np.int64)
+            if self.spec.penalized(r.req):
+                r.spec_counts = np.zeros(self.config.vocab_size, np.int32)
+        elif more:
             self._slot_on(slot, r)
             self._dispatch_patch(admit=dict(
                 slot=slot, ctx=len(r.tokens) + 1, tok=first_tok,
@@ -2020,6 +2367,8 @@ class TorchEngine:
             if lp is not None:
                 lp = (float(lp[0][0]), lp[1][0], lp[2][0])
             self._process_first(entry.request, int(data[0]), lp)
+        elif entry.kind == "spec":
+            self._process_spec(entry, data)
         else:
             self._process_round(entry, data, lp)
 
@@ -2059,6 +2408,10 @@ class TorchEngine:
         r.emit(LLMEngineOutput(token_ids=[tok], **self._lp_payload(r, lp)))
         if r.produced >= r.max_new_tokens(self.ecfg.max_context):
             self._finish(r, FinishReason.LENGTH)
+        elif r.spec:
+            # the host knows the pending token: speculation can start
+            r.spec_tokens = list(r.tokens) + [tok]
+            r.spec_ready = True
 
     def _process_round(self, entry: _Entry, toks: np.ndarray,
                        lp_arrs=None) -> None:
@@ -2100,6 +2453,9 @@ class TorchEngine:
                     token_ids=batch, finish_reason=finish, **extra))
             if finish is not None:
                 self._finish(r, None)
+                continue
+            if r.spec_gated or r.spec_rearm_wait > 0:
+                self._spec_gated_advance(slot, r, batch)
 
     def _advance_token(
         self, r: _Request, tok: int
@@ -2134,7 +2490,8 @@ class TorchEngine:
             timing["ttft_s"] = r.first_token_time - r.enqueue_time
         if r.t_prefill_start is not None:
             timing["queue_s"] = r.t_prefill_start - r.enqueue_time
-        return {"timing": timing, "cached_blocks": r.matched_blocks}
+        return {**self._spec_annotations(r), "timing": timing,
+                "cached_blocks": r.matched_blocks}
 
     def _finish(
         self, r: _Request, reason: Optional[FinishReason],
@@ -2168,6 +2525,8 @@ class TorchEngine:
                 self._slots[r.slot] = None
                 self._slot_off(r.slot)
                 self._ctx_disp[r.slot] = 1
+                if self.spec is not None and r.spec:
+                    self.spec.release(r.slot)  # stale draft KV state
             r.slot = -1
         self._to_release = []
         if clear_slots:
@@ -2180,9 +2539,13 @@ class TorchEngine:
                 r.finished = True
         self._slots = [None] * self._B
         self._slot_active[:] = False
+        self._slot_spec[:] = False
         self._slot_sampler[:] = False
         self._slot_lp[:] = False
         self._active_cache = None
+        if self.spec is not None:
+            for i in range(self._B):
+                self.spec.release(i)
         for r in self._waiting:
             r.emit(err)
             self._abort_prefill(r)

@@ -5,8 +5,9 @@ frequency, presence and repetition penalties, and OpenAI-style logprobs
 Randomness is JAX's: per-slot threefry2x32 keys ``[B, 2]`` on the device
 (int64 tensors holding uint32 values), split once per sampled step, and
 ``categorical`` by the Gumbel-max trick over the candidates, bit for bit
-as JAX 0.9 computes ``random.split``, ``random.bits``, ``uniform`` and
-``gumbel`` with ``jax_threefry_partitionable`` on. So a seeded request
+as JAX 0.9 computes ``random.split`` (two-way and n-way),
+``random.bits``, ``uniform`` and ``gumbel`` with
+``jax_threefry_partitionable`` on. So a seeded request
 draws the same tokens here as in the JAX package, on the CPU and on the
 card. Only the final ``log`` calls may differ in the last bit between
 libraries, which can flip a draw only at an exact near-tie.
@@ -70,31 +71,45 @@ def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
     return x1, x2
 
 
+def split_keys_n(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.split(key, n)`` per row of ``keys`` [B, 2]: [B, n, 2]
+    (key i from counters (0, i))."""
+    lo = torch.arange(n, dtype=torch.int64, device=keys.device)[None, :]
+    b1, b2 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(lo), lo)
+    return torch.stack([b1, b2], dim=-1)
+
+
 def split_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``jax.random.split(key)`` per row of ``keys`` [B, 2]: (new key,
-    subkey), each [B, 2] (counters 0 and 1, high words 0)."""
-    lo = torch.arange(2, dtype=torch.int64, device=keys.device)[None, :]
-    b1, b2 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(lo), lo)
-    return (torch.stack([b1[:, 0], b2[:, 0]], dim=-1),
-            torch.stack([b1[:, 1], b2[:, 1]], dim=-1))
+    subkey), each [B, 2]."""
+    both = split_keys_n(keys, 2)
+    return both[:, 0], both[:, 1]
 
 
 def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.bits(key, (n,), uint32)`` per row: [B, n] uint32
-    values in int64."""
-    lo = torch.arange(n, dtype=torch.int64, device=keys.device)[None, :]
-    b1, b2 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(lo), lo)
-    return b1 ^ b2
+    values in int64 (the two words of the n-way split's counters, xored)."""
+    words = split_keys_n(keys, n)
+    return words[..., 0] ^ words[..., 1]
+
+
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """JAX's bits-to-float mapping: [0, 1) from the top 23 bits."""
+    return (((bits >> 9) | _F32_ONE_BITS).to(torch.int32).view(torch.float32)
+            - 1.0)
+
+
+def uniform(keys: torch.Tensor) -> torch.Tensor:
+    """``jax.random.uniform(key)`` (a scalar f32 in [0, 1)) per row of
+    ``keys`` [B, 2]: [B]."""
+    return _unit_floats(random_bits(keys, 1)[:, 0])
 
 
 def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.gumbel(key, (n,), float32)`` per row (the default
-    "low" mode): -log(-log(u)), u uniform in [tiny, 1) from the top 23
-    bits of each word."""
-    bits = random_bits(keys, n)
-    f = (((bits >> 9) | _F32_ONE_BITS).to(torch.int32).view(torch.float32)
-         - 1.0)
-    u = torch.clamp(f * 1.0 + _F32_TINY, min=_F32_TINY)
+    "low" mode): -log(-log(u)), u uniform in [tiny, 1)."""
+    u = torch.clamp(_unit_floats(random_bits(keys, n)) * 1.0 + _F32_TINY,
+                    min=_F32_TINY)
     return -torch.log(-torch.log(u))
 
 

@@ -14,8 +14,9 @@ Endpoints:
                                families, the store's dynamo_store_*, and
                                the KV router's dynamo_resilience_*,
                                dynamo_migration_* and
-                               dynamo_overload_router_spills_total, and
-                               the fleet's dynamo_kv_fleet_*)
+                               dynamo_overload_router_spills_total, the
+                               fleet's dynamo_kv_fleet_* and the
+                               speculation's dynamo_spec_*)
   POST /clear_kv_blocks       (every served engine's clear_kv_blocks:
                                {"cleared": [model, ...]}; a KV-routed
                                model's router fans it out to its workers
@@ -58,6 +59,7 @@ from dynamo_tpu_torch.frontend.model_manager import ModelManager, ModelNotFound
 from dynamo_tpu_torch.kv_integrity import KV_INTEGRITY
 from dynamo_tpu_torch.kv_quant import KV_QUANT
 from dynamo_tpu_torch.kv_fleet_metrics import KV_FLEET
+from dynamo_tpu_torch.spec.metrics import SPEC
 from dynamo_tpu_torch.kv_transfer_metrics import KV_TRANSFER
 from dynamo_tpu_torch.overload.deadline import apply_request_hints
 from dynamo_tpu_torch.overload.metrics import OVERLOAD
@@ -279,7 +281,8 @@ class HttpService:
                 + STORE.render().encode()
                 + RESILIENCE.render().encode()
                 + OVERLOAD.render().encode()
-                + KV_FLEET.render().encode())
+                + KV_FLEET.render().encode()
+                + SPEC.render().encode())
         return Response(body, content_type=PROMETHEUS_CONTENT_TYPE)
 
     async def handle_kv_fleet(self, request: Request) -> Response:

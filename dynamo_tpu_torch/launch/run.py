@@ -25,7 +25,11 @@ Inputs (reference entrypoint/input.rs:29-45):
 Engines:
   out=echo       deterministic token echo (tests/smoke)
   out=torch      TorchEngine with random weights from --model-config, on
-                 --device (default cuda: without a card the engine raises)
+                 --device (default cuda: without a card the engine raises);
+                 --speculative ngram|draft (with --draft-model-config)
+                 speculates the linear chain, with adaptive K
+                 (--spec-adaptive, --spec-min-k) and the acceptance gate
+                 (--spec-gate-*, --spec-rearm-tokens)
 
 The parser keeps every flag of the reference's, so a command line written
 for it parses here; a flag of a plane the port does not serve yet is
@@ -73,25 +77,12 @@ UNPORTED_FLAGS: dict[str, tuple[dict, str]] = {
     "--slo-objective": (dict(type=float, default=0.99), "SLO burn rates"),
     "--forensics-sample-rate": (dict(type=float, default=0.0),
                                 "tail-latency forensics"),
-    "--speculative": (dict(default="off", choices=["off", "ngram", "draft"]),
-                      "speculative decoding"),
-    "--num-speculative-tokens": (dict(type=int, default=4),
-                                 "speculative decoding"),
-    "--spec-adaptive": (dict(default="on", choices=["on", "off"]),
-                        "speculative decoding"),
-    "--spec-min-k": (dict(type=int, default=1), "speculative decoding"),
     "--spec-tree": (dict(default="off", choices=["on", "off"]),
-                    "speculative decoding"),
-    "--spec-branches": (dict(type=int, default=4), "speculative decoding"),
+                    "tree speculation, ROADMAP item 7b"),
+    "--spec-branches": (dict(type=int, default=4),
+                        "tree speculation, ROADMAP item 7b"),
     "--spec-tree-budget": (dict(type=int, default=0),
-                           "speculative decoding"),
-    "--spec-gate-acceptance": (dict(type=float, default=0.0),
-                               "speculative decoding"),
-    "--spec-gate-window": (dict(type=int, default=4),
-                           "speculative decoding"),
-    "--spec-rearm-tokens": (dict(type=int, default=256),
-                            "speculative decoding"),
-    "--draft-model-config": (dict(default=None), "speculative decoding"),
+                           "tree speculation, ROADMAP item 7b"),
     "--num-nodes": (dict(type=int, default=1), "multi-host engines"),
     "--node-rank": (dict(type=int, default=0), "multi-host engines"),
     "--leader-addr": (dict(default=None, metavar="HOST:PORT"),
@@ -257,6 +248,44 @@ def build_parser() -> argparse.ArgumentParser:
                         "hard store lease expires (engines heartbeat on "
                         "idle ticks too; set well above ~1s). Default: "
                         "breaker-only health tracking")
+    # speculative decoding (dynamo_tpu_torch/spec/), the linear chain
+    p.add_argument("--speculative", default="off",
+                   choices=["off", "ngram", "draft"],
+                   help="speculative decoding: ngram = model-free "
+                        "prompt-lookup proposer; draft = small draft "
+                        "model sharing the tokenizer (--draft-model-"
+                        "config); eligible requests verify K proposed "
+                        "tokens per target forward")
+    p.add_argument("--num-speculative-tokens", type=int, default=4,
+                   help="K: proposed tokens per verify step (the cap "
+                        "when --spec-adaptive is on)")
+    p.add_argument("--spec-adaptive", default="on", choices=["on", "off"],
+                   help="acceptance-adaptive K: each slot's effective K "
+                        "walks within [--spec-min-k, K] on its rolling "
+                        "acceptance rate, and slots whose rate collapses "
+                        "de-speculate back to the fused decode round "
+                        "(exported as dynamo_spec_effective_k)")
+    p.add_argument("--spec-min-k", type=int, default=1,
+                   help="adaptive-K floor per slot")
+    p.add_argument("--spec-gate-acceptance", type=float, default=0.0,
+                   help="de-speculate a stream whose live acceptance "
+                        "EWMA stays below this for --spec-gate-window "
+                        "consecutive verify steps (0 = no gate); gated "
+                        "streams may re-arm after --spec-rearm-tokens "
+                        "emitted tokens")
+    p.add_argument("--spec-gate-window", type=int, default=4,
+                   help="consecutive below-gate verify steps before a "
+                        "stream de-speculates")
+    p.add_argument("--spec-rearm-tokens", type=int, default=256,
+                   help="emitted tokens before a gated stream re-arms "
+                        "speculation (doubles each time it re-gates; "
+                        "0 = gated streams never re-arm)")
+    p.add_argument("--draft-model-config", default=None,
+                   help="canned ModelConfig name for the draft model "
+                        "(speculative=draft; must share the target "
+                        "vocab, e.g. tiny for --model-config tiny). "
+                        "Drafting is batched across speculating slots "
+                        "into one device program per round")
     p.add_argument("--drain-timeout", type=float, default=60.0,
                    help="graceful-drain budget: in-flight requests get "
                         "this long to finish after SIGTERM or POST /drain "
@@ -347,8 +376,24 @@ def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
             kv_transfer_stream_idle_timeout_s=(
                 args.kv_transfer_stream_idle_timeout),
             kv_dedup_admission=not args.no_kv_dedup_admission,
+            speculative=args.speculative,
+            num_speculative_tokens=args.num_speculative_tokens,
+            spec_adaptive=args.spec_adaptive == "on",
+            spec_min_k=args.spec_min_k,
+            spec_gate_acceptance=args.spec_gate_acceptance,
+            spec_gate_window=args.spec_gate_window,
+            spec_rearm_tokens=args.spec_rearm_tokens,
         )
-        engine = TorchEngine(cfg, ecfg, params=params, device=args.device)
+        draft_cfg = None
+        if args.speculative == "draft":
+            if not args.draft_model_config:
+                raise SystemExit(
+                    "--speculative draft needs --draft-model-config")
+            # the draft computes in the engine's one dtype, as the target
+            draft_cfg = getattr(ModelConfig, args.draft_model_config)(
+                dtype=args.cache_dtype)
+        engine = TorchEngine(cfg, ecfg, params=params, device=args.device,
+                             draft_config=draft_cfg)
     elif out in _UNPORTED_ENGINES:
         raise SystemExit(f"out={out}: {_UNPORTED_ENGINES[out]} is not "
                          f"served by the PyTorch port")

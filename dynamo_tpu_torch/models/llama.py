@@ -599,6 +599,90 @@ def batch_prefill(
     return _logits(config, params, h_last)
 
 
+# the key block of flash_prefill_attention: spans cut on its boundaries
+# leave every block that can hold a visible key as it was
+SPAN_BLOCK = 256
+
+
+def spec_span(max_q_start: int, max_context: int) -> int:
+    """The prior-context window of a verify or draft forward: the longest
+    q_start of the batch rounded up to the attention's key block, at most
+    the region. The JAX version reads the whole region (``max_context``);
+    keys at or past a row's q_start are masked, so the blocks left out
+    would add exact zeros to the running softmax and the result is the
+    same bit for bit."""
+    return min(max_context, -(-max_q_start // SPAN_BLOCK) * SPAN_BLOCK)
+
+
+def batch_score(
+    config: ModelConfig,
+    params: Params,
+    ctx: Cache,
+    tokens: torch.Tensor,  # [K, T] int — T = pending + proposed tokens
+    slots: list[int],
+    q_starts: list[int],   # tokens already in each region
+    seq_lens: list[int],   # q_start + T
+    ctx_span: int,         # prior-context window (> 0 here)
+) -> torch.Tensor:
+    """Speculative-verification scorer (the JAX version's
+    ``batch_score_impl``): batch_prefill's forward and its optimistic KV
+    tail write IN PLACE, returning logits for EVERY chunk row [K, T, V]
+    (f32). Row t scores the token following tokens[:, t]. The rows
+    written for tokens rejected later are dead weight past the committed
+    length: attention masks by seq_len and the next write over the lane
+    overwrites them, so rollback is pointer truncation."""
+    _check_supported(config)
+    ks, vs, h = _batch_forward(config, params, ctx, tokens, slots, q_starts,
+                               seq_lens, ctx_span)
+    _write_chunks(ctx, ks, vs, slots, q_starts, seq_lens)
+    K, T, H = h.shape
+    return _logits(config, params, h.reshape(K * T, H)).view(K, T, -1)
+
+
+def batch_draft(
+    config: ModelConfig,
+    params: Params,
+    ctx: Cache,
+    tokens: torch.Tensor,  # [B, T] int — each slot's history catch-up chunk
+    slots: list[int],
+    q_starts: list[int],   # draft KV already in each region
+    seq_lens: list[int],   # q_start + the chunk's real length
+    ctx_span: int,         # prior-context window, covering every step
+    k: int,                # draft depth
+    m: int = 1,            # branches a level: only the linear chain
+) -> torch.Tensor:
+    """Draft ``k`` greedy tokens for every row (the JAX version's
+    ``batch_draft_impl`` with m = 1): the catch-up chunk runs as a
+    batch_prefill forward, then k-1 batched single-token steps with
+    argmax feedback, all queued on the device with no host sync between
+    them. Returns drafted [B, k] (int64, on the device).
+
+    KV bookkeeping: the chunk lands at [q_start, seq_len), step s writes
+    at seq_len + s, and the last drafted token's KV is never computed (it
+    is never fed back. The comb-tree drafts of m > 1 raise (tree
+    speculation, ROADMAP item 7b)."""
+    _check_supported(config)
+    if m != 1:
+        raise NotImplementedError(
+            "batch_draft with m > 1 (tree drafts) is not ported yet "
+            "(ROADMAP item 7b)")
+    ks, vs, h = _batch_forward(config, params, ctx, tokens, slots, q_starts,
+                               seq_lens, ctx_span)
+    _write_chunks(ctx, ks, vs, slots, q_starts, seq_lens)
+    last = [max(s - q - 1, 0) for s, q in zip(seq_lens, q_starts)]
+    h_last = torch.stack([h[i, t] for i, t in enumerate(last)])
+    drafted = [torch.argmax(_logits(config, params, h_last), dim=-1)]
+    for s in range(k - 1):
+        pos = [sl + s for sl in seq_lens]
+        sl = [p + 1 for p in pos]
+        ks, vs, h = _batch_forward(config, params, ctx, drafted[-1][:, None],
+                                   slots, pos, sl, ctx_span)
+        _write_chunks(ctx, ks, vs, slots, pos, sl)
+        drafted.append(torch.argmax(_logits(config, params, h[:, 0]),
+                                    dim=-1))
+    return torch.stack(drafted, dim=1)
+
+
 # ---------------------------------------------------------------------------
 # Decode
 

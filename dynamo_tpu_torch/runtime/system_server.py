@@ -20,7 +20,7 @@ operators scrape workers directly, apart from the frontend's metrics:
 Left out, with the planes that bring them (ROADMAP Queue 1): the other
 ``/debug/*`` routes, which answer 404 with a body naming the item
 (flight, prof, trace and outliers: item 10; tenants: item 8); the
-families of the planes the port lacks (PROF, PLANNER, SPEC, FLEET_FEED,
+families of the planes the port lacks (PROF, PLANNER, FLEET_FEED,
 TENANT, FORENSICS) and the engine's latency histograms (item 10).
 """
 from __future__ import annotations
@@ -31,6 +31,7 @@ from typing import Any
 
 from dynamo_tpu_torch.frontend.http import HttpServer, Request, Response
 from dynamo_tpu_torch.kv_fleet_metrics import KV_FLEET
+from dynamo_tpu_torch.spec.metrics import SPEC
 from dynamo_tpu_torch.kv_integrity import KV_INTEGRITY
 from dynamo_tpu_torch.kv_quant import KV_QUANT
 from dynamo_tpu_torch.kv_transfer_metrics import KV_TRANSFER
@@ -164,7 +165,7 @@ class SystemServer:
         return ("\n".join(lines) + "\n" + RESILIENCE.render()
                 + KV_TRANSFER.render() + KV_QUANT.render()
                 + KV_INTEGRITY.render() + OVERLOAD.render()
-                + STORE.render() + KV_FLEET.render())
+                + STORE.render() + KV_FLEET.render() + SPEC.render())
 
     async def handle_metrics(self, request: Request) -> Response:
         if OPENMETRICS_CONTENT_TYPE in request.headers.get("Accept", ""):

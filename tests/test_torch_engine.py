@@ -129,8 +129,9 @@ def test_unported_engine_knobs_raise():
     TEngineConfig(round_pipeline=False)  # the strict order stays reachable
     with pytest.raises(ValueError, match="kv_quant"):
         TEngineConfig(kv_quant="fp8")
-    with pytest.raises(ValueError, match="speculative"):
-        TEngineConfig(speculative="ngram")
+    TEngineConfig(speculative="ngram")  # ported: the linear chain
+    with pytest.raises(ValueError, match="spec_tree"):
+        TEngineConfig(speculative="ngram", spec_tree=True)
     with pytest.raises(ValueError, match="preempt_running"):
         TEngineConfig(preempt_running=True)
 

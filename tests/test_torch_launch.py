@@ -75,7 +75,8 @@ def test_parse_io_refuses_other_words():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--speculative", "ngram"], "--speculative='ngram'"),
+    (["out=torch", "--model-config", "tiny", "--speculative", "draft"],
+     "--speculative draft needs --draft-model-config"),
     (["in=endpoint"], "in=endpoint requires --control-plane"),
     (["--model-path", "/models/x"], "--model-path"),
     (["--tensor-parallel-size", "2"], "--tensor-parallel-size=2"),
@@ -327,16 +328,15 @@ FLEET_FIELDS = ("kv_replication_target", "kv_prefetch_hot_k",
                 "kv_prefetch_interval_s", "kv_freq_halflife_s",
                 "kv_dedup_admission")
 # what the parser still refuses: the reference's flags of planes the port
-# does not serve yet (the fleet economy's five left this list)
+# does not serve yet (the fleet economy's five left this list, and then
+# the linear speculation's eight)
 REFUSED = {
     "--model-path", "--trace-sample-rate", "--tensor-parallel-size",
     "--max-waiting-requests", "--max-waiting-prefill-tokens",
     "--preempt-running", "--prof-attribution", "--slo-ttft-target",
     "--slo-itl-target", "--slo-objective", "--forensics-sample-rate",
-    "--speculative", "--num-speculative-tokens", "--spec-adaptive",
-    "--spec-min-k", "--spec-tree", "--spec-branches", "--spec-tree-budget",
-    "--spec-gate-acceptance", "--spec-gate-window", "--spec-rearm-tokens",
-    "--draft-model-config", "--num-nodes", "--node-rank", "--leader-addr",
+    "--spec-tree", "--spec-branches", "--spec-tree-budget",
+    "--num-nodes", "--node-rank", "--leader-addr",
 }
 
 
