@@ -262,6 +262,22 @@ Phases, each printing a line (any failure raises and exits non-zero):
      verify's scorer at the burst's shape with the span bounded to the
      attention's 256-key block and over the whole region: bit-equal, each
      one's wall and device ms;
+  8c. speculation tree: tree speculation on the same weights, prompts
+     and plain runs (K = 4 adaptive, 4 branches, the auto budget of 17
+     nodes), four arms: TN (dense, n-gram trie), TQ (int8 KV, n-gram
+     trie: the int8 commit), TD (dense, comb drafts from the 1B draft:
+     m > 1 drafting, rejection, de-speculation) and TS (dense, the 8B as
+     its own comb draft). Held as the linear arms are (near-ties, the
+     mode's flash-decode launches inside replayed graphs, the kernels
+     line's launches_spec_tree), with dynamo_spec_tree_nodes_total moving;
+     TN accepts and draws one seeded temperature-0.8 stream twice, TD
+     de-speculates. Printed per arm besides the linear arm's figures:
+     effective M, branch_accept_hist, and its verify, draft and tok/s
+     beside its linear counterpart's. Then the 8 plain dense streams
+     teacher-forced through greedy tree verifies (a wrong sibling first,
+     the true chain under node 2): the path goes through node 2, the
+     emitted tokens equal the stream up to a near-tie, and every
+     committed row is within SPEC_TREE_KV_TOL of a linear batch_score's;
   9. serve w8a16: the same weights quantized on the card
      (quantize_params), the serve burst and repeat again at full width
      and depth; every decode step must run both kernels on every layer
@@ -693,7 +709,7 @@ def w8a16_bound_ms(M, N, K, x_bytes, out_bytes):
 # the 8B layer products' widths: a decode step (1, 8, 32) and prefill
 # rows (the serve's groups run 128..2048; 200 is ragged; 4096 a chunk at
 # the largest bucket)
-W8A16_LAYER_M = (1, 8, 32, 64, 128, 200, 512, 1024, 2048, 4096)
+W8A16_LAYER_M = (1, 8, 32, 64, 128, 136, 200, 512, 1024, 2048, 4096)
 W8A16_8B_LAYERS = (("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024),
                    ("wg/wu", 4096, 14336), ("wd", 14336, 4096))
 # products a layer of each shape
@@ -705,7 +721,8 @@ def w8a16_cases():
     layer weight shape at each M of ``W8A16_LAYER_M`` in bf16 (M >=
     w8a16.WGMMA_MIN_M runs the wgmma kernel, below it the mma kernel); the
     lm_head's f32 logits at M = 1, 8, 32, 40 (a speculative verify of 8
-    slots at K = 4) and 1024; the Llama-3.2-1B tied
+    slots at K = 4), 136 (a tree verify of 8 slots at the auto budget of
+    17 nodes) and 1024; the Llama-3.2-1B tied
     logits (the embedding [V, H] read as "nk") at M = 8; the tiny model's
     shapes in f32 (both layouts) and in bf16 (tails narrower than a
     128-channel tile)."""
@@ -716,8 +733,11 @@ def w8a16_cases():
             cases.append((f"8b {name}", M, K, N, "kn", bf, bf))
         if M in (1, 8, 32, 1024):
             cases.append(("8b lm_head", M, 4096, 128256, "kn", bf, f32))
-    # a speculative verify's logits: B x (K+1) = 8 x 5 rows
+    # a speculative verify's logits: B x (K+1) = 8 x 5 rows, and a tree
+    # verify's at the auto budget, 8 x (1 + 4 x 4) = 136 (its layer
+    # products are W8A16_LAYER_M's 136)
     cases.append(("8b lm_head", 40, 4096, 128256, "kn", bf, f32))
+    cases.append(("8b lm_head", 136, 4096, 128256, "kn", bf, f32))
     cases.append(("1b tied logits", 8, 2048, 128256, "nk", bf, f32))
     for M in (4, 37):
         for name, K, N in (("wq", 64, 64), ("wk", 64, 32), ("wg", 64, 128),
@@ -4243,25 +4263,31 @@ def spec_prompts(vocab: int):
 class SpecMeter:
     """Records, on a speculating engine: the host wall and device time
     (CUDA events around the call) of each fused round's graph replay, of
-    each draft call (the batched draft, or each per-slot proposal) and of
-    each verify, and the effective K of every slot that joined a verify
-    round."""
+    each draft call (the batched draft or comb, or each per-slot proposal
+    or trie) and of each verify (chain or tree), and the effective K (and
+    under a tree M) of every slot that joined a verify round."""
 
     def __init__(self, eng):
-        self.rounds, self.drafts, self.verifies, self.ks = [], [], [], []
+        self.rounds, self.drafts, self.verifies = [], [], []
+        self.ks, self.fans = [], []
         spec = eng.spec
         eng.graphs.round = self._timed(eng.graphs.round, self.rounds)
-        spec.propose = self._timed(spec.propose, self.drafts)
-        spec.propose_batch = self._timed(spec.propose_batch, self.drafts)
-        spec.verify = self._timed(spec.verify, self.verifies)
-        k_for = spec.k_for
+        for name in ("propose", "propose_batch", "propose_tree",
+                     "propose_batch_tree"):
+            setattr(spec, name, self._timed(getattr(spec, name), self.drafts))
+        for name in ("verify", "verify_tree"):
+            setattr(spec, name, self._timed(getattr(spec, name),
+                                            self.verifies))
+        for name, into in (("k_for", self.ks), ("m_for", self.fans)):
+            setattr(spec, name, self._seen(getattr(spec, name), into))
 
-        def k_seen(slot):
-            k = k_for(slot)
-            self.ks.append(k)
-            return k
-
-        spec.k_for = k_seen
+    @staticmethod
+    def _seen(fn, into):
+        def seen(slot):
+            v = fn(slot)
+            into.append(v)
+            return v
+        return seen
 
     @staticmethod
     def _timed(fn, into):
@@ -4413,7 +4439,10 @@ def check_teacher_forced(cfg, params, prompts, plain):
     return err, gap, q_err
 
 
-def spec_engine(cfg, params, kv_quant, mode, draft=None):
+def spec_engine(cfg, params, kv_quant, mode, draft=None, tree=False):
+    """A speculating engine of the default EngineConfig, K = SPEC_K
+    adaptive; ``tree`` turns on tree speculation at the default fan (4)
+    and the auto budget (1 + K * 4 = 17 nodes)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
 
@@ -4422,7 +4451,8 @@ def spec_engine(cfg, params, kv_quant, mode, draft=None):
         kw = dict(draft_config=draft[0], draft_params=draft[1])
     return TorchEngine(cfg, EngineConfig(
         kv_quant=kv_quant, speculative=mode, num_speculative_tokens=SPEC_K,
-        spec_adaptive=True), params=params, device="cuda", **kw)
+        spec_adaptive=True, spec_tree=tree), params=params, device="cuda",
+        **kw)
 
 
 def spec_plain(cfg, params, kv, prompts, lps):
@@ -4448,17 +4478,21 @@ def spec_plain(cfg, params, kv, prompts, lps):
 
 
 def spec_arm(name, cfg, params, kv, mode, draft, prompts, lps, plain,
-             plain_tps, reset=None):
+             plain_tps, reset=None, tree=False):
     """One speculative arm's burst on a fresh engine, held to the plain
     run's streams, its fused rounds' kernel launches checked. ``reset``
     zeroes other kernels' counts, as the flash-decode ones are, after the
-    engine is built (its graph captures run rounds) and before the burst.
-    Returns (spec stats, the mode's kernel launches, a short summary)."""
+    engine is built (its graph captures run rounds) and before the burst;
+    ``tree`` speculates trees (the tree node counter must move). Returns
+    (spec stats with the arm's verify_ms, draft_ms and tok/s, the mode's
+    kernel launches, a short summary)."""
     from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.spec.metrics import SPEC
 
     L = cfg.num_layers
-    eng = spec_engine(cfg, params, kv, mode, draft)
+    eng = spec_engine(cfg, params, kv, mode, draft, tree)
     meter = SpecMeter(eng)
+    nodes0 = SPEC.get("dynamo_spec_tree_nodes_total")
     steps0 = eng.step_count
     fd.launches = fd.launches_int8 = 0
     eng.kernel_launches = 0
@@ -4479,6 +4513,11 @@ def spec_arm(name, cfg, params, kv, mode, draft, prompts, lps, plain,
             f"{L} layers")
     check_replayed(eng, f"speculation {name}")
     st = eng.spec.stats()
+    nodes = SPEC.get("dynamo_spec_tree_nodes_total") - nodes0
+    if tree and not (nodes > 0 and nodes == st["spec_tree_nodes_total"]):
+        raise AssertionError(f"speculation {name}: dynamo_spec_tree_nodes_"
+                             f"total moved by {nodes} (stats "
+                             f"{st['spec_tree_nodes_total']})")
     compared, ties, gaps = hold_to_plain(f"speculation {name}", res, plain)
     for i in SPEC_LP:
         if "spec" in res[i][2]:
@@ -4499,11 +4538,21 @@ def spec_arm(name, cfg, params, kv, mode, draft, prompts, lps, plain,
                *meter.ms(meter.rounds, len(meter.rounds) * steps_a_round)))
     what = ("" if draft is None else ", draft " + (
         "self" if draft[0] is cfg else "Llama-3.2-1B"))
-    log(f"speculation {name} (kv {kv}, {mode}{what}): acceptance {acc:.4f} "
+    m_part = ""
+    if tree:
+        mm = np.asarray(meter.fans, np.float64)
+        m_part = (f", M mean {mm.mean() if len(mm) else 0.0:.3f}; "
+                  f"{st['spec_tree_nodes_total']} tree nodes scored "
+                  f"(dynamo_spec_tree_nodes_total), accepted path tokens "
+                  f"{st['spec_tree_accepted_path_len_total']}, "
+                  f"branch_accept_hist {st['spec_branch_accept_hist']}")
+    log(f"speculation {name} (kv {kv}, {mode}{what}"
+        f"{', tree' if tree else ''}): acceptance {acc:.4f} "
         f"({st['spec_accepted_total']}/{st['spec_proposed_total']}), "
         f"{per_step:.3f} tokens a slot's verify step over {vsteps} slot "
         f"steps in {n} verify dispatches; effective K mean "
-        f"{k_dist[0]:.3f} p50 {k_dist[1]:.1f} p95 {k_dist[2]:.1f}; despecs "
+        f"{k_dist[0]:.3f} p50 {k_dist[1]:.1f} p95 {k_dist[2]:.1f}"
+        f"{m_part}; despecs "
         f"{st['spec_despec_total']} (gated {st['spec_gated_despec_total']})"
         f"; a verify dispatch: draft {draft_ms[0]:.2f} ms wall "
         f"{draft_ms[1]:.2f} ms device, verify {verify_ms[0]:.2f} ms wall "
@@ -4515,6 +4564,8 @@ def spec_arm(name, cfg, params, kv, mode, draft, prompts, lps, plain,
     del eng, meter
     gc.collect()
     torch.cuda.empty_cache()
+    st = dict(st, verify_ms=verify_ms, draft_ms=draft_ms, tps=tps,
+              per_step=per_step, ties=ties)
     return st, ran, (f"{name} acc {acc:.3f} {per_step:.2f} tok/step "
                      f"{tps:.0f}/{plain_tps:.0f} tok/s verify "
                      f"{verify_ms[1]:.0f} ms ties {ties}")
@@ -4580,12 +4631,13 @@ def time_verify_span(cfg, params, lens):
     return times
 
 
-def check_seeded_spec(cfg, params, prompt):
+def check_seeded_spec(cfg, params, prompt, tree=False):
     """A seeded temperature-0.8 request on two fresh N engines (dense,
-    ngram) must draw one stream, speculating."""
+    ngram; TN under ``tree``) must draw one stream, speculating."""
+    name = "TN" if tree else "N"
     seeded = []
     for _ in range(2):
-        eng = spec_engine(cfg, params, "none", "ngram")
+        eng = spec_engine(cfg, params, "none", "ngram", tree=tree)
 
         async def go(eng=eng):
             out = await generate_all(eng, [prompt], SPEC_NEW,
@@ -4596,9 +4648,9 @@ def check_seeded_spec(cfg, params, prompt):
         del eng
     if (seeded[0][0] != seeded[1][0] or len(seeded[0][0]) != SPEC_NEW
             or "spec" not in seeded[0][2]):
-        raise AssertionError("speculation N: the seeded temperature-0.8 "
-                             "streams differ")
-    log(f"speculation N: a seeded temperature-0.8 request on two engines "
+        raise AssertionError(f"speculation {name}: the seeded "
+                             f"temperature-0.8 streams differ")
+    log(f"speculation {name}: a seeded temperature-0.8 request on two engines "
         f"drew one stream of {SPEC_NEW} tokens (acceptance "
         f"{seeded[0][2]['spec']['acceptance_rate']:.4f})")
 
@@ -4616,7 +4668,8 @@ def check_speculation(params):
     kernels line's launches_spec) inside replayed graphs; N must accept
     tokens and D de-speculate; a seeded temperature-0.8 request twice on
     N must draw one stream. Returns the (dense, int8) kernel launches of
-    the speculative arms."""
+    the speculative arms and what the tree phase reuses: the prompts,
+    the plain runs and each arm's verify and draft ms."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import ModelConfig
 
@@ -4648,11 +4701,13 @@ def check_speculation(params):
             ("S", "none", "draft", (cfg, params)))
     launches = {"none": 0, "int8": 0}
     short = []
+    linear = {}
     for name, kv, mode, draft in arms:
         st, ran, line = spec_arm(name, cfg, params, kv, mode, draft, prompts,
                                  lps, plain[kv], plain_tps[kv])
         launches[kv] += ran
         short.append(line)
+        linear[name] = st
         if name == "N":
             if not st["spec_accepted_total"]:
                 raise AssertionError("speculation N: no token accepted")
@@ -4664,6 +4719,197 @@ def check_speculation(params):
         cfg, params, [len(p) for p in prompts[:8]])
     short.append(f"span {bounded[1]:.0f}/{full[1]:.0f} ms; forced lp "
                  f"{tf_err:.3f} gap {tf_gap:.3f} (w8a16 lp {tf_q:.3f})")
+    figures("; ".join(short))
+    return launches["none"], launches["int8"], dict(
+        prompts=prompts, lps=lps, plain=plain, plain_tps=plain_tps,
+        linear=linear)
+
+
+# teacher-forced through a tree verify, no committed KV row (a position's
+# K or V of one layer, all kv heads) may differ from the one a linear
+# batch_score of the same true chain writes by more than this relative L2
+# norm. Both compute the same tokens at the same positions over the same
+# prior context; only the products' row counts (8 x 6 against 8 x 5) and
+# the masked chunk differ, so bf16 rounding apart they agree, while a
+# sibling's row or a row at the wrong position differs by about 1.4
+SPEC_TREE_KV_TOL = 0.05
+
+
+def check_tree_forced(cfg, params, prompts, plain):
+    """The plain dense streams of ``prompts`` teacher-forced through the
+    tree verify (verifier.spec_verify_tree, greedy): each row's tree is
+    the pending token with two children, node 1 the plain step's top-2
+    runner-up (a wrong token) and node 2 the stream's true next token,
+    the true continuation chained under node 2 to depth K. Each row
+    advances by the tokens its verify committed. The path must go through
+    node 2 and the emitted tokens equal the plain stream, except where
+    the plain top-2 gap is a near-tie (<= SPEC_TIE); the committed rows
+    must agree with those a linear batch_score of the true chain writes
+    at the same positions (SPEC_TREE_KV_TOL). Returns (verify calls,
+    steps through node 2, near-ties, the largest row difference)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.spec import verifier
+
+    ecfg = EngineConfig()
+    S, K = ecfg.max_context, SPEC_K
+    B, T = len(prompts), K + 2
+    dev, dtype = params["norm_f"].device, params["norm_f"].dtype
+    seqs = [list(p) + list(toks) for p, (toks, *_) in zip(prompts, plain)]
+    start = [len(p) - 1 for p in prompts]
+    q = list(start)
+    parents = torch.tensor([[-1, 0, 0] + list(range(2, K + 1))] * B,
+                           device=dev)
+    calls = through = 0
+    ties = []
+    with torch.no_grad():
+        tctx = llama.init_ctx(cfg, B, S, dtype, dev)
+        for i, p in enumerate(prompts):
+            llama.batch_prefill(cfg, params, tctx, torch.tensor(
+                [p[:-1]], device=dev), [i], [0], [len(p) - 1])
+        lctx = {n: t.clone() for n, t in tctx.items()}
+        while True:
+            act = [i for i in range(B) if q[i] - start[i] + K < SPEC_NEW]
+            if not act:
+                break
+            calls += 1
+            qs = [q[i] for i in act]
+            top = [plain[i][4][q[i] - start[i]] for i in act]
+            toks = torch.tensor(
+                [[seqs[i][q[i]], tp[1][0]] + seqs[i][q[i] + 1:q[i] + K + 1]
+                 for i, tp in zip(act, top)], device=dev)
+            n = len(act)
+            span = llama.spec_span(max(qs), S)
+            packed = verifier.spec_verify_tree(
+                cfg, params, tctx, toks, None, parents[:n], act, qs,
+                [x + T for x in qs], torch.zeros(n, 2, dtype=torch.long,
+                                                 device=dev),
+                torch.zeros(n, device=dev),
+                torch.zeros(n, dtype=torch.int32, device=dev),
+                torch.ones(n, device=dev), ecfg.max_top_k, span, K).cpu()
+            chain = torch.tensor([seqs[i][q[i]:q[i] + K + 1] for i in act],
+                                 device=dev)
+            llama.batch_score(cfg, params, lctx, chain, act, qs,
+                              [x + K + 1 for x in qs], span)
+            for r, i in enumerate(act):
+                n_out = int(packed[r, 2 * K + 1])
+                path = [int(x) for x in packed[r, K + 1:K + n_out]]
+                out = [int(x) for x in packed[r, :n_out]]
+                j = q[i] - start[i]            # the plain step of out[0]
+                want = seqs[i][q[i] + 1:q[i] + 1 + n_out]
+                for m, (a, b) in enumerate(zip(out, want)):
+                    if a != b:
+                        gap = (plain[i][4][j + m][0][1]
+                               - plain[i][4][j + m][1][1])
+                        if gap > SPEC_TIE:
+                            raise AssertionError(
+                                f"speculation tree forced: stream {i} gave "
+                                f"{a} for {b} at step {j + m} (path {path},"
+                                f" top-2 gap {gap:.4f} > {SPEC_TIE})")
+                        ties.append(round(gap, 4))
+                        break
+                if path and path[0] == 1:
+                    # the runner-up won a near-tie: its row is not the
+                    # stream's, so only the pending row is kept
+                    q[i] += 1
+                    continue
+                through += bool(path)
+                q[i] += n_out
+        worst, at = 0.0, None
+        for i in range(B):
+            for name in ("k", "v"):
+                a = tctx[name][:, :, i, start[i]:q[i]].float()
+                b = lctx[name][:, :, i, start[i]:q[i]].float()
+                # [L, kvh, rows, hd] -> one vector a (layer, row)
+                a, b = a.permute(0, 2, 1, 3).flatten(2), \
+                    b.permute(0, 2, 1, 3).flatten(2)
+                rel = (a - b).norm(dim=-1) / b.norm(dim=-1).clamp(min=1e-6)
+                m = rel.max().item()
+                if m > worst:
+                    flat = int(rel.argmax())
+                    worst, at = m, (i, name, flat // rel.shape[1],
+                                    start[i] + flat % rel.shape[1])
+        del tctx, lctx
+    torch.cuda.empty_cache()
+    log(f"speculation tree forced: the plain dense streams of {B} prompts "
+        f"through {calls} greedy tree verifies (a wrong sibling, then the "
+        f"true chain of {K} under node 2): {through} row steps accepted "
+        f"through node 2, {len(ties)} near-ties {ties}; committed rows "
+        f"against a linear batch_score of the true chain: largest relative "
+        f"L2 difference {worst:.5f} (stream, k/v, layer, position {at}); "
+        f"tolerance {SPEC_TREE_KV_TOL}")
+    if not through:
+        raise AssertionError("speculation tree forced: no verify accepted "
+                             "through the true sibling")
+    if worst > SPEC_TREE_KV_TOL:
+        raise AssertionError(
+            f"speculation tree forced: a committed row differs from the "
+            f"linear scorer's by {worst:.4f} > {SPEC_TREE_KV_TOL} ({at})")
+    return calls, through, len(ties), worst
+
+
+def check_speculation_tree(params, state):
+    """Tree speculation on Llama-3.1-8B (the speculation phase's weights,
+    prompts and plain runs; default EngineConfig with K = 4 adaptive, 4
+    branches, the auto budget of 17 nodes), four arms: TN (dense, n-gram
+    trie), TQ (int8 KV, n-gram trie: the int8 commit), TD (dense, comb
+    drafts from the Llama-3.2-1B draft, random weights from seed 1:
+    m > 1 drafting, rejection, adaptive de-speculation) and TS (dense,
+    the 8B as its own comb draft: the accept path along the spine). Each
+    arm is held to the plain streams up to a near-tie, its fused rounds'
+    flash-decode launches checked (the kernels line's
+    launches_spec_tree), the tree node counter must move; TN must accept
+    and TD de-speculate; a seeded temperature-0.8 request twice on TN
+    draws one stream; then the teacher-forced tree check. Returns the
+    (dense, int8) kernel launches of the arms."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig.llama3_8b()
+    prompts, lps = state["prompts"], state["lps"]
+    plain, plain_tps, linear = (state["plain"], state["plain_tps"],
+                                state["linear"])
+    draft_1b = (ModelConfig.llama3_1b(),
+                llama.init_params(ModelConfig.llama3_1b(), SEED + 1,
+                                  device="cuda"))
+    arms = (("TN", "none", "ngram", None, "N"),
+            ("TQ", "int8", "ngram", None, "Q"),
+            ("TD", "none", "draft", draft_1b, "D"),
+            ("TS", "none", "draft", (cfg, params), "S"))
+    launches = {"none": 0, "int8": 0}
+    short = []
+    for name, kv, mode, draft, lin in arms:
+        st, ran, _ = spec_arm(name, cfg, params, kv, mode, draft, prompts,
+                              lps, plain[kv], plain_tps[kv], tree=True)
+        launches[kv] += ran
+        lv = linear[lin]
+        log(f"speculation {name} beside {lin} (same run): verify "
+            f"{st['verify_ms'][0]:.2f} ms wall {st['verify_ms'][1]:.2f} ms "
+            f"device a dispatch (linear {lv['verify_ms'][0]:.2f}, "
+            f"{lv['verify_ms'][1]:.2f}); draft {st['draft_ms'][0]:.2f} / "
+            f"{st['draft_ms'][1]:.2f} ms (linear {lv['draft_ms'][0]:.2f} / "
+            f"{lv['draft_ms'][1]:.2f}); decode {st['tps']:.1f} tok/s "
+            f"(linear {lv['tps']:.1f}, plain {plain_tps[kv]:.1f}); "
+            f"acceptance {st['spec_acceptance_rate']:.4f} (linear "
+            f"{lv['spec_acceptance_rate']:.4f})")
+        short.append(f"{name} acc {st['spec_acceptance_rate']:.3f} "
+                     f"{st['per_step']:.2f} tok/step {st['tps']:.0f}/"
+                     f"{plain_tps[kv]:.0f} tok/s verify "
+                     f"{st['verify_ms'][1]:.0f} (lin "
+                     f"{lv['verify_ms'][1]:.0f}) ms ties {st['ties']}")
+        if name == "TN":
+            if not st["spec_accepted_total"]:
+                raise AssertionError("speculation TN: no token accepted")
+            check_seeded_spec(cfg, params, prompts[-1], tree=True)
+        if name == "TD" and not st["spec_despec_total"]:
+            raise AssertionError("speculation TD: no slot de-speculated")
+    del draft_1b
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls, through, ties, worst = check_tree_forced(
+        cfg, params, prompts[:8], plain["none"][:8])
+    short.append(f"forced: {calls} verifies, {through} rows via node 2, "
+                 f"ties {ties}, kv {worst:.4f}")
     figures("; ".join(short))
     return launches["none"], launches["int8"]
 
@@ -5453,7 +5699,11 @@ def main() -> int:
     eco_launches, _ = phase("prefix economy", check_prefix_economy, params,
                             smi)
     phase("offload", check_offload, params, counts, smi)
-    spec_launches = phase("speculation", check_speculation, params)
+    *spec_launches, spec_state = phase("speculation", check_speculation,
+                                       params)
+    tree_launches = phase("speculation tree", check_speculation_tree, params,
+                          spec_state)
+    del spec_state
     # w8a16: the same weights quantized per output channel on the card
     t0 = time.monotonic()
     qparams = llama.quantize_params(params)
@@ -5497,13 +5747,15 @@ def main() -> int:
              launches_resilience=res_launches,
              launches_prefix_economy=eco_launches,
              launches_offload=counts["flash_decode_offload"],
-             launches_spec=spec_launches[0] + spec_w8[0], **fd_report),
+             launches_spec=spec_launches[0] + spec_w8[0],
+             launches_spec_tree=tree_launches[0], **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",
              launches=counts["flash_decode_int8"],
              launches_remote_kv=g4_launches,
              launches_offload=counts["flash_decode_int8_offload"],
-             launches_spec=spec_launches[1], **fd8_report),
+             launches_spec=spec_launches[1],
+             launches_spec_tree=tree_launches[1], **fd8_report),
         # no Pallas kernel: XLA's fused convert + dot of _mm and the
         # quantized _logits; the figures are one 8B decode step's 225
         # products at M = 8 (per shape: the "kernel w8a16_gemm shapes"

@@ -4,12 +4,13 @@ engine/config.py, cut to the knobs the PyTorch engine honours).
 Decode rounds are pipelined by default (``round_pipeline``, as in the
 reference) and, on the card, each round shape is replayed as one CUDA
 graph (engine/graphs.py). The G2/G3 offload tiers, the engine-local
-page-transfer plane and linear speculative decoding (``speculative``
-"ngram" or "draft", adaptive K and the acceptance gate) are served. The
-reference's other planes (tree speculation, tenancy quotas, overload
-budgets, sequence-parallel prefill) are not ported yet. Their knobs are
-kept here at the values that mean "off", and any other value raises, so
-a config written for the reference never silently runs something else.
+page-transfer plane and speculative decoding (``speculative`` "ngram" or
+"draft", adaptive K, the acceptance gate, and tree speculation under
+``spec_tree``) are served. The reference's other planes (tenancy quotas,
+overload budgets, sequence-parallel prefill) are not ported yet. Their
+knobs are kept here at the values that mean "off", and any other value
+raises, so a config written for the reference never silently runs
+something else.
 """
 from __future__ import annotations
 
@@ -33,7 +34,6 @@ def pow2_cover(n: int, lo: int = 1) -> int:
 # knobs of the reference that this engine does not serve yet, with the
 # only value it accepts (the reference's "off")
 _UNPORTED = {
-    "spec_tree": False,
     "lora_adapters": 0,
     "sp_prefill_threshold": None,
     "max_waiting_requests": 0,
@@ -158,8 +158,13 @@ class EngineConfig:
     # draft for every speculating slot in one batched program a round
     # (False: the per-slot loop, 1 + (k-1) programs a slot)
     spec_batch_draft: bool = True
-    # tree speculation (not ported: spec_tree is in _UNPORTED); the two
-    # knobs below matter only under a tree
+    # tree speculation (spec/verifier.py spec_verify_tree): proposals form
+    # a packed token tree, up to spec_branches candidates at a divergence
+    # point, verified in one forward under a tree-causal ancestor mask;
+    # acceptance walks the deepest surviving root-to-leaf path and only
+    # that path's KV rows are committed. spec_tree_budget bounds the
+    # packed node count (root included) so one verify shape serves every
+    # tree; 0 = auto (1 + K * spec_branches, the full comb)
     spec_tree: bool = False
     spec_branches: int = 4
     spec_tree_budget: int = 0

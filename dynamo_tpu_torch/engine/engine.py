@@ -99,9 +99,13 @@ PyTorch (port of the JAX package's TpuEngine main path).
     admission patch that restores its token, context, keys and penalty
     counts (``_despeculate``); the acceptance gate does the same and may
     re-arm it later. Rounds are not pipelined while a slot speculates
-    (``pipe_flushes["spec"]``).
+    (``pipe_flushes["spec"]``). Under ``spec_tree`` a round packs a token
+    tree a slot instead (``_dispatch_spec_tree``: an n-gram trie, or a
+    comb from one batched draft), verifies it under a tree-causal mask,
+    commits only the accepted path's KV rows, and returns one packed
+    [B, 2D+4] result (``_process_spec_tree``).
 
-Not ported yet (ROADMAP.md): tree speculation (item 7b), tenant quotas
+Not ported yet (ROADMAP.md): tenant quotas
 and adapters, overload budgets and preemption, multimodal, MoE, and the
 ``g4_fetch`` and ``g4_chunk`` spans of a fetch and the ``spec_draft`` and
 ``spec_verify`` spans of a round (item 10).
@@ -150,6 +154,7 @@ from dynamo_tpu_torch.protocols.common import (
 )
 from dynamo_tpu_torch.spec.decoder import SpecDecoder
 from dynamo_tpu_torch.spec.metrics import SPEC
+from dynamo_tpu_torch.spec.proposer import comb_parents
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 log = logging.getLogger(__name__)
@@ -298,6 +303,7 @@ class _Entry:
     pool, in ``lp_fetch``)."""
 
     kind: str                      # "round" | "first" | "offload" | "spec"
+                                   # | "spec_tree"
     fetch: _Fetch
     lp_fetch: Optional[_Fetch] = None
     # round: the slot snapshot at dispatch
@@ -310,6 +316,8 @@ class _Entry:
     parents: list[int] = field(default_factory=list)
     # spec: (slot, request, history length at dispatch) per row
     rows: list[tuple] = field(default_factory=list)
+    # spec_tree: (round fan M, parents [n, T], proposal nodes a row)
+    tree: Optional[tuple] = None
 
 
 # closes an export stream's chunk queue (engine loop -> consumer)
@@ -962,55 +970,45 @@ class TorchEngine:
 
     # ---- speculative decoding (spec/): propose -> verify ----
 
-    def _dispatch_spec(self) -> bool:
-        """Collect the spec-ready slots, draft K tokens for all of them
-        (one batched draft program, or the host n-gram lookup), and
-        dispatch one score + accept program over them. The verify writes
-        K+1 KV rows a slot optimistically; the host commits only the
-        accepted prefix (rollback is pointer truncation). K is the ROUND
-        width: the bucketed max of the participants' effective K. Returns
-        True if anything was dispatched."""
-        e = self.ecfg
-        K_cap = self.spec.k
+    def _spec_rows(self, width: int
+                   ) -> tuple[list[tuple[int, _Request, int]], bool]:
+        """The spec-ready slots as (slot, request, history length) rows.
+        A verify writes up to ``width`` rows at [N-1, N-1+width) (the
+        chain's K_cap+1, a tree's budget): a slot where that no longer
+        fits the region gets its last tokens from the fused round,
+        checked before anything is packed (the round's width is not known
+        yet, and the dense commit would clamp its start). Returns (rows,
+        whether a slot was de-speculated)."""
         rows: list[tuple[int, _Request, int]] = []
-        ks: list[int] = []
-        dispatched = False
+        despec = False
         for slot, r in enumerate(self._slots):
             if (r is None or not r.spec or not r.spec_ready or r.finished
                     or r.cancelled or r.spec_inflight):
                 continue
             n_hist = len(r.spec_tokens)
-            # the verify writes up to K_cap+1 rows at [N-1, N+K): when that
-            # no longer fits the region, the slot's last tokens come from
-            # the fused round (checked against the cap: the round's width
-            # is not known yet)
-            if (n_hist - 1) + K_cap + 1 > e.max_context:
+            if (n_hist - 1) + width > self.ecfg.max_context:
                 self._despeculate(slot, r)
-                dispatched = True
+                despec = True
                 continue
             rows.append((slot, r, n_hist))
-            ks.append(self.spec.k_for(slot))
-        if not rows:
-            return dispatched
-        K = self.spec.round_k(ks)
+        return rows, despec
+
+    def _spec_knobs(self, rows: list[tuple[int, _Request, int]]):
+        """Device tensors of the rows' keys, temperatures, top-k and
+        top-p, and their penalties: None when no row carries any (the
+        [n, V] counts upload and the row-by-row accept cost nothing on
+        other rounds), else (counts [n, V], freq, pres, rep [n])."""
         n = len(rows)
-        toks = np.zeros((n, K + 1), np.int32)
         keys = np.zeros((n, 2), np.int64)
         temps = np.zeros(n, np.float32)
         top_ks = np.zeros(n, np.int32)
         top_ps = np.ones(n, np.float32)
-        slots = [slot for slot, _, _ in rows]
-        q_starts = [n_hist - 1 for _, _, n_hist in rows]
-        seq_lens = [n_hist + K for _, _, n_hist in rows]
-        # penalties only when a row carries them: the [n, V] counts upload
-        # and the row-by-row accept cost nothing on other rounds
         pen = None
         if any(r.spec_counts is not None for _, r, _ in rows):
             pen = (np.zeros((n, self.config.vocab_size), np.int32),
                    np.zeros(n, np.float32), np.zeros(n, np.float32),
                    np.ones(n, np.float32))
-        for j, (slot, r, _) in enumerate(rows):
-            toks[j, 0] = r.spec_tokens[-1]    # the pending token
+        for j, (_, r, _) in enumerate(rows):
             keys[j] = r.spec_keys
             kn = _sampling_knobs(r.req.sampling_options)
             temps[j], top_ks[j], top_ps[j] = kn["temp"], kn["top_k"], \
@@ -1019,6 +1017,32 @@ class TorchEngine:
                 pen[0][j] = r.spec_counts
                 pen[1][j], pen[2][j], pen[3][j] = kn["freq"], kn["pres"], \
                     kn["rep"]
+        dev = self._to_device
+        return ((dev(keys), dev(temps), dev(top_ks), dev(top_ps)),
+                None if pen is None else tuple(dev(a) for a in pen))
+
+    def _dispatch_spec(self) -> bool:
+        """Collect the spec-ready slots, draft K tokens for all of them
+        (one batched draft program, or the host n-gram lookup), and
+        dispatch one score + accept program over them. The verify writes
+        K+1 KV rows a slot optimistically; the host commits only the
+        accepted prefix (rollback is pointer truncation). K is the ROUND
+        width: the bucketed max of the participants' effective K. Returns
+        True if anything was dispatched."""
+        if self.spec.tree:
+            return self._dispatch_spec_tree()
+        e = self.ecfg
+        rows, despec = self._spec_rows(self.spec.k + 1)
+        if not rows:
+            return despec
+        K = self.spec.round_k([self.spec.k_for(slot) for slot, _, _ in rows])
+        toks = np.zeros((len(rows), K + 1), np.int32)
+        slots = [slot for slot, _, _ in rows]
+        q_starts = [n_hist - 1 for _, _, n_hist in rows]
+        seq_lens = [n_hist + K for _, _, n_hist in rows]
+        for j, (_, r, _) in enumerate(rows):
+            toks[j, 0] = r.spec_tokens[-1]    # the pending token
+        knobs, pen = self._spec_knobs(rows)
         drafted = None
         if self.spec.draft is not None and e.spec_batch_draft:
             # one batched draft; its [n, K] device result is spliced into
@@ -1039,17 +1063,81 @@ class TorchEngine:
         self.dispatch_counts["spec_verify"] += 1
         packed = self.spec.verify(
             self.params, self.ctx, self._to_device(toks), drafted, slots,
-            q_starts, seq_lens, self._to_device(keys),
-            self._to_device(temps), self._to_device(top_ks),
-            self._to_device(top_ps),
-            penalties=(None if pen is None
-                       else tuple(self._to_device(a) for a in pen)))
+            q_starts, seq_lens, *knobs, penalties=pen)
+        self._queue_spec_verify(rows, _Entry(
+            kind="spec", fetch=_Fetch(packed), rows=rows, n_steps=K))
+        return True
+
+    def _queue_spec_verify(self, rows, entry: _Entry) -> None:
+        """A verify was dispatched: its rows wait for ``entry``'s fetch."""
         self.dispatch_counts["fetch"] += 1
         for _, r, _ in rows:
             r.spec_ready = False
             r.spec_inflight = True
-        self._entries.append(_Entry(kind="spec", fetch=_Fetch(packed),
-                                    rows=rows, n_steps=K))
+        self._entries.append(entry)
+
+    def _dispatch_spec_tree(self) -> bool:
+        """A tree-speculation round: at most one draft program and one
+        verify, as the linear round, and one packed [n, 2D+4] fetch
+        (tokens | accepted path | n_out | keys; verifier.spec_verify_tree).
+
+        Each row packs a token tree (flat tokens and parent pointers,
+        node 0 the pending token): the n-gram proposer's trie of its
+        top-M continuations, built on the host, or the draft model's comb
+        (M candidates a depth off a greedy spine) from one batched draft.
+        The verify scores every node under the ancestor mask, walks the
+        deepest surviving path on the device and commits only that
+        path's KV rows. The round's depth D and fan M are the bucketed
+        max of the slots' adaptive (k, m). Returns True if anything was
+        dispatched."""
+        T_cap = self.spec.tree_budget
+        rows, despec = self._spec_rows(T_cap)
+        if not rows:
+            return despec
+        K = self.spec.round_k([self.spec.k_for(slot) for slot, _, _ in rows])
+        M = self.spec.round_m([self.spec.m_for(slot) for slot, _, _ in rows])
+        draft_mode = self.spec.draft is not None
+        # a comb packs exactly 1 + K*M nodes (the device draft is spliced
+        # in whole), so M halves to fit the budget; a trie takes the whole
+        # budget, so every trie has one verify shape
+        while draft_mode and 1 + K * M > T_cap and M > 1:
+            M //= 2
+        T = 1 + K * M if draft_mode else T_cap
+        n = len(rows)
+        toks = np.zeros((n, T), np.int32)
+        parents = np.full((n, T), -2, np.int32)   # -2: padding
+        parents[:, 0] = -1                        # node 0: the root
+        nodes_used = np.zeros(n, np.int32)
+        slots = [slot for slot, _, _ in rows]
+        q_starts = [n_hist - 1 for _, _, n_hist in rows]
+        seq_lens = [n_hist - 1 + T for _, _, n_hist in rows]
+        for j, (_, r, _) in enumerate(rows):
+            toks[j, 0] = r.spec_tokens[-1]    # the pending token
+        knobs, pen = self._spec_knobs(rows)
+        drafted = None
+        if draft_mode:
+            # a comb is one batched draft's output (spine + top-M a level);
+            # its [n, K*M] device result is spliced in on the device
+            parents[:] = comb_parents(K, M)
+            nodes_used[:] = T - 1
+            self.dispatch_counts["spec_draft"] += 1
+            drafted = self.spec.propose_batch_tree(
+                [(slot, r.spec_tokens) for slot, r, _ in rows], K, M)
+        else:
+            for j, (slot, r, _) in enumerate(rows):
+                tks, prs = self.spec.propose_tree(r.spec_tokens, K, M)
+                m = min(len(tks), T - 1)
+                toks[j, 1:1 + m] = tks[:m]
+                parents[j, 1:1 + m] = prs[:m]
+                nodes_used[j] = m
+        self.dispatch_counts["spec_verify"] += 1
+        packed = self.spec.verify_tree(
+            self.params, self.ctx, self._to_device(toks), drafted,
+            self._to_device(parents), slots, q_starts, seq_lens, *knobs, K,
+            penalties=pen)
+        self._queue_spec_verify(rows, _Entry(
+            kind="spec_tree", fetch=_Fetch(packed), rows=rows, n_steps=K,
+            tree=(M, parents, nodes_used)))
         return True
 
     def _despeculate(self, slot: int, r: _Request,
@@ -1095,50 +1183,90 @@ class TorchEngine:
         rate, the gate and the despec decision act on the next round."""
         K = entry.n_steps
         for j, (slot, r, hist_len) in enumerate(entry.rows):
-            r.spec_inflight = False
-            if r.finished or self._slots[slot] is not r:
-                continue
-            if r.cancelled:
-                self._finish(r, None)
+            if not self._spec_live(slot, r):
                 continue
             n = int(packed[j, K + 1])
             accepted = n - 1
             self.spec.on_result(slot, hist_len, accepted, K)
             r.spec_proposed += K
             r.spec_accepted += accepted
-            toks = [int(t) for t in packed[j, :n]]
-            batch: list[int] = []
-            finish: Optional[FinishReason] = None
-            for tok in toks:
-                finish = self._advance_token(r, tok)
-                if finish is FinishReason.EOS:
-                    break  # the stop token itself is not emitted
-                batch.append(tok)
-                if finish is not None:
-                    break
-            if batch or finish is not None:
-                extra = ({"annotations": self._final_annotations(r)}
-                         if finish is not None else {})
-                r.emit(LLMEngineOutput(token_ids=batch, finish_reason=finish,
-                                       **extra))
+            self._land_spec(slot, r, [int(t) for t in packed[j, :n]],
+                            packed[j, K + 2:K + 4])
+
+    def _process_spec_tree(self, entry: _Entry, packed: np.ndarray) -> None:
+        """Consume one tree verify's packed [n, 2D+4] result: per row the
+        accepted path's tokens and the bonus (cols [0, D]), the accepted
+        node indices (cols [D+1, 2D]), n_out (col 2D+1) and the advanced
+        key (cols 2D+2, 2D+3). Emission is the linear path's; on top, the
+        branch histogram and the draft spine's rollback
+        (SpecDecoder.on_result_tree) and the tree counters of the SPEC
+        registry. Acceptance is counted in tokens a depth, comparable to
+        the chain's at the same K."""
+        D = entry.n_steps
+        M, parents, nodes_used = entry.tree
+        for j, (slot, r, hist_len) in enumerate(entry.rows):
+            if not self._spec_live(slot, r):
+                continue
+            n = int(packed[j, 2 * D + 1])
+            accepted = n - 1
+            self.spec.on_result_tree(
+                slot, hist_len, accepted, D, M, int(nodes_used[j]),
+                [int(x) for x in packed[j, D + 1:D + 1 + accepted]],
+                [int(x) for x in parents[j]])
+            SPEC.inc("dynamo_spec_tree_nodes_total", int(nodes_used[j]))
+            SPEC.inc("dynamo_spec_tree_accepted_path_len_total", accepted)
+            r.spec_proposed += D
+            r.spec_accepted += accepted
+            self._land_spec(slot, r, [int(t) for t in packed[j, :n]],
+                            packed[j, 2 * D + 2:2 * D + 4])
+
+    def _spec_live(self, slot: int, r: _Request) -> bool:
+        """A verify row's result landed: is its request still the slot's
+        and running? (A cancelled one finishes here.)"""
+        r.spec_inflight = False
+        if r.finished or self._slots[slot] is not r:
+            return False
+        if r.cancelled:
+            self._finish(r, None)
+            return False
+        return True
+
+    def _land_spec(self, slot: int, r: _Request, toks: list[int],
+                   keys: np.ndarray) -> None:
+        """Emit a verify row's tokens (the accepted ones and the bonus),
+        advance the host history, counts and keys, then apply the gate
+        and the despec decision, or ready the slot for the next round."""
+        batch: list[int] = []
+        finish: Optional[FinishReason] = None
+        for tok in toks:
+            finish = self._advance_token(r, tok)
+            if finish is FinishReason.EOS:
+                break  # the stop token itself is not emitted
+            batch.append(tok)
             if finish is not None:
-                self._finish(r, None)
-                continue
-            if r.spec_counts is not None:
-                # every emitted token counts, as the fused sampler's
-                # per-token advance does
-                for t in toks:
-                    r.spec_counts[t] += 1
-            r.spec_tokens.extend(toks)
-            r.spec_keys = packed[j, K + 2:K + 4].copy()
-            if self.spec.should_gate(slot):
-                self._despeculate(slot, r, gated=True)
-                continue
-            if self.spec.should_despec(slot):
-                # acceptance collapsed: a verify costs a full forward for
-                # about one token, worse than the fused round
-                self._despeculate(slot, r)
-                continue
+                break
+        if batch or finish is not None:
+            extra = ({"annotations": self._final_annotations(r)}
+                     if finish is not None else {})
+            r.emit(LLMEngineOutput(token_ids=batch, finish_reason=finish,
+                                   **extra))
+        if finish is not None:
+            self._finish(r, None)
+            return
+        if r.spec_counts is not None:
+            # every emitted token counts, as the fused sampler's
+            # per-token advance does
+            for t in toks:
+                r.spec_counts[t] += 1
+        r.spec_tokens.extend(toks)
+        r.spec_keys = keys.copy()
+        if self.spec.should_gate(slot):
+            self._despeculate(slot, r, gated=True)
+        elif self.spec.should_despec(slot):
+            # acceptance collapsed: a verify costs a full forward for
+            # about one token, worse than the fused round
+            self._despeculate(slot, r)
+        else:
             r.spec_ready = True
             self._ctx_disp[slot] = len(r.spec_tokens)
 
@@ -2078,6 +2206,9 @@ class TorchEngine:
                 spec_effective_k=k_mean,
                 spec_effective_k_p50=k_p50,
                 spec_effective_k_p95=k_p95,
+                spec_tree_nodes_total=sp.tree_nodes_total if sp else 0,
+                spec_tree_accepted_path_len_total=(
+                    sp.tree_path_len_total if sp else 0),
                 spec_gated_despecs_total=(
                     sp.gated_despec_total if sp else 0),
             ),
@@ -2369,6 +2500,8 @@ class TorchEngine:
             self._process_first(entry.request, int(data[0]), lp)
         elif entry.kind == "spec":
             self._process_spec(entry, data)
+        elif entry.kind == "spec_tree":
+            self._process_spec_tree(entry, data)
         else:
             self._process_round(entry, data, lp)
 

@@ -29,7 +29,9 @@ Engines:
                  --speculative ngram|draft (with --draft-model-config)
                  speculates the linear chain, with adaptive K
                  (--spec-adaptive, --spec-min-k) and the acceptance gate
-                 (--spec-gate-*, --spec-rearm-tokens)
+                 (--spec-gate-*, --spec-rearm-tokens), or a token tree
+                 under --spec-tree on (--spec-branches,
+                 --spec-tree-budget): an n-gram trie or a comb draft
 
 The parser keeps every flag of the reference's, so a command line written
 for it parses here; a flag of a plane the port does not serve yet is
@@ -77,12 +79,6 @@ UNPORTED_FLAGS: dict[str, tuple[dict, str]] = {
     "--slo-objective": (dict(type=float, default=0.99), "SLO burn rates"),
     "--forensics-sample-rate": (dict(type=float, default=0.0),
                                 "tail-latency forensics"),
-    "--spec-tree": (dict(default="off", choices=["on", "off"]),
-                    "tree speculation, ROADMAP item 7b"),
-    "--spec-branches": (dict(type=int, default=4),
-                        "tree speculation, ROADMAP item 7b"),
-    "--spec-tree-budget": (dict(type=int, default=0),
-                           "tree speculation, ROADMAP item 7b"),
     "--num-nodes": (dict(type=int, default=1), "multi-host engines"),
     "--node-rank": (dict(type=int, default=0), "multi-host engines"),
     "--leader-addr": (dict(default=None, metavar="HOST:PORT"),
@@ -248,7 +244,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "hard store lease expires (engines heartbeat on "
                         "idle ticks too; set well above ~1s). Default: "
                         "breaker-only health tracking")
-    # speculative decoding (dynamo_tpu_torch/spec/), the linear chain
+    # speculative decoding (dynamo_tpu_torch/spec/)
     p.add_argument("--speculative", default="off",
                    choices=["off", "ngram", "draft"],
                    help="speculative decoding: ngram = model-free "
@@ -267,6 +263,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "(exported as dynamo_spec_effective_k)")
     p.add_argument("--spec-min-k", type=int, default=1,
                    help="adaptive-K floor per slot")
+    p.add_argument("--spec-tree", default="off", choices=["on", "off"],
+                   help="tree speculation: draft up to --spec-branches "
+                        "candidates per divergence point and verify the "
+                        "whole tree in one forward under a tree-causal "
+                        "mask; acceptance keeps the deepest surviving "
+                        "root-to-leaf path")
+    p.add_argument("--spec-branches", type=int, default=4,
+                   help="branch fan per tree level (the cap when "
+                        "--spec-adaptive walks the branches axis)")
+    p.add_argument("--spec-tree-budget", type=int, default=0,
+                   help="packed tree node budget incl. the root (one "
+                        "compiled verify shape serves every tree); 0 = "
+                        "auto: 1 + K * branches")
     p.add_argument("--spec-gate-acceptance", type=float, default=0.0,
                    help="de-speculate a stream whose live acceptance "
                         "EWMA stays below this for --spec-gate-window "
@@ -380,6 +389,9 @@ def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
             num_speculative_tokens=args.num_speculative_tokens,
             spec_adaptive=args.spec_adaptive == "on",
             spec_min_k=args.spec_min_k,
+            spec_tree=args.spec_tree == "on",
+            spec_branches=args.spec_branches,
+            spec_tree_budget=args.spec_tree_budget,
             spec_gate_acceptance=args.spec_gate_acceptance,
             spec_gate_window=args.spec_gate_window,
             spec_rearm_tokens=args.spec_rearm_tokens,

@@ -304,8 +304,9 @@ def _quant_store_span(
     start: int,            # span start position
     span: torch.Tensor,    # float [L, kvh, T, hd] — new KV rows
     group: int,
-    valid_t: Optional[int] = None,  # leading span rows that are REAL
-                           # (the rest is bucket padding)
+    valid_t=None,          # leading span rows that are REAL (the rest
+                           # is bucket padding): an int, or a 0-d device
+                           # tensor (a tree commit's n_out, never synced)
 ) -> None:
     """Quantize-on-store of a contiguous span into one slot's int8 ctx.
 
@@ -329,7 +330,12 @@ def _quant_store_span(
     wf = dequantize_groups(win, sw, group)
     at = min(max(off, 0), W - T)
     wf[:, :, 0, at:at + T] = span.float()
-    vt = T if valid_t is None else min(max(valid_t, 0), T)
+    if valid_t is None:
+        vt = T
+    elif isinstance(valid_t, torch.Tensor):
+        vt = valid_t.clamp(0, T)
+    else:
+        vt = min(max(valid_t, 0), T)
     valid = (torch.arange(W, device=dev) < off + vt)[None]
     j = torch.arange(nW, device=dev)
     written = (((j + 1) * group > off) & (j * group < off + vt))[None]
@@ -503,17 +509,31 @@ def _batch_forward(
     q_starts: list[int],
     seq_lens: list[int],
     ctx_span: int,
+    depths: Optional[torch.Tensor] = None,       # [K, T] tree depths
+                           # (RoPE position q_start + depth; -1 padding)
+    chunk_masks: Optional[torch.Tensor] = None,  # [K, T, T] bool tree-
+                           # causal in-chunk visibility
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Read-only layer stack of batch_prefill: K chunks through the model
     at once (the JAX version's vmap is the batch dimension here: matmuls
     see [K*T, H] rows, attention runs per request). Returns (ks, vs, h):
-    per-layer KV [K, L, T, kvh, hd] and final hidden states [K, T, H]."""
+    per-layer KV [K, L, T, kvh, hd] and final hidden states [K, T, H].
+
+    Tree mode (``depths`` and ``chunk_masks``, always together): each
+    chunk is a packed token tree, not a linear run. Node t sits at RoPE
+    position q_start + depths[t] (siblings at one depth share it; a
+    padding node, depth -1, pins to q_start) and attends the chunk by
+    its row of ``chunk_masks`` instead of by index order."""
     c = config
     K, T = tokens.shape
     dev = tokens.device
     # built on the device: a host list copied over would sync the stream
-    positions = torch.cat([torch.arange(q, q + T, device=dev)
-                           for q in q_starts])
+    if depths is None:
+        positions = torch.cat([torch.arange(q, q + T, device=dev)
+                               for q in q_starts])
+    else:
+        positions = torch.cat([depths[i].clamp(min=0) + q
+                               for i, q in enumerate(q_starts)])
     cos, sin = rope_cos_sin(positions, _inv_freq(c, dev))
     cdt = _ctx_compute_dtype(c, ctx)
     h = _embed_rows(params, tokens.reshape(-1), cdt)        # [K*T, H]
@@ -539,7 +559,9 @@ def _batch_forward(
                     k_ctx = v_ctx = None
                 outs.append(flash_prefill_attention(
                     q[rows], k_ctx, v_ctx, k_new[rows], v_new[rows],
-                    q_starts[i], seq_lens[i]))
+                    q_starts[i], seq_lens[i],
+                    chunk_mask=(None if chunk_masks is None
+                                else chunk_masks[i])))
             return torch.cat(outs)
 
         h = _layer_body(c, _layer(params, l), h, cos, sin, write_kv, attend)
@@ -551,13 +573,14 @@ def _batch_forward(
 
 def _write_chunks(ctx: Cache, ks: torch.Tensor, vs: torch.Tensor,
                   slots: list[int], q_starts: list[int],
-                  seq_lens: Optional[list[int]] = None) -> None:
+                  seq_lens: Optional[list] = None) -> None:
     """Tail pass, after every read: each chunk's KV [L, kvh, T, hd] lands
     at [q_start, q_start+T) of its slot's region, in place. The start is
     clamped into [0, S-T] as the JAX version's dynamic_update_slice
     clamps it. An int8 region takes each span through the group
     requantize window instead, with only the rows below ``seq_lens``
-    feeding its scales."""
+    feeding its scales (ints, or 0-d device tensors: a tree commit's
+    lengths, known only on the device)."""
     S = ctx["k"].shape[3]
     T = ks.shape[2]
     if ctx_is_quantized(ctx):
@@ -639,6 +662,71 @@ def batch_score(
     return _logits(config, params, h.reshape(K * T, H)).view(K, T, -1)
 
 
+def batch_score_tree(
+    config: ModelConfig,
+    params: Params,
+    ctx: Cache,
+    tokens: torch.Tensor,       # [B, T] int packed tree (node 0 = pending)
+    slots: list[int],
+    q_starts: list[int],        # tokens already in each region
+    seq_lens: list[int],        # q_start + T
+    depths: torch.Tensor,       # [B, T] node depths (-1 = padding)
+    chunk_masks: torch.Tensor,  # [B, T, T] bool ancestor-or-self
+    ctx_span: int,              # prior-context window (> 0 here)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Tree-verification scorer (the JAX version's
+    ``batch_score_tree_impl``): one batched forward over a packed token
+    tree a row, RoPE by node depth and in-chunk attention by the ancestor
+    mask, returning (ks, vs, logits): the chunk's KV [B, L, T, kvh, hd]
+    and logits for every node [B, T, V] (f32). Row t scores the token
+    following node t's root-to-node path.
+
+    It writes nothing into the region: siblings share a RoPE position, so
+    a linear tail write would land sibling KV in rows the accepted path
+    must own. The caller accepts on the device and commits the path's
+    rows with commit_tree_path."""
+    _check_supported(config)
+    ks, vs, h = _batch_forward(config, params, ctx, tokens, slots, q_starts,
+                               seq_lens, ctx_span, depths, chunk_masks)
+    K, T, H = h.shape
+    return ks, vs, _logits(config, params, h.reshape(K * T, H)).view(K, T, -1)
+
+
+def commit_tree_path(
+    ctx: Cache,
+    ks: torch.Tensor,          # [B, L, T, kvh, hd] from batch_score_tree
+    vs: torch.Tensor,
+    path: torch.Tensor,        # [B, T] accepted node index per output
+                               # position (path[:, 0] == 0, the pending
+                               # token; entries past n_out are dead)
+    slots: list[int],
+    q_starts: list[int],
+    commit_lens: list,         # q_start + n_out a row (0-d device tensors)
+) -> None:
+    """Commit only the accepted root-to-leaf path's KV rows, IN PLACE:
+    the chunk's KV reordered by the path's node indices (sibling rows are
+    never gathered) and span-written at [q_start, q_start+T). Rows past
+    n_out gather clamped garbage but stay dead: attention masks by
+    sequence length, an int8 region's scales take only the rows below
+    ``commit_lens``, and the next round writes from there. So a tree's
+    rollback stays pointer truncation."""
+    B, L, T, kvh, hd = ks.shape
+    idx = path.clamp(0, T - 1)[:, None, :, None, None].expand(
+        B, L, T, kvh, hd)
+    _write_chunks(ctx, ks.gather(2, idx), vs.gather(2, idx), slots,
+                  q_starts, commit_lens)
+
+
+def _top_m(logits: torch.Tensor, m: int) -> torch.Tensor:
+    """[B, m] vocab ids of each row's m largest logits in ``jax.lax.top_k``'s
+    order: value descending, the lower index first among equal values,
+    also where a tie straddles the m-th place (``torch.topk`` promises no
+    order among ties, so a stable sort of the whole row). Column 0 is the
+    argmax, the linear draft's token."""
+    return torch.sort(logits, dim=-1, descending=True,
+                      stable=True).indices[:, :m]
+
+
 def batch_draft(
     config: ModelConfig,
     params: Params,
@@ -649,38 +737,45 @@ def batch_draft(
     seq_lens: list[int],   # q_start + the chunk's real length
     ctx_span: int,         # prior-context window, covering every step
     k: int,                # draft depth
-    m: int = 1,            # branches a level: only the linear chain
+    m: int = 1,            # branches a level (comb tree; 1 = the chain)
 ) -> torch.Tensor:
     """Draft ``k`` greedy tokens for every row (the JAX version's
-    ``batch_draft_impl`` with m = 1): the catch-up chunk runs as a
-    batch_prefill forward, then k-1 batched single-token steps with
-    argmax feedback, all queued on the device with no host sync between
-    them. Returns drafted [B, k] (int64, on the device).
+    ``batch_draft_impl``): the catch-up chunk runs as a batch_prefill
+    forward, then k-1 batched single-token steps with argmax feedback,
+    all queued on the device with no host sync between them. Returns
+    drafted [B, k] (int64, on the device).
 
     KV bookkeeping: the chunk lands at [q_start, seq_len), step s writes
     at seq_len + s, and the last drafted token's KV is never computed (it
-    is never fed back. The comb-tree drafts of m > 1 raise (tree
-    speculation, ROADMAP item 7b)."""
+    is never fed back).
+
+    ``m > 1`` drafts a comb tree: every level records its top-m tokens,
+    but only the top-1 spine feeds back (and owns the KV written at
+    seq_len + s). Returns [B, k*m] in level-major node order: level s in
+    columns [s*m, s*m + m), column s*m the spine (spec/proposer.py
+    comb_parents gives the parent pointers)."""
     _check_supported(config)
-    if m != 1:
-        raise NotImplementedError(
-            "batch_draft with m > 1 (tree drafts) is not ported yet "
-            "(ROADMAP item 7b)")
+
+    def pick(logits):
+        if m == 1:
+            return torch.argmax(logits, dim=-1)[:, None]
+        return _top_m(logits, m)
+
     ks, vs, h = _batch_forward(config, params, ctx, tokens, slots, q_starts,
                                seq_lens, ctx_span)
     _write_chunks(ctx, ks, vs, slots, q_starts, seq_lens)
     last = [max(s - q - 1, 0) for s, q in zip(seq_lens, q_starts)]
     h_last = torch.stack([h[i, t] for i, t in enumerate(last)])
-    drafted = [torch.argmax(_logits(config, params, h_last), dim=-1)]
+    drafted = [pick(_logits(config, params, h_last))]
     for s in range(k - 1):
         pos = [sl + s for sl in seq_lens]
         sl = [p + 1 for p in pos]
-        ks, vs, h = _batch_forward(config, params, ctx, drafted[-1][:, None],
+        # level s's spine (column 0 of its m) is fed back
+        ks, vs, h = _batch_forward(config, params, ctx, drafted[-1][:, :1],
                                    slots, pos, sl, ctx_span)
         _write_chunks(ctx, ks, vs, slots, pos, sl)
-        drafted.append(torch.argmax(_logits(config, params, h[:, 0]),
-                                    dim=-1))
-    return torch.stack(drafted, dim=1)
+        drafted.append(pick(_logits(config, params, h[:, 0])))
+    return torch.cat(drafted, dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -87,13 +87,22 @@ def flash_prefill_attention(
     q_start: int,           # tokens already in the region
     seq_len: int,           # total valid context length
     block: int = 256,
+    chunk_mask: Optional[torch.Tensor] = None,  # [T, T] bool in-chunk
+                            # visibility (tree-causal); None = causal
 ) -> torch.Tensor:
     """Blocked running-softmax prefill attention: T new tokens at
     positions q_start..q_start+T attend prior context [0, q_start) plus
     the chunk causally, bounded by seq_len. Scores never exceed
     [nh, T, block]. ``k_ctx=None`` is the fresh-prefill case (no context
     scan at all). Rows with no visible key (padding queries) emit zeros;
-    NEG_INF is finite, as in the JAX version."""
+    NEG_INF is finite, as in the JAX version.
+
+    ``chunk_mask`` replaces the causal, seq_len-bounded in-chunk mask
+    with an explicit visibility matrix (chunk_mask[i, j]: query row i
+    may attend chunk key j): a tree verify's chunk is a packed token
+    tree whose nodes attend their ancestor-or-self chain
+    (spec/verifier.py tree_meta). The prior-context scan is unchanged:
+    every node attends the whole committed prefix."""
     T, n_heads, hd = q.shape
     kvh = k_new.shape[1]
     n_rep = n_heads // kvh
@@ -131,12 +140,17 @@ def flash_prefill_attention(
         # prior context: valid below q_start (q_start <= seq_len always)
         blocked(k_ctx, v_ctx, lambda kp: (
             ((kp < q_start) & (kp < seq_len))[None, :].expand(T, -1)))
-    # the chunk itself: causal, bounded by seq_len
-    blocked(
-        k_new.transpose(0, 1).to(q.dtype), v_new.transpose(0, 1).to(q.dtype),
-        lambda kp: (((q_start + kp)[None, :] <= q_pos[:, None])
-                    & ((q_start + kp) < seq_len)[None, :]),
-    )
+    # the chunk itself: causal, bounded by seq_len, or the caller's
+    # visibility matrix sliced to the key block
+    if chunk_mask is None:
+        def in_chunk(kp):
+            return (((q_start + kp)[None, :] <= q_pos[:, None])
+                    & ((q_start + kp) < seq_len)[None, :])
+    else:
+        def in_chunk(kp):
+            return chunk_mask[:, kp]
+    blocked(k_new.transpose(0, 1).to(q.dtype),
+            v_new.transpose(0, 1).to(q.dtype), in_chunk)
     # fully masked rows: p = exp(NEG_INF - NEG_INF) = 1 per key, so l ends
     # at the key count, not 0 — gate on the running max never having seen
     # a real score and emit zeros explicitly

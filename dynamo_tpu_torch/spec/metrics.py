@@ -13,9 +13,9 @@ series whichever package serves it:
   dynamo_spec_accept_rate               live acceptance fraction (gauge,
                                         accepted/proposed)
 
-The two tree counters stay at 0 until tree speculation is ported
-(ROADMAP item 7b); the gate counter and the rate gauge are the linear
-path's too. The engine's spec result path increments them; the frontend
+The two tree counters move under tree speculation (``spec_tree``); the
+gate counter and the rate gauge under either path. The engine's spec
+result paths increment them; the frontend
 (frontend/service.py) and the worker's system server
 (runtime/system_server.py) append ``SPEC.render()`` to /metrics.
 """

@@ -1,5 +1,5 @@
 """Speculative-token proposers (port of the JAX package's
-spec/proposer.py, the linear chain).
+spec/proposer.py).
 
 Two strategies behind one contract, ``history`` being the request's
 full committed sequence (prompt + emitted output, the pending token
@@ -14,12 +14,14 @@ last):
     greedy single-token steps. The argmax chain stays on the device and
     feeds the verifier without a host round trip.
 
+Under tree speculation the n-gram proposer merges its top-M
+continuations into a token trie (``propose_tree``), and the draft model
+emits a comb, M candidates at every depth off its greedy spine, from the
+same batched draft (``comb_parents`` gives its parent pointers).
+
 Acceptance treats every proposal as a point-mass draft, so how tokens
 are proposed never biases the output distribution: a bad proposer only
 lowers the acceptance rate.
-
-Left out here: ``NGramProposer.propose_tree`` and ``comb_parents``, the
-token trees of ROADMAP item 7b.
 """
 from __future__ import annotations
 
@@ -77,6 +79,63 @@ class NGramProposer:
                     return cont + [0] * (k - len(cont))
         return [0] * k
 
+    def propose_tree(self, history: list[int], depth: int, branches: int,
+                     budget: int) -> tuple[list[int], list[int]]:
+        """Up to ``branches`` distinct continuations of the tail n-gram
+        (longest n first, most recent first: propose's order), merged
+        into one token trie: a shared prefix is one node, so continuations
+        fork where they diverge.
+
+        Returns (tokens, parents) without the root: parent 0 is the
+        pending token, any other the 1-based index of an earlier returned
+        node, ready to pack behind the verifier's node 0. At most
+        ``budget - 1`` nodes (the root takes one); with no match, the
+        linear path's zero chain."""
+        hist = history[-self.max_lookback:]
+        L = len(hist)
+        conts: list[list[int]] = []
+        for n in range(min(self.max_n, L - 1), self.min_n - 1, -1):
+            tail = hist[-n:]
+            for j in range(L - n - 1, -1, -1):
+                if hist[j: j + n] == tail:
+                    cont = hist[j + n: j + n + depth]
+                    if cont and cont not in conts:
+                        conts.append(cont)
+                        if len(conts) >= branches:
+                            break
+            if len(conts) >= branches:
+                break
+        if not conts:
+            conts = [[0] * depth]
+        tokens: list[int] = []
+        parents: list[int] = []
+        children: dict[tuple[int, int], int] = {}  # (parent, tok) -> node
+        for cont in conts:
+            parent = 0  # the pending-token root
+            for tok in cont:
+                node = children.get((parent, tok))
+                if node is None:
+                    if len(tokens) >= budget - 1:
+                        break
+                    tokens.append(tok)
+                    parents.append(parent)
+                    node = len(tokens)  # 1-based: 0 is the root
+                    children[(parent, tok)] = node
+                parent = node
+        return tokens, parents
+
+
+def comb_parents(k: int, m: int) -> list[int]:
+    """Parent pointers of the comb llama.batch_draft emits for m > 1:
+    depth k, m candidates at every level, only the spine extended. Node
+    order is the drafted [B, k*m] columns': level s holds nodes 1 + s*m
+    .. s*m + m, the first of them the spine. Returns the whole [1 + k*m]
+    list, the root's -1 included (pad with -2 up to a tree budget)."""
+    parents = [-1]
+    for s in range(k):
+        parents.extend([0 if s == 0 else 1 + (s - 1) * m] * m)
+    return parents
+
 
 class DraftModelProposer:
     """Draft-model proposer with a private contiguous ctx region (dense,
@@ -130,14 +189,17 @@ class DraftModelProposer:
         self.pos[slot] = len(history) + k - 1
         return torch.stack(drafted)
 
-    def propose_batch(self, rows: list[tuple[int, list[int]]],
-                      k: int) -> torch.Tensor:
+    def propose_batch(self, rows: list[tuple[int, list[int]]], k: int,
+                      branches: int = 1) -> torch.Tensor:
         """Draft k tokens for every ``(slot, history)`` row in one queued
         batch (llama.batch_draft): the per-row catch-up chunks as one [n,
         T] forward, then k-1 batched single-token steps. Returns [n, k] on
         the device, row-aligned with the verify batch. The JAX version
         pads to the engine's slot count with scratch-lane rows; here only
-        the live rows run."""
+        the live rows run. ``branches > 1`` drafts the comb (see
+        comb_parents) at the same cost: [n, k * branches], level-major;
+        only the spine's KV lands in the region, so the rollback pointer
+        below is the same."""
         S = self.ecfg.max_context
         chunks: list[tuple[int, list[int], int]] = []
         max_len = 1
@@ -164,7 +226,7 @@ class DraftModelProposer:
         span = llama.spec_span(max(max(q_starts), max(seq_lens) + k - 2), S)
         drafted = llama.batch_draft(self.config, self.params, self.ctx,
                                     _upload(toks, self.device), slots,
-                                    q_starts, seq_lens, span, k)
+                                    q_starts, seq_lens, span, k, branches)
         for slot, hist, _ in chunks:
             self.pos[slot] = len(hist) + k - 1
         return drafted

@@ -1,5 +1,5 @@
 """Speculative verification on the device (port of the JAX package's
-spec/verifier.py, the linear chain).
+spec/verifier.py).
 
 ``spec_verify`` scores the pending token plus the K proposed tokens of
 every speculating slot in one batched forward (``llama.batch_score``, the
@@ -30,8 +30,24 @@ Penalties: ``accept_tokens_penalized`` advances the slot's output-token
 counts histogram along the accepted prefix, row by row, as the fused
 round advances it token by token; it consumes the same key stream.
 
-Left out here: tree verification (``tree_meta``, ``accept_tree``,
-``accept_tree_penalized``, ``spec_verify_tree``), ROADMAP item 7b.
+Tree verification (``spec_verify_tree``): the proposals form a packed
+token tree a row, flat tokens [T] and parent pointers [T] (node 0 the
+pending token with parent -1, a proposal node pointing at a lower index,
+padding -2). ``tree_meta`` derives node depths and the ancestor-or-self
+visibility matrix on the device; ``llama.batch_score_tree`` scores every
+node under that tree-causal mask in one forward; acceptance walks the
+tree level by level, picking the deepest root-to-leaf path that matches
+(greedy) or survives sequential multi-draft rejection sampling
+(sampled); only that path's KV rows are committed
+(``llama.commit_tree_path``), so rollback stays pointer truncation. One
+packed [B, 2*d_max + 4] tensor returns to the host.
+
+The tree's key stream (its own, not the chain's): new_key, sub =
+split(key); subs = split(sub, T); node j draws uniform(subs[j]) whether
+or not it is tried; the bonus draws categorical(subs[0]) (node 0, the
+root, is never a candidate). The penalized walk consumes the same
+stream, so a row with zero counts and identity penalties draws the same
+on either.
 """
 from __future__ import annotations
 
@@ -62,6 +78,16 @@ def _target_dist(logits: torch.Tensor, temp: torch.Tensor,
     final_mask = mask_k & mask_p
     p = torch.softmax(torch.where(final_mask, scaled, NEG_INF), dim=-1)
     return idxs, scaled, final_mask, p
+
+
+def _penalize(row: torch.Tensor, counts: torch.Tensor, freq: torch.Tensor,
+              pres: torch.Tensor, rep: torch.Tensor) -> torch.Tensor:
+    """sampling.apply_penalties of one row a slot ([B, V])."""
+    seen = counts > 0
+    lr = row - freq[:, None] * counts.float()
+    lr = lr - pres[:, None] * seen.float()
+    pen = torch.where(lr > 0, lr / rep[:, None], lr * rep[:, None])
+    return torch.where(seen, pen, lr)
 
 
 def _emit(proposed: torch.Tensor, a: torch.Tensor,
@@ -156,12 +182,8 @@ def accept_tokens_penalized(
     greedy_rows = temp <= 0.0
     accepts, bonuses = [], []
     for t in range(T):
-        # penalties at this position (sampling.apply_penalties, one row)
-        seen = counts_t > 0
-        lr = logits[:, t] - freq[:, None] * counts_t.float()
-        lr = lr - pres[:, None] * seen.float()
-        pen = torch.where(lr > 0, lr / rep[:, None], lr * rep[:, None])
-        lr = torch.where(seen, pen, lr)
+        # penalties at this position
+        lr = _penalize(logits[:, t], counts_t, freq, pres, rep)
         greedy_t = torch.argmax(lr, dim=-1)
         idxs, scaled, final_mask, p = _target_dist(lr, temp, top_k, top_p,
                                                    max_top_k)
@@ -226,3 +248,218 @@ def spec_verify(
             logits, tokens, keys, temps, top_ks, top_ps, *penalties,
             max_top_k=max_top_k)
     return torch.cat([out.long(), n_out[:, None].long(), new_keys], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# tree speculation
+
+
+def tree_meta(parents: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(depth [B, T] int64, anc [B, T, T] bool, valid [B, T] bool) of
+    parent pointers [B, T] (-1 root, -2 padding, else a lower index), by
+    T-1 steps of a simultaneous pointer walk on the device. A padding
+    node has depth -1 and an empty anc row (it sees no chunk key);
+    anc[i, j] is ancestor-or-self, the tree-causal in-chunk visibility."""
+    parents = parents.long()
+    B, T = parents.shape
+    idx = torch.arange(T, device=parents.device)
+    valid = parents >= -1
+    anc = (idx[:, None] == idx[None, :])[None] & valid[..., None]
+    depth = torch.where(valid, 0, -1)
+    cur = parents
+    for _ in range(T - 1):
+        # cur[i]: i's current ancestor pointer; negative once the walk ends
+        anc = anc | (cur[..., None] == idx)
+        depth = depth + (cur >= 0).long()
+        cur = torch.where(cur >= 0, parents.gather(1, cur.clamp(min=0)), cur)
+    return depth, anc, valid
+
+
+def _accept_tree_walk(
+    logits: torch.Tensor,   # [B, T, V] f32; row t scores the token AFTER
+                            # node t
+    toks: torch.Tensor,     # [B, T] node tokens (node 0 = pending)
+    parents: torch.Tensor,  # [B, T]
+    valid: torch.Tensor,    # [B, T] bool
+    keys: torch.Tensor,     # [B, 2] int64
+    temp: torch.Tensor,     # [B] f32
+    top_k: torch.Tensor,    # [B] int
+    top_p: torch.Tensor,    # [B] f32
+    pen,                    # None, or (counts [B, V], freq, pres, rep [B])
+    max_top_k: int,
+    d_max: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Tree acceptance for every row (the JAX version vmaps a per-slot
+    walk). From the root, at each level the current node's children are
+    tried in index order: greedy takes the lowest-index child carrying
+    the row's argmax; sampled runs sequential multi-draft rejection (a
+    child with token d accepts iff u_d * (1 - mass of siblings rejected
+    so far at this node) < p(d), a duplicate-token sibling seeing p = 0),
+    which keeps every emitted token an exact sample of the target. The
+    walk stops at the first level with no accepted child; the bonus is
+    that node's argmax, or a resample of its residual (the rejected
+    siblings' tokens masked). Under ``pen`` the counts advance along the
+    accepted path, so each row is penalized as the fused round would.
+
+    Returns (out [B, d_max+1] emitted tokens, path [B, d_max+1] node
+    indices with path[:, 0] = 0, n_out [B], new keys [B, 2])."""
+    B, T, _ = logits.shape
+    dev = logits.device
+    toks = toks.long()
+    parents = parents.long()
+    idx = torch.arange(T, device=dev)
+    rows = torch.arange(B, device=dev)
+    greedy_rows = temp <= 0.0
+    new_keys, sub = sampling.split_keys(keys)
+    subs = sampling.split_keys_n(sub, T)                     # [B, T, 2]
+    u = sampling.uniform(subs.reshape(-1, 2)).view(B, T)     # u[:, j]: node j
+    bonus_key = subs[:, 0]
+    counts = pen[0].clone() if pen is not None else None
+
+    def row_dist(cur):
+        """(argmax, top-k lane ids, scaled values, final mask, p) of node
+        ``cur``'s (penalized) row, float for float as accept_tokens'."""
+        row = logits[rows, cur]                              # [B, V]
+        if pen is not None:
+            row = _penalize(row, counts, *pen[1:])
+        idxs, scaled, final_mask, p = _target_dist(row, temp, top_k, top_p,
+                                                   max_top_k)
+        return torch.argmax(row, dim=-1), idxs, scaled, final_mask, p
+
+    cur = torch.zeros(B, dtype=torch.long, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    n_acc = torch.zeros(B, dtype=torch.long, device=dev)
+    path = torch.zeros(B, d_max + 1, dtype=torch.long, device=dev)
+    rej_lanes = torch.zeros(B, max_top_k, dtype=torch.bool, device=dev)
+    depth_idx = torch.arange(d_max + 1, device=dev)
+    for _ in range(d_max):
+        greedy_t, idxs, _, final_mask, p = row_dist(cur)
+        is_child = (parents == cur[:, None]) & valid          # [B, T]
+        # greedy: the lowest-index child carrying the row's argmax
+        match_g = is_child & (toks == greedy_t[:, None])
+        j_g = torch.where(match_g, idx, T).amin(dim=-1)
+        # sampled: siblings in index order under one rejection mass
+        j_s = torch.full((B,), T, dtype=torch.long, device=dev)
+        rl = torch.zeros(B, max_top_k, dtype=torch.bool, device=dev)
+        rmass = torch.zeros(B, dtype=torch.float32, device=dev)
+        lvl_done = torch.zeros(B, dtype=torch.bool, device=dev)
+        for j in range(T):
+            lane_tok = idxs == toks[:, j:j + 1]               # [B, Kt]
+            p_eff = torch.where(lane_tok & final_mask & ~rl, p,
+                                0.0).sum(dim=-1)
+            ok = u[:, j] * torch.clamp(1.0 - rmass, min=1e-9) < p_eff
+            live_c = is_child[:, j] & ~lvl_done
+            j_s = torch.where(live_c & ok, j, j_s)
+            rejected = live_c & ~ok
+            rl = rl | (rejected[:, None] & lane_tok)
+            rmass = rmass + torch.where(rejected, p_eff, 0.0)
+            lvl_done = lvl_done | (live_c & ok)
+        j = torch.where(greedy_rows, j_g, j_s)
+        found = (j < T) & ~done
+        cur_n = torch.where(found, j.clamp(max=T - 1), cur)
+        n_acc_n = n_acc + found.long()
+        path = torch.where((depth_idx == n_acc_n[:, None]) & found[:, None],
+                           cur_n[:, None], path)
+        if counts is not None:
+            tok_j = toks[rows, cur_n]
+            counts[rows, tok_j.clamp(min=0)] += found.to(counts.dtype)
+        # a level's rejections matter only where the walk stops (the
+        # bonus resamples that node's residual); descending resets them
+        rej_lanes = torch.where(done[:, None], rej_lanes,
+                                torch.where(found[:, None], False, rl))
+        cur, done, n_acc = cur_n, done | ~found, n_acc_n
+    greedy_t, idxs, scaled, final_mask, _ = row_dist(cur)
+    row_final = torch.where(rej_lanes, NEG_INF,
+                            torch.where(final_mask, scaled, NEG_INF))
+    choice = sampling.categorical(bonus_key, row_final)
+    bonus = torch.where(greedy_rows, greedy_t,
+                        idxs.gather(1, choice[:, None])[:, 0])
+    # out[l] for l < n_acc is the token at path depth l+1 (path[:, 0] is
+    # the pending token, emitted last round); out[n_acc] is the bonus
+    nxt = torch.cat([path[:, 1:], path.new_zeros(B, 1)], dim=1)
+    path_toks = toks.gather(1, nxt.clamp(0, T - 1))
+    out = torch.where(depth_idx < n_acc[:, None], path_toks,
+                      torch.where(depth_idx == n_acc[:, None],
+                                  bonus[:, None], 0))
+    return out.to(torch.int32), path, n_acc + 1, new_keys
+
+
+def accept_tree(logits, toks, parents, valid, keys, temp, top_k, top_p,
+                max_top_k: int, d_max: int):
+    """Tree acceptance without penalties (see _accept_tree_walk)."""
+    return _accept_tree_walk(logits, toks, parents, valid, keys, temp, top_k,
+                             top_p, None, max_top_k, d_max)
+
+
+def accept_tree_penalized(logits, toks, parents, valid, keys, temp, top_k,
+                          top_p, counts, freq, pres, rep, max_top_k: int,
+                          d_max: int):
+    """Penalty-aware tree acceptance: the counts histogram advances as
+    the walk descends, so each accepted path token penalizes every deeper
+    row, as the fused round's per-token advance does. It consumes
+    accept_tree's key stream: zero counts and identity penalties draw the
+    same. ``counts`` is not modified."""
+    return _accept_tree_walk(logits, toks, parents, valid, keys, temp, top_k,
+                             top_p, (counts, freq, pres, rep), max_top_k,
+                             d_max)
+
+
+def spec_verify_tree(
+    config,
+    params,
+    ctx: llama.Cache,
+    tokens: torch.Tensor,   # [B, T] int on the device — col 0 pending
+    draft: Optional[torch.Tensor],  # [B, T-1] comb draft (level-major)
+                            # spliced into cols 1: on the device, or None
+    parents: torch.Tensor,  # [B, T] int on the device: -1 root, -2 padding
+    slots: list[int],
+    q_starts: list[int],    # region KV length per slot
+    seq_lens: list[int],    # q_start + T
+    keys: torch.Tensor,     # [B, 2] int64
+    temps: torch.Tensor,    # [B] f32
+    top_ks: torch.Tensor,   # [B] int32
+    top_ps: torch.Tensor,   # [B] f32
+    max_top_k: int,
+    ctx_span: int,          # prior-context window (llama.spec_span)
+    d_max: int,             # deepest root-to-leaf path (the round's K)
+    penalties=None,         # None, or (counts [B, V], freq, pres, rep [B])
+) -> torch.Tensor:
+    """Tree score + accept + path commit, ON the device. Depths and the
+    ancestor mask come from the parent pointers (tree_meta); every node
+    is scored under the tree-causal mask (llama.batch_score_tree, which
+    writes nothing); acceptance walks each row; then only the accepted
+    path's KV rows are committed (llama.commit_tree_path), so the host's
+    rollback is unchanged: the region's length becomes q_start + n_out.
+
+    Returns one packed int64 tensor [B, 2*d_max + 4]:
+      cols [0, d_max]              emitted tokens (n_out valid)
+      cols [d_max+1, 2*d_max]      accepted node index at depth 1..d_max
+                                   (the draft spine's rollback probe)
+      col  2*d_max+1               n_out
+      cols [2*d_max+2, 2*d_max+3]  the advanced key (uint32 words)
+    """
+    if draft is not None:
+        tokens = tokens.clone()
+        tokens[:, 1:] = draft
+    depths, ancs, valids = tree_meta(parents)
+    ks, vs, logits = llama.batch_score_tree(
+        config, params, ctx, tokens, slots, q_starts, seq_lens, depths, ancs,
+        ctx_span)
+    if penalties is None:
+        out, path, n_out, new_keys = accept_tree(
+            logits, tokens, parents, valids, keys, temps, top_ks, top_ps,
+            max_top_k, d_max)
+    else:
+        out, path, n_out, new_keys = accept_tree_penalized(
+            logits, tokens, parents, valids, keys, temps, top_ks, top_ps,
+            *penalties, max_top_k=max_top_k, d_max=d_max)
+    B, T = tokens.shape
+    # the whole-T path for the commit's gather: entries past n_out are
+    # dead rows (a clamped gather, cut by the committed length)
+    path_full = path.new_zeros(B, T)
+    path_full[:, :d_max + 1] = path
+    llama.commit_tree_path(ctx, ks, vs, path_full, slots, q_starts,
+                           [q + n_out[i] for i, q in enumerate(q_starts)])
+    return torch.cat([out.long(), path[:, 1:], n_out[:, None], new_keys],
+                     dim=1)

@@ -90,6 +90,12 @@ def test_parse_io_refuses_other_words():
     (["in=carrier-pigeon"], "unknown input"),
 ])
 def test_unported_flags_and_modes_exit_with_a_clear_message(argv, match):
+    if argv[0] == "--spec-tree":
+        # served (tree speculation): the launcher runs, no refusal
+        assert "--spec-tree" not in prun.UNPORTED_FLAGS
+        assert prun.run_cli(["in=text", "out=echo", "--prompt", "x"]
+                            + argv) == 0
+        return
     with pytest.raises(SystemExit) as e:
         prun.run_cli(["in=text", "--prompt", "x"] + argv)
     assert match in str(e.value)
@@ -328,14 +334,13 @@ FLEET_FIELDS = ("kv_replication_target", "kv_prefetch_hot_k",
                 "kv_prefetch_interval_s", "kv_freq_halflife_s",
                 "kv_dedup_admission")
 # what the parser still refuses: the reference's flags of planes the port
-# does not serve yet (the fleet economy's five left this list, and then
-# the linear speculation's eight)
+# does not serve yet (the fleet economy's five left this list, then the
+# linear speculation's eight, then tree speculation's three)
 REFUSED = {
     "--model-path", "--trace-sample-rate", "--tensor-parallel-size",
     "--max-waiting-requests", "--max-waiting-prefill-tokens",
     "--preempt-running", "--prof-attribution", "--slo-ttft-target",
     "--slo-itl-target", "--slo-objective", "--forensics-sample-rate",
-    "--spec-tree", "--spec-branches", "--spec-tree-budget",
     "--num-nodes", "--node-rank", "--leader-addr",
 }
 

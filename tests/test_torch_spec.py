@@ -13,6 +13,7 @@ region); drafted tokens are equal; written regions as
 tests/test_torch_llama.py holds them, but int8 scales (absmaxes of
 computed KV over up to five verify rows) to 5e-6 relative; a span bounded
 to the 256-key block gives the full span's logits bit for bit."""
+import asyncio
 import functools
 
 import jax
@@ -32,6 +33,7 @@ from dynamo_tpu_torch.engine.config import EngineConfig as TEngineConfig
 from dynamo_tpu_torch.launch import run as prun
 from dynamo_tpu_torch.models import llama as tl
 from dynamo_tpu_torch.models.config import ModelConfig as TConfig
+from dynamo_tpu_torch.protocols import common as tproto
 from dynamo_tpu_torch.spec import decoder as tdec
 from dynamo_tpu_torch.spec import proposer as tprop
 from dynamo_tpu_torch.spec import verifier as tver
@@ -41,6 +43,7 @@ from tests.test_torch_llama import (
     _region,
     model,  # noqa: F401 — the module-scoped weights fixture
 )
+from tests.test_torch_spec_engine import collect, request
 
 B, S = 3, 64
 
@@ -485,7 +488,10 @@ def test_launcher_serves_the_eight_linear_flags(monkeypatch):
             assert getattr(port[flag], attr) == getattr(ref[flag], attr), \
                 (flag, attr)
     for flag in TREE_FLAGS:
-        assert "7b" in prun.UNPORTED_FLAGS[flag][1]
+        assert flag not in prun.UNPORTED_FLAGS, flag
+        for attr in ("default", "choices", "type", "help"):
+            assert getattr(port[flag], attr) == getattr(ref[flag], attr), \
+                (flag, attr)
     argv = ["out=torch", "--model-config", "tiny", "--speculative", "draft",
             "--draft-model-config", "tiny", "--num-speculative-tokens", "3",
             "--spec-adaptive", "off", "--spec-min-k", "2",
@@ -512,20 +518,50 @@ def test_launcher_serves_the_eight_linear_flags(monkeypatch):
      "--speculative draft needs --draft-model-config"),
 ])
 def test_launcher_refuses_trees_and_a_draft_without_its_config(argv, match):
-    with pytest.raises(SystemExit) as e:
-        prun.run_cli(["in=text", "--prompt", "x"] + argv)
-    assert match in str(e.value)
+    """A draft without its config is refused. Each tree flag is served
+    (no refusal naming it): it reaches the EngineConfig, the built tiny
+    n-gram engine verifies trees, and the launcher answers a prompt."""
+    if argv[0] not in TREE_FLAGS:
+        with pytest.raises(SystemExit) as e:
+            prun.run_cli(["in=text", "--prompt", "x"] + argv)
+        assert match in str(e.value)
+        return
+    tree = ["--spec-tree", "on"] if argv[0] != "--spec-tree" else []
+    full = (["out=torch", "--model-config", "tiny", "--device", "cpu",
+             "--cache-dtype", "float32", "--speculative", "ngram",
+             "--max-tokens", "6"] + tree + argv)
+    args = prun.build_parser().parse_intermixed_args(full)
+    prun.refuse_unported(args)
+    eng = prun.build_chain(args)[1].engine
+    e = eng.ecfg
+    assert e.spec_tree is True
+    assert (e.spec_branches, e.spec_tree_budget) == (
+        int(argv[1]) if argv[0] == "--spec-branches" else 4,
+        int(argv[1]) if argv[0] == "--spec-tree-budget" else 0)
+
+    async def go():
+        try:
+            return await collect(eng, request(tproto, [1, 2, 3] * 4, 6))
+        finally:
+            await eng.stop()
+
+    toks, _ = asyncio.run(go())
+    assert len(toks) == 6 and eng.spec.tree_verify_steps > 0
+    assert prun.run_cli(["in=text", "--prompt", "1 2 3 1 2 3"] + full) == 0
 
 
 def test_spec_tree_knob_is_refused_by_name(model):  # noqa: F811
-    with pytest.raises(ValueError, match="spec_tree"):
-        TEngineConfig(speculative="ngram", spec_tree=True)
+    """The tree knobs build (the reference's defaults: 4 branches, the
+    auto budget), and batch_draft drafts a comb for m > 1."""
+    e = TEngineConfig(speculative="ngram", spec_tree=True)
+    assert (e.spec_tree, e.spec_branches, e.spec_tree_budget) == (True, 4, 0)
     TEngineConfig(spec_branches=2, spec_tree_budget=9)  # inert without a tree
     _, tcfg, _, tparams, _ = model
     ctx = tl.init_ctx(tcfg, 2, S, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="7b"):
-        tl.batch_draft(tcfg, tparams, ctx, torch.zeros(1, 8, dtype=torch.long),
-                       [0], [0], [4], S, 2, m=2)
+    drafted = tl.batch_draft(tcfg, tparams, ctx,
+                             torch.zeros(1, 8, dtype=torch.long), [0], [0],
+                             [4], S, 2, m=2)
+    assert drafted.shape == (1, 4)
 
 
 def test_isolation_walk_covers_the_spec_package():
