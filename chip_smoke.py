@@ -40,6 +40,9 @@ Phases, each printing a line (any failure raises and exits non-zero):
      <= 0.05), and a seeded request at temperature 0.8 must draw the same
      stream on both devices; and with w8a16 weights, where every step
      must run the w8a16 kernel 7 times a layer and once for the logits;
+     and with a resident LoRA bank (tiny lora: 4 rows at rank 4, rows 1
+     and 2 random), where a burst with adapter ids 0, 1, 2, 1 and a
+     variant's repeat must be greedy token-identical on both devices;
   5. round_graph, in a process of its own (``chip_smoke.py
      --profiled-checks``) started after the 8B phases, as what ran
      before in a process moves torch.profiler's counts: for the tiny
@@ -53,8 +56,10 @@ Phases, each printing a line (any failure raises and exits non-zero):
      fetch copies, no kernel launched from the host) and the flash-decode
      kernels inside the replay (one a layer a step; the kernel's own
      count on the card must agree; w8a16: (7 x 32 + 1) x 4 = 900
-     w8a16_gemm kernels too); each graph's capture
-     time and the graph pool's memory are printed;
+     w8a16_gemm kernels too), and with a LoRA bank (round_graph 8B lora:
+     adapters 1..3 of rank LORA_RANK installed, the 8 prompts with ids
+     LORA_IDS: one replayed round runs mixed adapters); each graph's
+     capture time and the graph pool's memory are printed;
   6. serve: TorchEngine at the full width of Llama-3.1-8B (32 layers,
      random bf16 weights from a seed, made once, default EngineConfig:
      rounds pipelined, each round a replayed CUDA graph) answers 8
@@ -292,6 +297,29 @@ Phases, each printing a line (any failure raises and exits non-zero):
      verifies' products and logits on the w8a16 kernels (its executions
      over the burst, counted from after the engine's graph captures, are
      the w8a16 record's launches_spec);
+  9b. tenancy: resident LoRA banks on the same weights: an engine with a
+     bank of 4 (rank LORA_RANK; adapters 1..3 from random_adapter, seed =
+     id) serves the 8 serve prompts with adapter ids LORA_IDS in one
+     gated burst, with dense KV, with int8 KV and on the w8a16 weights:
+     adapter 0's streams must equal the serve phases' bank-less bursts
+     exactly, every variant must part from the base, and (dense) each
+     variant's streams must equal those of a burst in which all 8
+     prompts take that variant, up to a top-2 swap; every round is a
+     replay running the mode's flash-decode kernel on every layer of
+     every step (the kernels line's launches_tenancy, both modes), w8a16
+     7 products a layer and the logits. Printed: a decode step's device
+     and wall ms (replayed rounds back to back) with the mixed bank
+     beside an engine without one, and the MB a round's gather moves;
+  9c. overload: two 8B engines (2 slots, queue budget 3, tenant budget
+     2; A preempts running streams) behind the port's KV router and HTTP
+     frontend, and a reference engine R: a storm of 12 streamed requests
+     gets 200s and 429s with Retry-After and every bounced one is served
+     on retry; a HIGH-priority arrival on B's full queue evicts the
+     newest waiting entry; a tenant's budget bounces only that tenant;
+     with preempt_running, a HIGH-priority arrival on A migrates the
+     newest running low-priority stream to B through the router, whole
+     and equal to generate() on R along the same paths (the kernels
+     line's launches_overload);
   10. cli: ``python -m dynamo_tpu_torch.launch.run in=text out=torch
      --model-config tiny --cache-dtype float32 --prompt "w1 w2 w3"
      --max-tokens 8`` in a subprocess, with no --device, and again with
@@ -355,6 +383,10 @@ F32_TOL = (1e-5, 1e-4)
 # (int8) and V rows off by 5% (dense) still fail it.
 BF16_P_TOL = (5e-4, 1e-2)
 SEED = 0
+# the tenancy phases' bank: adapters 1..3 (random_adapter, seed = id) at
+# this rank, and the serve prompts' ids in a mixed burst
+LORA_RANK = 8
+LORA_IDS = [0, 1, 2, 3, 0, 1, 2, 3]
 # the output's last block (summaries to the ok line) in bytes, and one
 # summary line's figures in characters: a short log keeps 22,000 bytes of
 # the output, and the rest leaves room for later phases' summaries
@@ -958,9 +990,12 @@ def check_logits_f32():
 # engine
 
 async def generate_all(engine, prompts, max_tokens, logprobs=None,
-                       **sampling):
+                       adapters=None, **sampling):
     """Each prompt as a request, all at once; per request (tokens, finish
-    reason, final annotations, inter-token gaps, top logprobs)."""
+    reason, final annotations, inter-token gaps, top logprobs). With
+    ``adapters`` (an adapter id a prompt), each request carries its id
+    and, for a variant, the variant's model name (its prefix-cache salt:
+    "base:v<id>"), as a registered variant's chain stamps them."""
     from dynamo_tpu_torch.protocols.common import (
         OutputOptions,
         PreprocessedRequest,
@@ -968,13 +1003,16 @@ async def generate_all(engine, prompts, max_tokens, logprobs=None,
         StopConditions,
     )
 
-    async def one(p):
+    ids = adapters or [0] * len(prompts)
+
+    async def one(p, aid):
         req = PreprocessedRequest(
             token_ids=list(p),
             stop_conditions=StopConditions(max_tokens=max_tokens,
                                            ignore_eos=True),
             sampling_options=SamplingOptions(**sampling),
-            output_options=OutputOptions(logprobs=logprobs))
+            output_options=OutputOptions(logprobs=logprobs),
+            adapter_id=aid, model=f"base:v{aid}" if aid else "")
         toks, ann, finish, gaps, top = [], {}, None, [], []
         last = None
         async for out in engine.generate(req):
@@ -990,7 +1028,7 @@ async def generate_all(engine, prompts, max_tokens, logprobs=None,
                 finish, ann = out.finish_reason.value, out.annotations
         return toks, finish, ann, gaps, top
 
-    return await asyncio.gather(*[one(p) for p in prompts])
+    return await asyncio.gather(*[one(p, a) for p, a in zip(prompts, ids)])
 
 
 def check_replayed(eng, what):
@@ -1046,6 +1084,71 @@ def check_tiny_engine():
             f"tiny engine: cuda {outs['cuda']} != cpu {outs['cpu']}")
     log(f"tiny: cuda engine greedy-identical to cpu engine over "
         f"{len(outs['cpu'])} requests")
+
+
+def check_tiny_lora():
+    """The tiny model (f32) with a resident LoRA bank (4 rows at rank 4;
+    rows 1 and 2 from random_adapter, scale 0.5) on the card vs on the
+    CPU: a burst with mixed adapter ids 0, 1, 2, 1 in one batch, then
+    variant 1's prompt again (its own prefix hit), greedy
+    token-identical; the card's rounds are graph replays running the
+    dense kernel on every layer of every step."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.tenancy.adapters import random_adapter
+
+    cfg = ModelConfig.tiny(dtype="float32")
+    ecfg = dict(num_pages=64, page_size=16, max_pages_per_seq=8,
+                max_decode_slots=4, prefill_buckets=(32, 64),
+                cache_dtype="float32", lora_adapters=4, lora_rank=4)
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, 256, size=n).tolist() for n in (29, 40, 17, 100)]
+    ids = [0, 1, 2, 1]
+    params = llama.init_params(cfg, SEED, device="cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = TorchEngine(cfg, EngineConfig(**ecfg),
+                          params=to_device(params, dev), device=dev)
+        for aid in (1, 2):
+            eng.install_adapter(aid, random_adapter(cfg, 4, seed=6 + aid,
+                                                    scale=0.5))
+        if dev == "cuda":
+            fd.executed(eng.device, reset=True)
+
+        async def drive():
+            IntakeGate(eng, len(prompts))
+            res = await generate_all(eng, prompts, 12, adapters=ids)
+            res.append((await generate_all(eng, prompts[1:2], 12,
+                                           adapters=[1]))[0])
+            await eng.stop()
+            return res
+
+        outs[dev] = [(t, f) for t, f, *_ in asyncio.run(drive())]
+        if dev == "cuda":
+            dense, int8 = fd.executed(eng.device)
+            if (dense != cfg.num_layers * eng.step_count or int8
+                    or eng.kernel_launches != dense):
+                raise AssertionError(
+                    f"tiny lora on cuda: the kernel ran {dense} times over "
+                    f"{eng.step_count} steps, int8 {int8}, graphs recorded "
+                    f"{eng.kernel_launches}")
+            check_replayed(eng, "tiny lora")
+    if outs["cuda"] != outs["cpu"]:
+        raise AssertionError(
+            f"tiny lora: cuda {outs['cuda']} != cpu {outs['cpu']}")
+    streams = [t for t, _ in outs["cpu"]]
+    if len({tuple(streams[i]) for i in range(3)}) != 3 \
+            or streams[4] != streams[1]:
+        raise AssertionError(f"tiny lora: the variants do not part from the "
+                             f"base, or the repeat differs: {streams}")
+    figures(f"mixed ids {ids} + a variant repeat: cuda == cpu over "
+            f"{len(streams)} requests")
+    log(f"tiny lora: cuda engine with a bank greedy-identical to the cpu "
+        f"engine over {len(streams)} requests (adapter ids {ids} in one "
+        f"burst, then variant 1 again as a prefix hit)")
 
 
 def check_tiny_int8():
@@ -1190,14 +1293,17 @@ def check_tiny_w8a16():
         f"{NEAR_TIE}){note}")
 
 
-def check_round_graph(label, cfg, ecfg, params, prompts):
+def check_round_graph(label, cfg, ecfg, params, prompts, adapters=None):
     """An engine on the card admits ``prompts``; then one decode round
     replayed from its CUDA graph must give the tokens (and the state) of
     the same round run eagerly on a clone of the same device state,
     greedy and with logprobs; then torch.profiler counts the CUDA runtime
     calls of one steady pipelined round and the flash-decode kernels
     inside its replay (and, for w8a16 weights, the w8a16 GEMM kernels:
-    7 a layer and the logits, a step)."""
+    7 a layer and the logits, a step). With ``adapters`` ((the factors by
+    adapter id, an adapter id a prompt); ``ecfg`` with a bank), the
+    variants are installed and each prompt carries its id: the round runs
+    mixed adapters."""
     from dynamo_tpu_torch.engine import graphs as eg
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.ops import flash_decode as fd
@@ -1208,6 +1314,11 @@ def check_round_graph(label, cfg, ecfg, params, prompts):
     )
 
     eng = TorchEngine(cfg, ecfg, params=params, device="cuda")
+    ids = [0] * len(prompts)
+    if adapters is not None:
+        factors, ids = adapters
+        for aid, w in factors.items():
+            eng.install_adapter(aid, w)
     # no engine loop: this thread runs the engine's steps one at a time
     # (every graph was captured with the engine)
     eng._started = True
@@ -1217,9 +1328,9 @@ def check_round_graph(label, cfg, ecfg, params, prompts):
     ran_w8 = [0]  # the w8a16 kernel's own count over it
     quant_w = cfg.quant == "int8"
 
-    async def consume(p):
+    async def consume(p, aid):
         req = PreprocessedRequest(
-            token_ids=list(p),
+            token_ids=list(p), adapter_id=aid,
             stop_conditions=StopConditions(max_tokens=64, ignore_eos=True))
         async for _ in eng.generate(req):
             pass
@@ -1229,7 +1340,7 @@ def check_round_graph(label, cfg, ecfg, params, prompts):
         ring = {k: v.clone() for k, v in eng.ring.items()}
         dev = {k: v.clone() for k, v in eng._dev.items()}
         out = {k: v.clone() for k, v in g.out.items()}
-        eg.run_round(cfg, ecfg, params, ctx, ring, eng.cache, dev, out,
+        eg.run_round(cfg, ecfg, eng.params, ctx, ring, eng.cache, dev, out,
                      False, want_lp)
         g.round(False, want_lp, None)
         torch.cuda.synchronize()
@@ -1249,7 +1360,8 @@ def check_round_graph(label, cfg, ecfg, params, prompts):
                 if want_lp else None)
 
     async def drive():
-        tasks = [asyncio.ensure_future(consume(p)) for p in prompts]
+        tasks = [asyncio.ensure_future(consume(p, a))
+                 for p, a in zip(prompts, ids)]
         while eng._intake.qsize() < len(prompts):
             await asyncio.sleep(0)
         eng._drain_intake()
@@ -1304,7 +1416,9 @@ def check_round_graph(label, cfg, ecfg, params, prompts):
     want_kernels = cfg.num_layers * F
     want_gemms = (7 * cfg.num_layers + 1) * F if quant_w else 0
     log(f"round_graph {label}: replayed round == eager round (tokens and "
-        f"state, greedy and with logprobs; largest logprob difference "
+        f"state, greedy and with logprobs"
+        + (f", adapter ids {ids} in one round" if adapters else "")
+        + f"; largest logprob difference "
         f"{lp_diff:.3e}); one steady pipelined round: {graph_launches} graph "
         f"launch, {host_kernels} kernels launched from the host, {copies} "
         f"copies, {kernels} flash-decode kernels in the replay "
@@ -4962,6 +5076,629 @@ def check_speculation_w8a16(qparams):
     return ran, gemms
 
 
+# ---------------------------------------------------------------------------
+# tenancy and overload
+
+
+def lora_factors(cfg):
+    """The variants of the tenancy phases: adapters 1..3 drawn by
+    random_adapter (seed = the id) at LORA_RANK."""
+    from dynamo_tpu_torch.tenancy.adapters import random_adapter
+
+    return {aid: random_adapter(cfg, LORA_RANK, seed=aid)
+            for aid in (1, 2, 3)}
+
+
+def lora_gather_mb(cfg, slots, elem):
+    """MB of the bank rows a decode round gathers for ``slots`` slots
+    (every adapted site of every layer, A and B at LORA_RANK)."""
+    from dynamo_tpu_torch.tenancy.adapters import adapter_site_dims
+
+    per = sum(di + do for di, do in adapter_site_dims(cfg).values())
+    return slots * per * LORA_RANK * cfg.num_layers * elem / 1e6
+
+
+def lora_arm(label, cfg, params, kv_quant, base_tokens, factors,
+             own_bursts=False):
+    """One arm of the tenancy phase: an engine with a bank of 4 (adapters
+    1..3 installed) serves the 8 serve prompts with LORA_IDS in one gated
+    burst (top-2 logprobs). Adapter 0's streams must equal
+    ``base_tokens`` (the serve phase's generate() of the same burst on an
+    engine without a bank) exactly; every variant parts from them. With
+    ``own_bursts``, each variant then serves all 8 prompts in a burst of
+    its own on a cold cache (the same prefill groups), whose streams for
+    the variant's prompts must equal the mixed burst's up to a top-2 swap
+    (part_ways). Every round and patch is a
+    replay; the KV mode's flash-decode kernel runs on every layer of
+    every decode step inside them (w8a16: 7 products a layer and the
+    logits too). Returns (the engine, stopped, its flash-decode launches
+    (dense, int8), figures)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.ops import w8a16
+
+    quant = kv_quant == "int8"
+    quant_w = cfg.quant == "int8"
+    prompts = serve_prompts(cfg.vocab_size)
+    eng = TorchEngine(cfg, EngineConfig(kv_quant=kv_quant, lora_adapters=4,
+                                        lora_rank=LORA_RANK),
+                      params=params, device="cuda")
+    for aid, w in factors.items():
+        eng.install_adapter(aid, w)
+    # every kernel count to 0 just before the main path
+    fd.launches = fd.launches_int8 = 0
+    eng.kernel_launches = 0
+    fd.executed(eng.device, reset=True)
+    if quant_w:
+        w8a16.launches = w8a16.launches_wgmma = 0
+        eng.graphs.w8a16_replayed = 0
+        w8a16.executed(eng.device, reset=True)
+    steps0 = eng.step_count
+
+    async def drive():
+        out = {}
+        IntakeGate(eng, len(prompts))
+        out[0] = await generate_all(eng, prompts, N_NEW, logprobs=2,
+                                    adapters=LORA_IDS)
+        for v in (1, 2, 3) if own_bursts else ():
+            # a cold cache: the variant's prompts prefill along the mixed
+            # burst's path, not as prefix hits on its blocks
+            await settle_engines(eng)
+            await asyncio.to_thread(eng.clear_kv_blocks)
+            IntakeGate(eng, len(prompts))
+            out[v] = await generate_all(eng, prompts, N_NEW, logprobs=2,
+                                        adapters=[v] * len(prompts))
+        await eng.stop()
+        return out
+
+    t0 = time.monotonic()
+    out = asyncio.run(drive())
+    secs = time.monotonic() - t0
+    steps = eng.step_count - steps0
+    ran = fd.executed(eng.device)
+    launched, other = (ran[1], ran[0]) if quant else ran
+    issued = fd.launches + fd.launches_int8
+    check_replayed(eng, f"tenancy {label}")
+    if (launched != cfg.num_layers * steps or other or issued
+            or eng.kernel_launches != launched):
+        raise AssertionError(
+            f"tenancy {label}: the mode's kernel ran {launched} times over "
+            f"{steps} decode steps of {cfg.num_layers} layers, the other "
+            f"{other}, the wrapper issued {issued}, the graphs recorded "
+            f"{eng.kernel_launches}")
+    gemm = ""
+    if quant_w:
+        want = (7 * cfg.num_layers + 1) * steps
+        if eng.graphs.w8a16_replayed != want:
+            raise AssertionError(
+                f"tenancy {label}: the replays ran "
+                f"{eng.graphs.w8a16_replayed} w8a16_gemm, want (7 x "
+                f"{cfg.num_layers} + 1) x {steps} = {want}")
+        gemm = (f"; w8a16_gemm in the replays {eng.graphs.w8a16_replayed} ="
+                f" (7 x {cfg.num_layers} + 1) x {steps} steps")
+    mixed = out[0]
+    for toks, finish, *_ in mixed:
+        if len(toks) != N_NEW or finish != "length":
+            raise AssertionError(f"tenancy {label}: a request ended with "
+                                 f"{len(toks)} tokens, finish {finish}")
+    same0 = parted = 0
+    for i, aid in enumerate(LORA_IDS):
+        if aid == 0:
+            if mixed[i][0] != base_tokens[i]:
+                raise AssertionError(
+                    f"tenancy {label}: adapter 0's stream for prompt {i} "
+                    f"{mixed[i][0]} != the bank-less engine's "
+                    f"{base_tokens[i]}")
+            same0 += 1
+    for v in (1, 2, 3):
+        mine = [i for i, a in enumerate(LORA_IDS) if a == v]
+        if all(mixed[i][0] == base_tokens[i] for i in mine):
+            raise AssertionError(f"tenancy {label}: variant {v}'s streams "
+                                 f"equal the base model's")
+        parted += 1
+    own = ""
+    if own_bursts:
+        got = [(mixed[i][0], mixed[i][4]) for i, a in enumerate(LORA_IDS)
+               if a]
+        want = [out[a][i][0] for i, a in enumerate(LORA_IDS) if a]
+        splits, problems = part_ways(f"tenancy {label} own bursts", got,
+                                     want)
+        if problems:
+            raise AssertionError("; ".join(problems))
+        own = (f"; each variant's streams against its own burst: "
+               f"{describe_splits(splits)}")
+    ttft = [a["timing"]["ttft_s"] for _, _, a, *_ in mixed]
+    gaps = [g for _, _, _, gs, _ in mixed for g in gs]
+    log(f"tenancy {label}: 8 requests with adapter ids {LORA_IDS} in one "
+        f"burst ({secs:.1f} s with {len(out) - 1} own bursts): adapter 0 "
+        f"{same0}/{same0} streams identical to the bank-less engine's, "
+        f"{parted}/3 variants part from the base{own}; TTFT median "
+        f"{np.median(ttft):.4f} s, gap median {np.median(gaps) * 1e3:.2f} "
+        f"ms; {steps} decode steps, the kernel ran {launched} times "
+        f"(counted on the card) in replays{gemm}")
+    figs = dict(gap=float(np.median(gaps)), ttft=float(np.median(ttft)))
+    return eng, ran, figs
+
+
+def time_rounds(eng, ids, rounds=16):
+    """Device and wall ms a decode step of ``eng``'s replayed greedy round
+    with the 8 serve prompts admitted (adapter ids ``ids``): ``rounds``
+    replays back to back, timed by CUDA events and the host clock. The
+    engine's loop is stopped; this thread admits and replays."""
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest,
+        StopConditions,
+    )
+
+    prompts = serve_prompts(eng.config.vocab_size)
+    F = eng.ecfg.flush_every
+    # no engine loop (a fresh engine's generate() would start one): this
+    # thread runs the engine's steps
+    eng._started = True
+    while eng._entries:
+        eng._process_entries(block=True)
+    eng._apply_releases()
+    if any(s is not None for s in eng._slots):
+        raise AssertionError("time_rounds: the engine still holds requests")
+
+    async def consume(p, aid):
+        req = PreprocessedRequest(
+            token_ids=list(p), adapter_id=aid,
+            model=f"base:v{aid}" if aid else "",
+            stop_conditions=StopConditions(max_tokens=2000,
+                                           ignore_eos=True))
+        async for _ in eng.generate(req):
+            pass
+
+    async def go():
+        tasks = [asyncio.ensure_future(consume(p, a))
+                 for p, a in zip(prompts, ids)]
+        while eng._intake.qsize() < len(prompts):
+            await asyncio.sleep(0)
+        eng._drain_intake()
+        for _ in range(200):
+            if not (eng._waiting or eng._prefilling):
+                break
+            eng._admit()
+        eng._flush_seals()
+        if int(eng._slot_active.sum()) != len(prompts):
+            raise AssertionError("time_rounds: prompts not admitted")
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        for _ in range(rounds):
+            eng.graphs.round(False, False, None)
+        e1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        return (e0.elapsed_time(e1) / (rounds * F),
+                wall * 1e3 / (rounds * F))
+
+    return asyncio.run(go())
+
+
+def check_tenancy(params, qparams, base, direct):
+    """The tenancy plane at Llama-3.1-8B on the serve weights: three arms,
+    each an engine with a bank of 4 (rank LORA_RANK, adapters 1..3 from
+    random_adapter) serving the serve prompts with LORA_IDS in one burst
+    (lora_arm): dense KV (and each variant's own burst), int8 KV (the
+    kernel's int8 mode), and the w8a16 weights (``qparams``). ``base``
+    holds the serve phases' tokens by arm (the bank-less engines' bursts:
+    adapter 0 must equal them exactly); ``direct`` the dense serve
+    figures. Then a decode step's device and wall ms with the mixed bank
+    beside a bank-less engine's over the same prompts (time_rounds, one
+    process, one card), and the bytes a round's gather moves. Returns the
+    flash-decode launches of the phase by mode (launches_tenancy)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig.llama3_8b()
+    t0 = time.monotonic()
+    factors = lora_factors(cfg)
+    log(f"tenancy: 3 variants of rank {LORA_RANK} drawn in "
+        f"{time.monotonic() - t0:.1f} s")
+    eng, ran, figs = lora_arm("dense", cfg, params, "none", base["none"],
+                              factors, own_bursts=True)
+    launches = list(ran)
+    t_bank = time_rounds(eng, LORA_IDS)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    bare = TorchEngine(cfg, EngineConfig(), params=params, device="cuda")
+    t_bare = time_rounds(bare, [0] * len(LORA_IDS))
+    del bare
+    gc.collect()
+    torch.cuda.empty_cache()
+    gather = lora_gather_mb(cfg, len(LORA_IDS), 2)
+    log(f"tenancy: a decode step of the replayed greedy round, 8 slots "
+        f"with adapter ids {LORA_IDS}: {t_bank[0]:.3f} ms device, "
+        f"{t_bank[1]:.3f} ms wall; without a bank {t_bare[0]:.3f} ms "
+        f"device, {t_bare[1]:.3f} ms wall (+{t_bank[0] - t_bare[0]:.3f} ms "
+        f"device); a round's gather of 8 slots' rows moves {gather:.0f} MB "
+        f"in bf16 ({2 * gather:.0f} MB in the reference's f32); the burst's "
+        f"gap median {figs['gap'] * 1e3:.2f} ms beside the serve phase's "
+        f"{np.median(direct['gaps']) * 1e3:.2f} ms")
+    eng, ran, _ = lora_arm("int8", cfg, params, "int8", base["int8"],
+                           factors)
+    launches = [a + b for a, b in zip(launches, ran)]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, ran, _ = lora_arm("w8a16", ModelConfig.llama3_8b_int8(), qparams,
+                           "none", base["w8a16"], factors)
+    launches = [a + b for a, b in zip(launches, ran)]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    figures(f"adapter 0 == bank-less, variants part, own bursts held; step "
+            f"{t_bank[0]:.3f} ms device with the bank, {t_bare[0]:.3f} "
+            f"without; gather {gather:.0f} MB; launches dense "
+            f"{launches[0]}, int8 {launches[1]}")
+    return launches
+
+
+def check_overload(params):
+    """The overload plane at Llama-3.1-8B on the serve weights, dense KV:
+    engines A and B (2 decode slots, max_waiting_requests 3,
+    tenant_max_waiting_requests 2; A with preempt_running) behind the
+    port's KvPushRouter (router temperature 0) and HttpService, and a
+    reference engine R of the same shape.
+
+    Storm: 12 streamed completions (32 tokens, one tenant each) sent at
+    once through the frontend: every one answers 200 and runs to its
+    finish, or 429 with a whole-second Retry-After; some answer 429, the
+    frontend's dynamo_overload_http_429_total counts them and the router
+    spilled each; then every bounced prompt, sent again one at a time,
+    answers 200 (the queue recovered).
+
+    Waiting preemption, on B: two low-priority requests hold its lanes,
+    three more wait (the budget); a HIGH-priority arrival is admitted and
+    the newest waiting one is evicted with EngineOverloadedError
+    (waiting_preemptions and dynamo_overload_preempted_total +1); the
+    high one then waits ahead of the two low ones left, and all three
+    are served.
+
+    Tenant budget, on B: with its lanes held, tenant "storm" sends 4: two
+    wait, two bounce naming tenant "storm"; tenant "calm" then admits
+    (dynamo_tenant_rejected_total: storm +2, calm 0).
+
+    Running preemption, through the frontend and a router holding only
+    A: a low-priority filler on A, then a low-priority stream (the
+    victim, top-2 logprobs) through the frontend; once it has streamed,
+    B joins the router and a HIGH-priority request goes straight to A. A
+    preempts the victim (the newest low-priority stream), whose stream
+    migrates to B (PreemptedError: no breaker strike, A stays routed) and
+    ends whole: its k tokens before the preemption equal generate()'s on
+    R for the prompt alone, the rest R's for the replay request alone
+    (the prompt and the k tokens), each on a cold cache, up to a step
+    where R's top-2 gap is at most NEAR_TIE. The dense kernel runs on
+    every layer of every decode step of A, B and R (launches_overload).
+    Returns the launches."""
+    from dynamo_tpu_torch.backend import Backend
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.frontend.http import HttpClient
+    from dynamo_tpu_torch.frontend.model_manager import (
+        ModelChain,
+        ModelManager,
+    )
+    from dynamo_tpu_torch.frontend.service import HttpService
+    from dynamo_tpu_torch.kv_router.router import KvPushRouter, KvRouter
+    from dynamo_tpu_torch.kv_router.scheduler import KvRouterConfig
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.overload.errors import EngineOverloadedError
+    from dynamo_tpu_torch.overload.metrics import OVERLOAD
+    from dynamo_tpu_torch.preprocessor import (
+        OpenAIPreprocessor,
+        PromptFormatter,
+    )
+    from dynamo_tpu_torch.protocols.common import (
+        OutputOptions,
+        PreprocessedRequest,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.protocols.sse import SseDecoder
+    from dynamo_tpu_torch.resilience.metrics import RESILIENCE
+    from dynamo_tpu_torch.resilience.migration import build_replay_request
+    from dynamo_tpu_torch.tenancy.metrics import TENANT
+    from dynamo_tpu_torch.tokenizer import make_test_tokenizer
+
+    cfg = ModelConfig.llama3_8b()
+    name = "llama3_8b"
+    tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
+    prompts = serve_prompts(cfg.vocab_size)
+    others = offload_prompts(cfg.vocab_size)
+
+    def mk(wid, preempt=False):
+        return TorchEngine(cfg, EngineConfig(
+            max_decode_slots=2, max_waiting_requests=3,
+            tenant_max_waiting_requests=2, preempt_running=preempt,
+            worker_id=wid), params=params, device="cuda")
+
+    t0 = time.monotonic()
+    A, B, R = mk("A", preempt=True), mk("B"), mk("R")
+    engs = (A, B, R)
+    log(f"overload: engines A, B, R built in {time.monotonic() - t0:.1f} s")
+    pre = OpenAIPreprocessor(tokenizer=tok, formatter=PromptFormatter(),
+                             model_name=name)
+    push = KvPushRouter(KvRouter(64, KvRouterConfig(router_temperature=0.0)),
+                        {"A": A, "B": B})
+    push2 = KvPushRouter(KvRouter(64, KvRouterConfig(
+        router_temperature=0.0)), {"A": A})
+    for p in (push, push2):
+        p.retry.base_delay_s = 0.001
+    manager = ModelManager()
+    manager.register(ModelChain(name=name, preprocessor=pre, engine=push,
+                                backend=Backend(tok)))
+    manager.register(ModelChain(name="preempt", preprocessor=pre,
+                                engine=push2, backend=Backend(tok)))
+    svc = HttpService(manager, host="127.0.0.1", port=0)
+    o0, r0 = OVERLOAD.snapshot(), RESILIENCE.snapshot()
+    t0s = {t: TENANT.get("dynamo_tenant_rejected_total", t)
+           for t in ("storm", "calm")}
+
+    def d_o(n):
+        return OVERLOAD.get(n) - o0[n]
+
+    def d_r(n):
+        return RESILIENCE.get(n) - r0[n]
+
+    def req(p, n, **kw):
+        r = PreprocessedRequest(
+            token_ids=list(p),
+            stop_conditions=StopConditions(max_tokens=n, ignore_eos=True),
+            output_options=OutputOptions(logprobs=kw.pop("logprobs", None)))
+        for k, v in kw.items():
+            setattr(r, k, v)
+        return r
+
+    async def outcome(eng, r):
+        toks, top = [], []
+        try:
+            async for out in eng.generate(r):
+                toks.extend(out.token_ids)
+                top.extend(out.top_logprobs or [])
+        except EngineOverloadedError as e:
+            return ("overloaded", e)
+        return ("ok", toks, top)
+
+    async def post(p, model, tenant, seen=None, **extra):
+        """One streamed completion: (status, Retry-After or None, the
+        token ids its text maps back to, finish, [DONE] seen)."""
+        async with HttpClient("127.0.0.1", svc.port) as c:
+            r = await c.request("POST", "/v1/completions", json_body={
+                "model": model, "prompt": p, "max_tokens": N_NEW,
+                "temperature": 0, "stream": True,
+                "nvext": {"ignore_eos": True}, **extra},
+                headers={"X-Tenant-Id": tenant}, stream=True)
+            if r.status != 200:
+                await r.read()
+                return (r.status, r.headers.get("retry-after"), [], None,
+                        False)
+            dec, text, finish, done = SseDecoder(), "", None, False
+            async for chunk in r.chunks():
+                for ev in dec.feed(chunk):
+                    if ev.is_done:
+                        done = True
+                        continue
+                    ch = ev.json()["choices"][0]
+                    text += ch["text"]
+                    finish = ch["finish_reason"] or finish
+                    if seen is not None:
+                        seen.extend(ch["text"].split())
+            return (200, None, [int(w[1:]) for w in text.split()], finish,
+                    done)
+
+    async def hold(eng, lanes):
+        """``lanes`` low-priority requests holding the engine's lanes until
+        cancelled; returns their tasks once they hold them."""
+        hogs = [asyncio.ensure_future(outcome(eng, req(others[i], 2000)))
+                for i in range(lanes)]
+        await wait_for(lambda: sum(s is not None for s in eng._slots)
+                       == lanes and not eng._waiting, "lanes held")
+        return hogs
+
+    async def release(hogs):
+        for h in hogs:
+            h.cancel()
+        await asyncio.gather(*hogs, return_exceptions=True)
+
+    async def wait_for(cond, what, timeout=120):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"overload: {what} never happened")
+            await asyncio.sleep(0.002)
+
+    def waiting(eng):
+        return (sum(1 for r in eng._waiting if r.slot < 0)
+                + eng._intake.qsize())
+
+    async def drive():
+        await svc.start()
+        try:
+            fig = {}
+            # ---- storm: 12 at once through the frontend
+            storm = prompts + others[4:8]
+            res = await asyncio.gather(*[
+                post(p, name, f"t{i}") for i, p in enumerate(storm)])
+            bounced = [i for i, r in enumerate(res) if r[0] == 429]
+            served = [r for r in res if r[0] == 200]
+            if (not bounced or len(bounced) + len(served) != len(storm)
+                    or any(r[1] is None or int(r[1]) < 1
+                           for r in res if r[0] == 429)
+                    or any(r[3] != "length" or not r[4] for r in served)):
+                raise AssertionError(f"overload storm: {[r[:2] for r in res]}")
+            n429 = d_o("dynamo_overload_http_429_total")
+            spills = d_o("dynamo_overload_router_spills_total")
+            rejected = d_o("dynamo_overload_rejected_total")
+            if n429 != len(bounced) or spills < len(bounced):
+                raise AssertionError(
+                    f"overload storm: {len(bounced)} answered 429, the "
+                    f"counter says {n429}, spills {spills}")
+            again = [await post(storm[i], name, f"t{i}") for i in bounced]
+            if any(r[0] != 200 or r[3] != "length" for r in again):
+                raise AssertionError(f"overload: the queue did not recover: "
+                                     f"{[r[:2] for r in again]}")
+            fig["storm"] = (len(served), len(bounced),
+                            sorted({r[1] for r in res if r[0] == 429}),
+                            rejected, spills)
+            await settle_engines(A, B)
+            # ---- waiting preemption on B
+            hogs = await hold(B, 2)
+            pre0 = B.waiting_preemptions
+            lows = []
+            for i in range(3):
+                lows.append(asyncio.ensure_future(outcome(
+                    B, req(prompts[i], N_NEW, tenant=f"w{i}"))))
+                await wait_for(lambda: waiting(B) == i + 1, "a low waits")
+            high = asyncio.ensure_future(outcome(B, req(
+                prompts[3], N_NEW, tenant="w3", priority=1)))
+            evicted = await lows[2]
+            # the queue after the eviction: the high one ahead of the
+            # two low ones left
+            order = [r.req.priority for r in B._waiting if r.slot < 0]
+            await release(hogs)
+            rest = [await lows[0], await lows[1]]
+            out_high = await high
+            if (evicted[0] != "overloaded"
+                    or "preempted" not in str(evicted[1])
+                    or B.waiting_preemptions - pre0 != 1
+                    or d_o("dynamo_overload_preempted_total") != 1
+                    or out_high[0] != "ok" or len(out_high[1]) != N_NEW
+                    or any(r[0] != "ok" or len(r[1]) != N_NEW for r in rest)
+                    or order != [1, 0, 0]):
+                raise AssertionError(
+                    f"overload waiting preemption: evicted {evicted}, "
+                    f"high {out_high[0]}, rest {[r[0] for r in rest]}, "
+                    f"order {order}")
+            await settle_engines(B)
+            # ---- a tenant's budget bounces only that tenant
+            hogs = await hold(B, 2)
+            storm_t = [asyncio.ensure_future(outcome(
+                B, req(others[2 + i], N_NEW, tenant="storm")))
+                for i in range(4)]
+            await wait_for(lambda: sum(t.done() for t in storm_t) >= 2
+                           and waiting(B) == 2, "the storm's bounces")
+            calm = asyncio.ensure_future(outcome(
+                B, req(prompts[4], N_NEW, tenant="calm")))
+            await wait_for(lambda: waiting(B) == 3, "calm waits")
+            await release(hogs)
+            outs = [await t for t in storm_t]
+            out_calm = await calm
+            tb = [o for o in outs if o[0] == "overloaded"]
+            rej = {t: TENANT.get("dynamo_tenant_rejected_total", t) - n
+                   for t, n in t0s.items()}
+            if (len(tb) != 2 or any(o[1].tenant != "storm" for o in tb)
+                    or out_calm[0] != "ok"
+                    or rej != {"storm": 2, "calm": 0}):
+                raise AssertionError(
+                    f"overload tenant budget: storm {[o[0] for o in outs]}, "
+                    f"calm {out_calm[0]}, rejected {rej}")
+            fig["tenant"] = ([o[1].retry_after_s for o in tb], rej)
+            await settle_engines(B)
+            # ---- running preemption through the frontend, migrated to B
+            for eng in (A, B):
+                await asyncio.to_thread(eng.clear_kv_blocks)
+            filler = asyncio.ensure_future(outcome(A, req(others[0], 2000)))
+            await wait_for(lambda: any(s is not None for s in A._slots)
+                           and not A._waiting, "the filler holds a lane")
+            seen: list = []
+            mig0 = A.preempt_migrations
+            victim = asyncio.ensure_future(post(
+                prompts[0], "preempt", "victim", seen, logprobs=2))
+            await wait_for(lambda: len(seen) >= 8, "the victim streams")
+            push2.add_worker("B", B)
+            out_high = await outcome(A, req(prompts[5], 8, priority=1))
+            got = await victim
+            await release([filler])
+            k = int(d_r("dynamo_migration_replayed_tokens_total"))
+            states = push2.health.states()
+            if (got[0] != 200 or got[3] != "length" or not got[4]
+                    or A.preempt_migrations - mig0 != 1
+                    or d_o("dynamo_overload_preempt_migrations_total") != 1
+                    or d_r("dynamo_migration_total") != 1
+                    or states.get("A", "closed") != "closed"
+                    or "A" not in push2.workers or out_high[0] != "ok"
+                    or not 0 < k < N_NEW):
+                raise AssertionError(
+                    f"overload running preemption: status {got[0]}, finish "
+                    f"{got[3]}, preempted {A.preempt_migrations - mig0}, "
+                    f"migrations {d_r('dynamo_migration_total')}, replayed "
+                    f"{k}, breakers {states}, high {out_high[0]}")
+            await settle_engines(A, B)
+            # generate() on R along the same paths, each on a cold cache
+            ref1 = await outcome(R, req(prompts[0], N_NEW, logprobs=2))
+            await asyncio.to_thread(R.clear_kv_blocks)
+            replay = build_replay_request(req(prompts[0], N_NEW),
+                                          ref1[1][:k])
+            replay.output_options = OutputOptions(logprobs=2)
+            ref2 = await outcome(R, replay)
+            want = ref1[1][:k] + ref2[1]
+            tops = ref1[2][:k] + ref2[2]
+            shown = [t for t in want if t > 2]
+            if got[2] != shown:
+                j = next(j for j, (a, b) in enumerate(zip(got[2], shown))
+                         if a != b)
+                # the step of the j-th shown token, and R's top-2 gap there
+                step = [i for i, t in enumerate(want) if t > 2][j]
+                gap = tops[step][0][1] - tops[step][1][1]
+                if gap > NEAR_TIE:
+                    raise AssertionError(
+                        f"overload running preemption: the migrated stream "
+                        f"{got[2]} != generate()'s {shown} (step {step}, "
+                        f"R's top-2 gap {gap:.4f})")
+                fig["tie"] = (step, gap)
+            fig["preempt"] = (k, len(got[2]))
+            return fig
+        finally:
+            await svc.stop()
+            for eng in engs:
+                await eng.stop()
+
+    fd.launches = fd.launches_int8 = 0
+    fd.executed(A.device, reset=True)
+    steps0 = [e.step_count for e in engs]
+    fig = asyncio.run(drive())
+    steps = sum(e.step_count - s for e, s in zip(engs, steps0))
+    dense, int8 = fd.executed(A.device)
+    if (dense != cfg.num_layers * steps or int8
+            or fd.launches + fd.launches_int8):
+        raise AssertionError(
+            f"overload: the kernel ran {dense} times (int8 {int8}) over "
+            f"{steps} decode steps of {cfg.num_layers} layers")
+    for eng in engs:
+        check_replayed(eng, f"overload {eng.ecfg.worker_id}")
+    n_ok, n_429, retry, rejected, spills = fig["storm"]
+    k, n_shown = fig["preempt"]
+    tie = (f"; R's near-tie at step {fig['tie'][0]} (gap "
+           f"{fig['tie'][1]:.4f})" if "tie" in fig else "")
+    log(f"overload: storm of 12: {n_ok} served, {n_429} answered 429 "
+        f"(Retry-After {retry} s; engine rejections {rejected:.0f}, router "
+        f"spills {spills:.0f}), all {n_429} served on retry; waiting "
+        f"preemption evicted the newest low entry, the high one queued "
+        f"ahead of the low ones left; tenant storm bounced twice (Retry-After "
+        f"{fig['tenant'][0]} s), calm admitted; running preemption "
+        f"migrated the victim after {k} tokens, its whole stream "
+        f"generate()'s along the same paths{tie}; the kernel ran {dense} "
+        f"times over {steps} decode steps of A, B and R")
+    figures(f"storm {n_ok} ok / {n_429} x 429 then recovered; waiting, "
+            f"tenant and running preemption held (migrated after {k} "
+            f"tokens{tie}); launches {dense}")
+    del A, B, R, engs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dense
+
+
 def offload_prompts(vocab: int):
     """Wave B of the offload phase: 8 prompts of the serve prompts'
     lengths, from seed 1."""
@@ -5579,6 +6316,15 @@ def profiled_checks():
         phase(f"round_graph 8B kv_quant={kv_quant}", check_round_graph,
               f"Llama-3.1-8B kv_quant={kv_quant}", cfg,
               EngineConfig(kv_quant=kv_quant), params, prompts)
+    from dynamo_tpu_torch.tenancy.adapters import random_adapter
+
+    factors = {aid: random_adapter(cfg, LORA_RANK, seed=aid)
+               for aid in (1, 2, 3)}
+    phase("round_graph 8B lora", check_round_graph,
+          "Llama-3.1-8B lora kv_quant=none", cfg,
+          EngineConfig(lora_adapters=4, lora_rank=LORA_RANK), params,
+          prompts, adapters=(factors, LORA_IDS))
+    del factors
     qparams = llama.quantize_params(params)
     del params
     phase("round_graph 8B w8a16", check_round_graph,
@@ -5673,6 +6419,7 @@ def main() -> int:
     phase("tiny", check_tiny_engine)
     phase("tiny int8", check_tiny_int8)
     phase("tiny w8a16", check_tiny_w8a16)
+    phase("tiny lora", check_tiny_lora)
     time_block_hashes(serve_prompts(cfg.vocab_size), 64)
     counts: dict[str, int] = {}
     # the 8B weights are made once and serve every 8B phase; the w8a16
@@ -5684,8 +6431,8 @@ def main() -> int:
         f"{time.monotonic() - t0:.1f} s")
     dense_tokens, direct = phase("serve none", serve_llama3_8b, counts,
                                  params, "none")
-    phase("serve int8", serve_llama3_8b, counts, params, "int8",
-          dense_tokens)
+    int8_tokens, _ = phase("serve int8", serve_llama3_8b, counts, params,
+                           "int8", dense_tokens)
     http_launches, http_figs = phase("http", check_http, params,
                                      dense_tokens[:8], direct)
     dist_launches, _ = phase("distributed", check_distributed, params,
@@ -5714,9 +6461,13 @@ def main() -> int:
         f"(bf16 {weights_gib(params):.2f} GiB)")
     lp_diff = first_step_logprob_diff(params, qparams,
                                       serve_prompts(cfg.vocab_size)[0])
-    _, w8 = phase("serve w8a16", serve_llama3_8b, counts, qparams, "none",
-                  dense_tokens, cfg=qcfg)
+    w8_tokens, w8 = phase("serve w8a16", serve_llama3_8b, counts, qparams,
+                          "none", dense_tokens, cfg=qcfg)
     spec_w8 = phase("speculation w8a16", check_speculation_w8a16, qparams)
+    lora_launches = phase("tenancy", check_tenancy, params, qparams, {
+        "none": dense_tokens, "int8": int8_tokens, "w8a16": w8_tokens},
+        direct)
+    over_launches = phase("overload", check_overload, params)
     log(f"serve w8a16 beside dense (same run, same prompts): TTFT median "
         f"{np.median(w8['ttft']):.4f} s max {max(w8['ttft']):.4f} s "
         f"(dense {np.median(direct['ttft']):.4f}, "
@@ -5748,14 +6499,17 @@ def main() -> int:
              launches_prefix_economy=eco_launches,
              launches_offload=counts["flash_decode_offload"],
              launches_spec=spec_launches[0] + spec_w8[0],
-             launches_spec_tree=tree_launches[0], **fd_report),
+             launches_spec_tree=tree_launches[0],
+             launches_tenancy=lora_launches[0],
+             launches_overload=over_launches, **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",
              launches=counts["flash_decode_int8"],
              launches_remote_kv=g4_launches,
              launches_offload=counts["flash_decode_int8_offload"],
              launches_spec=spec_launches[1],
-             launches_spec_tree=tree_launches[1], **fd8_report),
+             launches_spec_tree=tree_launches[1],
+             launches_tenancy=lora_launches[1], **fd8_report),
         # no Pallas kernel: XLA's fused convert + dot of _mm and the
         # quantized _logits; the figures are one 8B decode step's 225
         # products at M = 8 (per shape: the "kernel w8a16_gemm shapes"

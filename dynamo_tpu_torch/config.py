@@ -45,6 +45,11 @@ class RuntimeConfig:
     kv_prefetch_interval_s: float = 2.0
     kv_freq_halflife_s: float = 600.0
     kv_dedup_admission: bool = True
+    # the overload plane (overload/): the engine's waiting-queue budgets
+    # (0 = unbounded) and the running-preemption switch
+    max_waiting_requests: int = 0
+    max_waiting_prefill_tokens: int = 0
+    preempt_running: bool = False
 
 
 def _coerce(value: str, target_type) -> Any:

@@ -4,11 +4,12 @@ engine/config.py, cut to the knobs the PyTorch engine honours).
 Decode rounds are pipelined by default (``round_pipeline``, as in the
 reference) and, on the card, each round shape is replayed as one CUDA
 graph (engine/graphs.py). The G2/G3 offload tiers, the engine-local
-page-transfer plane and speculative decoding (``speculative`` "ngram" or
+page-transfer plane, speculative decoding (``speculative`` "ngram" or
 "draft", adaptive K, the acceptance gate, and tree speculation under
-``spec_tree``) are served. The reference's other planes (tenancy quotas,
-overload budgets, sequence-parallel prefill) are not ported yet. Their
-knobs are kept here at the values that mean "off", and any other value
+``spec_tree``), the overload budgets with priority preemption, and the
+tenancy plane (a resident LoRA bank, per-tenant budgets and fair-share
+weights) are served. Sequence-parallel prefill is not ported yet: its
+knob is kept here at the value that means "off", and any other value
 raises, so a config written for the reference never silently runs
 something else.
 """
@@ -34,11 +35,7 @@ def pow2_cover(n: int, lo: int = 1) -> int:
 # knobs of the reference that this engine does not serve yet, with the
 # only value it accepts (the reference's "off")
 _UNPORTED = {
-    "lora_adapters": 0,
     "sp_prefill_threshold": None,
-    "max_waiting_requests": 0,
-    "max_waiting_prefill_tokens": 0,
-    "preempt_running": False,
 }
 
 
@@ -177,12 +174,40 @@ class EngineConfig:
     spec_gate_window: int = 4
     spec_rearm_tokens: int = 256
 
-    # not ported yet: see _UNPORTED
-    lora_adapters: int = 0
-    sp_prefill_threshold: Optional[int] = None
+    # overload plane (overload/): bounded admission. Intake past either
+    # budget raises the retriable EngineOverloadedError (HTTP 429 +
+    # Retry-After at the frontend) instead of growing the waiting queue,
+    # and every admitted request's TTFT, without limit. 0 = unbounded.
+    # A HIGH-priority arrival is admitted past them; the loop then
+    # evicts the lowest-priority, newest waiting entry
     max_waiting_requests: int = 0
+    # prompt-token budget over the same backlog
     max_waiting_prefill_tokens: int = 0
+    # priority preemption, running half: a waiting HIGH-priority request
+    # with no free lane force-evicts the lowest-priority RUNNING stream,
+    # whose client stream fails with the retriable PreemptedError: the
+    # router replays it on a peer (a migration)
     preempt_running: bool = False
+
+    # tenancy plane (tenancy/). A resident LoRA bank of this many adapter
+    # slots (row 0 is the all-zeros identity = the base model) at rank
+    # lora_rank, in the compute dtype, read by every prefill and decode
+    # round: mixed adapter ids run in one round. 0 = no bank: the engine
+    # runs exactly the programs it runs without tenancy
+    lora_adapters: int = 0
+    lora_rank: int = 8
+    # per-tenant slices of the backlog budgets above (0 = unbounded): one
+    # tenant's storm exhausts its own slice, and bounces with a
+    # Retry-After from its own observed queue waits, before it can crowd
+    # the global queue
+    tenant_max_waiting_requests: int = 0
+    tenant_max_waiting_prefill_tokens: int = 0
+    # fair-share weights of the waiting queue's order (tenant -> weight,
+    # default 1.0); they bias the order, not the budgets
+    tenant_weights: Optional[dict] = None
+
+    # not ported yet: see _UNPORTED
+    sp_prefill_threshold: Optional[int] = None
 
     def __post_init__(self):
         if self.kv_quant not in ("none", "int8"):

@@ -34,12 +34,28 @@ PyTorch (port of the JAX package's TpuEngine main path).
     card); a freed slot's lane is redirected to the scratch lane so its
     in-flight garbage steps never touch a lane being re-prefilled. One
     CUDA stream keeps every program in dispatch order.
-  - Intake follows the reference's overload rules that no knob turns on:
-    a request whose deadline has passed is shed with zero tokens and the
-    DEADLINE finish, at intake or while it still waits; a high-priority
-    arrival queues ahead of every not-started lower-priority entry; and
-    entries of one priority are ordered per tenant by start-time fair
-    queuing, every tenant at weight 1 (one tenant stays FIFO).
+  - Intake follows the reference's overload plane: a request whose
+    deadline has passed is shed with zero tokens and the DEADLINE finish,
+    at intake or while it still waits; a high-priority arrival queues
+    ahead of every not-started lower-priority entry; and entries of one
+    priority are ordered per tenant by start-time fair queuing, each
+    tenant's stamps advanced by prompt length over its weight
+    (``tenant_weights``; one tenant stays FIFO). With queue budgets
+    (``max_waiting_requests``, ``max_waiting_prefill_tokens``, and their
+    per-tenant slices ``tenant_max_waiting_*``) an arrival past a budget
+    is refused with the retriable EngineOverloadedError and a
+    load-derived Retry-After; a HIGH-priority arrival is admitted past
+    it, and the loop restores the budget by evicting the lowest-priority,
+    newest waiting entry (within the offending tenant for a tenant
+    budget). With ``preempt_running`` a HIGH-priority request blocked on
+    a lane evicts the lowest-priority running stream with PreemptedError,
+    which a router turns into a migration.
+  - Tenancy: with ``lora_adapters`` the engine holds a resident LoRA bank
+    (tenancy/adapters.py; ``install_adapter``) in its params; a
+    request's ``adapter_id`` rides into its prefill and into the slot's
+    device state (``dev["adapter"]``, set by the admission patch and
+    cleared by a release), so the round graph runs mixed adapters in one
+    replay. Speculation stays with adapter 0.
   - Prefill runs batched per prefill bucket (batch_prefill); a group of
     one runs the single-request prefill (llama.prefill), as the
     reference does. The first token is sampled on the device with its
@@ -105,10 +121,9 @@ PyTorch (port of the JAX package's TpuEngine main path).
     commits only the accepted path's KV rows, and returns one packed
     [B, 2D+4] result (``_process_spec_tree``).
 
-Not ported yet (ROADMAP.md): tenant quotas
-and adapters, overload budgets and preemption, multimodal, MoE, and the
-``g4_fetch`` and ``g4_chunk`` spans of a fetch and the ``spec_draft`` and
-``spec_verify`` spans of a round (item 10).
+Not ported yet (ROADMAP.md): multimodal, MoE, and the ``g4_fetch`` and
+``g4_chunk`` spans of a fetch and the ``spec_draft`` and ``spec_verify``
+spans of a round (item 10).
 """
 from __future__ import annotations
 
@@ -147,6 +162,13 @@ from dynamo_tpu_torch.kv_router.protocols import (
 )
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.overload.admission import AdmissionController
+from dynamo_tpu_torch.overload.deadline import PRIORITY_HIGH
+from dynamo_tpu_torch.overload.errors import (
+    EngineOverloadedError,
+    PreemptedError,
+)
+from dynamo_tpu_torch.overload.metrics import OVERLOAD
 from dynamo_tpu_torch.protocols.common import (
     FinishReason,
     LLMEngineOutput,
@@ -155,6 +177,10 @@ from dynamo_tpu_torch.protocols.common import (
 from dynamo_tpu_torch.spec.decoder import SpecDecoder
 from dynamo_tpu_torch.spec.metrics import SPEC
 from dynamo_tpu_torch.spec.proposer import comb_parents
+from dynamo_tpu_torch.telemetry.metrics import QUEUE, Histogram
+from dynamo_tpu_torch.tenancy.adapters import init_adapter_bank, set_adapter
+from dynamo_tpu_torch.tenancy.metrics import TENANT
+from dynamo_tpu_torch.tenancy.quotas import TenantQuotas
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 log = logging.getLogger(__name__)
@@ -191,6 +217,9 @@ class _Request:
     tenant: str = "default"
     # start-time fair queuing stamp: the tenant's virtual finish time
     vft: float = 0.0
+    # the prompt is counted in the waiting backlog (the budgets' counters:
+    # set at intake, cleared exactly once at lane acquisition or exit)
+    counted: bool = False
     matched_blocks: int = 0
     # prompt blocks already copy-committed into the prefix cache
     sealed_prefix: int = 0
@@ -230,6 +259,10 @@ class _Request:
     # re-arm drain: in-flight rounds whose snapshot still steps this lane
     # (their tokens are real and must be mirrored first)
     spec_rearm_wait: int = 0
+
+    @property
+    def adapter_id(self) -> int:
+        return int(self.req.adapter_id or 0)
 
     @property
     def prompt_len(self) -> int:
@@ -378,6 +411,15 @@ class TorchEngine:
         dtype = llama.torch_dtype(e.cache_dtype)
         if params is None:
             params = llama.init_params(c, rng_seed, self.device)
+        # resident LoRA bank (tenancy/adapters.py): rides in the params
+        # (params["adapters"]) in the compute dtype; row 0 is the all-zeros
+        # identity = the base model, exactly. Without one every program is
+        # the one an engine without tenancy runs
+        self.n_adapters = max(0, e.lora_adapters)
+        if self.n_adapters > 0:
+            params = dict(params, adapters=init_adapter_bank(
+                c, self.n_adapters, e.lora_rank, dtype=dtype,
+                device=self.device))
         self.params = params
         # paged pool: prefix-cache STORAGE; contiguous per-slot serving
         # context (+1 scratch lane); the round's decode write ring. Under
@@ -498,6 +540,9 @@ class TorchEngine:
             "pres": torch.zeros(B, **f32),
             "rep": torch.ones(B, **f32),
         }
+        if self.n_adapters > 0:
+            # each slot's adapter id, read by the round to gather its rows
+            self._dev["adapter"] = torch.zeros(B, **i32)
         # fused-seal width: sized for a full aligned burst (every slot
         # completing blocks the same round); larger bursts flush standalone
         self._seal_fuse_w = pow2_cover(max(
@@ -539,6 +584,27 @@ class TorchEngine:
         # the loop's doorbell: intake and transfer ops ring it
         self._wake_evt = threading.Event()
         self._waiting: list[_Request] = []
+        # overload plane (overload/): bounded admission over the
+        # not-yet-prefilling backlog. The token counters are updated from
+        # the intake (the caller's loop) and the engine thread, under
+        # _wt_lock; reads for budget checks are advisory. The admission
+        # queue waits feed the Retry-After hint
+        self._h_queue = Histogram(*QUEUE)
+        self.admission = AdmissionController(
+            e.max_waiting_requests, e.max_waiting_prefill_tokens,
+            queue_wait_s=lambda: self._h_queue.percentile(0.5))
+        self._waiting_tokens = 0
+        self._wt_lock = threading.Lock()
+        # tenancy plane (tenancy/): per-tenant slices of the budgets and
+        # fair-share weights; the per-tenant counters ride the same
+        # ``counted`` flag and lock as _waiting_tokens
+        self.tenant_quotas = TenantQuotas(
+            e.tenant_max_waiting_requests,
+            e.tenant_max_waiting_prefill_tokens, weights=e.tenant_weights)
+        self._tenant_waiting: dict[str, int] = {}
+        self._tenant_tokens: dict[str, int] = {}
+        self.waiting_preemptions = 0  # waiting entries evicted by priority
+        self.preempt_migrations = 0   # running streams force-migrated
         self._entries: list[_Entry] = []
         # sealed blocks awaiting the ctx->pool copy: (slot, start, page)
         self._seal_queue: list[tuple[int, int, int]] = []
@@ -634,6 +700,19 @@ class TorchEngine:
         return self._drained_evt.is_set()
 
     # ------------------------------------------------------------------
+    # tenancy plane: resident adapters
+
+    def install_adapter(self, adapter_id: int, weights: dict) -> None:
+        """Install one fine-tune variant's LoRA factors into the resident
+        bank (site -> {"a": [L, d_in, r], "b": [L, r, d_out]}), in place:
+        the captured graphs read the new rows from their next replay."""
+        bank = self.params.get("adapters")
+        if bank is None:
+            raise ValueError(
+                "engine has no adapter bank (EngineConfig.lora_adapters=0)")
+        set_adapter(bank, adapter_id, weights)
+
+    # ------------------------------------------------------------------
     # AsyncEngine surface
 
     async def generate(
@@ -657,20 +736,60 @@ class TorchEngine:
         n_lp = request.output_options.logprobs
         if n_lp is not None and n_lp < 0:
             raise ValueError(f"logprobs must be >= 0, got {n_lp}")
-        if request.adapter_id or request.multimodal or request.disagg:
+        if request.multimodal or request.disagg:
             raise ValueError(
-                "LoRA adapters, multimodal inputs and disaggregated "
-                "prefill are not supported by the PyTorch engine yet")
+                "multimodal inputs and disaggregated prefill are not "
+                "supported by the PyTorch engine yet")
+        tenant = request.tenant or "default"
+        adapter_id = int(request.adapter_id or 0)
+        if adapter_id and not 0 < adapter_id < max(1, self.n_adapters):
+            raise ValueError(
+                f"adapter_id {adapter_id} out of range: engine bank has "
+                f"{self.n_adapters} adapter slots")
         if request.deadline is not None and _wall_time() > request.deadline:
             # the deadline passed before intake: shed with zero tokens and
             # the DEADLINE finish, never an error (the client's budget ran
             # out, nothing failed)
             self.sheds += 1
+            OVERLOAD.inc("dynamo_overload_shed_total")
             yield LLMEngineOutput(
                 token_ids=[], finish_reason=FinishReason.DEADLINE,
                 annotations={"shed": {"reason": "deadline",
                                       "queued_s": 0.0}})
             return
+        # bounded admission: a full waiting queue refuses intake with the
+        # retriable overload error (a router spills to a peer, the
+        # frontend answers 429 + Retry-After). A HIGH-priority arrival is
+        # admitted anyway: the loop restores the budget by evicting the
+        # lowest-priority waiting entry (_enforce_bounds)
+        if self.admission.bounded:
+            waiting = (sum(1 for w in self._waiting if w.slot < 0)
+                       + self._intake.qsize())
+            with self._wt_lock:
+                tokens = self._waiting_tokens
+            try:
+                self.admission.check(waiting, tokens)
+            except EngineOverloadedError:
+                if request.priority < PRIORITY_HIGH:
+                    OVERLOAD.inc("dynamo_overload_rejected_total")
+                    TENANT.inc("dynamo_tenant_rejected_total", tenant)
+                    raise
+        # the tenant's own slice: one tenant's storm exhausts its budget
+        # (429 + a Retry-After from that tenant's own queue waits) before
+        # it can crowd the global queue; HIGH priority is force-admitted
+        # here too and paid for within the tenant
+        if self.tenant_quotas.bounded:
+            with self._wt_lock:
+                t_waiting = self._tenant_waiting.get(tenant, 0)
+                t_tokens = self._tenant_tokens.get(tenant, 0)
+            try:
+                self.tenant_quotas.check(tenant, t_waiting, t_tokens)
+            except EngineOverloadedError:
+                if request.priority < PRIORITY_HIGH:
+                    OVERLOAD.inc("dynamo_overload_rejected_total")
+                    TENANT.inc("dynamo_tenant_rejected_total", tenant)
+                    raise
+        TENANT.inc("dynamo_tenant_admitted_total", tenant)
         if not self._started:
             self.start()
         r = _Request(
@@ -680,10 +799,17 @@ class TorchEngine:
             out=asyncio.Queue(),
             loop=asyncio.get_running_loop(),
             tokens=list(request.token_ids),
-            tenant=request.tenant or "default",
+            tenant=tenant,
         )
         if self.remote_kv is not None and self.offload is not None:
             await self._remote_prefetch(r)
+        r.counted = True
+        with self._wt_lock:
+            self._waiting_tokens += len(r.tokens)
+            self._tenant_waiting[tenant] = (
+                self._tenant_waiting.get(tenant, 0) + 1)
+            self._tenant_tokens[tenant] = (
+                self._tenant_tokens.get(tenant, 0) + len(r.tokens))
         self._intake.put(r)
         self._wake_evt.set()
         try:
@@ -740,6 +866,7 @@ class TorchEngine:
         e = self.ecfg
         t_round = time.monotonic()
         self._drain_intake()
+        self._enforce_bounds()
         in_flight = self._rounds_in_flight()
         dispatched = False
         t_pipe = 0.0
@@ -868,20 +995,20 @@ class TorchEngine:
                 return
 
     def _enqueue_waiting(self, r: _Request) -> None:
-        """Start-time fair queuing within a priority class; a
+        """Weighted start-time fair queuing within a priority class; a
         high-priority arrival queues ahead of every lower-priority entry
         that has NOT started prefill (an entry holding a lane is active
         work, never jumped). Each request is stamped with a virtual
         finish time, its tenant's virtual clock advanced by its prompt
-        length (every tenant's weight is 1 until quotas are ported), and
-        goes before the first not-started same-priority entry with a
+        length over the tenant's weight (``tenant_weights``, default 1),
+        and goes before the first not-started same-priority entry with a
         LARGER stamp. A tenant's fresh arrival starts at the global
         virtual clock (advanced at service start, ``_prefill_begin``), so
         a storming tenant's backlog cannot hold it back; one tenant's
         stamps only grow, so its traffic stays FIFO."""
         t = r.tenant
         vstart = max(self._tenant_vnow.get(t, 0.0), self._vclock)
-        r.vft = vstart + max(1, len(r.tokens))
+        r.vft = vstart + max(1, len(r.tokens)) / self.tenant_quotas.weight(t)
         self._tenant_vnow[t] = r.vft
         for i, w in enumerate(self._waiting):
             if w.prefill_pos >= 0:
@@ -938,6 +1065,16 @@ class TorchEngine:
         active = self._slot_active
         self._ctx_disp[active] = np.minimum(self._ctx_disp[active] + n,
                                             e.max_context)
+        if self.n_adapters:
+            # which tenants' rounds gathered a variant's rows (inside the
+            # same replay: no extra dispatch)
+            seen: set[str] = set()
+            for i in np.flatnonzero(active):
+                r = self._slots[i]
+                if r is not None and r.adapter_id and r.tenant not in seen:
+                    seen.add(r.tenant)
+                    TENANT.inc("dynamo_tenant_adapter_rounds_total",
+                               r.tenant)
         self._count_kv_quant(n_seal)
         if self.kv_quant:
             # the ring flush requantized a window of scale groups a lane
@@ -2182,6 +2319,16 @@ class TorchEngine:
         ctx_usage = live_tokens / float(self._B * e.max_context)
         num_waiting = (sum(1 for r in self._waiting if r.slot < 0)
                        + self._intake.qsize())
+        with self._wt_lock:
+            waiting_tokens = self._waiting_tokens
+            t_waiting = dict(self._tenant_waiting)
+            t_tokens = dict(self._tenant_tokens)
+        # the overload gauges, and the tenant-sliced backlog gauges
+        OVERLOAD.set("dynamo_overload_queue_depth", num_waiting)
+        OVERLOAD.set("dynamo_overload_queue_tokens", waiting_tokens)
+        for t in set(t_waiting) | set(t_tokens):
+            TENANT.set("dynamo_tenant_queue_depth", t, t_waiting.get(t, 0))
+            TENANT.set("dynamo_tenant_queue_tokens", t, t_tokens.get(t, 0))
         KV_QUANT.set("dynamo_kv_pool_capacity_blocks", a.total_pages)
         off = self.offload
         spill = off.spill if off is not None else None
@@ -2198,6 +2345,7 @@ class TorchEngine:
                                       + len(self._prefilling)),
                 request_total_slots=self._B,
                 num_requests_waiting=num_waiting,
+                num_waiting_prefill_tokens=waiting_tokens,
                 max_waiting_requests=e.max_waiting_requests,
                 max_waiting_prefill_tokens=e.max_waiting_prefill_tokens,
                 spec_proposed_total=sp.proposed_total if sp else 0,
@@ -2225,6 +2373,33 @@ class TorchEngine:
             ),
         )
 
+    def tenant_debug(self) -> dict:
+        """Per-tenant quota, backlog and metric view: the engine half of
+        /debug/tenants (runtime/system_server.py; the frontend adds its
+        own metric slice)."""
+        with self._wt_lock:
+            t_waiting = dict(self._tenant_waiting)
+            t_tokens = dict(self._tenant_tokens)
+        quotas = self.tenant_quotas.snapshot()
+        metrics_snap = TENANT.snapshot()
+        tenants: dict[str, dict[str, Any]] = {}
+        for t in (set(t_waiting) | set(t_tokens) | set(quotas)
+                  | set(metrics_snap)):
+            tenants[t] = {
+                "waiting_requests": t_waiting.get(t, 0),
+                "waiting_prefill_tokens": t_tokens.get(t, 0),
+                **(quotas.get(t) or {}),
+                "metrics": metrics_snap.get(t, {}),
+            }
+        return {
+            "bounded": self.tenant_quotas.bounded,
+            "max_waiting_requests": self.ecfg.tenant_max_waiting_requests,
+            "max_waiting_prefill_tokens": (
+                self.ecfg.tenant_max_waiting_prefill_tokens),
+            "n_adapters": self.n_adapters,
+            "tenants": tenants,
+        }
+
     # ---- admission / prefill ----
 
     def _admit(self) -> None:
@@ -2237,10 +2412,11 @@ class TorchEngine:
                     and now > r.req.deadline):
                 # a still-WAITING request past its deadline would only
                 # prefill dead work; one that started is always served
-                self._shed_waiting(r)
+                self._shed_waiting(r, "deadline")
             else:
                 kept.append(r)
         self._waiting = kept
+        self._maybe_preempt_running()
         # bounded prefill budget per round: a long prompt advances one
         # chunk at a time with decode rounds in between
         budget = max(1, self.ecfg.prefill_chunks_per_round)
@@ -2257,17 +2433,162 @@ class TorchEngine:
             for r in self._batch_prefill_group(group, width):
                 self._waiting.remove(r)
 
-    def _shed_waiting(self, r: _Request) -> None:
-        """Drop a waiting request whose deadline passed: zero tokens and
-        the DEADLINE finish (the budget ran out, nothing failed)."""
+    # ---- overload plane: budgets, shedding, preemption ----
+
+    def _uncount_waiting(self, r: _Request) -> None:
+        """Drop a request's prompt from the waiting backlog's counters
+        (idempotent: the first lane acquisition or queue exit wins)."""
+        if not r.counted:
+            return
+        r.counted = False
+        t = r.tenant
+        with self._wt_lock:
+            self._waiting_tokens -= len(r.tokens)
+            self._tenant_waiting[t] = max(
+                0, self._tenant_waiting.get(t, 0) - 1)
+            self._tenant_tokens[t] = max(
+                0, self._tenant_tokens.get(t, 0) - len(r.tokens))
+
+    def _shed_waiting(self, r: _Request, reason: str) -> None:
+        """Drop a still-WAITING request. A ``deadline`` shed finishes
+        cleanly (zero tokens and the DEADLINE finish: the budget ran out,
+        nothing failed); a preemption or budget shed surfaces the
+        retriable overload error, so a router re-routes it."""
+        self._uncount_waiting(r)
         r.finished = True
-        self.sheds += 1
-        r.emit(LLMEngineOutput(
-            token_ids=[], finish_reason=FinishReason.DEADLINE,
-            annotations={"shed": {
-                "reason": "deadline",
-                "queued_s": round(time.monotonic() - r.enqueue_time, 3),
-            }}))
+        if reason == "deadline":
+            self.sheds += 1
+            OVERLOAD.inc("dynamo_overload_shed_total")
+            r.emit(LLMEngineOutput(
+                token_ids=[], finish_reason=FinishReason.DEADLINE,
+                annotations={"shed": {
+                    "reason": "deadline",
+                    "queued_s": round(time.monotonic() - r.enqueue_time, 3),
+                }}))
+            return
+        t = r.tenant
+        TENANT.inc("dynamo_tenant_shed_total", t)
+        if self.tenant_quotas.bounded:
+            # the pressure is the tenant's, so the hint is too: its own
+            # queue-wait p50 x its own backlog depth
+            with self._wt_lock:
+                t_waiting = self._tenant_waiting.get(t, 0)
+            retry = self.tenant_quotas.retry_after_s(t, t_waiting)
+        else:
+            retry = self.admission.retry_after_s(
+                sum(1 for w in self._waiting if w.slot < 0))
+        r.emit(EngineOverloadedError(
+            f"request shed while waiting ({reason})",
+            retry_after_s=retry, tenant=t))
+
+    def _evict_waiting(self, cands: list[_Request], what: str) -> None:
+        """Evict the lowest-priority, newest of ``cands`` (the not-started
+        waiting entries over a budget): a preemption when a higher
+        priority waits among them, else a bounce of the newest arrival
+        (the budget stays honest either way)."""
+        lo = min(r.req.priority for r in cands)
+        hi = max(r.req.priority for r in cands)
+        victim = max((r for r in cands if r.req.priority == lo),
+                     key=lambda r: r.enqueue_time)
+        if lo < hi:
+            self.waiting_preemptions += 1
+            OVERLOAD.inc("dynamo_overload_preempted_total")
+            self._shed_waiting(victim, "preempted by priority" + (
+                f" ({what})" if what != "queue budget" else ""))
+        else:
+            OVERLOAD.inc("dynamo_overload_rejected_total")
+            self._shed_waiting(victim, f"{what} exceeded")
+        self._waiting.remove(victim)
+
+    def _enforce_bounds(self) -> None:
+        """Restore the admission budgets after a HIGH-priority arrival
+        was force-admitted past them: evict the lowest-priority, newest
+        waiting entry until the backlog fits. The tenant budgets first:
+        a tenant's overflow is paid for within that tenant."""
+        self._enforce_tenant_bounds()
+        adm = self.admission
+        if not adm.bounded:
+            return
+        while True:
+            cands = [r for r in self._waiting
+                     if r.prefill_pos < 0 and not r.cancelled
+                     and not r.finished]
+            with self._wt_lock:
+                tokens = self._waiting_tokens
+            over = ((adm.max_waiting_requests
+                     and len(cands) > adm.max_waiting_requests)
+                    or (adm.max_waiting_prefill_tokens
+                        and tokens > adm.max_waiting_prefill_tokens))
+            if not over or not cands:
+                return
+            self._evict_waiting(cands, "queue budget")
+
+    def _enforce_tenant_bounds(self) -> None:
+        """The per-tenant half of _enforce_bounds: the victim is always
+        the offending tenant's own lowest-priority, newest waiting entry,
+        never another tenant's work."""
+        tq = self.tenant_quotas
+        if not tq.bounded:
+            return
+        while True:
+            by_tenant: dict[str, list[_Request]] = {}
+            for r in self._waiting:
+                if r.prefill_pos < 0 and not r.cancelled and not r.finished:
+                    by_tenant.setdefault(r.tenant, []).append(r)
+            for rs in by_tenant.values():
+                toks = sum(len(r.tokens) for r in rs)
+                if ((tq.max_waiting_requests
+                     and len(rs) > tq.max_waiting_requests)
+                        or (tq.max_waiting_prefill_tokens
+                            and toks > tq.max_waiting_prefill_tokens)):
+                    self._evict_waiting(rs, "tenant budget")
+                    break
+            else:
+                return
+
+    def _maybe_preempt_running(self) -> None:
+        """The running half of priority preemption (``preempt_running``):
+        a HIGH-priority request blocked on a lane force-evicts the
+        lowest-priority RUNNING stream. Its client stream fails with the
+        retriable PreemptedError, a router replays it on a peer
+        (exactly-once, greedy token-identical: a migration), and the
+        freed lane admits the high-priority request in a later round. At
+        most one victim a round; a lane mid-prefill is never preempted
+        (its replay would waste the prefill and free no decode lane
+        yet)."""
+        if not self.ecfg.preempt_running:
+            return
+        hp = next((r for r in self._waiting
+                   if r.prefill_pos < 0 and not r.cancelled
+                   and r.req.priority > 0), None)
+        if hp is None or self._free_slot() is not None:
+            return
+        victims = [v for v in self._slots
+                   if v is not None and not v.finished and not v.cancelled
+                   and v.req.priority < hp.req.priority]
+        if not victims:
+            return
+        # tenant-confined: with tenant budgets, a victim comes from a
+        # tenant over its own budget whenever one holds a lane
+        if self.tenant_quotas.bounded:
+            with self._wt_lock:
+                tw = dict(self._tenant_waiting)
+                tt = dict(self._tenant_tokens)
+            over = [v for v in victims if self.tenant_quotas.over_budget(
+                tw.get(v.tenant, 0), tt.get(v.tenant, 0))]
+            if over:
+                victims = over
+        lo = min(v.req.priority for v in victims)
+        victim = max((v for v in victims if v.req.priority == lo),
+                     key=lambda v: v.enqueue_time)
+        self.preempt_migrations += 1
+        OVERLOAD.inc("dynamo_overload_preempt_migrations_total")
+        log.warning("preempting running request %s (priority %d) for "
+                    "high-priority arrival %s", victim.req.request_id,
+                    victim.req.priority, hp.req.request_id)
+        victim.emit(PreemptedError(
+            "preempted by a higher-priority request; stream migrates"))
+        self._finish(victim, None)
 
     def _chunk_width(self, remaining: int) -> int:
         """Padded (bucketed, page-aligned) width of the next chunk for a
@@ -2328,6 +2649,7 @@ class TorchEngine:
             self.config, self.params, self.ctx,
             self._to_device(toks),
             slots, q_starts, seq_lens, ctx_span,
+            adapter_ids=[r.adapter_id for r in group],
         )
         done: list[_Request] = []
         for i, r in enumerate(group):
@@ -2350,7 +2672,7 @@ class TorchEngine:
         self.dispatch_counts["prefill"] += 1
         logits = llama.prefill(
             self.config, self.params, self.ctx, self._to_device(toks),
-            r.slot, start, start + len(chunk))
+            r.slot, start, start + len(chunk), r.adapter_id)
         r.prefill_pos = start + len(chunk)
         if r.prefill_pos < len(r.tokens):
             self._seal_prefilled(r)  # earlier chunks' blocks seal now
@@ -2366,6 +2688,7 @@ class TorchEngine:
 
     def _abort_prefill(self, r: _Request) -> None:
         """Release a half-prefilled request's lane reservation."""
+        self._uncount_waiting(r)
         if r.slot >= 0 and self._prefilling.get(r.slot) is r:
             del self._prefilling[r.slot]
         r.slot = -1
@@ -2380,10 +2703,18 @@ class TorchEngine:
         slot = self._free_slot()
         r.slot = slot
         self._prefilling[slot] = r
-        r.t_prefill_start = time.monotonic()
+        # the request holds a lane: active work now, not the backlog
+        self._uncount_waiting(r)
         # fair queuing: service start advances the global virtual clock
         # to this request's stamp, so later arrivals start from here
         self._vclock = max(self._vclock, r.vft)
+        if r.t_prefill_start is None:
+            r.t_prefill_start = time.monotonic()
+            wait = r.t_prefill_start - r.enqueue_time
+            self._h_queue.observe(wait)
+            self.tenant_quotas.note_queue_wait(r.tenant, wait)
+            TENANT.observe("dynamo_tenant_request_queue_seconds", r.tenant,
+                           wait)
         hashes = r.seq.block_hashes()
         matchable = hashes[: max(0, (len(r.tokens) - 1) // ps)]
         matched_pages = self.allocator.match_prefix(matchable)
@@ -2443,7 +2774,10 @@ class TorchEngine:
         self._slots[slot] = r
         self._ctx_disp[slot] = len(r.tokens) + 1
         more = r.max_new_tokens(e.max_context) > 1
-        if more and self.spec is not None and self.spec.eligible(r.req):
+        # speculation is confined to the base model (adapter 0): the draft
+        # and verify programs carry no adapter
+        if (more and self.spec is not None and r.adapter_id == 0
+                and self.spec.eligible(r.req)):
             # speculative admission: the lane stays PARKED (as a freed
             # slot's); the slot advances through verify dispatches once
             # its first token has landed (_process_first marks it ready)
@@ -2456,7 +2790,7 @@ class TorchEngine:
             self._slot_on(slot, r)
             self._dispatch_patch(admit=dict(
                 slot=slot, ctx=len(r.tokens) + 1, tok=first_tok,
-                keys=step_keys, **knobs))
+                keys=step_keys, adapter=r.adapter_id, **knobs))
         # else the first token is the last: the lane stays parked and no
         # decode round runs for it (a disagg prefill worker's
         # max_tokens=1 jobs); the slot is released once that token is
@@ -2530,6 +2864,8 @@ class TorchEngine:
             return
         if r.first_token_time is None:
             r.first_token_time = time.monotonic()
+            TENANT.observe("dynamo_tenant_request_ttft_seconds", r.tenant,
+                           r.first_token_time - r.enqueue_time)
         sc = r.req.stop_conditions
         if not sc.ignore_eos and tok in (sc.stop_token_ids or []) and (
             sc.min_tokens is None or r.produced >= sc.min_tokens

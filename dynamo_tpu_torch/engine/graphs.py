@@ -61,9 +61,10 @@ from dynamo_tpu_torch.ops import flash_decode, w8a16
 
 # the packed patch row (int64 [B + PATCH_FIELDS]): [0, B) the clear
 # mask, then the admitted slot (B: no admission), its context length,
-# top_k, the two threefry key words, and the f32 bit patterns (as signed
-# int32 values) of temperature, top_p and the three penalties
-PATCH_FIELDS = 10
+# top_k, the two threefry key words, the f32 bit patterns (as signed
+# int32 values) of temperature, top_p and the three penalties, and its
+# resident LoRA adapter id (read only by an engine with a bank)
+PATCH_FIELDS = 11
 _F32_KNOBS = ("temp", "top_p", "freq", "pres", "rep")
 
 
@@ -90,9 +91,15 @@ def run_round(
     ([3, W] int32 slots, starts, pages) ctx->pool when given. Advances
     ``dev`` (tokens, ctx; counts and keys when sampling) and writes
     ``out["ring_base"]``, the step tokens ``out["toks"]`` [F, B] and,
-    with ``want_lp``, ``out["lp"]`` [F, B, 1+2K]."""
+    with ``want_lp``, ``out["lp"]`` [F, B, 1+2K]. With a LoRA bank in
+    ``params``, each slot's factor rows are gathered once by its id
+    (``dev["adapter"]``, constant within a round) and every step adds
+    each slot's delta, so mixed adapters replay in one graph."""
     e = ecfg
     n = e.flush_every
+    ag = None
+    if "adapters" in params:
+        ag = llama.gather_adapters(params["adapters"], dev["adapter"])
     # the round's ring base is fixed at its start
     ring_base = out["ring_base"]
     ring_base.copy_(torch.clamp(dev["ctx"] - 1, min=0))
@@ -103,7 +110,7 @@ def run_round(
     )
     for s in range(n):
         logits = llama.decode_step(config, params, ctx, ring, dev["tokens"],
-                                   dev["ctx"], ring_base, s)
+                                   dev["ctx"], ring_base, s, gathered=ag)
         if want_sample:
             toks = sampling.sample_step(logits, dev["counts"], sp,
                                         e.max_top_k, dev["keys"])
@@ -126,8 +133,9 @@ def run_round(
 def pack_patch(batch: int, clear_slots=(), admit: Optional[dict] = None
                ) -> np.ndarray:
     """The packed patch row for ``run_patch`` (layout at PATCH_FIELDS):
-    release ``clear_slots`` and admit ``admit`` (slot, ctx, keys and the
-    sampling knobs), or nothing when it is None."""
+    release ``clear_slots`` and admit ``admit`` (slot, ctx, keys, the
+    sampling knobs and, optionally, the adapter id), or nothing when it
+    is None."""
     row = np.zeros(batch + PATCH_FIELDS, np.int64)
     row[list(clear_slots)] = 1
     row[batch] = batch
@@ -135,7 +143,8 @@ def pack_patch(batch: int, clear_slots=(), admit: Optional[dict] = None
         row[batch: batch + 5] = (admit["slot"], admit["ctx"], admit["top_k"],
                                  *admit["keys"])
         knobs = np.asarray([admit[k] for k in _F32_KNOBS], np.float32)
-        row[batch + 5:] = knobs.view(np.int32)
+        row[batch + 5: batch + 10] = knobs.view(np.int32)
+        row[batch + 10] = admit.get("adapter", 0)
     return row
 
 
@@ -146,13 +155,15 @@ def run_patch(dev: dict[str, torch.Tensor], row: torch.Tensor,
     parked on the scratch lane B, so their in-flight garbage steps cannot
     touch a lane being re-prefilled); the admitted slot, if any, takes
     its first token ``tok`` [1], context length, keys and knobs, with
-    zeroed counts and its own lane. Fixed shapes: one program whatever
-    the patch holds."""
+    zeroed counts and its own lane. An engine with a LoRA bank keeps each
+    slot's adapter id in ``dev["adapter"]``: a release clears it to 0 and
+    an admission sets it. Fixed shapes: one program whatever the patch
+    holds."""
     B = dev["tokens"].shape[0]
     lanes = torch.arange(B, device=row.device)
     clear = row[:B] != 0
     sel = lanes == row[B]
-    knobs = row[B + 5:].to(torch.int32).view(torch.float32)
+    knobs = row[B + 5: B + 10].to(torch.int32).view(torch.float32)
 
     def put(name, cleared, admitted):
         t = dev[name]
@@ -166,6 +177,8 @@ def run_patch(dev: dict[str, torch.Tensor], row: torch.Tensor,
     put("top_k", None, row[B + 2])
     for i, name in enumerate(_F32_KNOBS):
         put(name, 0.0 if name == "temp" else None, knobs[i])
+    if "adapter" in dev:
+        put("adapter", 0, row[B + 10])
     dev["keys"].copy_(torch.where(sel[:, None], row[None, B + 3:B + 5],
                                   dev["keys"]))
     dev["counts"].masked_fill_((clear | sel)[:, None], 0)

@@ -7,11 +7,13 @@ pipeline graph (entrypoint/input/common.rs:126-150):
 
     OpenAI request -> OpenAIPreprocessor -> engine.generate -> Backend
 
-Fine-tune variants (LoRA adapter rows) are not ported yet.
+A fine-tune variant (``register_variant``) is a chain that shares its
+base's preprocessor, engine and backend and stamps its resident LoRA
+bank row on every request, with its own name as the prefix-cache salt.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, AsyncIterator, Optional
 
 from dynamo_tpu_torch.backend import Backend
@@ -42,13 +44,25 @@ class ModelChain:
     # which OpenAI endpoints this model serves (reference ModelType)
     chat: bool = True
     completions: bool = True
+    # nonzero when this chain is a registered fine-tune VARIANT of a base
+    # model: the resident LoRA bank row serving its requests (0 = the
+    # base model itself)
+    adapter_id: int = 0
 
     def preprocess(
         self, req: ChatCompletionRequest | CompletionRequest
     ) -> PreprocessedRequest:
         if isinstance(req, ChatCompletionRequest):
-            return self.preprocessor.preprocess_chat(req)
-        return self.preprocessor.preprocess_completion(req)
+            pre = self.preprocessor.preprocess_chat(req)
+        else:
+            pre = self.preprocessor.preprocess_completion(req)
+        if self.adapter_id:
+            pre.adapter_id = self.adapter_id
+            # the VARIANT name is the prefix-cache salt: adapter deltas
+            # change hidden states, so variants must never share cached
+            # KV with the base model or each other
+            pre.model = self.name
+        return pre
 
     def generate(
         self, pre: PreprocessedRequest
@@ -73,6 +87,23 @@ class ModelManager:
 
     def unregister(self, name: str) -> Optional[ModelChain]:
         return self._models.pop(name, None)
+
+    def register_variant(self, name: str, base: str,
+                         adapter_id: int) -> ModelChain:
+        """Serve ``name`` as a fine-tune variant of ``base``: the variant
+        shares the base chain's preprocessor, engine and backend (one
+        weight load, one tokenizer) and differs only in the adapter row
+        stamped onto each request."""
+        if adapter_id <= 0:
+            raise ValueError(
+                f"variant {name!r} needs a positive adapter_id "
+                f"(0 is the base model)")
+        base_chain = self._models.get(base)
+        if base_chain is None:
+            raise ModelNotFound(base)
+        chain = replace(base_chain, name=name, adapter_id=adapter_id)
+        self._models[name] = chain
+        return chain
 
     def get(self, name: str, *, chat: bool = False, completion: bool = False) -> ModelChain:
         chain = self._models.get(name)

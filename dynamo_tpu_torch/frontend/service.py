@@ -12,11 +12,12 @@ Endpoints:
                                dynamo_kv_transfer_*, dynamo_disagg_*,
                                dynamo_kv_quant_* and dynamo_kv_integrity_*
                                families, the store's dynamo_store_*, and
-                               the KV router's dynamo_resilience_*,
-                               dynamo_migration_* and
-                               dynamo_overload_router_spills_total, the
-                               fleet's dynamo_kv_fleet_* and the
-                               speculation's dynamo_spec_*)
+                               the KV router's dynamo_resilience_* and
+                               dynamo_migration_*, the overload plane's
+                               dynamo_overload_*, the tenancy plane's
+                               dynamo_tenant_*, the fleet's
+                               dynamo_kv_fleet_* and the speculation's
+                               dynamo_spec_*)
   POST /clear_kv_blocks       (every served engine's clear_kv_blocks:
                                {"cleared": [model, ...]}; a KV-routed
                                model's router fans it out to its workers
@@ -24,6 +25,13 @@ Endpoints:
   GET  /debug/kv_fleet[?model=NAME][&top=K]
                               (each KV-routed model's fleet view:
                                replica map and top-K hot prefixes)
+  GET  /debug/tenants         (the frontend's tenant metric slice and
+                               every local engine's quota and queue view)
+
+A request every worker (or the local engine) refused at admission
+(EngineOverloadedError) answers 429 with a whole-second Retry-After,
+unary and streamed: a stream answers 429 before the SSE stream is
+prepared when every choice bounced before its first output.
 
 Streaming honours client disconnect: the server cancels the handler when
 the connection drops, and the handler closes its response generators,
@@ -38,7 +46,7 @@ adds one event before ``[DONE]`` with the request's token counts, TTFT
 and ITL figures.
 
 Not ported yet: /v1/responses, /v1/embeddings, tracing and the other
-/debug/* routes, overload 429s (the engine has no admission budgets).
+/debug/* routes.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import copy
 import logging
 import time
 import uuid
+from collections import deque
 from typing import Any, AsyncIterator, Optional
 
 from dynamo_tpu_torch.frontend.http import (
@@ -61,7 +70,10 @@ from dynamo_tpu_torch.kv_quant import KV_QUANT
 from dynamo_tpu_torch.kv_fleet_metrics import KV_FLEET
 from dynamo_tpu_torch.spec.metrics import SPEC
 from dynamo_tpu_torch.kv_transfer_metrics import KV_TRANSFER
+from dynamo_tpu_torch.tenancy.metrics import TENANT
+from dynamo_tpu_torch.tenancy.quotas import DEFAULT_TENANT
 from dynamo_tpu_torch.overload.deadline import apply_request_hints
+from dynamo_tpu_torch.overload.errors import EngineOverloadedError
 from dynamo_tpu_torch.overload.metrics import OVERLOAD
 from dynamo_tpu_torch.protocols.common import FinishReason, LLMEngineOutput
 from dynamo_tpu_torch.protocols.openai import (
@@ -128,11 +140,24 @@ class ServiceMetrics:
 
 
 def _error(status: int, message: str,
-           err_type: str = "invalid_request_error") -> Response:
+           err_type: str = "invalid_request_error",
+           headers: Optional[dict] = None) -> Response:
     return Response.json(
         {"error": {"message": message, "type": err_type, "code": status}},
-        status=status,
+        status=status, headers=headers,
     )
+
+
+def _overloaded_response(e: EngineOverloadedError) -> Response:
+    """HTTP 429 with the load-derived Retry-After (whole seconds, rounded
+    up: RFC 7231 delta-seconds)."""
+    OVERLOAD.inc("dynamo_overload_http_429_total")
+    # a tenant-quota refusal names its tenant; a global-backlog one ("")
+    # lands on the default slice, so the series' totals reconcile
+    TENANT.inc("dynamo_tenant_http_429_total", e.tenant or DEFAULT_TENANT)
+    retry_after = max(1, int(-(-e.retry_after_s // 1)))
+    return _error(429, str(e) or "engine overloaded", "overloaded_error",
+                  headers={"Retry-After": str(retry_after)})
 
 
 class _ApiError(Exception):
@@ -243,6 +268,7 @@ class HttpService:
             ("GET", "/metrics"): self.handle_metrics,
             ("POST", "/clear_kv_blocks"): self.handle_clear_kv,
             ("GET", "/debug/kv_fleet"): self.handle_kv_fleet,
+            ("GET", "/debug/tenants"): self.handle_tenants,
         })
         self._start_time = time.monotonic()
 
@@ -281,9 +307,28 @@ class HttpService:
                 + STORE.render().encode()
                 + RESILIENCE.render().encode()
                 + OVERLOAD.render().encode()
+                + TENANT.render().encode()
                 + KV_FLEET.render().encode()
                 + SPEC.render().encode())
         return Response(body, content_type=PROMETHEUS_CONTENT_TYPE)
+
+    async def handle_tenants(self, request: Request) -> Response:
+        """GET /debug/tenants: the tenancy plane in one JSON page, the
+        frontend's own tenant metric snapshot plus every local engine's
+        quota and queue view, keyed by model (remote workers serve the
+        same shape from their system servers)."""
+        engines: dict[str, Any] = {}
+        for name in self.manager.list_models():
+            dbg = getattr(self.manager.get(name).engine, "tenant_debug",
+                          None)
+            if dbg is None:
+                continue
+            try:
+                engines[name] = dbg()
+            except Exception as e:  # noqa: BLE001 — debug page never throws
+                log.debug("tenant debug for %s failed: %s", name, e)
+        return Response.json({"tenants": TENANT.snapshot(),
+                              "engines": engines})
 
     async def handle_kv_fleet(self, request: Request) -> Response:
         """GET /debug/kv_fleet[?model=NAME][&top=K]: the live fleet prefix
@@ -349,6 +394,12 @@ class HttpService:
             except _ApiError as e:
                 status = str(e.status)
                 return _error(e.status, e.message, e.etype)
+            except EngineOverloadedError as e:
+                # every worker (or the local engine) refused admission:
+                # retriable by construction, so 429 + Retry-After, never
+                # a 500
+                status = "429"
+                return _overloaded_response(e)
             status = str(resp.status)
             return resp
         except asyncio.CancelledError:
@@ -546,10 +597,47 @@ class HttpService:
 
         tasks = [asyncio.create_task(pump(i)) for i in range(len(streams))]
         live = len(streams)
+
+        async def close_all() -> None:
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+            for s in streams:
+                try:
+                    await s.aclose()
+                except Exception:  # noqa: BLE001 — closing must not mask
+                    log.debug("stream close failed", exc_info=True)
+
+        # admission probe before the SSE stream is prepared: when every
+        # choice bounces with EngineOverloadedError before any output, the
+        # client gets a clean 429 + Retry-After (a prepared 200 stream
+        # carrying an error event is not retriable by standard clients).
+        # The first real item, or another error (reported in-band), ends
+        # the probe; stashed overload errors then go in-band too
+        pending: deque = deque()
+        overloads: list = []
+        try:
+            while live and not pending:
+                i, item = await queue.get()
+                if item is DONE:
+                    live -= 1
+                elif isinstance(item, EngineOverloadedError):
+                    overloads.append((i, item))
+                else:
+                    pending.append((i, item))
+        except asyncio.CancelledError:
+            await close_all()
+            raise
+        if not pending and not live and overloads:
+            timing.finish()
+            await close_all()
+            raise overloads[0][1]  # -> _run_endpoint answers 429
+        pending.extend(overloads)
         try:
             await resp.prepare(request)
-            while live:
-                i, item = await queue.get()
+            while live or pending:
+                i, item = (pending.popleft() if pending
+                           else await queue.get())
                 if item is DONE:
                     live -= 1
                     continue

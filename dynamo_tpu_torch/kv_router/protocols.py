@@ -65,9 +65,8 @@ class KvStats:
 
 @dataclass
 class WorkerStats:
-    """Batch occupancy at a worker (reference WorkerStats). The overload
-    and speculation fields stay at their defaults until those planes are
-    ported."""
+    """Batch occupancy at a worker (reference WorkerStats), with the
+    overload plane's backlog and budgets and the speculation counters."""
 
     request_active_slots: int = 0
     request_total_slots: int = 0

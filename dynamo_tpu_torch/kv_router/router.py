@@ -16,11 +16,18 @@ migration — the request is rebuilt as prompt + emitted tokens and replayed
 as a prefill on a healthy worker, with exactly-once token delivery (greedy
 output is token-identical to an uninterrupted run).
 
+Overload: a worker that refuses admission (``EngineOverloadedError``) is
+healthy: the request spills to the next-best peer with no breaker
+strike, and the load view cools the worker down for its Retry-After. A
+``PreemptedError`` (a running request evicted by a higher-priority one)
+is a deliberate act of a healthy worker too: no breaker strike, no
+eviction; the request re-routes, or migrates once it has streamed. The
+endpoint wire types only overload, so a remote preemption arrives as a
+retriable connection error and counts as a failure, as in the JAX
+package.
+
 Left out: the request-trace spans (``route``, ``migrate``,
-``overload_bounce``) come with telemetry, ROADMAP Queue 1 item 10; a
-``PreemptedError`` (a running request evicted by a higher-priority one,
-re-routed without a breaker strike) comes with running preemption, item
-8 — the port's endpoint wire cannot carry one yet.
+``overload_bounce``) come with telemetry, ROADMAP Queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -38,7 +45,10 @@ from dynamo_tpu_torch.kv_router.scheduler import (
     SchedulingRequest,
 )
 from dynamo_tpu_torch.kv_router.sequence import ActiveSequencesMultiWorker
-from dynamo_tpu_torch.overload.errors import EngineOverloadedError
+from dynamo_tpu_torch.overload.errors import (
+    EngineOverloadedError,
+    PreemptedError,
+)
 from dynamo_tpu_torch.overload.load import WorkerLoadView
 from dynamo_tpu_torch.overload.metrics import OVERLOAD
 from dynamo_tpu_torch.protocols.common import (
@@ -315,7 +325,13 @@ class KvPushRouter:
                 continue
             except (ConnectionError, OSError) as e:
                 last_err = e
-                self.health.record_failure(worker_id)
+                # PreemptedError is a DELIBERATE act of a healthy worker (a
+                # higher-priority request took the lane): no breaker
+                # strike, never evict the worker; the request just moves
+                # elsewhere (excluded through ``tried``)
+                preempted = isinstance(e, PreemptedError)
+                if not preempted:
+                    self.health.record_failure(worker_id)
                 tried.add(worker_id)
                 if finish_seen:
                     # the finish output was already delivered — the worker
@@ -328,6 +344,12 @@ class KvPushRouter:
                     )
                     return
                 if not streamed:
+                    if preempted:
+                        # nothing emitted yet: the request re-routes as
+                        # it is, and the worker stays in the fleet
+                        log.info("worker %s preempted %s before its first "
+                                 "token; re-routing", worker_id, rid)
+                        continue
                     log.warning(
                         "worker %s unreachable (%s); evicting and "
                         "re-routing %s", worker_id, e, rid,

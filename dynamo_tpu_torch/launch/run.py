@@ -31,7 +31,11 @@ Engines:
                  (--spec-adaptive, --spec-min-k) and the acceptance gate
                  (--spec-gate-*, --spec-rearm-tokens), or a token tree
                  under --spec-tree on (--spec-branches,
-                 --spec-tree-budget): an n-gram trie or a comb draft
+                 --spec-tree-budget): an n-gram trie or a comb draft;
+                 --max-waiting-requests and --max-waiting-prefill-tokens
+                 bound its waiting queue (429 + Retry-After past them)
+                 and --preempt-running on lets a HIGH-priority request
+                 migrate the lowest-priority running stream
 
 The parser keeps every flag of the reference's, so a command line written
 for it parses here; a flag of a plane the port does not serve yet is
@@ -66,12 +70,6 @@ UNPORTED_FLAGS: dict[str, tuple[dict, str]] = {
                             "request tracing"),
     "--tensor-parallel-size": (dict(type=int, default=1),
                                "tensor parallelism"),
-    "--max-waiting-requests": (dict(type=int, default=0),
-                               "overload budgets"),
-    "--max-waiting-prefill-tokens": (dict(type=int, default=0),
-                                     "overload budgets"),
-    "--preempt-running": (dict(default="off", choices=["on", "off"]),
-                          "running preemption"),
     "--prof-attribution": (dict(default="on", choices=["on", "off"]),
                            "performance attribution"),
     "--slo-ttft-target": (dict(type=float, default=0.5), "SLO burn rates"),
@@ -164,6 +162,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="idle-timeout in seconds reclaiming a chunked "
                         "export stream whose receiver stalled (page refs "
                         "freed)")
+    # overload plane (overload/)
+    p.add_argument("--max-waiting-requests", type=int,
+                   default=cfg.max_waiting_requests,
+                   help="bounded admission: waiting-queue depth budget; "
+                        "intake past it is refused with a retriable "
+                        "overload error (HTTP 429 + Retry-After at the "
+                        "frontend). 0 = unbounded")
+    p.add_argument("--max-waiting-prefill-tokens", type=int,
+                   default=cfg.max_waiting_prefill_tokens,
+                   help="bounded admission: prompt-token budget over "
+                        "the waiting queue. 0 = unbounded")
+    p.add_argument("--preempt-running",
+                   default="on" if cfg.preempt_running else "off",
+                   choices=["on", "off"],
+                   help="allow a waiting HIGH-priority request to "
+                        "force-migrate the lowest-priority RUNNING "
+                        "stream (preemption-as-migration via the "
+                        "resilience plane; exactly-once, greedy "
+                        "token-identical)")
     p.add_argument("--round-pipeline",
                    default="on" if cfg.round_pipeline else "off",
                    choices=["on", "off"],
@@ -395,6 +412,9 @@ def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
             spec_gate_acceptance=args.spec_gate_acceptance,
             spec_gate_window=args.spec_gate_window,
             spec_rearm_tokens=args.spec_rearm_tokens,
+            max_waiting_requests=args.max_waiting_requests,
+            max_waiting_prefill_tokens=args.max_waiting_prefill_tokens,
+            preempt_running=args.preempt_running == "on",
         )
         draft_cfg = None
         if args.speculative == "draft":

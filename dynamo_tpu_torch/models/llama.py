@@ -26,7 +26,14 @@ Layouts stay byte-identical to the reference:
     in the copy;
   - ``gather_pages`` / ``scatter_pages`` (``_q`` for an int8 pool) move
     whole pages ``[2, L, kvh, n, ps, hd]`` for the offload tiers and page
-    export/import.
+    export/import;
+  - a resident LoRA bank (tenancy/adapters.py) rides in
+    ``params["adapters"]``, ``{site: {"a": [N, L, d_in, r], "b": [N, L,
+    r, d_out]}}``: prefill takes one adapter id, batch_prefill one a row
+    and decode_step one a slot, and each adapted product adds the rank-r
+    delta ``(x @ A) @ B`` of its row's factors. Without a bank, or with
+    every host-known id 0, the functions issue exactly the operations
+    they issue without tenancy (adapter 0's delta is exactly 0.0).
 
 The JAX programs are pure and donate their state buffers so XLA updates
 them in place. Here the state programs update the caller's tensors IN
@@ -146,15 +153,15 @@ def params_from_jax(np_params: Params,
     """Carry a JAX parameter pytree across, given as (nested dicts of)
     numpy arrays (``jax.tree.map(np.asarray, params)``). The layout is
     already ours: ``[in, out]`` weights stacked on a leading layer axis,
-    a w8a16 weight as its ``{"q", "s"}`` pair."""
+    a w8a16 weight as its ``{"q", "s"}`` pair, a LoRA bank as
+    ``params["adapters"]`` (f32 factors, cast to the activation dtype at
+    each delta as the reference casts them)."""
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
         return _tensor_from_numpy(x, device)
 
-    if "adapters" in np_params:
-        raise NotImplementedError("LoRA adapter banks are not ported yet")
     return conv(np_params)
 
 
@@ -209,6 +216,77 @@ def _mm(x: torch.Tensor, w) -> torch.Tensor:
     if _is_quant(w):
         return w8a16_matmul(x, w, x.dtype)
     return x @ w
+
+
+# ---------------------------------------------------------------------------
+# Resident LoRA adapters (tenancy/adapters.py builds the bank)
+#
+# Adapter 0 is all zeros: its delta is exactly 0.0, so the base model's
+# outputs are unchanged. An adapted site's ``ab`` is (a, b): 2-D factors
+# ([d_in, r], [r, d_out]) shared by every row, or 3-D ones ([G, d_in, r],
+# [G, r, d_out]), one pair a group of rows (a decode slot: one row; a
+# batched-prefill chunk: its T rows).
+
+def _lora_delta(x: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Rank-r LoRA delta for x [N, d_in], the factors cast to x's dtype
+    as the reference casts them."""
+    a = a.to(x.dtype)
+    b = b.to(x.dtype)
+    if a.dim() == 2:
+        return (x @ a) @ b
+    g = a.shape[0]
+    t = torch.bmm(x.reshape(g, -1, x.shape[-1]), a)
+    return torch.bmm(t, b).view(x.shape[0], -1)
+
+
+def _mm_ad(x: torch.Tensor, w, ab) -> torch.Tensor:
+    """x @ w plus the site's adapter delta (``ab`` = (a, b) or None)."""
+    y = _mm(x, w)
+    if ab is not None:
+        y = y + _lora_delta(x, ab[0], ab[1])
+    return y
+
+
+def _index_tensor(ids: list[int], device) -> torch.Tensor:
+    """Host ids as an index tensor on ``device`` without a stream sync
+    (pinned staging on the card)."""
+    t = torch.tensor(ids, dtype=torch.int64)
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def gather_adapters(bank: Optional[Params],
+                    ids) -> Optional[dict[str, tuple]]:
+    """Each site's factor rows by adapter id (the reference's
+    ``_gather_adapters``): an int yields per-site ([L, d_in, r], [L, r,
+    d_out]) views; a host list or a device tensor of ids, [G, L, d_in,
+    r] and [G, L, r, d_out] gathered copies. None without a bank or ids,
+    and for host ids that are all 0 (the identity: no delta)."""
+    if bank is None or ids is None:
+        return None
+    if isinstance(ids, int):
+        if ids == 0:
+            return None
+        return {s: (ab["a"][ids], ab["b"][ids]) for s, ab in bank.items()}
+    if not isinstance(ids, torch.Tensor):
+        if not any(ids):
+            return None
+        ids = _index_tensor(list(ids), next(iter(bank.values()))["a"].device)
+    return {s: (ab["a"].index_select(0, ids), ab["b"].index_select(0, ids))
+            for s, ab in bank.items()}
+
+
+def _adapter_layer(gathered: Optional[dict], l: int,
+                   per_row: bool) -> Optional[dict]:
+    """Layer-l (a, b) slices of a gathered bank, keyed by site: the ``ad``
+    argument of _layer_body. None stays None."""
+    if gathered is None:
+        return None
+    if per_row:
+        return {s: (a[:, l], b[:, l]) for s, (a, b) in gathered.items()}
+    return {s: (a[l], b[l]) for s, (a, b) in gathered.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -394,26 +472,35 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
-def _mlp(h, wg, wu, wd):
-    return _mm(F.silu(_mm(h, wg)) * _mm(h, wu), wd)
+def _mlp(h, wg, wu, wd, ad=None):
+    ad = ad or {}
+    gate = _mm_ad(h, wg, ad.get("wg"))
+    up = _mm_ad(h, wu, ad.get("wu"))
+    return _mm_ad(F.silu(gate) * up, wd, ad.get("wd"))
 
 
 def _layer_body(c: ModelConfig, lp: Params, h: torch.Tensor, cos, sin,
-                write_kv: Callable, attend: Callable) -> torch.Tensor:
+                write_kv: Callable, attend: Callable,
+                ad: Optional[dict] = None) -> torch.Tensor:
     """Shared decoder-layer body for prefill and decode. ``write_kv(k, v)``
     stores the new KV and returns what ``attend(q, kv)`` reads; h is
-    [N, H] (N = padded tokens for prefill, batch slots for decode)."""
+    [N, H] (N = padded tokens for prefill, batch slots for decode).
+    ``ad`` is the layer's adapter factors (``_adapter_layer``) or None:
+    each adapted product adds its rank-r delta."""
     N = h.shape[0]
+    ad = ad or {}
     x = rms_norm(h, lp["ln1"], c.rms_norm_eps)
-    q = _mm(x, lp["wq"]).view(N, c.num_heads, c.head_dim)
-    k = _mm(x, lp["wk"]).view(N, c.num_kv_heads, c.head_dim)
-    v = _mm(x, lp["wv"]).view(N, c.num_kv_heads, c.head_dim)
+    q = _mm_ad(x, lp["wq"], ad.get("wq")).view(N, c.num_heads, c.head_dim)
+    k = _mm_ad(x, lp["wk"], ad.get("wk")).view(N, c.num_kv_heads,
+                                               c.head_dim)
+    v = _mm_ad(x, lp["wv"], ad.get("wv")).view(N, c.num_kv_heads,
+                                               c.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = attend(q, write_kv(k, v))
-    h = h + _mm(attn.reshape(N, c.q_dim), lp["wo"])
+    h = h + _mm_ad(attn.reshape(N, c.q_dim), lp["wo"], ad.get("wo"))
     x2 = rms_norm(h, lp["ln2"], c.rms_norm_eps)
-    return h + _mlp(x2, lp["wg"], lp["wu"], lp["wd"])
+    return h + _mlp(x2, lp["wg"], lp["wu"], lp["wd"], ad)
 
 
 def matmul_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -453,6 +540,7 @@ def prefill(
     slot: int,             # destination slot lane
     q_start: int,          # tokens already in the region
     seq_len: int,          # total valid context length
+    adapter_id: int = 0,   # resident LoRA bank row (0 = the base model)
 ) -> torch.Tensor:
     """Prefill of one request (the JAX version's ``prefill_impl``): T new
     tokens through the model, their KV written into the slot's region at
@@ -468,6 +556,7 @@ def prefill(
     cos, sin = rope_cos_sin(positions, _inv_freq(c, dev))
     cdt = _ctx_compute_dtype(c, ctx)
     h = _embed_rows(params, tokens, cdt)
+    ag = gather_adapters(params.get("adapters"), int(adapter_id))
     new_ks: list[torch.Tensor] = []
     new_vs: list[torch.Tensor] = []
     for l in range(c.num_layers):
@@ -483,7 +572,8 @@ def prefill(
                 _ctx_slot_slab(ctx, "v", l, slot, cdt),
                 k_new, v_new, q_start, seq_len)
 
-        h = _layer_body(c, _layer(params, l), h, cos, sin, write_kv, attend)
+        h = _layer_body(c, _layer(params, l), h, cos, sin, write_kv, attend,
+                        _adapter_layer(ag, l, per_row=False))
     # tail: one span write per buffer (all reads are done)
     upd_k = torch.stack(new_ks).transpose(1, 2)        # [L, kvh, T, hd]
     upd_v = torch.stack(new_vs).transpose(1, 2)
@@ -513,6 +603,7 @@ def _batch_forward(
                            # (RoPE position q_start + depth; -1 padding)
     chunk_masks: Optional[torch.Tensor] = None,  # [K, T, T] bool tree-
                            # causal in-chunk visibility
+    adapter_ids: Optional[list[int]] = None,     # [K] bank rows
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Read-only layer stack of batch_prefill: K chunks through the model
     at once (the JAX version's vmap is the batch dimension here: matmuls
@@ -523,10 +614,15 @@ def _batch_forward(
     chunk is a packed token tree, not a linear run. Node t sits at RoPE
     position q_start + depths[t] (siblings at one depth share it; a
     padding node, depth -1, pins to q_start) and attends the chunk by
-    its row of ``chunk_masks`` instead of by index order."""
+    its row of ``chunk_masks`` instead of by index order. Tree chunks never
+    carry adapters (speculation is confined to the base model)."""
     c = config
     K, T = tokens.shape
     dev = tokens.device
+    # each row's factors, gathered once for every layer ([K, L, d, r])
+    ag = gather_adapters(params.get("adapters"), adapter_ids)
+    if depths is not None:
+        assert ag is None, "tree chunks are base-model only"
     # built on the device: a host list copied over would sync the stream
     if depths is None:
         positions = torch.cat([torch.arange(q, q + T, device=dev)
@@ -564,7 +660,8 @@ def _batch_forward(
                                 else chunk_masks[i])))
             return torch.cat(outs)
 
-        h = _layer_body(c, _layer(params, l), h, cos, sin, write_kv, attend)
+        h = _layer_body(c, _layer(params, l), h, cos, sin, write_kv, attend,
+                        _adapter_layer(ag, l, per_row=True))
     L, kvh, hd = c.num_layers, c.num_kv_heads, c.head_dim
     ks = torch.stack(new_ks).to(cdt).view(L, K, T, kvh, hd).transpose(0, 1)
     vs = torch.stack(new_vs).to(cdt).view(L, K, T, kvh, hd).transpose(0, 1)
@@ -607,6 +704,8 @@ def batch_prefill(
     q_starts: list[int],   # tokens already in each region
     seq_lens: list[int],   # total valid context per request (dummies 0)
     ctx_span: int = 0,     # prior-context window to attend (0 = fresh)
+    adapter_ids: Optional[list[int]] = None,  # [K] resident LoRA bank
+                           # rows (0 = identity; dummies 0)
 ) -> torch.Tensor:
     """Batched multi-request prefill: K chunks through the model together,
     each chunk's KV written into its slot's region at [q_start,
@@ -615,7 +714,7 @@ def batch_prefill(
     lane with seq_len 0."""
     _check_supported(config)
     ks, vs, h = _batch_forward(config, params, ctx, tokens, slots, q_starts,
-                               seq_lens, ctx_span)
+                               seq_lens, ctx_span, adapter_ids=adapter_ids)
     _write_chunks(ctx, ks, vs, slots, q_starts, seq_lens)
     last = [max(s - q - 1, 0) for s, q in zip(seq_lens, q_starts)]
     h_last = torch.stack([h[i, t] for i, t in enumerate(last)])
@@ -790,13 +889,22 @@ def decode_step(
     ctx_lens: torch.Tensor,    # [B] int32 — context INCLUDING this token
     ring_base: torch.Tensor,   # [B] int32 — position held by ring slot 0
     ring_pos: int,             # ring slot receiving this token
+    adapter_ids: Optional[torch.Tensor] = None,  # [B] per-slot resident
+                               # LoRA bank rows (0 = identity)
+    gathered: Optional[dict] = None,  # gather_adapters(bank, adapter_ids),
+                               # made once by the caller for a round
 ) -> torch.Tensor:
     """One decode step for all slots; returns logits [B, V] (f32). Each
     layer's new KV goes into ring slot ``ring_pos`` BEFORE attention (its
     position is ``ctx-1 == ring_base + ring_pos`` for live slots);
     attention reads the ctx region below ring_base plus the ring (an int8
-    region through the kernel's int8 mode)."""
+    region through the kernel's int8 mode). With a bank, each slot's
+    products add its adapter's delta: mixed ids run in one step, the rows
+    gathered by the device ids (``gathered``, else here)."""
     c = config
+    ag = gathered
+    if ag is None:
+        ag = gather_adapters(params.get("adapters"), adapter_ids)
     positions = torch.clamp(ctx_lens - 1, min=0)
     cos, sin = rope_cos_sin(positions, _inv_freq(c, tokens.device))
     h = _embed_rows(params, tokens, _ctx_compute_dtype(c, ctx))    # [B, H]
@@ -815,7 +923,8 @@ def decode_step(
                 ctx["k_scale"] if quant else None,
                 ctx["v_scale"] if quant else None)
 
-        h = _layer_body(c, _layer(params, l), h, cos, sin, write_kv, attend)
+        h = _layer_body(c, _layer(params, l), h, cos, sin, write_kv, attend,
+                        _adapter_layer(ag, l, per_row=True))
     return _logits(c, params, h)
 
 

@@ -1,6 +1,8 @@
-"""Overload plane of the port (a copy of the JAX package's overload/, cut
-to what serves today): request deadlines and priority classes minted at
-the frontend (deadline.py), the retriable ``EngineOverloadedError``
-(errors.py), and the KV router's live load view with its spill counter
-(load.py, metrics.py). Admission budgets, running preemption and the
-frontend's 429s come with ROADMAP Queue 1 item 8."""
+"""Overload plane of the port (a copy of the JAX package's overload/):
+request deadlines and priority classes minted at the frontend
+(deadline.py), per-engine waiting-queue budgets with a load-derived
+Retry-After (admission.py), the retriable ``EngineOverloadedError`` and
+the mid-stream ``PreemptedError`` (errors.py), the KV router's live load
+view (load.py) and the ``dynamo_overload_*`` families (metrics.py). The
+engine enforces the budgets and preempts by priority; the frontend
+answers a refused request with 429 and Retry-After."""

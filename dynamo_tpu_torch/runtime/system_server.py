@@ -16,12 +16,15 @@ operators scrape workers directly, apart from the frontend's metrics:
                               (``python -m dynamo_tpu_torch.tools.chaos``)
   GET /debug/kv_fleet         this worker's fleet hints (the last digest
                               the frontend's controller applied)
+  GET /debug/tenants          this worker's tenancy plane: the engine's
+                              per-tenant quota and queue view and this
+                              process's tenant metric snapshot
 
-Left out, with the planes that bring them (ROADMAP Queue 1): the other
-``/debug/*`` routes, which answer 404 with a body naming the item
-(flight, prof, trace and outliers: item 10; tenants: item 8); the
-families of the planes the port lacks (PROF, PLANNER, FLEET_FEED,
-TENANT, FORENSICS) and the engine's latency histograms (item 10).
+Left out, with the plane that brings them (ROADMAP Queue 1 item 10): the
+other ``/debug/*`` routes (flight, prof, trace and outliers), which
+answer 404 with a body naming the item; the families of the planes the
+port lacks (PROF, PLANNER, FLEET_FEED, FORENSICS) and the engine's
+latency histograms.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from dynamo_tpu_torch.overload.metrics import OVERLOAD
 from dynamo_tpu_torch.resilience.chaos import CHAOS
 from dynamo_tpu_torch.resilience.metrics import RESILIENCE
 from dynamo_tpu_torch.runtime.store_metrics import STORE
+from dynamo_tpu_torch.tenancy.metrics import TENANT
 
 log = logging.getLogger(__name__)
 
@@ -48,7 +52,7 @@ OPENMETRICS_CONTENT_TYPE = "application/openmetrics-text"
 # /debug routes of the reference and the ROADMAP Queue 1 item bringing each
 _DEBUG_ROUTES = {
     "/debug/flight": 10, "/debug/prof": 10, "/debug/trace": 10,
-    "/debug/outliers": 10, "/debug/tenants": 8,
+    "/debug/outliers": 10,
 }
 
 
@@ -84,6 +88,7 @@ class SystemServer:
             ("POST", "/chaos"): self.handle_chaos_arm,
             ("DELETE", "/chaos"): self.handle_chaos_disarm,
             ("GET", "/debug/kv_fleet"): self.handle_kv_fleet,
+            ("GET", "/debug/tenants"): self.handle_tenants,
         }
         for path in _DEBUG_ROUTES:
             routes[("GET", path)] = self.handle_debug
@@ -165,7 +170,8 @@ class SystemServer:
         return ("\n".join(lines) + "\n" + RESILIENCE.render()
                 + KV_TRANSFER.render() + KV_QUANT.render()
                 + KV_INTEGRITY.render() + OVERLOAD.render()
-                + STORE.render() + KV_FLEET.render() + SPEC.render())
+                + TENANT.render() + STORE.render() + KV_FLEET.render()
+                + SPEC.render())
 
     async def handle_metrics(self, request: Request) -> Response:
         if OPENMETRICS_CONTENT_TYPE in request.headers.get("Accept", ""):
@@ -196,6 +202,20 @@ class SystemServer:
         return Response.json({
             "worker_id": self.worker_id,
             "hints": None if hints is None else hints.to_dict()})
+
+    async def handle_tenants(self, request: Request) -> Response:
+        """GET /debug/tenants: this WORKER's tenancy plane, the engine's
+        per-tenant quota and queue view plus the process-local tenant
+        metric snapshot (the frontend serves its own)."""
+        body: dict = {"worker_id": self.worker_id,
+                      "tenants": TENANT.snapshot()}
+        dbg = getattr(self.engine, "tenant_debug", None)
+        if dbg is not None:
+            try:
+                body["engine"] = dbg()
+            except Exception:  # noqa: BLE001 — debug surface never throws
+                log.exception("tenant debug failed")
+        return Response.json(body)
 
     # ---- resilience controls ----
 

@@ -81,6 +81,14 @@ class Histogram:
             self._sum = 0.0
             self._count = 0
 
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    def percentile(self, q: float) -> Optional[float]:
+        return percentile_from_snapshot(self.snapshot(), q)
+
     def snapshot(self) -> dict[str, Any]:
         """Cumulative counts aligned with ``buckets`` + +Inf."""
         with self._lock:
@@ -100,14 +108,22 @@ class Histogram:
         return render_histogram(self.name, self.help, self.snapshot())
 
 
-def render_histogram(name: str, help_: str, snap: dict[str, Any]) -> list[str]:
-    """Prometheus text-format lines for one snapshot."""
+def render_histogram(name: str, help_: str, snap: dict[str, Any],
+                     label: str = "") -> list[str]:
+    """Prometheus text-format lines for one snapshot. ``label`` is a
+    pre-rendered extra label pair (e.g. ``tenant="acme"``) or empty."""
+
+    def bucket(le: str) -> str:
+        pairs = f'le="{le}"' if not label else f'{label},le="{le}"'
+        return f"{name}_bucket{{{pairs}}}"
+
     lines = [f"# HELP {name} {help_}", f"# TYPE {name} histogram"]
     for edge, cum in zip(snap["buckets"], snap["counts"][:-1]):
-        lines.append(f'{name}_bucket{{le="{float(edge)!r}"}} {cum}')
-    lines.append(f'{name}_bucket{{le="+Inf"}} {snap["counts"][-1]}')
-    lines.append(f"{name}_sum {snap['sum']}")
-    lines.append(f"{name}_count {snap['count']}")
+        lines.append(f"{bucket(repr(float(edge)))} {cum}")
+    lines.append(f"{bucket('+Inf')} {snap['counts'][-1]}")
+    suffix = f"{{{label}}}" if label else ""
+    lines.append(f"{name}_sum{suffix} {snap['sum']}")
+    lines.append(f"{name}_count{suffix} {snap['count']}")
     return lines
 
 

@@ -131,8 +131,14 @@ def test_unported_engine_knobs_raise():
         TEngineConfig(kv_quant="fp8")
     TEngineConfig(speculative="ngram")  # ported: the linear chain
     TEngineConfig(speculative="ngram", spec_tree=True)  # ported: trees
-    with pytest.raises(ValueError, match="preempt_running"):
-        TEngineConfig(preempt_running=True)
+    # ported: the overload budgets, running preemption and the tenancy
+    # plane
+    TEngineConfig(max_waiting_requests=4, max_waiting_prefill_tokens=64,
+                  preempt_running=True, lora_adapters=4, lora_rank=8,
+                  tenant_max_waiting_requests=2,
+                  tenant_weights={"a": 2.0})
+    with pytest.raises(ValueError, match="sp_prefill_threshold"):
+        TEngineConfig(sp_prefill_threshold=4096)
 
 
 def test_logprobs_request_gets_a_clear_error():
@@ -183,6 +189,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import dynamo_tpu_torch.runtime.system_server\n"
         "import dynamo_tpu_torch.tools.chaos\n"
         "import dynamo_tpu_torch.tools.scrub_kv\n"
+        "import dynamo_tpu_torch.tenancy, dynamo_tpu_torch.tenancy.adapters\n"
+        "import dynamo_tpu_torch.overload.admission\n"
+        "import dynamo_tpu_torch.tools.tenant_stats\n"
         "for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, "
         "'dynamo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

@@ -90,9 +90,10 @@ def test_parse_io_refuses_other_words():
     (["in=carrier-pigeon"], "unknown input"),
 ])
 def test_unported_flags_and_modes_exit_with_a_clear_message(argv, match):
-    if argv[0] == "--spec-tree":
-        # served (tree speculation): the launcher runs, no refusal
-        assert "--spec-tree" not in prun.UNPORTED_FLAGS
+    if argv[0] in ("--spec-tree", "--preempt-running"):
+        # served (tree speculation; running preemption): the launcher
+        # runs, no refusal
+        assert argv[0] not in prun.UNPORTED_FLAGS
         assert prun.run_cli(["in=text", "out=echo", "--prompt", "x"]
                             + argv) == 0
         return
@@ -335,14 +336,18 @@ FLEET_FIELDS = ("kv_replication_target", "kv_prefetch_hot_k",
                 "kv_dedup_admission")
 # what the parser still refuses: the reference's flags of planes the port
 # does not serve yet (the fleet economy's five left this list, then the
-# linear speculation's eight, then tree speculation's three)
+# linear speculation's eight, then tree speculation's three, then the
+# overload plane's three)
 REFUSED = {
     "--model-path", "--trace-sample-rate", "--tensor-parallel-size",
-    "--max-waiting-requests", "--max-waiting-prefill-tokens",
-    "--preempt-running", "--prof-attribution", "--slo-ttft-target",
+    "--prof-attribution", "--slo-ttft-target",
     "--slo-itl-target", "--slo-objective", "--forensics-sample-rate",
     "--num-nodes", "--node-rank", "--leader-addr",
 }
+OVERLOAD_FLAGS = {"--max-waiting-requests": ("7", "max_waiting_requests", 7),
+                  "--max-waiting-prefill-tokens": (
+                      "4096", "max_waiting_prefill_tokens", 4096),
+                  "--preempt-running": ("on", "preempt_running", True)}
 
 
 @pytest.mark.parametrize("layer", ["defaults", "toml", "env"])
@@ -436,3 +441,31 @@ def test_no_kv_dedup_admission_reaches_the_engine_config(flag, want):
         assert chain.engine.ecfg.kv_dedup_admission is want
     finally:
         asyncio.run(chain.engine.stop())
+
+
+@pytest.mark.parametrize("flag", sorted(OVERLOAD_FLAGS))
+def test_overload_flag_parses_as_the_reference_and_reaches_engine_config(
+        flag, monkeypatch):
+    """Each overload flag is served with the reference's default, type,
+    choices and help, and its value lands in the EngineConfig of the
+    engine the launcher builds."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    assert flag not in prun.UNPORTED_FLAGS
+    ref, port = _options(rrun.build_parser()), _options(prun.build_parser())
+    for attr in ("default", "type", "choices", "help"):
+        assert getattr(port[flag], attr) == getattr(ref[flag], attr), attr
+    value, field, want = OVERLOAD_FLAGS[flag]
+    built = []
+    orig = TorchEngine.__init__
+
+    def spy(self, cfg, ecfg=None, **kw):
+        built.append(ecfg)
+        orig(self, cfg, ecfg, **kw)
+
+    monkeypatch.setattr(TorchEngine, "__init__", spy)
+    assert prun.run_cli(["in=text", "out=torch", "--model-config", "tiny",
+                         "--cache-dtype", "float32", "--device", "cpu",
+                         "--prompt", "w1 w2", "--max-tokens", "2",
+                         flag, value]) == 0
+    assert getattr(built[-1], field) == want
