@@ -74,6 +74,40 @@ Phases, each printing a line (any failure raises and exits non-zero):
      graphs recorded at capture, once a replay) does. The burst is held
      at the engine's intake until all 8 requests wait, so its prefill
      groups do not depend on arrival timing;
+  6b. checkpoint: the serve weights written as an HF checkpoint into a
+     temporary directory (its path and free space printed first; no
+     room fails the phase): ~5 GB safetensors shards and
+     model.safetensors.index.json, Llama-3.1-8B's published config.json
+     (llama3 rope_scaling, three EOS ids), a tokenizer.json of Llama 3's
+     shape built here on the standard library (the 256 byte symbols,
+     CKPT_MERGES merges learned greedily from the repository's README.md,
+     reserved tokens up to 128000, Llama 3's 256 special tokens) and a
+     tokenizer_config.json whose chat template uses the Llama 3.1
+     template's constructs. load_hf_params must give every leaf
+     torch.equal to the in-memory weights and from_pretrained Llama-3.1-8B
+     with that rope_scaling; the load's seconds and GB/s (page cache
+     warm: the files were just written) and the card's peak allocation
+     over it (below two copies of the weights) are printed. The serve
+     burst then runs from the loaded weights, dense and int8 KV, each
+     held token-identical to the same burst on the in-memory weights
+     under the loaded config (their flash-decode launches inside the
+     replayed rounds are the kernels line's launches_checkpoint); the
+     checkpoint quantized at load (--quantize int8) must be bit-equal to
+     quantize_params of the in-memory weights; the host's us to encode
+     1,000 characters and to render one chat are printed. Then
+     ``launch.run in=http out=torch --model-path DIR`` in a subprocess
+     (its start-to-ready seconds printed): one chat and one completions
+     request, each greedy, their prompt ids equal to the in-process
+     PromptFormatter's and HfTokenizer's (the prompt token counts, and a
+     completions request on those ids giving the same text) and their
+     texts equal to generate() on those ids in build_chain's engine on
+     the same weights. A Q8_0 GGUF at full width and GGUF_LAYERS layers
+     (packing 32 layers on the host would take minutes) with the
+     byte-level BPE tokenizer in its metadata is written first, and
+     ``launch.run in=text out=torch --model-path FILE.gguf``, started
+     beside the in=http launcher, must serve a prompt on cuda;
+     load_gguf_params must equal the Q8_0 formula computed here. The
+     files are deleted at the end;
   7. http: the port's entry point on the same weights: launch.run's
      build_chain (dense KV, default EngineConfig) behind the port's
      HttpService on 127.0.0.1, driven by the port's HTTP client: the
@@ -249,7 +283,8 @@ Phases, each printing a line (any failure raises and exits non-zero):
      each, gated at the intake, in four arms: N (dense KV, ngram), Q (int8
      KV, ngram), D (dense, draft: Llama-3.2-1B with random weights from
      seed 1, batched drafting) and S (dense, self-draft: the target's own
-     weights as the draft). Each stream equals the plain engine's
+     weights as the draft; SPEC_SELF_NEW tokens a request, its 1.4 s
+     drafts being the phase's cost). Each stream equals the plain engine's
      (speculative off, same KV mode) up to a step where the plain
      stream's top-2 logprob gap is at most SPEC_TIE (the streams stopped
      there are counted); the 8 serve prompts' plain dense streams,
@@ -272,7 +307,8 @@ Phases, each printing a line (any failure raises and exits non-zero):
      nodes), four arms: TN (dense, n-gram trie), TQ (int8 KV, n-gram
      trie: the int8 commit), TD (dense, comb drafts from the 1B draft:
      m > 1 drafting, rejection, de-speculation) and TS (dense, the 8B as
-     its own comb draft). Held as the linear arms are (near-ties, the
+     its own comb draft, SPEC_SELF_NEW tokens a request). Held as the
+     linear arms are (near-ties, the
      mode's flash-decode launches inside replayed graphs, the kernels
      line's launches_spec_tree), with dynamo_spec_tree_nodes_total moving;
      TN accepts and draws one seeded temperature-0.8 stream twice, TD
@@ -1499,11 +1535,13 @@ def weights_gib(params) -> float:
     return nbytes(params) / 2**30
 
 
-def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None):
+def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None,
+                    tag=None):
     """The serve burst on Llama-3.1-8B with the given weights and KV mode
-    (``cfg``: Llama-3.1-8B, or its w8a16 variant for quantized weights);
-    returns each request's tokens (the burst's 8, then the repeat) and the
-    burst's figures (TTFT and gaps in s, decode tok/s, weights GiB)."""
+    (``cfg``: Llama-3.1-8B, or its w8a16 variant for quantized weights;
+    ``tag`` names the run in the log); returns each request's tokens (the
+    burst's 8, then the repeat) and the burst's figures (TTFT and gaps in
+    s, decode tok/s, weights GiB)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.models.config import ModelConfig
@@ -1513,7 +1551,7 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None):
     cfg = cfg or ModelConfig.llama3_8b()
     quant = kv_quant == "int8"
     quant_w = cfg.quant == "int8"
-    tag = "w8a16" if quant_w else kv_quant
+    tag = tag or ("w8a16" if quant_w else kv_quant)
     name = "flash_decode_int8" if quant else "flash_decode"
     t0 = time.monotonic()
     eng = TorchEngine(cfg, EngineConfig(kv_quant=kv_quant), params=params,
@@ -4350,6 +4388,9 @@ async def call_json(port, path):
 
 SPEC_K = 4          # num_speculative_tokens (adaptive K on, its cap)
 SPEC_NEW = 64       # new tokens a request
+# the self-draft arms (S, TS: the 8B drafting for itself, a 1.4 s draft a
+# dispatch) take this many: the same checks over fewer dispatches
+SPEC_SELF_NEW = 8
 SPEC_LP = (1, 5)    # the requests that ask for logprobs (the fused round)
 # a greedy token of a speculating stream may leave the plain (speculative
 # "off") stream only where the plain stream's top-2 logprob gap is at most
@@ -4426,23 +4467,23 @@ class SpecMeter:
                 sum(a.elapsed_time(b) for a, b, _ in calls) / per)
 
 
-def spec_burst(eng, prompts, lps):
+def spec_burst(eng, prompts, lps, n_new=SPEC_NEW):
     """The prompts through generate() as one burst held at the intake
-    until all wait; ``lps[i]`` top logprobs for request i (None: none).
-    Returns (each request's (tokens, finish, annotations, gaps, top)),
-    decode tok/s over the burst)."""
+    until all wait, ``n_new`` tokens each; ``lps[i]`` top logprobs for
+    request i (None: none). Returns (each request's (tokens, finish,
+    annotations, gaps, top)), decode tok/s over the burst)."""
     IntakeGate(eng, len(prompts))
 
     async def go():
         res = await asyncio.gather(*[
-            generate_all(eng, [p], SPEC_NEW, logprobs=lp)
+            generate_all(eng, [p], n_new, logprobs=lp)
             for p, lp in zip(prompts, lps)])
         await eng.stop()
         return [r[0] for r in res]
 
     res = asyncio.run(go())
     for toks, finish, *_ in res:
-        if len(toks) != SPEC_NEW or finish != "length":
+        if len(toks) != n_new or finish != "length":
             raise AssertionError(f"speculation: a request ended with "
                                  f"{len(toks)} tokens, finish {finish}")
     ttft = [a["timing"]["ttft_s"] for _, _, a, *_ in res]
@@ -4592,10 +4633,11 @@ def spec_plain(cfg, params, kv, prompts, lps):
 
 
 def spec_arm(name, cfg, params, kv, mode, draft, prompts, lps, plain,
-             plain_tps, reset=None, tree=False):
-    """One speculative arm's burst on a fresh engine, held to the plain
-    run's streams, its fused rounds' kernel launches checked. ``reset``
-    zeroes other kernels' counts, as the flash-decode ones are, after the
+             plain_tps, reset=None, tree=False, n_new=SPEC_NEW):
+    """One speculative arm's burst on a fresh engine, ``n_new`` tokens a
+    request, held to the plain run's streams (their first ``n_new``
+    tokens), its fused rounds' kernel launches checked. ``reset`` zeroes
+    other kernels' counts, as the flash-decode ones are, after the
     engine is built (its graph captures run rounds) and before the burst;
     ``tree`` speculates trees (the tree node counter must move). Returns
     (spec stats with the arm's verify_ms, draft_ms and tok/s, the mode's
@@ -4613,7 +4655,7 @@ def spec_arm(name, cfg, params, kv, mode, draft, prompts, lps, plain,
     fd.executed(eng.device, reset=True)
     if reset is not None:
         reset()
-    res, tps = spec_burst(eng, prompts, lps)
+    res, tps = spec_burst(eng, prompts, lps, n_new)
     dense, int8 = fd.executed(eng.device)
     issued = fd.launches + fd.launches_int8
     steps = eng.step_count - steps0
@@ -4776,7 +4818,7 @@ def check_speculation(params):
     tokens each, in four arms: N (dense, ngram), Q (int8 KV, ngram), D
     (dense, draft: Llama-3.2-1B, random weights from seed 1, batched
     drafting) and S (dense, self-draft: the target's own weights as the
-    draft). Each arm's streams are held against the same engine's plain
+    draft, SPEC_SELF_NEW tokens a request). Each arm's streams are held against the same engine's plain
     run (speculative off, top-2 logprobs asked); the flash-decode kernel
     of the mode must run on every layer of every fused decode step (the
     kernels line's launches_spec) inside replayed graphs; N must accept
@@ -4817,8 +4859,9 @@ def check_speculation(params):
     short = []
     linear = {}
     for name, kv, mode, draft in arms:
-        st, ran, line = spec_arm(name, cfg, params, kv, mode, draft, prompts,
-                                 lps, plain[kv], plain_tps[kv])
+        st, ran, line = spec_arm(
+            name, cfg, params, kv, mode, draft, prompts, lps, plain[kv],
+            plain_tps[kv], n_new=SPEC_SELF_NEW if name == "S" else SPEC_NEW)
         launches[kv] += ran
         short.append(line)
         linear[name] = st
@@ -4993,8 +5036,10 @@ def check_speculation_tree(params, state):
     launches = {"none": 0, "int8": 0}
     short = []
     for name, kv, mode, draft, lin in arms:
-        st, ran, _ = spec_arm(name, cfg, params, kv, mode, draft, prompts,
-                              lps, plain[kv], plain_tps[kv], tree=True)
+        st, ran, _ = spec_arm(
+            name, cfg, params, kv, mode, draft, prompts, lps, plain[kv],
+            plain_tps[kv], tree=True,
+            n_new=SPEC_SELF_NEW if name == "TS" else SPEC_NEW)
         launches[kv] += ran
         lv = linear[lin]
         log(f"speculation {name} beside {lin} (same run): verify "
@@ -6206,6 +6251,693 @@ def first_step_logprob_diff(dense, quant, prompt):
     return (lps[0] - lps[1]).abs().max().item()
 
 
+# ---------------------------------------------------------------------------
+# checkpoint: the serve weights as an HF checkpoint and a GGUF file, loaded
+# and served through --model-path
+
+LLAMA31_ROPE = {"factor": 8.0, "low_freq_factor": 1.0,
+                "high_freq_factor": 4.0,
+                "original_max_position_embeddings": 8192,
+                "rope_type": "llama3"}
+# Llama-3.1-8B's published config.json
+LLAMA31_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 128000,
+    "eos_token_id": [128001, 128008, 128009], "hidden_act": "silu",
+    "hidden_size": 4096, "initializer_range": 0.02,
+    "intermediate_size": 14336, "max_position_embeddings": 131072,
+    "mlp_bias": False, "model_type": "llama", "num_attention_heads": 32,
+    "num_hidden_layers": 32, "num_key_value_heads": 8, "pretraining_tp": 1,
+    "rms_norm_eps": 1e-05, "rope_scaling": LLAMA31_ROPE,
+    "rope_theta": 500000.0, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "transformers_version": "4.43.0.dev0",
+    "use_cache": True, "vocab_size": 128256}
+CKPT_SHARD_BYTES = 5 * 10**9    # transformers' default max_shard_size
+CKPT_MERGES = 1000
+GGUF_LAYERS = 2
+CKPT_NEW = 16                   # tokens a launcher request
+# the constructs of the Llama 3.1 instruct template: defined tests, the
+# strftime_now fallback, the system message split off by a slice, trim,
+# tools as JSON in the first user turn, length, raise_exception
+CKPT_TEMPLATE = (
+    "{{- bos_token }}\n"
+    "{%- if not tools_in_user_message is defined %}"
+    "{%- set tools_in_user_message = true %}{%- endif %}\n"
+    "{%- if not date_string is defined %}{%- if strftime_now is defined %}"
+    "{%- set date_string = strftime_now('%d %b %Y') %}{%- else %}"
+    "{%- set date_string = '26 Jul 2024' %}{%- endif %}{%- endif %}\n"
+    "{%- if not tools is defined %}{%- set tools = none %}{%- endif %}\n"
+    "{%- if messages[0]['role'] == 'system' %}"
+    "{%- set system_message = messages[0]['content'] | trim %}"
+    "{%- set messages = messages[1:] %}"
+    "{%- else %}{%- set system_message = '' %}{%- endif %}\n"
+    "{{- '<|start_header_id|>system<|end_header_id|>\\n\\n' }}"
+    "{%- if tools is not none %}{{- 'Environment: ipython\\n' }}{%- endif %}"
+    "{{- 'Cutting Knowledge Date: December 2023\\n' }}"
+    "{{- 'Today Date: ' + date_string + '\\n\\n' }}"
+    "{{- system_message }}{{- '<|eot_id|>' }}\n"
+    "{%- if tools_in_user_message and not tools is none %}"
+    "{%- if messages | length != 0 %}"
+    "{%- set first_user_message = messages[0]['content'] | trim %}"
+    "{%- set messages = messages[1:] %}{%- else %}"
+    "{{- raise_exception('Cannot put tools in the first user message when "
+    "there is no first user message!') }}{%- endif %}"
+    "{{- '<|start_header_id|>user<|end_header_id|>\\n\\n' -}}"
+    "{%- for t in tools %}{{- t | tojson(indent=4) }}{{- '\\n\\n' }}"
+    "{%- endfor %}{{- first_user_message + '<|eot_id|>' }}{%- endif %}\n"
+    "{%- for message in messages %}"
+    "{{- '<|start_header_id|>' + message['role'] + '<|end_header_id|>\\n\\n'"
+    " + message['content'] | trim + '<|eot_id|>' }}{%- endfor %}\n"
+    "{%- if add_generation_prompt %}"
+    "{{- '<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}"
+    "{%- endif %}\n")
+CKPT_CHAT = [{"role": "system", "content": " You are a helpful assistant. "},
+             {"role": "user", "content": "Explain what a KV cache is, in "
+                                         "one sentence."}]
+
+
+def llama3_specials() -> list[str]:
+    """Llama 3's 256 special tokens, ids 128000..128255 in order."""
+    named = ["<|begin_of_text|>", "<|end_of_text|>",
+             "<|reserved_special_token_0|>", "<|reserved_special_token_1|>",
+             "<|finetune_right_pad_id|>", "<|reserved_special_token_2|>",
+             "<|start_header_id|>", "<|end_header_id|>", "<|eom_id|>",
+             "<|eot_id|>", "<|python_tag|>"]
+    return named + [f"<|reserved_special_token_{i}|>"
+                    for i in range(3, 256 - len(named) + 3)]
+
+
+def learn_merges(text: str, n: int) -> list[tuple[str, str]]:
+    """``n`` byte-level BPE merges learned greedily from ``text`` (its
+    Llama 3 pre-tokens, each merge the most frequent adjacent pair; ties
+    to the larger pair), with incremental pair counts."""
+    from collections import Counter
+
+    from dynamo_tpu_torch.tokenizer_json import byte_level, llama3_pretokenize
+
+    words = Counter(byte_level(w) for w in llama3_pretokenize(text))
+    splits = {w: list(w) for w in words}
+    pairs: Counter = Counter()
+    where: dict = defaultdict(set)
+    for w, c in words.items():
+        for p in zip(splits[w], splits[w][1:]):
+            pairs[p] += c
+            where[p].add(w)
+    merges = []
+    while len(merges) < n and pairs:
+        best, c = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        if c < 2:
+            break
+        merges.append(best)
+        a, b = best
+        for w in list(where.pop(best, ())):
+            s, cw = splits[w], words[w]
+            for p in zip(s, s[1:]):
+                pairs[p] -= cw
+                if pairs[p] <= 0:
+                    del pairs[p]
+            out, i = [], 0
+            while i < len(s):
+                if i + 1 < len(s) and s[i] == a and s[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(s[i])
+                    i += 1
+            splits[w] = out
+            for p in zip(out, out[1:]):
+                pairs[p] += cw
+                where[p].add(w)
+    return merges
+
+
+def llama3_tokenizer_json(text: str) -> dict:
+    """A tokenizer.json of Llama 3's shape (a byte-level BPE with
+    ignore_merges, Llama 3's split regex, a <|begin_of_text|> template,
+    the ByteLevel decoder): the 256 byte symbols, the merges learned from
+    ``text``, reserved tokens up to id 128000, then the 256 specials."""
+    from dynamo_tpu_torch.tokenizer_json import BYTE_ENC, LLAMA3_PATTERN
+
+    vocab = {BYTE_ENC[b]: b for b in range(256)}
+    merges = learn_merges(text, CKPT_MERGES)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    while len(vocab) < 128000:
+        vocab[f"<|pad_{len(vocab)}|>"] = len(vocab)
+    added = [{"id": 128000 + i, "content": t, "single_word": False,
+              "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for i, t in enumerate(llama3_specials())]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False,
+                  "trim_offsets": True, "use_regex": True}
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            dict(byte_level, use_regex=False)]},
+        "post_processor": {"type": "Sequence", "processors": [
+            dict(byte_level, trim_offsets=False, add_prefix_space=True),
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": "<|begin_of_text|>",
+                                          "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [], "special_tokens": {"<|begin_of_text|>": {
+                 "id": "<|begin_of_text|>", "ids": [128000],
+                 "tokens": ["<|begin_of_text|>"]}}}]},
+        "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": [[a, b] for a, b in merges]},
+    }
+
+
+def hf_layout(params, cfg, layers=None):
+    """(HF name, HF shape, a function giving the tensor on the card in
+    HF's [out, in] layout) of our parameter tree, in the order a
+    checkpoint holds them; ``layers`` cuts the depth."""
+    from dynamo_tpu_torch.models.llama import _HF_LAYER_MAP
+
+    V, H = cfg.vocab_size, cfg.hidden_size
+    out = [("model.embed_tokens.weight", (V, H), lambda: params["embed"])]
+    for l in range(cfg.num_layers if layers is None else layers):
+        for suffix, (ours, transpose) in _HF_LAYER_MAP.items():
+            shape = tuple(params["layers"][ours].shape[1:])
+            out.append((f"model.layers.{l}.{suffix}",
+                        shape[::-1] if transpose else shape,
+                        lambda l=l, ours=ours, t=transpose:
+                        params["layers"][ours][l].T.contiguous() if t
+                        else params["layers"][ours][l]))
+    out.append(("model.norm.weight", (H,), lambda: params["norm_f"]))
+    out.append(("lm_head.weight", (V, H),
+                lambda: params["lm_head"].T.contiguous()))
+    return out
+
+
+def write_hf_checkpoint(d, params, cfg, tok_spec) -> tuple[int, int]:
+    """The weights as bf16 safetensors shards of at most CKPT_SHARD_BYTES
+    with model.safetensors.index.json, HF's file names, and the config,
+    tokenizer and tokenizer_config files; (bytes of weights, shards)."""
+    import struct as st
+
+    os.makedirs(d)
+    shards, cur, size = [], [], 0
+    for name, shape, fn in hf_layout(params, cfg):
+        nbytes = int(np.prod(shape)) * 2
+        if cur and size + nbytes > CKPT_SHARD_BYTES:
+            shards.append(cur)
+            cur, size = [], 0
+        cur.append((name, shape, fn, nbytes))
+        size += nbytes
+    shards.append(cur)
+    weight_map, total = {}, 0
+    for i, shard in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, off = {"__metadata__": {"format": "pt"}}, 0
+        for name, shape, _, nbytes in shard:
+            header[name] = {"dtype": "BF16", "shape": list(shape),
+                            "data_offsets": [off, off + nbytes]}
+            off += nbytes
+            weight_map[name] = fname
+        h = json.dumps(header).encode()
+        h += b" " * (-len(h) % 8)
+        with open(os.path.join(d, fname), "wb") as f:
+            f.write(st.pack("<Q", len(h)) + h)
+            for _, _, fn, nbytes in shard:
+                t = fn().contiguous().view(torch.uint8).cpu()
+                f.write(t.numpy().data)
+                total += nbytes
+    with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f, indent=2)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(LLAMA31_CONFIG, f, indent=2)
+    with open(os.path.join(d, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(tok_spec, f, ensure_ascii=False)
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"bos_token": "<|begin_of_text|>",
+                   "eos_token": "<|eot_id|>",
+                   "chat_template": CKPT_TEMPLATE}, f, indent=2)
+    return total, len(shards)
+
+
+def q8_0(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """GGUF Q8_0 of a 2-D weight on the card, blocks of 32 along its rows
+    (llama.cpp's quantize_row_q8_0: d = amax/127 stored as f16, q =
+    round(x / d)): (the packed blocks [rows, cols/32, 34] uint8, the
+    dequantized weight q * f16(d) in f32)."""
+    x = w.float().reshape(w.shape[0], -1, 32)
+    d = x.abs().amax(-1) / 127.0
+    inv = torch.where(d > 0, 1.0 / d, torch.zeros_like(d))
+    q = torch.round(x * inv[..., None]).to(torch.int8)
+    d16 = d.half()
+    blocks = torch.cat([d16[..., None].view(torch.uint8),
+                        q.view(torch.uint8)], -1)
+    return blocks, (q.float() * d16.float()[..., None]).reshape(w.shape)
+
+
+def gguf_permute(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    """llama.cpp's HF->GGUF q/k row order (rows of anything)."""
+    return (x.reshape(n_head, 2, x.shape[0] // n_head // 2, *x.shape[1:])
+             .transpose(1, 2).reshape(x.shape))
+
+
+def write_gguf(path, params, cfg, tok_spec, layers) -> dict:
+    """A GGUF v3 file of the first ``layers`` layers: Q8_0 weights (q and
+    k in llama.cpp's permuted row order), f32 norms, Llama 3's metadata and
+    the BPE tokenizer ("gpt2" model, "llama-bpe" pre-tokenizer). Returns
+    the dequantized weights by HF name (f32, HF layout) the loader must
+    reproduce."""
+    import struct as st
+
+    def s(x):
+        b = x.encode()
+        return st.pack("<Q", len(b)) + b
+
+    def kv(key, vtype, payload):
+        return s(key) + st.pack("<I", vtype) + payload
+
+    def u32(k, v):
+        return kv(k, 4, st.pack("<I", v))
+
+    def f32(k, v):
+        return kv(k, 6, st.pack("<f", v))
+
+    def strs(k, items):
+        return kv(k, 9, st.pack("<IQ", 8, len(items))
+                  + b"".join(s(x) for x in items))
+
+    vocab = tok_spec["model"]["vocab"]
+    tokens = sorted(vocab, key=vocab.get) + llama3_specials()
+    types = [1] * len(vocab) + [3] * 256
+    meta = [
+        kv("general.architecture", 8, s("llama")),
+        u32("llama.block_count", layers),
+        u32("llama.embedding_length", cfg.hidden_size),
+        u32("llama.feed_forward_length", cfg.intermediate_size),
+        u32("llama.attention.head_count", cfg.num_heads),
+        u32("llama.attention.head_count_kv", cfg.num_kv_heads),
+        u32("llama.context_length", cfg.max_position_embeddings),
+        f32("llama.rope.freq_base", cfg.rope_theta),
+        f32("llama.attention.layer_norm_rms_epsilon", cfg.rms_norm_eps),
+        kv("tokenizer.ggml.model", 8, s("gpt2")),
+        kv("tokenizer.ggml.pre", 8, s("llama-bpe")),
+        strs("tokenizer.ggml.tokens", tokens),
+        kv("tokenizer.ggml.token_type", 9, st.pack("<IQ", 5, len(types))
+           + np.asarray(types, "<i4").tobytes()),
+        strs("tokenizer.ggml.merges",
+             [f"{a} {b}" for a, b in tok_spec["model"]["merges"]]),
+        u32("tokenizer.ggml.bos_token_id", 128000),
+        u32("tokenizer.ggml.eos_token_id", 128009),
+        kv("tokenizer.ggml.add_bos_token", 7, b"\x01"),
+    ]
+    gnames = {"model.embed_tokens.weight": "token_embd.weight",
+              "model.norm.weight": "output_norm.weight",
+              "lm_head.weight": "output.weight"}
+    sub = {"self_attn.q_proj.weight": "attn_q.weight",
+           "self_attn.k_proj.weight": "attn_k.weight",
+           "self_attn.v_proj.weight": "attn_v.weight",
+           "self_attn.o_proj.weight": "attn_output.weight",
+           "mlp.gate_proj.weight": "ffn_gate.weight",
+           "mlp.up_proj.weight": "ffn_up.weight",
+           "mlp.down_proj.weight": "ffn_down.weight",
+           "input_layernorm.weight": "attn_norm.weight",
+           "post_attention_layernorm.weight": "ffn_norm.weight"}
+    want, blobs, descs, off = {}, [], [], 0
+    for name, _, fn in hf_layout(params, cfg, layers):
+        w = fn()
+        if name.startswith("model.layers."):
+            _, _, l, rest = name.split(".", 3)
+            gname = f"blk.{l}.{sub[rest]}"
+        else:
+            gname = gnames[name]
+        if w.dim() == 1:
+            data, dtype = w.float().cpu().numpy().tobytes(), 0   # F32
+            want[name] = w.float()
+        else:
+            blocks, want[name] = q8_0(w)
+            if "attn_q" in gname or "attn_k" in gname:
+                heads = cfg.num_heads if "attn_q" in gname \
+                    else cfg.num_kv_heads
+                blocks = gguf_permute(blocks, heads)
+            data, dtype = blocks.contiguous().cpu().numpy().tobytes(), 8
+        descs.append((gname, list(reversed(w.shape)), dtype, off))
+        blobs.append(data + b"\x00" * (-len(data) % 32))
+        off += len(blobs[-1])
+    with open(path, "wb") as f:
+        f.write(b"GGUF" + st.pack("<IQQ", 3, len(descs), len(meta)))
+        for m in meta:
+            f.write(m)
+        for gname, dims, dtype, o in descs:
+            f.write(s(gname) + st.pack("<I", len(dims))
+                    + b"".join(st.pack("<Q", x) for x in dims)
+                    + st.pack("<IQ", dtype, o))
+        f.write(b"\x00" * (-f.tell() % 32))
+        for b in blobs:
+            f.write(b)
+    return want
+
+
+def leaves_equal(got, want, prefix="") -> int:
+    """The number of leaves, after checking every leaf of ``got``
+    torch.equal to ``want``'s (the same keys, dtypes and shapes)."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"checkpoint: leaves {sorted(got)} != "
+                                 f"{sorted(want)} under {prefix or 'root'}")
+        return sum(leaves_equal(got[k], want[k], f"{prefix}{k}/")
+                   for k in want)
+    if (got.dtype != want.dtype or got.shape != want.shape
+            or not torch.equal(got, want)):
+        raise AssertionError(f"checkpoint: leaf {prefix} differs ({got.dtype}"
+                             f" {tuple(got.shape)} against {want.dtype} "
+                             f"{tuple(want.shape)})")
+    return 1
+
+
+async def ask_launcher(port, chat, prompt_ids, text_prompt):
+    """One greedy chat streamed (usage included), one completions request
+    on a text prompt and one on the chat's prompt ids, to the launcher's
+    HTTP service: each one's (text, prompt tokens)."""
+    from dynamo_tpu_torch.frontend.http import HttpClient
+    from dynamo_tpu_torch.protocols.sse import SseDecoder
+
+    common = {"model": "Llama-3.1-8B-random", "max_tokens": CKPT_NEW,
+              "temperature": 0, "nvext": {"ignore_eos": True}}
+    out = []
+    async with HttpClient("127.0.0.1", port) as c:
+        r = await c.request("POST", "/v1/chat/completions", json_body={
+            **common, "messages": chat, "stream": True,
+            "stream_options": {"include_usage": True}}, stream=True)
+        if r.status != 200:
+            raise AssertionError(f"checkpoint launcher: chat status "
+                                 f"{r.status}")
+        dec, events = SseDecoder(), []
+        async for chunk in r.chunks():
+            events.extend(dec.feed(chunk))
+        if not events or not events[-1].is_done:
+            raise AssertionError("checkpoint launcher: the chat stream did "
+                                 "not end in [DONE]")
+        text, usage = "", None
+        for ev in events[:-1]:
+            body = ev.json()
+            usage = body.get("usage") or usage
+            for ch in body["choices"]:
+                text += ch["delta"].get("content") or ""
+        out.append((text, usage["prompt_tokens"]))
+        for prompt in (text_prompt, prompt_ids):
+            r = await c.request("POST", "/v1/completions",
+                                json_body={**common, "prompt": prompt})
+            if r.status != 200:
+                raise AssertionError(f"checkpoint launcher: completions "
+                                     f"status {r.status}: {r.body[:300]!r}")
+            body = r.json()
+            out.append((body["choices"][0]["text"],
+                        body["usage"]["prompt_tokens"]))
+    return out
+
+
+def check_checkpoint_launcher(d, params, smi):
+    """``launch.run in=http out=torch --model-path DIR`` in a subprocess
+    against build_chain's engine on the in-memory weights (the same
+    flags, in this process): prompt ids and greedy texts must agree."""
+    import socket
+
+    from dynamo_tpu_torch.launch.run import build_chain, build_parser
+    from dynamo_tpu_torch.preprocessor import PromptFormatter
+    from dynamo_tpu_torch.protocols.openai import (
+        ChatCompletionRequest,
+        CompletionRequest,
+    )
+    from dynamo_tpu_torch.tokenizer import HfTokenizer
+
+    fmt, tok = PromptFormatter.from_dir(d), HfTokenizer.from_dir(d)
+    chat_ids = tok.encode(fmt.render(CKPT_CHAT))
+    text_prompt = open("README.md", encoding="utf-8").read()[:300]
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    proc = Proc("dynamo_tpu_torch.launch.run", "in=http", "out=torch",
+                "--model-path", d, "--http-host", "127.0.0.1",
+                "--http-port", str(port))
+    try:
+        proc.wait_for(f"http://127.0.0.1:{port}", timeout=600)
+        ready_s = time.monotonic() - t0
+        answers = asyncio.run(asyncio.wait_for(ask_launcher(
+            port, CKPT_CHAT, chat_ids, text_prompt), 300))
+    finally:
+        rc = proc.stop()
+    if rc not in (0, -15):
+        raise AssertionError(f"checkpoint launcher exited {rc}:\n"
+                             + "\n".join(proc.lines[-20:]))
+    args = build_parser().parse_intermixed_args(
+        ["in=http", "out=torch", "--model-path", d])
+    _, chain = build_chain(args, params=params)
+    try:
+        common = {"model": chain.name, "max_tokens": CKPT_NEW,
+                  "temperature": 0, "nvext": {"ignore_eos": True}}
+        pre_chat = chain.preprocessor.preprocess_chat(
+            ChatCompletionRequest.from_dict({**common,
+                                             "messages": CKPT_CHAT}))
+        pre_text = chain.preprocessor.preprocess_completion(
+            CompletionRequest.from_dict({**common, "prompt": text_prompt}))
+        if pre_chat.token_ids != chat_ids:
+            raise AssertionError("checkpoint: build_chain's chat prompt ids "
+                                 "differ from PromptFormatter + HfTokenizer")
+        if pre_text.token_ids != tok.encode(text_prompt):
+            raise AssertionError("checkpoint: build_chain's completion ids "
+                                 "differ from HfTokenizer's")
+
+        async def through_chain():
+            texts = []
+            for pre in (pre_chat, pre_text):   # one at a time, as sent
+                parts = []
+                async for out in chain.generate(pre):
+                    parts.append(out.text or "")
+                texts.append("".join(parts))
+            await chain.engine.stop()
+            return texts
+
+        gen = asyncio.run(through_chain())
+    finally:
+        del chain
+        gc.collect()
+        torch.cuda.empty_cache()
+    texts = [t for t, _ in answers]
+    usage = [n for _, n in answers]
+    if usage != [len(chat_ids), len(pre_text.token_ids), len(chat_ids)]:
+        raise AssertionError(f"checkpoint launcher: prompt tokens {usage}, "
+                             f"in process {len(chat_ids)}, "
+                             f"{len(pre_text.token_ids)}")
+    if texts != [gen[0], gen[1], gen[0]]:
+        raise AssertionError(f"checkpoint launcher: texts {texts!r} != "
+                             f"the in-process chain's {gen!r}")
+    log(f"checkpoint launcher: launch.run in=http out=torch --model-path "
+        f"{d} ready in {ready_s:.1f} s (start to listening, the load "
+        f"included, with the GGUF launcher loading beside it; {smi}); chat prompt {len(chat_ids)} ids, completion "
+        f"{len(pre_text.token_ids)} ids, both equal to PromptFormatter + "
+        f"HfTokenizer in process (prompt_tokens, and the chat's ids as a "
+        f"completions prompt gave the chat's text); the chat streamed; "
+        f"greedy texts equal to "
+        f"build_chain's chain (preprocess, generate() in its engine on the "
+        f"in-memory weights, detokenize; {CKPT_NEW} tokens each): "
+        f"{texts[0][:60]!r}...")
+    return ready_s
+
+
+def check_checkpoint(params, smi):
+    """The checkpoint phase (module docstring, 6b). Returns the (dense,
+    int8) flash-decode launches of the bursts served from the loaded
+    weights."""
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    from dynamo_tpu_torch.gguf import config_from_gguf, load_gguf_params
+    from dynamo_tpu_torch.gguf import read_gguf as read_gguf_file
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.preprocessor import PromptFormatter
+    from dynamo_tpu_torch.tokenizer import HfTokenizer
+
+    cfg = ModelConfig.llama3_8b()
+    wbytes = int(weights_gib(params) * 2**30)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    d = os.path.join(root, "Llama-3.1-8B-random")
+    gguf_path = os.path.join(root, "Llama-3.1-8B-random-2layer.Q8_0.gguf")
+    try:
+        free = shutil.disk_usage(root).free
+        need = wbytes + 3 * 2**30   # the shards, the GGUF, headroom
+        log(f"checkpoint: writing to {d} ({free / 1e9:.1f} GB free there, "
+            f"{need / 1e9:.1f} GB needed)")
+        if free < need:
+            raise AssertionError(f"checkpoint: {free / 1e9:.1f} GB free in "
+                                 f"{root}, the checkpoint needs "
+                                 f"{need / 1e9:.1f} GB")
+        t0 = time.monotonic()
+        readme = open("README.md", encoding="utf-8").read()
+        spec = llama3_tokenizer_json(readme)
+        t_tok = time.monotonic() - t0
+        t0 = time.monotonic()
+        total, nshards = write_hf_checkpoint(d, params, cfg, spec)
+        t_write = time.monotonic() - t0
+        log(f"checkpoint: tokenizer.json ({len(spec['model']['merges'])} "
+            f"merges from README.md, vocab 128000 + 256 specials) in "
+            f"{t_tok:.1f} s; {total / 1e9:.2f} GB of bf16 weights in "
+            f"{nshards} shards written in {t_write:.1f} s")
+        # load
+        lcfg = ModelConfig.from_pretrained(d)
+        want_cfg = ModelConfig.llama3_8b(
+            rope_scaling=tuple(sorted(LLAMA31_ROPE.items())))
+        if lcfg != want_cfg:
+            raise AssertionError(f"checkpoint: from_pretrained gave {lcfg}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        loaded = llama.load_hf_params(lcfg, d, device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        n = leaves_equal(loaded, params)
+        if peak >= 2 * wbytes:
+            raise AssertionError(f"checkpoint: the load peaked at "
+                                 f"{peak / 2**30:.2f} GiB over its start, "
+                                 f"two copies of the weights are "
+                                 f"{2 * wbytes / 2**30:.2f} GiB")
+        load = (f"load {t_load:.2f} s = {total / t_load / 1e9:.2f} GB/s "
+                f"(page cache warm), peak +{peak / 2**30:.2f} GiB over "
+                f"{wbytes / 2**30:.2f} GiB of weights")
+        log(f"checkpoint: load_hf_params {load}; {n} leaves torch.equal "
+            f"to the in-memory weights; from_pretrained == Llama-3.1-8B "
+            f"with the written rope_scaling ({smi})")
+        # serve from the loaded weights, held to the in-memory ones
+        launches, same = {}, []
+        for kv in ("none", "int8"):
+            name = "flash_decode_int8" if kv == "int8" else "flash_decode"
+            c_ld, c_mem = {}, {}
+            got, _ = serve_llama3_8b(c_ld, loaded, kv, cfg=lcfg,
+                                     tag=f"checkpoint {kv}")
+            want, _ = serve_llama3_8b(c_mem, params, kv, cfg=lcfg,
+                                      tag=f"checkpoint {kv} in-memory")
+            if got != want:
+                split = [next((j for j, (a, b) in enumerate(zip(x, y))
+                               if a != b), None) for x, y in zip(got, want)]
+                raise AssertionError(f"checkpoint {kv}: the loaded weights' "
+                                     f"streams differ from the in-memory "
+                                     f"ones' at steps {split}")
+            launches[kv] = c_ld[name]
+            same.append(f"{kv} {sum(map(len, got))}/{sum(map(len, want))}")
+        del loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        # quantized at load
+        t0 = time.monotonic()
+        q = llama.load_hf_params(replace(lcfg, quant="int8"), d,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        t_q = time.monotonic() - t0
+        nq = leaves_equal(q, llama.quantize_params(params))
+        del q
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"checkpoint: --quantize int8 at load in {t_q:.2f} s: {nq} "
+            f"leaves bit-equal to quantize_params of the in-memory weights")
+        # the host: encode and render
+        tok, fmt = HfTokenizer.from_dir(d), PromptFormatter.from_dir(d)
+        text = readme[:1000]
+        reps = 20
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ids = tok.encode(text)
+        enc_us = (time.perf_counter() - t0) / reps * 1e6
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fmt.render(CKPT_CHAT)
+        render_us = (time.perf_counter() - t0) / reps * 1e6
+        if tok.decode(ids) != text:
+            raise AssertionError("checkpoint: the tokenizer does not round "
+                                 "trip README.md")
+        log(f"checkpoint: host: encode 1,000 characters ({len(ids)} ids) "
+            f"{enc_us:.0f} us, render one chat {render_us:.0f} us "
+            f"(information; host CPU of {smi})")
+        # GGUF at full width, GGUF_LAYERS layers: its file first, so that
+        # its launcher (in=text) runs beside the HF directory's (in=http)
+        t0 = time.monotonic()
+        expect = write_gguf(gguf_path, params, cfg, spec, GGUF_LAYERS)
+        t_gw = time.monotonic() - t0
+        t0 = time.monotonic()
+        # its output to files: a pipe nobody reads while the other
+        # launcher is checked could fill and stall it
+        g_files = [open(os.path.join(root, f"gguf.{x}"), "w+")
+                   for x in ("out", "err")]
+        gguf_proc = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.launch.run", "in=text",
+             "out=torch", "--model-path", gguf_path, "--prompt",
+             "What is a GGUF file?", "--max-tokens", "8"],
+            stdout=g_files[0], stderr=g_files[1], text=True)
+        try:
+            ready_s = check_checkpoint_launcher(d, params, smi)
+            md, _ = read_gguf_file(gguf_path)
+            gcfg = config_from_gguf(md)
+            # the file stores rms_norm_eps as an f32
+            if gcfg != ModelConfig.llama3_8b(
+                    num_layers=GGUF_LAYERS,
+                    rms_norm_eps=float(np.float32(cfg.rms_norm_eps))):
+                raise AssertionError(f"checkpoint gguf: config {gcfg}")
+            t1 = time.monotonic()
+            gp = load_gguf_params(gcfg, gguf_path, device="cuda")
+            torch.cuda.synchronize()
+            t_gl = time.monotonic() - t1
+            bf = torch.bfloat16
+            want_gp = {
+                "embed": expect["model.embed_tokens.weight"].to(bf),
+                "norm_f": expect["model.norm.weight"].to(bf),
+                "lm_head": expect["lm_head.weight"].to(bf).T,
+                "layers": {ours: torch.stack([
+                    (expect[f"model.layers.{l}.{suffix}"].to(bf).T if tr
+                     else expect[f"model.layers.{l}.{suffix}"].to(bf))
+                    for l in range(GGUF_LAYERS)])
+                    for suffix, (ours, tr) in llama._HF_LAYER_MAP.items()}}
+            ng = leaves_equal(gp, want_gp)
+            del gp, want_gp, expect
+            gc.collect()
+            torch.cuda.empty_cache()
+            gguf_proc.wait(timeout=600)
+            t_gs = time.monotonic() - t0
+        finally:
+            if gguf_proc.poll() is None:
+                gguf_proc.kill()
+                gguf_proc.wait()
+            g_out, g_err = [f.seek(0) or f.read() for f in g_files]
+            for f in g_files:
+                f.close()
+        if gguf_proc.returncode != 0 or "on cuda" not in g_err:
+            raise AssertionError(f"checkpoint gguf: launch.run exited "
+                                 f"{gguf_proc.returncode}\n{g_err[-3000:]}")
+        gsize = os.path.getsize(gguf_path)
+        log(f"checkpoint gguf: {GGUF_LAYERS} of 32 layers (reduced depth: "
+            f"Q8_0 packing on the host), full width: {gsize / 1e9:.2f} GB "
+            f"written in {t_gw:.1f} s; load_gguf_params in {t_gl:.1f} s: "
+            f"{ng} leaves equal to the Q8_0 formula q * f16(d) computed "
+            f"here; launch.run in=text --model-path FILE.gguf on cuda, "
+            f"started beside the in=http launcher, done in {t_gs:.1f} s, "
+            f"printed {g_out.strip()[:60]!r}")
+        figures(f"{total / 1e9:.1f} GB, {nshards} shards, load "
+                f"{t_load:.1f} s {total / t_load / 1e9:.2f} GB/s (warm) peak "
+                f"+{peak / 2**30:.1f} GiB, {n} leaves eq; bursts eq "
+                f"{', '.join(same)}; q8 {nq} eq; launcher ready "
+                f"{ready_s:.0f} s; gguf {GGUF_LAYERS}L {ng} eq; encode 1k "
+                f"{enc_us:.0f} us, chat {render_us:.0f} us")
+        return launches["none"], launches["int8"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase(name, fn, *args, **kw):
     """Run one phase, print its seconds, and keep its summary line: its
     key figures (figures()), else its last line, shortened. What the
@@ -6433,6 +7165,7 @@ def main() -> int:
                                  params, "none")
     int8_tokens, _ = phase("serve int8", serve_llama3_8b, counts, params,
                            "int8", dense_tokens)
+    ck_launches = phase("checkpoint", check_checkpoint, params, smi)
     http_launches, http_figs = phase("http", check_http, params,
                                      dense_tokens[:8], direct)
     dist_launches, _ = phase("distributed", check_distributed, params,
@@ -6501,7 +7234,8 @@ def main() -> int:
              launches_spec=spec_launches[0] + spec_w8[0],
              launches_spec_tree=tree_launches[0],
              launches_tenancy=lora_launches[0],
-             launches_overload=over_launches, **fd_report),
+             launches_overload=over_launches,
+             launches_checkpoint=ck_launches[0], **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",
              launches=counts["flash_decode_int8"],
@@ -6509,7 +7243,8 @@ def main() -> int:
              launches_offload=counts["flash_decode_int8_offload"],
              launches_spec=spec_launches[1],
              launches_spec_tree=tree_launches[1],
-             launches_tenancy=lora_launches[1], **fd8_report),
+             launches_tenancy=lora_launches[1],
+             launches_checkpoint=ck_launches[1], **fd8_report),
         # no Pallas kernel: XLA's fused convert + dot of _mm and the
         # quantized _logits; the figures are one 8B decode step's 225
         # products at M = 8 (per shape: the "kernel w8a16_gemm shapes"

@@ -22,11 +22,15 @@ router; both freeze while the control-plane session is degraded.
 ``round_robin`` and ``random`` entries are served through a
 ``RemoteEngine``.
 
-What the port's frontend refuses, and does not register (a request for
-such a model gets 404): an entry that names a checkpoint (``model_path``
-or ``card_ref``: the port has no tokenizer for a model directory yet,
-ROADMAP Queue 1 item 9; serving it through the test tokenizer would
-answer differently). With ``heartbeat_ttl_s`` a worker whose metrics go
+An entry that names a checkpoint is served with that checkpoint's
+tokenizer and chat template: ``register_llm`` uploads the model card
+(model_card.py) when the entry has a ``model_path``, and the frontend
+reads the directory itself when it shares the filesystem, else downloads
+the card (cached per ``card_ref``); a card that fails to load is logged
+and the model served with the test tokenizer, as the reference does. The
+port's frontend refuses (and does not register: a request for such a
+model gets 404) only an entry with an unknown ``router_mode``. With
+``heartbeat_ttl_s`` a worker whose metrics go
 silent is blocked before its lease expires, and a SharedBreakerBoard
 (resilience/shared.py) exchanges breaker trips with sibling frontends
 over the store. Each KV-routed model gets a FleetKvView over its
@@ -40,6 +44,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import os
 import time
 from collections import deque
 from dataclasses import asdict, dataclass
@@ -140,6 +145,17 @@ async def register_llm(
     ep = rt.namespace(entry.namespace).component(entry.component).endpoint(
         entry.endpoint
     )
+    # upload card artifacts so remote frontends can tokenize (model.rs:256)
+    if entry.model_path and entry.card_ref is None:
+        from dynamo_tpu_torch.model_card import upload_card
+
+        try:
+            entry.card_ref = await upload_card(
+                rt.kv, entry.namespace, entry.name, entry.model_path
+            )
+        except (ConnectionError, OSError):
+            log.warning("card upload failed for %s; frontends must share "
+                        "the filesystem", entry.name)
     served = await serve_engine(
         ep, engine, worker_id=entry.name, lease_ttl_s=lease_ttl_s,
         metadata={"model": entry.name},
@@ -250,9 +266,6 @@ async def register_llm(
 
 def refusal(entry: ModelEntry) -> Optional[str]:
     """Why the port's frontend does not serve this entry, or None."""
-    if entry.model_path or entry.card_ref:
-        return ("a checkpoint's tokenizer (model_path / card_ref) is not "
-                "ported yet (ROADMAP Queue 1 item 9)")
     if entry.router_mode not in ("kv", "round_robin", "random"):
         return f"unknown router_mode {entry.router_mode!r}"
     return None
@@ -280,10 +293,12 @@ class ModelWatcher:
         self.router_config = router_config
         self.kv_recorder = kv_recorder
         self.prefetch_config = prefetch_config
-        # every discovered model's tokenizer: the test tokenizer, as the
-        # JAX package's watcher uses for an entry without a checkpoint
-        # (programmatic callers may pass another, as to build_chain)
+        # the tokenizer of a model without a checkpoint: the test
+        # tokenizer, as the JAX package's watcher uses (programmatic
+        # callers may pass another, as to build_chain)
         self.tokenizer = tokenizer
+        # downloaded model cards by card_ref
+        self._card_dirs: dict[str, str] = {}
         # one health tracker shared by every model's router (per-worker
         # circuit breakers, heartbeats off the load-metrics plane, blocking
         # a worker silent for ``heartbeat_ttl_s``: engines publish on idle
@@ -519,11 +534,14 @@ class ModelWatcher:
                 inst.metadata.get("model", name) == name
             )
             engine = RemoteEngine(client, mode=entry.router_mode)
-        tok = self.tokenizer or make_test_tokenizer()
+        tok, fmt = await self._checkpoint_tokenizer(name, entry)
+        if tok is None:
+            tok, fmt = self.tokenizer or make_test_tokenizer(), \
+                PromptFormatter()
         chain = ModelChain(
             name=name,
             preprocessor=OpenAIPreprocessor(
-                tokenizer=tok, formatter=PromptFormatter(), model_name=name,
+                tokenizer=tok, formatter=fmt, model_name=name,
                 context_length=entry.context_length,
             ),
             engine=engine,
@@ -533,6 +551,39 @@ class ModelWatcher:
         )
         self._chains[name] = (chain, client)
         self.manager.register(chain)
+
+    async def _checkpoint_tokenizer(self, name: str, entry: ModelEntry):
+        """(HfTokenizer, PromptFormatter) of the entry's checkpoint: its
+        directory when this host has it, else the model card downloaded
+        from the store (cached per card_ref across worker churn); (None,
+        None) without one, or when it fails to load (logged)."""
+        model_dir = entry.model_path
+        if (model_dir is None or not os.path.isdir(model_dir)) \
+                and entry.card_ref:
+            model_dir = self._card_dirs.get(entry.card_ref)
+            if model_dir is None:
+                from dynamo_tpu_torch.model_card import download_card
+
+                try:
+                    model_dir = await download_card(self.rt.kv,
+                                                    entry.card_ref)
+                except (ConnectionError, OSError):
+                    log.exception("card download failed for %s", name)
+                    model_dir = None
+                if model_dir is not None:
+                    self._card_dirs[entry.card_ref] = model_dir
+        if not model_dir:
+            return None, None
+        try:
+            from dynamo_tpu_torch.tokenizer import HfTokenizer
+
+            return (HfTokenizer.from_dir(model_dir),
+                    PromptFormatter.from_dir(model_dir))
+        except Exception:  # noqa: BLE001 — a bad card/dir must not
+            # crash discovery; serve with the fallback tokenizer
+            log.exception("tokenizer load failed for %s (%s)", name,
+                          model_dir)
+            return None, None
 
     async def _remove_model(self, name: str) -> None:
         log.info("model %s removed (last instance gone)", name)

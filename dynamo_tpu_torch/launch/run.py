@@ -24,8 +24,12 @@ Inputs (reference entrypoint/input.rs:29-45):
 
 Engines:
   out=echo       deterministic token echo (tests/smoke)
-  out=torch      TorchEngine with random weights from --model-config, on
-                 --device (default cuda: without a card the engine raises);
+  out=torch      TorchEngine on --device (default cuda: without a card the
+                 engine raises), serving --model-path (an HF safetensors
+                 directory, a cached hub id, or a .gguf file: config,
+                 tokenizer, chat template and weights come from it;
+                 --quantize int8 quantizes the weights as they load) or
+                 random weights from --model-config;
                  --speculative ngram|draft (with --draft-model-config)
                  speculates the linear chain, with adaptive K
                  (--spec-adaptive, --spec-min-k) and the acceptance gate
@@ -40,10 +44,8 @@ Engines:
 The parser keeps every flag of the reference's, so a command line written
 for it parses here; a flag of a plane the port does not serve yet is
 refused with SystemExit when it is set away from its default (see
-UNPORTED_FLAGS), never ignored. Serving a checkpoint (--model-path: an
-HF tokenizer, chat template and safetensors weights) waits for model files
-in the repository; the random-weight chain uses the test tokenizer, as
-the reference does without a model path.
+UNPORTED_FLAGS), never ignored. Without --model-path the chain uses the
+test tokenizer and the default chat template, as the reference does.
 """
 from __future__ import annotations
 
@@ -65,7 +67,6 @@ _SERVED_CONFIGS = ("tiny", "llama3_1b", "llama3_8b", "llama3_1b_int8",
 # flags of the reference's parser for planes the port does not serve:
 # flag -> (argparse keywords with the reference's default, what it drives)
 UNPORTED_FLAGS: dict[str, tuple[dict, str]] = {
-    "--model-path": (dict(default=None), "checkpoint serving"),
     "--trace-sample-rate": (dict(type=float, default=1.0),
                             "request tracing"),
     "--tensor-parallel-size": (dict(type=int, default=1),
@@ -96,6 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("io", nargs="*",
                    help="in=<http|text|stdin|batch:FILE> out=<echo|torch>")
+    p.add_argument("--model-path",
+                   help="local HF model dir (config/tokenizer/safetensors), "
+                        "a cached hub id, or a .gguf file")
     p.add_argument("--model-name", default=None, help="served model name")
     p.add_argument("--model-config", default=None,
                    help=f"canned config ({'|'.join(_SERVED_CONFIGS)}) for "
@@ -348,10 +352,60 @@ def _parse_io(io: list[str]) -> tuple[str, str]:
     return inp, out
 
 
+def _resolve_checkpoint(args) -> tuple[Any, Any, str, Optional[dict]]:
+    """(tokenizer, formatter, served name, GGUF metadata or None) of
+    ``--model-path`` (the reference's resolution: a directory, a cached
+    hub id or a .gguf file; the name is the basename); ``args.model_path``
+    becomes the resolved path."""
+    from dynamo_tpu_torch.model_resolver import resolve_model
+    from dynamo_tpu_torch.preprocessor import PromptFormatter
+    from dynamo_tpu_torch.tokenizer import HfTokenizer
+
+    resolved = resolve_model(args.model_path)
+    args.model_path = resolved.path
+    if resolved.kind == "gguf":
+        # single-file serving: config, tokenizer and dequantized weights
+        # all come out of the .gguf
+        from dynamo_tpu_torch.gguf import gguf_tokenizer, read_gguf
+
+        meta, _ = read_gguf(resolved.path)
+        name = os.path.basename(resolved.path).removesuffix(".gguf")
+        return gguf_tokenizer(meta), PromptFormatter(), name, meta
+    name = os.path.basename(resolved.path.rstrip("/"))
+    return (HfTokenizer.from_dir(resolved.path),
+            PromptFormatter.from_dir(resolved.path), name, None)
+
+
+def _load_checkpoint(args, cfg, gguf_meta) -> tuple[Any, Any]:
+    """(config, params) of the checkpoint on the engine's device: the
+    weights load in the model dtype (bf16, the reference's), quantized as
+    they load under --quantize, and are widened to --cache-dtype when it
+    differs (the engine computes in one dtype)."""
+    import torch
+
+    from dynamo_tpu_torch.models import llama
+
+    device = args.device or "cuda"
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "TorchEngine runs on CUDA unless device='cpu' is passed, and no "
+            "CUDA device is available")
+    if gguf_meta is not None:
+        from dynamo_tpu_torch.gguf import load_gguf_params
+
+        params = load_gguf_params(cfg, args.model_path, device=device)
+    else:
+        params = llama.load_hf_params(cfg, args.model_path, device=device)
+    if args.cache_dtype != cfg.dtype:
+        params = llama.cast_params(params, llama.torch_dtype(args.cache_dtype))
+    return dataclasses.replace(cfg, dtype=args.cache_dtype), params
+
+
 def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
     """(input, ModelChain) for the selected engine. Programmatic callers
     may pass prebuilt ``params`` (the engine's weights, on its device) and
-    a ``tokenizer``; the default tokenizer is the test tokenizer."""
+    a ``tokenizer``; the default tokenizer is the checkpoint's
+    (``--model-path``) or the test tokenizer."""
     from dynamo_tpu_torch.backend import Backend
     from dynamo_tpu_torch.frontend.model_manager import ModelChain
     from dynamo_tpu_torch.preprocessor import (
@@ -361,8 +415,15 @@ def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
     from dynamo_tpu_torch.tokenizer import make_test_tokenizer
 
     inp, out = _parse_io(args.io)
-    tok = tokenizer if tokenizer is not None else make_test_tokenizer()
+    gguf_meta = None
+    fmt = PromptFormatter()
     name = args.model_name or "echo"
+    if args.model_path:
+        ck_tok, fmt, ck_name, gguf_meta = _resolve_checkpoint(args)
+        tok = tokenizer if tokenizer is not None else ck_tok
+        name = args.model_name or ck_name
+    else:
+        tok = tokenizer if tokenizer is not None else make_test_tokenizer()
 
     if out == "echo":
         from dynamo_tpu_torch.engines import EchoEngine
@@ -373,18 +434,33 @@ def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
         from dynamo_tpu_torch.engine.engine import TorchEngine
         from dynamo_tpu_torch.models.config import ModelConfig
 
-        if args.model_config is None:
+        if args.model_path:
+            if gguf_meta is not None:
+                from dynamo_tpu_torch.gguf import config_from_gguf
+
+                cfg = config_from_gguf(gguf_meta)
+            else:
+                cfg = ModelConfig.from_pretrained(args.model_path)
+            if args.quantize:
+                cfg = dataclasses.replace(cfg, quant=args.quantize)
+            if params is None:
+                cfg, params = _load_checkpoint(args, cfg, gguf_meta)
+            else:
+                cfg = dataclasses.replace(cfg, dtype=args.cache_dtype)
+        elif args.model_config is None:
             raise SystemExit("out=torch needs --model-config "
-                             f"({'|'.join(_SERVED_CONFIGS)})")
-        if args.model_config not in _SERVED_CONFIGS:
+                             f"({'|'.join(_SERVED_CONFIGS)}) or --model-path")
+        elif args.model_config not in _SERVED_CONFIGS:
             raise SystemExit(
                 f"--model-config {args.model_config!r} is not served by the "
                 f"PyTorch port (served: {', '.join(_SERVED_CONFIGS)})")
-        # the engine computes in one dtype: random weights are made in the
-        # cache dtype (the reference promotes bf16 weights to it)
-        cfg = getattr(ModelConfig, args.model_config)(dtype=args.cache_dtype)
-        if args.quantize:
-            cfg = dataclasses.replace(cfg, quant=args.quantize)
+        else:
+            # the engine computes in one dtype: random weights are made in
+            # the cache dtype (the reference promotes bf16 weights to it)
+            cfg = getattr(ModelConfig, args.model_config)(
+                dtype=args.cache_dtype)
+            if args.quantize:
+                cfg = dataclasses.replace(cfg, quant=args.quantize)
         ecfg = EngineConfig(
             num_pages=args.num_pages,
             page_size=args.page_size,
@@ -432,8 +508,7 @@ def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
     else:
         raise SystemExit(f"unknown engine out={out!r}")
 
-    pre = OpenAIPreprocessor(tokenizer=tok, formatter=PromptFormatter(),
-                             model_name=name)
+    pre = OpenAIPreprocessor(tokenizer=tok, formatter=fmt, model_name=name)
     return inp, ModelChain(
         name=name, preprocessor=pre, engine=engine, backend=Backend(tok)
     )

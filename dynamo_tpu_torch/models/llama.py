@@ -4,7 +4,8 @@ the JAX package's models/llama.py: dense or w8a16 weights, no MoE).
 Layouts stay byte-identical to the reference:
   - parameters are a dict whose per-layer leaves are STACKED on a leading
     layer axis, matmul weights stored ``[in, out]`` (``params_from_jax``
-    carries a JAX pytree across as numpy arrays); with
+    carries a JAX pytree across as numpy arrays; ``load_hf_params`` and
+    ``params_from_state_dict`` fill it from an HF checkpoint); with
     ``config.quant="int8"`` each matmul weight is the leaf pair ``{"q":
     int8 [..., in, out], "s": f32 [..., out]}`` (the embedding ``{"q":
     int8 [V, H], "s": f32 [V]}``) and every product goes through the w8a16
@@ -42,7 +43,7 @@ is new (logits).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -208,6 +209,136 @@ def quantize_params(params: Params) -> Params:
         out["lm_head"] = quantize_tensor(params["lm_head"],
                                          _QUANT_AXIS["lm_head"])
     return out
+
+
+def cast_params(params: Params, dtype: torch.dtype) -> Params:
+    """The dense leaves (weights and norms) in ``dtype``; a w8a16 pair
+    ``{"q", "s"}`` stays as it is."""
+    if _is_quant(params):
+        return params
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype) for k, v in params.items()}
+    return params.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint loading (HF safetensors; gguf.py feeds the same assembly)
+
+_HF_LAYER_MAP = {
+    "input_layernorm.weight": ("ln1", False),
+    "post_attention_layernorm.weight": ("ln2", False),
+    "self_attn.q_proj.weight": ("wq", True),
+    "self_attn.k_proj.weight": ("wk", True),
+    "self_attn.v_proj.weight": ("wv", True),
+    "self_attn.o_proj.weight": ("wo", True),
+    "mlp.gate_proj.weight": ("wg", True),
+    "mlp.up_proj.weight": ("wu", True),
+    "mlp.down_proj.weight": ("wd", True),
+}
+
+
+def _leaf_shapes(c: ModelConfig) -> dict[str, tuple]:
+    """Each leaf's shape in our layout (a layer leaf without its layer
+    axis)."""
+    H, I = c.hidden_size, c.intermediate_size
+    return {"ln1": (H,), "ln2": (H,), "wq": (H, c.q_dim),
+            "wk": (H, c.kv_dim), "wv": (H, c.kv_dim), "wo": (c.q_dim, H),
+            "wg": (H, I), "wu": (H, I), "wd": (I, H),
+            "embed": (c.vocab_size, H), "norm_f": (H,),
+            "lm_head": (H, c.vocab_size)}
+
+
+def params_from_state_dict(config: ModelConfig,
+                           raw: Mapping[str, Any], dtype=None,
+                           device: str | torch.device = "cuda") -> Params:
+    """Our parameter tree from HF-named tensors (``raw[name]``: a torch
+    tensor or numpy array, read once each; the JAX package's
+    ``params_from_state_dict``, with the same values).
+
+    HF linear weights are ``[out, in]``; ours are ``[in, out]``, stacked on
+    a leading layer axis. Every leaf is allocated once on ``device`` and
+    filled one tensor at a time: a source tensor goes to the device as it
+    is (its own dtype, one layer's matrix at most), is cast to ``dtype``
+    (default ``config.dtype``) and transposed there, and is copied into
+    its slot, so the device never holds a second whole copy of the model.
+    With ``config.quant="int8"`` each matmul weight is quantized in its
+    slot as it is filled (``quantize_tensor`` on the cast values, so the
+    result is bit-equal to ``quantize_params`` of the dense tree), and the
+    dense weights are never made whole. Tied embeddings
+    (``config.tie_word_embeddings``) read no ``lm_head.weight``."""
+    _check_supported(config)
+    c = config
+    dt = dtype if isinstance(dtype, torch.dtype) else torch_dtype(
+        c.dtype if dtype is None else str(dtype))
+    dev = torch.device(device)
+    quant8 = c.quant == "int8"
+    shapes = _leaf_shapes(c)
+    L = c.num_layers
+
+    def alloc(name: str, stacked: bool):
+        shape = ((L,) if stacked else ()) + shapes[name]
+        if quant8 and name in _QUANT_AXIS:
+            axis = _QUANT_AXIS[name]
+            s_shape = shape[:len(shape) + axis] + shape[len(shape) + axis + 1:]
+            return {"q": torch.empty(shape, dtype=torch.int8, device=dev),
+                    "s": torch.empty(s_shape, dtype=torch.float32,
+                                     device=dev)}
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    def fill(hf_name: str, name: str, transpose: bool, dst, l=None):
+        if hf_name not in raw:
+            raise KeyError(f"checkpoint has no tensor {hf_name!r}")
+        src = raw[hf_name]
+        if not isinstance(src, torch.Tensor):
+            a = np.asarray(src)
+            src = (torch.from_numpy(a) if a.flags.writeable
+                   and a.dtype.name != "bfloat16"
+                   else _tensor_from_numpy(a, "cpu"))
+        want = shapes[name][::-1] if transpose else shapes[name]
+        if tuple(src.shape) != want:
+            raise ValueError(f"tensor {hf_name!r} has shape "
+                             f"{tuple(src.shape)}, the config needs {want}")
+        x = src.to(dev).to(dt)
+        if transpose:
+            x = x.T
+        if isinstance(dst, dict):
+            q = quantize_tensor(x, _QUANT_AXIS[name])
+            for k in ("q", "s"):
+                (dst[k] if l is None else dst[k][l]).copy_(q[k])
+        else:
+            (dst if l is None else dst[l]).copy_(x)
+
+    layers = {}
+    for suffix, (name, transpose) in _HF_LAYER_MAP.items():
+        layers[name] = alloc(name, True)
+        for l in range(L):
+            fill(f"model.layers.{l}.{suffix}", name, transpose, layers[name],
+                 l)
+    params: Params = {"embed": alloc("embed", False), "layers": layers,
+                      "norm_f": alloc("norm_f", False)}
+    fill("model.embed_tokens.weight", "embed", False, params["embed"])
+    fill("model.norm.weight", "norm_f", False, params["norm_f"])
+    if not c.tie_word_embeddings:
+        params["lm_head"] = alloc("lm_head", False)
+        fill("lm_head.weight", "lm_head", True, params["lm_head"])
+    return params
+
+
+def load_hf_params(config: ModelConfig, model_dir: str, dtype=None,
+                   device: str | torch.device = "cuda") -> Params:
+    """Load Llama weights from an HF safetensors directory (the JAX
+    package's ``load_hf_params``; sharded checkpoints through
+    ``model.safetensors.index.json``) onto ``device``, quantized at load
+    under ``config.quant="int8"`` (``params_from_state_dict``).
+
+    At its peak the host holds the checkpoint's mapped pages (the page
+    cache, shared and evictable: each tensor is a view of a private mmap,
+    copied straight to the device) and no second copy; the device holds
+    the parameter tree plus one source matrix in flight."""
+    from dynamo_tpu_torch.safetensors_io import Checkpoint
+
+    return params_from_state_dict(config, Checkpoint(model_dir), dtype,
+                                  device)
 
 
 def _mm(x: torch.Tensor, w) -> torch.Tensor:

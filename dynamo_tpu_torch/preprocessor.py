@@ -7,11 +7,13 @@ subset, chat_template.py, where the reference uses jinja2), tokenize, and
 attach stop/sampling options and the nvext overload hints. Mirrors the
 reference OpenAIPreprocessor (lib/llm/src/preprocessor.rs:104). Image
 content parts are refused: the engine serves no multimodal input yet.
-Loading a template from a model directory (``from_dir``) waits with the
-HF tokenizer.
+``PromptFormatter.from_dir`` reads a model directory's
+``tokenizer_config.json`` as the reference does.
 """
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, field
 from typing import Any, Optional, Union
 
@@ -44,6 +46,34 @@ class PromptFormatter:
 
     def __post_init__(self):
         self._tpl = ChatTemplate(self.template)
+
+    @classmethod
+    def from_dir(cls, path: str) -> "PromptFormatter":
+        """The template and BOS/EOS strings of a model directory's
+        ``tokenizer_config.json``: ``chat_template`` as a string, or as a
+        list of named templates from which ``default`` is taken; the
+        tokens as strings or ``{"content": ...}`` dicts. Without the file
+        (or a template in it) the default template."""
+        tc = os.path.join(path, "tokenizer_config.json")
+        template, bos, eos = DEFAULT_CHAT_TEMPLATE, "", ""
+        if os.path.exists(tc):
+            with open(tc) as f:
+                cfg = json.load(f)
+            t = cfg.get("chat_template")
+            if isinstance(t, list):  # multi-template form: pick "default"
+                t = next((e.get("template") for e in t
+                          if e.get("name") == "default"), None)
+            if isinstance(t, str):
+                template = t
+            for name in ("bos_token", "eos_token"):
+                v = cfg.get(name)
+                if isinstance(v, dict):
+                    v = v.get("content")
+                if name == "bos_token":
+                    bos = v or ""
+                else:
+                    eos = v or ""
+        return cls(template=template, bos_token=bos, eos_token=eos)
 
     def render(
         self,

@@ -1,19 +1,26 @@
-"""Tokenizer protocol, incremental detokenization and the offline test
-tokenizer (a copy of the JAX package's tokenizer.py on the standard
-library).
+"""Tokenizer protocol, the HF tokenizer of a model directory, incremental
+detokenization and the offline test tokenizer (a copy of the JAX
+package's tokenizer.py on the standard library).
+
+``HfTokenizer.from_dir`` reads a checkpoint's ``tokenizer.json`` with
+tokenizer_json.py (the reference wraps the ``tokenizers`` library) and
+takes EOS and BOS from ``config.json``, then ``tokenizer_config.json``.
 
 ``DecodeStream`` emits only text that is new and does not end in an
 incomplete UTF-8 replacement character, decoding a sliding window of ids
 (reference lib/llm/src/tokenizers.rs:159). ``make_test_tokenizer`` is the
 word-level tokenizer the tests and the random-weight launcher use; the
 reference builds it on ``tokenizers`` (WordLevel + WhitespaceSplit), this
-copy splits on the same whitespace itself. The HF tokenizer of a model
-directory (``HfTokenizer``) is not ported yet.
+copy splits on the same whitespace itself.
 """
 from __future__ import annotations
 
+import json
+import os
 import re
 from typing import Optional, Protocol, Sequence
+
+from dynamo_tpu_torch.tokenizer_json import TokenizerJson
 
 
 class Tokenizer(Protocol):
@@ -23,6 +30,61 @@ class Tokenizer(Protocol):
     def eos_token_ids(self) -> list[int]: ...
     @property
     def vocab_size(self) -> int: ...
+
+
+class HfTokenizer:
+    """A model directory's ``tokenizer.json`` (tokenizer_json.py) with the
+    EOS ids and BOS id its configs name."""
+
+    def __init__(self, tok: TokenizerJson,
+                 eos_token_ids: Optional[list[int]] = None,
+                 bos_token_id: Optional[int] = None):
+        self._tok = tok
+        self._eos = list(eos_token_ids or [])
+        self.bos_token_id = bos_token_id
+
+    @classmethod
+    def from_dir(cls, path: str) -> "HfTokenizer":
+        """Load from a HF model directory (tokenizer.json + *_config.json).
+        A component of tokenizer.json outside the supported subset raises
+        ``ValueError`` naming it."""
+        tok = TokenizerJson.from_file(os.path.join(path, "tokenizer.json"))
+        eos: list[int] = []
+        bos = None
+        cfg_path = os.path.join(path, "config.json")
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                cfg = json.load(f)
+            e = cfg.get("eos_token_id")
+            if e is not None:
+                eos = e if isinstance(e, list) else [e]
+            bos = cfg.get("bos_token_id")
+        tc_path = os.path.join(path, "tokenizer_config.json")
+        if not eos and os.path.exists(tc_path):
+            with open(tc_path) as f:
+                tc = json.load(f)
+            e = tc.get("eos_token")
+            if isinstance(e, dict):
+                e = e.get("content")
+            if isinstance(e, str):
+                tid = tok.token_to_id(e)
+                if tid is not None:
+                    eos = [tid]
+        return cls(tok, eos, bos)
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> list[int]:
+        return self._tok.encode(text, add_special_tokens=add_special_tokens)
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
+        return self._tok.decode(list(ids), skip_special_tokens=skip_special_tokens)
+
+    @property
+    def eos_token_ids(self) -> list[int]:
+        return self._eos
+
+    @property
+    def vocab_size(self) -> int:
+        return self._tok.get_vocab_size()
 
 
 class DecodeStream:

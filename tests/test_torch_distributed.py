@@ -303,8 +303,12 @@ async def test_clear_kv_fans_out_to_every_worker(engines):
 
 
 async def test_port_frontend_refuses_kv_and_checkpoint_entries(tmp_path):
-    """Checkpoint entries are refused (404, with the reason); a kv entry,
-    refused before the KV router was ported, is served."""
+    """An entry with an unknown router mode is refused (404, with the
+    reason). A kv entry, refused before the KV router was ported, and
+    checkpoint entries, refused before checkpoints were ported, are
+    served: a checkpoint whose tokenizer does not load (a directory
+    without tokenizer.json, an empty card) is served with the test
+    tokenizer, as the reference serves it."""
     async with Stack() as s:
         await s.add_worker("port", PEcho(delay_s=0.0), name="kvm",
                            router_mode="kv")
@@ -312,22 +316,30 @@ async def test_port_frontend_refuses_kv_and_checkpoint_entries(tmp_path):
                            model_path=str(tmp_path))
         await s.add_worker("port", PEcho(delay_s=0.0), name="card",
                            card_ref="bucket")
+        await s.add_worker("port", PEcho(delay_s=0.0), name="odd",
+                           router_mode="broadcast")
         await s.add_worker("port", PEcho(delay_s=0.0), name="ok")
-        await s.wait_models(["kvm", "ok"])
+        await s.wait_models(["card", "ckpt", "kvm", "ok"])
         deadline = asyncio.get_running_loop().time() + 30
-        while len(s.watcher.refused) < 2:
+        while len(s.watcher.refused) < 1:
             assert asyncio.get_running_loop().time() < deadline
             await asyncio.sleep(0.02)
-        assert set(s.watcher.refused) == {"ckpt", "card"}
-        assert "tokenizer" in s.watcher.refused["ckpt"]
-        assert "tokenizer" in s.watcher.refused["card"]
+        assert set(s.watcher.refused) == {"odd"}
+        assert "router_mode" in s.watcher.refused["odd"]
         st, _, body = await s.http.call("GET", "/v1/models")
-        assert [m["id"] for m in body["data"]] == ["kvm", "ok"]
-        for name in ("ckpt", "card"):
-            st, _, _ = await s.http.call("POST", CHAT, {
-                "model": name,
-                "messages": [{"role": "user", "content": "w1"}]})
-            assert st == 404
+        assert [m["id"] for m in body["data"]] == ["card", "ckpt", "kvm",
+                                                    "ok"]
+        st, _, _ = await s.http.call("POST", CHAT, {
+            "model": "odd", "messages": [{"role": "user", "content": "w1"}]})
+        assert st == 404
+        answers = []
+        for name in ("ckpt", "card", "ok"):
+            st, _, body = await s.http.call("POST", CHAT, {
+                "model": name, "max_tokens": 3,
+                "messages": [{"role": "user", "content": "w1 w2"}]})
+            assert st == 200 and body["model"] == name
+            answers.append(body["choices"][0]["message"]["content"])
+        assert answers[0] == answers[1] == answers[2]
         st, _, body = await s.http.call("POST", CHAT, {
             "model": "kvm", "max_tokens": 3,
             "messages": [{"role": "user", "content": "w1 w2"}]})

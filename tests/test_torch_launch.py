@@ -19,7 +19,7 @@ from dynamo_tpu_torch.launch import run as prun
 
 ROOT = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "dynamo_tpu", "aiohttp", "pydantic", "prometheus_client",
-           "tokenizers", "jinja2", "xxhash")
+           "tokenizers", "jinja2", "xxhash", "safetensors", "transformers")
 TINY_TEXT = ["in=text", "out=torch", "--device", "cpu", "--model-config",
              "tiny", "--cache-dtype", "float32", "--prompt", "w1 w2 w3",
              "--max-tokens", "8"]
@@ -90,6 +90,13 @@ def test_parse_io_refuses_other_words():
     (["in=carrier-pigeon"], "unknown input"),
 ])
 def test_unported_flags_and_modes_exit_with_a_clear_message(argv, match):
+    if argv[0] == "--model-path":
+        # served (checkpoints): a path that does not exist is refused by
+        # the resolver, as the reference's is
+        assert argv[0] not in prun.UNPORTED_FLAGS
+        with pytest.raises(FileNotFoundError, match="does not exist"):
+            prun.run_cli(["in=text", "--prompt", "x"] + argv)
+        return
     if argv[0] in ("--spec-tree", "--preempt-running"):
         # served (tree speculation; running preemption): the launcher
         # runs, no refusal
@@ -211,6 +218,132 @@ def test_port_runs_with_reference_packages_unimportable():
                          timeout=120)
     assert out.returncode == 0, out.stderr + out.stdout
     assert len(out.stdout.splitlines()) == 1
+
+
+CKPT_TEMPLATE = (
+    "{{- bos_token }}{%- for m in messages %}<|start_header_id|>"
+    "{{ m.role }}<|end_header_id|>\n\n{{ m.content | trim }}<|eot_id|>"
+    "{%- endfor %}{%- if add_generation_prompt %}<|start_header_id|>"
+    "assistant<|end_header_id|>\n\n{%- endif %}")
+
+
+@pytest.fixture(scope="module")
+def ckpt_dir(tmp_path_factory):
+    """A tiny Llama checkpoint (transformers, bf16) with a Llama 3 shaped
+    tokenizer and a chat template."""
+    import torch
+
+    from tests.test_torch_checkpoint import write_llama_dir
+    from tests.test_torch_hf_tokenizer import _build
+
+    d = tmp_path_factory.mktemp("ckpt") / "tiny-llama"
+    _build("llama3", d)
+    write_llama_dir(d, dtype=torch.bfloat16, seed=5, vocab_size=768,
+                    eos_token_id=[1, 4])
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "chat_template": CKPT_TEMPLATE, "bos_token": "<|begin_of_text|>",
+        "eos_token": "<|eot_id|>"}))
+    return str(d)
+
+
+CKPT_TEXT = ["in=text", "--cache-dtype", "float32", "--prompt",
+             "Hello, world! The quick brown fox", "--max-tokens", "8"]
+
+
+def test_checkpoint_launch_with_reference_packages_unimportable(ckpt_dir):
+    """With jax, the JAX package, tokenizers, jinja2, safetensors and
+    transformers unimportable, the launcher serves a prompt from an HF
+    checkpoint directory, the text the reference's CLI serves."""
+    argv = CKPT_TEXT + ["out=torch", "--device", "cpu", "--model-path",
+                        ckpt_dir]
+    code = (
+        "import sys\n"
+        f"BLOCKED = {BLOCKED!r}\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from dynamo_tpu_torch.launch.run import run_cli\n"
+        "rc = run_cli(" + repr(argv) + ")\n"
+        "loaded = sorted(m.split('.')[0] for m in sys.modules)\n"
+        "assert not set(loaded) & set(BLOCKED), loaded\n"
+        "sys.exit(rc)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
+    ref = subprocess.run(
+        [sys.executable, "-m", "dynamo_tpu.cli", "run", "out=tpu",
+         "--model-path", ckpt_dir] + CKPT_TEXT,
+        cwd=ROOT, env=dict(_clean_env(), JAX_PLATFORMS="cpu"),
+        capture_output=True, text=True, timeout=240)
+    assert ref.returncode == 0, ref.stderr[-2000:]
+    assert out.stdout == ref.stdout
+    assert out.stdout.strip()
+
+
+def _ask_checkpoint_server(cmd, port):
+    import asyncio
+
+    from dynamo_tpu_torch.frontend.http import HttpClient
+
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(_clean_env(), JAX_PLATFORMS="cpu"))
+    try:
+        async def ask():
+            for _ in range(600):
+                try:
+                    async with HttpClient("127.0.0.1", port) as c:
+                        r = await c.request("GET", "/v1/models")
+                        if r.status == 200:
+                            break
+                except OSError:
+                    pass
+                await asyncio.sleep(0.1)
+            async with HttpClient("127.0.0.1", port) as c:
+                chat = await c.request("POST", "/v1/chat/completions",
+                                       json_body={
+                    "model": "tiny-llama", "max_tokens": 8,
+                    "messages": [{"role": "user", "content":
+                                  "Hello, world! The quick brown fox"}]})
+                compl = await c.request("POST", "/v1/completions",
+                                        json_body={
+                    "model": "tiny-llama", "max_tokens": 6,
+                    "prompt": "def main(argv): return 31337"})
+                return chat.json(), compl.json()
+
+        return asyncio.run(asyncio.wait_for(ask(), 120))
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+def test_http_serves_a_checkpoint_as_the_reference(ckpt_dir):
+    """`launch.run in=http out=torch --model-path DIR` answers chat and
+    completions from the checkpoint, as the reference's launcher does
+    (the served name is the directory's basename)."""
+    answers = []
+    for cmd in (
+            [sys.executable, "-m", "dynamo_tpu_torch.launch.run",
+             "out=torch", "--device", "cpu"],
+            [sys.executable, "-m", "dynamo_tpu.cli", "run", "out=tpu"]):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        answers.append(_ask_checkpoint_server(
+            cmd + ["in=http", "--model-path", ckpt_dir, "--cache-dtype",
+                   "float32", "--http-host", "127.0.0.1", "--http-port",
+                   str(port)], port))
+    (pchat, pcompl), (rchat, rcompl) = answers
+    assert pchat["model"] == "tiny-llama"
+    assert pchat["choices"][0]["message"] == rchat["choices"][0]["message"]
+    assert pchat["usage"] == rchat["usage"]
+    assert pcompl["choices"][0]["text"] == rcompl["choices"][0]["text"]
+    assert pcompl["usage"] == rcompl["usage"]
 
 
 @pytest.mark.parametrize("cmd", ["serve", "metrics", "profile", "planner",
@@ -337,9 +470,9 @@ FLEET_FIELDS = ("kv_replication_target", "kv_prefetch_hot_k",
 # what the parser still refuses: the reference's flags of planes the port
 # does not serve yet (the fleet economy's five left this list, then the
 # linear speculation's eight, then tree speculation's three, then the
-# overload plane's three)
+# overload plane's three, then --model-path)
 REFUSED = {
-    "--model-path", "--trace-sample-rate", "--tensor-parallel-size",
+    "--trace-sample-rate", "--tensor-parallel-size",
     "--prof-attribution", "--slo-ttft-target",
     "--slo-itl-target", "--slo-objective", "--forensics-sample-rate",
     "--num-nodes", "--node-rank", "--leader-addr",

@@ -85,14 +85,26 @@ def request(proto, prompt, max_tokens, so=None, logprobs=None):
 
 class GatedIntake(queue.Queue):
     """An engine's intake that shows nothing until ``n`` requests wait in
-    it: each package then admits a burst in one intake drain, whenever
-    its loop's thread first looks, so batching (and the counters that
-    follow from it, such as verify dispatches) does not depend on the
-    host's timing."""
+    it, and the engine's loop, which would otherwise start with the first
+    request, starts only when the ``n``-th is put: each package's loop
+    then begins with one round whose intake drain takes the whole burst
+    (an idle loop that polls the intake, as the JAX package's does, would
+    take the first request alone before the round drains the rest), so
+    batching (and the counters that follow from it, such as verify
+    dispatches) does not depend on the host's timing (with
+    settle_results for the JAX package's asynchronous results)."""
 
-    def __init__(self, n):
+    def __init__(self, n, engine=None):
         super().__init__()
-        self.n, self.open = n, False
+        self.n, self.open, self.engine = n, False, engine
+        if engine is not None:
+            engine._started = True   # generate() starts no loop
+
+    def put(self, item, block=True, timeout=None):
+        super().put(item, block, timeout)
+        if self.engine is not None and len(self.queue) == self.n:
+            self.engine._started = False
+            self.engine.start()
 
     def _qsize(self):
         if not self.open:
@@ -100,6 +112,23 @@ class GatedIntake(queue.Queue):
                 return 0
             self.open = True
         return len(self.queue)
+
+
+def settle_results(eng):
+    """Make a TpuEngine take each dispatched result only once its device
+    work is done, as the CPU TorchEngine does (its results are ready when
+    dispatched): the JAX package dispatches asynchronously and consumes a
+    result when ``is_ready()``, so on a loaded host one slot's first token
+    or verify could land a round after another's, and the verify batching
+    (the dispatch counters) would follow the host's timing."""
+    process = eng._process_entries
+
+    def settled(block=False):
+        for en in list(eng._entries):
+            jax.block_until_ready((en.handle, en.lp_handle))
+        process(block)
+
+    eng._process_entries = settled
 
 
 async def collect(eng, req):
@@ -116,7 +145,9 @@ def run(pkg, weights, prompts, max_tokens=24, so=None, draft=False,
     registry's hashes, the engine) of one engine over ``prompts``
     submitted together and admitted in one intake drain."""
     eng = make_engine(pkg, weights, draft=draft, **kw)
-    eng._intake = GatedIntake(len(prompts))
+    eng._intake = GatedIntake(len(prompts), eng)
+    if pkg == "jax":
+        settle_results(eng)
     proto = jproto if pkg == "jax" else tproto
     lps = logprobs or [None] * len(prompts)
 
