@@ -279,8 +279,8 @@ Phases, each printing a line (any failure raises and exits non-zero):
   8b. speculation: linear speculative decoding on the bf16 weights
      (default EngineConfig, K = 4, adaptive K): the serve phase's 8
      prompts (2 asking for top-2 logprobs, which stay in the fused round)
-     and 2 built to repeat (a 64-token span four times), 64 greedy tokens
-     each, gated at the intake, in four arms: N (dense KV, ngram), Q (int8
+     and 2 built to repeat (a 64-token span four times), SPEC_NEW greedy
+     tokens each, gated at the intake, in four arms: N (dense KV, ngram), Q (int8
      KV, ngram), D (dense, draft: Llama-3.2-1B with random weights from
      seed 1, batched drafting) and S (dense, self-draft: the target's own
      weights as the draft; SPEC_SELF_NEW tokens a request, its 1.4 s
@@ -449,6 +449,14 @@ def log(*a):
 def figures(text):
     """The running phase's key figures, for its summary line."""
     _PHASE["figures"] = text
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1339,7 +1347,9 @@ def check_round_graph(label, cfg, ecfg, params, prompts, adapters=None):
     7 a layer and the logits, a step). With ``adapters`` ((the factors by
     adapter id, an adapter id a prompt); ``ecfg`` with a bank), the
     variants are installed and each prompt carries its id: the round runs
-    mixed adapters."""
+    mixed adapters. Round attribution (prof_attribution, on by default)
+    stays on: the profiled round is attributed, its segments summing to
+    its wall time, and still costs one graph launch."""
     from dynamo_tpu_torch.engine import graphs as eg
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.ops import flash_decode as fd
@@ -1448,6 +1458,12 @@ def check_round_graph(label, cfg, ecfg, params, prompts, adapters=None):
             runtime[evt.key] += evt.count
     graph_launches = sum(n for k, n in runtime.items() if "GraphLaunch" in k)
     host_kernels = sum(n for k, n in runtime.items() if "LaunchKernel" in k)
+    _, wall, acc = eng.prof.recent(1)[0] if eng.prof.recent(1) else \
+        (0, 0.0, [0.0])
+    if not eng.prof.enabled or not wall or abs(sum(acc) / wall - 1) > 0.02:
+        raise AssertionError(f"round_graph {label}: attribution on "
+                             f"{eng.prof.enabled}, the profiled round's "
+                             f"segments {sum(acc)} s of {wall} s")
     copies = sum(n for k, n in runtime.items() if "Memcpy" in k)
     want_kernels = cfg.num_layers * F
     want_gemms = (7 * cfg.num_layers + 1) * F if quant_w else 0
@@ -1457,7 +1473,9 @@ def check_round_graph(label, cfg, ecfg, params, prompts, adapters=None):
         + f"; largest logprob difference "
         f"{lp_diff:.3e}); one steady pipelined round: {graph_launches} graph "
         f"launch, {host_kernels} kernels launched from the host, {copies} "
-        f"copies, {kernels} flash-decode kernels in the replay "
+        f"copies (round attribution on: the round's segments "
+        f"{sum(acc) / wall:.4f} of its {wall * 1e3:.3f} ms), {kernels} "
+        f"flash-decode kernels in the replay "
         f"({cfg.num_layers} layers x {F} steps = {want_kernels}; the "
         f"kernel's own count on the card {sum(ran)})"
         + (f", {gemms} w8a16_gemm kernels in the replay ((7 x "
@@ -1884,13 +1902,14 @@ def ttft_split(prompts, res, firsts, marks):
             f"{np.median(after) * 1e3:.2f} ({max(after) * 1e3:.2f}) ms")
 
 
-def frontend_us_per_token(chain, prompts, streams, reps=3):
+def frontend_us_per_token(chain, prompts, streams, reps=3,
+                          trace_sample_rate=1.0):
     """The frontend's host time per streamed token: ``streams`` (each
     prompt's tokens) replayed through ``chain``'s preprocessor and backend
-    behind an HttpService and the port's client, from an engine that only
-    yields them (the first token alone, then 4 a round, as the engine
-    emits them); the whole burst's wall time over its tokens, median of
-    ``reps``."""
+    behind an HttpService (tracing ``trace_sample_rate`` of its requests)
+    and the port's client, from an engine that only yields them (the
+    first token alone, then 4 a round, as the engine emits them); the
+    whole burst's wall time over its tokens, median of ``reps``."""
     from dynamo_tpu_torch.frontend.http import HttpClient
     from dynamo_tpu_torch.frontend.model_manager import ModelChain, ModelManager
     from dynamo_tpu_torch.frontend.service import HttpService
@@ -1913,7 +1932,8 @@ def frontend_us_per_token(chain, prompts, streams, reps=3):
                                 engine=Replay(), backend=chain.backend))
 
     async def burst():
-        svc = HttpService(manager, host="127.0.0.1", port=0)
+        svc = HttpService(manager, host="127.0.0.1", port=0,
+                          trace_sample_rate=trace_sample_rate)
         await svc.start()
         try:
             walls = []
@@ -1933,6 +1953,86 @@ def frontend_us_per_token(chain, prompts, streams, reps=3):
     return asyncio.run(burst()) / sum(map(len, streams)) * 1e6
 
 
+def engine_cpu_s(eng) -> float:
+    """The CPU seconds of ``eng``'s loop thread so far."""
+    return time.clock_gettime(time.pthread_getcpuclockid(eng._thread.ident))
+
+
+def decode_rounds(eng) -> int:
+    return eng.dispatch_counts["round"] + eng.dispatch_counts["round_seal"]
+
+
+def prof_switch_us(reps=20000):
+    """Round attribution's own host cost a round, on this host: the
+    switches a pipelined decode round makes (intake, slot scan, dispatch
+    with its seal push, fetch, releases, transfer, offload, admit, slot
+    scan, metrics fold) between begin_round and end_round, timed over
+    ``reps`` rounds with the profiler enabled and disabled: (on, off) in
+    microseconds a round."""
+    from dynamo_tpu_torch.telemetry.prof import SEGMENTS, RoundProf
+
+    seq = [SEGMENTS.index(n) for n in (
+        "intake", "slot_scan", "dispatch", "fetch", "releases", "transfer",
+        "offload", "admit", "slot_scan", "metrics_fold")]
+    seal = SEGMENTS.index("seal_assembly")
+    out = []
+    for enabled in (True, False):
+        prof = RoundProf(enabled=enabled)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            prof.begin_round()
+            for seg in seq:
+                prof.enter(seg)
+                if seg == seq[2]:
+                    prof.enter(prof.push(seal))
+            prof.end_round()
+        out.append((time.perf_counter() - t0) / reps * 1e6)
+    return out
+
+
+def frontend_trace_ids(n):
+    """The ids of the last ``n`` completed traces a frontend minted (a
+    tokenize span: a worker in this process records its untraced
+    requests, a disagg prefill job's among them, in the same store)."""
+    from dynamo_tpu_torch.telemetry.trace import TRACES
+
+    ids = []
+    for rid in TRACES.recent_ids(TRACES.max_completed):
+        tr = TRACES.get(rid)
+        if tr is not None and "tokenize" in tr.span_names():
+            ids.append(rid)
+    return ids[-n:]
+
+
+async def check_trace_trees(port, ids, label, want_head, n_rounds):
+    """Each request's /debug/trace/{id} on the HTTP server at ``port``:
+    200, its spans led by ``want_head`` (names), ``n_rounds``
+    decode_round spans. Returns the trees."""
+    from dynamo_tpu_torch.frontend.http import HttpClient
+
+    trees = []
+    async with HttpClient("127.0.0.1", port) as c:
+        for rid in ids:
+            r = await c.request("GET", f"/debug/trace/{rid}")
+            names = [sp["name"] for sp in r.json().get("spans", [])]
+            if (r.status != 200 or names[:len(want_head)] != want_head
+                    or names.count("decode_round") != n_rounds):
+                raise AssertionError(
+                    f"{label}: /debug/trace/{rid} answered {r.status} "
+                    f"with spans {names}; want {want_head} first and "
+                    f"{n_rounds} decode_round spans")
+            trees.append(r.json())
+    return trees
+
+
+def round_coverage(eng, since_unix):
+    """(min, max) of sum(segments) / wall over the rounds ``eng``
+    attributed since ``since_unix``, and their number."""
+    covs = [sum(acc) / wall for end, wall, acc in eng.prof.recent(256)
+            if end >= since_unix and wall > 0]
+    return (min(covs), max(covs), len(covs)) if covs else (0.0, 0.0, 0)
+
+
 def check_http(params, direct_tokens, direct):
     """The port's entry point at Llama-3.1-8B: launch.run's chain (dense
     KV, default EngineConfig, the serve phase's weights) behind the
@@ -1947,7 +2047,18 @@ def check_http(params, direct_tokens, direct):
     the event loop's host time per streamed token (LoopMeter: busy and
     CPU; the loop runs service and client), the frontend's host time per
     streamed token (the same streams replayed through the service from
-    an engine that only yields them) and DecodeStream's cost per token."""
+    an engine that only yields them) and DecodeStream's cost per token.
+
+    Telemetry: every burst request's /debug/trace/{id} tree (tokenize,
+    queue, prefill, then a decode_round span a round), /debug/prof's
+    coverage and every round's within 1 +- 0.02, /debug/flight's ring, an
+    OpenMetrics scrape with exemplars, and a Perfetto export of the first
+    request that parses. Then the burst once more (the cache cleared)
+    with round attribution off and a service that traces no request: the
+    engine thread's CPU time a decode round beside the traced burst's,
+    the attribution's own cost a round (prof_switch_us), and the
+    frontend's host time per streamed token at trace sample rate 1.0 and
+    0.0 (the replay)."""
     from dynamo_tpu_torch.frontend.http import HttpClient
     from dynamo_tpu_torch.frontend.model_manager import ModelManager
     from dynamo_tpu_torch.frontend.service import HttpService
@@ -1972,10 +2083,75 @@ def check_http(params, direct_tokens, direct):
     manager.register(chain)
     prompts = serve_prompts(cfg.vocab_size)
     marks = record_marks(eng)
+    tele: dict = {}
+
+    async def telemetry_reads(port, t_burst):
+        """The debug plane after the traced burst (see the docstring)."""
+        from dynamo_tpu_torch.tools import trace_export
+
+        t0 = time.monotonic()
+        ids = frontend_trace_ids(len(prompts))
+        n_rounds = -(-(N_NEW - 1) // eng.ecfg.flush_every)
+        trees = await check_trace_trees(
+            port, ids, "http", ["tokenize", "queue", "prefill"], n_rounds)
+        async with HttpClient("127.0.0.1", port) as c:
+            prof = (await c.request("GET", "/debug/prof")).json()
+            flight = await c.request("GET", "/debug/flight")
+            om = await c.request("GET", "/metrics", headers={
+                "Accept": "application/openmetrics-text"})
+        cov = prof["engines"]["llama3_8b"]["coverage_ratio"]
+        lo, hi, n = round_coverage(eng, t_burst)
+        events = flight.json()["engines"]["llama3_8b"]["events"]
+        kinds = sorted({e["kind"] for e in events})
+        om_text = om.body.decode()
+        if (not 0.98 <= cov <= 1.02 or not n or lo < 0.98 or hi > 1.02
+                or flight.status != 200 or "round" not in kinds
+                or not om_text.endswith("# EOF\n")
+                or '# {trace_id="' not in om_text):
+            raise AssertionError(
+                f"http: /debug/prof coverage {cov}, rounds {lo}..{hi} over "
+                f"{n}; /debug/flight {flight.status} kinds {kinds}; "
+                f"OpenMetrics exemplars {'# {trace_id=' in om_text}")
+        chrome = json.loads(json.dumps(trace_export.build({
+            "trace": trees[0], "flight": events,
+            "rounds": [[r[0], r[1], list(r[2])]
+                       for r in eng.prof.recent(64)]})))
+        cats = {e.get("cat") for e in chrome["traceEvents"]}
+        if not {"span", "round_segment", "flight"} <= cats:
+            raise AssertionError(f"http: the Perfetto export has {cats}")
+        tele.update(
+            trees=len(trees), spans=[sp["name"] for sp in
+                                     trees[0]["spans"]][:4],
+            n_rounds=n_rounds, cov=cov, cov_lo=lo, cov_hi=hi, cov_n=n,
+            flight=len(events), kinds=kinds,
+            perfetto=len(chrome["traceEvents"]),
+            secs=time.monotonic() - t0)
+
+    async def untraced_burst(port):
+        """The burst again with attribution off, through a service that
+        traces no request: the engine thread's CPU seconds and decode
+        rounds it took, and the loop's busy seconds."""
+        eng.clear_kv_blocks()
+        eng.prof.enabled = False
+        try:
+            cpu0, r0, busy0 = engine_cpu_s(eng), decode_rounds(eng), \
+                meter.read()[0]
+            res = await gated_burst(eng, port, prompts, "llama3_8b",
+                                    "http untraced")
+            await settle_engines(eng)
+            return (engine_cpu_s(eng) - cpu0, decode_rounds(eng) - r0,
+                    meter.read()[0] - busy0, res)
+        finally:
+            eng.prof.enabled = True
 
     async def drive():
-        svc = HttpService(manager, host="127.0.0.1", port=0)
+        nonlocal meter
+        svc = HttpService(manager, host="127.0.0.1", port=0,
+                          trace_sample_rate=1.0)
+        bare = HttpService(manager, host="127.0.0.1", port=0,
+                           trace_sample_rate=0.0)
         await svc.start()
+        await bare.start()
         meter = LoopMeter()
         try:
             # a unary chat request first: it ends before the counts are
@@ -1991,20 +2167,40 @@ def check_http(params, direct_tokens, direct):
             fd.executed(eng.device, reset=True)
             steps0 = eng.step_count
             host0 = meter.read()
+            cpu0, r0, t_burst = engine_cpu_s(eng), decode_rounds(eng), \
+                time.time()
             res = await gated_burst(eng, svc.port, prompts, "llama3_8b",
                                     "http")
             host = [b - a for a, b in zip(host0, meter.read())]
-            # the counts once the engine's thread has stopped, as in serve
-            await eng.stop()
+            # the counts once the engine is idle (no round in flight)
+            await settle_engines(eng)
+            torch.cuda.synchronize()
             ran = fd.executed(eng.device)
             steps = eng.step_count - steps0
+            # the graphs' record and replays of the counted burst (the
+            # untraced burst below adds its own)
+            tele["launches"] = eng.kernel_launches
+            tele["replays"] = eng.graphs.replays
+            tele["on"] = (engine_cpu_s(eng) - cpu0, decode_rounds(eng) - r0,
+                          host[0])
             async with HttpClient("127.0.0.1", svc.port) as c:
                 metrics = (await c.request("GET", "/metrics")).body.decode()
+            await telemetry_reads(svc.port, t_burst)
+            t0 = time.monotonic()
+            *tele["off"], res_off = await untraced_burst(bare.port)
+            for _, events, _ in res_off:
+                if not events or not events[-1].is_done:
+                    raise AssertionError("http untraced: a stream did not "
+                                         "end in [DONE]")
+            tele["secs"] += time.monotonic() - t0
+            await eng.stop()
             return res, ran, steps, chat, metrics, host
         finally:
             await svc.stop()
+            await bare.stop()
             await eng.stop()
 
+    meter = None
     eng.start()
     # a hang here prints every thread's stack and exits, within the
     # script's time limit
@@ -2017,11 +2213,11 @@ def check_http(params, direct_tokens, direct):
     ttft, gaps, firsts, ends = parse_streams(res, direct_tokens, "http")
     check_replayed(eng, "http")
     if dense != cfg.num_layers * steps or int8 or issued \
-            or eng.kernel_launches != dense:
+            or tele["launches"] != dense:
         raise AssertionError(
             f"http: flash_decode ran {dense} times on the card (int8 "
             f"{int8}, {issued} issued eagerly, graphs recorded "
-            f"{eng.kernel_launches}) over {steps} decode steps of "
+            f"{tele['launches']}) over {steps} decode steps of "
             f"{cfg.num_layers} layers")
     if chat.status != 200 or not chat.json()["choices"]:
         raise AssertionError(f"http: chat completion status {chat.status}")
@@ -2032,7 +2228,17 @@ def check_http(params, direct_tokens, direct):
             raise AssertionError(f"http: /metrics has no {name} series")
     tokens = N_NEW * len(prompts)
     tps = (tokens - len(prompts)) / (max(ends) - min(firsts))
-    replay_us = frontend_us_per_token(chain, prompts, direct_tokens)
+    # the frontend's host time a token traced and untraced, in turns
+    # (traced, untraced, untraced, traced), the median of each rate
+    t0 = time.monotonic()
+    turns: dict[float, list] = {1.0: [], 0.0: []}
+    for rate in (1.0, 0.0, 0.0, 1.0):
+        turns[rate].append(frontend_us_per_token(
+            chain, prompts, direct_tokens, reps=5, trace_sample_rate=rate))
+    replay_us = float(np.median(turns[1.0]))
+    replay_untraced_us = float(np.median(turns[0.0]))
+    switch_on, switch_off = prof_switch_us()
+    tele["secs"] += time.monotonic() - t0
     # DecodeStream's cost per token on these streams, this host
     reps, n = 5, 0
     t0 = time.perf_counter()
@@ -2062,10 +2268,44 @@ def check_http(params, direct_tokens, direct):
         f"this host: +-{step_ms * 1e3 / tokens:.2f} us a token); frontend "
         f"host time {replay_us:.1f} us per streamed token (the same 8 "
         f"streams replayed through the service and client, no engine; "
-        f"median of 3); DecodeStream.step {ds_us:.1f} us per token; "
+        f"traced, the median of 2 turns of 5); DecodeStream.step "
+        f"{ds_us:.1f} us per token; "
         f"{steps} decode steps, flash_decode launches {dense} (counted by "
-        f"the kernel on the card) in {eng.graphs.replays} graph replays; "
+        f"the kernel on the card) in {tele['replays']} graph replays; "
         f"unary chat 200")
+    (cpu_on, r_on, busy_on), (cpu_off, r_off, busy_off) = \
+        tele["on"], tele["off"]
+    log(f"http telemetry: {tele['trees']} /debug/trace trees, each "
+        f"{tele['spans'][:3]} then {tele['n_rounds']} decode_round spans; "
+        f"/debug/prof coverage {tele['cov']:.4f}, every attributed round "
+        f"of the burst {tele['cov_lo']:.4f}..{tele['cov_hi']:.4f} "
+        f"({tele['cov_n']} rounds); /debug/flight {tele['flight']} events "
+        f"({', '.join(tele['kinds'])}); OpenMetrics scrape with exemplars; "
+        f"Perfetto export of request 0: {tele['perfetto']} events, parsed; "
+        f"the checks took {tele['secs']:.1f} s")
+    log(f"http telemetry overhead ({smi_line()}): engine thread CPU over "
+        f"a burst (its prefills included) a decode round "
+        f"{cpu_on / max(r_on, 1) * 1e6:.1f} us with round "
+        f"attribution on ({r_on} rounds, traced burst) and "
+        f"{cpu_off / max(r_off, 1) * 1e6:.1f} us off ({r_off} rounds, "
+        f"untraced burst; thread CPU clock step {step_ms:.4g} ms); the "
+        f"attribution's own switches {switch_on:.2f} us a round enabled, "
+        f"{switch_off:.2f} us disabled (prof_switch_us, 20000 rounds); the "
+        f"frontend's host time per streamed token {replay_us:.1f} us at "
+        f"trace sample rate 1.0 and {replay_untraced_us:.1f} us at 0.0 "
+        f"(replay in turns traced, untraced, untraced, traced, 5 bursts "
+        f"each: {[round(v, 1) for v in turns[1.0]]} and "
+        f"{[round(v, 1) for v in turns[0.0]]}); the event loop busy per "
+        f"token "
+        f"{busy_on / tokens * 1e6:.2f} us traced, "
+        f"{busy_off / tokens * 1e6:.2f} us untraced")
+    figures(f"TTFT med {np.median(ttft):.4f} s; {tps:.1f} tok/s; "
+            f"coverage {tele['cov_lo']:.4f}..{tele['cov_hi']:.4f}; round "
+            f"CPU {cpu_on / max(r_on, 1) * 1e6:.1f}/"
+            f"{cpu_off / max(r_off, 1) * 1e6:.1f} us prof on/off; switches "
+            f"{switch_on - switch_off:.2f} us a round; frontend "
+            f"{replay_us:.1f}/{replay_untraced_us:.1f} us a token traced/"
+            f"untraced")
     del eng, chain, manager
     gc.collect()
     torch.cuda.empty_cache()
@@ -2129,7 +2369,13 @@ def check_distributed(params, direct_tokens, direct, http):
     figures); /clear_kv_blocks
     through the frontend must clear what the worker's engine held; a chat
     request with tools and a streamed one with nvext.annotations
-    ["llm_metrics"] must return 200 in the JAX package's shapes. Prints
+    ["llm_metrics"] must return 200 in the JAX package's shapes.
+    Telemetry: each burst request's /debug/trace/{id} on the frontend
+    holds the worker's spans, merged across the endpoint hop; a request
+    sent through the frontend's remote engine with no trace (as from
+    another process) leaves the worker (--forensics-sample-rate 1.0,
+    --system-port 0) its own trace and a sampled dossier, served by the
+    worker's system server. Prints
     TTFT, gaps and tok/s beside the http and serve phases', each
     request's TTFT split at the worker engine's intake and first output,
     and each loop's host time per streamed token (LoopMeter: frontend,
@@ -2141,6 +2387,10 @@ def check_distributed(params, direct_tokens, direct, http):
     from dynamo_tpu_torch.launch import run as launch
     from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest,
+        StopConditions,
+    )
     from dynamo_tpu_torch.protocols.sse import SseDecoder
     from dynamo_tpu_torch.runtime.store import serve_store
     from dynamo_tpu_torch.tokenizer import make_test_tokenizer
@@ -2157,7 +2407,8 @@ def check_distributed(params, direct_tokens, direct, http):
         args = launch.build_parser().parse_intermixed_args(
             ["in=endpoint", "out=torch", "--model-config", name,
              "--model-name", name, "--router-mode", "round_robin",
-             "--control-plane", f"127.0.0.1:{cp_port}"])
+             "--control-plane", f"127.0.0.1:{cp_port}",
+             "--forensics-sample-rate", "1.0", "--system-port", "0"])
         t0 = time.monotonic()
         _, chain = launch.build_chain(args, params=params, tokenizer=tok)
         eng = chain.engine
@@ -2228,11 +2479,67 @@ def check_distributed(params, direct_tokens, direct, http):
                     for k, m in meters.items()}
             await settle_engines(eng)
             torch.cuda.synchronize()
-            return res, fd.executed(eng.device), eng.step_count - steps0, host
+            # the graphs' record and replays of the burst (the untraced
+            # request below adds its own)
+            return (res, fd.executed(eng.device), eng.step_count - steps0,
+                    host, (eng.kernel_launches, eng.graphs.replays))
 
         tools, llm_status, llm_events = asyncio.run(chats())
-        res, (dense, int8), steps, host = asyncio.run(burst())
+        res, (dense, int8), steps, host, (recorded, replays) = \
+            asyncio.run(burst())
         issued = fd.launches + fd.launches_int8
+        # ---- telemetry: the merged trees, and the worker's own trace and
+        # dossier for a request no frontend traced
+        t_tel = time.monotonic()
+        n_rounds = -(-(N_NEW - 1) // eng.ecfg.flush_every)
+        asyncio.run(check_trace_trees(
+            svc.port, frontend_trace_ids(len(prompts)), "distributed",
+            ["tokenize", "queue", "prefill"], n_rounds))
+        rid = "chip-smoke-untraced"
+
+        async def untraced():
+            toks = []
+            async for out in manager.get(name).engine.generate(
+                    PreprocessedRequest(
+                        token_ids=list(prompts[0]), request_id=rid,
+                        stop_conditions=StopConditions(max_tokens=8,
+                                                       ignore_eos=True))):
+                toks.extend(out.token_ids)
+            return toks
+
+        untraced_toks = loops["frontend"].run(untraced())
+
+        async def worker_debug():
+            async with HttpClient("127.0.0.1", served.system.port) as c:
+                return [await c.request("GET", path) for path in (
+                    f"/debug/outliers/{rid}", f"/debug/trace/{rid}",
+                    f"/debug/outliers/{rid}?format=perfetto")]
+
+        dossier, wtrace, wperf = asyncio.run(worker_debug())
+        wnames = [sp["name"] for sp in wtrace.json().get("spans", [])]
+        # (its prefill is a group of one, another path than the burst's
+        # batch: its tokens are counted, not held to the burst's)
+        if (len(untraced_toks) != 8 or dossier.status != 200
+                or dossier.json()["reason"] not in (
+                    "sampled", "ttft_breach", "itl_breach")
+                or not dossier.json()["rounds"]
+                or not dossier.json()["flight"] or wtrace.status != 200
+                or wnames[:2] != ["queue", "prefill"]
+                or wnames.count("decode_round") != 2
+                or wperf.status != 200
+                or not wperf.json()["traceEvents"]):
+            raise AssertionError(
+                f"distributed: the untraced request gave {untraced_toks}; "
+                f"the worker's dossier {dossier.status} "
+                f"{dossier.body[:300]!r}, its trace {wtrace.status} "
+                f"{wnames}, Perfetto {wperf.status}")
+        d = dossier.json()
+        tel = (f"the worker's dossier for an untraced request: reason "
+               f"{d['reason']}, {len(d['trace']['spans'])} spans ({wnames[:3]}"
+               f"...), {len(d['rounds'])} host rounds, {len(d['flight'])} "
+               f"flight events, Perfetto "
+               f"{len(wperf.json()['traceEvents'])} events; the checks took "
+               f"{time.monotonic() - t_tel:.1f} s")
         # /clear_kv_blocks: the frontend's remote engine fans the clear
         # out to the worker, which returns what its engine held
         held = len(eng.allocator._lru)
@@ -2296,11 +2603,11 @@ def check_distributed(params, direct_tokens, direct, http):
                                              "distributed")
     check_replayed(eng, "distributed")
     if dense != cfg.num_layers * steps or int8 or issued \
-            or eng.kernel_launches != dense:
+            or recorded != dense:
         raise AssertionError(
             f"distributed: flash_decode ran {dense} times on the card (int8 "
             f"{int8}, {issued} issued eagerly, graphs recorded "
-            f"{eng.kernel_launches}) over {steps} decode steps of "
+            f"{recorded}) over {steps} decode steps of "
             f"{cfg.num_layers} layers")
     if not held or cleared != held or left \
             or cleared_http.status != 200 \
@@ -2338,10 +2645,14 @@ def check_distributed(params, direct_tokens, direct, http):
         f"beside the http phase's one loop (service and client) "
         f"{http['busy_us']:.2f} us (CPU {http['cpu_us']:.2f}); "
         f"{steps} decode steps, flash_decode launches {dense} (counted by "
-        f"the kernel on the card) in {eng.graphs.replays} graph replays; "
+        f"the kernel on the card) in {replays} graph replays; "
         f"/clear_kv_blocks cleared the worker's {cleared} cached pages; "
         f"tools chat 200 (finish_reason {tchoice['finish_reason']!r}), "
         f"llm_metrics {ann['metrics']}")
+    log(f"distributed telemetry: {len(prompts)} /debug/trace trees on the "
+        f"frontend, each tokenize then the worker's queue, prefill and "
+        f"{n_rounds} decode_round spans across the endpoint "
+        f"hop; {tel}")
     del eng, chain
     gc.collect()
     torch.cuda.empty_cache()
@@ -2915,7 +3226,11 @@ def check_disagg(params, direct_tokens, kv, smi):
     Prints TTFT beside the kv router phase's C' (a whole-prompt recompute
     on one engine), each prompt's prefill_ms, chunks and overlap ratio,
     wire GB/s, D's tail prefill, wave B's gaps beside kv router wave A's
-    and memory with both engines up."""
+    and memory with both engines up. Telemetry: each wave A request's
+    /debug/trace/{id} holds disagg_kv_transfer and P's remote_prefill
+    span with a kv_chunk child a streamed frame (as many as P's done
+    message counts), and wave A's stream timeline counts every frame sent
+    and received, one eof-ack wait a stream and P's commit wakeups."""
     from dynamo_tpu_torch.frontend.http import HttpClient
     from dynamo_tpu_torch.frontend.model_manager import ModelManager
     from dynamo_tpu_torch.frontend.service import HttpService
@@ -2926,6 +3241,7 @@ def check_disagg(params, direct_tokens, kv, smi):
     from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.ops import flash_decode as fd
     from dynamo_tpu_torch.runtime.store import serve_store
+    from dynamo_tpu_torch.telemetry import timeline as tl
     from dynamo_tpu_torch.tokenizer import make_test_tokenizer
     from dynamo_tpu_torch.tokens import compute_block_hashes
 
@@ -3029,8 +3345,43 @@ def check_disagg(params, direct_tokens, kv, smi):
 
         # ---- wave A: one at a time
         w0 = wire_totals()
+        tl.STREAM_EVENTS.clear()
         res_a, done_a = asyncio.run(one_by_one("disagg wave A", prompts))
         w1 = wire_totals()
+        # ---- telemetry of wave A: the spans and the stream timeline
+        t_tel = time.monotonic()
+        stream = tl.STREAM_EVENTS.snapshot()
+        trees = asyncio.run(check_trace_trees(
+            svc.port, frontend_trace_ids(len(prompts)), "disagg",
+            ["tokenize", "route"],
+            -(-(N_NEW - 1) // eng_d.ecfg.flush_every)))
+        chunks_seen = []
+        for tree, done in zip(trees, done_a):
+            byname = {sp["name"]: sp for sp in tree["spans"]}
+            rp = byname.get("remote_prefill") or {}
+            kids = [c["name"] for c in rp.get("children") or []]
+            chunks_seen.append(len(kids))
+            if ("disagg_kv_transfer" not in byname or not kids
+                    or set(kids) != {"kv_chunk"}
+                    or len(kids) != done.get("chunks")):
+                problems.append(
+                    f"disagg: a wave A trace has spans "
+                    f"{sorted(byname)} and remote_prefill children {kids}; "
+                    f"P's done message counted {done.get('chunks')} chunks")
+        kinds = {k: sum(e["kind"] == k for e in stream) for k in (
+            tl.FRAME_SEND, tl.FRAME_RECV, tl.EOF_ACK_WAIT,
+            tl.COMMIT_WAKEUP)}
+        if (kinds[tl.FRAME_SEND] != sum(chunks_seen)
+                or kinds[tl.FRAME_RECV] != sum(chunks_seen)
+                or kinds[tl.EOF_ACK_WAIT] != len(prompts)
+                or not kinds[tl.COMMIT_WAKEUP]):
+            problems.append(f"disagg: wave A's stream events {kinds} for "
+                            f"{sum(chunks_seen)} chunks in {len(prompts)} "
+                            f"streams")
+        tel = (f"{len(trees)} wave A trace trees with disagg_kv_transfer "
+               f"and remote_prefill ({sum(chunks_seen)} kv_chunk children "
+               f"in all: {chunks_seen}); stream events {kinds}; the checks "
+               f"took {time.monotonic() - t_tel:.1f} s")
         ma = take_marks()
         got_a = [(ma[tuple(p)]["tokens"], ma[tuple(p)]["top"])
                  for p in prompts]
@@ -3179,6 +3530,7 @@ def check_disagg(params, direct_tokens, kv, smi):
         f"(intake to first token, after the transfer) median "
         f"{np.median(tail_a):.4f} s max {max(tail_a):.4f} s; {smi}")
     log(f"disagg wave A per prompt (P's done message): {per}")
+    log(f"disagg telemetry: {tel}")
     log(f"disagg wire: {wire_bytes / 2**20:.1f} MiB sent in wave A over "
         f"{wire_s:.3f} s of whole moves (dynamo_kv_transfer_seconds): "
         f"{gbs:.2f} GB/s; D's pages byte-equal to P's for prompts 0 and 7: "
@@ -4387,7 +4739,8 @@ async def call_json(port, path):
 # speculation
 
 SPEC_K = 4          # num_speculative_tokens (adaptive K on, its cap)
-SPEC_NEW = 64       # new tokens a request
+SPEC_NEW = 32       # new tokens a request (64 until the script's time
+                    # budget took the telemetry checks)
 # the self-draft arms (S, TS: the 8B drafting for itself, a 1.4 s draft a
 # dispatch) take this many: the same checks over fewer dispatches
 SPEC_SELF_NEW = 8
@@ -6662,7 +7015,12 @@ async def ask_launcher(port, chat, prompt_ids, text_prompt):
 def check_checkpoint_launcher(d, params, smi):
     """``launch.run in=http out=torch --model-path DIR`` in a subprocess
     against build_chain's engine on the in-memory weights (the same
-    flags, in this process): prompt ids and greedy texts must agree."""
+    flags, in this process): prompt ids and greedy texts must agree,
+    request for request along the same path (the third request, the
+    chat's ids as a completions prompt, is a prefix hit on the first's
+    block in both: prefill numerics depend on the path, so it is held to
+    the in-process chain's third request, and its text beside the chat's
+    is information)."""
     import socket
 
     from dynamo_tpu_torch.launch.run import build_chain, build_parser
@@ -6705,6 +7063,8 @@ def check_checkpoint_launcher(d, params, smi):
                                              "messages": CKPT_CHAT}))
         pre_text = chain.preprocessor.preprocess_completion(
             CompletionRequest.from_dict({**common, "prompt": text_prompt}))
+        pre_ids = chain.preprocessor.preprocess_completion(
+            CompletionRequest.from_dict({**common, "prompt": chat_ids}))
         if pre_chat.token_ids != chat_ids:
             raise AssertionError("checkpoint: build_chain's chat prompt ids "
                                  "differ from PromptFormatter + HfTokenizer")
@@ -6714,7 +7074,8 @@ def check_checkpoint_launcher(d, params, smi):
 
         async def through_chain():
             texts = []
-            for pre in (pre_chat, pre_text):   # one at a time, as sent
+            # one at a time, as sent
+            for pre in (pre_chat, pre_text, pre_ids):
                 parts = []
                 async for out in chain.generate(pre):
                     parts.append(out.text or "")
@@ -6733,7 +7094,7 @@ def check_checkpoint_launcher(d, params, smi):
         raise AssertionError(f"checkpoint launcher: prompt tokens {usage}, "
                              f"in process {len(chat_ids)}, "
                              f"{len(pre_text.token_ids)}")
-    if texts != [gen[0], gen[1], gen[0]]:
+    if texts != gen:
         raise AssertionError(f"checkpoint launcher: texts {texts!r} != "
                              f"the in-process chain's {gen!r}")
     log(f"checkpoint launcher: launch.run in=http out=torch --model-path "
@@ -6745,7 +7106,9 @@ def check_checkpoint_launcher(d, params, smi):
         f"greedy texts equal to "
         f"build_chain's chain (preprocess, generate() in its engine on the "
         f"in-memory weights, detokenize; {CKPT_NEW} tokens each): "
-        f"{texts[0][:60]!r}...")
+        f"{texts[0][:60]!r}...; the chat's ids as a completions prompt "
+        f"(a prefix hit) gave the chat's text: {gen[2] == gen[0]} "
+        f"(information)")
     return ready_s
 
 
@@ -7131,10 +7494,7 @@ def main() -> int:
         profiled_checks()
         print(json.dumps({"summary": SUMMARY}), flush=True)
         return 0
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    smi = smi_line()
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     phase("build", build_all)
     from dynamo_tpu_torch.models import llama

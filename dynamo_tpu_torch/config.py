@@ -50,6 +50,14 @@ class RuntimeConfig:
     max_waiting_requests: int = 0
     max_waiting_prefill_tokens: int = 0
     preempt_running: bool = False
+    # the telemetry plane (telemetry/prof.py, forensics.py): round
+    # attribution, the SLO targets of the burn-rate gauges, and the share
+    # of healthy requests that still get a dossier
+    prof_attribution: bool = True
+    slo_ttft_target_s: float = 0.5
+    slo_itl_target_s: float = 0.05
+    slo_objective: float = 0.99
+    forensics_sample_rate: float = 0.0
 
 
 def _coerce(value: str, target_type) -> Any:

@@ -22,8 +22,11 @@ refuses a draining request before the remote-prefill decision; the
 ``stall_stream`` chaos point wedges a prefill worker's chunk push (the
 decode side's timeout then falls back to a local prefill).
 
-Left out: the ``remote_prefill``/``kv_chunk``/``disagg_kv_transfer`` spans
-and the stream timeline (ROADMAP Queue 1 item 10).
+Telemetry: the prefill worker's ``remote_prefill`` span (with a
+``kv_chunk`` child a streamed chunk) rides back on the done message, and
+the decode side adds it and its own ``disagg_kv_transfer`` span to the
+finishing output's trace; each commit-event wait is a ``commit_wakeup``
+stream event (telemetry/timeline.py).
 """
 from __future__ import annotations
 
@@ -49,6 +52,8 @@ from dynamo_tpu_torch.protocols.common import (
 )
 from dynamo_tpu_torch.runtime.client import KvClient
 from dynamo_tpu_torch.runtime.component import DistributedRuntime
+from dynamo_tpu_torch.telemetry import timeline as tl
+from dynamo_tpu_torch.telemetry.trace import span_now
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 log = logging.getLogger(__name__)
@@ -259,6 +264,7 @@ class PrefillWorker:
                 await asyncio.wait({pending_task}, timeout=max(
                     self.stream_poll_s * 5, 0.01))
             return
+        t0 = time.monotonic()
         evt_task = asyncio.ensure_future(self._commit_evt.wait())
         wait_set = {evt_task}
         for t in (gen_task, pending_task):
@@ -270,12 +276,17 @@ class PrefillWorker:
         if evt_task in done:
             self.commit_wakeups += 1
             self._commit_evt.clear()
+            wake = "commit"
         else:
             # leave the latch alone: a commit that fired while a task
             # woke us must wake the NEXT wait at once
             evt_task.cancel()
+            wake = "task"
             if not done:
                 self.timeout_wakeups += 1
+                wake = "timeout"
+        tl.STREAM_EVENTS.record(tl.COMMIT_WAKEUP, time.monotonic() - t0,
+                                wake=wake)
 
     async def _loop(self) -> None:
         queue = prefill_queue_name(self.namespace)
@@ -362,17 +373,25 @@ class PrefillWorker:
         if desc is None:
             raise RuntimeError(
                 f"no blockset descriptor for {job.dst_worker_id}")
-        chunks = 1
+        chunk_spans: list[dict] = []
         overlap: Optional[float] = None
         if chunk_pages <= 0:
             n_send = await self._push_monolithic(job, hashes, run_prefill,
                                                  desc)
         else:
-            n_send, chunks, overlap = await self._push_stream(
+            n_send, chunk_spans, overlap = await self._push_stream(
                 job, hashes, run_prefill, desc, chunk_pages)
+        chunks = max(len(chunk_spans), 1)
+        # this worker's span (a child a streamed chunk), folded into the
+        # decode side's trace payload
+        span = span_now("remote_prefill", t0, tokens=len(job.token_ids),
+                        blocks=n_send, chunks=chunks).to_dict()
+        if chunk_spans:
+            span["children"] = chunk_spans
         msg: dict[str, Any] = {
             "ok": True, "blocks": n_send, "chunks": chunks,
             "prefill_ms": (time.monotonic() - t0) * 1e3,
+            "span": span,
         }
         if overlap is not None:
             msg["overlap_ratio"] = round(overlap, 4)
@@ -408,13 +427,13 @@ class PrefillWorker:
     async def _push_stream(
         self, job: RemotePrefillRequest, hashes: list[int], run_prefill,
         desc, chunk_pages: int,
-    ) -> tuple[int, int, Optional[float]]:
+    ) -> tuple[int, list[dict], Optional[float]]:
         """Chunk-pipelined push: follow the committed prefix while the
         prefill runs; export and ship every newly complete run of
         ``chunk_pages`` blocks as one stream frame (a sub-chunk remainder
         goes once prefill finishes). The decode side scatters each frame
-        on arrival and acks at eof. Returns (blocks sent, chunks, overlap
-        ratio)."""
+        on arrival and acks at eof. Returns (blocks sent, a ``kv_chunk``
+        span a chunk, overlap ratio)."""
         first = job.first_block
         n_blocks = len(hashes)
         alloc = self.engine.allocator
@@ -422,7 +441,7 @@ class PrefillWorker:
         writer = PageStreamWriter(desc.host, desc.port,
                                   job_id=job.request_id)
         sent = first                   # blocks written to the wire
-        chunks = 0
+        chunk_spans: list[dict] = []
         xfer_total = 0.0
         xfer_hidden = 0.0
         evicted = False
@@ -473,7 +492,9 @@ class PrefillWorker:
                     else:
                         # a straddling hop: the part before prefill ended
                         xfer_hidden += min(dur, max(0.0, t_pf_end - tc))
-                    chunks += 1
+                    chunk_spans.append(span_now(
+                        "kv_chunk", tc, blocks=hi - lo,
+                        first_block=lo).to_dict())
                     sent = hi
                     # mid-stream chaos (stall_stream): a wedged link; the
                     # decode side's timeout must fire and fall back
@@ -506,11 +527,11 @@ class PrefillWorker:
                 gen_task.cancel()
             elif not gen_task.cancelled():
                 gen_task.exception()  # retrieved, never left unread
-        self.chunks_streamed += chunks
+        self.chunks_streamed += len(chunk_spans)
         self.transfer_seconds_total += xfer_total
         self.transfer_seconds_hidden += xfer_hidden
         overlap = xfer_hidden / xfer_total if xfer_total > 0 else None
-        return sent - first, chunks, overlap
+        return sent - first, chunk_spans, overlap
 
     async def _export_run(self, hashes: list[int], lo: int, hi: int):
         """Pin and gather blocks [lo, hi) of the chained run; None when
@@ -577,6 +598,9 @@ class DisaggDecodeEngine:
         # the last remote job's done message (blocks, chunks, prefill_ms,
         # overlap_ratio)
         self.last_done: Optional[dict] = None
+        # the prefill worker's remote_prefill span a request, from its
+        # done message, until the request's finishing output carries it
+        self._remote_spans: dict[str, dict] = {}
         self._draining = False
 
     @property
@@ -645,11 +669,24 @@ class DisaggDecodeEngine:
         if self._draining:
             raise WorkerDrainingError(
                 "worker draining: not admitting new requests")
+        t0 = time.monotonic()
+        spans: list = []
         if await self._maybe_remote_prefill(request):
             self.remote_prefills += 1
+            # the remote KV transfer and the prefill worker's own span
+            # go into the finishing output's trace payload, beside the
+            # engine's queue and prefill spans
+            spans.append(span_now("disagg_kv_transfer", t0).to_dict())
+            remote_span = self._remote_spans.pop(request.request_id, None)
+            if remote_span:
+                spans.append(remote_span)
         else:
             self.local_prefills += 1
+            self._remote_spans.pop(request.request_id, None)
         async for out in self.engine.generate(request):
+            if spans and out.finish_reason is not None:
+                tr = out.annotations.setdefault("trace", {})
+                tr["spans"] = spans + tr.get("spans", [])
             yield out
 
     async def _should_remote(self, request: PreprocessedRequest,
@@ -710,6 +747,8 @@ class DisaggDecodeEngine:
             self.last_transfer_chunks = int(resp.get("chunks", 1))
             self.last_overlap_ratio = resp.get("overlap_ratio")
             self.last_done = resp
+            if resp.get("span"):
+                self._remote_spans[rid] = resp["span"]
             with self._jobs_lock:
                 self._pending_jobs.discard(rid)
             # the transferred blocks under their chained hashes: the

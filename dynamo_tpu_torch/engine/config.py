@@ -8,7 +8,8 @@ page-transfer plane, speculative decoding (``speculative`` "ngram" or
 "draft", adaptive K, the acceptance gate, and tree speculation under
 ``spec_tree``), the overload budgets with priority preemption, and the
 tenancy plane (a resident LoRA bank, per-tenant budgets and fair-share
-weights) are served. Sequence-parallel prefill is not ported yet: its
+weights) and the telemetry plane (flight ring, round attribution, SLO
+targets, forensics sampling) are served. Sequence-parallel prefill is not ported yet: its
 knob is kept here at the value that means "off", and any other value
 raises, so a config written for the reference never silently runs
 something else.
@@ -120,6 +121,28 @@ class EngineConfig:
     # an export stream that moved nothing for this long is abandoned: its
     # page pins are released and its consumer gets an error
     kv_transfer_stream_idle_timeout_s: float = 15.0
+
+    # flight recorder (telemetry/flight.py): ring capacity of recent
+    # engine-round events served at /debug/flight and dumped to the log
+    # when an engine round fails
+    flight_recorder_events: int = 256
+
+    # performance-attribution plane (telemetry/prof.py): per-round
+    # host-segment timers feeding dynamo_host_round_seconds{segment} and
+    # /debug/prof. Always-on by design; the switch exists for A/B
+    # measurement.
+    prof_attribution: bool = True
+    # SLO targets backing the dynamo_slo_{ttft,itl}_burn_rate gauges:
+    # burn rate = frac-of-observations-over-target / (1 - objective),
+    # recomputed from the live histograms at the metrics-publish cadence
+    slo_ttft_target_s: float = 0.5
+    slo_itl_target_s: float = 0.05
+    slo_objective: float = 0.99
+    # tail-latency forensics (telemetry/forensics.py): fraction of
+    # NON-breaching finishes that still get a dossier captured worker-side
+    # when no in-process frontend owns the request's trace. SLO breaches
+    # are always captured; 0 disables sampling (breach capture stays on).
+    forensics_sample_rate: float = 0.0
     # fleet prefix economy (kv_router/fleet.py): once the frontend's hint
     # digest is applied, dedup-by-hash admission consults it before a G4
     # probe round: fleet-known holders are probed first, and a demand

@@ -121,9 +121,20 @@ PyTorch (port of the JAX package's TpuEngine main path).
     commits only the accepted path's KV rows, and returns one packed
     [B, 2D+4] result (``_process_spec_tree``).
 
-Not ported yet (ROADMAP.md): multimodal, MoE, and the ``g4_fetch`` and
-``g4_chunk`` spans of a fetch and the ``spec_draft`` and ``spec_verify``
-spans of a round (item 10).
+  - Telemetry (telemetry/): the request histograms (TTFT, ITL, E2E,
+    queue wait, round time) observed with the request id as exemplar and
+    published in ``metrics()``; a flight ring of recent dispatches
+    (``flight``, dumped to the log when a round fails); per-round host
+    attribution (``prof``, a flat switch over SEGMENTS whose sums equal
+    the round's wall time) folded into PROF with the SLO burn rates at
+    the publish cadence; and a request's worker-side spans (queue,
+    prefill, g2_onboard, g4_fetch with its g4_chunk children, and a
+    capped run of round spans, with spec_draft and spec_verify children
+    on speculative rounds), shipped in the finishing output's
+    ``annotations["trace"]``. Every timer reads the host clock: no
+    telemetry code reads or synchronizes the device.
+
+Not ported yet (ROADMAP.md): multimodal and MoE.
 """
 from __future__ import annotations
 
@@ -177,7 +188,12 @@ from dynamo_tpu_torch.protocols.common import (
 from dynamo_tpu_torch.spec.decoder import SpecDecoder
 from dynamo_tpu_torch.spec.metrics import SPEC
 from dynamo_tpu_torch.spec.proposer import comb_parents
-from dynamo_tpu_torch.telemetry.metrics import QUEUE, Histogram
+from dynamo_tpu_torch.telemetry import metrics as tmetrics
+from dynamo_tpu_torch.telemetry import prof as tprof
+from dynamo_tpu_torch.telemetry.flight import FlightRecorder
+from dynamo_tpu_torch.telemetry.forensics import ForensicsCapture
+from dynamo_tpu_torch.telemetry.prof import PROF, RoundProf
+from dynamo_tpu_torch.telemetry.trace import TRACES, Span, span_now
 from dynamo_tpu_torch.tenancy.adapters import init_adapter_bank, set_adapter
 from dynamo_tpu_torch.tenancy.metrics import TENANT
 from dynamo_tpu_torch.tenancy.quotas import TenantQuotas
@@ -186,6 +202,38 @@ from dynamo_tpu_torch.tokens import TokenBlockSequence
 log = logging.getLogger(__name__)
 
 _FIRST_TOKEN_KEY_TAG = 0x46697273  # distinct PRNG stream for first tokens
+
+# a request's round spans shipped in its finishing annotation are capped
+# (a 10k-token generation must not grow a 10k-entry span list); the
+# total round count still travels in the timing annotation
+_MAX_ROUND_SPANS = 24
+# requests flagged "trace_detail" by the frontend (forensics candidates:
+# every request, since a breach is only known at finish) keep a deeper
+# run, so a late promotion yields a complete dossier
+_MAX_ROUND_SPANS_DETAIL = 256
+
+
+def _span_dict(name: str, t0_monotonic: float, **attrs) -> dict:
+    """Span ending now that began at monotonic ``t0_monotonic``, in the
+    annotation's wire form."""
+    return span_now(name, t0_monotonic, **attrs).to_dict()
+
+
+# attribution-segment indices (telemetry/prof.py SEGMENTS), bound once so
+# the round loop's enter() calls pass ints
+_SEG_INTAKE = tprof.SEGMENTS.index("intake")
+_SEG_SLOT_SCAN = tprof.SEGMENTS.index("slot_scan")
+_SEG_FETCH = tprof.SEGMENTS.index("fetch")
+_SEG_ANNOTATE = tprof.SEGMENTS.index("annotate")
+_SEG_RELEASES = tprof.SEGMENTS.index("releases")
+_SEG_TRANSFER = tprof.SEGMENTS.index("transfer")
+_SEG_OFFLOAD = tprof.SEGMENTS.index("offload")
+_SEG_ADMIT = tprof.SEGMENTS.index("admit")
+_SEG_SEAL_ASM = tprof.SEGMENTS.index("seal_assembly")
+_SEG_DISPATCH = tprof.SEGMENTS.index("dispatch")
+_SEG_SPEC = tprof.SEGMENTS.index("spec_dispatch")
+_SEG_SEAL_FLUSH = tprof.SEGMENTS.index("seal_flush")
+_SEG_METRICS = tprof.SEGMENTS.index("metrics_fold")
 
 
 def _wall_time() -> float:
@@ -234,6 +282,17 @@ class _Request:
     enqueue_time: float = field(default_factory=time.monotonic)
     first_token_time: Optional[float] = None
     t_prefill_start: Optional[float] = None
+    # telemetry: worker-side span dicts (queue, prefill, g2_onboard,
+    # g4_fetch), the round spans as raw tuples (kind, t0_monotonic,
+    # duration_s, n_tokens, spec_host) turned into dicts once at finish,
+    # the round-batched inter-token gaps as (gap_s, n), and their clock
+    trace_spans: list[dict] = field(default_factory=list)
+    round_spans: list[tuple] = field(default_factory=list)
+    itl_gaps: list[tuple] = field(default_factory=list)
+    t_last_emit: Optional[float] = None
+    decode_rounds: int = 0
+    # the frontend's "trace_detail" annotation: lifts the round-span cap
+    trace_detail: bool = False
     # speculative decoding (spec/): a speculating slot's lane stays PARKED
     # on the scratch lane; its real state lives here and in the ctx
     # region, advanced by verify dispatches instead of the fused round
@@ -351,6 +410,11 @@ class _Entry:
     rows: list[tuple] = field(default_factory=list)
     # spec_tree: (round fan M, parents [n, T], proposal nodes a row)
     tree: Optional[tuple] = None
+    # telemetry: host dispatch time (dynamo_engine_round_seconds and the
+    # round span), and a verify's (draft_s, verify_s) host walls, the
+    # spec_draft and spec_verify child spans
+    t_dispatch: float = 0.0
+    spec_host: Any = None
 
 
 # closes an export stream's chunk queue (engine loop -> consumer)
@@ -589,7 +653,28 @@ class TorchEngine:
         # the intake (the caller's loop) and the engine thread, under
         # _wt_lock; reads for budget checks are advisory. The admission
         # queue waits feed the Retry-After hint
-        self._h_queue = Histogram(*QUEUE)
+        self.telemetry = tmetrics.request_histograms(
+            tmetrics.TelemetryRegistry(), engine=True)
+        self._h_ttft = self.telemetry.get(tmetrics.TTFT[0])
+        self._h_itl = self.telemetry.get(tmetrics.ITL[0])
+        self._h_e2e = self.telemetry.get(tmetrics.E2E[0])
+        self._h_queue = self.telemetry.get(tmetrics.QUEUE[0])
+        self._h_round = self.telemetry.get(tmetrics.ROUND[0])
+        # histogram snapshots for metrics(), refreshed at most every
+        # 0.25 s (metrics() runs at the publish cadence and on scrapes)
+        self._hist_snap: tuple[float, dict] = (0.0, {})
+        # the flight ring of recent dispatches (/debug/flight), the round
+        # attribution (/debug/prof, folded into PROF), and worker-side
+        # SLO-breach capture for requests no in-process frontend owns
+        self.flight = FlightRecorder(e.flight_recorder_events)
+        self.prof = RoundProf(enabled=e.prof_attribution)
+        PROF.configure(e.slo_ttft_target_s, e.slo_itl_target_s,
+                       e.slo_objective)
+        self._forensics = ForensicsCapture(
+            sample_rate=e.forensics_sample_rate,
+            ttft_target_s=e.slo_ttft_target_s,
+            itl_target_s=e.slo_itl_target_s,
+            engines_fn=lambda: [self])
         self.admission = AdmissionController(
             e.max_waiting_requests, e.max_waiting_prefill_tokens,
             queue_wait_s=lambda: self._h_queue.percentile(0.5))
@@ -800,6 +885,7 @@ class TorchEngine:
             loop=asyncio.get_running_loop(),
             tokens=list(request.token_ids),
             tenant=tenant,
+            trace_detail="trace_detail" in (request.annotations or []),
         )
         if self.remote_kv is not None and self.offload is not None:
             await self._remote_prefetch(r)
@@ -832,8 +918,11 @@ class TorchEngine:
             while not self._stop.is_set():
                 try:
                     did_work = self._round()
-                except Exception:  # noqa: BLE001 — engine loop must survive
+                except Exception as exc:  # noqa: BLE001 — loop must survive
                     log.exception("engine round failed")
+                    # the last dispatches before the failure: the
+                    # postmortem the log alone never has
+                    self.flight.dump(log, reason=repr(exc))
                     self._fail_all(RuntimeError("engine step failed; see logs"))
                     did_work = False
                 if not did_work:
@@ -864,8 +953,12 @@ class TorchEngine:
         dispatched, pipelining is off, or the queue outgrew the fused
         width."""
         e = self.ecfg
+        prof = self.prof
+        prof.begin_round()
         t_round = time.monotonic()
+        prof.enter(_SEG_INTAKE)
         self._drain_intake()
+        prof.enter(_SEG_SLOT_SCAN)
         self._enforce_bounds()
         in_flight = self._rounds_in_flight()
         dispatched = False
@@ -874,22 +967,31 @@ class TorchEngine:
                 and self._pipeline_clear()):
             active, want_lp, want_sample = self._active_slots()
             if active:
+                prof.enter(_SEG_DISPATCH)
                 self._dispatch_round(want_sample, want_lp)
                 dispatched = True
                 in_flight += 1
                 self._pipe_dispatches += 1
                 self._pipe_depth_sum += in_flight
                 t_pipe = time.monotonic()
+        prof.enter(_SEG_FETCH)
         self._process_entries(block=in_flight > e.max_inflight_rounds)
-        self._apply_releases()
+        # the reference puts landed offload pages into G2 while consuming
+        # their fetch, so reaping the put thread's results is fetch time
         self._reap_puts()
+        prof.enter(_SEG_RELEASES)
+        self._apply_releases()
         # the reference's order: transfers, export streams, offloads (pool
         # readers, each flushing queued seals first), then admission
+        prof.enter(_SEG_TRANSFER)
         xfer_work = self._process_transfers()
         stream_work = self._service_export_streams()
+        prof.enter(_SEG_OFFLOAD)
         self._dispatch_offloads()
         self._drain_host_ingest()  # G4 pages land before admission
+        prof.enter(_SEG_ADMIT)
         self._admit()
+        prof.enter(_SEG_SLOT_SCAN)
         did_work = (dispatched or bool(self._entries) or xfer_work
                     or stream_work or bool(self._prefilling))
         if (not dispatched
@@ -897,14 +999,17 @@ class TorchEngine:
             # the strict position: after every patch above
             active, want_lp, want_sample = self._active_slots()
             if active:
+                prof.enter(_SEG_DISPATCH)
                 self._dispatch_round(want_sample, want_lp)
                 did_work = dispatched = True
         if self.spec is not None and self._slot_spec.any():
+            prof.enter(_SEG_SPEC)
             if self._dispatch_spec():
                 did_work = dispatched = True
         if self._seal_queue and (
                 not e.round_pipeline or not dispatched
                 or len(self._seal_queue) > self._seal_fuse_w):
+            prof.enter(_SEG_SEAL_FLUSH)
             self._flush_seals()
             did_work = True
         if t_pipe:
@@ -912,23 +1017,35 @@ class TorchEngine:
             now = time.monotonic()
             self._pipe_hidden_s += now - t_pipe
             self._pipe_host_s += now - t_round
-        if self.on_metrics is not None:
-            now = time.monotonic()
-            if now - self._last_metrics_pub >= 0.1:
-                self._last_metrics_pub = now
+        # fold the attribution and refresh the SLO burn rates at the
+        # publish cadence, not once a round
+        now = time.monotonic()
+        if now - self._last_metrics_pub >= 0.1:
+            self._last_metrics_pub = now
+            prof.enter(_SEG_METRICS)
+            PROF.fold(prof)
+            PROF.fold_burn_rates(
+                self._h_ttft.snapshot(), self._h_itl.snapshot(),
+                e.slo_ttft_target_s, e.slo_itl_target_s, e.slo_objective)
+            if self.on_metrics is not None:
                 self.on_metrics(self.metrics())
         if (not dispatched and self._entries
                 and self._intake.empty() and not self._waiting):
             # nothing to overlap with the in-flight copies: block on the
             # head entry instead of spinning
+            prof.enter(_SEG_FETCH)
             self._process_entries(block=True)
-        if not did_work and self._wait_stream_copy():
-            did_work = True
+        if not did_work:
+            # waiting on an export stream's copy is fetch time too
+            prof.enter(_SEG_FETCH)
+            if self._wait_stream_copy():
+                did_work = True
         if (self._draining
                 and not self._entries and not self._waiting
                 and not self._prefilling and self._intake.empty()
                 and all(r is None for r in self._slots)):
             self._drained_evt.set()
+        prof.end_round(record=did_work)
         return did_work
 
     def _rounds_in_flight(self) -> int:
@@ -1056,7 +1173,10 @@ class TorchEngine:
         e = self.ecfg
         n = e.flush_every
         n_seal = min(len(self._seal_queue), self._seal_fuse_w)
+        prev_seg = self.prof.push(_SEG_SEAL_ASM)
         seal = self._take_seal_batch(width=self._seal_fuse_w)
+        self.prof.enter(prev_seg)
+        t_disp = time.monotonic()
         self.kernel_launches += self.graphs.round(want_sample, want_lp, seal)
         self.dispatch_counts["round" if seal is None else "round_seal"] += 1
         if seal is not None:
@@ -1091,8 +1211,16 @@ class TorchEngine:
             # dispatch: a slot's spec flag may flip before processing)
             slots=[r if r is None or not r.spec else None
                    for r in self._slots],
-            n_steps=n,
+            n_steps=n, t_dispatch=t_disp,
         ))
+        self.flight.record(
+            "round", slots=self._active_slots()[0], n_steps=n,
+            # seals ride the round (seal_w: the batch's real width) and
+            # its tokens come back in one copy, plus one for logprobs
+            seal_w=n_seal if seal is not None else 0,
+            fetches=1 + want_lp,
+            spec_slots=np.flatnonzero(self._slot_spec).tolist(),
+            dispatch_ms=round((time.monotonic() - t_disp) * 1e3, 3))
 
     def _dispatch_patch(
         self,
@@ -1180,6 +1308,7 @@ class TorchEngine:
         for j, (_, r, _) in enumerate(rows):
             toks[j, 0] = r.spec_tokens[-1]    # the pending token
         knobs, pen = self._spec_knobs(rows)
+        t_disp = time.monotonic()
         drafted = None
         if self.spec.draft is not None and e.spec_batch_draft:
             # one batched draft; its [n, K] device result is spliced into
@@ -1197,12 +1326,20 @@ class TorchEngine:
                     parts.append(proposal)
             if parts:
                 drafted = torch.stack(parts)
+        t_draft_end = time.monotonic()
         self.dispatch_counts["spec_verify"] += 1
         packed = self.spec.verify(
             self.params, self.ctx, self._to_device(toks), drafted, slots,
             q_starts, seq_lens, *knobs, penalties=pen)
+        fetch = _Fetch(packed)
+        t_verify_end = time.monotonic()
+        self.flight.record(
+            "spec_verify", slots=slots, k=K, fetches=1,
+            dispatch_ms=round((t_verify_end - t_disp) * 1e3, 3))
         self._queue_spec_verify(rows, _Entry(
-            kind="spec", fetch=_Fetch(packed), rows=rows, n_steps=K))
+            kind="spec", fetch=fetch, rows=rows, n_steps=K,
+            t_dispatch=t_disp,
+            spec_host=(t_draft_end - t_disp, t_verify_end - t_draft_end)))
         return True
 
     def _queue_spec_verify(self, rows, entry: _Entry) -> None:
@@ -1251,6 +1388,7 @@ class TorchEngine:
         for j, (_, r, _) in enumerate(rows):
             toks[j, 0] = r.spec_tokens[-1]    # the pending token
         knobs, pen = self._spec_knobs(rows)
+        t_disp = time.monotonic()
         drafted = None
         if draft_mode:
             # a comb is one batched draft's output (spine + top-M a level);
@@ -1267,14 +1405,22 @@ class TorchEngine:
                 toks[j, 1:1 + m] = tks[:m]
                 parents[j, 1:1 + m] = prs[:m]
                 nodes_used[j] = m
+        t_draft_end = time.monotonic()
         self.dispatch_counts["spec_verify"] += 1
         packed = self.spec.verify_tree(
             self.params, self.ctx, self._to_device(toks), drafted,
             self._to_device(parents), slots, q_starts, seq_lens, *knobs, K,
             penalties=pen)
+        fetch = _Fetch(packed)
+        t_verify_end = time.monotonic()
+        self.flight.record(
+            "spec_verify_tree", slots=slots, k=K, m=M, nodes=T - 1,
+            fetches=1,
+            dispatch_ms=round((t_verify_end - t_disp) * 1e3, 3))
         self._queue_spec_verify(rows, _Entry(
-            kind="spec_tree", fetch=_Fetch(packed), rows=rows, n_steps=K,
-            tree=(M, parents, nodes_used)))
+            kind="spec_tree", fetch=fetch, rows=rows, n_steps=K,
+            tree=(M, parents, nodes_used), t_dispatch=t_disp,
+            spec_host=(t_draft_end - t_disp, t_verify_end - t_draft_end)))
         return True
 
     def _despeculate(self, slot: int, r: _Request,
@@ -1328,7 +1474,7 @@ class TorchEngine:
             r.spec_proposed += K
             r.spec_accepted += accepted
             self._land_spec(slot, r, [int(t) for t in packed[j, :n]],
-                            packed[j, K + 2:K + 4])
+                            packed[j, K + 2:K + 4], entry)
 
     def _process_spec_tree(self, entry: _Entry, packed: np.ndarray) -> None:
         """Consume one tree verify's packed [n, 2D+4] result: per row the
@@ -1355,7 +1501,7 @@ class TorchEngine:
             r.spec_proposed += D
             r.spec_accepted += accepted
             self._land_spec(slot, r, [int(t) for t in packed[j, :n]],
-                            packed[j, 2 * D + 2:2 * D + 4])
+                            packed[j, 2 * D + 2:2 * D + 4], entry)
 
     def _spec_live(self, slot: int, r: _Request) -> bool:
         """A verify row's result landed: is its request still the slot's
@@ -1369,7 +1515,7 @@ class TorchEngine:
         return True
 
     def _land_spec(self, slot: int, r: _Request, toks: list[int],
-                   keys: np.ndarray) -> None:
+                   keys: np.ndarray, entry: _Entry) -> None:
         """Emit a verify row's tokens (the accepted ones and the bonus),
         advance the host history, counts and keys, then apply the gate
         and the despec decision, or ready the slot for the next round."""
@@ -1382,6 +1528,8 @@ class TorchEngine:
             batch.append(tok)
             if finish is not None:
                 break
+        if batch:
+            self._note_emit(r, len(batch), entry, "spec_verify_round")
         if batch or finish is not None:
             extra = ({"annotations": self._final_annotations(r)}
                      if finish is not None else {})
@@ -1674,8 +1822,12 @@ class TorchEngine:
         if self._seal_queue:
             # the gather reads the pool: queued seal copies first
             self._flush_seals()
+        t_disp = time.monotonic()
         self.dispatch_counts["offload_gather"] += 1
         data_f, scales_f, _ = self._fetch_pages([p for p, _, _ in batch])
+        self.flight.record(
+            "g2_offload", pages=len(batch),
+            dispatch_ms=round((time.monotonic() - t_disp) * 1e3, 3))
         self._entries.append(_Entry(
             kind="offload", fetch=data_f, lp_fetch=scales_f,
             hashes=[h for _, h, _ in batch],
@@ -2186,19 +2338,27 @@ class TorchEngine:
                      for b in missing):
                 KV_FLEET.inc("dynamo_kv_fleet_dedup_skipped_probes_total")
                 return
+        t_fetch = time.monotonic()
+        chunk_spans: list[dict] = []
+        t_prev = t_fetch
 
         def land(offset: int, arr: Any) -> None:
             # one chunk into the ingest queue at once: G2 fills while
             # later chunks are still on the wire. An int8 peer's bundle
             # lands as-is in an int8 tier; a payload of the other mode
-            # converts here
-            sub = missing[offset:offset + int(arr.shape[3])]
+            # converts here. Each chunk is a g4_chunk child span
+            nonlocal t_prev
+            n = int(arr.shape[3])
+            sub = missing[offset:offset + n]
             payload = to_pool_dtype(arr, self.kv_quant, off.dtype)
             if not isinstance(payload, QuantizedPages):
                 payload = payload.to(off.dtype)
             self._host_ingest.put(([b.block_hash for b in sub],
                                    [b.parent_hash for b in sub], payload))
             self._wake_evt.set()
+            chunk_spans.append(_span_dict("g4_chunk", t_prev, blocks=n,
+                                          offset=offset))
+            t_prev = time.monotonic()
 
         try:
             # every fetch path (streamed, a probe's full reply, the
@@ -2209,11 +2369,20 @@ class TorchEngine:
         except Exception:  # noqa: BLE001 — G4 is best-effort
             log.exception("G4 remote fetch failed")
             return
-        if found:
-            # every fetched block is a prefill block this worker did not
-            # recompute: the dedup economy's headline counter
-            KV_FLEET.inc("dynamo_kv_fleet_recompute_avoided_blocks_total",
-                         int(found))
+        if not found:
+            return
+        # every fetched block is a prefill block this worker did not
+        # recompute: the dedup economy's headline counter
+        KV_FLEET.inc("dynamo_kv_fleet_recompute_avoided_blocks_total",
+                     int(found))
+        # the peer-pool fetch with its chunk children, on the request's
+        # worker-side spans
+        sp = _span_dict("g4_fetch", t_fetch, blocks=int(found),
+                        requested=len(missing),
+                        chunks=max(len(chunk_spans), 1))
+        if chunk_spans:
+            sp["children"] = chunk_spans
+        r.trace_spans.append(sp)
 
     def _drain_host_ingest(self) -> None:
         """Put the G4 pages fetched so far into G2 (on the loop, before
@@ -2340,6 +2509,7 @@ class TorchEngine:
             SPEC.set("dynamo_spec_accept_rate", sp.acceptance_rate())
         return ForwardPassMetrics(
             worker_id=e.worker_id,
+            histograms=self._histograms_snapshot(),
             worker_stats=WorkerStats(
                 request_active_slots=(sum(r is not None for r in self._slots)
                                       + len(self._prefilling)),
@@ -2372,6 +2542,16 @@ class TorchEngine:
                 disk_total_blocks=spill.num_pages if spill is not None else 0,
             ),
         )
+
+    def _histograms_snapshot(self) -> dict:
+        """The latency histograms' snapshot, refreshed at most every
+        0.25 s (the publisher's own throttle)."""
+        now = time.monotonic()
+        t, snap = self._hist_snap
+        if now - t >= 0.25:
+            snap = self.telemetry.snapshot()
+            self._hist_snap = (now, snap)
+        return snap
 
     def tenant_debug(self) -> dict:
         """Per-tenant quota, backlog and metric view: the engine half of
@@ -2644,6 +2824,7 @@ class TorchEngine:
         # attend only the prior context any row can see: keys at or past
         # a row's q_start are masked, so a wider window changes nothing
         ctx_span = max(q_starts)
+        t_disp = time.monotonic()
         self.dispatch_counts["prefill_batch"] += 1
         logits = llama.batch_prefill(
             self.config, self.params, self.ctx,
@@ -2651,6 +2832,9 @@ class TorchEngine:
             slots, q_starts, seq_lens, ctx_span,
             adapter_ids=[r.adapter_id for r in group],
         )
+        self.flight.record(
+            "prefill_batch", slots=slots, width=width,
+            dispatch_ms=round((time.monotonic() - t_disp) * 1e3, 3))
         done: list[_Request] = []
         for i, r in enumerate(group):
             r.prefill_pos = seq_lens[i]
@@ -2669,10 +2853,14 @@ class TorchEngine:
         chunk = r.tokens[start: start + width]
         toks = np.zeros(width, np.int32)
         toks[: len(chunk)] = chunk
+        t_disp = time.monotonic()
         self.dispatch_counts["prefill"] += 1
         logits = llama.prefill(
             self.config, self.params, self.ctx, self._to_device(toks),
             r.slot, start, start + len(chunk), r.adapter_id)
+        self.flight.record(
+            "prefill", slots=[r.slot], tokens=len(chunk), start=start,
+            dispatch_ms=round((time.monotonic() - t_disp) * 1e3, 3))
         r.prefill_pos = start + len(chunk)
         if r.prefill_pos < len(r.tokens):
             self._seal_prefilled(r)  # earlier chunks' blocks seal now
@@ -2711,16 +2899,24 @@ class TorchEngine:
         if r.t_prefill_start is None:
             r.t_prefill_start = time.monotonic()
             wait = r.t_prefill_start - r.enqueue_time
-            self._h_queue.observe(wait)
+            rid = r.req.request_id or None
+            self._h_queue.observe(wait, exemplar_id=rid)
             self.tenant_quotas.note_queue_wait(r.tenant, wait)
             TENANT.observe("dynamo_tenant_request_queue_seconds", r.tenant,
                            wait)
+            r.trace_spans.append(_span_dict("queue", r.enqueue_time))
         hashes = r.seq.block_hashes()
         matchable = hashes[: max(0, (len(r.tokens) - 1) // ps)]
         matched_pages = self.allocator.match_prefix(matchable)
         # a miss in HBM continues from the host tiers (scattered into the
         # pool ahead of the load below, in stream order)
+        t_onboard = time.monotonic()
+        g1_matched = len(matched_pages)
         matched_pages = self._onboard_from_host(matchable, matched_pages)
+        if len(matched_pages) > g1_matched:
+            r.trace_spans.append(_span_dict(
+                "g2_onboard", t_onboard,
+                blocks=len(matched_pages) - g1_matched))
         usable_pages = matched_pages[: self.ecfg.max_context // ps]
         r.matched_blocks = len(usable_pages)
         if usable_pages:
@@ -2742,6 +2938,10 @@ class TorchEngine:
         """Prefill tail: commit the prompt blocks, sample the first token
         on the device, activate the slot."""
         e = self.ecfg
+        if r.t_prefill_start is not None:
+            r.trace_spans.append(_span_dict(
+                "prefill", r.t_prefill_start, prompt_tokens=len(r.tokens),
+                matched_blocks=r.matched_blocks, slot=r.slot))
         self._seal_prefilled(r, limit=len(r.seq.blocks))
         so = r.req.sampling_options
         slot = r.slot
@@ -2826,6 +3026,9 @@ class TorchEngine:
             self._put_offloaded(entry)
             return
         data = entry.fetch.numpy()
+        if entry.t_dispatch:
+            # dispatch to result on the host (the wait above included)
+            self._h_round.observe(time.monotonic() - entry.t_dispatch)
         lp = (self._unpack_lp(entry.lp_fetch.numpy())
               if entry.lp_fetch is not None else None)
         if entry.kind == "first":
@@ -2864,8 +3067,11 @@ class TorchEngine:
             return
         if r.first_token_time is None:
             r.first_token_time = time.monotonic()
+            r.t_last_emit = r.first_token_time
+            ttft = r.first_token_time - r.enqueue_time
+            self._h_ttft.observe(ttft, exemplar_id=r.req.request_id or None)
             TENANT.observe("dynamo_tenant_request_ttft_seconds", r.tenant,
-                           r.first_token_time - r.enqueue_time)
+                           ttft)
         sc = r.req.stop_conditions
         if not sc.ignore_eos and tok in (sc.stop_token_ids or []) and (
             sc.min_tokens is None or r.produced >= sc.min_tokens
@@ -2912,6 +3118,8 @@ class TorchEngine:
                         r, lp_arrs[1][step, slot], lp_arrs[2][step, slot]))
                 if finish is not None:
                     break
+            if batch:
+                self._note_emit(r, len(batch), entry, "decode_round")
             if batch or finish is not None:
                 extra = {}
                 if lp_chosen:
@@ -2949,18 +3157,96 @@ class TorchEngine:
             return FinishReason.LENGTH
         return None
 
-    def _final_annotations(self, r: _Request) -> dict:
+    def _note_emit(self, r: _Request, n_tokens: int, entry: _Entry,
+                   kind: str) -> None:
+        """Telemetry of one emitted batch: its per-token gap into the ITL
+        histogram (the batch lands together: the gap is the wait split
+        over its tokens, one observation a batch) and a capped round
+        span, kept as a raw tuple until the request finishes."""
         now = time.monotonic()
+        if r.t_last_emit is not None:
+            gap = (now - r.t_last_emit) / n_tokens
+            self._h_itl.observe(gap, n_tokens,
+                                exemplar_id=r.req.request_id or None)
+            if len(r.itl_gaps) < 4096:
+                r.itl_gaps.append((gap, n_tokens))
+        r.t_last_emit = now
+        r.decode_rounds += 1
+        cap = _MAX_ROUND_SPANS_DETAIL if r.trace_detail else _MAX_ROUND_SPANS
+        if (len(r.trace_spans) + len(r.round_spans) < cap
+                and entry.t_dispatch):
+            r.round_spans.append((kind, entry.t_dispatch,
+                                  now - entry.t_dispatch, n_tokens,
+                                  entry.spec_host))
+
+    def _final_annotations(self, r: _Request) -> dict:
+        """Annotations of the FINISHING output: the speculation counters,
+        the request's timing (TTFT, ITL p50/p95, queue, E2E), and its
+        worker-side spans, which the frontend merges into its tree. When
+        no in-process frontend owns the trace (a remote worker), the spans
+        are recorded in this process's store and the breach decision runs
+        here."""
+        prev_seg = self.prof.push(_SEG_ANNOTATE)
+        try:
+            return self._final_annotations_inner(r)
+        finally:
+            self.prof.enter(prev_seg)
+
+    def _final_annotations_inner(self, r: _Request) -> dict:
+        ann = self._spec_annotations(r)
+        rid = r.req.request_id
+        e2e = time.monotonic() - r.enqueue_time
+        self._h_e2e.observe(e2e, exemplar_id=rid or None)
         timing: dict[str, Any] = {
-            "e2e_s": now - r.enqueue_time,
+            "e2e_s": round(e2e, 6),
             "output_tokens": r.produced,
+            "decode_rounds": r.decode_rounds,
         }
         if r.first_token_time is not None:
-            timing["ttft_s"] = r.first_token_time - r.enqueue_time
+            timing["ttft_s"] = round(r.first_token_time - r.enqueue_time, 6)
         if r.t_prefill_start is not None:
-            timing["queue_s"] = r.t_prefill_start - r.enqueue_time
-        return {**self._spec_annotations(r), "timing": timing,
-                "cached_blocks": r.matched_blocks}
+            timing["queue_s"] = round(r.t_prefill_start - r.enqueue_time, 6)
+        for key, q in (("itl_p50_s", 0.50), ("itl_p95_s", 0.95)):
+            v = tmetrics.weighted_percentile(r.itl_gaps, q)
+            if v is not None:
+                timing[key] = round(v, 6)
+        ann["timing"] = timing
+        ann["cached_blocks"] = r.matched_blocks
+        if r.round_spans:
+            # the round spans as dicts, their unix starts anchored off the
+            # shared monotonic clock
+            wall_now = time.time()
+            mono_now = time.monotonic()
+            for kind, t0, dur, n_toks, spec_host in r.round_spans:
+                sp: dict[str, Any] = {
+                    "name": kind,
+                    "start_s": round(wall_now - (mono_now - t0), 6),
+                    "duration_s": round(dur, 6),
+                    "attrs": {"tokens": n_toks},
+                }
+                if spec_host is not None:
+                    # a verify round's draft and verify host walls
+                    draft_s, verify_s = spec_host
+                    t0_w = sp["start_s"]
+                    sp["children"] = [
+                        Span("spec_draft", t0_w, draft_s).to_dict(),
+                        Span("spec_verify", t0_w + draft_s,
+                             verify_s).to_dict(),
+                    ]
+                r.trace_spans.append(sp)
+            r.round_spans = []
+        if r.trace_spans:
+            ann["trace"] = {"spans": list(r.trace_spans)}
+            # no trace of this id in the process (active or finished):
+            # no frontend here owns it. (The reference asks has_active,
+            # so a migrated request's first attempt finishing late on
+            # its killed worker overwrites the frontend's finished tree)
+            if rid and TRACES.get(rid) is None:
+                TRACES.record_remote(rid, r.trace_spans)
+                self._forensics.worker_finish(
+                    rid, timing=timing, worker_id=str(self.ecfg.worker_id),
+                    trace_spans=r.trace_spans)
+        return ann
 
     def _finish(
         self, r: _Request, reason: Optional[FinishReason],

@@ -2,6 +2,8 @@
 ``aiohttp``, which the JAX package's frontend uses).
 
 Server: ``HttpServer(routes)`` serves ``{(method, path): handler}``; a
+path segment written ``{name}`` matches any one segment, which the
+handler reads from ``request.match_info[name]``. A
 handler takes a ``Request`` and returns a ``Response`` (sent with a
 ``Content-Length``) or a ``StreamResponse`` it has prepared and written
 (sent with chunked transfer encoding). Request bodies come by
@@ -23,7 +25,7 @@ import json
 import logging
 from http import HTTPStatus
 from typing import Any, AsyncIterator, Awaitable, Callable, Optional, Union
-from urllib.parse import parse_qsl, urlsplit
+from urllib.parse import parse_qsl, unquote, urlsplit
 
 log = logging.getLogger(__name__)
 
@@ -166,6 +168,8 @@ class Request:
         url = urlsplit(target)
         self.path = url.path
         self.query = dict(parse_qsl(url.query))
+        # {name} path segments of the matched route
+        self.match_info: dict[str, str] = {}
         self.headers = headers
         self.body = body
         self._writer = writer
@@ -238,6 +242,9 @@ class HttpServer:
 
     def __init__(self, routes: dict[tuple[str, str], Handler]):
         self.routes = routes
+        # routes with {name} segments: (method, segments, handler)
+        self._patterns = [(m, p.strip("/").split("/"), h)
+                          for (m, p), h in routes.items() if "{" in p]
         self._server: Optional[asyncio.AbstractServer] = None
         self._conns: set[asyncio.Task] = set()
 
@@ -309,7 +316,9 @@ class HttpServer:
         the connection must close."""
         handler = self.routes.get((req.method, req.path))
         if handler is None:
-            known = any(p == req.path for _, p in self.routes)
+            handler, known = self._match(req)
+        if handler is None:
+            known = known or any(p == req.path for _, p in self.routes)
             handler = _not_found(405 if known else 404)
         work = asyncio.ensure_future(handler(req))
         # the client may not send before this response ends (no
@@ -353,6 +362,31 @@ class HttpServer:
         writer.write(_head(resp.status, headers) + resp.body)
         await writer.drain()
         return req._keep_alive
+
+
+    def _match(self, req: Request) -> tuple[Optional[Handler], bool]:
+        """The patterned route for ``req`` (setting its match_info), and
+        whether the path matched a route of another method."""
+        parts = req.path.strip("/").split("/")
+        known = False
+        for method, segs, handler in self._patterns:
+            if len(segs) != len(parts):
+                continue
+            info = {}
+            for seg, part in zip(segs, parts):
+                if seg.startswith("{") and seg.endswith("}"):
+                    if not part:
+                        break
+                    info[seg[1:-1]] = unquote(part)
+                elif seg != part:
+                    break
+            else:
+                if method != req.method:
+                    known = True
+                    continue
+                req.match_info = info
+                return handler, True
+        return None, known
 
 
 def _not_found(status: int) -> Handler:

@@ -8,16 +8,22 @@ Endpoints:
   POST /v1/completions
   GET  /v1/models
   GET  /health, /live
-  GET  /metrics               (Prometheus text, with the KV planes'
-                               dynamo_kv_transfer_*, dynamo_disagg_*,
-                               dynamo_kv_quant_* and dynamo_kv_integrity_*
-                               families, the store's dynamo_store_*, and
-                               the KV router's dynamo_resilience_* and
-                               dynamo_migration_*, the overload plane's
-                               dynamo_overload_*, the tenancy plane's
+  GET  /metrics               (Prometheus text, or OpenMetrics with
+                               exemplars and ``# EOF`` when the scraper's
+                               Accept asks for
+                               application/openmetrics-text; with the KV
+                               planes' dynamo_kv_transfer_*,
+                               dynamo_disagg_*, dynamo_kv_quant_* and
+                               dynamo_kv_integrity_* families, the store's
+                               dynamo_store_*, and the KV router's
+                               dynamo_resilience_* and dynamo_migration_*,
+                               the overload plane's dynamo_overload_*, the
+                               attribution plane's dynamo_host_round_*
+                               and dynamo_slo_*, the tenancy plane's
                                dynamo_tenant_*, the fleet's
-                               dynamo_kv_fleet_* and the speculation's
-                               dynamo_spec_*)
+                               dynamo_kv_fleet_* and dynamo_fleet_*, the
+                               speculation's dynamo_spec_* and the
+                               forensics' dynamo_forensics_*)
   POST /clear_kv_blocks       (every served engine's clear_kv_blocks:
                                {"cleared": [model, ...]}; a KV-routed
                                model's router fans it out to its workers
@@ -27,6 +33,21 @@ Endpoints:
                                replica map and top-K hot prefixes)
   GET  /debug/tenants         (the frontend's tenant metric slice and
                                every local engine's quota and queue view)
+  GET  /debug/trace           (recent completed trace ids)
+  GET  /debug/trace/{id}      (one request's merged span tree; a 404 body
+                               says why it is absent: never_seen, evicted
+                               or unsampled)
+  GET  /debug/flight          (every local engine's flight ring)
+  GET  /debug/prof            (every local engine's round attribution)
+  GET  /debug/outliers        (the SLO-breach dossier ring)
+  GET  /debug/outliers/{id}[?format=perfetto]
+                              (one dossier, as JSON or a Perfetto timeline)
+
+Each request mints a trace at tokenize (``trace_sample_rate`` of them
+full, the rest shells that a failure or a migration promotes); the
+worker's spans come back in the finishing output's annotations and merge
+into it, and a request past an SLO target (or a
+``forensics_sample_rate`` draw) leaves a dossier.
 
 A request every worker (or the local engine) refused at admission
 (EngineOverloadedError) answers 429 with a whole-second Retry-After,
@@ -45,14 +66,14 @@ send the calls before the finish. ``nvext.annotations: ["llm_metrics"]``
 adds one event before ``[DONE]`` with the request's token counts, TTFT
 and ITL figures.
 
-Not ported yet: /v1/responses, /v1/embeddings, tracing and the other
-/debug/* routes.
+Not ported yet: /v1/responses and /v1/embeddings.
 """
 from __future__ import annotations
 
 import asyncio
 import copy
 import logging
+import random
 import time
 import uuid
 from collections import deque
@@ -92,6 +113,15 @@ from dynamo_tpu_torch.resilience.metrics import RESILIENCE
 from dynamo_tpu_torch.runtime.remote_engine import invoke_clear
 from dynamo_tpu_torch.runtime.store_metrics import STORE
 from dynamo_tpu_torch.telemetry import metrics as tmetrics
+from dynamo_tpu_torch.telemetry.fleet_feed import FLEET_FEED
+from dynamo_tpu_torch.telemetry.forensics import (
+    FORENSICS,
+    OUTLIERS,
+    ForensicsCapture,
+)
+from dynamo_tpu_torch.telemetry.prof import PROF
+from dynamo_tpu_torch.telemetry.timeline import to_chrome_trace
+from dynamo_tpu_torch.telemetry.trace import TRACES, span_now
 from dynamo_tpu_torch.telemetry.metrics import (
     Counter,
     Gauge,
@@ -108,6 +138,12 @@ from dynamo_tpu_torch.tool_calls import (
 log = logging.getLogger(__name__)
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+# OpenMetrics negotiation: exemplars only ship to scrapers that ask
+OPENMETRICS_CONTENT_TYPE = "application/openmetrics-text"
+
+
+def wants_openmetrics(request: Request) -> bool:
+    return OPENMETRICS_CONTENT_TYPE in request.headers.get("Accept", "")
 
 
 class ServiceMetrics:
@@ -175,15 +211,20 @@ class _ApiError(Exception):
 class _RequestTiming:
     """Per-request latency bookkeeping shared by the unary and streaming
     paths: frontend-observed TTFT / per-token ITL gaps / E2E into the
-    service histograms."""
+    service histograms (the request id as exemplar), and worker-side
+    trace spans merged into the trace store."""
 
-    def __init__(self, svc: "HttpService", t_start: float):
+    def __init__(self, svc: "HttpService", request_id: str, t_start: float,
+                 tenant: str = ""):
         self.svc = svc
+        self.rid = request_id
         self.t_start = t_start
+        self.tenant = tenant
         self.t_first: dict[int, float] = {}
         self.t_last: dict[int, float] = {}
         self.tok_counts: dict[int, int] = {}
         self.gaps: list[tuple[float, int]] = []   # (gap_s, n) all streams
+        self.worker_timing: dict[str, Any] = {}   # last timing annotation
         self._finished = False
 
     def on_output(self, i: int, out: LLMEngineOutput) -> None:
@@ -193,12 +234,18 @@ class _RequestTiming:
             n = len(out.token_ids)
             if prev is not None:
                 gap = (now - prev) / n
-                self.svc._h_itl.observe(gap, n)
+                self.svc._h_itl.observe(gap, n, exemplar_id=self.rid)
                 if len(self.gaps) < 4096:  # percentile fidelity cap
                     self.gaps.append((gap, n))
             self.t_last[i] = now
             self.t_first.setdefault(i, now)
             self.tok_counts[i] = self.tok_counts.get(i, 0) + n
+        ann = out.annotations or {}
+        spans = (ann.get("trace") or {}).get("spans")
+        if spans:
+            TRACES.merge(self.rid, spans)
+        if ann.get("timing"):
+            self.worker_timing = ann["timing"]
 
     @property
     def ttft(self) -> Optional[float]:
@@ -229,8 +276,20 @@ class _RequestTiming:
         self._finished = True
         if not self.t_first:
             return
-        self.svc._h_ttft.observe(self.ttft)
-        self.svc._h_e2e.observe(time.monotonic() - self.t_start)
+        ttft = self.ttft
+        e2e = time.monotonic() - self.t_start
+        self.svc._h_ttft.observe(ttft, exemplar_id=self.rid)
+        self.svc._h_e2e.observe(e2e, exemplar_id=self.rid)
+        # SLO-breach forensics: the no-breach path is a couple of float
+        # compares; this runs before the trace is finished, so a breach
+        # promotion still adopts a shell's buffered spans
+        timing = dict(self.worker_timing)
+        if self.tenant:
+            timing.setdefault("tenant", self.tenant)
+        self.svc.forensics.on_finish(
+            self.rid, ttft_s=ttft, itl_p95_s=self.itl_percentile(0.95),
+            e2e_s=e2e, queue_s=self.worker_timing.get("queue_s"),
+            timing=timing)
 
 
 class HttpService:
@@ -242,7 +301,19 @@ class HttpService:
         *,
         host: str = "0.0.0.0",
         port: int = 8080,
+        trace_sample_rate: float = 1.0,
+        forensics_sample_rate: float = 0.0,
     ):
+        # the share of requests minting a FULL trace; the rest carry a
+        # shell trace that the failure and migration paths promote
+        self.trace_sample_rate = trace_sample_rate
+        self._trace_rng = random.Random()
+        # SLO-breach dossiers: every finishing request runs the breach
+        # check; breaches (and a forensics_sample_rate draw) land in the
+        # OUTLIERS ring at /debug/outliers
+        self.forensics = ForensicsCapture(
+            sample_rate=forensics_sample_rate,
+            engines_fn=self._local_engines)
         # `is not None`, NOT truthiness: an EMPTY manager (len 0 -> falsy)
         # must be kept — models registered into it later must be served
         self.manager = manager if manager is not None else ModelManager()
@@ -269,6 +340,12 @@ class HttpService:
             ("POST", "/clear_kv_blocks"): self.handle_clear_kv,
             ("GET", "/debug/kv_fleet"): self.handle_kv_fleet,
             ("GET", "/debug/tenants"): self.handle_tenants,
+            ("GET", "/debug/trace"): self.handle_trace_index,
+            ("GET", "/debug/trace/{request_id}"): self.handle_trace,
+            ("GET", "/debug/flight"): self.handle_flight,
+            ("GET", "/debug/prof"): self.handle_prof,
+            ("GET", "/debug/outliers"): self.handle_outliers,
+            ("GET", "/debug/outliers/{request_id}"): self.handle_outlier,
         })
         self._start_time = time.monotonic()
 
@@ -300,17 +377,109 @@ class HttpService:
         return Response.json(model_list_response(self.manager.list_models()))
 
     async def handle_metrics(self, request: Request) -> Response:
-        body = (self.metrics.render() + self.telemetry.render().encode()
+        # the SLO burn rates refresh at scrape time from the frontend's
+        # own latency histograms (an in-process engine also folds its
+        # view at the publish cadence)
+        if self._h_ttft.count or self._h_itl.count:
+            PROF.fold_burn_rates(self._h_ttft.snapshot(),
+                                 self._h_itl.snapshot())
+        om = wants_openmetrics(request)
+        body = (self.metrics.render()
+                + self.telemetry.render(openmetrics=om).encode()
                 + KV_TRANSFER.render().encode()
                 + KV_QUANT.render().encode()
                 + KV_INTEGRITY.render().encode()
                 + STORE.render().encode()
                 + RESILIENCE.render().encode()
                 + OVERLOAD.render().encode()
+                + PROF.render().encode()
                 + TENANT.render().encode()
                 + KV_FLEET.render().encode()
-                + SPEC.render().encode())
+                + SPEC.render().encode()
+                + FLEET_FEED.render(openmetrics=om).encode()
+                + FORENSICS.render().encode())
+        if om:
+            return Response(body + b"# EOF\n",
+                            content_type=OPENMETRICS_CONTENT_TYPE)
         return Response(body, content_type=PROMETHEUS_CONTENT_TYPE)
+
+    # ------------------------------------------------------------------
+    # debug plane: span trees, flight rings, attribution and dossiers
+
+    async def handle_trace_index(self, request: Request) -> Response:
+        return Response.json({"recent": TRACES.recent_ids()})
+
+    async def handle_trace(self, request: Request) -> Response:
+        rid = request.match_info["request_id"]
+        tr = TRACES.get(rid)
+        if tr is None:
+            # the body says WHY: evicted, unsampled or never seen
+            return Response.json(TRACES.describe_missing(rid), status=404)
+        return Response.json(tr.to_dict())
+
+    def _local_engines(self) -> list:
+        """In-process engines whose prof and flight rings feed dossiers
+        (remote workers assemble their own behind their system server)."""
+        engines = []
+        for name in self.manager.list_models():
+            try:
+                engines.append(self.manager.get(name).engine)
+            except Exception as e:  # noqa: BLE001 — forensics never throws
+                log.debug("forensics: skipping engine %s: %s", name, e)
+        return engines
+
+    async def handle_flight(self, request: Request) -> Response:
+        """Flight rings of every local engine, keyed by model (remote
+        workers serve their own at their system servers)."""
+        out = {}
+        for name in self.manager.list_models():
+            flight = getattr(self.manager.get(name).engine, "flight", None)
+            if flight is not None:
+                out[name] = {"recorded_total": flight.recorded_total,
+                             "events": flight.snapshot()}
+        return Response.json({"engines": out})
+
+    async def handle_prof(self, request: Request) -> Response:
+        """GET /debug/prof[?top=N]: every local engine's host-round
+        attribution (the system server's body, keyed by model) and the
+        live SLO burn rates."""
+        try:
+            top = int(request.query.get("top", 0))
+        except ValueError:
+            top = 0
+        out = {}
+        for name in self.manager.list_models():
+            prof = getattr(self.manager.get(name).engine, "prof", None)
+            if prof is not None:
+                out[name] = prof.summary(top=top)
+        return Response.json({"engines": out,
+                              "slo_burn_rates": PROF.burn_rates()})
+
+    async def handle_outliers(self, request: Request) -> Response:
+        """GET /debug/outliers: the dossier ring's capture counts and
+        newest-first summaries."""
+        return Response.json(OUTLIERS.index())
+
+    async def handle_outlier(self, request: Request) -> Response:
+        """GET /debug/outliers/{request_id}[?format=perfetto]: one
+        dossier, as JSON or as a Perfetto/Chrome timeline merging its
+        spans, host rounds, flight and stream events."""
+        rid = request.match_info["request_id"]
+        d = OUTLIERS.get(rid)
+        if d is None:
+            return Response.json({
+                "error": f"no dossier for request {rid!r}",
+                "capacity": OUTLIERS.capacity,
+                "captured_total": OUTLIERS.captured_total,
+                "evicted_total": OUTLIERS.evicted_total,
+                "oldest_retained_id": OUTLIERS.oldest_id(),
+            }, status=404)
+        if request.query.get("format") == "perfetto":
+            return Response.json(to_chrome_trace(
+                spans=list(d.trace.get("spans") or []),
+                round_records=d.rounds, flight_events=d.flight,
+                stream_events=d.stream, label=rid))
+        return Response.json(d.to_dict())
 
     async def handle_tenants(self, request: Request) -> Response:
         """GET /debug/tenants: the tenancy plane in one JSON page, the
@@ -435,10 +604,23 @@ class HttpService:
             env["model"] = req.model
             chain = self._resolve_model(req.model, chat=chat,
                                         completion=not chat)
+            t_tok = time.monotonic()
             try:
                 pre = chain.preprocess(req)
             except ValueError as e:
                 raise _ApiError(400, str(e)) from None
+            # the trace, minted here and keyed by the engine-facing
+            # request id (the router's and the worker's spans come back
+            # under it); below the sample rate an unsampled shell
+            sampled = (self.trace_sample_rate >= 1.0
+                       or self._trace_rng.random() < self.trace_sample_rate)
+            trace = TRACES.start(pre.request_id, sampled=sampled)
+            trace.add(span_now("tokenize", t_tok, model=req.model,
+                               prompt_tokens=len(pre.token_ids)))
+            # a breach is only known at finish: the worker keeps the
+            # request's full round-span history until then
+            if "trace_detail" not in pre.annotations:
+                pre.annotations.append("trace_detail")
             # header hints land on top of the nvext fields the
             # preprocessor already applied (headers win; nvext is NOT
             # re-applied — re-minting its deadline here would silently
@@ -455,6 +637,10 @@ class HttpService:
                     req, chain, pre, chat, t_received=env["t0"])
             finally:
                 self.metrics.inflight.labels(req.model).dec()
+                tr = TRACES.finish(pre.request_id)
+                # a breach decision made by timing.finish() assembles its
+                # dossier here, from the fully merged trace
+                self.forensics.on_trace_finished(pre.request_id, tr)
 
         return await self._run_endpoint(request, endpoint, run)
 
@@ -462,7 +648,15 @@ class HttpService:
         """n>1: run n independent engine streams (distinct seeds per choice,
         like the reference's engines do for best-of/n sampling)."""
         n = max(1, req.n)
-        return [chain.generate(_with_choice_seed(pre, i)) for i in range(n)]
+        streams = []
+        for i in range(n):
+            p = _with_choice_seed(pre, i)
+            if p.request_id != pre.request_id:
+                # an extra choice's fresh request id: its spans belong on
+                # the parent request's tree
+                TRACES.alias(p.request_id, pre.request_id)
+            streams.append(chain.generate(p))
+        return streams
 
     async def _unary_response(
         self, req, chain, pre, chat: bool,
@@ -474,7 +668,8 @@ class HttpService:
         finishes: list[FinishReason] = [FinishReason.EOS] * len(streams)
         lp_entries: list[list[dict]] = [[] for _ in streams]
         t_start = t_received if t_received is not None else time.monotonic()
-        timing = _RequestTiming(self, t_start)
+        timing = _RequestTiming(self, pre.request_id, t_start,
+                                tenant=getattr(pre, "tenant", "") or "")
 
         async def drain(i: int) -> None:
             try:
@@ -576,7 +771,8 @@ class HttpService:
         # (envelope entry — includes preprocess time, matching the
         # reference's measurement point)
         t_start = t_received if t_received is not None else time.monotonic()
-        timing = _RequestTiming(self, t_start)
+        timing = _RequestTiming(self, pre.request_id, t_start,
+                                tenant=getattr(pre, "tenant", "") or "")
         # tool-call detection: hold back tool-shaped text until it parses
         tool_accs: dict[int, ToolCallAccumulator] = {}
         if chat and req.tools:
@@ -653,6 +849,9 @@ class HttpService:
                                 gen.text_chunk(leftover, index=i)
                             ))
                     log.warning("engine stream %d failed: %s", i, item)
+                    # a failed request is always traced: a shell is
+                    # promoted so the failure's context survives
+                    TRACES.promote(pre.request_id)
                     await resp.write(
                         encode_event({"error": {"message": str(item)}})
                     )

@@ -36,8 +36,10 @@ silent is blocked before its lease expires, and a SharedBreakerBoard
 over the store. Each KV-routed model gets a FleetKvView over its
 router's indexer (``fleet_views``, served at ``/debug/kv_fleet``) and,
 with a ``prefetch_config``, a KvPrefetchController that publishes hints
-and hot prefixes to its workers over the store. Left out of the KV path:
-the fleet-merged latency feed (item 10).
+and hot prefixes to its workers over the store. Every worker metrics
+publication also folds its latency histograms into the fleet-merged feed
+(telemetry/fleet_feed.py FLEET_FEED, the frontend's dynamo_fleet_*
+families).
 """
 from __future__ import annotations
 
@@ -80,6 +82,7 @@ from dynamo_tpu_torch.runtime.remote_engine import (
     RemoteWorkerEngine,
     serve_engine,
 )
+from dynamo_tpu_torch.telemetry.fleet_feed import FLEET_FEED
 from dynamo_tpu_torch.tokenizer import Tokenizer, make_test_tokenizer
 
 log = logging.getLogger(__name__)
@@ -403,8 +406,9 @@ class ModelWatcher:
 
     async def _follow_metrics(self) -> None:
         """Tap on the load-metrics plane: every worker publication is a
-        heartbeat in the shared health tracker and a reading of its queue
-        in the shared load view."""
+        heartbeat in the shared health tracker, a reading of its queue in
+        the shared load view, and its latency histograms folded into the
+        fleet-merged feed."""
         sub = await self.rt.kv.subscribe(f"{METRICS_TOPIC}.>")
         async for ev in sub:
             try:
@@ -413,6 +417,7 @@ class ModelWatcher:
                 continue
             self.health.observe_metrics(m)
             self.load.observe(m)
+            FLEET_FEED.observe(m)
 
     def _route_kv_event(self, event: KvCacheEvent, *,
                         buffer_unclaimed: bool = True) -> bool:

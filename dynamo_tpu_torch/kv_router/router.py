@@ -26,8 +26,10 @@ endpoint wire types only overload, so a remote preemption arrives as a
 retriable connection error and counts as a failure, as in the JAX
 package.
 
-Left out: the request-trace spans (``route``, ``migrate``,
-``overload_bounce``) come with telemetry, ROADMAP Queue 1 item 10.
+Each attempt records a ``route`` span (worker, overlap, attempt) on the
+request's trace when the frontend lives in this process; a bounce adds an
+``overload_bounce`` span, and a migration promotes an unsampled trace and
+adds a ``migrate`` span.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import time
 from typing import Any, AsyncIterator, Callable, Optional
 
 from dynamo_tpu_torch.kv_router.indexer import KvIndexer, WorkerId
+from dynamo_tpu_torch.telemetry.trace import TRACES, span_now
 from dynamo_tpu_torch.kv_router.scheduler import (
     DefaultWorkerSelector,
     KvRouterConfig,
@@ -278,6 +281,11 @@ class KvPushRouter:
             if self.on_decision is not None:
                 self.on_decision(time.monotonic() - t_route)
             cur.estimated_prefix_hit_num_blocks = overlap
+            # the decision and its KV match onto the frontend's span tree
+            # when it lives in this process (a no-op otherwise)
+            TRACES.add_span(rid, span_now(
+                "route", t_route, worker=str(worker_id),
+                overlap_blocks=overlap, attempt=attempt))
             engine = self.workers.get(worker_id)
             if engine is None:  # scheduler raced a removal
                 self.router.free(rid)
@@ -317,6 +325,13 @@ class KvPushRouter:
                     worker_id, getattr(e, "retry_after_s", 1.0)
                 )
                 OVERLOAD.inc("dynamo_overload_router_spills_total")
+                # the bounce is part of the request's KV path: a dossier
+                # shows where the queueing came from
+                TRACES.add_span(rid, span_now(
+                    "overload_bounce", t_route, worker=str(worker_id),
+                    retry_after_s=round(
+                        float(getattr(e, "retry_after_s", 1.0)), 3),
+                    attempt=attempt - 1))
                 log.info(
                     "worker %s overloaded; spilling %s to a peer "
                     "(retry_after %.2fs)",
@@ -376,6 +391,11 @@ class KvPushRouter:
                         token_ids=[], finish_reason=FinishReason.LENGTH,
                     )
                     return
+                # a migrated request is always traced, sampled or not
+                TRACES.promote(rid)
+                TRACES.add_span(rid, span_now(
+                    "migrate", t_route, from_worker=str(worker_id),
+                    replayed_tokens=len(emitted), error=str(e)[:200]))
                 self.migrations += 1
                 RESILIENCE.inc("dynamo_migration_total")
                 RESILIENCE.inc(

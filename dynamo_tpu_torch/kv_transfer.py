@@ -37,9 +37,12 @@ Ops:
       -> {"ok": true, "found": k, "stream": true} then k pages of
          {"seq": i, "shape": [...], "dtype": "...", "eof": bool} + payload
 
+Each streamed chunk is a ``frame_send`` event on the writer and a
+``frame_recv`` event on the server, and the writer's wait for the eof
+ack an ``eof_ack_wait`` event (telemetry/timeline.py STREAM_EVENTS).
+
 Left out: ``ArrayFrameServer`` and ``take_remote_array``, which carry
-multimodal embeddings (ROADMAP Queue 1 item 12); the per-frame stream
-timeline (item 10). The ``corrupt_frame`` chaos point
+multimodal embeddings (ROADMAP Queue 1 item 12). The ``corrupt_frame`` chaos point
 (resilience/chaos.py) flips a byte of an outgoing payload's copy.
 """
 from __future__ import annotations
@@ -79,6 +82,7 @@ from dynamo_tpu_torch.runtime.protocol import (
     encode_frame2,
     encode_frame2_header,
 )
+from dynamo_tpu_torch.telemetry import timeline as tl
 
 __all__ = [
     "KV_META_PREFIX", "BlockTransferError", "BlockTransferServer",
@@ -596,9 +600,15 @@ class BlockTransferServer:
                                 KV_TRANSFER.inc(
                                     "dynamo_kv_transfer_rx_bytes_total",
                                     len(payload))
+                                dt = time.monotonic() - t0
                                 KV_TRANSFER.observe(
-                                    "dynamo_kv_transfer_chunk_seconds",
-                                    time.monotonic() - t0)
+                                    "dynamo_kv_transfer_chunk_seconds", dt)
+                                ev_job = header.get("job")
+                                tl.STREAM_EVENTS.record(
+                                    tl.FRAME_RECV, dt,
+                                    seq=header.get("seq"),
+                                    pages=len(pages), bytes=len(payload),
+                                    **({"job": ev_job} if ev_job else {}))
                             continue  # no per-chunk reply
                         try:
                             data = _decode_payload(header, payload,
@@ -814,8 +824,12 @@ class PageStreamWriter:
         self.bytes_sent += data.nbytes
         KV_TRANSFER.inc("dynamo_kv_transfer_tx_chunks_total")
         KV_TRANSFER.inc("dynamo_kv_transfer_tx_bytes_total", data.nbytes)
-        KV_TRANSFER.observe("dynamo_kv_transfer_chunk_seconds",
-                            time.monotonic() - t0)
+        dt = time.monotonic() - t0
+        KV_TRANSFER.observe("dynamo_kv_transfer_chunk_seconds", dt)
+        tl.STREAM_EVENTS.record(
+            tl.FRAME_SEND, dt, seq=self.chunks_sent - 1, pages=len(pages),
+            bytes=int(data.nbytes),
+            **({"job": self.job_id} if self.job_id else {}))
 
     async def commit(self) -> int:
         """The eof frame and its single ack; returns the receiver's chunk
@@ -826,7 +840,12 @@ class PageStreamWriter:
             {"op": "write_pages_eof", "chunks": self.chunks_sent,
              **({"job": self.job_id} if self.job_id else {})}, b""))
         await self._conn.drain()
+        t_ack = time.monotonic()
         header, _ = await self._conn.read_frame2()
+        tl.STREAM_EVENTS.record(
+            tl.EOF_ACK_WAIT, time.monotonic() - t_ack,
+            chunks=self.chunks_sent,
+            **({"job": self.job_id} if self.job_id else {}))
         if not header.get("ok"):
             KV_TRANSFER.inc("dynamo_kv_transfer_errors_total")
             _raise_nack(header, "chunk stream failed")

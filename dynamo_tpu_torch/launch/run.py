@@ -39,7 +39,12 @@ Engines:
                  --max-waiting-requests and --max-waiting-prefill-tokens
                  bound its waiting queue (429 + Retry-After past them)
                  and --preempt-running on lets a HIGH-priority request
-                 migrate the lowest-priority running stream
+                 migrate the lowest-priority running stream;
+                 --prof-attribution, --slo-ttft-target, --slo-itl-target,
+                 --slo-objective and --forensics-sample-rate set the
+                 telemetry plane (round attribution, SLO burn rates,
+                 dossier sampling), and --trace-sample-rate the share of
+                 requests the frontend traces in full
 
 The parser keeps every flag of the reference's, so a command line written
 for it parses here; a flag of a plane the port does not serve yet is
@@ -67,17 +72,8 @@ _SERVED_CONFIGS = ("tiny", "llama3_1b", "llama3_8b", "llama3_1b_int8",
 # flags of the reference's parser for planes the port does not serve:
 # flag -> (argparse keywords with the reference's default, what it drives)
 UNPORTED_FLAGS: dict[str, tuple[dict, str]] = {
-    "--trace-sample-rate": (dict(type=float, default=1.0),
-                            "request tracing"),
     "--tensor-parallel-size": (dict(type=int, default=1),
                                "tensor parallelism"),
-    "--prof-attribution": (dict(default="on", choices=["on", "off"]),
-                           "performance attribution"),
-    "--slo-ttft-target": (dict(type=float, default=0.5), "SLO burn rates"),
-    "--slo-itl-target": (dict(type=float, default=0.05), "SLO burn rates"),
-    "--slo-objective": (dict(type=float, default=0.99), "SLO burn rates"),
-    "--forensics-sample-rate": (dict(type=float, default=0.0),
-                                "tail-latency forensics"),
     "--num-nodes": (dict(type=int, default=1), "multi-host engines"),
     "--node-rank": (dict(type=int, default=0), "multi-host engines"),
     "--leader-addr": (dict(default=None, metavar="HOST:PORT"),
@@ -191,6 +187,37 @@ def build_parser() -> argparse.ArgumentParser:
                    help="round pipelining: dispatch round N+1 before "
                         "processing round N's tokens; off restores the "
                         "strict round order")
+    # the telemetry plane (telemetry/), with the reference's help
+    p.add_argument("--prof-attribution",
+                   default="on" if cfg.prof_attribution else "off",
+                   choices=["on", "off"],
+                   help="per-round host-segment attribution "
+                        "(dynamo_host_round_seconds{segment} + "
+                        "/debug/prof); near-zero overhead, off only "
+                        "for A/B measurement")
+    p.add_argument("--slo-ttft-target", type=float,
+                   default=cfg.slo_ttft_target_s,
+                   help="TTFT SLO target in seconds backing the "
+                        "dynamo_slo_ttft_burn_rate gauge")
+    p.add_argument("--slo-itl-target", type=float,
+                   default=cfg.slo_itl_target_s,
+                   help="ITL SLO target in seconds backing the "
+                        "dynamo_slo_itl_burn_rate gauge")
+    p.add_argument("--slo-objective", type=float,
+                   default=cfg.slo_objective,
+                   help="SLO objective (fraction of observations that "
+                        "must meet the target, e.g. 0.99); burn rate = "
+                        "frac-over-target / (1 - objective)")
+    p.add_argument("--forensics-sample-rate", type=float,
+                   default=cfg.forensics_sample_rate,
+                   help="fraction of NON-breaching requests that still "
+                        "get an SLO-breach-style dossier captured into "
+                        "/debug/outliers (breaches are always captured; "
+                        "0 disables the healthy-baseline sample)")
+    p.add_argument("--trace-sample-rate", type=float, default=1.0,
+                   help="fraction of requests fully traced by the frontend "
+                        "(high-QPS deployments sample; migrated/failed "
+                        "requests are always traced)")
     # distributed mode (runtime/, frontend/watcher.py)
     p.add_argument("--control-plane", default=None, metavar="HOST:PORT",
                    help="control-plane store address; in=endpoint "
@@ -491,6 +518,11 @@ def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
             max_waiting_requests=args.max_waiting_requests,
             max_waiting_prefill_tokens=args.max_waiting_prefill_tokens,
             preempt_running=args.preempt_running == "on",
+            prof_attribution=args.prof_attribution == "on",
+            slo_ttft_target_s=args.slo_ttft_target,
+            slo_itl_target_s=args.slo_itl_target,
+            slo_objective=args.slo_objective,
+            forensics_sample_rate=args.forensics_sample_rate,
         )
         draft_cfg = None
         if args.speculative == "draft":
@@ -520,7 +552,9 @@ async def _serve_http(args, chain) -> None:
 
     manager = ModelManager()
     manager.register(chain)
-    svc = HttpService(manager, host=args.http_host, port=args.http_port)
+    svc = HttpService(manager, host=args.http_host, port=args.http_port,
+                      trace_sample_rate=args.trace_sample_rate,
+                      forensics_sample_rate=args.forensics_sample_rate)
     await svc.start()
     print(f"serving {chain.name!r} on http://{args.http_host}:{svc.port}",
           flush=True)
@@ -943,7 +977,9 @@ async def _serve_http_dynamic(args) -> None:
         rt, manager, namespace=args.namespace, kv_recorder=kv_recorder,
         heartbeat_ttl_s=args.health_heartbeat_ttl,
         **fleet_configs(args)).start()
-    svc = HttpService(manager, host=args.http_host, port=args.http_port)
+    svc = HttpService(manager, host=args.http_host, port=args.http_port,
+                      trace_sample_rate=args.trace_sample_rate,
+                      forensics_sample_rate=args.forensics_sample_rate)
     # /debug/kv_fleet serves the watcher's live per-model fleet views
     svc.fleet_views = watcher.fleet_views
     await svc.start()

@@ -4,11 +4,13 @@ runtime/system_server.py, served by the port's own HTTP server,
 frontend/http.py; reference lib/runtime/src/http_server.rs:27-45,91).
 
 Each worker exposes its own Prometheus endpoint (uptime, the engine's
-ForwardPassMetrics gauges and this process's counter registries), so
-operators scrape workers directly, apart from the frontend's metrics:
+ForwardPassMetrics gauges and latency histograms, and this process's
+counter registries), so operators scrape workers directly, apart from the
+frontend's metrics:
 
-  GET /metrics                plain text, or OpenMetrics (``# EOF``) when
-                              the scraper's Accept asks for it
+  GET /metrics                plain text, or OpenMetrics (exemplars and
+                              ``# EOF``) when the scraper's Accept asks
+                              for it
   GET /health, GET /live      liveness
   GET/POST /drain             graceful drain state / trigger (stop
                               admitting, finish in-flight, exit)
@@ -19,12 +21,16 @@ operators scrape workers directly, apart from the frontend's metrics:
   GET /debug/tenants          this worker's tenancy plane: the engine's
                               per-tenant quota and queue view and this
                               process's tenant metric snapshot
+  GET /debug/flight           recent engine dispatches (the flight ring)
+  GET /debug/prof[?top=N]     host-round attribution (per-segment totals
+                              and shares, coverage, SLO burn rates)
+  GET /debug/trace            recent completed trace ids
+  GET /debug/trace/{id}       this worker's span tree for a request
+  GET /debug/outliers         this worker's SLO-breach dossier ring
+  GET /debug/outliers/{id}[?format=perfetto]
+                              one dossier, as JSON or a Perfetto timeline
 
-Left out, with the plane that brings them (ROADMAP Queue 1 item 10): the
-other ``/debug/*`` routes (flight, prof, trace and outliers), which
-answer 404 with a body naming the item; the families of the planes the
-port lacks (PROF, PLANNER, FLEET_FEED, FORENSICS) and the engine's
-latency histograms.
+Left out: the planner's PLANNER family (the port has no planner yet).
 """
 from __future__ import annotations
 
@@ -42,18 +48,18 @@ from dynamo_tpu_torch.overload.metrics import OVERLOAD
 from dynamo_tpu_torch.resilience.chaos import CHAOS
 from dynamo_tpu_torch.resilience.metrics import RESILIENCE
 from dynamo_tpu_torch.runtime.store_metrics import STORE
+from dynamo_tpu_torch.telemetry.fleet_feed import FLEET_FEED
+from dynamo_tpu_torch.telemetry.forensics import FORENSICS, OUTLIERS
+from dynamo_tpu_torch.telemetry.metrics import render_histogram
+from dynamo_tpu_torch.telemetry.prof import PROF
+from dynamo_tpu_torch.telemetry.timeline import to_chrome_trace
+from dynamo_tpu_torch.telemetry.trace import TRACES
 from dynamo_tpu_torch.tenancy.metrics import TENANT
 
 log = logging.getLogger(__name__)
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 OPENMETRICS_CONTENT_TYPE = "application/openmetrics-text"
-
-# /debug routes of the reference and the ROADMAP Queue 1 item bringing each
-_DEBUG_ROUTES = {
-    "/debug/flight": 10, "/debug/prof": 10, "/debug/trace": 10,
-    "/debug/outliers": 10,
-}
 
 
 class SystemServer:
@@ -89,9 +95,13 @@ class SystemServer:
             ("DELETE", "/chaos"): self.handle_chaos_disarm,
             ("GET", "/debug/kv_fleet"): self.handle_kv_fleet,
             ("GET", "/debug/tenants"): self.handle_tenants,
+            ("GET", "/debug/flight"): self.handle_flight,
+            ("GET", "/debug/prof"): self.handle_prof,
+            ("GET", "/debug/trace"): self.handle_trace_index,
+            ("GET", "/debug/trace/{request_id}"): self.handle_trace,
+            ("GET", "/debug/outliers"): self.handle_outliers,
+            ("GET", "/debug/outliers/{request_id}"): self.handle_outlier,
         }
-        for path in _DEBUG_ROUTES:
-            routes[("GET", path)] = self.handle_debug
         self.server = HttpServer(routes)
 
     async def start(self) -> "SystemServer":
@@ -102,7 +112,7 @@ class SystemServer:
     async def stop(self) -> None:
         await self.server.stop()
 
-    def render(self) -> str:
+    def render(self, openmetrics: bool = False) -> str:
         lines = [
             "# HELP dynamo_system_uptime_seconds process uptime",
             "# TYPE dynamo_system_uptime_seconds gauge",
@@ -117,6 +127,9 @@ class SystemServer:
             except Exception:  # noqa: BLE001 — observability must not throw
                 log.exception("engine metrics failed")
         if m is not None:
+            # this worker's histograms feed the (fleet-of-one) merge, so
+            # the dynamo_fleet_* families render here too
+            FLEET_FEED.observe(m)
             w = self.worker_id or m.worker_id
 
             def g(name: str, help_: str, v) -> None:
@@ -166,17 +179,24 @@ class SystemServer:
             g("dynamo_spec_effective_k_p95",
               "p95 per-slot effective K over speculating slots",
               ws.spec_effective_k_p95)
+            for name, snap in sorted((m.histograms or {}).items()):
+                lines.extend(render_histogram(
+                    name, snap.get("help", name), snap,
+                    label=f'worker="{w}"', openmetrics=openmetrics))
         # the counters of THIS process's planes
         return ("\n".join(lines) + "\n" + RESILIENCE.render()
                 + KV_TRANSFER.render() + KV_QUANT.render()
                 + KV_INTEGRITY.render() + OVERLOAD.render()
-                + TENANT.render() + STORE.render() + KV_FLEET.render()
-                + SPEC.render())
+                + PROF.render() + TENANT.render() + STORE.render()
+                + KV_FLEET.render() + SPEC.render()
+                + FLEET_FEED.render(openmetrics=openmetrics)
+                + FORENSICS.render())
 
     async def handle_metrics(self, request: Request) -> Response:
         if OPENMETRICS_CONTENT_TYPE in request.headers.get("Accept", ""):
-            return Response((self.render() + "# EOF\n").encode(),
-                            content_type=OPENMETRICS_CONTENT_TYPE)
+            return Response(
+                (self.render(openmetrics=True) + "# EOF\n").encode(),
+                content_type=OPENMETRICS_CONTENT_TYPE)
         return Response(self.render().encode(),
                         content_type=PROMETHEUS_CONTENT_TYPE)
 
@@ -187,12 +207,72 @@ class SystemServer:
             "worker_id": self.worker_id,
         })
 
-    async def handle_debug(self, request: Request) -> Response:
-        item = _DEBUG_ROUTES[request.path]
+    async def handle_flight(self, request: Request) -> Response:
+        flight = getattr(self.engine, "flight", None)
+        if flight is None:
+            return Response.json(
+                {"error": "engine exposes no flight recorder"}, status=404)
         return Response.json({
-            "error": f"{request.path} is not served by the PyTorch port "
-                     f"yet (ROADMAP Queue 1 item {item})",
-            "worker_id": self.worker_id}, status=404)
+            "worker_id": self.worker_id,
+            "recorded_total": flight.recorded_total,
+            "events": flight.snapshot(),
+        })
+
+    async def handle_prof(self, request: Request) -> Response:
+        """GET /debug/prof[?top=N]: host-round attribution, per-segment
+        totals and shares, recent-window means a round, the coverage
+        ratio, and the live SLO burn rates."""
+        prof = getattr(self.engine, "prof", None)
+        if prof is None:
+            return Response.json(
+                {"error": "engine exposes no round profiler"}, status=404)
+        try:
+            top = int(request.query.get("top", 0))
+        except ValueError:
+            top = 0
+        body = prof.summary(top=top)
+        body["worker_id"] = self.worker_id
+        body["slo_burn_rates"] = PROF.burn_rates()
+        return Response.json(body)
+
+    async def handle_trace_index(self, request: Request) -> Response:
+        return Response.json({"recent": TRACES.recent_ids()})
+
+    async def handle_trace(self, request: Request) -> Response:
+        rid = request.match_info["request_id"]
+        tr = TRACES.get(rid)
+        if tr is None:
+            # the body says WHY: evicted, unsampled or never seen
+            return Response.json(TRACES.describe_missing(rid), status=404)
+        return Response.json(tr.to_dict())
+
+    async def handle_outliers(self, request: Request) -> Response:
+        """GET /debug/outliers: this worker's dossier ring (captures for
+        requests whose frontend runs in another process)."""
+        body = OUTLIERS.index()
+        body["worker_id"] = self.worker_id
+        return Response.json(body)
+
+    async def handle_outlier(self, request: Request) -> Response:
+        """GET /debug/outliers/{request_id}[?format=perfetto]: one dossier
+        from this worker's ring."""
+        rid = request.match_info["request_id"]
+        d = OUTLIERS.get(rid)
+        if d is None:
+            return Response.json({
+                "error": f"no dossier for request {rid!r}",
+                "worker_id": self.worker_id,
+                "capacity": OUTLIERS.capacity,
+                "captured_total": OUTLIERS.captured_total,
+                "evicted_total": OUTLIERS.evicted_total,
+                "oldest_retained_id": OUTLIERS.oldest_id(),
+            }, status=404)
+        if request.query.get("format") == "perfetto":
+            return Response.json(to_chrome_trace(
+                spans=list(d.trace.get("spans") or []),
+                round_records=d.rounds, flight_events=d.flight,
+                stream_events=d.stream, label=rid))
+        return Response.json(d.to_dict())
 
     async def handle_kv_fleet(self, request: Request) -> Response:
         """GET /debug/kv_fleet: this WORKER's view of the fleet prefix

@@ -1,6 +1,6 @@
 """Counters, gauges and histograms rendered in the Prometheus text format
 (stands in for ``prometheus_client``; a copy of the JAX package's
-telemetry/metrics.py request histograms, without exemplars).
+telemetry/metrics.py request histograms, with their exemplars).
 
 Two kinds of series, as in the reference frontend:
 
@@ -10,8 +10,10 @@ Two kinds of series, as in the reference frontend:
   request_duration_seconds}``, with prometheus_client's names, labels and
   default buckets;
 - the request-latency ``Histogram``s in a ``TelemetryRegistry``:
-  ``dynamo_request_{ttft,itl,e2e}_seconds`` on the reference's
-  per-decade ladder of buckets;
+  ``dynamo_request_{ttft,itl,e2e,queue}_seconds`` and
+  ``dynamo_engine_round_seconds`` on the reference's per-decade ladder of
+  buckets, each bucket remembering the last request id observed into it
+  (an exemplar, rendered only when the scraper negotiated OpenMetrics);
 - unlabelled process-wide families in a ``CounterRegistry``: the KV
   planes' ``dynamo_kv_quant_*`` and ``dynamo_kv_integrity_*`` series
   (``kv_quant.KV_QUANT``, ``kv_integrity.KV_INTEGRITY``).
@@ -23,7 +25,10 @@ from __future__ import annotations
 
 import math
 import threading
+import time
 from typing import Any, Optional
+
+import numpy as np
 
 # decode steps run ~1-100 ms, TTFT ~10 ms-10 s, E2E up to minutes: a
 # 1-2-3.5-5-7.5 per-decade ladder covers every request-latency series
@@ -62,11 +67,16 @@ class Histogram:
         self._counts = [0] * (len(self.buckets) + 1)  # last = +Inf
         self._sum = 0.0
         self._count = 0
+        # bucket index -> (exemplar_id, value, unix_ts): the LAST observed
+        # id per bucket, rendered as an OpenMetrics exemplar
+        self._exemplars: dict[int, tuple[str, float, float]] = {}
         self._lock = threading.Lock()
 
-    def observe(self, value: float, n: int = 1) -> None:
+    def observe(self, value: float, n: int = 1,
+                exemplar_id: Optional[str] = None) -> None:
         """Record ``value`` ``n`` times (n>1: a batch of identical
-        observations, e.g. per-token gaps derived from one round)."""
+        observations, e.g. per-token gaps derived from one round).
+        ``exemplar_id`` tags the target bucket with a trace id."""
         if n <= 0 or not math.isfinite(value):
             return
         i = _bucket_index(self.buckets, value)
@@ -74,53 +84,106 @@ class Histogram:
             self._counts[i] += n
             self._sum += value * n
             self._count += n
+            if exemplar_id:
+                self._exemplars[i] = (exemplar_id, value, time.time())
+
+    def observe_many(self, values) -> None:
+        """Observe a 1-D batch: one searchsorted and bincount and one lock
+        acquisition instead of a bucket scan per value (the attribution
+        fold observes up to 256 rounds x 14 segments a publish tick)."""
+        values = np.asarray(values, np.float64)
+        values = values[np.isfinite(values)]
+        n = int(values.size)
+        if not n:
+            return
+        # side="left": the first edge with value <= edge, as observe()
+        idx = np.searchsorted(np.asarray(self.buckets), values, side="left")
+        binc = np.bincount(idx, minlength=len(self.buckets) + 1)
+        total = float(values.sum())
+        with self._lock:
+            for i in np.flatnonzero(binc):
+                self._counts[i] += int(binc[i])
+            self._sum += total
+            self._count += n
 
     def reset(self) -> None:
         with self._lock:
             self._counts = [0] * (len(self.buckets) + 1)
             self._sum = 0.0
             self._count = 0
+            self._exemplars.clear()
 
     @property
     def count(self) -> int:
         with self._lock:
             return self._count
 
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
     def percentile(self, q: float) -> Optional[float]:
         return percentile_from_snapshot(self.snapshot(), q)
 
     def snapshot(self) -> dict[str, Any]:
-        """Cumulative counts aligned with ``buckets`` + +Inf."""
+        """Wire form: cumulative counts aligned with ``buckets`` + +Inf.
+        When exemplars were observed, an ``exemplars`` key maps bucket
+        index (stringified for JSON round trips) to [id, value, ts]."""
         with self._lock:
             cum = []
             total = 0
             for c in self._counts:
                 total += c
                 cum.append(total)
-            return {
+            snap: dict[str, Any] = {
                 "buckets": list(self.buckets),
                 "counts": cum,        # cumulative, last entry == count
                 "sum": self._sum,
                 "count": self._count,
             }
+            if self._exemplars:
+                snap["exemplars"] = {
+                    str(i): [eid, v, ts]
+                    for i, (eid, v, ts) in self._exemplars.items()
+                }
+            return snap
 
-    def render(self) -> list[str]:
-        return render_histogram(self.name, self.help, self.snapshot())
+    def render(self, label: str = "", openmetrics: bool = False
+               ) -> list[str]:
+        return render_histogram(self.name, self.help, self.snapshot(),
+                                label, openmetrics=openmetrics)
 
 
 def render_histogram(name: str, help_: str, snap: dict[str, Any],
-                     label: str = "") -> list[str]:
+                     label: str = "", *, openmetrics: bool = False
+                     ) -> list[str]:
     """Prometheus text-format lines for one snapshot. ``label`` is a
-    pre-rendered extra label pair (e.g. ``tenant="acme"``) or empty."""
+    pre-rendered extra label pair (e.g. ``tenant="acme"``) or empty.
+
+    ``openmetrics=True`` appends ``# {trace_id="..."} value ts`` exemplar
+    suffixes to the bucket lines that carry one; the plain Prometheus text
+    stays byte-identical whether or not exemplars were recorded."""
 
     def bucket(le: str) -> str:
         pairs = f'le="{le}"' if not label else f'{label},le="{le}"'
         return f"{name}_bucket{{{pairs}}}"
 
+    exemplars = snap.get("exemplars") or {} if openmetrics else {}
+
+    def ex(i: int) -> str:
+        e = exemplars.get(str(i)) or exemplars.get(i)
+        if not e:
+            return ""
+        eid, value, ts = e
+        return f' # {{trace_id="{eid}"}} {value} {ts:.3f}'
+
     lines = [f"# HELP {name} {help_}", f"# TYPE {name} histogram"]
-    for edge, cum in zip(snap["buckets"], snap["counts"][:-1]):
-        lines.append(f"{bucket(repr(float(edge)))} {cum}")
-    lines.append(f"{bucket('+Inf')} {snap['counts'][-1]}")
+    for i, (edge, cum) in enumerate(zip(snap["buckets"],
+                                        snap["counts"][:-1])):
+        lines.append(f"{bucket(repr(float(edge)))} {cum}{ex(i)}")
+    n_b = len(snap["buckets"])
+    lines.append(f"{bucket('+Inf')} {snap['counts'][-1]}{ex(n_b)}")
     suffix = f"{{{label}}}" if label else ""
     lines.append(f"{name}_sum{suffix} {snap['sum']}")
     lines.append(f"{name}_count{suffix} {snap['count']}")
@@ -147,10 +210,16 @@ class TelemetryRegistry:
     def get(self, name: str) -> Optional[Histogram]:
         return self._hists.get(name)
 
-    def render(self) -> str:
+    def snapshot(self) -> dict[str, dict[str, Any]]:
+        """name -> {help, buckets, counts, sum, count}: the wire form
+        carried in ForwardPassMetrics.histograms."""
+        return {name: dict(h.snapshot(), help=h.help)
+                for name, h in self._hists.items()}
+
+    def render(self, label: str = "", openmetrics: bool = False) -> str:
         lines: list[str] = []
         for h in self._hists.values():
-            lines.extend(h.render())
+            lines.extend(h.render(label, openmetrics=openmetrics))
         return "\n".join(lines) + ("\n" if lines else "")
 
 
@@ -165,12 +234,19 @@ E2E = ("dynamo_request_e2e_seconds",
 # median from the worker's published snapshot (overload/load.py)
 QUEUE = ("dynamo_request_queue_seconds",
          "admission queue wait (enqueue to prefill start)")
+ROUND = ("dynamo_engine_round_seconds",
+         "engine round wall time (dispatch to result processed)")
 
 
-def request_histograms(reg: TelemetryRegistry) -> TelemetryRegistry:
-    """Install the canonical request series (TTFT, ITL, E2E) on ``reg``."""
+def request_histograms(reg: TelemetryRegistry, *, engine: bool = False
+                       ) -> TelemetryRegistry:
+    """Install the canonical request series (TTFT, ITL, E2E) on ``reg``;
+    ``engine=True`` adds the engine-only series (queue wait, round time)."""
     for name, help_ in (TTFT, ITL, E2E):
         reg.histogram(name, help_)
+    if engine:
+        for name, help_ in (QUEUE, ROUND):
+            reg.histogram(name, help_)
     return reg
 
 
@@ -347,7 +423,7 @@ class MetricsRegistry:
 class CounterRegistry:
     """Thread-safe fixed-family counter/gauge registry with optional
     explicit-bucket histograms, rendered as one Prometheus text block (a
-    copy of the JAX package's, without exemplars). Families are ``(name,
+    copy of the JAX package's). Families are ``(name,
     type, help)`` tuples; histograms are ``(name, help)`` tuples on the
     default time buckets."""
 
@@ -384,8 +460,9 @@ class CounterRegistry:
         with self._lock:
             return self._values[name]
 
-    def observe(self, name: str, value: float, n: int = 1) -> None:
-        self._hists[name].observe(value, n)
+    def observe(self, name: str, value: float, n: int = 1,
+                exemplar_id: Optional[str] = None) -> None:
+        self._hists[name].observe(value, n, exemplar_id=exemplar_id)
 
     def histogram(self, name: str) -> Histogram:
         return self._hists[name]
@@ -402,7 +479,7 @@ class CounterRegistry:
         with self._lock:
             return dict(self._values)
 
-    def render(self) -> str:
+    def render(self, openmetrics: bool = False) -> str:
         """Prometheus text for every family (trailing newline included)."""
         snap = self.snapshot()
         lines: list[str] = []
@@ -412,5 +489,5 @@ class CounterRegistry:
             v = snap[name]
             lines.append(f"{name} {int(v) if v == int(v) else v}")
         for h in self._hists.values():
-            lines.extend(h.render())
+            lines.extend(h.render(openmetrics=openmetrics))
         return "\n".join(lines) + "\n"

@@ -28,10 +28,16 @@ under their chained hashes and computes only the sub-page tail.
 - The port's prefill worker runs one prefill at a time and pops the next
   job once a prefill ends, while the last job's pages still stream.
 
-The JAX package's span test (its disagg_kv_transfer and remote_prefill
-spans wait for the port's tracing, ROADMAP Queue 1 item 10) and its
-chaos stall test (item 5) are not mirrored."""
+- The request's trace: a chunk-streamed remote prefill's finishing
+  output carries ``disagg_kv_transfer`` and the prefill worker's
+  ``remote_prefill`` span with a ``kv_chunk`` child a frame, in the shape
+  of the JAX package's pair; the stream timeline counts frame sends and
+  receives, the eof-ack wait and commit wakeups, and the pieces export
+  as a Perfetto timeline.
+
+The JAX package's chaos stall test (item 5) is not mirrored."""
 import asyncio
+import json
 import time
 
 import jax
@@ -57,6 +63,7 @@ from dynamo_tpu_torch.models.llama import params_from_jax
 from dynamo_tpu_torch.protocols import common as tproto
 from dynamo_tpu_torch.runtime.component import DistributedRuntime
 from dynamo_tpu_torch.runtime.store import serve_store
+from tests.test_torch_telemetry import span_shape
 
 PS = 16
 KW = dict(num_pages=64, page_size=PS, max_pages_per_seq=8,
@@ -537,3 +544,57 @@ async def test_next_job_prefills_while_the_last_one_streams(weights):
     finally:
         await pair.down()
         server.close()
+
+
+@pytest.mark.asyncio_timeout(240)
+async def test_remote_prefill_spans_and_stream_timeline(weights):
+    import dynamo_tpu.telemetry.timeline as jtl
+    import dynamo_tpu_torch.telemetry.timeline as ttl
+    from dynamo_tpu_torch.tools import trace_export
+
+    prompt = list(range(1, 114))      # 7 complete blocks: >= 3 frames
+    finishing = {}
+    for side, tl in (("port", ttl), ("ref", jtl)):
+        tl.STREAM_EVENTS.clear()
+        server, port = await start_store()
+        pair = await Pair.up(weights, port, dec=side, pre=side,
+                             ns=f"spans_{side}", chunk_pages=2,
+                             wid=f"dec_{side}", pwid=f"pre_{side}")
+        try:
+            async for o in pair.decode.generate(req_for(
+                    SIDES[side]["proto"], prompt)):
+                if o.finish_reason is not None:
+                    finishing[side] = o.annotations
+            assert pair.decode.remote_prefills == 1
+            if side == "port":
+                stream = ttl.STREAM_EVENTS.snapshot()
+                rounds = [[r[0], r[1], list(r[2])]
+                          for r in pair.inner.prof.recent(16)]
+                flight = pair.inner.flight.snapshot()
+        finally:
+            await pair.down()
+            server.close()
+    pspans = finishing["port"]["trace"]["spans"]
+    rspans = finishing["ref"]["trace"]["spans"]
+    assert span_shape(pspans[:2]) == span_shape(rspans[:2])
+    assert [sp["name"] for sp in pspans[:2]] == ["disagg_kv_transfer",
+                                                 "remote_prefill"]
+    chunks = pspans[1]["children"]
+    assert len(chunks) >= 3 and {c["name"] for c in chunks} == {"kv_chunk"}
+    assert sum(c["attrs"]["blocks"] for c in chunks) == \
+        pspans[1]["attrs"]["blocks"] == 7
+    kinds = [e["kind"] for e in stream]
+    assert kinds.count(ttl.FRAME_SEND) == kinds.count(ttl.FRAME_RECV) \
+        == len(chunks)
+    assert kinds.count(ttl.EOF_ACK_WAIT) == 1
+    assert kinds.count(ttl.COMMIT_WAKEUP) >= 1
+    chrome = json.loads(json.dumps(trace_export.build({
+        "trace": {"trace_id": "req", "spans": pspans}, "flight": flight,
+        "stream": stream, "rounds": rounds})))
+    names = {e["name"] for e in chrome["traceEvents"]
+             if e.get("cat") == "span"}
+    assert {"disagg_kv_transfer", "remote_prefill", "kv_chunk"} <= names
+    assert any(e.get("cat") == "round_segment" for e in chrome["traceEvents"])
+    assert any(e.get("cat") == "kv_stream" for e in chrome["traceEvents"])
+    ttl.STREAM_EVENTS.clear()
+    jtl.STREAM_EVENTS.clear()

@@ -681,6 +681,93 @@ def test_entry_points_serve_from_two_workers():
                 p.wait()
 
 
+def test_remote_worker_serves_its_trace_prof_flight_and_dossier():
+    """The remote-worker path of the telemetry plane, as processes: a
+    worker (in=endpoint --system-port, forensics sample rate 1.0) and a
+    frontend in another process. The frontend's /debug/trace/{id} holds
+    its own tokenize and route spans merged with the worker's, which
+    crossed the endpoint hop in the finishing output; the worker's system
+    server serves the same worker spans (recorded with no frontend in its
+    process), a sampled dossier with a Perfetto export, its round
+    attribution (coverage 1 +- 0.02) and its flight ring."""
+    cp_port, http_port, sys_port = _free_port(), _free_port(), _free_port()
+    tiny = ["out=torch", "--model-config", "tiny", "--cache-dtype",
+            "float32", "--device", "cpu", "--model-name", "tiny"]
+    procs = [_spawn("dynamo_tpu_torch.cli", "cp", "--port", str(cp_port))]
+    try:
+        assert "listening on 127.0.0.1:" in procs[0].stdout.readline()
+        cp = ["--control-plane", f"127.0.0.1:{cp_port}"]
+        worker = _spawn("dynamo_tpu_torch.launch.run", "in=endpoint", *tiny,
+                        *cp, "--system-port", str(sys_port),
+                        "--forensics-sample-rate", "1.0",
+                        "--slo-ttft-target", "60", "--slo-itl-target", "60")
+        procs.append(worker)
+        for _ in range(2):
+            worker.stdout.readline()
+        front = _spawn("dynamo_tpu_torch.launch.run", "in=http",
+                       "--http-host", "127.0.0.1", "--http-port",
+                       str(http_port), "--trace-sample-rate", "1.0", *cp)
+        procs.append(front)
+        assert "dynamic frontend on" in front.stdout.readline()
+
+        async def get(port, path):
+            async with HttpClient("127.0.0.1", port) as c:
+                r = await c.request("GET", path)
+                return r.status, r.json()
+
+        async def ask():
+            async with HttpClient("127.0.0.1", http_port) as c:
+                for _ in range(600):
+                    r = await c.request("GET", "/v1/models")
+                    if r.json()["data"]:
+                        break
+                    await asyncio.sleep(0.05)
+                r = await c.request("POST", COMPL, json_body={
+                    "model": "tiny", "max_tokens": 9,
+                    "prompt": list(range(5, 40)),
+                    "nvext": {"ignore_eos": True}})
+                assert r.status == 200, r.json()
+                rid = r.headers["X-Request-Id"]
+            return rid, {
+                "front": await get(http_port, f"/debug/trace/{rid}"),
+                "worker": await get(sys_port, f"/debug/trace/{rid}"),
+                "outliers": await get(sys_port, "/debug/outliers"),
+                "dossier": await get(
+                    sys_port, f"/debug/outliers/{rid}?format=perfetto"),
+                "prof": await get(sys_port, "/debug/prof"),
+                "flight": await get(sys_port, "/debug/flight"),
+            }
+
+        rid, got = asyncio.run(asyncio.wait_for(ask(), 120))
+        assert all(st == 200 for st, _ in got.values()), got
+        front_spans = [sp["name"] for sp in got["front"][1]["spans"]]
+        worker_spans = [sp["name"] for sp in got["worker"][1]["spans"]]
+        assert front_spans[:2] == ["tokenize", "route"], front_spans
+        assert worker_spans[:2] == ["queue", "prefill"], worker_spans
+        assert worker_spans.count("decode_round") == 2, worker_spans
+        assert sorted(front_spans) == sorted(["tokenize", "route"]
+                                             + worker_spans)
+        index = got["outliers"][1]
+        assert [d["request_id"] for d in index["outliers"]] == [rid]
+        assert index["outliers"][0]["reason"] == "sampled"
+        names = {e["name"] for e in got["dossier"][1]["traceEvents"]}
+        assert {"queue", "prefill", "host_round", "round"} <= names
+        assert 0.98 <= got["prof"][1]["coverage_ratio"] <= 1.02
+        assert got["prof"][1]["rounds"] >= 2
+        kinds = {e["kind"] for e in got["flight"][1]["events"]}
+        assert {"round", "prefill"} <= kinds or \
+            {"round", "prefill_batch"} <= kinds, kinds
+        for p in (worker, front, procs[0]):
+            p.terminate()
+            out, _ = p.communicate(timeout=60)
+            assert p.returncode == 0, out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def test_kv_entry_points_serve_and_record_the_event_plane(tmp_path):
     """The launcher's default --router-mode kv: cli cp, two in=endpoint
     workers and in=http --control-plane --record-kv-events as processes

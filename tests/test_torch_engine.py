@@ -192,6 +192,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import dynamo_tpu_torch.tenancy, dynamo_tpu_torch.tenancy.adapters\n"
         "import dynamo_tpu_torch.overload.admission\n"
         "import dynamo_tpu_torch.tools.tenant_stats\n"
+        "import dynamo_tpu_torch.telemetry, dynamo_tpu_torch.telemetry.trace\n"
+        "import dynamo_tpu_torch.telemetry.flight\n"
+        "import dynamo_tpu_torch.telemetry.prof\n"
+        "import dynamo_tpu_torch.telemetry.timeline\n"
+        "import dynamo_tpu_torch.telemetry.forensics\n"
+        "import dynamo_tpu_torch.telemetry.fleet_feed\n"
+        "import dynamo_tpu_torch.tools.trace_dump\n"
+        "import dynamo_tpu_torch.tools.trace_export\n"
+        "import dynamo_tpu_torch.tools.profile_round\n"
         "for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, "
         "'dynamo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

@@ -167,6 +167,7 @@ ECHO_REQUESTS = [
     ("models", "GET", "/v1/models", None),
     ("health", "GET", "/health", None),
     ("live", "GET", "/live", None),
+    ("flight", "GET", "/debug/flight", None),
 ]
 
 

@@ -97,9 +97,10 @@ def test_unported_flags_and_modes_exit_with_a_clear_message(argv, match):
         with pytest.raises(FileNotFoundError, match="does not exist"):
             prun.run_cli(["in=text", "--prompt", "x"] + argv)
         return
-    if argv[0] in ("--spec-tree", "--preempt-running"):
-        # served (tree speculation; running preemption): the launcher
-        # runs, no refusal
+    if argv[0] in ("--spec-tree", "--preempt-running",
+                   "--forensics-sample-rate"):
+        # served (tree speculation; running preemption; telemetry): the
+        # launcher runs, no refusal
         assert argv[0] not in prun.UNPORTED_FLAGS
         assert prun.run_cli(["in=text", "out=echo", "--prompt", "x"]
                             + argv) == 0
@@ -470,12 +471,10 @@ FLEET_FIELDS = ("kv_replication_target", "kv_prefetch_hot_k",
 # what the parser still refuses: the reference's flags of planes the port
 # does not serve yet (the fleet economy's five left this list, then the
 # linear speculation's eight, then tree speculation's three, then the
-# overload plane's three, then --model-path)
+# overload plane's three, then --model-path, then the telemetry six):
+# the multi-GPU flags
 REFUSED = {
-    "--trace-sample-rate", "--tensor-parallel-size",
-    "--prof-attribution", "--slo-ttft-target",
-    "--slo-itl-target", "--slo-objective", "--forensics-sample-rate",
-    "--num-nodes", "--node-rank", "--leader-addr",
+    "--tensor-parallel-size", "--num-nodes", "--node-rank", "--leader-addr",
 }
 OVERLOAD_FLAGS = {"--max-waiting-requests": ("7", "max_waiting_requests", 7),
                   "--max-waiting-prefill-tokens": (
@@ -602,3 +601,69 @@ def test_overload_flag_parses_as_the_reference_and_reaches_engine_config(
                          "--prompt", "w1 w2", "--max-tokens", "2",
                          flag, value]) == 0
     assert getattr(built[-1], field) == want
+
+
+# the telemetry plane's flags: value, the EngineConfig field it sets (None:
+# the frontend's), and the value that field must hold
+TELEMETRY_FLAGS = {
+    "--prof-attribution": ("off", "prof_attribution", False),
+    "--slo-ttft-target": ("0.25", "slo_ttft_target_s", 0.25),
+    "--slo-itl-target": ("0.02", "slo_itl_target_s", 0.02),
+    "--slo-objective": ("0.95", "slo_objective", 0.95),
+    "--forensics-sample-rate": ("0.5", "forensics_sample_rate", 0.5),
+    "--trace-sample-rate": ("0.1", None, 0.1),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(TELEMETRY_FLAGS))
+def test_telemetry_flag_parses_as_the_reference_and_reaches_its_plane(
+        flag, monkeypatch):
+    """Each telemetry flag is served with the reference's default, type,
+    choices and help; an engine flag lands in the EngineConfig of the
+    engine the launcher builds, and --trace-sample-rate (with
+    --forensics-sample-rate) in the frontend the launcher builds."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.frontend import service as psvc
+
+    for k in list(os.environ):
+        if k.startswith("DYNTPU_"):
+            monkeypatch.delenv(k)
+    assert flag not in prun.UNPORTED_FLAGS
+    ref, port = _options(rrun.build_parser()), _options(prun.build_parser())
+    for attr in ("default", "type", "choices", "help"):
+        assert getattr(port[flag], attr) == getattr(ref[flag], attr), attr
+    value, field, want = TELEMETRY_FLAGS[flag]
+    if field is not None:
+        built = []
+        orig = TorchEngine.__init__
+
+        def spy(self, cfg, ecfg=None, **kw):
+            built.append(ecfg)
+            orig(self, cfg, ecfg, **kw)
+
+        monkeypatch.setattr(TorchEngine, "__init__", spy)
+        assert prun.run_cli(["in=text", "out=torch", "--model-config",
+                             "tiny", "--cache-dtype", "float32", "--device",
+                             "cpu", "--prompt", "w1 w2", "--max-tokens", "2",
+                             flag, value]) == 0
+        assert getattr(built[-1], field) == want
+        return
+    made = []
+
+    class _Stop(Exception):
+        pass
+
+    class _Svc(psvc.HttpService):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+        async def start(self):
+            raise _Stop
+
+    monkeypatch.setattr(psvc, "HttpService", _Svc)
+    with pytest.raises(_Stop):
+        prun.run_cli(["in=http", "out=echo", "--http-port", "0", flag,
+                      value, "--forensics-sample-rate", "0.5"])
+    assert made[-1].trace_sample_rate == want
+    assert made[-1].forensics.sample_rate == 0.5

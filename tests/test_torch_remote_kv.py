@@ -121,6 +121,12 @@ async def test_cold_worker_onboards_a_prefix_from_a_peer_pool(
     try:
         warm_toks = await collect(warm, tproto if peer == "port" else jproto,
                                   PROMPT)
+        # the peer is ready once its hash export has run: the reference's
+        # gather is jitted on its first call, which on a loaded host can
+        # outlast the cold worker's 3 s probe round and turn the fetch
+        # into a miss, so it runs here, before the pool goes on the wire
+        await asyncio.to_thread(warm.export_pages_by_hash,
+                                compute_block_hashes(PROMPT, PS)[:3])
         srv = await serve_pool(tkt if peer == "port" else jkt, warm, kv,
                                "g4", "warm")
         cold.remote_kv = tkt.RemoteKvFetcher(kv, "g4", "cold",

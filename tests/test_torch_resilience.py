@@ -612,10 +612,12 @@ async def test_system_server_chaos_drain_health_and_metrics():
             "Accept": "application/openmetrics-text"})
         assert h["content-type"] == "application/openmetrics-text"
         assert b.decode().endswith("# EOF\n")
-        # the debug plane names the ROADMAP item that brings it; the
-        # fleet hints are served (none applied yet)
+        # the debug plane is served; this stub engine keeps no flight
+        # ring, which the answer says, as the reference's does. The fleet
+        # hints are served (none applied yet)
         s, _, b = await _call(p, "GET", "/debug/flight")
-        assert s == 404 and "item 10" in json.loads(b)["error"]
+        assert s == 404 and json.loads(b) == {
+            "error": "engine exposes no flight recorder"}
         # the tenancy plane is served (item 8): this server's engine is
         # a stub without tenant_debug, so only the metric snapshot shows
         s, _, b = await _call(p, "GET", "/debug/tenants")

@@ -142,7 +142,9 @@ KILL_BODY = {"model": "tiny", "max_tokens": 10, "temperature": 0,
 async def _stack_answer(pk, engines, spec):
     """A store, two workers on ``engines`` and a KV-routing frontend, all
     of package ``pk``; ``spec`` armed on that package's chaos hooks just
-    before the request. Returns (status, text, migrations)."""
+    before the request. Returns (status, text, completion tokens,
+    migrations, injected kills, the request trace's router spans by
+    name)."""
     hooks, res = (CHAOS, RESILIENCE) if pk == "port" else (R_CHAOS, R_RES)
     async with Stack(pk, pk) as s:
         for eng in engines:
@@ -152,11 +154,15 @@ async def _stack_answer(pk, engines, spec):
         await _until(lambda: len(push.workers) == 2, "two workers")
         if spec:
             hooks.configure(spec)
-        status, _, body = await s.http.call("POST", COMPL, KILL_BODY)
+        status, headers, body = await s.http.call("POST", COMPL, KILL_BODY)
         injected = hooks.points["kill_worker"].injected_total
+        _, _, trace = await s.http.call(
+            "GET", f"/debug/trace/{headers['X-Request-Id']}")
+        names = [sp["name"] for sp in trace["spans"]]
+        router_spans = {n: names.count(n) for n in ("route", "migrate")}
         return (status, body["choices"][0]["text"],
                 body["usage"]["completion_tokens"],
-                res.get("dynamo_migration_total"), injected)
+                res.get("dynamo_migration_total"), injected, router_spans)
 
 
 @pytest.mark.asyncio_timeout(180)
@@ -173,8 +179,13 @@ async def test_chaos_kill_migrates_token_identical_to_the_jax_stack(weights):
         for e in ports + [ref]:
             await e.stop()
     assert clean[:4] == (200, clean[1], 10, 0) and clean[4] == 0
-    assert killed == (200, clean[1], 10, 1, 1)
-    assert jax_killed == killed
+    # one route span a routing attempt; a migration adds its span
+    assert clean[5] == {"route": 1, "migrate": 0}
+    assert killed == (200, clean[1], 10, 1, 1, {"route": 2, "migrate": 1})
+    # the reference's killed worker may finish the first attempt after
+    # the frontend's trace has finished, and its worker-side record then
+    # replaces the frontend's tree: its spans are not compared
+    assert jax_killed[:5] == killed[:5]
     assert not CHAOS.any_armed()
 
 
