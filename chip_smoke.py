@@ -43,11 +43,15 @@ Phases, each printing a line (any failure raises and exits non-zero):
      and with a resident LoRA bank (tiny lora: 4 rows at rank 4, rows 1
      and 2 random), where a burst with adapter ids 0, 1, 2, 1 and a
      variant's repeat must be greedy token-identical on both devices;
+     and ModelConfig.tiny_moe (8 experts, top-2, dropless), dense and
+     w8a16 (tiny moe, tiny moe w8a16: (4 + 3 x 8) products a layer and
+     the logits a step inside the replays);
   5. round_graph, in a process of its own (``chip_smoke.py
      --profiled-checks``) started after the 8B phases, as what ran
      before in a process moves torch.profiler's counts: for the tiny
-     model (f32) and Llama-3.1-8B with dense and with int8 KV, and with
-     w8a16 weights, an engine admits the prompts, then one decode
+     model (f32), tiny_moe, and Llama-3.1-8B's width at CUT_LAYERS
+     layers (32 before the script's time was cut) with dense and with
+     int8 KV, and with w8a16 weights, an engine admits the prompts, then one decode
      round replayed from its CUDA graph and the same round run eagerly
      (engine/graphs.py ``run_round``) on a clone of the same device state
      must give identical tokens, greedy and with logprobs (the largest
@@ -55,8 +59,9 @@ Phases, each printing a line (any failure raises and exits non-zero):
      runtime calls of one steady pipelined round (one graph launch, the
      fetch copies, no kernel launched from the host) and the flash-decode
      kernels inside the replay (one a layer a step; the kernel's own
-     count on the card must agree; w8a16: (7 x 32 + 1) x 4 = 900
-     w8a16_gemm kernels too), and with a LoRA bank (round_graph 8B lora:
+     count on the card must agree; w8a16: (7 x 8 + 1) x 4 = 228
+     w8a16_gemm kernels too; tiny_moe: the dense-dispatch FFN inside the
+     one graph launch), and with a LoRA bank (round_graph 8B lora:
      adapters 1..3 of rank LORA_RANK installed, the 8 prompts with ids
      LORA_IDS: one replayed round runs mixed adapters); each graph's
      capture time and the graph pool's memory are printed;
@@ -74,7 +79,8 @@ Phases, each printing a line (any failure raises and exits non-zero):
      graphs recorded at capture, once a replay) does. The burst is held
      at the engine's intake until all 8 requests wait, so its prefill
      groups do not depend on arrival timing;
-  6b. checkpoint: the serve weights written as an HF checkpoint into a
+  6b. checkpoint: the serve weights' first CUT_LAYERS layers (32 until
+     the script's time was cut) written as an HF checkpoint into a
      temporary directory (its path and free space printed first; no
      room fails the phase): ~5 GB safetensors shards and
      model.safetensors.index.json, Llama-3.1-8B's published config.json
@@ -170,8 +176,8 @@ Phases, each printing a line (any failure raises and exits non-zero):
      client's);
   7d. disagg: disaggregated prefill/decode on the same weights, dense KV:
      the port's store, a --role decode worker (engine D, launch.run's
-     serve_worker with --max-local-prefill-length 64 --prefill-timeout 5:
-     every serve prompt goes remote), a --role prefill worker (engine P,
+     serve_worker with --max-local-prefill-length 64: every serve prompt
+     goes remote), a --role prefill worker (engine P,
      serve_prefill_worker: it prefills each job and streams its pages
      over the KV transfer plane into D's pool as prefill advances, 8
      pages a chunk) and a KV-routing frontend, each on its own loop
@@ -181,8 +187,9 @@ Phases, each printing a line (any failure raises and exits non-zero):
      prompts, every stream identical to generate() along the same path
      (the prompt prefilled alone with max_tokens=1, then served from
      that prefix hit). Wave B: both caches cleared, the 8 as one
-     ungated burst: 16 remote prefills in all. Fallback: P stopped, one
-     prompt falls back after the timeout, counted once in
+     ungated burst: 16 remote prefills in all (both waves at the
+     launcher's 60 s remote-prefill timeout). Fallback: P stopped, one
+     prompt falls back after a timeout of DISAGG_FALLBACK_S, counted once in
      remote_fallbacks and dynamo_disagg_fallback_total, with a local
      prefill's tokens. The kernel's own count rises by layers x the
      decode steps of D and P (the kernels line's launches_disagg).
@@ -247,7 +254,8 @@ Phases, each printing a line (any failure raises and exits non-zero):
      (onboarded) beside W1's recompute and G1 hit, the warm start's
      seconds from registration to the last landed page, blocks fetched
      and GB/s, the dedup arms' TTFTs, memory;
-  8. offload: the KV offload plane on Llama-3.1-8B with the same bf16
+  8. offload (at the first CUT_LAYERS layers since the script's time
+     was cut): the KV offload plane on Llama-3.1-8B with the same bf16
      weights, a 96-page pool (768 MiB), a 128-page G2 in pinned host
      memory and a 128-page G3 file in a temporary directory, in dense
      and in int8 KV: wave A (the serve prompts), wave B (8 prompts of
@@ -277,7 +285,10 @@ Phases, each printing a line (any failure raises and exits non-zero):
      onboarded (gather + verify + H2D issue), and the D2H and H2D copies'
      GB/s;
   8b. speculation: linear speculative decoding on the bf16 weights
-     (default EngineConfig, K = 4, adaptive K): the serve phase's 8
+     (Llama-3.1-8B's width; arm N and the teacher-forced check at its 32
+     layers, the other arms at its first CUT_LAYERS since the script's
+     time was cut; default EngineConfig, K = 4, adaptive K): the serve
+     phase's 8
      prompts (2 asking for top-2 logprobs, which stay in the fused round)
      and 2 built to repeat (a 64-token span four times), SPEC_NEW greedy
      tokens each, gated at the intake, in four arms: N (dense KV, ngram), Q (int8
@@ -303,7 +314,8 @@ Phases, each printing a line (any failure raises and exits non-zero):
      attention's 256-key block and over the whole region: bit-equal, each
      one's wall and device ms;
   8c. speculation tree: tree speculation on the same weights, prompts
-     and plain runs (K = 4 adaptive, 4 branches, the auto budget of 17
+     and plain runs (TN at 32 layers, the others at CUT_LAYERS; K = 4
+     adaptive, 4 branches, the auto budget of 17
      nodes), four arms: TN (dense, n-gram trie), TQ (int8 KV, n-gram
      trie: the int8 commit), TD (dense, comb drafts from the 1B draft:
      m > 1 drafting, rejection, de-speculation) and TS (dense, the 8B as
@@ -329,7 +341,8 @@ Phases, each printing a line (any failure raises and exits non-zero):
      dense run's and the first step's largest logprob difference
      (information: random weights have near-ties); then speculation
      w8a16: arm W, the speculation phase's burst with n-gram speculation
-     on the w8a16 weights, held to its plain run as the other arms, the
+     on the w8a16 weights (their first CUT_LAYERS layers), held to its
+     plain run as the other arms, the
      verifies' products and logits on the w8a16 kernels (its executions
      over the burst, counted from after the engine's graph captures, are
      the w8a16 record's launches_spec);
@@ -346,7 +359,8 @@ Phases, each printing a line (any failure raises and exits non-zero):
      7 products a layer and the logits. Printed: a decode step's device
      and wall ms (replayed rounds back to back) with the mixed bank
      beside an engine without one, and the MB a round's gather moves;
-  9c. overload: two 8B engines (2 slots, queue budget 3, tenant budget
+  9c. overload (at CUT_LAYERS layers since the script's time was cut):
+     two 8B engines (2 slots, queue budget 3, tenant budget
      2; A preempts running streams) behind the port's KV router and HTTP
      frontend, and a reference engine R: a storm of 12 streamed requests
      gets 200s and 429s with Retry-After and every bounced one is served
@@ -356,6 +370,24 @@ Phases, each printing a line (any failure raises and exits non-zero):
      newest running low-priority stream to B through the router, whole
      and equal to generate() on R along the same paths (the kernels
      line's launches_overload);
+  9d. moe w8a16, moe bf16 (after the 8B weights are freed):
+     Llama-3.1-8B's width with the repo's MoE recipe (MOE_RECIPE: 8
+     experts, top-2, dropless), random weights, w8a16 at all 32 layers
+     and bf16 at MOE_BF16_LAYERS (check_moe): the serve burst and its
+     prefix repeat through the replayed rounds, dense then int8 KV, with
+     flash decode on every layer of every step and (4 + 3 x 8) x 32 + 1
+     w8a16 products a step inside the replays (the kernels line's
+     launches_moe; the router stays a dense product); the repeat equal
+     to its first stream up to a top-2 swap with dense KV (with int8 KV,
+     whose repeat attends its prefix's int8 pages, how far they agree is
+     printed as information) and one
+     prompt served alone equal to its stream in the burst up to a top-2
+     swap; the burst on an eager engine
+     equal to the replayed one token for token; layer 0's grouped FFN
+     within MOE_FFN_L2_TOL of the dense dispatch (and a capacity-drop
+     control outside it); a decode step's device and wall ms beside its
+     byte bound, TTFT, tok/s, the peak allocation and the prefill's
+     host ms for its kept-count reads;
   10. cli: ``python -m dynamo_tpu_torch.launch.run in=text out=torch
      --model-config tiny --cache-dtype float32 --prompt "w1 w2 w3"
      --max-tokens 8`` in a subprocess, with no --device, and again with
@@ -386,6 +418,7 @@ the script fails.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import faulthandler
 import gc
 import json
@@ -431,6 +464,13 @@ SUMMARY_LINE = 320
 # a greedy token of the int8 engine may differ between devices only where
 # the CPU's top-2 logprob gap is this small (tests/test_kv_quant.py)
 NEAR_TIE = 0.05
+# the depth of the phases cut to keep the script inside its time (32 before;
+# Llama-3.1-8B's width at its first CUT_LAYERS layers, the Llama-3.2-1B
+# draft at its first CUT_LAYERS of 16): speculation but its arms N and TN
+# and its teacher-forced check (check_speculation says why), checkpoint
+# (16.1 GB at 32), offload, overload and the profiled 8B round graphs.
+# Their checks do not depend on the depth
+CUT_LAYERS = 8
 
 
 # the running phase's key figures and last line, and each finished
@@ -790,6 +830,12 @@ W8A16_8B_LAYERS = (("wq/wo", 4096, 4096), ("wk/wv", 4096, 1024),
                    ("wg/wu", 4096, 14336), ("wd", 14336, 4096))
 # products a layer of each shape
 W8A16_PER_LAYER = {"8b wq/wo": 2, "8b wk/wv": 2, "8b wg/wu": 2, "8b wd": 1}
+# a MoE expert's products at the 8B's width (the moe phases): the
+# replayed decode's M = groups x C = 16 rows an expert (8 slots, top-2,
+# dropless), and two ragged kept counts of the grouped prefill, one below
+# w8a16.WGMMA_MIN_M (the mma kernel) and one above it (wgmma)
+W8A16_MOE_M = (13, 16, 117)
+W8A16_MOE_LAYERS = (("wg/wu", 4096, 14336), ("wd", 14336, 4096))
 
 
 def w8a16_cases():
@@ -798,7 +844,8 @@ def w8a16_cases():
     w8a16.WGMMA_MIN_M runs the wgmma kernel, below it the mma kernel); the
     lm_head's f32 logits at M = 1, 8, 32, 40 (a speculative verify of 8
     slots at K = 4), 136 (a tree verify of 8 slots at the auto budget of
-    17 nodes) and 1024; the Llama-3.2-1B tied
+    17 nodes) and 1024; a MoE expert's products at the 8B's width at each
+    M of ``W8A16_MOE_M``; the Llama-3.2-1B tied
     logits (the embedding [V, H] read as "nk") at M = 8; the tiny model's
     shapes in f32 (both layouts) and in bf16 (tails narrower than a
     128-channel tile)."""
@@ -815,6 +862,9 @@ def w8a16_cases():
     cases.append(("8b lm_head", 40, 4096, 128256, "kn", bf, f32))
     cases.append(("8b lm_head", 136, 4096, 128256, "kn", bf, f32))
     cases.append(("1b tied logits", 8, 2048, 128256, "nk", bf, f32))
+    for M in W8A16_MOE_M:
+        for name, K, N in W8A16_MOE_LAYERS:
+            cases.append((f"moe {name}", M, K, N, "kn", bf, bf))
     for M in (4, 37):
         for name, K, N in (("wq", 64, 64), ("wk", 64, 32), ("wg", 64, 128),
                            ("wd", 128, 64), ("lm_head", 64, 256)):
@@ -857,8 +907,8 @@ def check_w8a16():
     runs on CUDA.
     Returns the kernels-line figures: sums over the 225 products of one
     Llama-3.1-8B decode step (M = 8: 32 layers x 7 + the lm_head), one
-    layer's 7 products at each M of the wgmma route, and every timed
-    shape."""
+    layer's 7 products at each M of the wgmma route, one MoE layer's 24
+    expert products at M = 16, and every timed shape."""
     from dynamo_tpu_torch.ops import w8a16
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -982,6 +1032,16 @@ def check_w8a16():
         f"M = 8: {step['ms']:.4f} ms (bytes bound {step['bound_ms']:.4f} ms; "
         f"cuBLAS over bf16 weights {step['library_ms']:.4f} ms; plain "
         f"{step['plain_ms']:.4f} ms)")
+    # one MoE layer's 24 expert products of a replayed decode step (M = 16:
+    # wg, wu and wd of each of 8 experts)
+    moe = {k: sum(r[k] * (2 if r["shape"] == "moe wg/wu" else 1) * 8
+                  for r in shapes if r["M"] == 16
+                  and r["shape"].startswith("moe "))
+           for k in ("ms", "bound_ms", "library_ms")}
+    log(f"kernel w8a16_gemm: one MoE layer's 24 expert products at the 8B's "
+        f"width, M = 16: {moe['ms']:.4f} ms (bytes bound "
+        f"{moe['bound_ms']:.4f} ms, {moe['bound_ms'] / moe['ms']:.2f} of it; "
+        f"cuBLAS over bf16 weights {moe['library_ms']:.4f} ms)")
     # one layer's 7 prefill products at each M of the wgmma route
     prefill = {}
     for M in W8A16_LAYER_M:
@@ -1001,7 +1061,7 @@ def check_w8a16():
     # "shapes" out of the kernels line)
     log("kernel w8a16_gemm shapes: " + json.dumps(sig4(shapes)))
     return dict(step, bound_by="bytes", max_abs_err=max_err,
-                prefill_layer=prefill, shapes=shapes)
+                prefill_layer=prefill, moe_layer_m16=moe, shapes=shapes)
 
 
 def check_logits_f32():
@@ -1034,12 +1094,14 @@ def check_logits_f32():
 # engine
 
 async def generate_all(engine, prompts, max_tokens, logprobs=None,
-                       adapters=None, **sampling):
+                       adapters=None, progress=None, **sampling):
     """Each prompt as a request, all at once; per request (tokens, finish
     reason, final annotations, inter-token gaps, top logprobs). With
     ``adapters`` (an adapter id a prompt), each request carries its id
     and, for a variant, the variant's model name (its prefix-cache salt:
-    "base:v<id>"), as a registered variant's chain stamps them."""
+    "base:v<id>"), as a registered variant's chain stamps them. With
+    ``progress`` (a list, one entry a prompt), each request's entry holds
+    its count of tokens received so far."""
     from dynamo_tpu_torch.protocols.common import (
         OutputOptions,
         PreprocessedRequest,
@@ -1049,7 +1111,7 @@ async def generate_all(engine, prompts, max_tokens, logprobs=None,
 
     ids = adapters or [0] * len(prompts)
 
-    async def one(p, aid):
+    async def one(i, p, aid):
         req = PreprocessedRequest(
             token_ids=list(p),
             stop_conditions=StopConditions(max_tokens=max_tokens,
@@ -1067,12 +1129,33 @@ async def generate_all(engine, prompts, max_tokens, logprobs=None,
             if out.token_ids:
                 last = now
             toks.extend(out.token_ids)
+            if progress is not None:
+                progress[i] = len(toks)
             top.extend(out.top_logprobs or [])
             if out.finish_reason is not None:
                 finish, ann = out.finish_reason.value, out.annotations
         return toks, finish, ann, gaps, top
 
-    return await asyncio.gather(*[one(p, a) for p, a in zip(prompts, ids)])
+    return await asyncio.gather(*[one(i, p, a) for i, (p, a)
+                                  in enumerate(zip(prompts, ids))])
+
+
+def w8a16_step_gemms(cfg) -> int:
+    """The w8a16 kernel's launches a decode step: each layer's products
+    (q, k, v, o, gate, up, down: 7; a MoE layer's q, k, v, o and one
+    gate, up and down an expert: 4 + 3E, its router staying a dense
+    product) and the logits."""
+    per_layer = 7 if cfg.moe is None else (
+        4 + 3 * cfg.moe_dict["num_experts"])
+    return per_layer * cfg.num_layers + 1
+
+
+def gemm_formula(cfg) -> str:
+    """w8a16_step_gemms as printed: "(7 x 32 + 1)", "((4 + 3 x 8) x 32 +
+    1)"."""
+    per_layer = "7" if cfg.moe is None else (
+        f"(4 + 3 x {cfg.moe_dict['num_experts']})")
+    return f"({per_layer} x {cfg.num_layers} + 1)"
 
 
 def check_replayed(eng, what):
@@ -1086,16 +1169,20 @@ def check_replayed(eng, what):
             f"rounds and patches")
 
 
-def check_tiny_engine():
+def check_tiny_engine(moe=False):
     """Greedy tokens of the tiny model on the card (flash-decode kernel,
-    hd 16 f32) vs on the CPU (plain version)."""
+    hd 16 f32) vs on the CPU (plain version); with ``moe``, of tiny_moe
+    (8 experts, top-2, dropless: the dense-dispatch FFN inside the
+    replayed rounds, the grouped one in the eager prefill)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.ops import flash_decode as fd
 
-    cfg = ModelConfig.tiny(dtype="float32")
+    cfg = (ModelConfig.tiny_moe if moe else ModelConfig.tiny)(
+        dtype="float32")
+    label = "tiny moe" if moe else "tiny"
     ecfg = dict(num_pages=64, page_size=16, max_pages_per_seq=8,
                 max_decode_slots=4, prefill_buckets=(32, 64),
                 cache_dtype="float32")
@@ -1120,13 +1207,13 @@ def check_tiny_engine():
             dense, int8 = fd.executed(eng.device)
             if not dense or int8 or eng.kernel_launches != dense:
                 raise AssertionError(
-                    f"tiny engine on cuda: the kernel ran {dense} times, "
+                    f"{label} engine on cuda: the kernel ran {dense} times, "
                     f"int8 {int8}, graphs recorded {eng.kernel_launches}")
-            check_replayed(eng, "tiny")
+            check_replayed(eng, label)
     if outs["cuda"] != outs["cpu"]:
         raise AssertionError(
-            f"tiny engine: cuda {outs['cuda']} != cpu {outs['cpu']}")
-    log(f"tiny: cuda engine greedy-identical to cpu engine over "
+            f"{label} engine: cuda {outs['cuda']} != cpu {outs['cpu']}")
+    log(f"{label}: cuda engine greedy-identical to cpu engine over "
         f"{len(outs['cpu'])} requests")
 
 
@@ -1281,21 +1368,24 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-def check_tiny_w8a16():
+def check_tiny_w8a16(moe=False):
     """The tiny model with w8a16 weights (f32: the FMA instantiation of
     the w8a16 kernel, both of its uses: the layer products and the
     logits) on the card vs on the CPU (the plain version): greedy tokens
     equal except at a CPU near-tie. On the card every decode step runs
     the w8a16 kernel 7 times a layer and once for the logits inside the
     replayed rounds, and the prefill launches it eagerly; the kernel's
-    own count must equal the two."""
+    own count must equal the two. With ``moe``, tiny_moe's w8a16 expert
+    stacks: 4 + 3 x 8 products a layer (w8a16_step_gemms)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.ops import w8a16
 
-    cfg = ModelConfig.tiny(quant="int8", dtype="float32")
+    cfg = (ModelConfig.tiny_moe if moe else ModelConfig.tiny)(
+        quant="int8", dtype="float32")
+    label = "tiny moe w8a16" if moe else "tiny w8a16"
     ecfg = dict(num_pages=64, page_size=16, max_pages_per_seq=8,
                 max_decode_slots=4, prefill_buckets=(32, 64),
                 cache_dtype="float32")
@@ -1321,18 +1411,18 @@ def check_tiny_w8a16():
         if dev == "cuda":
             ran = w8a16.executed(eng.device)
             replayed, eager = eng.graphs.w8a16_replayed, w8a16.launches
-            want = (7 * cfg.num_layers + 1) * eng.step_count
+            want = w8a16_step_gemms(cfg) * eng.step_count
             if replayed != want or not eager or ran != replayed + eager:
                 raise AssertionError(
-                    f"tiny w8a16 on cuda: the kernel ran {ran} times, the "
+                    f"{label} on cuda: the kernel ran {ran} times, the "
                     f"graphs recorded {replayed} over {eng.step_count} steps "
                     f"(want {want}), the prefill launched {eager}")
-            check_replayed(eng, "tiny w8a16")
+            check_replayed(eng, label)
             note = (f"; on the card w8a16_gemm ran {ran} times ({replayed} "
-                    f"in replayed rounds, {eager} in the eager prefill)")
-    compared, ties = compare_near_tie("tiny w8a16", outs["cuda"],
-                                      outs["cpu"], 12)
-    log(f"tiny w8a16: cuda engine agrees with cpu engine on {compared} "
+                    f"in replayed rounds = {gemm_formula(cfg)} x "
+                    f"{eng.step_count} steps, {eager} in the eager prefill)")
+    compared, ties = compare_near_tie(label, outs["cuda"], outs["cpu"], 12)
+    log(f"{label}: cuda engine agrees with cpu engine on {compared} "
         f"greedy positions ({ties} streams stop at a cpu near-tie, gap <= "
         f"{NEAR_TIE}){note}")
 
@@ -1466,7 +1556,7 @@ def check_round_graph(label, cfg, ecfg, params, prompts, adapters=None):
                              f"segments {sum(acc)} s of {wall} s")
     copies = sum(n for k, n in runtime.items() if "Memcpy" in k)
     want_kernels = cfg.num_layers * F
-    want_gemms = (7 * cfg.num_layers + 1) * F if quant_w else 0
+    want_gemms = w8a16_step_gemms(cfg) * F if quant_w else 0
     log(f"round_graph {label}: replayed round == eager round (tokens and "
         f"state, greedy and with logprobs"
         + (f", adapter ids {ids} in one round" if adapters else "")
@@ -1478,8 +1568,8 @@ def check_round_graph(label, cfg, ecfg, params, prompts, adapters=None):
         f"flash-decode kernels in the replay "
         f"({cfg.num_layers} layers x {F} steps = {want_kernels}; the "
         f"kernel's own count on the card {sum(ran)})"
-        + (f", {gemms} w8a16_gemm kernels in the replay ((7 x "
-           f"{cfg.num_layers} + 1) x {F} = {want_gemms}; the kernel's own "
+        + (f", {gemms} w8a16_gemm kernels in the replay ("
+           f"{gemm_formula(cfg)} x {F} = {want_gemms}; the kernel's own "
            f"count {ran_w8[0]})" if quant_w else "")
         + f"; runtime calls {dict(sorted(runtime.items()))}")
     log(f"round_graph {label}: captures " + ", ".join(
@@ -1545,6 +1635,16 @@ class IntakeGate:
         return gated
 
 
+def first_layers(params, n):
+    """The first ``n`` layers of a parameter tree, as views (no copy): the
+    same model's width at a reduced depth."""
+    def cut(t):
+        if isinstance(t, dict):
+            return {k: cut(v) for k, v in t.items()}
+        return t[:n]
+    return dict(params, layers=cut(params["layers"]))
+
+
 def weights_gib(params) -> float:
     def nbytes(t):
         if isinstance(t, dict):
@@ -1553,15 +1653,43 @@ def weights_gib(params) -> float:
     return nbytes(params) / 2**30
 
 
+class CountReads:
+    """While installed, times the MoE grouped path's host reads of its
+    kept counts (models/llama.py ``_kept_counts``, one a layer a call):
+    their number ``n`` and host seconds ``s``, each read waiting for the
+    stream."""
+
+    def __init__(self, llama):
+        self.llama, self.read = llama, llama._kept_counts
+        self.n, self.s = 0, 0.0
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            try:
+                return self.read(*args)
+            finally:
+                self.s += time.perf_counter() - t0
+                self.n += 1
+        llama._kept_counts = timed
+
+    def close(self):
+        self.llama._kept_counts = self.read
+
+
 def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None,
-                    tag=None):
+                    tag=None, logprobs=None, time_step=False):
     """The serve burst on Llama-3.1-8B with the given weights and KV mode
-    (``cfg``: Llama-3.1-8B, or its w8a16 variant for quantized weights;
-    ``tag`` names the run in the log); returns each request's tokens (the
-    burst's 8, then the repeat) and the burst's figures (TTFT and gaps in
-    s, decode tok/s, weights GiB)."""
+    (``cfg``: Llama-3.1-8B, or its w8a16 variant for quantized weights,
+    or a MoE model at its width; ``tag`` names the run in the log; each
+    request asks for ``logprobs`` top logprobs); returns each request's
+    tokens (the burst's 8, then the repeat) and the burst's figures
+    (TTFT and gaps in s, decode tok/s, weights GiB, each request's top
+    logprobs, the MoE count reads of the prefill; with ``time_step``, a
+    replayed decode step's device and wall ms, time_rounds, after the
+    counted burst)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.ops import flash_decode as fd
     from dynamo_tpu_torch.ops import w8a16
@@ -1589,9 +1717,10 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None,
 
     async def drive():
         t_start = time.monotonic()
-        res = await generate_all(eng, prompts, n_new)
+        res = await generate_all(eng, prompts, n_new, logprobs=logprobs)
         t_batch = time.monotonic() - t_start
-        repeat = (await generate_all(eng, prompts[:1], n_new))[0]
+        repeat = (await generate_all(eng, prompts[:1], n_new,
+                                     logprobs=logprobs))[0]
         await eng.stop()
         return res, repeat, t_batch
 
@@ -1605,7 +1734,11 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None,
         eng.graphs.w8a16_replayed = 0
         w8a16.executed(eng.device, reset=True)
     IntakeGate(eng, len(prompts))
-    res, repeat, t_batch = asyncio.run(drive())
+    reads = CountReads(llama)
+    try:
+        res, repeat, t_batch = asyncio.run(drive())
+    finally:
+        reads.close()
     # every round replays a graph captured with the engine, so the
     # wrapper issues nothing here: the kernel counts its executions on the
     # card, and the engine the launches its graphs recorded at capture
@@ -1642,32 +1775,44 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None,
         raise AssertionError(f"serve {tag}: the other mode's kernel "
                              f"launched {other} times")
     gemm_note = ""
+    L = cfg.num_layers
+    reads = dict(n=reads.n, s=reads.s)
     if quant_w:
-        # decode: 7 products a layer and the logits a step, all inside
-        # replayed graphs; prefill: the wrapper's eager launches, every
-        # layer product of which (every prefill group has >= WGMMA_MIN_M
-        # rows) takes the wgmma kernel and each call's logits the mma one
+        # decode: w8a16_step_gemms a step, all inside replayed graphs;
+        # prefill: the wrapper's eager launches, every layer product of
+        # which (every prefill group has >= WGMMA_MIN_M rows) takes the
+        # wgmma kernel and each call's logits the mma one; a MoE expert's
+        # product takes it only at >= WGMMA_MIN_M kept rows, and each
+        # call reads the kept counts once a layer
         replayed, eager = eng.graphs.w8a16_replayed, w8a16.launches
         wg = w8a16.launches_wgmma
-        calls = eager - wg
-        want = (7 * cfg.num_layers + 1) * steps
+        want = w8a16_step_gemms(cfg) * steps
         if replayed != want or not eager or gemms != replayed + eager:
             raise AssertionError(
                 f"serve {tag}: w8a16_gemm ran {gemms} times on the card; the "
                 f"graphs recorded {replayed} over {steps} decode steps (want "
                 f"{want}), the prefill launched {eager}")
-        if not calls or wg != 7 * cfg.num_layers * calls:
+        if cfg.moe is None:
+            calls = eager - wg
+            ok = calls and wg == 7 * L * calls
+            want_wg = f"7 x {L} for each of {calls} calls"
+        else:
+            calls = reads["n"] // L
+            ok = (calls and reads["n"] == L * calls and wg >= 4 * L * calls
+                  and eager >= wg + calls)
+            want_wg = (f"at least 4 x {L} for each of {calls} calls, and "
+                       f"their logits and expert products beside them")
+        if not ok:
             raise AssertionError(
                 f"serve {tag}: the prefill launched {eager} w8a16 products, "
-                f"{wg} of them on the wgmma kernel (want 7 x "
-                f"{cfg.num_layers} for each of {calls} calls)")
+                f"{wg} of them on the wgmma kernel (want {want_wg})")
         counts["w8a16_gemm"] = gemms
         counts["w8a16_gemm_prefill_wgmma"] = wg
         gemm_note = (f"; w8a16_gemm {gemms} (counted by the kernels on the "
-                     f"card): {replayed} in the replays = (7 x "
-                     f"{cfg.num_layers} + 1) x {steps} steps, {eager} in "
-                     f"the eager prefill = {wg} on the wgmma kernel (7 x "
-                     f"{cfg.num_layers} x {calls} calls) + {calls} logits")
+                     f"card): {replayed} in the replays = "
+                     f"{gemm_formula(cfg)} x {steps} steps, {eager} in "
+                     f"the eager prefill of {calls} calls, {wg} of them on "
+                     f"the wgmma kernel")
     ttft = [a["timing"]["ttft_s"] for _, _, a, *_ in res]
     e2e = [a["timing"]["e2e_s"] for _, _, a, *_ in res]
     gaps = [g for _, _, _, gs, _ in res for g in gs]
@@ -1692,7 +1837,9 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None,
     log(f"serve {tag}: prefix repeat hit {cached} cached blocks, TTFT "
         f"{repeat[2]['timing']['ttft_s']:.4f} s")
     tokens = [t for t, *_ in res + [repeat]]
-    figs = dict(ttft=ttft, gaps=gaps, tps=decode_tps, gib=gib)
+    figs = dict(ttft=ttft, gaps=gaps, tps=decode_tps, gib=gib,
+                top=[r[4] for r in res + [repeat]], reads=reads,
+                steps=steps, launched=launched, gemms=gemms)
     if dense_tokens is not None:
         same = sum(a == b for x, y in zip(tokens, dense_tokens)
                    for a, b in zip(x, y))
@@ -1705,6 +1852,8 @@ def serve_llama3_8b(counts, params, kv_quant, dense_tokens=None, cfg=None,
             f"weights: a stream that leaves the dense one at a near-tie "
             f"stays apart); first differing step per request {split} "
             f"({n_new} = never)")
+    if time_step:
+        figs["step_ms"] = time_rounds(eng, [0] * len(prompts))
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -3201,11 +3350,15 @@ def wire_totals():
             .snapshot()["sum"])
 
 
+# the disagg fallback's remote-prefill timeout (s)
+DISAGG_FALLBACK_S = 5.0
+
+
 def check_disagg(params, direct_tokens, kv, smi):
     """Disaggregated prefill/decode at Llama-3.1-8B, dense KV: the port's
     store, a ``--role decode`` worker (engine D: launch.run's build_chain
-    and serve_worker with ``--max-local-prefill-length 64 --prefill-timeout
-    5``, so every serve prompt goes remote), a ``--role prefill`` worker
+    and serve_worker with ``--max-local-prefill-length 64``, so every
+    serve prompt goes remote), a ``--role prefill`` worker
     (engine P: serve_prefill_worker) and a KV-routing frontend, each on
     its own loop thread, both engines on the serve phase's weights. Every
     request asks top-2 logprobs.
@@ -3262,8 +3415,7 @@ def check_disagg(params, direct_tokens, kv, smi):
                 f"127.0.0.1:{cp_port}"]
         parse = launch.build_parser().parse_intermixed_args
         args_d = parse(base + ["--role", "decode",
-                               "--max-local-prefill-length", "64",
-                               "--prefill-timeout", "5"])
+                               "--max-local-prefill-length", "64"])
         args_p = parse(base + ["--role", "prefill"])
         ps = args_d.page_size
         t0 = time.monotonic()
@@ -3435,7 +3587,11 @@ def check_disagg(params, direct_tokens, kv, smi):
                             f"{counts_b}, want (16, 0, 0); fallback total "
                             f"moved {KV_TRANSFER.get('dynamo_disagg_fallback_total') - fb0}")
 
-        # ---- fallback: the prefill worker stopped
+        # ---- fallback: the prefill worker stopped; the remote prefill's
+        # timeout cut from the launcher's 60 s to DISAGG_FALLBACK_S for
+        # this request only (waves A and B ran at the default: an
+        # ungated burst of 8 queued on P came within a second of 5 s)
+        dis.prefill_timeout_s = DISAGG_FALLBACK_S
         loops["prefill"].run(pworker.stop())
         eng_d.clear_kv_blocks()
         t0 = time.monotonic()
@@ -5165,8 +5321,8 @@ def check_seeded_spec(cfg, params, prompt, tree=False):
 
 
 def check_speculation(params):
-    """Linear speculation on Llama-3.1-8B (the serve weights, default
-    EngineConfig, K = 4, adaptive K on): the 8 serve prompts (2 asking for
+    """Linear speculation at Llama-3.1-8B's width (the serve weights,
+    default EngineConfig, K = 4, adaptive K on): the 8 serve prompts (2 asking for
     logprobs, which stay in the fused round) and 2 repeating prompts, 64
     tokens each, in four arms: N (dense, ngram), Q (int8 KV, ngram), D
     (dense, draft: Llama-3.2-1B, random weights from seed 1, batched
@@ -5176,45 +5332,58 @@ def check_speculation(params):
     of the mode must run on every layer of every fused decode step (the
     kernels line's launches_spec) inside replayed graphs; N must accept
     tokens and D de-speculate; a seeded temperature-0.8 request twice on
-    N must draw one stream. Returns the (dense, int8) kernel launches of
-    the speculative arms and what the tree phase reuses: the prompts,
-    the plain runs and each arm's verify and draft ms."""
+    N must draw one stream. Arm N (which must accept: only the model's
+    own repetition gives its n-grams a match, and at 8 layers the random
+    model did not repeat within the burst) and the teacher-forced check
+    (whose w8a16 control was measured at 32 layers) keep all 32 layers;
+    Q, D, S and the seeded pair run at the first CUT_LAYERS. Returns the
+    (dense, int8) kernel launches of the speculative arms and what the
+    tree phase reuses: the prompts, the plain runs and each arm's verify
+    and draft ms."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import ModelConfig
 
     # the verify is host-bound: threads earlier phases left behind
     # compete with it for the interpreter
     log(f"speculation: {threading.active_count()} threads in this "
-        f"process")
-    cfg = ModelConfig.llama3_8b()
+        f"process; arms N and the teacher-forced check at Llama-3.1-8B's "
+        f"32 layers, the others at its first {CUT_LAYERS}")
+    cfg32, params32 = ModelConfig.llama3_8b(), params
+    cfg = ModelConfig.llama3_8b(num_layers=CUT_LAYERS)
+    params = first_layers(params, CUT_LAYERS)
     prompts = spec_prompts(cfg.vocab_size)
     lps = [2 if i in SPEC_LP else None for i in range(len(prompts))]
     t0 = time.monotonic()
-    draft_1b = (ModelConfig.llama3_1b(),
-                llama.init_params(ModelConfig.llama3_1b(), SEED + 1,
-                                  device="cuda"))
-    log(f"speculation: Llama-3.2-1B draft weights (seed {SEED + 1}) made "
+    draft_cfg = ModelConfig.llama3_1b(num_layers=CUT_LAYERS)
+    draft_1b = (draft_cfg,
+                llama.init_params(draft_cfg, SEED + 1, device="cuda"))
+    log(f"speculation: Llama-3.2-1B draft weights ({CUT_LAYERS} of its 16 "
+        f"layers, seed {SEED + 1}) made "
         f"on the card in {time.monotonic() - t0:.1f} s; "
         f"{len(prompts)} prompts ({min(map(len, prompts))}.."
         f"{max(map(len, prompts))} tokens), {SPEC_NEW} new tokens each, "
         f"requests {list(SPEC_LP)} ask for top-2 logprobs; K = {SPEC_K}, "
         f"adaptive; the tie threshold {SPEC_TIE}")
+    # plain runs by (depth, KV mode): the 32-layer dense one serves arm N
+    # and the teacher-forced check
     plain, plain_tps = {}, {}
+    plain["full"], plain_tps["full"] = spec_plain(cfg32, params32, "none",
+                                                  prompts, lps)
+    tf_err, tf_gap, tf_q = check_teacher_forced(cfg32, params32, prompts[:8],
+                                                plain["full"][:8])
     for kv in ("none", "int8"):
         plain[kv], plain_tps[kv] = spec_plain(cfg, params, kv, prompts, lps)
-    tf_err, tf_gap, tf_q = check_teacher_forced(cfg, params, prompts[:8],
-                                                plain["none"][:8])
-    arms = (("N", "none", "ngram", None),
-            ("Q", "int8", "ngram", None),
-            ("D", "none", "draft", draft_1b),
-            ("S", "none", "draft", (cfg, params)))
+    arms = (("N", cfg32, params32, "none", "ngram", None, "full"),
+            ("Q", cfg, params, "int8", "ngram", None, "int8"),
+            ("D", cfg, params, "none", "draft", draft_1b, "none"),
+            ("S", cfg, params, "none", "draft", (cfg, params), "none"))
     launches = {"none": 0, "int8": 0}
     short = []
     linear = {}
-    for name, kv, mode, draft in arms:
+    for name, acfg, aparams, kv, mode, draft, pk in arms:
         st, ran, line = spec_arm(
-            name, cfg, params, kv, mode, draft, prompts, lps, plain[kv],
-            plain_tps[kv], n_new=SPEC_SELF_NEW if name == "S" else SPEC_NEW)
+            name, acfg, aparams, kv, mode, draft, prompts, lps, plain[pk],
+            plain_tps[pk], n_new=SPEC_SELF_NEW if name == "S" else SPEC_NEW)
         launches[kv] += ran
         short.append(line)
         linear[name] = st
@@ -5359,8 +5528,10 @@ def check_tree_forced(cfg, params, prompts, plain):
 
 
 def check_speculation_tree(params, state):
-    """Tree speculation on Llama-3.1-8B (the speculation phase's weights,
-    prompts and plain runs; default EngineConfig with K = 4 adaptive, 4
+    """Tree speculation at Llama-3.1-8B's width (the speculation phase's
+    weights, prompts and plain runs: TN at all 32 layers, as N, the other
+    arms, the seeded pair and the teacher-forced tree check at the first
+    CUT_LAYERS; default EngineConfig with K = 4 adaptive, 4
     branches, the auto budget of 17 nodes), four arms: TN (dense, n-gram
     trie), TQ (int8 KV, n-gram trie: the int8 commit), TD (dense, comb
     drafts from the Llama-3.2-1B draft, random weights from seed 1:
@@ -5375,23 +5546,26 @@ def check_speculation_tree(params, state):
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import ModelConfig
 
-    cfg = ModelConfig.llama3_8b()
+    cfg32, params32 = ModelConfig.llama3_8b(), params
+    cfg = ModelConfig.llama3_8b(num_layers=CUT_LAYERS)
+    params = first_layers(params, CUT_LAYERS)
     prompts, lps = state["prompts"], state["lps"]
     plain, plain_tps, linear = (state["plain"], state["plain_tps"],
                                 state["linear"])
-    draft_1b = (ModelConfig.llama3_1b(),
-                llama.init_params(ModelConfig.llama3_1b(), SEED + 1,
-                                  device="cuda"))
-    arms = (("TN", "none", "ngram", None, "N"),
-            ("TQ", "int8", "ngram", None, "Q"),
-            ("TD", "none", "draft", draft_1b, "D"),
-            ("TS", "none", "draft", (cfg, params), "S"))
+    draft_cfg = ModelConfig.llama3_1b(num_layers=CUT_LAYERS)
+    draft_1b = (draft_cfg,
+                llama.init_params(draft_cfg, SEED + 1, device="cuda"))
+    arms = (("TN", cfg32, params32, "none", "ngram", None, "N", "full"),
+            ("TQ", cfg, params, "int8", "ngram", None, "Q", "int8"),
+            ("TD", cfg, params, "none", "draft", draft_1b, "D", "none"),
+            ("TS", cfg, params, "none", "draft", (cfg, params), "S",
+             "none"))
     launches = {"none": 0, "int8": 0}
     short = []
-    for name, kv, mode, draft, lin in arms:
+    for name, acfg, aparams, kv, mode, draft, lin, pk in arms:
         st, ran, _ = spec_arm(
-            name, cfg, params, kv, mode, draft, prompts, lps, plain[kv],
-            plain_tps[kv], tree=True,
+            name, acfg, aparams, kv, mode, draft, prompts, lps, plain[pk],
+            plain_tps[pk], tree=True,
             n_new=SPEC_SELF_NEW if name == "TS" else SPEC_NEW)
         launches[kv] += ran
         lv = linear[lin]
@@ -5401,12 +5575,12 @@ def check_speculation_tree(params, state):
             f"{lv['verify_ms'][1]:.2f}); draft {st['draft_ms'][0]:.2f} / "
             f"{st['draft_ms'][1]:.2f} ms (linear {lv['draft_ms'][0]:.2f} / "
             f"{lv['draft_ms'][1]:.2f}); decode {st['tps']:.1f} tok/s "
-            f"(linear {lv['tps']:.1f}, plain {plain_tps[kv]:.1f}); "
+            f"(linear {lv['tps']:.1f}, plain {plain_tps[pk]:.1f}); "
             f"acceptance {st['spec_acceptance_rate']:.4f} (linear "
             f"{lv['spec_acceptance_rate']:.4f})")
         short.append(f"{name} acc {st['spec_acceptance_rate']:.3f} "
                      f"{st['per_step']:.2f} tok/step {st['tps']:.0f}/"
-                     f"{plain_tps[kv]:.0f} tok/s verify "
+                     f"{plain_tps[pk]:.0f} tok/s verify "
                      f"{st['verify_ms'][1]:.0f} (lin "
                      f"{lv['verify_ms'][1]:.0f}) ms ties {st['ties']}")
         if name == "TN":
@@ -5427,7 +5601,8 @@ def check_speculation_tree(params, state):
 
 
 def check_speculation_w8a16(qparams):
-    """Arm W: n-gram speculation with the w8a16 weights (dense KV), the
+    """Arm W: n-gram speculation with the w8a16 weights (their first
+    CUT_LAYERS layers, as the other arms; dense KV), the
     speculation phase's burst held against the same engine's plain run;
     the verify's products and logits run on the w8a16 kernels at M =
     rows x (K+1), eagerly, and must have launched some. Returns
@@ -5436,7 +5611,8 @@ def check_speculation_w8a16(qparams):
     from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.ops import w8a16
 
-    qcfg = ModelConfig.llama3_8b_int8()
+    qcfg = ModelConfig.llama3_8b_int8(num_layers=CUT_LAYERS)
+    qparams = first_layers(qparams, CUT_LAYERS)
     prompts = spec_prompts(qcfg.vocab_size)
     lps = [2 if i in SPEC_LP else None for i in range(len(prompts))]
     plain, plain_tps = spec_plain(qcfg, qparams, "none", prompts, lps)
@@ -5567,14 +5743,14 @@ def lora_arm(label, cfg, params, kv_quant, base_tokens, factors,
             f"{eng.kernel_launches}")
     gemm = ""
     if quant_w:
-        want = (7 * cfg.num_layers + 1) * steps
+        want = w8a16_step_gemms(cfg) * steps
         if eng.graphs.w8a16_replayed != want:
             raise AssertionError(
                 f"tenancy {label}: the replays ran "
-                f"{eng.graphs.w8a16_replayed} w8a16_gemm, want (7 x "
-                f"{cfg.num_layers} + 1) x {steps} = {want}")
+                f"{eng.graphs.w8a16_replayed} w8a16_gemm, want "
+                f"{gemm_formula(cfg)} x {steps} = {want}")
         gemm = (f"; w8a16_gemm in the replays {eng.graphs.w8a16_replayed} ="
-                f" (7 x {cfg.num_layers} + 1) x {steps} steps")
+                f" {gemm_formula(cfg)} x {steps} steps")
     mixed = out[0]
     for toks, finish, *_ in mixed:
         if len(toks) != N_NEW or finish != "length":
@@ -5743,7 +5919,8 @@ def check_tenancy(params, qparams, base, direct):
 
 
 def check_overload(params):
-    """The overload plane at Llama-3.1-8B on the serve weights, dense KV:
+    """The overload plane at Llama-3.1-8B's width and its first CUT_LAYERS
+    layers (the serve weights'), dense KV:
     engines A and B (2 decode slots, max_waiting_requests 3,
     tenant_max_waiting_requests 2; A with preempt_running) behind the
     port's KvPushRouter (router temperature 0) and HttpService, and a
@@ -5809,7 +5986,8 @@ def check_overload(params):
     from dynamo_tpu_torch.tenancy.metrics import TENANT
     from dynamo_tpu_torch.tokenizer import make_test_tokenizer
 
-    cfg = ModelConfig.llama3_8b()
+    cfg = ModelConfig.llama3_8b(num_layers=CUT_LAYERS)
+    params = first_layers(params, CUT_LAYERS)
     name = "llama3_8b"
     tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
     prompts = serve_prompts(cfg.vocab_size)
@@ -6195,8 +6373,9 @@ def check_export_import(eng, what):
 
 
 def check_offload(params, counts, card):
-    """The offload phase: Llama-3.1-8B (the serve phase's bf16 weights)
-    with a 96-page pool, a 128-page G2 and a 128-page G3 in a temporary
+    """The offload phase: Llama-3.1-8B's width at its first CUT_LAYERS
+    layers (the serve phase's bf16 weights; 32 until the script's time
+    was cut, so a page is a quarter of the 8B's) with a 96-page pool, a 128-page G2 and a 128-page G3 in a temporary
     directory, through waves A, B and C (``offload_waves``), in dense and
     int8 KV. Wave C must be token-identical to a G1 reference (512 pages,
     no tiers: every block of C a G1 hit), every matchable block of C a G1
@@ -6220,7 +6399,8 @@ def check_offload(params, counts, card):
     from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.ops import flash_decode as fd
 
-    cfg = ModelConfig.llama3_8b()
+    cfg = ModelConfig.llama3_8b(num_layers=CUT_LAYERS)
+    params = first_layers(params, CUT_LAYERS)
     ps = EngineConfig().page_size
     matchable = [(len(p) - 1) // ps for p in serve_prompts(cfg.vocab_size)]
 
@@ -6504,6 +6684,14 @@ def check_cli_distributed(text_out):
                         "--control-plane", addr, "--system-port", "0")
                    for _ in range(2)]
         procs += workers
+        # the frontend discovers the workers: it starts beside them
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            http_port = sk.getsockname()[1]
+        front = Proc("dynamo_tpu_torch.launch.run", "in=http",
+                     "--control-plane", addr, "--http-host", "127.0.0.1",
+                     "--http-port", str(http_port))
+        procs.append(front)
         sys_ports = []
         for w in workers:
             if "on cuda" not in w.wait_for("TorchEngine on"):
@@ -6523,13 +6711,6 @@ def check_cli_distributed(text_out):
         if asyncio.run(asyncio.wait_for(health(), 60)) != [200, 200]:
             raise AssertionError("cli distributed: a worker's system server "
                                  "did not answer /health")
-        with socket.socket() as sk:
-            sk.bind(("127.0.0.1", 0))
-            http_port = sk.getsockname()[1]
-        front = Proc("dynamo_tpu_torch.launch.run", "in=http",
-                     "--control-plane", addr, "--http-host", "127.0.0.1",
-                     "--http-port", str(http_port))
-        procs.append(front)
         front.wait_for("dynamic frontend on")
 
         async def ask():
@@ -6826,7 +7007,8 @@ def write_hf_checkpoint(d, params, cfg, tok_spec) -> tuple[int, int]:
         json.dump({"metadata": {"total_size": total},
                    "weight_map": weight_map}, f, indent=2)
     with open(os.path.join(d, "config.json"), "w") as f:
-        json.dump(LLAMA31_CONFIG, f, indent=2)
+        json.dump(dict(LLAMA31_CONFIG, num_hidden_layers=cfg.num_layers), f,
+                  indent=2)
     with open(os.path.join(d, "tokenizer.json"), "w", encoding="utf-8") as f:
         json.dump(tok_spec, f, ensure_ascii=False)
     with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
@@ -7127,7 +7309,9 @@ def check_checkpoint(params, smi):
     from dynamo_tpu_torch.preprocessor import PromptFormatter
     from dynamo_tpu_torch.tokenizer import HfTokenizer
 
-    cfg = ModelConfig.llama3_8b()
+    full = params
+    cfg = ModelConfig.llama3_8b(num_layers=CUT_LAYERS)
+    params = first_layers(params, CUT_LAYERS)
     wbytes = int(weights_gib(params) * 2**30)
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     d = os.path.join(root, "Llama-3.1-8B-random")
@@ -7155,6 +7339,7 @@ def check_checkpoint(params, smi):
         # load
         lcfg = ModelConfig.from_pretrained(d)
         want_cfg = ModelConfig.llama3_8b(
+            num_layers=CUT_LAYERS,
             rope_scaling=tuple(sorted(LLAMA31_ROPE.items())))
         if lcfg != want_cfg:
             raise AssertionError(f"checkpoint: from_pretrained gave {lcfg}")
@@ -7176,7 +7361,8 @@ def check_checkpoint(params, smi):
                 f"(page cache warm), peak +{peak / 2**30:.2f} GiB over "
                 f"{wbytes / 2**30:.2f} GiB of weights")
         log(f"checkpoint: load_hf_params {load}; {n} leaves torch.equal "
-            f"to the in-memory weights; from_pretrained == Llama-3.1-8B "
+            f"to the in-memory weights; from_pretrained == Llama-3.1-8B at "
+            f"{CUT_LAYERS} layers "
             f"with the written rope_scaling ({smi})")
         # serve from the loaded weights, held to the in-memory ones
         launches, same = {}, []
@@ -7231,7 +7417,7 @@ def check_checkpoint(params, smi):
         # GGUF at full width, GGUF_LAYERS layers: its file first, so that
         # its launcher (in=text) runs beside the HF directory's (in=http)
         t0 = time.monotonic()
-        expect = write_gguf(gguf_path, params, cfg, spec, GGUF_LAYERS)
+        expect = write_gguf(gguf_path, full, cfg, spec, GGUF_LAYERS)
         t_gw = time.monotonic() - t0
         t0 = time.monotonic()
         # its output to files: a pipe nobody reads while the other
@@ -7383,11 +7569,307 @@ def tail_padding(block_bytes, keeps=(24000, 22000)):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts at Llama-3.1-8B's width
+
+# the repo's MoE recipe (ModelConfig.tiny_moe: 8 experts, top-2, dropless)
+MOE_RECIPE = (("capacity_factor", 0.0), ("num_experts", 8), ("top_k", 2))
+# the bf16 arm's depth: 16 layers of bf16 experts are ~48.5 GB (32, ~95 GB,
+# do not fit the card); the w8a16 arm keeps all 32 (~47.5 GB)
+MOE_BF16_LAYERS = 16
+# one full-width layer's FFN, grouped products against the dense dispatch
+# (the same routes; each product's rows are summed by another kernel
+# tiling, so bf16 rounding apart they agree): the relative L2 norm of the
+# difference, and its largest element over the largest output
+MOE_FFN_L2_TOL = 0.01
+MOE_FFN_MAX_TOL = 0.05
+MOE_FFN_T = 512     # the layer check's tokens (a prefill group's rows)
+MOE_ALONE = 3       # the serve prompt served alone and joined
+# its tokens alone and joined: the others' prefill takes about a TTFT,
+# and the lead must still be decoding when they join
+MOE_LEAD_NEW = 40
+MOE_LEAD_BESIDE = 8  # the joined lead's least tokens decoded beside them
+
+
+def moe_cfg(quant: bool):
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig.llama3_8b(
+        moe=MOE_RECIPE, quant="int8" if quant else None,
+        num_layers=32 if quant else MOE_BF16_LAYERS)
+
+
+def check_moe_ffn_paths(cfg, params):
+    """Layer 0's MoE FFN at full width on MOE_FFN_T random rows (the
+    last 37 masked out of routing): the grouped products (the eager
+    paths) against the dense dispatch (the replayed round), within
+    MOE_FFN_L2_TOL and MOE_FFN_MAX_TOL; the control, the same layer at
+    capacity_factor 0.25 (capacity drops) against the dropless dispatch,
+    must fail them. Returns (relative L2, largest element, the control's
+    relative L2, grouped ms, dispatch ms) (host wall of a synchronized
+    call, median of 3)."""
+    from dynamo_tpu_torch.models import llama
+
+    T, H = MOE_FFN_T, cfg.hidden_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    x = torch.randn(T, H, generator=gen, device="cuda").to(
+        llama.torch_dtype(cfg.dtype))
+    valid = torch.arange(T, device="cuda") < T - 37
+    lp = llama._layer(params, 0)
+    out, ms = {}, {}
+    with torch.no_grad():
+        for grouped in (True, False):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[grouped] = llama._moe_ffn(cfg, lp, x, valid, 1, grouped)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[grouped] = float(np.median(times))
+        drops = dataclasses.replace(cfg, moe=tuple(sorted(dict(
+            MOE_RECIPE, capacity_factor=0.25).items())))
+        ctl = llama._moe_ffn(drops, lp, x, valid, 1, False)
+    want = out[False].float()
+
+    def dist(got):
+        d = got.float() - want
+        return ((d.norm() / want.norm()).item(),
+                (d.abs().max() / want.abs().max()).item())
+
+    l2, mx = dist(out[True])
+    c_l2, c_mx = dist(ctl)
+    dead = out[True][~valid].abs().max().item()
+    log(f"moe ffn ({'w8a16' if cfg.quant else 'bf16'}, layer 0 at full "
+        f"width, {T} rows, {T - int(valid.sum())} masked): grouped against "
+        f"the dense dispatch: relative L2 {l2:.3e}, largest element "
+        f"{mx:.3e} of the largest output (tolerance {MOE_FFN_L2_TOL}, "
+        f"{MOE_FFN_MAX_TOL}); masked rows {dead}; the control "
+        f"(capacity_factor 0.25) {c_l2:.3e}, {c_mx:.3e}; grouped "
+        f"{ms[True]:.2f} ms, dispatch {ms[False]:.2f} ms (host wall, "
+        f"synchronized, median of 3)")
+    if l2 > MOE_FFN_L2_TOL or mx > MOE_FFN_MAX_TOL or dead != 0:
+        raise AssertionError(f"moe ffn: the grouped products differ from "
+                             f"the dense dispatch by {l2:.3e} (L2), "
+                             f"{mx:.3e} (largest); masked rows {dead}")
+    if c_l2 <= MOE_FFN_L2_TOL and c_mx <= MOE_FFN_MAX_TOL:
+        raise AssertionError(f"moe ffn: the control with capacity drops "
+                             f"passes the tolerance ({c_l2:.3e}, "
+                             f"{c_mx:.3e})")
+    return l2, mx, c_l2, ms[True], ms[False]
+
+
+def eager_engine(cfg, ecfg, params):
+    """A TorchEngine on the card whose rounds and patches run eagerly,
+    each program issued from the host (no graph captured), to hold the
+    replayed rounds against."""
+    from dynamo_tpu_torch.engine import graphs as eg
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    prepare = eg.DeviceGraphs.prepare
+    eg.DeviceGraphs.prepare = lambda self: None
+    try:
+        eng = TorchEngine(cfg, ecfg, params=params, device="cuda")
+    finally:
+        eg.DeviceGraphs.prepare = prepare
+    eng.graphs.on_card = False  # _run() calls the program itself
+    return eng
+
+
+async def eager_paths(eng, prompts, lead, n_new=32,
+                      lead_new=MOE_LEAD_NEW):
+    """On ``eng`` (behind its IntakeGate): the serve burst and its prefix
+    repeat, as serve_llama3_8b drives them; then, after dropping every
+    cached block, prompt ``lead`` alone, and again on a cold cache with
+    the other prompts sent once its first token is out. Both prefill it
+    alone (a group of one, no prefix hit); the second decodes it beside
+    the others. Returns the burst's and the repeat's tokens, the lead's
+    ``lead_new`` tokens alone and joined, and how many of the joined
+    lead's tokens came after another stream's first token."""
+    res = await generate_all(eng, prompts, n_new, logprobs=2)
+    repeat = (await generate_all(eng, prompts[:1], n_new, logprobs=2))[0]
+    eng.clear_kv_blocks()
+    alone = (await generate_all(eng, prompts[lead:lead + 1], lead_new))[0]
+    eng.clear_kv_blocks()
+    mine, others = [0], [0] * (len(prompts) - 1)
+    lead_task = asyncio.create_task(generate_all(
+        eng, prompts[lead:lead + 1], lead_new, progress=mine))
+    while not mine[0] and not lead_task.done():
+        await asyncio.sleep(0.001)
+    rest_task = asyncio.create_task(generate_all(
+        eng, prompts[:lead] + prompts[lead + 1:], n_new, progress=others))
+    while not any(others) and not lead_task.done():
+        await asyncio.sleep(0.001)
+    before = mine[0]
+    joined = (await lead_task)[0]
+    await rest_task
+    await eng.stop()
+    for _, _, ann, *_ in (alone, joined):
+        if ann.get("cached_blocks"):
+            raise AssertionError(f"the lead prompt hit {ann['cached_blocks']} "
+                                 f"cached blocks after they were dropped")
+    return ([t for t, *_ in res + [repeat]], alone[0], joined[0],
+            lead_new - before)
+
+
+def check_moe(quant, smi):
+    """Llama-3.1-8B's width with the repo's MoE recipe (MOE_RECIPE: 8
+    experts, top-2, dropless; Mixtral-8x7B's layer shape), random weights
+    from the seed: w8a16 at all 32 layers (``quant``) or bf16 at
+    MOE_BF16_LAYERS. The serve burst (8 prompts, 32 tokens, top-2
+    logprobs) and its prefix repeat through the replayed round, dense KV
+    then int8 KV (serve_llama3_8b: flash-decode on every layer of every
+    step, w8a16 (4 + 3 x 8) x 32 + 1 products a step inside the replays,
+    the prefix repeat's cached blocks). Along the same prefill paths,
+    token for token in both KV modes (eager_paths, on an eager engine):
+    the burst and the repeat equal to the replayed ones, and prompt
+    MOE_ALONE alone equal to itself joined by the other prompts after its
+    first token (decode masks the dead lanes, so occupancy moves no
+    token). Across prefill paths (the repeat's prefix hit prefills only
+    its tail; the burst prefilled the prompt in a group, alone it is a
+    group of one) sums run in another order: with dense KV the repeat
+    and the burst's stream part from their counterparts at a top-2 swap
+    at most (part_ways); with int8 KV the repeat's tail attends its
+    prefix's int8 pages where the first prefill attended the same rows
+    unquantized, so how far they agree is information. Also a decode
+    step's device and wall ms (time_rounds on the dense-KV serve
+    engine) and layer 0's grouped FFN held to the dense dispatch
+    (check_moe_ffn_paths). Returns (dense, int8) flash-decode launches
+    and the w8a16 kernel's executions."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.models import llama
+
+    cfg = moe_cfg(quant)
+    label = "w8a16" if quant else "bf16"
+    L, E = cfg.num_layers, cfg.moe_dict["num_experts"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = llama.init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    lay = params["layers"]
+    if not isinstance(lay["wr"], torch.Tensor) or "wg" in lay:
+        raise AssertionError("moe: the router must stay a dense tensor and "
+                             "the experts replace wg, wu, wd")
+    gib = weights_gib(params)
+    ex = lay["we_g"]["q"] if quant else lay["we_g"]
+    expert_bytes = 3 * ex.numel() * ex.element_size()
+    log(f"moe {label}: Llama-3.1-8B width, {L} layers, {E} experts top-2 "
+        f"dropless: weights {gib:.2f} GiB ({expert_bytes / 1e9:.2f} GB of "
+        f"experts) made on the card in {time.monotonic() - t0:.1f} s")
+    ffn = check_moe_ffn_paths(cfg, params)
+    prompts = serve_prompts(cfg.vocab_size)
+    launches, gemms, figs, held = {}, 0, {}, {}
+    for kv in ("none", "int8"):
+        what = f"moe {label} kv {kv}"
+        toks, f = serve_llama3_8b({}, params, kv, cfg=cfg, tag=what,
+                                  logprobs=2, time_step=kv == "none")
+        launches[kv], gemms = f["launched"], gemms + f["gemms"]
+        # the same requests along the same prefill paths on an eager
+        # engine: token for token
+        eng = eager_engine(cfg, EngineConfig(kv_quant=kv), params)
+        IntakeGate(eng, len(prompts))
+        eager, alone, joined, beside = asyncio.run(
+            eager_paths(eng, prompts, MOE_ALONE))
+        del eng
+        gc.collect()
+        if eager != toks:
+            split = [next((j for j, (a, b) in enumerate(zip(x, y))
+                           if a != b), None) for x, y in zip(eager, toks)]
+            raise AssertionError(f"{what}: the eager engine's burst and "
+                                 f"prefix repeat differ from the replayed "
+                                 f"rounds' at {split}")
+        if beside < MOE_LEAD_BESIDE:
+            raise AssertionError(
+                f"{what}: the other prompts' first token came when prompt "
+                f"{MOE_ALONE} had {MOE_LEAD_NEW - beside} of its "
+                f"{MOE_LEAD_NEW}: fewer than {MOE_LEAD_BESIDE} decoded "
+                f"beside them")
+        if alone != joined:
+            j = next(j for j, (a, b) in enumerate(zip(alone, joined))
+                     if a != b)
+            raise AssertionError(
+                f"{what}: prompt {MOE_ALONE} alone and joined by the other "
+                f"{len(prompts) - 1} after its first token (the same "
+                f"prefill path, {beside} tokens decoded beside them) part "
+                f"at step {j}")
+        # across prefill paths (a prefix hit's tail; a group of one where
+        # the burst prefilled a group), sums run in another order: with
+        # dense KV a top-2 swap at most
+        if kv == "none":
+            splits, problems = part_ways(
+                what, [(toks[-1], f["top"][-1]),
+                       (toks[MOE_ALONE], f["top"][MOE_ALONE])],
+                [toks[0], alone[:len(toks[0])]])
+            if problems:
+                raise AssertionError("; ".join(problems))
+            cross = [describe_splits(splits[:1]), describe_splits(splits[1:])]
+        else:
+            # information: the repeat's tail attends its prefix's int8
+            # pages where the first prefill attended the same rows
+            # unquantized (as the reference's int8 engine does), so it
+            # may part wherever quantization moves the top-2
+            cross = []
+            for a, b, top in ((toks[-1], toks[0], f["top"][0]),
+                              (alone[:len(toks[0])], toks[MOE_ALONE],
+                               f["top"][MOE_ALONE])):
+                j = next((j for j, (x, y) in enumerate(zip(a, b))
+                          if x != y), None)
+                cross.append(f"{len(b)}/{len(b)} equal" if j is None else
+                             f"{j}/{len(b)} equal, then parts where the "
+                             f"burst's top-2 gap is "
+                             f"{top[j][0][1] - top[j][1][1]:.4f}")
+        held[kv] = beside
+        figs[kv] = dict(f, repeat=cross[0], alone=cross[1])
+    dev_ms, wall_ms = figs["none"]["step_ms"]
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wbytes = gib * 2**30
+    bound = wbytes / H100_BYTES_PER_S * 1e3
+    e_bound = expert_bytes / H100_BYTES_PER_S * 1e3
+    fd, f8 = figs["none"], figs["int8"]
+    rd = fd["reads"]
+    log(f"moe {label}: dense KV TTFT median {np.median(fd['ttft']):.4f} s, "
+        f"gap median {np.median(fd['gaps']) * 1e3:.2f} ms, "
+        f"{fd['tps']:.1f} tok/s; int8 KV {np.median(f8['ttft']):.4f} s, "
+        f"{np.median(f8['gaps']) * 1e3:.2f} ms, {f8['tps']:.1f} tok/s; a "
+        f"replayed decode step {dev_ms:.3f} ms device, {wall_ms:.3f} ms "
+        f"wall (8 slots, time_rounds) against a byte bound of {bound:.3f} "
+        f"ms (all weights) / {e_bound:.3f} ms (experts alone) at "
+        f"{H100_BYTES_PER_S / 1e12:.2f} TB/s; peak "
+        f"{peak:.2f} GiB allocated (max_memory_allocated); the prefill's "
+        f"kept-count reads {rd['n']} ({L} a call) took {rd['s'] * 1e3:.1f} "
+        f"ms of host time (each waits for the stream); along the same "
+        f"prefill paths, token for token in both KV modes: eager == "
+        f"replayed 9/9 (the burst and the prefix repeat), prompt "
+        f"{MOE_ALONE} alone == joined by the other 7 after its first token "
+        f"({held['none']} / {held['int8']} of its tokens decoded beside "
+        f"them); across paths, the prefix repeat against its first "
+        f"stream: {fd['repeat']} (dense KV), {f8['repeat']} (int8 KV); "
+        f"alone against its stream in the burst: {fd['alone']} (dense "
+        f"KV), {f8['alone']} (int8 KV); {smi}")
+    figures(f"{L}L {gib:.1f} GiB peak {peak:.1f}; TTFT {np.median(fd['ttft']):.3f}"
+            f"/{np.median(f8['ttft']):.3f} s; {fd['tps']:.0f}/{f8['tps']:.0f} "
+            f"tok/s; step {dev_ms:.2f} dev {wall_ms:.2f} wall ms, bound "
+            f"{bound:.2f} (experts {e_bound:.2f}); same path eager==replay "
+            f"9/9, alone==joined ({held['none']}/{held['int8']} beside); "
+            f"across: repeat {fd['repeat'].split(' ')[0]}/"
+            f"{f8['repeat'].split(' ')[0]}, alone {fd['alone'].split(' ')[0]}"
+            f"/{f8['alone'].split(' ')[0]}; ffn L2 {ffn[0]:.1e} (ctl "
+            f"{ffn[2]:.1e}); reads {rd['s'] * 1e3:.0f} ms; fd "
+            f"{launches['none']}/{launches['int8']}, w8a16 {gemms}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["none"], launches["int8"], gemms
+
+
 def profiled_checks():
     """Every check that counts kernels with torch.profiler: the
-    round_graph phases of the tiny model (f32) and of Llama-3.1-8B with
-    dense and int8 KV and with w8a16 weights, on weights made here from
-    the seed. run_profiled_checks runs them in a process of its own: in
+    round_graph phases of the tiny model and tiny_moe (f32) and of
+    Llama-3.1-8B's width at CUT_LAYERS layers with dense and int8 KV and
+    with w8a16 weights, on weights made here from the seed. run_profiled_checks runs them in a process of its own: in
     a process that has served, torch.profiler may lose kernels of a
     graph replay (PERF.md, "torch.profiler"), so these counts must not
     depend on what ran before them."""
@@ -7404,27 +7886,37 @@ def profiled_checks():
               cache_dtype="float32"),
           llama.init_params(tiny, SEED, device="cuda"),
           [rng.randint(1, 256, size=n).tolist() for n in (29, 40, 17, 100)])
-    cfg = ModelConfig.llama3_8b()
+    tiny_moe = ModelConfig.tiny_moe(dtype="float32")
+    rng = np.random.RandomState(SEED)
+    phase("round_graph tiny moe", check_round_graph,
+          "tiny_moe f32", tiny_moe, EngineConfig(
+              num_pages=64, page_size=16, max_pages_per_seq=8,
+              max_decode_slots=4, prefill_buckets=(32, 64),
+              cache_dtype="float32"),
+          llama.init_params(tiny_moe, SEED, device="cuda"),
+          [rng.randint(1, 256, size=n).tolist() for n in (29, 40, 17, 100)])
+    cfg = ModelConfig.llama3_8b(num_layers=CUT_LAYERS)
     prompts = serve_prompts(cfg.vocab_size)
     params = llama.init_params(cfg, SEED, device="cuda")
     for kv_quant in ("none", "int8"):
         phase(f"round_graph 8B kv_quant={kv_quant}", check_round_graph,
-              f"Llama-3.1-8B kv_quant={kv_quant}", cfg,
+              f"Llama-3.1-8B {CUT_LAYERS}L kv_quant={kv_quant}", cfg,
               EngineConfig(kv_quant=kv_quant), params, prompts)
     from dynamo_tpu_torch.tenancy.adapters import random_adapter
 
     factors = {aid: random_adapter(cfg, LORA_RANK, seed=aid)
                for aid in (1, 2, 3)}
     phase("round_graph 8B lora", check_round_graph,
-          "Llama-3.1-8B lora kv_quant=none", cfg,
+          f"Llama-3.1-8B {CUT_LAYERS}L lora kv_quant=none", cfg,
           EngineConfig(lora_adapters=4, lora_rank=LORA_RANK), params,
           prompts, adapters=(factors, LORA_IDS))
     del factors
     qparams = llama.quantize_params(params)
     del params
     phase("round_graph 8B w8a16", check_round_graph,
-          "Llama-3.1-8B w8a16 kv_quant=none",
-          ModelConfig.llama3_8b_int8(), EngineConfig(), qparams, prompts)
+          f"Llama-3.1-8B {CUT_LAYERS}L w8a16 kv_quant=none",
+          ModelConfig.llama3_8b_int8(num_layers=CUT_LAYERS), EngineConfig(),
+          qparams, prompts)
 
 
 def run_profiled_checks(timeout_s=600):
@@ -7511,6 +8003,8 @@ def main() -> int:
     phase("tiny", check_tiny_engine)
     phase("tiny int8", check_tiny_int8)
     phase("tiny w8a16", check_tiny_w8a16)
+    phase("tiny moe", check_tiny_engine, moe=True)
+    phase("tiny moe w8a16", check_tiny_w8a16, moe=True)
     phase("tiny lora", check_tiny_lora)
     time_block_hashes(serve_prompts(cfg.vocab_size), 64)
     counts: dict[str, int] = {}
@@ -7576,6 +8070,9 @@ def main() -> int:
     del qparams, params
     gc.collect()
     torch.cuda.empty_cache()
+    # MoE at the 8B's width, each model alone on the card
+    moe_q = phase("moe w8a16", check_moe, True, smi)
+    moe_b = phase("moe bf16", check_moe, False, smi)
     run_profiled_checks()
     text_out = phase("cli", check_cli)
     phase("cli distributed", check_cli_distributed, text_out)
@@ -7595,7 +8092,8 @@ def main() -> int:
              launches_spec_tree=tree_launches[0],
              launches_tenancy=lora_launches[0],
              launches_overload=over_launches,
-             launches_checkpoint=ck_launches[0], **fd_report),
+             launches_checkpoint=ck_launches[0],
+             launches_moe=moe_q[0] + moe_b[0], **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",
              launches=counts["flash_decode_int8"],
@@ -7604,7 +8102,8 @@ def main() -> int:
              launches_spec=spec_launches[1],
              launches_spec_tree=tree_launches[1],
              launches_tenancy=lora_launches[1],
-             launches_checkpoint=ck_launches[1], **fd8_report),
+             launches_checkpoint=ck_launches[1],
+             launches_moe=moe_q[1] + moe_b[1], **fd8_report),
         # no Pallas kernel: XLA's fused convert + dot of _mm and the
         # quantized _logits; the figures are one 8B decode step's 225
         # products at M = 8 (per shape: the "kernel w8a16_gemm shapes"
@@ -7614,7 +8113,7 @@ def main() -> int:
              replaces="dynamo_tpu/models/llama.py:409",
              launches=counts["w8a16_gemm"],
              launches_prefill_wgmma=counts["w8a16_gemm_prefill_wgmma"],
-             launches_spec=spec_w8[1],
+             launches_spec=spec_w8[1], launches_moe=moe_q[2],
              **w8_report),
     ]
     block = summary_block(SUMMARY, smi, kernels, {

@@ -133,8 +133,14 @@ PyTorch (port of the JAX package's TpuEngine main path).
     on speculative rounds), shipped in the finishing output's
     ``annotations["trace"]``. Every timer reads the host clock: no
     telemetry code reads or synchronizes the device.
+  - Mixture-of-Experts models (``config.moe``): the FFN routes top-k
+    with a static per-expert capacity (models/llama.py ``_moe_ffn``);
+    the replayed round masks dead lanes out of routing
+    (graphs.run_round), the eager prefill, verify and draft paths mask
+    their padding and route each row alone. Expert parallelism (ep > 1)
+    comes with multi-GPU serving.
 
-Not ported yet (ROADMAP.md): multimodal and MoE.
+Not ported yet (ROADMAP.md): multimodal.
 """
 from __future__ import annotations
 

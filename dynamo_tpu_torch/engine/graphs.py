@@ -94,9 +94,14 @@ def run_round(
     with ``want_lp``, ``out["lp"]`` [F, B, 1+2K]. With a LoRA bank in
     ``params``, each slot's factor rows are gathered once by its id
     (``dev["adapter"]``, constant within a round) and every step adds
-    each slot's delta, so mixed adapters replay in one graph."""
+    each slot's delta, so mixed adapters replay in one graph. A MoE
+    model routes only the live lanes (``dev["dest"] != B``, fixed for the
+    round): freed lanes claim no expert capacity."""
     e = ecfg
     n = e.flush_every
+    live = None
+    if config.moe is not None:
+        live = dev["dest"] != dev["dest"].shape[0]
     ag = None
     if "adapters" in params:
         ag = llama.gather_adapters(params["adapters"], dev["adapter"])
@@ -110,7 +115,8 @@ def run_round(
     )
     for s in range(n):
         logits = llama.decode_step(config, params, ctx, ring, dev["tokens"],
-                                   dev["ctx"], ring_base, s, gathered=ag)
+                                   dev["ctx"], ring_base, s, live,
+                                   gathered=ag)
         if want_sample:
             toks = sampling.sample_step(logits, dev["counts"], sp,
                                         e.max_top_k, dev["keys"])

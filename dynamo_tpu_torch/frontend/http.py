@@ -180,11 +180,15 @@ class Request:
         return json.loads(self.body)
 
 
+# what aiohttp's json_response says (the reference's JSON answers)
+JSON_CONTENT_TYPE = "application/json; charset=utf-8"
+
+
 class Response:
     """A whole response, sent with a Content-Length."""
 
     def __init__(self, body: bytes = b"", *, status: int = 200,
-                 content_type: str = "application/json",
+                 content_type: str = JSON_CONTENT_TYPE,
                  headers: Optional[dict[str, str]] = None):
         self.status = status
         self.body = body
@@ -277,7 +281,7 @@ class HttpServer:
                     msg = json.dumps({"error": {
                         "message": str(e), "code": e.status}}).encode()
                     writer.write(_head(e.status, {
-                        "Content-Type": "application/json",
+                        "Content-Type": JSON_CONTENT_TYPE,
                         "Content-Length": str(len(msg)),
                         "Connection": "close"}) + msg)
                     await writer.drain()

@@ -137,7 +137,8 @@ from dynamo_tpu_torch.tool_calls import (
 
 log = logging.getLogger(__name__)
 
-PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+# the reference's plain scrape: prometheus_client's type, parameters cut
+PROMETHEUS_CONTENT_TYPE = "text/plain"
 # OpenMetrics negotiation: exemplars only ship to scrapers that ask
 OPENMETRICS_CONTENT_TYPE = "application/openmetrics-text"
 
@@ -152,11 +153,13 @@ class ServiceMetrics:
 
     def __init__(self) -> None:
         self.registry = MetricsRegistry()
+        # prometheus_client families in the reference: each labelled
+        # child also carries its creation time as a ``_created`` sample
         self.requests_total = Counter(
             "dynamo_http_service_requests_total",
             "HTTP requests by model/endpoint/status",
             ("model", "endpoint", "status"),
-            self.registry,
+            self.registry, created=True,
         )
         self.inflight = Gauge(
             "dynamo_http_service_inflight_requests",
@@ -168,7 +171,7 @@ class ServiceMetrics:
             "dynamo_http_service_request_duration_seconds",
             "Request duration",
             ("model",),
-            self.registry,
+            self.registry, created=True,
         )
 
     def render(self) -> bytes:

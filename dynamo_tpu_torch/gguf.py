@@ -607,4 +607,4 @@ def load_gguf_params(config, path: str, dtype=None, device="cuda"):
     from dynamo_tpu_torch.models import llama as _llama
 
     return _llama.params_from_state_dict(
-        config, _GgufTensors(config, path), dtype, device)
+        config, lambda: _GgufTensors(config, path), dtype, device)

@@ -66,8 +66,8 @@ from typing import Any, Optional
 # engines the reference serves that the port does not yet
 _UNPORTED_ENGINES = {"mocker": "the mocker engine", "tpu": "the JAX engine "
                      "(out=torch is the port's engine)"}
-_SERVED_CONFIGS = ("tiny", "llama3_1b", "llama3_8b", "llama3_1b_int8",
-                   "llama3_8b_int8")
+_SERVED_CONFIGS = ("tiny", "tiny_moe", "llama3_1b", "llama3_8b",
+                   "llama3_1b_int8", "llama3_8b_int8")
 
 # flags of the reference's parser for planes the port does not serve:
 # flag -> (argparse keywords with the reference's default, what it drives)

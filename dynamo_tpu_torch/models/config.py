@@ -28,8 +28,10 @@ class ModelConfig:
     tie_word_embeddings: bool = False
     model_type: str = "llama"
     dtype: str = "bfloat16"
-    # Mixture-of-Experts FFN: kept so configs match the reference field
-    # for field; the port does not serve it yet (models/llama.py raises)
+    # Mixture-of-Experts FFN (hashable, like rope_scaling): tuple of sorted
+    # (key, value) pairs with keys num_experts / top_k / capacity_factor.
+    # None = dense MLP. Served at world size 1 (models/moe.py,
+    # models/llama.py _moe_ffn); expert parallelism waits for multi-GPU
     moe: Optional[tuple[tuple[str, Any], ...]] = None
     # "int8": w8a16 weights, symmetric per-output-channel int8 with f32
     # scales (models/llama.py quantize_params, ops/w8a16.py)
@@ -38,6 +40,10 @@ class ModelConfig:
     @property
     def rope_scaling_dict(self) -> Optional[dict[str, Any]]:
         return dict(self.rope_scaling) if self.rope_scaling else None
+
+    @property
+    def moe_dict(self) -> Optional[dict[str, Any]]:
+        return dict(self.moe) if self.moe else None
 
     @property
     def q_dim(self) -> int:
@@ -93,6 +99,19 @@ class ModelConfig:
         )
         base.update(kw)
         return cls(**base)
+
+    @classmethod
+    def tiny_moe(cls, **kw) -> "ModelConfig":
+        """Toy MoE model (8 experts, top-2, dropless) for CPU tests.
+        capacity_factor 0 = dropless (moe.MoEConfig.capacity: capacity
+        drops make a token's activations depend on its batch, which
+        breaks prefix-cache reproducibility)."""
+        base = dict(
+            moe=(("capacity_factor", 0.0), ("num_experts", 8),
+                 ("top_k", 2)),
+        )
+        base.update(kw)
+        return cls.tiny(**base)
 
     @classmethod
     def llama3_1b(cls, **kw) -> "ModelConfig":

@@ -1,5 +1,6 @@
 """Llama-family forward pass and serving-state programs (PyTorch port of
-the JAX package's models/llama.py: dense or w8a16 weights, no MoE).
+the JAX package's models/llama.py: dense or w8a16 weights, a dense MLP or
+a Mixture-of-Experts FFN).
 
 Layouts stay byte-identical to the reference:
   - parameters are a dict whose per-layer leaves are STACKED on a leading
@@ -10,6 +11,11 @@ Layouts stay byte-identical to the reference:
     int8 [..., in, out], "s": f32 [..., out]}`` (the embedding ``{"q":
     int8 [V, H], "s": f32 [V]}``) and every product goes through the w8a16
     kernel (``_mm``, ops/w8a16.py);
+  - a MoE config (``config.moe``) replaces ``wg``/``wu``/``wd`` with the
+    router ``wr [L, H, E]`` (dense even under w8a16) and the expert
+    stacks ``we_g``/``we_u [L, E, H, I]`` and ``we_d [L, E, I, H]``;
+    ``_moe_ffn`` routes top-k with a static per-expert capacity, and a
+    ``valid`` mask keeps padding and dead decode lanes out of routing;
   - the serving context is contiguous per slot, ``ctx [L, kvh, B+1, S,
     hd]``, with lane B the scratch lane for freed slots' garbage steps;
   - decode steps write a small per-slot ring ``[L, kvh, B, R, hd]`` that
@@ -55,6 +61,7 @@ from dynamo_tpu_torch.kv_quant import (
     requantize_groups,
 )
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.moe import MoEConfig
 from dynamo_tpu_torch.ops.attention import (
     ctx_decode_attention,
     ctx_prefill_attention,
@@ -80,9 +87,6 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(config: ModelConfig) -> None:
-    if config.moe is not None:
-        raise NotImplementedError(
-            "the PyTorch port serves dense Llama FFNs only (no MoE yet)")
     if config.quant not in (None, "int8"):
         raise ValueError(f"unsupported weight quantization {config.quant!r}")
 
@@ -108,7 +112,7 @@ def init_params(config: ModelConfig, seed: int = 0,
 
     def rnd(*shape, scale=None, qaxis=-2):
         scale = scale or (1.0 / np.sqrt(shape[-2] if len(shape) > 1 else shape[-1]))
-        if quant8:
+        if quant8 and qaxis is not None:
             q = torch.randint(-127, 128, shape, generator=gen, device=device,
                               dtype=torch.int8)
             s_shape = tuple(np.delete(shape, len(shape) + qaxis))
@@ -121,21 +125,27 @@ def init_params(config: ModelConfig, seed: int = 0,
 
     L, H, I, V = c.num_layers, c.hidden_size, c.intermediate_size, c.vocab_size
     ones = dict(dtype=dtype, device=device)
-    params: Params = {
-        "embed": rnd(V, H, scale=0.02, qaxis=-1),
-        "layers": {
-            "ln1": torch.ones(L, H, **ones),
-            "ln2": torch.ones(L, H, **ones),
-            "wq": rnd(L, H, c.q_dim),
-            "wk": rnd(L, H, c.kv_dim),
-            "wv": rnd(L, H, c.kv_dim),
-            "wo": rnd(L, c.q_dim, H),
-            "wg": rnd(L, H, I),
-            "wu": rnd(L, H, I),
-            "wd": rnd(L, I, H),
-        },
-        "norm_f": torch.ones(H, **ones),
+    embed = rnd(V, H, scale=0.02, qaxis=-1)
+    layers = {
+        "ln1": torch.ones(L, H, **ones),
+        "ln2": torch.ones(L, H, **ones),
+        "wq": rnd(L, H, c.q_dim),
+        "wk": rnd(L, H, c.kv_dim),
+        "wv": rnd(L, H, c.kv_dim),
+        "wo": rnd(L, c.q_dim, H),
     }
+    if c.moe is not None:
+        E = c.moe_dict["num_experts"]
+        layers.update(
+            wr=rnd(L, H, E, qaxis=None),  # the router stays dense
+            we_g=rnd(L, E, H, I),
+            we_u=rnd(L, E, H, I),
+            we_d=rnd(L, E, I, H),
+        )
+    else:
+        layers.update(wg=rnd(L, H, I), wu=rnd(L, H, I), wd=rnd(L, I, H))
+    params: Params = {"embed": embed, "layers": layers,
+                      "norm_f": torch.ones(H, **ones)}
     if not c.tie_word_embeddings:
         params["lm_head"] = rnd(H, V, scale=0.02)
     return params
@@ -179,6 +189,7 @@ _QUANT_AXIS = {
     # (all weights are stored [in, out]-style; embed is row-gathered)
     "wq": -2, "wk": -2, "wv": -2, "wo": -2,
     "wg": -2, "wu": -2, "wd": -2,
+    "we_g": -2, "we_u": -2, "we_d": -2,
     "embed": -1, "lm_head": -2,
 }
 
@@ -224,6 +235,17 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
 # ---------------------------------------------------------------------------
 # Checkpoint loading (HF safetensors; gguf.py feeds the same assembly)
 
+def refuse_moe_checkpoint(config: ModelConfig) -> None:
+    """Checkpoints carry dense Llama FFNs only: the JAX package's
+    ``from_hf_dict`` never sets ``moe`` and its loader names no expert
+    tensors, so a MoE model is served from random weights only."""
+    if config.moe is not None:
+        raise ValueError(
+            "checkpoint loading serves dense Llama FFNs only: a MoE config "
+            "(config.moe) has no expert tensors to read; serve it with "
+            "random weights (--model-config tiny_moe)")
+
+
 _HF_LAYER_MAP = {
     "input_layernorm.weight": ("ln1", False),
     "post_attention_layernorm.weight": ("ln2", False),
@@ -249,11 +271,14 @@ def _leaf_shapes(c: ModelConfig) -> dict[str, tuple]:
 
 
 def params_from_state_dict(config: ModelConfig,
-                           raw: Mapping[str, Any], dtype=None,
+                           raw: Mapping[str, Any] | Callable[[], Mapping],
+                           dtype=None,
                            device: str | torch.device = "cuda") -> Params:
     """Our parameter tree from HF-named tensors (``raw[name]``: a torch
     tensor or numpy array, read once each; the JAX package's
-    ``params_from_state_dict``, with the same values).
+    ``params_from_state_dict``, with the same values). ``raw`` may be a
+    function that opens the mapping: the loaders pass one, so a config
+    that cannot load (a MoE one) is refused before any file is read.
 
     HF linear weights are ``[out, in]``; ours are ``[in, out]``, stacked on
     a leading layer axis. Every leaf is allocated once on ``device`` and
@@ -267,6 +292,9 @@ def params_from_state_dict(config: ModelConfig,
     dense weights are never made whole. Tied embeddings
     (``config.tie_word_embeddings``) read no ``lm_head.weight``."""
     _check_supported(config)
+    refuse_moe_checkpoint(config)
+    if callable(raw):
+        raw = raw()
     c = config
     dt = dtype if isinstance(dtype, torch.dtype) else torch_dtype(
         c.dtype if dtype is None else str(dtype))
@@ -337,8 +365,8 @@ def load_hf_params(config: ModelConfig, model_dir: str, dtype=None,
     the parameter tree plus one source matrix in flight."""
     from dynamo_tpu_torch.safetensors_io import Checkpoint
 
-    return params_from_state_dict(config, Checkpoint(model_dir), dtype,
-                                  device)
+    return params_from_state_dict(config, lambda: Checkpoint(model_dir),
+                                  dtype, device)
 
 
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
@@ -610,14 +638,160 @@ def _mlp(h, wg, wu, wd, ad=None):
     return _mm_ad(F.silu(gate) * up, wd, ad.get("wd"))
 
 
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts FFN (the reference's GShard-style dense dispatch,
+# with index writes and gathers in place of its one-hot einsums: each kept
+# (token, pick) owns one slot, so the values are the same)
+
+def _moe_config(c: ModelConfig) -> MoEConfig:
+    md = c.moe_dict
+    return MoEConfig(
+        hidden_size=c.hidden_size,
+        intermediate_size=c.intermediate_size,
+        num_experts=md["num_experts"],
+        top_k=md.get("top_k", 2),
+        capacity_factor=md.get("capacity_factor", 1.25),
+    )
+
+
+def _expert_w(w, e: int):
+    """Expert ``e``'s weight of a stack [E, in, out] (a w8a16 pair: its
+    ``q [in, out]`` and ``s [out]``)."""
+    if _is_quant(w):
+        return {"q": w["q"][e], "s": w["s"][e]}
+    return w[e]
+
+
+def _expert_rows(lp: Params, e: int, x: torch.Tensor) -> torch.Tensor:
+    """Expert ``e``'s FFN on rows x [M, H], in x's dtype."""
+    g = _mm(x, _expert_w(lp["we_g"], e))
+    u = _mm(x, _expert_w(lp["we_u"], e))
+    return _mm(F.silu(g) * u, _expert_w(lp["we_d"], e))
+
+
+def _moe_dense(lp: Params, x: torch.Tensor, sel: torch.Tensor,
+               pos: torch.Tensor, keep: torch.Tensor, groups: int,
+               C: int, E: int, K: int) -> torch.Tensor:
+    """Dense dispatch (the replayed decode round: static shapes, no
+    device-to-host read): kept pick i of group g goes to slot g*C +
+    pos[i]-1 of its expert's rows [E, groups*C, H]; dropped and masked
+    picks go to a spare slot that is sliced away, so no write
+    accumulates. Dense experts run as one batched product a projection,
+    w8a16 ones one kernel launch an expert and projection. Returns each
+    pick's output [N*K, H] in f32, zero where not kept."""
+    N, H = x.shape
+    GC = groups * C
+    grp = torch.arange(N * K, device=x.device) // (N * K // groups)
+    slot = torch.where(keep, grp * C + pos - 1, GC)
+    buf = x.new_zeros(E, GC + 1, H)
+    buf[sel, slot] = x.repeat_interleave(K, dim=0)
+    xin = buf[:, :GC]
+    if _is_quant(lp["we_g"]):
+        y = torch.stack([_expert_rows(lp, e, xin[e]) for e in range(E)])
+    else:
+        g = torch.bmm(xin, lp["we_g"])
+        u = torch.bmm(xin, lp["we_u"])
+        y = torch.bmm(F.silu(g) * u, lp["we_d"])           # [E, GC, H]
+    picked = y[sel, slot.clamp(max=GC - 1)].float()
+    return torch.where(keep[:, None], picked, 0.0)
+
+
+def _kept_counts(key: torch.Tensor, E: int) -> list[int]:
+    """The grouped path's one host read a call: how many picks each
+    expert kept (``key`` is a pick's expert, E where it was not kept),
+    with the not-kept count last. It waits for the stream."""
+    return torch.bincount(key, minlength=E + 1).tolist()
+
+
+def _moe_grouped(lp: Params, x: torch.Tensor, sel: torch.Tensor,
+                 keep: torch.Tensor, E: int, K: int) -> torch.Tensor:
+    """Grouped products (the eager paths): each expert multiplies only
+    the rows it kept, ordered by a stable sort on expert id (arrival
+    order and the capacity cut are the route's). One host read a call:
+    the experts' kept counts. Returns each pick's output [N*K, H] in f32,
+    zero where not kept."""
+    N, H = x.shape
+    key = torch.where(keep, sel, E)
+    order = torch.sort(key, stable=True).indices
+    counts = _kept_counts(key, E)
+    n = N * K - counts[E]
+    out = torch.zeros(N * K, H, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    rows = order[:n]
+    xs = x[rows // K]
+    ys, off = [], 0
+    for e in range(E):
+        if counts[e]:
+            ys.append(_expert_rows(lp, e, xs[off:off + counts[e]]))
+            off += counts[e]
+    out[rows] = torch.cat(ys).float()
+    return out
+
+
+def _moe_ffn(c: ModelConfig, lp: Params, x: torch.Tensor,
+             valid: Optional[torch.Tensor], groups: int,
+             grouped: bool) -> torch.Tensor:
+    """MoE FFN ``[N, H] -> [N, H]`` (the reference's ``_moe_ffn``).
+
+    The N rows are ``groups`` groups of T = N/groups tokens, each routed
+    alone with C = capacity(T) (a batch path's rows: the reference vmaps
+    its forward over them). f32 router logits, softmax, top-k; gate
+    weights renormalized over the top-k (floored at 1e-9) before any
+    drop. ``valid`` [N] takes a token out of routing entirely: padding
+    and dead decode lanes claim no capacity and come out as zero. Each
+    (token, pick) gets its 1-based arrival order in its expert over the
+    token-major list of its group and is kept while 1 <= pos <= C. The
+    experts run in x's dtype with SiLU(gate) * up; each pick's output is
+    widened to f32, weighted by its gate and summed over K in f32.
+    ``grouped`` picks the product path (``_moe_grouped``, else
+    ``_moe_dense``); both give the same values."""
+    m = _moe_config(c)
+    N = x.shape[0]
+    E, K = m.num_experts, m.top_k
+    C = m.capacity(N // groups)
+    logits = matmul_f32(x, lp["wr"])                        # [N, E]
+    gates = torch.softmax(logits, dim=-1)
+    gate_w, sel = torch.topk(gates, K, dim=-1)              # [N, K]
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp(min=1e-9)
+    mask = (sel[..., None]
+            == torch.arange(E, device=x.device)).long()    # [N, K, E]
+    if valid is not None:
+        mask = mask * valid.view(N, 1, 1)
+    mask = mask.view(groups, -1, E)
+    # 1-based arrival order of each (token, pick) in its expert's rows
+    pos = (torch.cumsum(mask, dim=1) * mask).sum(-1).view(-1)
+    keep = (pos > 0) & (pos <= C)
+    sel = sel.view(-1)
+    if grouped:
+        picked = _moe_grouped(lp, x, sel, keep, E, K)
+    else:
+        picked = _moe_dense(lp, x, sel, pos, keep, groups, C, E, K)
+    out = picked.view(N, K, -1) * gate_w[..., None]
+    return out.sum(dim=1).to(x.dtype)
+
+
+def _ffn(c: ModelConfig, lp: Params, x: torch.Tensor, valid, ad,
+         groups: int, grouped: bool) -> torch.Tensor:
+    if c.moe is not None:
+        # MoE expert stacks are not adapted (tenancy/adapters.py)
+        return _moe_ffn(c, lp, x, valid, groups, grouped)
+    return _mlp(x, lp["wg"], lp["wu"], lp["wd"], ad)
+
+
 def _layer_body(c: ModelConfig, lp: Params, h: torch.Tensor, cos, sin,
                 write_kv: Callable, attend: Callable,
-                ad: Optional[dict] = None) -> torch.Tensor:
+                ad: Optional[dict] = None,
+                ffn_valid: Optional[torch.Tensor] = None, groups: int = 1,
+                grouped: bool = True) -> torch.Tensor:
     """Shared decoder-layer body for prefill and decode. ``write_kv(k, v)``
     stores the new KV and returns what ``attend(q, kv)`` reads; h is
     [N, H] (N = padded tokens for prefill, batch slots for decode).
     ``ad`` is the layer's adapter factors (``_adapter_layer``) or None:
-    each adapted product adds its rank-r delta."""
+    each adapted product adds its rank-r delta. A MoE FFN routes
+    ``groups`` groups of rows alone, masks rows where ``ffn_valid`` is
+    False out of routing, and takes the grouped product path, or with
+    ``grouped=False`` the dense dispatch."""
     N = h.shape[0]
     ad = ad or {}
     x = rms_norm(h, lp["ln1"], c.rms_norm_eps)
@@ -631,7 +805,7 @@ def _layer_body(c: ModelConfig, lp: Params, h: torch.Tensor, cos, sin,
     attn = attend(q, write_kv(k, v))
     h = h + _mm_ad(attn.reshape(N, c.q_dim), lp["wo"], ad.get("wo"))
     x2 = rms_norm(h, lp["ln2"], c.rms_norm_eps)
-    return h + _mlp(x2, lp["wg"], lp["wu"], lp["wd"], ad)
+    return h + _ffn(c, lp, x2, ffn_valid, ad, groups, grouped)
 
 
 def matmul_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -688,6 +862,8 @@ def prefill(
     cdt = _ctx_compute_dtype(c, ctx)
     h = _embed_rows(params, tokens, cdt)
     ag = gather_adapters(params.get("adapters"), int(adapter_id))
+    # padding tokens must not claim MoE expert capacity
+    valid = positions < seq_len if c.moe is not None else None
     new_ks: list[torch.Tensor] = []
     new_vs: list[torch.Tensor] = []
     for l in range(c.num_layers):
@@ -704,7 +880,7 @@ def prefill(
                 k_new, v_new, q_start, seq_len)
 
         h = _layer_body(c, _layer(params, l), h, cos, sin, write_kv, attend,
-                        _adapter_layer(ag, l, per_row=False))
+                        _adapter_layer(ag, l, per_row=False), valid)
     # tail: one span write per buffer (all reads are done)
     upd_k = torch.stack(new_ks).transpose(1, 2)        # [L, kvh, T, hd]
     upd_v = torch.stack(new_vs).transpose(1, 2)
@@ -761,6 +937,14 @@ def _batch_forward(
     else:
         positions = torch.cat([depths[i].clamp(min=0) + q
                                for i, q in enumerate(q_starts)])
+    valid = None
+    if c.moe is not None:
+        # a row's padding (and a tree's padding nodes) claim no MoE
+        # expert capacity; each row routes alone (groups=K)
+        valid = positions < torch.cat([torch.full(
+            (T,), s, device=dev) for s in seq_lens])
+        if depths is not None:
+            valid &= depths.reshape(-1) >= 0
     cos, sin = rope_cos_sin(positions, _inv_freq(c, dev))
     cdt = _ctx_compute_dtype(c, ctx)
     h = _embed_rows(params, tokens.reshape(-1), cdt)        # [K*T, H]
@@ -792,7 +976,7 @@ def _batch_forward(
             return torch.cat(outs)
 
         h = _layer_body(c, _layer(params, l), h, cos, sin, write_kv, attend,
-                        _adapter_layer(ag, l, per_row=True))
+                        _adapter_layer(ag, l, per_row=True), valid, K)
     L, kvh, hd = c.num_layers, c.num_kv_heads, c.head_dim
     ks = torch.stack(new_ks).to(cdt).view(L, K, T, kvh, hd).transpose(0, 1)
     vs = torch.stack(new_vs).to(cdt).view(L, K, T, kvh, hd).transpose(0, 1)
@@ -1020,6 +1204,8 @@ def decode_step(
     ctx_lens: torch.Tensor,    # [B] int32 — context INCLUDING this token
     ring_base: torch.Tensor,   # [B] int32 — position held by ring slot 0
     ring_pos: int,             # ring slot receiving this token
+    live: Optional[torch.Tensor] = None,  # [B] bool: dead lanes are
+                               # masked out of MoE expert routing
     adapter_ids: Optional[torch.Tensor] = None,  # [B] per-slot resident
                                # LoRA bank rows (0 = identity)
     gathered: Optional[dict] = None,  # gather_adapters(bank, adapter_ids),
@@ -1031,7 +1217,10 @@ def decode_step(
     attention reads the ctx region below ring_base plus the ring (an int8
     region through the kernel's int8 mode). With a bank, each slot's
     products add its adapter's delta: mixed ids run in one step, the rows
-    gathered by the device ids (``gathered``, else here)."""
+    gathered by the device ids (``gathered``, else here). A MoE FFN runs
+    the dense dispatch (static shapes, no host read: the step replays
+    from a CUDA graph), with the lanes where ``live`` is False routed
+    nowhere, so a live slot's output does not depend on the others."""
     c = config
     ag = gathered
     if ag is None:
@@ -1055,7 +1244,8 @@ def decode_step(
                 ctx["v_scale"] if quant else None)
 
         h = _layer_body(c, _layer(params, l), h, cos, sin, write_kv, attend,
-                        _adapter_layer(ag, l, per_row=True))
+                        _adapter_layer(ag, l, per_row=True), live,
+                        grouped=False)
     return _logits(c, params, h)
 
 

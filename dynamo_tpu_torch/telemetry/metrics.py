@@ -313,14 +313,21 @@ def _labels(names: tuple[str, ...], values: tuple[str, ...],
 
 
 class _Family:
+    """A labelled family. With ``created``, each child also records its
+    creation time (unix seconds), rendered after the family as the
+    ``<name>_created`` gauge family that prometheus_client emits for its
+    counters (``_total`` cut from the name) and histograms."""
+
     kind = ""
 
     def __init__(self, name: str, help_: str, labelnames: tuple[str, ...],
-                 registry: "MetricsRegistry"):
+                 registry: "MetricsRegistry", created: bool = False):
         self.name = name
         self.help = help_
         self.labelnames = tuple(labelnames)
         self._children: dict[tuple[str, ...], Any] = {}
+        self._created: Optional[dict[tuple[str, ...], float]] = (
+            {} if created else None)
         self._lock = threading.Lock()
         registry.register(self)
 
@@ -333,6 +340,8 @@ class _Family:
             child = self._children.get(key)
             if child is None:
                 child = self._children[key] = self._new_child()
+                if self._created is not None:
+                    self._created[key] = time.time()
             return child
 
     def render(self) -> list[str]:
@@ -342,6 +351,11 @@ class _Family:
             children = list(self._children.items())
         for key, child in children:
             lines.extend(self._render_child(key, child))
+        if self._created is not None:
+            name = self.name.removesuffix("_total") + "_created"
+            lines += [f"# HELP {name} {self.help}", f"# TYPE {name} gauge"]
+            lines += [f"{name}{_labels(self.labelnames, key)} "
+                      f"{self._created[key]!r}" for key, _ in children]
         return lines
 
 
@@ -383,9 +397,10 @@ class LabeledHistogram(_Family):
     kind = "histogram"
 
     def __init__(self, name, help_, labelnames, registry,
-                 buckets: tuple[float, ...] = PROMETHEUS_BUCKETS):
+                 buckets: tuple[float, ...] = PROMETHEUS_BUCKETS,
+                 created: bool = False):
         self.buckets = tuple(sorted(buckets))
-        super().__init__(name, help_, labelnames, registry)
+        super().__init__(name, help_, labelnames, registry, created)
 
     def _new_child(self):
         return Histogram(self.name, self.help, self.buckets)

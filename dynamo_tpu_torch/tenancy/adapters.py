@@ -32,8 +32,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-# weight sites carrying an adapter pair (the port serves dense FFNs only,
-# so every site is adapted)
+# weight sites carrying an adapter pair (a MoE model's expert stacks take
+# none: only its attention sites are adapted)
 ATTN_SITES = ("wq", "wk", "wv", "wo")
 MLP_SITES = ("wg", "wu", "wd")
 

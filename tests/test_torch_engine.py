@@ -201,6 +201,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import dynamo_tpu_torch.tools.trace_dump\n"
         "import dynamo_tpu_torch.tools.trace_export\n"
         "import dynamo_tpu_torch.tools.profile_round\n"
+        "import dynamo_tpu_torch.models.moe, dynamo_tpu_torch.models.llama\n"
         "for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, "
         "'dynamo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
