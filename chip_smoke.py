@@ -284,6 +284,29 @@ Phases, each printing a line (any failure raises and exits non-zero):
      page offloaded (on the engine's put thread: crc + copy + spill) and
      onboarded (gather + verify + H2D issue), and the D2H and H2D copies'
      GB/s;
+  8a. multimodal: image prompts on the same weights: CLIP ViT-L/14 at 224
+     (VisionConfig()'s defaults, random bf16 weights from the seed)
+     within TOWER_REL_L2 of its plain f32 version (a control, one
+     layer's wo zeroed, must fail it), then MultimodalEngine(TorchEngine)
+     with a local EncodeWorker: the image request's (4 + 256 + 3 tokens)
+     first token is llama.prefill's argmax with the rows as ``embeds`` up
+     to a near-tie, its stream alone equals its stream in a gated burst
+     of 8 with two images up to a near-tie, another image with the same
+     placeholders adds no prefix hit and the same image again hits every
+     matchable block, the request over the port's runtime (rows as array
+     frames) is token-identical to the in-process encoder's, and with int8
+     KV its first token holds too (the kernels line's
+     launches_multimodal, both modes); printed: the tower's ms, the
+     image request's TTFT beside a text request's of the same length,
+     the array frame's GB/s;
+  8a'. embeddings: TorchEngine.embed on 8, 512 and 4096 tokens against
+     the plain f32 encoder within EMBED_COS (a control, one layer's wo
+     zeroed, must fail it), padding-invariant, the serve burst
+     token-identical with two threads calling embed() throughout, and
+     /v1/embeddings and /v1/responses over HTTP on the same engine,
+     unary and streamed; printed: ms an input, the peak of an embed at
+     max_context beside the free memory, the burst's tok/s with and
+     without the embed calls;
   8b. speculation: linear speculative decoding on the bf16 weights
      (Llama-3.1-8B's width; arm N and the teacher-forced check at its 32
      layers, the other arms at its first CUT_LAYERS since the script's
@@ -418,6 +441,7 @@ the script fails.
 from __future__ import annotations
 
 import asyncio
+import base64
 import dataclasses
 import faulthandler
 import gc
@@ -7487,6 +7511,624 @@ def check_checkpoint(params, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Multimodal prompts and the encoder pass at Llama-3.1-8B's width
+
+# a placeholder id inside Llama 3's reserved special tokens
+MM_IMAGE_TOKEN = 128011
+MM_NEW = 16          # tokens an image request decodes
+# bf16 tower against its plain f32 version (same weights, same image):
+# the relative L2 bound, predicted before the first run on the card
+TOWER_REL_L2 = 3e-2
+# TorchEngine.embed (bf16) against the plain f32 encoder: the cosine
+# bound, predicted before the first run on the card
+EMBED_COS = 0.999
+# the same input padded to two widths
+EMBED_PAD_COS = 0.9999
+EMBED_LENS = (8, 512, 4096)
+
+
+def mm_image(vcfg, seed):
+    return np.random.RandomState(seed).rand(
+        vcfg.image_size, vcfg.image_size, 3).astype(np.float32)
+
+
+def mm_head_tail(vocab):
+    """The image request's text: 4 tokens before the placeholders and 3
+    after, from the seed."""
+    rng = np.random.RandomState(SEED + 22)
+    toks = rng.randint(3, vocab - 256, size=7).tolist()
+    return toks[:4], toks[4:]
+
+
+def mm_request(head, tail, images, vcfg, n_new=MM_NEW):
+    """A request whose prompt is ``head``, a run of num_patches
+    placeholders per image, then ``tail``; greedy, top-2 logprobs."""
+    from dynamo_tpu_torch.multimodal import encode_image_payload
+    from dynamo_tpu_torch.protocols.common import (
+        OutputOptions,
+        PreprocessedRequest,
+        StopConditions,
+    )
+
+    toks, ims = list(head), []
+    for img in images:
+        ims.append(dict(encode_image_payload(img), pos=len(toks)))
+        toks += [MM_IMAGE_TOKEN] * vcfg.num_patches
+    toks += list(tail)
+    return PreprocessedRequest(
+        token_ids=toks,
+        stop_conditions=StopConditions(max_tokens=n_new, ignore_eos=True),
+        output_options=OutputOptions(logprobs=2),
+        multimodal={"images": ims} if ims else None)
+
+
+async def mm_run(engine, req):
+    """One request's tokens, top-2 logprobs, finish, final annotations
+    and client-side TTFT (call to first token)."""
+    t0 = time.monotonic()
+    out = dict(toks=[], top=[], finish=None, ann={}, ttft=None)
+    async for o in engine.generate(req):
+        if o.token_ids and out["ttft"] is None:
+            out["ttft"] = time.monotonic() - t0
+        out["toks"].extend(o.token_ids)
+        out["top"].extend(o.top_logprobs or [])
+        if o.finish_reason is not None:
+            out["finish"], out["ann"] = o.finish_reason.value, o.annotations
+    if len(out["toks"]) != req.stop_conditions.max_tokens \
+            or out["finish"] != "length":
+        raise AssertionError(f"request ended with {len(out['toks'])} "
+                             f"tokens, finish {out['finish']}")
+    return out
+
+
+def hold_near_tie(label, got, want):
+    """``got``'s stream against ``want``'s: equal, or parting at a step
+    where ``want``'s top-2 logprob gap is at most NEAR_TIE. Returns None
+    or (step, gap)."""
+    j = next((j for j, (a, b) in enumerate(zip(got["toks"], want["toks"]))
+              if a != b), None)
+    if j is None:
+        return None
+    gap = want["top"][j][0][1] - want["top"][j][1][1]
+    if gap > NEAR_TIE:
+        raise AssertionError(f"{label}: {got['toks'][j]} for "
+                             f"{want['toks'][j]} at step {j}, where the "
+                             f"top-2 gap is {gap:.4f} > {NEAR_TIE}")
+    return j, round(gap, 4)
+
+
+def tower_rel_l2(vcfg, params, ref, image):
+    from dynamo_tpu_torch.models.vision import encode_image
+
+    got = encode_image(vcfg, params, image).float()
+    return float((got - ref).norm() / ref.norm())
+
+
+def direct_first_token(cfg, params, req, rows, width, ctx_len, device):
+    """The image request's first greedy token from llama.prefill with the
+    image rows as ``embeds`` (one chunk of ``width``, a fresh region of
+    ``ctx_len``): (argmax, top-2 logprob gap)."""
+    from dynamo_tpu_torch.models import llama
+
+    n = len(req.token_ids)
+    toks = torch.zeros(width, dtype=torch.long)
+    toks[:n] = torch.tensor(req.token_ids)
+    ov = torch.zeros(width, cfg.hidden_size)
+    msk = torch.zeros(width, dtype=torch.bool)
+    for im, r in zip(req.multimodal["images"], rows):
+        ov[im["pos"]: im["pos"] + len(r)] = r
+        msk[im["pos"]: im["pos"] + len(r)] = True
+    ctx = llama.init_ctx(cfg, 1, ctx_len, torch.bfloat16, device)
+    logits = llama.prefill(cfg, params, ctx, toks.to(device), 0, 0, n,
+                           embeds=ov.to(device),
+                           embeds_mask=msk.to(device))
+    lp = torch.log_softmax(logits.float(), -1).topk(2)
+    del ctx
+    return int(lp.indices[0]), float(lp.values[0] - lp.values[1])
+
+
+def check_multimodal(params, smi, device="cuda"):
+    """Image prompts at full width: CLIP ViT-L/14 at 224 (VisionConfig()'s
+    defaults: 24 layers, hidden 1024, 256 patches, projected to 4096),
+    random bf16 weights from the seed, feeding Llama-3.1-8B (the serve
+    weights, 32 layers) through MultimodalEngine(TorchEngine) with a local
+    EncodeWorker. Checks: the bf16 tower within TOWER_REL_L2 of its plain
+    f32 version (the same weights upcast, the same image), and a control
+    that must fail it (one layer's wo zeroed; one layer's wq row zeroed
+    is printed too, as information); the image request (4 text tokens,
+    256 placeholders, 3 text tokens) gives as its first token the argmax
+    of llama.prefill with the rows as ``embeds``, up to a near-tie; its
+    stream alone and inside a gated burst of 8 (two images, six serve
+    prompts) are equal up to a near-tie; a second image with the same
+    placeholder tokens adds no prefix hit and the same image again hits
+    every matchable block; served over the port's runtime through an
+    EncodeWorker whose rows ride array frames it is token-identical to
+    the in-process encoder's; with int8 KV its first token is the
+    direct argmax up to a near-tie. The flash-decode kernel of each mode
+    ran on every layer of every decode step (the kernels line's
+    launches_multimodal). Prints the tower's ms (bf16, plain), the image
+    request's TTFT beside a text request's of the same length, and the
+    array frame's GB/s for the rows. ``device="cpu"`` rehearses the
+    phase on the CPU (with the card's calls stubbed)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.kv_transfer import ArrayFrameServer, take_remote_array
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.models.vision import (
+        VisionConfig,
+        encode_image,
+        init_vision_params,
+    )
+    from dynamo_tpu_torch.multimodal import EncodeWorker, MultimodalEngine
+    from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.store import serve_store
+
+    cfg = ModelConfig.llama3_8b()
+    L = cfg.num_layers
+    vcfg = VisionConfig()
+    vparams = init_vision_params(vcfg, SEED, dtype=torch.bfloat16,
+                                 device=device)
+    plain = {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict)
+                 else v.float()) for k, v in vparams.items()}
+    images = [mm_image(vcfg, SEED + i) for i in range(4)]   # A, B, C, D
+    # 1. the tower: bf16 against plain f32, the controls, the times
+    with torch.no_grad():
+        ref = encode_image(vcfg, plain, images[0])
+        rel = tower_rel_l2(vcfg, vparams, ref, images[0])
+        ctl_layers = dict(vparams["layers"])
+        ctl_layers["wo"] = vparams["layers"]["wo"].clone()
+        ctl_layers["wo"][vcfg.num_layers // 2].zero_()
+        rel_wo = tower_rel_l2(vcfg, {**vparams, "layers": ctl_layers}, ref,
+                              images[0])
+        ctl_layers["wo"] = vparams["layers"]["wo"]
+        ctl_layers["wq"] = vparams["layers"]["wq"].clone()
+        ctl_layers["wq"][vcfg.num_layers // 2, 0].zero_()
+        rel_wq = tower_rel_l2(vcfg, {**vparams, "layers": ctl_layers}, ref,
+                              images[0])
+        del ctl_layers
+        img_dev = torch.from_numpy(images[0]).to(device)
+        ms = {}
+        for name, p in (("bf16", vparams), ("plain", plain)):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            encode_image(vcfg, p, img_dev)
+            ev[0].record()
+            for _ in range(5):
+                encode_image(vcfg, p, img_dev)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms[name] = ev[0].elapsed_time(ev[1]) / 5
+    del plain, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"multimodal: tower (ViT-L/14 224, {vcfg.num_layers} layers, "
+        f"{vcfg.num_patches} patches -> {vcfg.out_hidden_size}) bf16 vs "
+        f"plain f32 relative L2 {rel:.3e} (bound {TOWER_REL_L2}); control "
+        f"layer {vcfg.num_layers // 2} wo zeroed {rel_wo:.3e}; layer "
+        f"{vcfg.num_layers // 2} wq row 0 zeroed {rel_wq:.3e} "
+        f"(information); encode {ms['bf16']:.2f} ms an image bf16, "
+        f"{ms['plain']:.2f} ms plain f32 ({smi})")
+    if not rel < TOWER_REL_L2:
+        raise AssertionError(f"multimodal: the bf16 tower is {rel:.3e} "
+                             f"from its plain version (bound "
+                             f"{TOWER_REL_L2})")
+    if not rel_wo > TOWER_REL_L2:
+        raise AssertionError(f"multimodal: the control (wo zeroed) passed "
+                             f"the tower check: {rel_wo:.3e}")
+
+    head, tail = mm_head_tail(cfg.vocab_size)
+    req_a = mm_request(head, tail, [images[0]], vcfg)
+    n_prompt = len(req_a.token_ids)
+    enc = EncodeWorker(None, vcfg, vparams)
+    rows_a = asyncio.run(enc.encode_arrays(req_a.multimodal["images"]))
+    rng = np.random.RandomState(SEED + 23)
+    texts = [PreprocessedRequest(
+        token_ids=rng.randint(3, cfg.vocab_size - 256,
+                              size=n_prompt).tolist(),
+        stop_conditions=req_a.stop_conditions,
+        output_options=req_a.output_options) for _ in range(2)]
+    prompts = serve_prompts(cfg.vocab_size)
+    burst_reqs = [mm_request(head, tail, [images[0]], vcfg)] + [
+        PreprocessedRequest(token_ids=list(p),
+                            stop_conditions=req_a.stop_conditions,
+                            output_options=req_a.output_options)
+        for p in prompts[:6]]
+    burst_reqs.insert(4, mm_request(head, tail, [images[1]], vcfg))
+
+    def build(kv_quant):
+        eng = TorchEngine(cfg, EngineConfig(kv_quant=kv_quant),
+                          params=params, device=device)
+        torch.cuda.synchronize()
+        return eng
+
+    eng = build("none")
+    width = eng._chunk_width(n_prompt)
+    first, gap = direct_first_token(cfg, params, req_a, rows_a, width,
+                                    eng.ecfg.max_context, device)
+    mm = MultimodalEngine(eng, local_encoder=enc)
+    steps0 = eng.step_count
+    fd.executed(eng.device, reset=True)
+    figs: dict = {}
+
+    async def drive():
+        await mm_run(eng, texts[0])             # warms the 512-wide prefill
+        alone = await mm_run(mm, req_a)
+        text = await mm_run(eng, texts[1])
+        eng.clear_kv_blocks()
+        IntakeGate(eng, len(burst_reqs))
+        burst = await asyncio.gather(*[mm_run(mm, r) for r in burst_reqs])
+        await settle_engines(eng)
+        hits0 = eng.allocator.hit_blocks
+        await mm_run(mm, mm_request(head, tail, [images[2]], vcfg))
+        hits_other = eng.allocator.hit_blocks - hits0
+        again = await mm_run(mm, req_a)
+        hits_again = eng.allocator.hit_blocks - hits0 - hits_other
+        # over the runtime: the rows as array frames
+        eng.clear_kv_blocks()
+        server, _ = await serve_store(port=0, sweep_interval_s=0.05)
+        port = server.sockets[0].getsockname()[1]
+        rt_enc = await DistributedRuntime.connect(port=port)
+        rt_dec = await DistributedRuntime.connect(port=port)
+        worker = await EncodeWorker(rt_enc, vcfg, vparams,
+                                    namespace="mm").start()
+        remote = MultimodalEngine(eng, rt=rt_dec, namespace="mm")
+        try:
+            over = await mm_run(remote, req_a)
+            served = worker.images_encoded
+        finally:
+            await worker.stop()
+            await rt_dec.close()
+            await rt_enc.close()
+            server.close()
+        await settle_engines(eng)
+        # the array frame alone: the 256 x 4096 f32 rows, loopback
+        frames = ArrayFrameServer(host="127.0.0.1")
+        await frames.start()
+        try:
+            secs = []
+            for _ in range(6):
+                t = frames.park(rows_a[0])
+                t0 = time.perf_counter()
+                got = await take_remote_array(frames.host, frames.port, t)
+                secs.append(time.perf_counter() - t0)
+            if not torch.equal(got, rows_a[0]):
+                raise AssertionError("multimodal: the array frame changed "
+                                     "the rows")
+        finally:
+            await frames.stop()
+        figs["frame_gbs"] = rows_a[0].numel() * 4 / np.median(secs[1:]) / 1e9
+        ran = fd.executed(eng.device)
+        steps = eng.step_count - steps0
+        await eng.stop()   # its loop thread would keep it alive
+        return (alone, text, burst, hits_other, hits_again, again, over,
+                served, ran, steps)
+
+    (alone, text, burst, hits_other, hits_again, again, over, served, ran,
+     steps) = asyncio.run(drive())
+    check_replayed(eng, "multimodal")
+    if ran[0] != L * steps or ran[1]:
+        raise AssertionError(f"multimodal: flash_decode ran {ran} times on "
+                             f"the card over {steps} decode steps of {L} "
+                             f"layers")
+    launches = {"none": ran[0]}
+    if alone["toks"][0] != first and gap > NEAR_TIE:
+        raise AssertionError(
+            f"multimodal: the engine's first token {alone['toks'][0]} is "
+            f"not the direct prefill's argmax {first} (top-2 gap "
+            f"{gap:.4f} > {NEAR_TIE})")
+    in_burst = hold_near_tie("multimodal burst", burst[0], alone)
+    again_split = hold_near_tie("multimodal repeat", again, alone)
+    want_hits = (n_prompt - 1) // eng.ecfg.page_size
+    if hits_other or hits_again != want_hits:
+        raise AssertionError(
+            f"multimodal: another image with the same placeholders hit "
+            f"{hits_other} blocks (want 0), the same image again "
+            f"{hits_again} (want {want_hits})")
+    if over["toks"] != alone["toks"] or served != 1:
+        raise AssertionError(
+            f"multimodal: over the runtime ({served} images encoded) "
+            f"{over['toks']} != in process {alone['toks']}")
+    e_ttft = alone["ann"]["timing"]["ttft_s"]
+    log(f"multimodal: image request ({n_prompt} tokens, {width}-wide "
+        f"prefill) first token {alone['toks'][0]} (direct prefill argmax "
+        f"{first}, top-2 gap {gap:.4f}); TTFT {alone['ttft']:.4f} s from "
+        f"the call (encode included), {e_ttft:.4f} s in the engine; a text "
+        f"request of {n_prompt} tokens {text['ttft']:.4f} s; in the burst "
+        f"of 8 (2 images) {'equal' if in_burst is None else in_burst}; "
+        f"repeat (prefix hit {hits_again} blocks) "
+        f"{'equal' if again_split is None else again_split}; another "
+        f"image {hits_other} hits; over the runtime equal; array frame "
+        f"{figs['frame_gbs']:.2f} GB/s for {tuple(rows_a[0].shape)} f32 "
+        f"rows; flash_decode {ran[0]} = {L} x {steps} steps ({smi})")
+    del mm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # int8 KV: one image request
+    eng = build("int8")
+    mm = MultimodalEngine(eng, local_encoder=enc)
+    steps0 = eng.step_count
+    fd.executed(eng.device, reset=True)
+
+    async def drive8():
+        out = await mm_run(mm, req_a)
+        await settle_engines(eng)
+        ran, steps = fd.executed(eng.device), eng.step_count - steps0
+        await eng.stop()
+        return out, ran, steps
+
+    q8, ran, steps = asyncio.run(drive8())
+    check_replayed(eng, "multimodal int8")
+    if ran[1] != L * steps or ran[0]:
+        raise AssertionError(f"multimodal int8: flash_decode ran {ran} "
+                             f"times over {steps} decode steps")
+    launches["int8"] = ran[1]
+    if q8["toks"][0] != first and gap > NEAR_TIE:
+        raise AssertionError(
+            f"multimodal int8: first token {q8['toks'][0]} is not the "
+            f"direct prefill's argmax {first} (top-2 gap {gap:.4f})")
+    split = next((j for j, (a, b) in enumerate(zip(q8["toks"],
+                                                   alone["toks"]))
+                  if a != b), None)
+    log(f"multimodal int8: first token {q8['toks'][0]} (direct argmax "
+        f"{first}); the stream leaves the dense one at step "
+        f"{split if split is not None else 'never'} (information); "
+        f"flash_decode_int8 {ran[1]} = {L} x {steps} steps")
+    figures(f"tower rel L2 {rel:.2e} (ctl {rel_wo:.2e}), {ms['bf16']:.2f}/"
+            f"{ms['plain']:.2f} ms; TTFT image {alone['ttft']:.4f} s text "
+            f"{text['ttft']:.4f} s; burst "
+            f"{'eq' if in_burst is None else in_burst}; hits other "
+            f"{hits_other} same {hits_again}; runtime eq; frame "
+            f"{figs['frame_gbs']:.2f} GB/s; int8 first ok; launches "
+            f"{launches['none']}/{launches['int8']}")
+    del mm, eng, enc, vparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["none"], launches["int8"]
+
+
+class _F32Layers:
+    """A stacked layer leaf read one layer at a time in f32: the plain
+    encoder's weights without an f32 copy of the whole model."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def __getitem__(self, l):
+        return self.t[l].float()
+
+
+def check_embeddings(params, smi, device="cuda"):
+    """The encoder pass at Llama-3.1-8B's width (the serve weights, 32
+    layers), through launch.run's chain (default EngineConfig):
+    TorchEngine.embed on inputs of EMBED_LENS tokens against the plain
+    f32 encoder on the card (llama.encode over f32 weights, upcast a layer
+    at a time): cosine >= EMBED_COS, and a control that must fail it (one
+    layer's wo zeroed); the same input padded to two widths within
+    EMBED_PAD_COS; the serve burst gated at the intake, then again with
+    two threads calling embed() throughout, token-identical; then
+    /v1/embeddings and /v1/responses over HTTP on the same engine, unary
+    and streamed (the vector equal to embed()'s, the Responses API's
+    events in order, status incomplete on max_output_tokens). Prints ms
+    an input at each length, the peak allocation of an embed at
+    max_context beside what the engine leaves free, and the burst's
+    tok/s with and without the embed calls. ``device="cpu"`` rehearses
+    the phase on the CPU (with the card's calls stubbed)."""
+    from dynamo_tpu_torch.frontend.http import HttpClient
+    from dynamo_tpu_torch.frontend.model_manager import ModelManager
+    from dynamo_tpu_torch.frontend.service import HttpService
+    from dynamo_tpu_torch.launch import run as launch
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.protocols.sse import SseDecoder
+    from dynamo_tpu_torch.tokenizer import make_test_tokenizer
+
+    cfg = ModelConfig.llama3_8b()
+    tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
+    args = launch.build_parser().parse_intermixed_args(
+        ["in=http", "out=torch", "--model-config", "llama3_8b",
+         "--model-name", "llama3_8b"]
+        + (["--device", "cpu"] if device == "cpu" else []))
+    _, chain = launch.build_chain(args, params=params, tokenizer=tok)
+    eng = chain.engine
+    torch.cuda.synchronize()
+    rng = np.random.RandomState(SEED + 24)
+    inputs = {n: rng.randint(3, cfg.vocab_size, size=n).tolist()
+              for n in EMBED_LENS}
+    plain_cfg = dataclasses.replace(cfg, dtype="float32")
+    # the embedding rows are gathered from the bf16 table and widened
+    plain = {"embed": params["embed"], "norm_f": params["norm_f"].float(),
+             "layers": {k: _F32Layers(v)
+                        for k, v in params["layers"].items()}}
+    mid = cfg.num_layers // 2
+    wo = params["layers"]["wo"].clone()
+    wo[mid].zero_()
+    control = {**params, "layers": {**params["layers"], "wo": wo}}
+
+    def cos(a, b):
+        return float(torch.dot(a, b) / (a.norm() * b.norm()))
+
+    res, ms = {}, {}
+    with torch.no_grad():
+        for n, ids in inputs.items():
+            got = torch.tensor(eng.embed(ids))
+            secs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                eng.embed(ids)
+                secs.append(time.perf_counter() - t0)
+            ms[n] = float(np.median(secs)) * 1e3
+            T = max(8, 1 << (n - 1).bit_length())
+            toks = torch.zeros(T, dtype=torch.long, device=device)
+            toks[:n] = torch.tensor(ids)
+            want = llama.encode(plain_cfg, plain, toks, n).cpu()
+            ctl = llama.encode(cfg, control, toks, n).float().cpu()
+            res[n] = (cos(got, want), cos(ctl, want))
+        # padding invariance: 500 tokens padded to 512 and to 1024
+        ids = inputs[512][:500]
+        pads = []
+        for T in (512, 1024):
+            toks = torch.zeros(T, dtype=torch.long, device=device)
+            toks[:500] = torch.tensor(ids)
+            pads.append(llama.encode(cfg, params, toks, 500).float().cpu())
+        pad_cos = cos(*pads)
+        # the peak of an embed at max_context beside what the engine
+        # leaves free
+        torch.cuda.synchronize()
+        free = torch.cuda.mem_get_info()[0]
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng.embed(rng.randint(3, cfg.vocab_size,
+                              size=eng.ecfg.max_context).tolist())
+        peak = torch.cuda.max_memory_allocated() - base
+    del plain, control, wo
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"embeddings: TorchEngine.embed (bf16) vs the plain f32 encoder, "
+        f"cosine " + ", ".join(f"{n} tokens {c:.6f} (control wo[{mid}] "
+                               f"zeroed {k:.4f})" for n, (c, k) in res.items())
+        + f" (bound {EMBED_COS}); padded 512 vs 1024 {pad_cos:.7f} (bound "
+        f"{EMBED_PAD_COS}); ms an input " + ", ".join(
+            f"{n}: {m:.1f}" for n, m in ms.items())
+        + f"; peak at max_context {eng.ecfg.max_context}: "
+          f"{peak / 2**30:.2f} GiB, free beside the engine "
+          f"{free / 2**30:.1f} GiB ({smi})")
+    for n, (c, k) in res.items():
+        if not c >= EMBED_COS:
+            raise AssertionError(f"embeddings: {n} tokens, cosine {c:.6f} "
+                                 f"< {EMBED_COS}")
+        if not k < EMBED_COS:
+            raise AssertionError(f"embeddings: the control passed at {n} "
+                                 f"tokens: cosine {k:.6f}")
+    if not pad_cos >= EMBED_PAD_COS:
+        raise AssertionError(f"embeddings: padded 512 vs 1024 cosine "
+                             f"{pad_cos:.7f}")
+    if peak >= free:
+        raise AssertionError(f"embeddings: an embed at max_context peaks "
+                             f"at {peak / 2**30:.2f} GiB, more than the "
+                             f"{free / 2**30:.1f} GiB free")
+
+    prompts = serve_prompts(cfg.vocab_size)
+
+    def tps(out):
+        ttft = [a["timing"]["ttft_s"] for _, _, a, *_ in out]
+        e2e = [a["timing"]["e2e_s"] for _, _, a, *_ in out]
+        return sum(len(t) - 1 for t, *_ in out) / (max(e2e) - min(ttft))
+
+    def burst():
+        eng.clear_kv_blocks()
+        IntakeGate(eng, len(prompts))
+        return asyncio.run(generate_all(eng, prompts, 32))
+
+    quiet = burst()
+    stop, calls = threading.Event(), [0, 0]
+
+    def hammer(i):
+        ids = inputs[512]
+        while not stop.is_set():
+            eng.embed(ids)
+            calls[i] += 1
+
+    threads = [threading.Thread(target=hammer, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    try:
+        busy = burst()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    if [t for t, *_ in busy] != [t for t, *_ in quiet]:
+        raise AssertionError("embeddings: the burst's tokens moved with "
+                             "concurrent embed calls")
+    if not all(calls):
+        raise AssertionError(f"embeddings: the embed threads ran {calls}")
+
+    # over HTTP, on the same engine
+    manager = ModelManager()
+    manager.register(chain)
+    words = " ".join(f"t{i}" for i in inputs[8])
+    dims = min(256, cfg.hidden_size // 2)
+    http: dict = {}
+
+    async def drive():
+        svc = HttpService(manager, host="127.0.0.1", port=0)
+        await svc.start()
+        try:
+            async with HttpClient("127.0.0.1", svc.port) as c:
+                r = await c.request("POST", "/v1/embeddings", json_body={
+                    "model": "llama3_8b", "input": [words, words]})
+                http["emb"] = (r.status, r.json())
+                r = await c.request("POST", "/v1/embeddings", json_body={
+                    "model": "llama3_8b", "input": inputs[8]})
+                http["ids"] = (r.status, r.json())
+                r = await c.request("POST", "/v1/embeddings", json_body={
+                    "model": "llama3_8b", "input": words,
+                    "encoding_format": "base64", "dimensions": dims})
+                http["emb64"] = (r.status, r.json())
+                r = await c.request("POST", "/v1/responses", json_body={
+                    "model": "llama3_8b", "input": words,
+                    "instructions": "t5 t6", "max_output_tokens": 8})
+                http["resp"] = (r.status, r.json())
+                r = await c.request("POST", "/v1/responses", json_body={
+                    "model": "llama3_8b", "input": words,
+                    "max_output_tokens": 8, "stream": True}, stream=True)
+                dec, events = SseDecoder(), []
+                async for chunk in r.chunks():
+                    events.extend(dec.feed(chunk))
+                http["stream"] = (r.status, events)
+        finally:
+            await svc.stop()
+
+    asyncio.run(drive())
+    want = eng.embed(inputs[8])
+    st, body = http["emb"]
+    st2, body2 = http["ids"]
+    if (st != 200 or st2 != 200
+            or [d["embedding"] for d in body["data"] + body2["data"]]
+            != [want] * 3 or body["usage"]["prompt_tokens"] != 16):
+        raise AssertionError(f"embeddings: /v1/embeddings {st} {st2} "
+                             f"{str(body)[:200]}")
+    st, body = http["emb64"]
+    v = np.frombuffer(base64.b64decode(body["data"][0]["embedding"]), "<f4")
+    if st != 200 or len(v) != dims or abs(float(v @ v) - 1.0) > 1e-4:
+        raise AssertionError(f"embeddings: base64 with dimensions {st}")
+    st, body = http["resp"]
+    if (st != 200 or body["status"] != "incomplete"
+            or body["incomplete_details"] != {"reason": "max_output_tokens"}
+            or body["usage"]["output_tokens"] != 8):
+        raise AssertionError(f"embeddings: /v1/responses {st} "
+                             f"{str(body)[:300]}")
+    st, events = http["stream"]
+    kinds = [e.event for e in events]
+    final = json.loads(events[-1].data)["response"] if events else {}
+    if (st != 200 or kinds[0] != "response.created"
+            or kinds[-2:] != ["response.output_text.done",
+                              "response.incomplete"]
+            or set(kinds[1:-2]) != {"response.output_text.delta"}
+            or final.get("usage", {}).get("output_tokens") != 8):
+        raise AssertionError(f"embeddings: the streamed /v1/responses gave "
+                             f"{st} {kinds}")
+    tq, tb = tps(quiet), tps(busy)
+    log(f"embeddings: serve burst {tq:.1f} tok/s alone, {tb:.1f} tok/s "
+        f"with {sum(calls)} concurrent 512-token embed calls, tokens "
+        f"identical; /v1/embeddings (float, base64 + dimensions) and "
+        f"/v1/responses (unary incomplete, streamed {len(kinds)} events) "
+        f"200; dispatches encode {eng.dispatch_counts['encode']} ({smi})")
+    asyncio.run(eng.stop())   # its loop thread would keep it alive
+    figures("cos " + "/".join(f"{c:.5f}" for c, _ in res.values())
+            + " (ctl " + "/".join(f"{k:.3f}" for _, k in res.values())
+            + f"); pad {pad_cos:.6f}; ms " + "/".join(
+                f"{m:.1f}" for m in ms.values())
+            + f"; peak {peak / 2**30:.2f} GiB (free {free / 2**30:.1f}); "
+              f"burst {tq:.0f}/{tb:.0f} tok/s with {sum(calls)} embeds; "
+              f"http 200")
+    del chain, eng, manager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase(name, fn, *args, **kw):
     """Run one phase, print its seconds, and keep its summary line: its
     key figures (figures()), else its last line, shortened. What the
@@ -8033,6 +8675,8 @@ def main() -> int:
     eco_launches, _ = phase("prefix economy", check_prefix_economy, params,
                             smi)
     phase("offload", check_offload, params, counts, smi)
+    mm_launches = phase("multimodal", check_multimodal, params, smi)
+    phase("embeddings", check_embeddings, params, smi)
     *spec_launches, spec_state = phase("speculation", check_speculation,
                                        params)
     tree_launches = phase("speculation tree", check_speculation_tree, params,
@@ -8093,6 +8737,7 @@ def main() -> int:
              launches_tenancy=lora_launches[0],
              launches_overload=over_launches,
              launches_checkpoint=ck_launches[0],
+             launches_multimodal=mm_launches[0],
              launches_moe=moe_q[0] + moe_b[0], **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",
@@ -8103,6 +8748,7 @@ def main() -> int:
              launches_spec_tree=tree_launches[1],
              launches_tenancy=lora_launches[1],
              launches_checkpoint=ck_launches[1],
+             launches_multimodal=mm_launches[1],
              launches_moe=moe_q[1] + moe_b[1], **fd8_report),
         # no Pallas kernel: XLA's fused convert + dot of _mm and the
         # quantized _logits; the figures are one 8B decode step's 225

@@ -139,8 +139,15 @@ PyTorch (port of the JAX package's TpuEngine main path).
     (graphs.run_round), the eager prefill, verify and draft paths mask
     their padding and route each row alone. Expert parallelism (ep > 1)
     comes with multi-GPU serving.
-
-Not ported yet (ROADMAP.md): multimodal.
+  - Multimodal prompts (multimodal.py MultimodalEngine): a request whose
+    ``multimodal["embeddings"]`` carries image rows ``{pos, data}`` is
+    prefilled alone, chunk by chunk, each chunk's rows injected in place
+    of the placeholder tokens' embeddings (``llama.prefill`` ``embeds``);
+    its block hashes are salted with the images' digest, so a prefix hit
+    never serves one image's KV for another's.
+  - ``embed(token_ids)``: the /v1/embeddings encoder pass (``llama.encode``,
+    cache-free, over the read-only params) on the caller's thread, on a
+    CUDA stream of its own, beside serving.
 """
 from __future__ import annotations
 
@@ -736,7 +743,10 @@ class TorchEngine:
             # the batched draft and the verify programs (the per-slot
             # draft loop's are in spec.stats()["spec_draft_dispatch_total"])
             "spec_draft": 0, "spec_verify": 0,
+            # embed(): the encoder passes, on the callers' threads
+            "encode": 0,
         }
+        self._embed_stream: Optional[torch.cuda.Stream] = None
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device without a stream sync:
@@ -827,10 +837,10 @@ class TorchEngine:
         n_lp = request.output_options.logprobs
         if n_lp is not None and n_lp < 0:
             raise ValueError(f"logprobs must be >= 0, got {n_lp}")
-        if request.multimodal or request.disagg:
+        if request.disagg:
             raise ValueError(
-                "multimodal inputs and disaggregated prefill are not "
-                "supported by the PyTorch engine yet")
+                "disaggregated prefill is not supported by the PyTorch "
+                "engine yet")
         tenant = request.tenant or "default"
         adapter_id = int(request.adapter_id or 0)
         if adapter_id and not 0 < adapter_id < max(1, self.n_adapters):
@@ -883,10 +893,17 @@ class TorchEngine:
         TENANT.inc("dynamo_tenant_admitted_total", tenant)
         if not self._started:
             self.start()
+        # multimodal requests salt their block hashes with the image digest:
+        # placeholder tokens are identical across different images, and a
+        # prefix-cache hit keyed on tokens alone would serve the wrong
+        # image's KV
+        salt = request.model
+        if request.multimodal and request.multimodal.get("digest"):
+            salt = f"{salt}|mm:{request.multimodal['digest']}"
         r = _Request(
             req=request,
             seq=TokenBlockSequence.from_tokens(
-                request.token_ids, self.ecfg.page_size, salt=request.model),
+                request.token_ids, self.ecfg.page_size, salt=salt),
             out=asyncio.Queue(),
             loop=asyncio.get_running_loop(),
             tokens=list(request.token_ids),
@@ -2034,6 +2051,44 @@ class TorchEngine:
         the pages dropped."""
         return self._xfer_op("clear", [], None)
 
+    def embed(self, token_ids: list[int]) -> list[float]:
+        """Mean-pooled normalized embedding of a prompt (the /v1/embeddings
+        surface): ``llama.encode`` over the read-only params, padded to
+        ``pow2_cover(max(n, 8))``, on the caller's thread and concurrent
+        with serving. On the card it runs on a CUDA stream of its own,
+        synchronized before it returns (the engine's graphs are captured
+        thread-locally, so another thread's work does not break a
+        capture). Bounded by max_context: the one-shot attention's
+        [heads, T, T] scores would otherwise let one long input exhaust
+        the memory of a device that serves everyone."""
+        if not token_ids:
+            raise ValueError("empty input")
+        if len(token_ids) > self.ecfg.max_context:
+            raise ValueError(
+                f"input length {len(token_ids)} exceeds max context "
+                f"{self.ecfg.max_context}")
+        T = pow2_cover(max(len(token_ids), 8))
+        toks = np.zeros(T, np.int64)
+        toks[: len(token_ids)] = token_ids
+        self.dispatch_counts["encode"] += 1
+        if self.device.type != "cuda":
+            out = llama.encode(self.config, self.params,
+                               torch.from_numpy(toks), len(token_ids))
+            return out.tolist()
+        stream = self._embed_stream
+        if stream is None:
+            stream = torch.cuda.Stream(self.device)
+            # once: whatever made the params is ordered before the stream
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            self._embed_stream = stream
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            out = llama.encode(
+                self.config, self.params,
+                torch.from_numpy(toks).to(self.device), len(token_ids))
+            host = out.cpu()
+        stream.synchronize()
+        return host.tolist()
+
     def _start_stream(self, kind: str, ids: list[int], chunk_pages: int,
                       inflight: int) -> queue_mod.Queue:
         if self._stop.is_set():
@@ -2590,7 +2645,7 @@ class TorchEngine:
 
     def _admit(self) -> None:
         now = _wall_time()
-        kept = []
+        kept, late = [], []
         for r in self._waiting:
             if r.cancelled:
                 self._abort_prefill(r)
@@ -2598,10 +2653,13 @@ class TorchEngine:
                     and now > r.req.deadline):
                 # a still-WAITING request past its deadline would only
                 # prefill dead work; one that started is always served
-                self._shed_waiting(r, "deadline")
+                late.append(r)
             else:
                 kept.append(r)
         self._waiting = kept
+        # shed once out of the queue, as _evict_waiting does
+        for r in late:
+            self._shed_waiting(r, "deadline")
         self._maybe_preempt_running()
         # bounded prefill budget per round: a long prompt advances one
         # chunk at a time with decode rounds in between
@@ -2661,8 +2719,10 @@ class TorchEngine:
                 t_waiting = self._tenant_waiting.get(t, 0)
             retry = self.tenant_quotas.retry_after_s(t, t_waiting)
         else:
-            retry = self.admission.retry_after_s(
-                sum(1 for w in self._waiting if w.slot < 0))
+            # the backlog r was part of, whether or not it has left the
+            # queue yet
+            retry = self.admission.retry_after_s(1 + sum(
+                1 for w in self._waiting if w.slot < 0 and w is not r))
         r.emit(EngineOverloadedError(
             f"request shed while waiting ({reason})",
             retry_after_s=retry, tenant=t))
@@ -2671,11 +2731,14 @@ class TorchEngine:
         """Evict the lowest-priority, newest of ``cands`` (the not-started
         waiting entries over a budget): a preemption when a higher
         priority waits among them, else a bounce of the newest arrival
-        (the budget stays honest either way)."""
+        (the budget stays honest either way). The victim leaves the queue
+        before its client hears of the shed, so a client that reads the
+        queue after its error never finds itself still in it."""
         lo = min(r.req.priority for r in cands)
         hi = max(r.req.priority for r in cands)
         victim = max((r for r in cands if r.req.priority == lo),
                      key=lambda r: r.enqueue_time)
+        self._waiting.remove(victim)
         if lo < hi:
             self.waiting_preemptions += 1
             OVERLOAD.inc("dynamo_overload_preempted_total")
@@ -2684,7 +2747,6 @@ class TorchEngine:
         else:
             OVERLOAD.inc("dynamo_overload_rejected_total")
             self._shed_waiting(victim, f"{what} exceeded")
-        self._waiting.remove(victim)
 
     def _enforce_bounds(self) -> None:
         """Restore the admission budgets after a HIGH-priority arrival
@@ -2785,13 +2847,20 @@ class TorchEngine:
         pad_t = e.bucket_for(min(remaining, max_chunk)) or max_chunk
         return ((pad_t + ps - 1) // ps) * ps
 
+    @staticmethod
+    def _needs_solo_prefill(r: _Request) -> bool:
+        """The batched program carries no multimodal embedding rows."""
+        return bool((r.req.multimodal or {}).get("embeddings"))
+
     def _collect_prefill_group(
         self, budget: int
     ) -> tuple[list[_Request], int]:
         """A FIFO prefix of the waiting queue whose next chunks share one
         bucket width. Requests are *begun* (lane + prefix match) as they
         are considered — a member whose bucket diverges stays begun and
-        leads the next group. Returns (group, T)."""
+        leads the next group. A request that needs the per-request path
+        (``_needs_solo_prefill``) ends a group and, at the head, is a
+        group of its own. Returns (group, T)."""
         e = self.ecfg
         group: list[_Request] = []
         width = 0
@@ -2799,11 +2868,16 @@ class TorchEngine:
         for r in self._waiting:
             if len(group) >= cap:
                 break
+            solo = self._needs_solo_prefill(r)
+            if solo and group:
+                break
             if r.prefill_pos < 0:
                 if self._free_slot() is None:
                     break
                 self._prefill_begin(r)
             t = self._chunk_width(len(r.tokens) - r.prefill_pos)
+            if solo:
+                return [r], t
             if not group:
                 width = t
                 cap = min(cap, max(1, e.prefill_token_budget // t))
@@ -2859,11 +2933,13 @@ class TorchEngine:
         chunk = r.tokens[start: start + width]
         toks = np.zeros(width, np.int32)
         toks[: len(chunk)] = chunk
+        embeds, embeds_mask = self._chunk_embeds(r, start, len(chunk), width)
         t_disp = time.monotonic()
         self.dispatch_counts["prefill"] += 1
         logits = llama.prefill(
             self.config, self.params, self.ctx, self._to_device(toks),
-            r.slot, start, start + len(chunk), r.adapter_id)
+            r.slot, start, start + len(chunk), r.adapter_id,
+            embeds=embeds, embeds_mask=embeds_mask)
         self.flight.record(
             "prefill", slots=[r.slot], tokens=len(chunk), start=start,
             dispatch_ms=round((time.monotonic() - t_disp) * 1e3, 3))
@@ -2873,6 +2949,33 @@ class TorchEngine:
             return False
         self._finish_prefill(r, logits)
         return True
+
+    def _chunk_embeds(self, r: _Request, start: int, n: int, width: int
+                      ) -> tuple[Optional[torch.Tensor],
+                                 Optional[torch.Tensor]]:
+        """The override rows of the chunk [start, start + n) of a
+        multimodal request, padded to ``width`` (vision-encoder outputs
+        injected in place of the token embedding — reference
+        examples/multimodal E/P/D flow): each image's rows that fall in
+        the chunk, so a run that straddles a chunk boundary splits
+        between the two chunks and rows below a prefix hit's start are
+        skipped. (None, None) when no row falls in the chunk."""
+        mm = r.req.multimodal or {}
+        if not mm.get("embeddings"):
+            return None, None
+        ov = np.zeros((width, self.config.hidden_size), np.float32)
+        msk = np.zeros(width, bool)
+        for ent in mm["embeddings"]:
+            data = np.asarray(ent["data"], np.float32)
+            p0 = int(ent["pos"])
+            lo = max(p0, start)
+            hi = min(p0 + len(data), start + n)
+            if lo < hi:
+                ov[lo - start: hi - start] = data[lo - p0: hi - p0]
+                msk[lo - start: hi - start] = True
+        if not msk.any():
+            return None, None
+        return self._to_device(ov), self._to_device(msk)
 
     def _free_slot(self) -> Optional[int]:
         for i, s in enumerate(self._slots):

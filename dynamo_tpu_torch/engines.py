@@ -10,6 +10,7 @@ exercised without a model or a card.
 from __future__ import annotations
 
 import asyncio
+import math
 from typing import AsyncIterator
 
 from dynamo_tpu_torch.protocols.common import (
@@ -33,6 +34,15 @@ class EchoEngine:
 
     async def stop(self) -> None:
         pass
+
+    def embed(self, token_ids: list[int], dim: int = 16) -> list[float]:
+        """Deterministic fake embedding (token-id histogram folded into a
+        fixed dim, L2-normalized) — exercises the /v1/embeddings plumbing."""
+        v = [0.0] * dim
+        for i, t in enumerate(token_ids):
+            v[(t + i) % dim] += 1.0 + (t % 7) * 0.1
+        norm = math.sqrt(sum(x * x for x in v)) or 1.0
+        return [x / norm for x in v]
 
     async def generate(
         self, request: PreprocessedRequest

@@ -6,6 +6,11 @@ metrics.rs:104).
 Endpoints:
   POST /v1/chat/completions   (streamed SSE or aggregated JSON)
   POST /v1/completions
+  POST /v1/embeddings         (any engine with ``embed``; not counted in
+                               the requests_total family, as in the
+                               reference)
+  POST /v1/responses          (the Responses API lowered onto the chat
+                               pipeline; typed SSE events when streamed)
   GET  /v1/models
   GET  /health, /live
   GET  /metrics               (Prometheus text, or OpenMetrics with
@@ -65,14 +70,14 @@ Chat requests that declare ``tools`` get the model's tool calls parsed
 send the calls before the finish. ``nvext.annotations: ["llm_metrics"]``
 adds one event before ``[DONE]`` with the request's token counts, TTFT
 and ITL figures.
-
-Not ported yet: /v1/responses and /v1/embeddings.
 """
 from __future__ import annotations
 
 import asyncio
 import copy
+import json
 import logging
+import math
 import random
 import time
 import uuid
@@ -101,12 +106,16 @@ from dynamo_tpu_torch.protocols.openai import (
     ChatCompletionRequest,
     CompletionRequest,
     DeltaGenerator,
+    EmbeddingRequest,
+    ResponsesRequest,
     ValidationError,
     chat_completion_response,
     completion_logprobs,
     completion_response,
+    embedding_response,
     make_id,
     model_list_response,
+    responses_response,
 )
 from dynamo_tpu_torch.protocols.sse import encode_done, encode_event
 from dynamo_tpu_torch.resilience.metrics import RESILIENCE
@@ -336,6 +345,8 @@ class HttpService:
         self.server = HttpServer({
             ("POST", "/v1/chat/completions"): self.handle_chat,
             ("POST", "/v1/completions"): self.handle_completion,
+            ("POST", "/v1/embeddings"): self.handle_embeddings,
+            ("POST", "/v1/responses"): self.handle_responses,
             ("GET", "/v1/models"): self.handle_models,
             ("GET", "/health"): self.handle_health,
             ("GET", "/live"): self.handle_health,
@@ -538,6 +549,189 @@ class HttpService:
                 await invoke_clear(clear)
                 cleared.append(name)
         return Response.json({"cleared": cleared})
+
+    async def handle_embeddings(self, request: Request) -> Response:
+        """OpenAI /v1/embeddings over any engine exposing ``embed``
+        (reference protocols/openai embeddings surface): each input is
+        tokenized (or taken as token ids) and embedded on a worker
+        thread; ``dimensions`` truncates each vector and normalizes it
+        again."""
+        try:
+            body = request.json()
+        except ValueError:
+            return _error(400, "invalid JSON body")
+        try:
+            req = EmbeddingRequest.from_dict(body)
+        except ValidationError as e:
+            return _error(400, e.msg)
+        try:
+            chain = self.manager.get(req.model)
+        except ModelNotFound:
+            return _error(404, f"model '{req.model}' not found",
+                          "not_found_error")
+        embed = getattr(chain.engine, "embed", None)
+        if embed is None:
+            return _error(400, f"model '{req.model}' does not serve "
+                               "embeddings")
+        # normalize input to a list of token-id lists
+        raw = req.input
+        if isinstance(raw, str):
+            raw = [raw]
+        elif raw and isinstance(raw[0], int):
+            raw = [raw]
+        if not raw:
+            return _error(400, "empty input")
+        token_lists = [
+            chain.preprocessor.tokenizer.encode(item)
+            if isinstance(item, str) else list(item)
+            for item in raw
+        ]
+        if any(not t for t in token_lists):
+            return _error(400, "empty input")
+        try:
+            vectors = list(await asyncio.gather(*[
+                asyncio.to_thread(embed, toks) for toks in token_lists]))
+        except ValueError as e:  # the engine's input bound
+            return _error(400, str(e))
+        if req.dimensions:
+            # OpenAI contract: truncate, then normalize again
+            def shrink(v):
+                v = v[: req.dimensions]
+                norm = math.sqrt(sum(x * x for x in v)) or 1.0
+                return [x / norm for x in v]
+
+            vectors = [shrink(v) for v in vectors]
+        return Response.json(embedding_response(
+            req.model, vectors,
+            prompt_tokens=sum(len(t) for t in token_lists),
+            encoding_format=req.encoding_format,
+        ))
+
+    async def handle_responses(self, request: Request):
+        """OpenAI Responses API (reference protocols/openai/responses.rs):
+        lowered onto the chat pipeline through ResponsesRequest.to_chat().
+        Stateless: ``previous_response_id`` chaining is refused at
+        validation. A LENGTH finish answers ``incomplete`` with reason
+        ``max_output_tokens``."""
+
+        async def run(body: Any, env: dict):
+            try:
+                rreq = ResponsesRequest.from_dict(body)
+                chat_req = rreq.to_chat()
+            except ValueError as e:  # ValidationError's str is its msg
+                raise _ApiError(400, str(e)) from None
+            env["model"] = rreq.model
+            chain = self._resolve_model(rreq.model, chat=True)
+            try:
+                pre = chain.preprocess(chat_req)
+            except ValueError as e:
+                raise _ApiError(400, str(e)) from None
+
+            rid = make_id("resp")
+            self.metrics.inflight.labels(rreq.model).inc()
+            try:
+                if rreq.stream:
+                    return await self._stream_responses_api(
+                        request, rreq, chain, pre, rid)
+                text = ""
+                n_tok = 0
+                finish: Optional[FinishReason] = None
+                stream = chain.generate(pre)
+                try:
+                    async for out in stream:
+                        if out.text:
+                            text += out.text
+                        n_tok += len(out.token_ids)
+                        if out.finish_reason is not None:
+                            finish = out.finish_reason
+                finally:
+                    await _close_stream(stream)
+                incomplete = finish == FinishReason.LENGTH
+                return Response.json(responses_response(
+                    rid=rid, model=rreq.model, text=text,
+                    prompt_tokens=len(pre.token_ids),
+                    completion_tokens=n_tok,
+                    status="incomplete" if incomplete else "completed",
+                    incomplete_reason=(
+                        "max_output_tokens" if incomplete else None),
+                ))
+            finally:
+                self.metrics.inflight.labels(rreq.model).dec()
+
+        return await self._run_endpoint(request, "responses", run)
+
+    async def _stream_responses_api(self, request: Request, rreq, chain,
+                                    pre, rid: str) -> StreamResponse:
+        """Responses-API SSE: typed events, each with an ``event:`` line
+        (response.created -> response.output_text.delta* ->
+        response.output_text.done -> response.completed, or
+        response.incomplete on a LENGTH finish; response.failed in-band
+        when the engine stream fails after the stream is prepared)."""
+        resp = StreamResponse(
+            status=200,
+            headers={
+                "Content-Type": "text/event-stream",
+                "Cache-Control": "no-cache",
+                "Connection": "keep-alive",
+            },
+        )
+        await resp.prepare(request)
+
+        async def event(etype: str, data: dict) -> None:
+            await resp.write(encode_event(
+                json.dumps({"type": etype, **data}), event=etype))
+
+        snapshot = responses_response(
+            rid=rid, model=rreq.model, text="",
+            prompt_tokens=len(pre.token_ids), completion_tokens=0,
+            status="in_progress",
+        )
+        await event("response.created", {"response": snapshot})
+        text = ""
+        n_tok = 0
+        finish: Optional[FinishReason] = None
+        stream = chain.generate(pre)
+        try:
+            try:
+                async for out in stream:
+                    if out.text:
+                        text += out.text
+                        await event("response.output_text.delta",
+                                    {"delta": out.text, "output_index": 0,
+                                     "content_index": 0})
+                    n_tok += len(out.token_ids)
+                    if out.finish_reason is not None:
+                        finish = out.finish_reason
+            except Exception as e:  # noqa: BLE001 — in-band: the stream
+                # is already prepared, a 500 can no longer be returned
+                log.warning("responses stream failed: %s", e)
+                await event("response.failed", {"response": {
+                    "id": rid, "object": "response", "status": "failed",
+                    "error": {"message": str(e)},
+                }})
+                await resp.write_eof()
+                return resp
+            await event("response.output_text.done",
+                        {"text": text, "output_index": 0, "content_index": 0})
+            incomplete = finish == FinishReason.LENGTH
+            final = responses_response(
+                rid=rid, model=rreq.model, text=text,
+                prompt_tokens=len(pre.token_ids), completion_tokens=n_tok,
+                status="incomplete" if incomplete else "completed",
+                incomplete_reason="max_output_tokens" if incomplete else None,
+            )
+            await event(
+                "response.incomplete" if incomplete else "response.completed",
+                {"response": final})
+        except ConnectionResetError:
+            # routine client disconnect: not an error; the prepared
+            # StreamResponse is all we can return
+            log.info("client disconnected mid-stream")
+            return resp
+        finally:
+            await _close_stream(stream)
+        await resp.write_eof()
+        return resp
 
     def _resolve_model(self, name: str, *, chat: bool = False,
                        completion: bool = False):
@@ -921,6 +1115,17 @@ class HttpService:
                 except Exception:  # noqa: BLE001 — closing must not mask
                     log.debug("stream close failed", exc_info=True)
         return resp
+
+
+async def _close_stream(stream) -> None:
+    """Close an engine stream; a failure to close must not mask what
+    the caller is returning."""
+    close = getattr(stream, "aclose", None)
+    if close is not None:
+        try:
+            await close()
+        except Exception:  # noqa: BLE001
+            log.debug("stream close failed", exc_info=True)
 
 
 def _llm_metrics_event(timing: _RequestTiming, prompt_tokens: int,

@@ -41,8 +41,10 @@ Each streamed chunk is a ``frame_send`` event on the writer and a
 ``frame_recv`` event on the server, and the writer's wait for the eof
 ack an ``eof_ack_wait`` event (telemetry/timeline.py STREAM_EVENTS).
 
-Left out: ``ArrayFrameServer`` and ``take_remote_array``, which carry
-multimodal embeddings (ROADMAP Queue 1 item 12). The ``corrupt_frame`` chaos point
+The same codec carries multimodal embedding rows: ``ArrayFrameServer``
+parks an array under a one-shot ticket and ``take_remote_array``
+collects it ({"op": "take", "ticket": t} -> {"ok": true, "shape",
+"dtype"} + payload). The ``corrupt_frame`` chaos point
 (resilience/chaos.py) flips a byte of an outgoing payload's copy.
 """
 from __future__ import annotations
@@ -85,11 +87,12 @@ from dynamo_tpu_torch.runtime.protocol import (
 from dynamo_tpu_torch.telemetry import timeline as tl
 
 __all__ = [
-    "KV_META_PREFIX", "BlockTransferError", "BlockTransferServer",
+    "ArrayFrameServer", "KV_META_PREFIX", "BlockTransferError",
+    "BlockTransferServer",
     "BlocksetDescriptor", "KvCacheLayout", "PageStreamWriter",
     "RemoteKvFetcher", "get_descriptor", "kvmeta_key", "probe_remote_hashes",
     "publish_descriptor", "read_remote_hashes", "read_remote_pages",
-    "write_pages_stream", "write_remote_pages",
+    "take_remote_array", "write_pages_stream", "write_remote_pages",
 ]
 
 log = logging.getLogger(__name__)
@@ -1155,3 +1158,101 @@ class RemoteKvFetcher:
                 log.exception("chunked G4 fetch from %s failed",
                               desc.worker_id)
         return 0
+
+
+class ArrayFrameServer:
+    """One-shot array handoff over the frame2 codec (zero-copy send):
+    producers park an array under a ticket; exactly one peer collects it.
+
+    Carries multimodal embedding rows from the encode worker to the LLM
+    worker (reference encode_worker.py:148 moves them via NIXL): a
+    LLaVA-scale image is ~9 MB of f32 rows, which must not transit the
+    control-plane RPC as JSON float lists. Unclaimed arrays expire after
+    ``ttl_s``, swept whenever another array is parked."""
+
+    def __init__(self, host: str = "0.0.0.0", port: int = 0,
+                 ttl_s: float = 120.0,
+                 advertise_host: Optional[str] = None):
+        self.bind_host = host
+        # what tickets carry: peers on OTHER machines must be able to
+        # reach it (the bind address 0.0.0.0 is not routable; loopback
+        # only works intra-host)
+        self.host = advertise_host or (
+            host if host not in ("0.0.0.0", "") else "127.0.0.1")
+        self.port = port
+        self.ttl_s = ttl_s
+        self._parked: dict[str, tuple[float, torch.Tensor]] = {}
+        self._server: Optional[asyncio.AbstractServer] = None
+        self._conns: set[asyncio.Task] = set()
+        self._seq = 0
+
+    def park(self, array: torch.Tensor) -> str:
+        """Park a CPU tensor; returns its ticket."""
+        self._seq += 1
+        ticket = f"t{self._seq}"
+        now = time.monotonic()
+        self._parked[ticket] = (now, array)
+        # opportunistic expiry sweep (no background task to manage)
+        dead = [k for k, (ts, _) in self._parked.items()
+                if now - ts > self.ttl_s]
+        for k in dead:
+            del self._parked[k]
+        return ticket
+
+    async def start(self) -> tuple[str, int]:
+        loop = asyncio.get_running_loop()
+
+        def opened(conn: _FrameConn) -> None:
+            task = loop.create_task(self._on_conn(conn))
+            self._conns.add(task)
+            task.add_done_callback(self._conns.discard)
+
+        self._server = await loop.create_server(
+            lambda: _FrameConn(on_open=opened), self.bind_host, self.port)
+        self.port = self._server.sockets[0].getsockname()[1]
+        return self.host, self.port
+
+    async def stop(self) -> None:
+        if self._server is not None:
+            self._server.close()
+            await self._server.wait_closed()
+            self._server = None
+        self._parked.clear()
+
+    async def _on_conn(self, conn: _FrameConn) -> None:
+        try:
+            while True:
+                header, _ = await conn.read_frame2()
+                ent = self._parked.pop(header.get("ticket", ""), None)
+                if ent is None:
+                    conn.write(encode_frame2(
+                        {"ok": False, "error": "unknown or expired ticket"},
+                        b""))
+                else:
+                    data = ent[1]
+                    _write_array_frame(
+                        conn, {"ok": True, "shape": list(data.shape),
+                               "dtype": _DTYPE_NAMES[data.dtype]}, data)
+                await conn.drain()
+        except (asyncio.IncompleteReadError, ConnectionResetError,
+                BrokenPipeError, ValueError):
+            pass
+        finally:
+            conn.close()
+
+
+async def take_remote_array(host: str, port: int,
+                            ticket: str) -> torch.Tensor:
+    """Collect (and consume) a parked array: a CPU tensor of the parked
+    shape and dtype. An unknown or expired ticket raises
+    BlockTransferError."""
+    conn = await _connect(host, port)
+    try:
+        conn.write(encode_frame2({"op": "take", "ticket": ticket}, b""))
+        await conn.drain()
+        header, payload = await conn.read_frame2()
+        if not header.get("ok"):
+            raise BlockTransferError(header.get("error", "take failed"))
+        return _decode_payload(header, payload, copy=True)
+    finally:
+        conn.close()

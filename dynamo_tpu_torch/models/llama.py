@@ -846,13 +846,17 @@ def prefill(
     q_start: int,          # tokens already in the region
     seq_len: int,          # total valid context length
     adapter_id: int = 0,   # resident LoRA bank row (0 = the base model)
+    embeds: Optional[torch.Tensor] = None,       # [T, H] override rows
+    embeds_mask: Optional[torch.Tensor] = None,  # [T] bool: use `embeds`
 ) -> torch.Tensor:
     """Prefill of one request (the JAX version's ``prefill_impl``): T new
     tokens through the model, their KV written into the slot's region at
     [q_start, q_start+T) IN PLACE after the last read. Attention is one
     dense causal softmax over the slot's whole region plus the chunk
-    (``ctx_prefill_attention``). Returns the logits [V] (f32) of the last
-    valid token (position seq_len-1)."""
+    (``ctx_prefill_attention``). Where ``embeds_mask`` is set, the row of
+    ``embeds`` (cast to the compute dtype) replaces the token's embedding
+    (multimodal image tokens, models/vision.py). Returns the logits [V]
+    (f32) of the last valid token (position seq_len-1)."""
     _check_supported(config)
     c = config
     T = tokens.shape[0]
@@ -861,6 +865,8 @@ def prefill(
     cos, sin = rope_cos_sin(positions, _inv_freq(c, dev))
     cdt = _ctx_compute_dtype(c, ctx)
     h = _embed_rows(params, tokens, cdt)
+    if embeds is not None:
+        h = torch.where(embeds_mask[:, None], embeds.to(h.dtype), h)
     ag = gather_adapters(params.get("adapters"), int(adapter_id))
     # padding tokens must not claim MoE expert capacity
     valid = positions < seq_len if c.moe is not None else None
@@ -1447,6 +1453,55 @@ def seal_blocks(
             cache[name + "_scale"][:, dst] = sc
         else:
             cache[name][:, :, dst] = blocks.to(cache[name].dtype)
+
+
+# ---------------------------------------------------------------------------
+# Encoder pass (the embeddings API): causal self-attention over the prompt
+# with no KV cache; /v1/embeddings pools the final hidden states
+
+def encode(
+    config: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [T] int, padded
+    seq_len: int,          # valid length
+) -> torch.Tensor:
+    """Mean-pooled, L2-normalized final hidden state [H] (f32) over the
+    valid tokens (the JAX version's ``encode_impl``). Cache-free causal
+    attention in the model's dtype: GQA by repeating the KV heads, the
+    scores widened to f32 and masked with -1e30 (the padding keys too),
+    the probabilities cast back for P.V. As in the reference, no
+    ``ffn_valid`` mask: on a MoE model the padding rows take part in
+    routing and claim expert capacity."""
+    _check_supported(config)
+    c = config
+    T = tokens.shape[0]
+    dev = tokens.device
+    positions = torch.arange(T, device=dev)
+    cos, sin = rope_cos_sin(positions, _inv_freq(c, dev))
+    h = _embed_rows(params, tokens, torch_dtype(c.dtype))
+    valid = positions < seq_len                                   # [T]
+    causal = (positions[None, :] <= positions[:, None]) & valid[None, :]
+    rep = c.num_heads // c.num_kv_heads
+    root_d = float(np.sqrt(c.head_dim))
+
+    def attend(q, kv):
+        k, v = kv
+        qh = q.transpose(0, 1)                                    # [h, T, d]
+        kh = k.repeat_interleave(rep, dim=1).transpose(0, 1)
+        vh = v.repeat_interleave(rep, dim=1).transpose(0, 1)
+        s = torch.matmul(qh, kh.transpose(1, 2)).float().div_(root_d)
+        s.masked_fill_(~causal, -1e30)
+        w = torch.softmax(s, dim=-1).to(vh.dtype)
+        del s
+        return torch.matmul(w, vh).transpose(0, 1)                # [T, h, d]
+
+    for l in range(c.num_layers):
+        h = _layer_body(c, _layer(params, l), h, cos, sin,
+                        lambda k, v: (k, v), attend)
+    h = rms_norm(h, params["norm_f"], c.rms_norm_eps)
+    maskf = valid.float()[:, None]
+    pooled = (h.float() * maskf).sum(0) / maskf.sum().clamp(min=1.0)
+    return pooled / torch.linalg.vector_norm(pooled).clamp(min=1e-9)
 
 
 # ---------------------------------------------------------------------------

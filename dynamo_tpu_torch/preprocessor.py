@@ -1,18 +1,21 @@
 """OpenAI request preprocessing: chat template + tokenization (a copy of
-the JAX package's preprocessor.py, text only).
+the JAX package's preprocessor.py).
 
 Turns a validated OpenAI request into a `PreprocessedRequest` for the
 engine: apply model defaults, render the chat template (the port's Jinja
 subset, chat_template.py, where the reference uses jinja2), tokenize, and
 attach stop/sampling options and the nvext overload hints. Mirrors the
-reference OpenAIPreprocessor (lib/llm/src/preprocessor.rs:104). Image
-content parts are refused: the engine serves no multimodal input yet.
-``PromptFormatter.from_dir`` reads a model directory's
+reference OpenAIPreprocessor (lib/llm/src/preprocessor.rs:104). With an
+``image_token_id``, image content parts are lowered to runs of
+placeholder tokens and encode-worker payloads (multimodal.py); without
+one they are dropped, as in the reference. ``PromptFormatter.from_dir`` reads a model directory's
 ``tokenizer_config.json`` as the reference does.
 """
 from __future__ import annotations
 
+import base64
 import json
+import math
 import os
 from dataclasses import dataclass, field
 from typing import Any, Optional, Union
@@ -95,9 +98,19 @@ class PromptFormatter:
         return self._tpl.render(**ctx)
 
 
-def _flatten_content(content: Union[str, list, None]) -> str:
+_IMG_SENTINEL = "\x00<dynamo:image>\x00"
+
+
+def _flatten_content(
+    content: Union[str, list, None],
+    images: Optional[list] = None,
+) -> str:
     """OpenAI content may be a list of typed parts; keep the text parts.
-    An image part raises: the engine takes no multimodal input yet."""
+    With `images` given, image parts are collected into it and replaced by
+    a sentinel the tokenizer never merges across — preprocess_chat splices
+    placeholder token runs at the sentinel positions (the multimodal
+    image_url lowering, reference examples/multimodal processor). Without
+    it, image parts are dropped."""
     if content is None:
         return ""
     if isinstance(content, str):
@@ -109,9 +122,20 @@ def _flatten_content(content: Union[str, list, None]) -> str:
         ptype = p.get("type")
         if ptype == "text":
             parts.append(p.get("text", ""))
-        elif ptype in ("image_url", "image_data"):
-            raise ValueError(
-                "image content is not supported by the PyTorch engine yet")
+        elif ptype in ("image_url", "image_data") and images is not None:
+            if ptype == "image_url":
+                url = (p.get("image_url") or {}).get("url", "")
+                if not url.startswith("data:"):
+                    raise ValueError(
+                        "only data: image URLs are supported "
+                        "(no egress from the serving host)"
+                    )
+                images.append({"data_url": url})
+            else:
+                images.append({
+                    "data": p.get("data"), "shape": p.get("shape"),
+                })
+            parts.append(_IMG_SENTINEL)
     return "".join(parts)
 
 
@@ -124,12 +148,19 @@ class OpenAIPreprocessor:
     model_name: str = ""
     default_max_tokens: Optional[int] = None
     context_length: Optional[int] = None
+    # multimodal lowering (None disables): each image part becomes a run
+    # of `image_token_count` x `image_token_id` placeholders whose
+    # positions travel in PreprocessedRequest.multimodal
+    image_token_id: Optional[int] = None
+    image_token_count: int = 0
 
     def preprocess_chat(self, req: ChatCompletionRequest) -> PreprocessedRequest:
+        images: list = []
+        collect = images if self.image_token_id is not None else None
         messages = [
             {
                 "role": m.role,
-                "content": _flatten_content(m.content),
+                "content": _flatten_content(m.content, collect),
                 **({"tool_calls": m.tool_calls} if m.tool_calls else {}),
                 **({"tool_call_id": m.tool_call_id} if m.tool_call_id else {}),
                 **({"name": m.name} if m.name else {}),
@@ -139,7 +170,48 @@ class OpenAIPreprocessor:
         prompt = self.formatter.render(
             messages, tools=req.tools, extra=req.chat_template_args
         )
-        return self._finish(req, self.tokenizer.encode(prompt))
+        if not images:
+            return self._finish(req, self.tokenizer.encode(prompt))
+
+        # splice placeholder runs at the sentinel positions
+        segments = prompt.split(_IMG_SENTINEL)
+        if len(segments) != len(images) + 1:
+            raise ValueError("image sentinel mismatch in rendered prompt")
+        token_ids: list[int] = []
+        positions = []
+        for i, seg in enumerate(segments):
+            if seg:
+                token_ids.extend(self.tokenizer.encode(seg))
+            if i < len(images):
+                positions.append(len(token_ids))
+                token_ids.extend(
+                    [self.image_token_id] * self.image_token_count)
+        pre = self._finish(req, token_ids)
+        pre.multimodal = {"images": [
+            dict(self._resolve_image(im), pos=pos)
+            for im, pos in zip(images, positions)
+        ]}
+        return pre
+
+    @staticmethod
+    def _resolve_image(im: dict) -> dict:
+        """Normalize an image part to the encode-worker wire payload
+        ({data: b64-f32, shape}). data: URLs carry raw f32 bytes; the
+        shape rides in the fragment (#HxWx3) or defaults to square RGB."""
+        if "data_url" in im:
+            url = im["data_url"]
+            frag = ""
+            if "#" in url:
+                url, frag = url.rsplit("#", 1)
+            payload = url.split(",", 1)[1] if "," in url else ""
+            if frag:
+                shape = [int(x) for x in frag.split("x")]
+            else:
+                n = len(base64.b64decode(payload)) // 4 // 3
+                side = int(math.isqrt(n))
+                shape = [side, side, 3]
+            return {"data": payload, "shape": shape}
+        return {"data": im["data"], "shape": im["shape"]}
 
     def preprocess_completion(self, req: CompletionRequest) -> PreprocessedRequest:
         p = req.prompt

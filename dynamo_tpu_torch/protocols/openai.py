@@ -1,5 +1,6 @@
-"""OpenAI-compatible API types (chat completions, completions, models): a
-copy of the JAX package's protocols/openai.py on the standard library.
+"""OpenAI-compatible API types (chat completions, completions, embeddings,
+the Responses API, models): a copy of the JAX package's
+protocols/openai.py on the standard library.
 
 The reference validates request bodies with pydantic models. Here each
 request type is a dataclass whose ``from_dict`` validates a body as
@@ -10,13 +11,13 @@ field validators, the same defaults, unknown keys ignored; a union takes
 the first member that matches the value's type exactly, else the first
 that accepts it after coercion. A refused body raises ``ValidationError``
 carrying the first error, in field order, with pydantic's message.
-
-Responses and embeddings requests are not ported yet.
 """
 from __future__ import annotations
 
+import base64
 import math
 import re
+import struct
 import time
 import uuid
 from dataclasses import MISSING, dataclass, field, fields
@@ -161,6 +162,15 @@ def _union(*members: _Validator) -> _Validator:
             except ValidationError as e:
                 first = first or e
         raise first
+    return check
+
+
+def _literal(*values: str) -> _Validator:
+    def check(v, loc, strict=False):
+        if isinstance(v, str) and v in values:
+            return v
+        raise ValidationError(
+            loc, "Input should be " + " or ".join(f"'{x}'" for x in values))
     return check
 
 
@@ -402,6 +412,91 @@ class CompletionRequest(_CommonRequest):
     best_of: Optional[int] = _f(_bounded(_opt_int, ge=1, le=8), None)
 
 
+@dataclass(kw_only=True)
+class EmbeddingRequest(_Model):
+    model: str = _f(_str)
+    input: Union[str, list[str], list[int], list[list[int]]] = _f(
+        _union(_str, _list(_str), _list(_int), _list(_list(_int))))
+    encoding_format: str = _f(_literal("float", "base64"), "float")
+    dimensions: Optional[int] = _f(_opt_int, None)
+    user: Optional[str] = _f(_opt_str, None)
+
+
+def _input_nonempty(v) -> None:
+    if isinstance(v, (str, list)) and not v:
+        raise ValueError("input must be non-empty")
+
+
+def _no_chaining(v) -> None:
+    if v is not None:
+        raise ValueError(
+            "previous_response_id is not supported (stateless server); "
+            "resend the full conversation in `input`")
+
+
+@dataclass(kw_only=True)
+class ResponsesRequest(_Model):
+    """OpenAI Responses API request (reference
+    lib/llm/src/protocols/openai/responses.rs). Served by converting to
+    the chat pipeline: `input` + `instructions` become chat messages."""
+
+    model: str = _f(_str)
+    input: Union[str, list[dict[str, Any]]] = _f(
+        _after(_union(_str, _list(_dict)), _input_nonempty))
+    instructions: Optional[str] = _f(_opt_str, None)
+    max_output_tokens: Optional[int] = _f(_bounded(_opt_int, ge=1), None)
+    temperature: Optional[float] = _f(_bounded(_opt_float, ge=0.0, le=2.0),
+                                      None)
+    top_p: Optional[float] = _f(_bounded(_opt_float, gt=0.0, le=1.0), None)
+    stream: bool = _f(_bool, False)
+    store: bool = _f(_bool, False)  # accepted; no response store (stateless)
+    previous_response_id: Optional[str] = _f(_after(_opt_str, _no_chaining),
+                                             None)
+    metadata: Optional[dict[str, Any]] = _f(_opt_dict, None)
+    user: Optional[str] = _f(_opt_str, None)
+
+    def to_chat(self) -> ChatCompletionRequest:
+        """Lower onto the chat-completions pipeline. Messages, then the
+        request, are validated as chat ones (ValidationError); an input
+        item or content part the chat pipeline cannot carry raises
+        ValueError."""
+        messages: list[ChatMessage] = []
+        if self.instructions:
+            messages.append(ChatMessage.from_dict(
+                {"role": "system", "content": self.instructions}))
+        if isinstance(self.input, str):
+            messages.append(ChatMessage.from_dict(
+                {"role": "user", "content": self.input}))
+        else:
+            for item in self.input:
+                if item.get("type") not in (None, "message"):
+                    raise ValueError(
+                        f"unsupported input item type {item.get('type')!r}")
+                content = item.get("content")
+                if isinstance(content, list):
+                    # responses content parts: input_text/output_text only
+                    texts = []
+                    for p in content:
+                        ptype = p.get("type") if isinstance(p, dict) else None
+                        if ptype in ("input_text", "output_text", "text"):
+                            texts.append(p.get("text", ""))
+                        else:
+                            raise ValueError(
+                                f"unsupported content part type {ptype!r}")
+                    content = "".join(texts)
+                messages.append(ChatMessage.from_dict(
+                    {"role": item.get("role", "user"), "content": content}))
+        return ChatCompletionRequest.from_dict({
+            "model": self.model,
+            "messages": messages,
+            "max_tokens": self.max_output_tokens,
+            "temperature": self.temperature,
+            "top_p": self.top_p,
+            "stream": self.stream,
+            "user": self.user,
+        })
+
+
 # ---------------------------------------------------------------------------
 # Response builders (dicts — serialized straight to JSON)
 # ---------------------------------------------------------------------------
@@ -417,6 +512,46 @@ def _usage(prompt_tokens: int, completion_tokens: int) -> dict[str, int]:
 
 def make_id(prefix: str = "chatcmpl") -> str:
     return f"{prefix}-{uuid.uuid4().hex}"
+
+
+def responses_response(
+    *,
+    rid: str,
+    model: str,
+    text: str,
+    prompt_tokens: int,
+    completion_tokens: int,
+    status: str = "completed",
+    incomplete_reason: Optional[str] = None,
+    created: Optional[int] = None,
+) -> dict[str, Any]:
+    """OpenAI Responses API response object (responses.rs parity)."""
+    # in-progress snapshots (response.created) carry no output yet; a
+    # truncated response's message is itself marked incomplete
+    output = [] if status == "in_progress" else [{
+        "type": "message",
+        "id": make_id("msg"),
+        "status": "incomplete" if status == "incomplete" else "completed",
+        "role": "assistant",
+        "content": [{"type": "output_text", "text": text,
+                     "annotations": []}],
+    }]
+    return {
+        "id": rid,
+        "object": "response",
+        "created_at": created or int(time.time()),
+        "status": status,
+        "model": model,
+        "output": output,
+        "usage": {
+            "input_tokens": prompt_tokens,
+            "output_tokens": completion_tokens,
+            "total_tokens": prompt_tokens + completion_tokens,
+        },
+        "incomplete_details": (
+            {"reason": incomplete_reason} if incomplete_reason else None
+        ),
+    }
 
 
 def chat_completion_response(
@@ -454,6 +589,29 @@ def completion_response(
         "model": model,
         "choices": choices,
         "usage": _usage(prompt_tokens, completion_tokens),
+    }
+
+
+def embedding_response(
+    model: str, vectors: list[list[float]], prompt_tokens: int,
+    encoding_format: str = "float",
+) -> dict[str, Any]:
+    """The /v1/embeddings body; ``base64`` packs each vector as
+    little-endian f32."""
+    def enc(v: list[float]):
+        if encoding_format == "base64":
+            return base64.b64encode(struct.pack(f"<{len(v)}f", *v)).decode()
+        return v
+
+    return {
+        "object": "list",
+        "data": [
+            {"object": "embedding", "embedding": enc(v), "index": i}
+            for i, v in enumerate(vectors)
+        ],
+        "model": model,
+        "usage": {"prompt_tokens": prompt_tokens,
+                  "total_tokens": prompt_tokens},
     }
 
 

@@ -324,6 +324,42 @@ def test_high_priority_arrival_preempts_the_newest_waiting_entry():
     assert torch_out == jax_out == ("overloaded", "ok", 4, 1, 1.0)
 
 
+def test_an_evicted_entry_has_left_the_queue_when_its_error_is_emitted(
+        monkeypatch):
+    """The engine thread emits the shed error to the client's loop: the
+    entry must be out of the waiting queue by then, or a client that
+    reads the queue on its error can still find itself in it."""
+    seen = []
+    emit = engine_mod._Request.emit
+
+    def spy(self, item):
+        if isinstance(item, Exception):
+            seen.append(any(w is self for w in eng._waiting))
+        emit(self, item)
+
+    monkeypatch.setattr(engine_mod._Request, "emit", spy)
+
+    async def scenario():
+        hog = await _hold_lane(eng, "torch")
+        p = _prompts(2, 4)
+        low = asyncio.ensure_future(_outcome(eng, _preq("torch", p[0])))
+        await _until(lambda: _waiting(eng) >= 1)
+        high = asyncio.ensure_future(_outcome(
+            eng, _preq("torch", p[1], priority=1)))
+        low_out = await low
+        order = [r.req.priority for r in eng._waiting if r.slot < 0]
+        hog.cancel()
+        await asyncio.gather(hog, return_exceptions=True)
+        await high
+        await eng.stop()
+        return low_out[0], order
+
+    _registries("torch")
+    eng = _budgeted(max_waiting_requests=1)
+    assert asyncio.run(scenario()) == ("overloaded", [1])
+    assert seen == [False]
+
+
 def test_tenant_budget_bounces_only_the_storming_tenant_and_confines_preemption():
     """Tenant budget 1: tenant a's second waiting request bounces with
     tenant "a" while tenant b admits; a HIGH-priority arrival of a evicts

@@ -359,13 +359,75 @@ def test_preprocessor_matches_reference(chat, body):
             _preprocess(rpre, ropenai, r, chat, body, tpl)
 
 
-def test_preprocessor_refuses_image_parts_and_batches():
+def _image_parts():
+    """Image content parts of every accepted shape: a data: URL with the
+    #HxWx3 fragment, one without (a square), and raw image_data."""
+    import base64
+
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    a = rng.rand(4, 2, 3).astype(np.float32)
+    b = rng.rand(3, 3, 3).astype(np.float32)
+    c = rng.rand(2, 2, 3).astype(np.float32)
+    b64 = [base64.b64encode(x.tobytes()).decode() for x in (a, b, c)]
+    return [
+        {"type": "text", "text": "w1 w2"},
+        {"type": "image_url",
+         "image_url": {"url": f"data:application/octet-stream;base64,"
+                              f"{b64[0]}#4x2x3"}},
+        {"type": "text", "text": " hello "},
+        {"type": "image_url", "image_url": {"url": f"data:,{b64[1]}"}},
+        {"type": "image_data", "data": b64[2], "shape": [2, 2, 3]},
+        {"type": "text", "text": "world"},
+    ]
+
+
+@pytest.mark.parametrize("image_token_id", [None, 7],
+                         ids=["no image token", "image token 7"])
+def test_preprocessor_refuses_image_parts_and_batches(image_token_id):
+    """Image parts are lowered as the reference lowers them: with an
+    image token, each becomes a run of placeholders whose positions and
+    encode-worker payloads ride in ``multimodal`` (the same token ids,
+    positions and payloads in both packages); without one they are
+    dropped. A non-data URL, a batch prompt and a prompt past the
+    context length are refused."""
+    body = {"model": "m", "messages": [
+        {"role": "system", "content": "w3"},
+        {"role": "user", "content": _image_parts()}]}
+    out = []
+    for mod, omod, tok in ((ppre, popenai, ptok), (rpre, ropenai, rtok)):
+        pre = mod.OpenAIPreprocessor(
+            tokenizer=tok.make_test_tokenizer(WORDS),
+            formatter=mod.PromptFormatter(
+                template="{% for m in messages %}{{ m.content }} "
+                         "{% endfor %}"),
+            model_name="m", image_token_id=image_token_id,
+            image_token_count=5)
+        req = omod.ChatCompletionRequest
+        res = pre.preprocess_chat(req.from_dict(body) if mod is ppre
+                                  else req(**body))
+        out.append((res.token_ids, res.multimodal))
+        bad = {"model": "m", "messages": [{"role": "user", "content": [
+            {"type": "image_url",
+             "image_url": {"url": "https://example.com/x.png"}}]}]}
+        bad_req = req.from_dict(bad) if mod is ppre else req(**bad)
+        if image_token_id is None:
+            assert pre.preprocess_chat(bad_req).multimodal is None
+        else:
+            with pytest.raises(ValueError, match="only data: image URLs"):
+                pre.preprocess_chat(bad_req)
+    assert out[0] == out[1]
+    ids, mm = out[0]
+    if image_token_id is None:
+        assert mm is None and image_token_id not in ids
+    else:
+        assert [im["shape"] for im in mm["images"]] == [
+            [4, 2, 3], [3, 3, 3], [2, 2, 3]]
+        for im in mm["images"]:
+            assert ids[im["pos"]: im["pos"] + 5] == [7] * 5
+        assert ids.count(7) == 15
     pre = ppre.OpenAIPreprocessor(tokenizer=ptok.make_test_tokenizer())
-    req = popenai.ChatCompletionRequest.from_dict({"model": "m", "messages": [
-        {"role": "user", "content": [
-            {"type": "image_url", "image_url": {"url": "data:,"}}]}]})
-    with pytest.raises(ValueError, match="image"):
-        pre.preprocess_chat(req)
     with pytest.raises(ValueError, match="batch"):
         pre.preprocess_completion(popenai.CompletionRequest.from_dict(
             {"model": "m", "prompt": ["a", "b"]}))
