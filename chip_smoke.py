@@ -393,7 +393,21 @@ Phases, each printing a line (any failure raises and exits non-zero):
      newest running low-priority stream to B through the router, whole
      and equal to generate() on R along the same paths (the kernels
      line's launches_overload);
-  9d. moe w8a16, moe bf16 (after the 8B weights are freed):
+  9d. planner (after overload, the w8a16 weights and every earlier
+     engine freed; check_planner): the SLA profiler over TorchEngine at
+     Llama-3.1-8B, 32 layers, bf16, on the resident weights (slots4,
+     slots8, slots16 x concurrency 1, 2, 4, 8; isl 64, osl 32), every
+     decode step a replay running flash decode once a layer (the kernels
+     line's launches_planner); calibrate_mocker's inversion of slots8,
+     whose MockerEngine must land within 25% of the engine's
+     concurrency-1 TTFT and ITL p50 (a doubled decode step must not); and
+     an SLA drill: a Planner in SLA mode over a LocalConnector of
+     ``cli run in=endpoint out=torch --model-config llama3_8b
+     --num-layers CUT_LAYERS`` workers scales 1 -> 2 under c + 1 held
+     streams (c from the profile) and back to 1 by SIGTERM drain, the
+     kept stream whole and the worker's exit 0, with a MetricsExporter
+     rendering both workers and PLANNER counting one step each way;
+  9e. moe w8a16, moe bf16 (after the 8B weights are freed):
      Llama-3.1-8B's width with the repo's MoE recipe (MOE_RECIPE: 8
      experts, top-2, dropless), random weights, w8a16 at all 32 layers
      and bf16 at MOE_BF16_LAYERS (check_moe): the serve burst and its
@@ -424,7 +438,10 @@ Phases, each printing a line (any failure raises and exits non-zero):
      workers must have served (each prints its count when SIGTERM stops
      it), each worker runs with --system-port 0 (/health must answer 200)
      and SIGTERM must drain it ("drained; shutting down"), and every
-     process must exit 0.
+     process must exit 0; and ``python -m dynamo_tpu_torch.cli profile
+     --engine torch --model-config tiny --cache-dtype float32 --slots 4
+     --concurrency 1 2`` with no --device must write a table with the
+     reference's keys.
 Each phase prints its seconds, and at the end one summary line (its
 name, seconds and key figures), all together before the card line. The
 block from the first summary line to the last line is at most
@@ -6620,9 +6637,448 @@ def check_offload(params, counts, card):
             f"{fttft:.4f} s, tokens = G1 reference")
 
 
+# the planner phase: the drain grace a retired worker gets in its SLA
+# drill, and the mocker's largest relative error at concurrency 1 (TTFT
+# p50, ITL p50)
+PLANNER_GRACE_S = 30.0
+PLANNER_CALIB_TOL = 0.25
+
+
+def until(pred, timeout_s, what):
+    """Poll ``pred`` on the running loop until it holds; raise naming
+    ``what`` after ``timeout_s``."""
+    async def wait():
+        t_end = time.monotonic() + timeout_s
+        while not pred():
+            if time.monotonic() > t_end:
+                raise AssertionError(f"planner: {what} within {timeout_s} s")
+            await asyncio.sleep(0.02)
+    return wait()
+
+
+def profile_rows(table, name):
+    """{concurrency: point} of one config of a profile table."""
+    cfg = next(c for c in table["configs"] if c["name"] == name)
+    return {p["concurrency"]: p for p in cfg["points"]}
+
+
+def point_text(p):
+    return (f"c={p['concurrency']}: TTFT p50 {p['ttft_p50_s'] * 1e3:.2f} "
+            f"p99 {p['ttft_p99_s'] * 1e3:.2f} ms, ITL p50 "
+            f"{p['itl_p50_s'] * 1e3:.3f} p99 {p['itl_p99_s'] * 1e3:.3f} ms, "
+            f"{p['tok_s']:.1f} tok/s")
+
+
+def check_planner(params, smi, device="cuda", cfg=None, worker_flags=None):
+    """The planner plane (profiler.py, tools/calibrate_mocker.py, mocker.py,
+    planner.py, metrics_exporter.py) on the card, after the 8B phases.
+
+    Profile: ``profiler.profile_engine`` over TorchEngine at
+    Llama-3.1-8B, all 32 layers, bf16, every engine sharing the script's
+    resident weights (seed 0), with the reference CLI's sweep (slots4,
+    slots8, slots16 x concurrency 1, 2, 4, 8; isl 64, osl 32, 2 rounds)
+    and the reference's EngineConfig (512 pages of 64, one 128-token
+    prefill bucket). Every point has tokens and p50 <= p99; slots8 at
+    concurrency 8 makes more tok/s than at 1; every decode step was a
+    graph replay running the dense kernel once a layer, counted on the
+    card (launches_planner = 32 x steps), and the wrapper launched
+    nothing. The table is printed.
+
+    Calibrate: calibrate_mocker inverts slots8; a MockerEngine built from
+    it, profiled over the same sweep, has its concurrency-1 TTFT p50 and
+    ITL p50 within PLANNER_CALIB_TOL of the engine's (the points the
+    inversion reads); a control with the decode step doubled must miss
+    it. Its other points are printed beside the engine's.
+
+    SLA drill: SLA targets 1.1 x slots8's TTFT and ITL p50 at concurrency
+    4 give a replica capacity c (SlaCapacity.max_concurrency). A Planner
+    in SLA mode (interval 1 s, stable_intervals 2, 1..2 replicas) drives
+    a LocalConnector whose workers are ``python -m dynamo_tpu_torch.cli
+    run in=endpoint out=torch --model-config llama3_8b --num-layers
+    CUT_LAYERS`` on cuda (two fit beside the resident weights); free
+    memory is printed before each spawn. c + 1 streams held open on the
+    first worker make the planner add a second, which registers and
+    answers a request; a MetricsExporter on the same store renders both
+    workers' load gauges. The load is released with one stream kept on
+    the newest worker: the planner drains it by SIGTERM while the stream
+    runs, the stream ends whole, the worker exits 0 within the grace
+    (no SIGKILL), the fleet is back to one, and PLANNER counts one
+    scale-up and one scale-down. The decisions rest on stream counts,
+    not on the workers' latencies. Printed: each worker's spawn to
+    registration, load to scale-up and SIGTERM to exit.
+
+    Returns the kernel's executions over the profile."""
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch import profiler
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.mocker import MockerArgs, MockerEngine
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.tools.calibrate_mocker import (
+        mocker_args_from_profile,
+    )
+
+    cfg = cfg or ModelConfig.llama3_8b()
+    worker_flags = worker_flags or [
+        "--model-config", "llama3_8b", "--num-layers", str(CUT_LAYERS)]
+    dev = torch.device(device)
+    sweep = dict(concurrencies=(1, 2, 4, 8), isl=64, osl=32, rounds=2)
+    tally = {"steps": 0, "dense": 0, "int8": 0, "issued": 0, "engines": 0}
+    built: list = []
+
+    def fold():
+        """Count the last engine's run: its decode steps, the kernel's
+        executions since it was built and the wrapper's launches."""
+        if not built:
+            return
+        eng, step0 = built.pop()
+        torch.cuda.synchronize()
+        dense, int8 = fd.executed(dev, reset=True)
+        tally["dense"] += dense
+        tally["int8"] += int8
+        tally["issued"] += fd.launches + fd.launches_int8
+        tally["steps"] += eng.step_count - step0
+        check_replayed(eng, f"planner slots{eng.ecfg.max_decode_slots}")
+
+    def make(c):
+        fold()
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = TorchEngine(cfg, profiler.torch_engine_config(c, cfg.dtype),
+                          params=params, device=device)
+        torch.cuda.synchronize()
+        fd.executed(dev, reset=True)          # the build's warm-up
+        fd.launches = fd.launches_int8 = 0    # and its graph capture
+        built.append((eng, eng.step_count))
+        tally["engines"] += 1
+        return eng
+
+    configs = [{"name": f"slots{s}", "max_decode_slots": s}
+               for s in (4, 8, 16)]
+    t0 = time.monotonic()
+    table = asyncio.run(profiler.profile_engine(make, configs, **sweep))
+    fold()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_profile = time.monotonic() - t0
+    for c in table["configs"]:
+        for p in c["points"]:
+            log(f"planner profile {c['name']} {point_text(p)}")
+            if not (p["tok_s"] > 0 and p["ttft_p50_s"] > 0
+                    and p["itl_p50_s"] > 0):
+                raise AssertionError(f"planner: {c['name']} has no tokens "
+                                     f"at concurrency {p['concurrency']}")
+            if (p["ttft_p50_s"] > p["ttft_p99_s"]
+                    or p["itl_p50_s"] > p["itl_p99_s"]):
+                raise AssertionError(f"planner: {c['name']} p50 above p99 "
+                                     f"at concurrency {p['concurrency']}")
+    s8 = profile_rows(table, "slots8")
+    if not s8[8]["tok_s"] > s8[1]["tok_s"]:
+        raise AssertionError(
+            f"planner: slots8 makes {s8[8]['tok_s']} tok/s at concurrency "
+            f"8, not more than {s8[1]['tok_s']} at 1")
+    layers = cfg.num_layers
+    if (tally["dense"] != layers * tally["steps"] or tally["int8"]
+            or tally["issued"]):
+        raise AssertionError(
+            f"planner: flash_decode ran {tally['dense']} times (int8 "
+            f"{tally['int8']}, {tally['issued']} issued by the wrapper) over "
+            f"{tally['steps']} decode steps of {layers} layers")
+    log(f"planner profile: {tally['engines']} engines, {t_profile:.1f} s; "
+        f"every decode step replayed, flash_decode ran {tally['dense']} "
+        f"times = {layers} x {tally['steps']} steps; {smi}")
+
+    # calibrate
+    margs = mocker_args_from_profile(table, "slots8")
+
+    def mocker(kw):
+        # the profiled engine's paged KV (512 pages of 64): with the
+        # mocker's default 16-token pages a repeated 64-token prompt would
+        # hit 48 cached tokens that the engine's 64-token pages never hold
+        ecfg = profiler.torch_engine_config({})
+        return lambda c: MockerEngine(MockerArgs(
+            num_pages=ecfg.num_pages, page_size=ecfg.page_size,
+            max_pages_per_seq=ecfg.max_pages_per_seq, **kw))
+
+    def errors(p):
+        return (abs(p["ttft_p50_s"] / s8[1]["ttft_p50_s"] - 1),
+                abs(p["itl_p50_s"] / s8[1]["itl_p50_s"] - 1))
+
+    mt = asyncio.run(profiler.profile_engine(
+        mocker(margs), [{"name": "mocker"}], **sweep))
+    m = profile_rows(mt, "mocker")
+    err = errors(m[1])
+    control = dict(margs, decode_time_per_step_s=2 *
+                   margs["decode_time_per_step_s"])
+    ct = asyncio.run(profiler.profile_engine(
+        mocker(control), [{"name": "control"}],
+        **dict(sweep, concurrencies=(1,))))
+    cerr = errors(profile_rows(ct, "control")[1])
+    for c in (1, 2, 4, 8):
+        log(f"planner mocker {point_text(m[c])} (engine ITL p50 "
+            f"{s8[c]['itl_p50_s'] * 1e3:.3f} ms, TTFT p50 "
+            f"{s8[c]['ttft_p50_s'] * 1e3:.2f} ms)")
+    if max(err) > PLANNER_CALIB_TOL:
+        raise AssertionError(
+            f"planner: the calibrated mocker's TTFT / ITL p50 at "
+            f"concurrency 1 are off by {err[0]:.3f} / {err[1]:.3f}")
+    if max(cerr) <= PLANNER_CALIB_TOL:
+        raise AssertionError(
+            f"planner: the control (decode step doubled) passed: "
+            f"{cerr[0]:.3f} / {cerr[1]:.3f}")
+    log(f"planner calibrate: {json.dumps(margs)}; the mocker's TTFT / ITL "
+        f"p50 at concurrency 1 off by {err[0]:.3f} / {err[1]:.3f} (control "
+        f"with the decode step doubled: {cerr[0]:.3f} / {cerr[1]:.3f})")
+
+    # the SLA drill
+    sla = profiler.SlaCapacity(
+        table, ttft_sla_s=1.1 * s8[4]["ttft_p50_s"],
+        itl_sla_s=1.1 * s8[4]["itl_p50_s"], config_name="slots8")
+    cap = sla.max_concurrency()
+    log(f"planner drill: SLA TTFT {sla.ttft_sla_s * 1e3:.2f} ms, ITL "
+        f"{sla.itl_sla_s * 1e3:.3f} ms (1.1 x slots8 at concurrency 4): "
+        f"c = {cap} streams a replica")
+    if cap < 4:
+        raise AssertionError(f"planner: capacity {cap} below the point "
+                             f"its targets came from")
+    logs = tempfile.mkdtemp(prefix="planner-drill-")
+    prompt = list(range(3, 67))
+
+    def free_gib():
+        if dev.type != "cuda":
+            return "n/a (cpu)"
+        free, total = torch.cuda.mem_get_info()
+        return f"{free / 2**30:.1f} of {total / 2**30:.1f} GiB"
+
+    async def drill():
+        from dynamo_tpu_torch.metrics_exporter import MetricsExporter
+        from dynamo_tpu_torch.planner import (
+            LocalConnector,
+            Planner,
+            PlannerConfig,
+        )
+        from dynamo_tpu_torch.planner_metrics import PLANNER
+        from dynamo_tpu_torch.protocols.common import (
+            PreprocessedRequest,
+            StopConditions,
+        )
+        from dynamo_tpu_torch.runtime.client import KvClient
+        from dynamo_tpu_torch.runtime.component import DistributedRuntime
+        from dynamo_tpu_torch.runtime.store import serve_store
+
+        def payload(n):
+            return PreprocessedRequest(
+                token_ids=prompt, stop_conditions=StopConditions(
+                    max_tokens=n, ignore_eos=True)).to_dict()
+
+        async def stream(wid, n, first=None):
+            """(tokens, finish, first token's time) of one request straight
+            to worker wid; ``first`` is set at the first token."""
+            toks, finish, t_first = [], None, None
+            async for item in client.generate(payload(n), mode="direct",
+                                              instance_id=wid):
+                toks.extend(item.get("token_ids") or [])
+                finish = item.get("finish_reason") or finish
+                if toks and t_first is None:
+                    t_first = time.monotonic()
+                    if first is not None:
+                        first.set()
+            return toks, finish, t_first
+
+        async def registered(n):
+            """Wait for n instances; a worker that exits first fails."""
+            await until(lambda: len(client.instance_ids()) >= n or any(
+                p.poll() is not None for p in conn.procs), 240,
+                f"{n} registered workers")
+            dead = [p.returncode for p in conn.procs if p.poll() is not None]
+            if dead:
+                raise AssertionError(f"planner: a worker exited {dead[0]}")
+
+        server, _ = await serve_store(port=0, sweep_interval_s=0.1)
+        cp = f"127.0.0.1:{server.sockets[0].getsockname()[1]}"
+        conn = LocalConnector(
+            [sys.executable, "-m", "dynamo_tpu_torch.cli", "run",
+             "in=endpoint", "out=torch", *worker_flags, "--model-name",
+             "llama3_8b", "--namespace", "drill", "--router-mode",
+             "round_robin", "--control-plane", cp],
+            drain_grace_s=PLANNER_GRACE_S, log_dir=logs)
+        host, port = cp.split(":")
+        kv = await KvClient(host, int(port)).connect()
+        ekv = await KvClient(host, int(port)).connect()
+        exporter = await MetricsExporter(ekv, host="127.0.0.1",
+                                         port=0).start()
+        rt = await DistributedRuntime.connect(port=int(port))
+        client = await rt.namespace("drill").component("backend").endpoint(
+            "generate").client()
+        PLANNER.reset()
+        planner, holds, fig = None, [], {}
+        try:
+            log(f"planner drill: free memory before worker 1: {free_gib()}")
+            t = time.monotonic()
+            await conn.set_replicas(1)
+            await registered(1)
+            fig["reg"] = [time.monotonic() - t]
+            (w1,) = client.instance_ids()
+            planner = await Planner(kv, conn, PlannerConfig(
+                adjustment_interval_s=1.0, stable_intervals=2,
+                min_replicas=1, max_replicas=2), sla=sla).start()
+            holding = [True]
+
+            async def hold(i):
+                while holding[0]:
+                    await stream(w1, 3000 + 97 * i)
+
+            t_load = time.monotonic()
+            holds = [asyncio.create_task(hold(i)) for i in range(cap + 1)]
+            await until(lambda: conn.spawned == 2, 60, "a scale-up")
+            t_spawn = time.monotonic()
+            fig["up"] = t_spawn - t_load
+            log(f"planner drill: {cap + 1} streams held on worker 1; the "
+                f"planner spawned worker 2 after {fig['up']:.2f} s; free "
+                f"memory before worker 2: {free_gib()}")
+            await registered(2)
+            fig["reg"].append(time.monotonic() - t_spawn)
+            w2 = next(i for i in client.instance_ids() if i != w1)
+            toks, finish, _ = await stream(w2, 64)
+            if len(toks) != 64 or finish != "length":
+                raise AssertionError(f"planner: the new instance answered "
+                                     f"{len(toks)} tokens ({finish})")
+            await until(lambda: all(
+                f'dynamo_worker_active_slots{{worker="{w}"}}'
+                in exporter.render() for w in (w1, w2)), 20,
+                "both workers' gauges on the exporter")
+            # release the load, one stream kept on the newest worker: as
+            # long as the worker's context allows (4096 tokens), seconds
+            # more than the planner's two intervals to a scale-down
+            kept_n = (min(4096, cfg.max_position_embeddings) - len(prompt)
+                      - 64)
+            first = asyncio.Event()
+            kept = asyncio.create_task(stream(w2, kept_n, first))
+            await asyncio.wait_for(first.wait(), 60)
+            holding[0] = False
+            for h in holds:
+                h.cancel()
+            await asyncio.gather(*holds, return_exceptions=True)
+            t_release = time.monotonic()
+            newest = conn.procs[-1]
+            await until(lambda: conn.drains_started == 1, 30,
+                        "a scale-down")
+            t_term = time.monotonic()
+            if kept.done():
+                raise AssertionError("planner: the kept stream ended before "
+                                     "the drain began")
+            if newest in conn.procs or conn.current_replicas() != 1:
+                raise AssertionError("planner: the drain did not retire the "
+                                     "newest worker")
+            toks, finish, t_first = await kept
+            t_kept = time.monotonic()
+            if len(toks) != kept_n or finish != "length":
+                raise AssertionError(f"planner: the kept stream ended after "
+                                     f"{len(toks)} of {kept_n} ({finish})")
+            await until(lambda: newest.poll() is not None,
+                        PLANNER_GRACE_S + 10, "worker 2's exit")
+            fig["drain"] = time.monotonic() - t_term
+            if newest.returncode != 0 or fig["drain"] > PLANNER_GRACE_S:
+                raise AssertionError(
+                    f"planner: worker 2 exited {newest.returncode} after "
+                    f"{fig['drain']:.1f} s (grace {PLANNER_GRACE_S} s)")
+            await until(lambda: client.instance_ids() == [w1], 20,
+                        "the fleet back to one")
+            text = PLANNER.render()
+            counts = (PLANNER.get("dynamo_planner_scale_ups_total"),
+                      PLANNER.get("dynamo_planner_scale_downs_total"))
+            if (counts != (1, 1)
+                    or "dynamo_planner_scale_ups_total 1" not in text
+                    or "dynamo_planner_scale_downs_total 1" not in text):
+                raise AssertionError(f"planner: PLANNER counts {counts} "
+                                     f"scale-ups / downs")
+            fig.update(release=t_term - t_release, kept=(
+                kept_n, (t_kept - t_first) / (kept_n - 1), t_kept - t_term),
+                decisions=len(planner.decisions))
+            return fig
+        except BaseException:
+            for name in sorted(os.listdir(logs)):
+                with open(os.path.join(logs, name)) as f:
+                    log(f"planner drill: {name}:\n{f.read()[-3000:]}")
+            raise
+        finally:
+            for h in holds:
+                h.cancel()
+            if planner is not None:
+                await planner.stop()
+            await conn.set_replicas(0)     # drain what is left, then kill
+            await until(lambda: all(p.poll() is not None
+                                    for p in conn._retiring_procs),
+                        PLANNER_GRACE_S + 10, "the last worker's exit")
+            await conn.shutdown()
+            await exporter.stop()
+            await client.stop()
+            await rt.close()
+            await kv.close()
+            await ekv.close()
+            server.close()
+
+    try:
+        fig = asyncio.run(drill())
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+    kept_n, itl, kept_s = fig["kept"]
+    log(f"planner drill: 1 -> 2 -> 1 on {smi}: spawn to registered "
+        f"{fig['reg'][0]:.2f} s and {fig['reg'][1]:.2f} s; load to scale-up "
+        f"{fig['up']:.2f} s; release to SIGTERM {fig['release']:.2f} s; "
+        f"the kept stream ({kept_n} tokens at {itl * 1e3:.2f} ms a token on "
+        f"the new worker) ran {kept_s:.2f} s past SIGTERM and ended whole; "
+        f"SIGTERM to exit {fig['drain']:.2f} s, exit 0; PLANNER: 1 scale-up, "
+        f"1 scale-down over {fig['decisions']} decisions")
+    figures(f"profile 3 x 4 points, slots8 ITL p50 c1 "
+            f"{s8[1]['itl_p50_s'] * 1e3:.2f} / c8 "
+            f"{s8[8]['itl_p50_s'] * 1e3:.2f} ms; mocker off "
+            f"{max(err):.3f}; c = {cap}; spawn {fig['reg'][0]:.1f}/"
+            f"{fig['reg'][1]:.1f} s, drain {fig['drain']:.1f} s; launches "
+            f"{tally['dense']}")
+    return tally["dense"]
+
+
+def check_cli_profile():
+    """``python -m dynamo_tpu_torch.cli profile --engine torch
+    --model-config tiny`` as a user runs it, with no --device (the tiny
+    model's head dim has only an f32 kernel, hence --cache-dtype
+    float32): it must write a table with the reference's keys."""
+    import tempfile
+
+    keys = ["concurrency", "ttft_p50_s", "ttft_p99_s", "itl_p50_s",
+            "itl_p99_s", "tok_s"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "profile.json")
+        cmd = [sys.executable, "-m", "dynamo_tpu_torch.cli", "profile",
+               "--engine", "torch", "--model-config", "tiny",
+               "--cache-dtype", "float32", "--slots", "4", "--concurrency",
+               "1", "2", "--output", path]
+        t0 = time.monotonic()
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"cli profile: exit {out.returncode}\n"
+                                 f"{out.stderr[-3000:]}")
+        with open(path) as f:
+            table = json.load(f)
+    (c,) = table["configs"]
+    if (list(table) != ["isl", "osl", "configs"] or c["name"] != "slots4"
+            or [p["concurrency"] for p in c["points"]] != [1, 2]
+            or any(list(p) != keys or not p["tok_s"] > 0
+                   for p in c["points"])):
+        raise AssertionError(f"cli profile: table {table}")
+    log(f"cli: {' '.join(cmd[1:-2])} exited 0 in "
+        f"{time.monotonic() - t0:.1f} s: "
+        + "; ".join(point_text(p) for p in c["points"]))
+
+
 def check_cli(extra=()):
     """The launcher as a user runs it, with no --device (and ``extra``
-    flags): it must serve a prompt on the card (cuda) and exit 0."""
+    flags): it must serve a prompt on the card (cuda) and exit 0; without
+    ``extra``, the profile CLI too (check_cli_profile)."""
     cmd = [sys.executable, "-m", "dynamo_tpu_torch.launch.run", "in=text",
            "out=torch", "--model-config", "tiny", "--cache-dtype", "float32",
            "--prompt", "w1 w2 w3", "--max-tokens", "8", *extra]
@@ -6633,6 +7089,8 @@ def check_cli(extra=()):
     log(f"cli: {' '.join(cmd[1:])} exited 0 in "
         f"{time.monotonic() - t0:.1f} s ({out.stderr.strip().splitlines()[0]}"
         f"); printed {out.stdout.strip()!r}")
+    if not extra:
+        check_cli_profile()
     return out.stdout[:-1]
 
 
@@ -8711,7 +9169,16 @@ def main() -> int:
         f"{direct['gib']:.2f}); the first step's largest logprob "
         f"difference to the dense weights (prompt 0) {lp_diff:.4f} "
         f"(information: random weights, quantized)")
-    del qparams, params
+    # the planner phase: the w8a16 weights and every engine of an earlier
+    # phase freed first, the bf16 weights kept for its profile
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"planner: {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+        f"allocated before the phase (the 8B bf16 weights "
+        f"{weights_gib(params):.2f} GiB)")
+    planner_launches = phase("planner", check_planner, params, smi)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     # MoE at the 8B's width, each model alone on the card
@@ -8738,7 +9205,8 @@ def main() -> int:
              launches_overload=over_launches,
              launches_checkpoint=ck_launches[0],
              launches_multimodal=mm_launches[0],
-             launches_moe=moe_q[0] + moe_b[0], **fd_report),
+             launches_moe=moe_q[0] + moe_b[0],
+             launches_planner=planner_launches, **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",
              launches=counts["flash_decode_int8"],

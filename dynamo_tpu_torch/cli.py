@@ -16,10 +16,28 @@ Commands:
         [--endpoint-name E] [--block-size 64] [--router-temperature
         0.0]`` serves find_best on {component}-router; SIGTERM stops it
         with exit code 0
+  metrics
+        the Prometheus re-exporter of the worker load plane
+        (metrics_exporter.py): ``metrics --control-plane HOST:PORT
+        [--host 0.0.0.0] [--port 9090]``; SIGTERM stops it
+  planner
+        the autoscaler over a local worker pool (planner.py): ``planner
+        --control-plane HOST:PORT [--engine mocker] [--sla-profile
+        PROFILE --ttft-sla S --itl-sla S]``, load, SLA or predictive
+        mode; SIGTERM stops it and its workers
+  profile
+        the SLA profiler (profiler.py): ``profile --engine mocker|torch
+        [--model-config tiny] [--device cuda] [--slots 4 8 16]
+        [--concurrency 1 2 4 8] [--output profile.json]``; --engine
+        torch runs TorchEngine on --device (default cuda: without a card
+        it fails, it does not fall back to the CPU)
+  datagen
+        the mooncake-style trace generator and analyzer
+        (data_generator.py): ``datagen --num 100 --output trace.jsonl``
+        or ``datagen --analyze trace.jsonl``
 
-The JAX package's other commands (serve, metrics, planner, llmctl,
-profile, datagen, operator) are refused by name: their planes are not
-ported yet.
+The JAX package's other commands (serve, llmctl, operator) are refused
+by name: their planes are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,11 +45,7 @@ import sys
 
 _UNPORTED = {
     "serve": "the serving-graph supervisor",
-    "metrics": "the load-metrics exporter",
-    "planner": "the planner",
     "llmctl": "model registration by hand",
-    "profile": "the profiler",
-    "datagen": "the trace generator",
     "operator": "the k8s operator",
 }
 
@@ -108,6 +122,157 @@ def _run_router(rest: list[str]) -> int:
     return 0
 
 
+def _run_datagen(rest: list[str]) -> int:
+    """Synthesize/analyze mooncake-style request traces (reference
+    benchmarks/data_generator), with the JAX package's flags."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.cli "
+                                     "datagen")
+    p.add_argument("--num", type=int, default=100)
+    p.add_argument("--rate", type=float, default=2.0,
+                   help="Poisson arrival rate (req/s)")
+    p.add_argument("--isl", type=int, default=256)
+    p.add_argument("--osl", type=int, default=128)
+    p.add_argument("--block-size", type=int, default=64)
+    p.add_argument("--sessions", type=int, default=20)
+    p.add_argument("--turns", type=float, default=4.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--output", default="trace.jsonl")
+    p.add_argument("--analyze", default=None, metavar="TRACE",
+                   help="analyze an existing trace instead of generating")
+    args = p.parse_args(rest)
+    from dynamo_tpu_torch.data_generator import run_datagen
+
+    run_datagen(args)
+    return 0
+
+
+def _run_metrics(rest: list[str]) -> int:
+    import argparse
+    import asyncio
+
+    p = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.cli "
+                                     "metrics")
+    p.add_argument("--control-plane", required=True, metavar="HOST:PORT")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=9090)
+    args = p.parse_args(rest)
+    from dynamo_tpu_torch.metrics_exporter import run_exporter
+
+    try:
+        asyncio.run(run_exporter(args))
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _run_planner(rest: list[str]) -> int:
+    """The planner, with the JAX package's flags (``--connector
+    kubernetes`` parses and is refused: the k8s connector is not
+    ported)."""
+    import argparse
+    import asyncio
+
+    p = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.cli "
+                                     "planner")
+    p.add_argument("--control-plane", required=True, metavar="HOST:PORT")
+    p.add_argument("--engine", default="mocker",
+                   help="worker engine for spawned replicas")
+    p.add_argument("--model-name", default="model")
+    p.add_argument("--namespace", default="dynamo")
+    p.add_argument("--adjustment-interval", type=float, default=10.0)
+    p.add_argument("--min-replicas", type=int, default=1)
+    p.add_argument("--max-replicas", type=int, default=8)
+    p.add_argument("--predictor", default="constant",
+                   choices=("constant", "moving_average", "ar", "arima"),
+                   help="load forecaster filtering observations before "
+                        "scaling decisions (reference load_predictor.py)")
+    p.add_argument("--predictive", action="store_true",
+                   help="forecast next-interval concurrent streams and "
+                        "size the fleet for the forecast (scale ahead of "
+                        "the wave; pair with --predictor ar and "
+                        "--streams-per-replica)")
+    p.add_argument("--streams-per-replica", type=float, default=0.0,
+                   help="per-replica stream capacity the predictive "
+                        "forecast divides by (from a profile sweep or "
+                        "the engine's decode-slot count)")
+    p.add_argument("--fleet-ttft-scale-up", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="scale up when the fleet-merged TTFT p99 over "
+                        "the last decide interval exceeds this (catches "
+                        "latency waves stream counts miss; 0 = off)")
+    p.add_argument("--fleet-queue-scale-up", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="same trigger on the fleet-merged admission "
+                        "queue-wait p99 (0 = off)")
+    p.add_argument("--connector", default="local",
+                   choices=("local", "kubernetes"),
+                   help="scale actuator: local worker subprocesses (the "
+                        "k8s connector is not ported yet)")
+    p.add_argument("--k8s-deployment", default=None,
+                   help="worker Deployment name (connector=kubernetes)")
+    p.add_argument("--k8s-namespace", default="default")
+    # SLA mode (reference planner_sla.py): consume a profiler table
+    p.add_argument("--sla-profile", default=None, metavar="PROFILE_JSON",
+                   help="profile from `python -m dynamo_tpu_torch.cli "
+                        "profile`; enables SLA mode with "
+                        "--ttft-sla/--itl-sla")
+    p.add_argument("--ttft-sla", type=float, default=None,
+                   help="target TTFT seconds (p50)")
+    p.add_argument("--itl-sla", type=float, default=None,
+                   help="target inter-token latency seconds (p50)")
+    p.add_argument("--sla-config", default=None,
+                   help="which profiled config the deployed workers run "
+                        "(required when the profile has several)")
+    args = p.parse_args(rest)
+    from dynamo_tpu_torch.planner import run_planner
+
+    try:
+        asyncio.run(run_planner(args))
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _run_profile(rest: list[str]) -> int:
+    """The profiler, with the JAX package's flags; ``--engine torch`` is
+    the counterpart of its ``tpu``, and ``--device`` and
+    ``--cache-dtype`` are the port's own."""
+    import argparse
+    import asyncio
+
+    p = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.cli "
+                                     "profile")
+    p.add_argument("--engine", default="mocker", choices=["mocker", "torch"])
+    p.add_argument("--model-config", default="tiny")
+    p.add_argument("--slots", type=int, nargs="+", default=[4, 8, 16])
+    p.add_argument("--concurrency", type=int, nargs="+",
+                   default=[1, 2, 4, 8])
+    p.add_argument("--isl", type=int, default=64)
+    p.add_argument("--osl", type=int, default=32)
+    p.add_argument("--output", default="profile.json")
+    p.add_argument("--device", default=None,
+                   help="torch device of --engine torch (default cuda; "
+                        "no fallback to the CPU)")
+    p.add_argument("--cache-dtype", default="bfloat16",
+                   help="--engine torch's KV cache dtype, in which its "
+                        "random weights are made too")
+    args = p.parse_args(rest)
+    from dynamo_tpu_torch.profiler import run_profile
+
+    try:
+        asyncio.run(run_profile(args))
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+_COMMANDS = {"cp": _run_cp, "router": _run_router, "datagen": _run_datagen,
+             "metrics": _run_metrics, "planner": _run_planner,
+             "profile": _run_profile}
+
+
 def main(argv: list[str] | None = None) -> int:
     import logging
 
@@ -123,10 +288,8 @@ def main(argv: list[str] | None = None) -> int:
         from dynamo_tpu_torch.launch.run import run_cli
 
         return run_cli(rest)
-    if cmd == "cp":
-        return _run_cp(rest)
-    if cmd == "router":
-        return _run_router(rest)
+    if cmd in _COMMANDS:
+        return _COMMANDS[cmd](rest)
     if cmd in _UNPORTED:
         print(f"{cmd}: {_UNPORTED[cmd]} is not served by the PyTorch port "
               f"yet", file=sys.stderr)

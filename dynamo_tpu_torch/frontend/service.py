@@ -101,6 +101,7 @@ from dynamo_tpu_torch.tenancy.quotas import DEFAULT_TENANT
 from dynamo_tpu_torch.overload.deadline import apply_request_hints
 from dynamo_tpu_torch.overload.errors import EngineOverloadedError
 from dynamo_tpu_torch.overload.metrics import OVERLOAD
+from dynamo_tpu_torch.planner_metrics import PLANNER
 from dynamo_tpu_torch.protocols.common import FinishReason, LLMEngineOutput
 from dynamo_tpu_torch.protocols.openai import (
     ChatCompletionRequest,
@@ -408,6 +409,7 @@ class HttpService:
                 + OVERLOAD.render().encode()
                 + PROF.render().encode()
                 + TENANT.render().encode()
+                + PLANNER.render().encode()
                 + KV_FLEET.render().encode()
                 + SPEC.render().encode()
                 + FLEET_FEED.render(openmetrics=om).encode()

@@ -289,6 +289,7 @@ class ModelWatcher:
         # the fleet replication controller of each KV-routed model (None:
         # the reactive G4 path only)
         prefetch_config: Optional[PrefetchConfig] = None,
+        engine_factory: Optional[Any] = None,  # (client, Instance) -> engine
     ):
         self.rt = rt
         self.manager = manager
@@ -296,6 +297,11 @@ class ModelWatcher:
         self.router_config = router_config
         self.kv_recorder = kv_recorder
         self.prefetch_config = prefetch_config
+        # fleet simulator hook (fleetsim/sim.py): a KV-routed model's
+        # router reaches in-process engines, keyed by the instance found
+        # in the store, instead of a RemoteWorkerEngine TCP client per
+        # worker. None: the serving path
+        self.engine_factory = engine_factory
         # the tokenizer of a model without a checkpoint: the test
         # tokenizer, as the JAX package's watcher uses (programmatic
         # callers may pass another, as to build_chain)
@@ -523,8 +529,10 @@ class ModelWatcher:
                 for inst in instances:
                     wid = str(inst.id)
                     if wid not in push.workers:
-                        push.add_worker(wid,
-                                        RemoteWorkerEngine(client, inst.id))
+                        eng = (self.engine_factory(client, inst)
+                               if self.engine_factory is not None
+                               else RemoteWorkerEngine(client, inst.id))
+                        push.add_worker(wid, eng)
                         added = True
                 if added:
                     self._replay_unclaimed()

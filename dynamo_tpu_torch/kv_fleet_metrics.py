@@ -4,11 +4,10 @@ JAX package's kv_fleet_metrics.py).
 Dedup-by-hash admission (the engine consults the fleet hints before a G4
 probe round), the frontend's replication controller
 (kv_router/prefetch.py) and replication-aware tier eviction
-(engine/offload.py) all count here. The frontend's ``/metrics`` and each
-worker's system server (runtime/system_server.py) append ``render()``'s
-Prometheus text, so the series exist on both surfaces. The aggregating
-exporter that adds a third surface in the reference comes with ROADMAP
-Queue 1 item 14.
+(engine/offload.py) all count here. The frontend's ``/metrics``, each
+worker's system server (runtime/system_server.py) and the aggregating
+exporter (metrics_exporter.py) append ``render()``'s Prometheus text, so
+the series exist on all three surfaces.
 """
 from __future__ import annotations
 

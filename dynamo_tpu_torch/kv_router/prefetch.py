@@ -23,8 +23,8 @@ fleets, tests). A worker reached only over the wire gets the same
 payloads on the store's pub/sub plane (``kv_fleet.{worker_id}``, which
 frontend/watcher.py ``register_llm`` subscribes to) when a ``publish``
 callable is given; a worker with neither is skipped. The fleet simulator
-that drives this controller in the reference (fleetsim/) comes with
-ROADMAP Queue 1 item 14.
+(fleetsim/: SimFleet's in-process mocker workers behind a ModelWatcher)
+drives this controller at fleet scale on the CPU.
 """
 from __future__ import annotations
 

@@ -24,6 +24,8 @@ Inputs (reference entrypoint/input.rs:29-45):
 
 Engines:
   out=echo       deterministic token echo (tests/smoke)
+  out=mocker     simulated paged-KV engine (mocker.py: the CPU, timing
+                 from MockerArgs, real KV events and load metrics)
   out=torch      TorchEngine on --device (default cuda: without a card the
                  engine raises), serving --model-path (an HF safetensors
                  directory, a cached hub id, or a .gguf file: config,
@@ -64,8 +66,8 @@ import time
 from typing import Any, Optional
 
 # engines the reference serves that the port does not yet
-_UNPORTED_ENGINES = {"mocker": "the mocker engine", "tpu": "the JAX engine "
-                     "(out=torch is the port's engine)"}
+_UNPORTED_ENGINES = {"tpu": "the JAX engine (out=torch is the port's "
+                     "engine)"}
 _SERVED_CONFIGS = ("tiny", "tiny_moe", "llama3_1b", "llama3_8b",
                    "llama3_1b_int8", "llama3_8b_int8")
 
@@ -92,7 +94,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="Run the PyTorch port's serving chain",
     )
     p.add_argument("io", nargs="*",
-                   help="in=<http|text|stdin|batch:FILE> out=<echo|torch>")
+                   help="in=<http|text|stdin|batch:FILE> "
+                        "out=<echo|mocker|torch>")
     p.add_argument("--model-path",
                    help="local HF model dir (config/tokenizer/safetensors), "
                         "a cached hub id, or a .gguf file")
@@ -100,6 +103,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-config", default=None,
                    help=f"canned config ({'|'.join(_SERVED_CONFIGS)}) for "
                         f"random-weight serving")
+    p.add_argument("--num-layers", type=int, default=None,
+                   help="serve --model-config's random weights at its "
+                        "first N layers, its width unchanged (the port's "
+                        "own flag: several workers of a large model on "
+                        "one card)")
     p.add_argument("--quantize", default=None, choices=["int8"],
                    help="weight quantization (w8a16: int8 weights with a "
                         "per-output-channel scale, served through the "
@@ -442,6 +450,9 @@ def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
     from dynamo_tpu_torch.tokenizer import make_test_tokenizer
 
     inp, out = _parse_io(args.io)
+    if args.model_path and args.num_layers is not None:
+        raise SystemExit("--num-layers cuts --model-config's random "
+                         "weights, not a checkpoint's")
     gguf_meta = None
     fmt = PromptFormatter()
     name = args.model_name or "echo"
@@ -456,6 +467,10 @@ def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
         from dynamo_tpu_torch.engines import EchoEngine
 
         engine: Any = EchoEngine()
+    elif out == "mocker":
+        from dynamo_tpu_torch.mocker import MockerArgs, MockerEngine
+
+        engine = MockerEngine(MockerArgs())
     elif out == "torch":
         from dynamo_tpu_torch.engine.config import EngineConfig
         from dynamo_tpu_torch.engine.engine import TorchEngine
@@ -484,8 +499,10 @@ def build_chain(args, *, params: Any = None, tokenizer: Any = None) -> tuple:
         else:
             # the engine computes in one dtype: random weights are made in
             # the cache dtype (the reference promotes bf16 weights to it)
+            depth = ({} if args.num_layers is None
+                     else {"num_layers": args.num_layers})
             cfg = getattr(ModelConfig, args.model_config)(
-                dtype=args.cache_dtype)
+                dtype=args.cache_dtype, **depth)
             if args.quantize:
                 cfg = dataclasses.replace(cfg, quant=args.quantize)
         ecfg = EngineConfig(

@@ -29,8 +29,6 @@ frontend's metrics:
   GET /debug/outliers         this worker's SLO-breach dossier ring
   GET /debug/outliers/{id}[?format=perfetto]
                               one dossier, as JSON or a Perfetto timeline
-
-Left out: the planner's PLANNER family (the port has no planner yet).
 """
 from __future__ import annotations
 
@@ -45,6 +43,7 @@ from dynamo_tpu_torch.kv_integrity import KV_INTEGRITY
 from dynamo_tpu_torch.kv_quant import KV_QUANT
 from dynamo_tpu_torch.kv_transfer_metrics import KV_TRANSFER
 from dynamo_tpu_torch.overload.metrics import OVERLOAD
+from dynamo_tpu_torch.planner_metrics import PLANNER
 from dynamo_tpu_torch.resilience.chaos import CHAOS
 from dynamo_tpu_torch.resilience.metrics import RESILIENCE
 from dynamo_tpu_torch.runtime.store_metrics import STORE
@@ -58,8 +57,10 @@ from dynamo_tpu_torch.tenancy.metrics import TENANT
 
 log = logging.getLogger(__name__)
 
-PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+# the reference's answers (aiohttp's text responses name their charset)
+PROMETHEUS_CONTENT_TYPE = "text/plain; charset=utf-8"
 OPENMETRICS_CONTENT_TYPE = "application/openmetrics-text"
+OPENMETRICS_RESPONSE_TYPE = f"{OPENMETRICS_CONTENT_TYPE}; charset=utf-8"
 
 
 class SystemServer:
@@ -188,7 +189,7 @@ class SystemServer:
                 + KV_TRANSFER.render() + KV_QUANT.render()
                 + KV_INTEGRITY.render() + OVERLOAD.render()
                 + PROF.render() + TENANT.render() + STORE.render()
-                + KV_FLEET.render() + SPEC.render()
+                + PLANNER.render() + KV_FLEET.render() + SPEC.render()
                 + FLEET_FEED.render(openmetrics=openmetrics)
                 + FORENSICS.render())
 
@@ -196,7 +197,7 @@ class SystemServer:
         if OPENMETRICS_CONTENT_TYPE in request.headers.get("Accept", ""):
             return Response(
                 (self.render(openmetrics=True) + "# EOF\n").encode(),
-                content_type=OPENMETRICS_CONTENT_TYPE)
+                content_type=OPENMETRICS_RESPONSE_TYPE)
         return Response(self.render().encode(),
                         content_type=PROMETHEUS_CONTENT_TYPE)
 

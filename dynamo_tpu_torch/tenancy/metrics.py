@@ -86,8 +86,11 @@ class TenantRegistry:
         with self._lock:
             return self._values[name].get(_safe_tenant(tenant), 0.0)
 
-    def observe(self, name: str, tenant: str, value: float) -> None:
-        self.histogram(name, tenant).observe(value)
+    def observe(
+        self, name: str, tenant: str, value: float,
+        exemplar_id: Optional[str] = None,
+    ) -> None:
+        self.histogram(name, tenant).observe(value, exemplar_id=exemplar_id)
 
     def histogram(self, name: str, tenant: str) -> Histogram:
         assert name in self._hists, f"unknown tenant histogram {name!r}"
@@ -140,10 +143,11 @@ class TenantRegistry:
             for per in self._hists.values():
                 per.clear()
 
-    def render(self) -> str:
+    def render(self, openmetrics: bool = False) -> str:
         """One HELP/TYPE head per family; tenant-labelled series under
         it. Families with no tenants yet still emit their heads so the
-        scrape contract is visible from the first scrape."""
+        scrape contract is visible from the first scrape. ``openmetrics``
+        adds the histograms' exemplars."""
         with self._lock:
             values = {n: dict(per) for n, per in self._values.items()}
             hists = {n: dict(per) for n, per in self._hists.items()}
@@ -165,7 +169,7 @@ class TenantRegistry:
                 # drop render_histogram's own HELP/TYPE lines
                 lines.extend(render_histogram(
                     name, help_, hists[name][t].snapshot(),
-                    label=f'tenant="{t}"',
+                    label=f'tenant="{t}"', openmetrics=openmetrics,
                 )[2:])
         return "\n".join(lines) + "\n"
 

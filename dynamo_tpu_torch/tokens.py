@@ -90,6 +90,16 @@ class TokenBlockSequence:
         return len(self.blocks) * self.block_size + len(self.partial)
 
     @property
+    def tokens(self) -> list[int]:
+        """Every token of the sequence, the sealed blocks' and the tail's
+        (the mocker's preemption restarts from them)."""
+        out: list[int] = []
+        for b in self.blocks:
+            out.extend(b.tokens)
+        out.extend(self.partial)
+        return out
+
+    @property
     def last_hash(self) -> int:
         return self.blocks[-1].block_hash if self.blocks else salt_hash(self.salt)
 

@@ -214,9 +214,8 @@ async def _scrape(svc, port, headers):
 async def test_echo_metrics_match_reference(accept):
     """After the same requests, both /metrics answers carry the same
     Content-Type and the same sample names (prometheus_client's
-    ``_created`` samples included), but for the planner's
-    ``dynamo_planner_*`` families, which the port does not serve yet
-    (ROADMAP item 14)."""
+    ``_created`` samples and the planner's ``dynamo_planner_*`` families
+    included)."""
     headers = {"Accept": accept} if accept else None
     out = []
     for port, svc_cls in ((True, _Port), (False, _Ref)):
@@ -228,10 +227,45 @@ async def test_echo_metrics_match_reference(accept):
             out.append(await _scrape(s, port, headers))
     (pt, pn), (rt, rn) = out
     assert pt == rt
-    rn = {n for n in rn if not n.startswith("dynamo_planner_")}
+    assert "dynamo_planner_replicas" in rn
     assert "dynamo_http_service_requests_created" in rn
     assert "dynamo_http_service_request_duration_seconds_created" in rn
     assert pn == rn
+
+
+@pytest.mark.parametrize("accept", [None, "application/openmetrics-text"],
+                         ids=["plain", "openmetrics"])
+async def test_system_server_metrics_header_matches_reference(accept):
+    """A worker's system server answers /metrics with the reference's
+    Content-Type (``text/plain; charset=utf-8`` in plain text) and the
+    same metric families, the planner's included. The fleet-merged
+    request histograms render only while some worker of this process fed
+    the feed in the last 10 s, so they may differ by what ran before."""
+    from dynamo_tpu.runtime.system_server import SystemServer as RSystem
+    from dynamo_tpu_torch.runtime.system_server import SystemServer as PSystem
+
+    headers = {"Accept": accept} if accept else None
+    out = []
+    for cls in (PSystem, RSystem):
+        srv = await cls(None, host="127.0.0.1", port=0,
+                        worker_id="w1").start()
+        try:
+            async with HttpClient("127.0.0.1", srv.port) as c:
+                r = await c.request("GET", "/metrics", headers=headers)
+                text = r.body.decode()
+        finally:
+            await srv.stop()
+        if "# EOF" in text:
+            text = "\n".join(line.split(" # ")[0] for line in
+                             text.splitlines() if line != "# EOF")
+        out.append((r.headers["Content-Type"],
+                    {f.name for f in text_string_to_metric_families(text)}))
+    (pt, pn), (rt, rn) = out
+    assert pt == rt
+    assert rt == ("application/openmetrics-text; charset=utf-8" if accept
+                  else "text/plain; charset=utf-8")
+    assert "dynamo_planner_replicas" in rn and "dynamo_planner_replicas" in pn
+    assert all(n.startswith("dynamo_fleet_request_") for n in pn ^ rn)
 
 
 async def test_invalid_json_and_routes():

@@ -84,7 +84,8 @@ def test_parse_io_refuses_other_words():
     (["--forensics-sample-rate", "0.5"], "--forensics-sample-rate=0.5"),
     (["--preempt-running", "on"], "running preemption"),
     (["--spec-tree", "on"], "--spec-tree='on'"),
-    (["out=mocker"], "mocker"),
+    (["out=tpu"], "tpu"),
+    (["--num-layers", "2", "--model-path", "/models/x"], "--num-layers"),
     (["out=torch", "--model-config", "llama3_70b"], "llama3_70b"),
     (["out=torch"], "needs --model-config"),
     (["in=carrier-pigeon"], "unknown input"),
@@ -347,13 +348,79 @@ def test_http_serves_a_checkpoint_as_the_reference(ckpt_dir):
     assert pcompl["usage"] == rcompl["usage"]
 
 
-@pytest.mark.parametrize("cmd", ["serve", "metrics", "profile", "planner",
-                                 "llmctl"])
+def test_num_layers_cuts_the_random_weights():
+    """--num-layers (the port's own flag) serves --model-config's width at
+    its first N layers."""
+    args = prun.build_parser().parse_intermixed_args(
+        ["in=text", "out=torch", "--device", "cpu", "--model-config", "tiny",
+         "--cache-dtype", "float32", "--num-layers", "1"])
+    _, chain = prun.build_chain(args)
+    full = prun.build_chain(prun.build_parser().parse_intermixed_args(
+        ["in=text", "out=torch", "--device", "cpu", "--model-config", "tiny",
+         "--cache-dtype", "float32"]))[1]
+    cut, ref = chain.engine.config, full.engine.config
+    assert (cut.num_layers, ref.num_layers) == (1, 4)
+    assert cut.hidden_size == ref.hidden_size
+    assert chain.engine.params["layers"]["wq"].shape[0] == 1
+
+
+@pytest.mark.parametrize("cmd", ["serve", "llmctl", "operator"])
 def test_cli_refuses_the_reference_commands_by_name(cmd, capsys):
     from dynamo_tpu_torch import cli
 
     assert cli.main([cmd]) == 2
     assert f"{cmd}: " in capsys.readouterr().err
+
+
+# command -> (module, entry function, the flags given): the JAX package's
+# defaults for the rest
+CLI_COMMANDS = {
+    "metrics": ("metrics_exporter", "run_exporter",
+                ["--control-plane", "127.0.0.1:7111"]),
+    "planner": ("planner", "run_planner",
+                ["--control-plane", "127.0.0.1:7111"]),
+    "profile": ("profiler", "run_profile", []),
+    "datagen": ("data_generator", "run_datagen", []),
+}
+
+
+@pytest.mark.parametrize("cmd", list(CLI_COMMANDS))
+def test_cli_commands_parse_the_reference_flags(cmd, monkeypatch):
+    """metrics, planner, profile and datagen parse the JAX package's flags
+    with its defaults (profile's --engine says torch where the reference
+    says tpu, and --device and --cache-dtype are the port's own)."""
+    import importlib
+
+    from dynamo_tpu import cli as rcli
+    from dynamo_tpu_torch import cli as pcli
+
+    mod, fn, argv = CLI_COMMANDS[cmd]
+    seen = {}
+    for pkg in ("dynamo_tpu", "dynamo_tpu_torch"):
+        target = importlib.import_module(f"{pkg}.{mod}")
+
+        def capture(args, pkg=pkg):
+            seen[pkg] = vars(args)
+
+        async def capture_async(args, pkg=pkg):
+            capture(args, pkg)
+
+        monkeypatch.setattr(target, fn,
+                            capture if cmd == "datagen" else capture_async)
+    assert rcli.main([cmd] + argv) == pcli.main([cmd] + argv) == 0
+    ref, port = seen["dynamo_tpu"], seen["dynamo_tpu_torch"]
+    if cmd == "profile":
+        assert (port.pop("device"), port.pop("cache_dtype")) == (
+            None, "bfloat16")
+    assert port == ref
+    if cmd == "profile":
+        for argv in (["--engine", "torch"], ["--engine", "tpu"]):
+            try:
+                pcli.main([cmd] + argv)
+            except SystemExit as e:   # argparse refuses tpu
+                assert argv[1] == "tpu" and e.code == 2
+            else:
+                assert argv[1] == "torch"
 
 
 ROLE_FLAGS = ("--kv-transfer-chunk-pages", "--kv-transfer-inflight-chunks",

@@ -610,7 +610,9 @@ async def test_system_server_chaos_drain_health_and_metrics():
         assert "# EOF" not in text
         s, h, b = await _call(bare.port, "GET", "/metrics", headers={
             "Accept": "application/openmetrics-text"})
-        assert h["content-type"] == "application/openmetrics-text"
+        # the reference's answer (aiohttp names the charset of a text body)
+        assert h["content-type"] == ("application/openmetrics-text; "
+                                     "charset=utf-8")
         assert b.decode().endswith("# EOF\n")
         # the debug plane is served; this stub engine keeps no flight
         # ring, which the answer says, as the reference's does. The fleet
