@@ -145,7 +145,10 @@ Phases, each printing a line (any failure raises and exits non-zero):
      200 in the JAX package's shapes; TTFT, gaps and tok/s are printed
      beside the http and serve phases', with each loop's host time per
      streamed token (LoopMeter: frontend, worker, client);
-  7c. kv router: the KV router on the same weights: the port's store, two
+  7c. kv router (7c to 7g at the weights' first CUT_LAYERS layers since
+     the script's time was cut; 7c and 7d held against the serve burst
+     run again at that depth, "serve none cut"): the KV router on the
+     same weights: the port's store, two
      workers (launch.run's build_chain sharing the one weight copy, each
      registered through launch.run.serve_worker with the launcher's
      default --router-mode kv, each on its own loop thread beside its
@@ -208,7 +211,7 @@ Phases, each printing a line (any failure raises and exits non-zero):
      The int8 kernel's own count rises by layers x both engines' decode
      steps (launches_remote_kv). Printed: TTFT per wave and G/A per
      prompt, probe and fetch ms, wire GB/s, memory;
-  7f. resilience: two 8B workers on the same weights, dense KV, each
+  7f. resilience: two 8B-width workers on the same weights, dense KV, each
      through serve_worker with --system-port 0 and --drain-timeout 30 (a
      system server and a drain controller each), and a KV-routing
      frontend with --health-heartbeat-ttl 2 (its shared breaker board
@@ -395,7 +398,9 @@ Phases, each printing a line (any failure raises and exits non-zero):
      line's launches_overload);
   9d. planner (after overload, the w8a16 weights and every earlier
      engine freed; check_planner): the SLA profiler over TorchEngine at
-     Llama-3.1-8B, 32 layers, bf16, on the resident weights (slots4,
+     Llama-3.1-8B's width at CUT_LAYERS layers (the drill workers' depth;
+     32 until the script's time was cut), bf16, on the resident weights
+     (slots4,
      slots8, slots16 x concurrency 1, 2, 4, 8; isl 64, osl 32), every
      decode step a replay running flash decode once a layer (the kernels
      line's launches_planner); calibrate_mocker's inversion of slots8,
@@ -425,6 +430,11 @@ Phases, each printing a line (any failure raises and exits non-zero):
      control outside it); a decode step's device and wall ms beside its
      byte bound, TTFT, tok/s, the peak allocation and the prefill's
      host ms for its kept-count reads;
+  9f. sdk (after planner, on its weights): two @service classes on the
+     port's runtime, a backend wrapping a TorchEngine at Llama-3.1-8B's
+     width cut to CUT_LAYERS and an API service that depends() on it: 8
+     greedy requests through serve_graph equal to the engine's own
+     generate() (check_sdk; the kernels line's launches_sdk);
   10. cli: ``python -m dynamo_tpu_torch.launch.run in=text out=torch
      --model-config tiny --cache-dtype float32 --prompt "w1 w2 w3"
      --max-tokens 8`` in a subprocess, with no --device, and again with
@@ -441,7 +451,22 @@ Phases, each printing a line (any failure raises and exits non-zero):
      process must exit 0; and ``python -m dynamo_tpu_torch.cli profile
      --engine torch --model-config tiny --cache-dtype float32 --slots 4
      --concurrency 1 2`` with no --device must write a table with the
-     reference's keys.
+     reference's keys; then ``python -m dynamo_tpu_torch.tools.profile_round``
+     three ways (check_profile_round): its timing mode (the fused round
+     at Llama-3.2-1B, B 32, S 1024, R 16, with its flush, without it, the
+     flush alone: device ms, the kernel's executions counted on the card,
+     attn_roofline_frac in (0, 1.05]), ``--dispatch-budget --model-config
+     llama3_8b`` (the five byte fields; attn_roofline_frac in (0, 1.05]
+     against the peak chip_info takes from the card's name) and ``--spec
+     all`` at tiny, and roofline.py's live-context bytes at the kernel
+     check's serve shape equal to the bytes the kernel's bound counts;
+  11. serve graph (last): ``python -m dynamo_tpu_torch.cli serve
+     graph.json`` of a self-hosted store, the frontend and 2 ``out=torch
+     --model-config llama3_8b --num-layers CUT_LAYERS`` workers, the
+     model registered by ``llmctl add`` with a word card: 8 greedy chats
+     equal to a direct run on the same weights, a worker killed with
+     SIGKILL restarted and a chat after it served, SIGTERM on the
+     supervisor: exit 0, no child left (check_serve_graph).
 Each phase prints its seconds, and at the end one summary line (its
 name, seconds and key figures), all together before the card line. The
 block from the first summary line to the last line is at most
@@ -465,6 +490,7 @@ import gc
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -509,8 +535,9 @@ NEAR_TIE = 0.05
 # Llama-3.1-8B's width at its first CUT_LAYERS layers, the Llama-3.2-1B
 # draft at its first CUT_LAYERS of 16): speculation but its arms N and TN
 # and its teacher-forced check (check_speculation says why), checkpoint
-# (16.1 GB at 32), offload, overload and the profiled 8B round graphs.
-# Their checks do not depend on the depth
+# (16.1 GB at 32), offload, overload, kv router, disagg, remote kv,
+# resilience, prefix economy, the planner's profile and the profiled 8B
+# round graphs. Their checks do not depend on the depth
 CUT_LAYERS = 8
 
 
@@ -2924,7 +2951,10 @@ def check_kv_launches(label, engines, dense, int8, issued, steps, layers,
 
 
 def check_kv_router(params, direct_tokens, direct, http):
-    """The KV router at Llama-3.1-8B: the port's store, two workers
+    """The KV router at Llama-3.1-8B's width and the depth of ``params``
+    (main: CUT_LAYERS, held against a serve burst at that depth,
+    ``direct_tokens``; ``http``, the http phase's figures printed beside,
+    None then): the port's store, two workers
     (launch.run's build_chain sharing the serve phase's weights, each
     registered through launch.run.serve_worker with the launcher's default
     --router-mode kv, each on its own loop thread with its own engine
@@ -2973,7 +3003,9 @@ def check_kv_router(params, direct_tokens, direct, http):
     from dynamo_tpu_torch.tokenizer import make_test_tokenizer
     from dynamo_tpu_torch.tokens import compute_block_hashes
 
-    cfg = ModelConfig.llama3_8b()
+    # the width of Llama-3.1-8B at the depth of ``params`` (main: its
+    # first CUT_LAYERS layers)
+    cfg = ModelConfig.llama3_8b(num_layers=params["layers"]["wq"].shape[0])
     name = "llama3_8b"
     tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
     prompts = serve_prompts(cfg.vocab_size)
@@ -2987,6 +3019,7 @@ def check_kv_router(params, direct_tokens, direct, http):
         cp_port = server.sockets[0].getsockname()[1]
         args = launch.build_parser().parse_intermixed_args(
             ["in=endpoint", "out=torch", "--model-config", name,
+             "--num-layers", str(cfg.num_layers),
              "--model-name", name, "--control-plane",
              f"127.0.0.1:{cp_port}"])
         if args.router_mode != "kv":
@@ -3311,19 +3344,23 @@ def check_kv_router(params, direct_tokens, direct, http):
             lt.close()
 
     ratio = [a / b for a, b in zip(eng_c, eng_c2)]
+    # the http phase's figures, when it ran at this depth
+    http_ttft = http_gaps = http_tps = ""
+    if http is not None:
+        http_ttft = (f"http {np.median(http['ttft']):.4f}, "
+                     f"{max(http['ttft']):.4f}; ")
+        http_gaps = (f" (http {np.median(http['gaps']) * 1e3:.2f}, "
+                     f"{max(http['gaps']) * 1e3:.2f})")
+        http_tps = f"http {http['tps']:.1f}, "
     log(f"kv router wave A: 8 streamed /v1/completions (top-2 logprobs) "
         f"over 2 workers, gated at both intakes: {took[0]} and {took[1]} "
         f"requests; {describe_splits(split_a)} to the serve phase's "
         f"generate(); TTFT median {np.median(ttft_a):.4f} s max "
-        f"{max(ttft_a):.4f} s (http {np.median(http['ttft']):.4f}, "
-        f"{max(http['ttft']):.4f}; generate() "
+        f"{max(ttft_a):.4f} s ({http_ttft}generate() "
         f"{np.median(direct['ttft']):.4f}, {max(direct['ttft']):.4f}); gap "
         f"median {np.median(gaps_a) * 1e3:.2f} ms max "
-        f"{max(gaps_a) * 1e3:.2f} ms (http "
-        f"{np.median(http['gaps']) * 1e3:.2f}, "
-        f"{max(http['gaps']) * 1e3:.2f}); decode {tps_a:.1f} tok/s over "
-        f"the batch (http {http['tps']:.1f}, generate() "
-        f"{direct['tps']:.1f})")
+        f"{max(gaps_a) * 1e3:.2f} ms{http_gaps}; decode {tps_a:.1f} tok/s "
+        f"over the batch ({http_tps}generate() {direct['tps']:.1f})")
     log(f"kv router wave A: "
         f"{ttft_split(prompts, res_a, firsts_a, marks_a)}")
     log(f"kv router: the indexer held every sealed prompt block "
@@ -3439,7 +3476,9 @@ def check_disagg(params, direct_tokens, kv, smi):
     from dynamo_tpu_torch.tokenizer import make_test_tokenizer
     from dynamo_tpu_torch.tokens import compute_block_hashes
 
-    cfg = ModelConfig.llama3_8b()
+    # the width of Llama-3.1-8B at the depth of ``params`` (main: its
+    # first CUT_LAYERS layers)
+    cfg = ModelConfig.llama3_8b(num_layers=params["layers"]["wq"].shape[0])
     name = "llama3_8b"
     tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
     prompts = serve_prompts(cfg.vocab_size)
@@ -3452,6 +3491,7 @@ def check_disagg(params, direct_tokens, kv, smi):
         server, _ = loops["store"].run(serve_store("127.0.0.1", 0))
         cp_port = server.sockets[0].getsockname()[1]
         base = ["in=endpoint", "out=torch", "--model-config", name,
+                "--num-layers", str(cfg.num_layers),
                 "--model-name", name, "--control-plane",
                 f"127.0.0.1:{cp_port}"]
         parse = launch.build_parser().parse_intermixed_args
@@ -3824,7 +3864,9 @@ def check_remote_kv(params, smi):
     from dynamo_tpu_torch.tokenizer import make_test_tokenizer
     from dynamo_tpu_torch.tokens import compute_block_hashes
 
-    cfg = ModelConfig.llama3_8b()
+    # the width of Llama-3.1-8B at the depth of ``params`` (main: its
+    # first CUT_LAYERS layers)
+    cfg = ModelConfig.llama3_8b(num_layers=params["layers"]["wq"].shape[0])
     name = "llama3_8b"
     tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
     prompts = serve_prompts(cfg.vocab_size)
@@ -3837,6 +3879,7 @@ def check_remote_kv(params, smi):
         cp_port = server.sockets[0].getsockname()[1]
         args = launch.build_parser().parse_intermixed_args(
             ["in=endpoint", "out=torch", "--model-config", name,
+             "--num-layers", str(cfg.num_layers),
              "--model-name", name, "--control-plane", f"127.0.0.1:{cp_port}",
              "--remote-kv", "--kv-quant", "int8", "--host-offload-pages",
              "128"])
@@ -4085,7 +4128,9 @@ def check_resilience(params):
     from dynamo_tpu_torch.runtime.store import serve_store
     from dynamo_tpu_torch.tokenizer import make_test_tokenizer
 
-    cfg = ModelConfig.llama3_8b()
+    # the width of Llama-3.1-8B at the depth of ``params`` (main: its
+    # first CUT_LAYERS layers)
+    cfg = ModelConfig.llama3_8b(num_layers=params["layers"]["wq"].shape[0])
     name = "llama3_8b"
     tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
     prompts = serve_prompts(cfg.vocab_size)
@@ -4103,6 +4148,7 @@ def check_resilience(params):
         cp = f"127.0.0.1:{server.sockets[0].getsockname()[1]}"
         args = launch.build_parser().parse_intermixed_args(
             ["in=endpoint", "out=torch", "--model-config", name,
+             "--num-layers", str(cfg.num_layers),
              "--model-name", name, "--control-plane", cp,
              "--system-port", "0", "--drain-timeout", "30"])
         fargs = launch.build_parser().parse_intermixed_args(
@@ -4545,7 +4591,9 @@ def check_prefix_economy(params, smi):
     from dynamo_tpu_torch.tokenizer import make_test_tokenizer
     from dynamo_tpu_torch.tokens import compute_block_hashes
 
-    cfg = ModelConfig.llama3_8b()
+    # the width of Llama-3.1-8B at the depth of ``params`` (main: its
+    # first CUT_LAYERS layers)
+    cfg = ModelConfig.llama3_8b(num_layers=params["layers"]["wq"].shape[0])
     name = "llama3_8b"
     tok = make_test_tokenizer([f"t{i}" for i in range(3, cfg.vocab_size)])
     prompts = serve_prompts(cfg.vocab_size)
@@ -4578,6 +4626,7 @@ def check_prefix_economy(params, smi):
         cp = f"127.0.0.1:{server.sockets[0].getsockname()[1]}"
         args = launch.build_parser().parse_intermixed_args(
             ["in=endpoint", "out=torch", "--model-config", name,
+             "--num-layers", str(cfg.num_layers),
              "--model-name", name, "--control-plane", cp, "--remote-kv",
              "--host-offload-pages", "128", "--system-port", "0"])
         fargs = launch.build_parser().parse_intermixed_args(
@@ -6673,15 +6722,17 @@ def check_planner(params, smi, device="cuda", cfg=None, worker_flags=None):
     """The planner plane (profiler.py, tools/calibrate_mocker.py, mocker.py,
     planner.py, metrics_exporter.py) on the card, after the 8B phases.
 
-    Profile: ``profiler.profile_engine`` over TorchEngine at
-    Llama-3.1-8B, all 32 layers, bf16, every engine sharing the script's
-    resident weights (seed 0), with the reference CLI's sweep (slots4,
+    Profile: ``profiler.profile_engine`` over TorchEngine at ``cfg``
+    (main: Llama-3.1-8B at the drill workers' CUT_LAYERS layers, 32 until
+    the script's time was cut), bf16, every engine sharing the script's
+    resident weights (seed 0, their first layers), with the reference
+    CLI's sweep (slots4,
     slots8, slots16 x concurrency 1, 2, 4, 8; isl 64, osl 32, 2 rounds)
     and the reference's EngineConfig (512 pages of 64, one 128-token
     prefill bucket). Every point has tokens and p50 <= p99; slots8 at
     concurrency 8 makes more tok/s than at 1; every decode step was a
     graph replay running the dense kernel once a layer, counted on the
-    card (launches_planner = 32 x steps), and the wrapper launched
+    card (launches_planner = layers x steps), and the wrapper launched
     nothing. The table is printed.
 
     Calibrate: calibrate_mocker inverts slots8; a MockerEngine built from
@@ -7041,11 +7092,13 @@ def check_planner(params, smi, device="cuda", cfg=None, worker_flags=None):
     return tally["dense"]
 
 
-def check_cli_profile():
+def check_cli_profile(smi):
     """``python -m dynamo_tpu_torch.cli profile --engine torch
     --model-config tiny`` as a user runs it, with no --device (the tiny
     model's head dim has only an f32 kernel, hence --cache-dtype
-    float32): it must write a table with the reference's keys."""
+    float32): it must write a table with the reference's keys. Then
+    tools/profile_round's three modes (check_profile_round), whose
+    kernel executions it returns."""
     import tempfile
 
     keys = ["concurrency", "ttft_p50_s", "ttft_p99_s", "itl_p50_s",
@@ -7073,12 +7126,19 @@ def check_cli_profile():
     log(f"cli: {' '.join(cmd[1:-2])} exited 0 in "
         f"{time.monotonic() - t0:.1f} s: "
         + "; ".join(point_text(p) for p in c["points"]))
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    return check_profile_round(
+        [len(p) for p in serve_prompts(ModelConfig.llama3_8b().vocab_size)],
+        smi)
 
 
-def check_cli(extra=()):
+def check_cli(extra=(), smi=None):
     """The launcher as a user runs it, with no --device (and ``extra``
     flags): it must serve a prompt on the card (cuda) and exit 0; without
-    ``extra``, the profile CLI too (check_cli_profile)."""
+    ``extra``, the profile CLI and tools too (check_cli_profile). Returns
+    what it printed and the profile tools' kernel executions (None with
+    ``extra``)."""
     cmd = [sys.executable, "-m", "dynamo_tpu_torch.launch.run", "in=text",
            "out=torch", "--model-config", "tiny", "--cache-dtype", "float32",
            "--prompt", "w1 w2 w3", "--max-tokens", "8", *extra]
@@ -7089,9 +7149,8 @@ def check_cli(extra=()):
     log(f"cli: {' '.join(cmd[1:])} exited 0 in "
         f"{time.monotonic() - t0:.1f} s ({out.stderr.strip().splitlines()[0]}"
         f"); printed {out.stdout.strip()!r}")
-    if not extra:
-        check_cli_profile()
-    return out.stdout[:-1]
+    launches = None if extra else check_cli_profile(smi)
+    return out.stdout[:-1], launches
 
 
 class Proc:
@@ -7246,6 +7305,608 @@ def check_cli_distributed(text_out):
         f"s; 4 chat completions equal to in=text's {text_out!r}, served "
         f"{served} by the two workers; SIGTERM drained each worker "
         f"('drained; shutting down'); every process exited 0")
+
+
+# ---------------------------------------------------------------------------
+# the deploy plane: profile_round's modes, the SDK, the serve graph
+
+# the default mode's replays a variant (tools/profile_round.py
+# round_timing) and its round's shape
+PROFILE_REPS = 20
+PROFILE_ROUND = dict(slots=32, max_context=1024, flush_every=16, ctx=356)
+
+
+def profile_round_lines(*flags, timeout=600):
+    """``python -m dynamo_tpu_torch.tools.profile_round *flags`` as a user
+    runs it (no --device: the card); its JSON lines, each logged, and its
+    seconds."""
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.tools.profile_round",
+           *flags]
+    t0 = time.monotonic()
+    out = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=timeout)
+    secs = time.monotonic() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"profile round {' '.join(flags)}: exit "
+                             f"{out.returncode}\n{out.stderr[-3000:]}")
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+    for ln in lines:
+        log(f"profile round {' '.join(flags) or '(timing)'}: {ln}")
+    return [json.loads(ln) for ln in lines], secs
+
+
+def roofline_vs_bound(serve_lens):
+    """roofline.py's live-context bytes a layer at the serve shape (the
+    kernel check's "serve" pattern: 8 lanes, context n + 17, ring base
+    n + 15) must equal the ctx bytes decode_bound_ms counts for the same
+    call: each lane's live rows, K and V, and in int8 mode the scale
+    groups that hold them. Returns the log text."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.roofline import decode_byte_accounting
+
+    cfg = ModelConfig.llama3_8b()
+    L, nkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    rows = [n + 15 for n in serve_lens]   # min(ring base, context)
+    texts = []
+    for quant in (False, True):
+        ecfg = EngineConfig(max_decode_slots=len(rows),
+                            kv_quant="int8" if quant else "none")
+        acct = decode_byte_accounting(cfg, ecfg, rows, 0)[
+            "bytes_per_step_breakdown"]
+        per_layer = (acct["kv_ctx"] + acct["kv_ctx_scales"]) / L
+        elem = 1 if quant else 2
+        group = ecfg.page_size
+        bound = sum(rows) * nkv * hd * 2 * elem + (
+            sum(-(-r // group) for r in rows) * 8 if quant else 0)
+        if per_layer != bound:
+            raise AssertionError(
+                f"roofline: {'int8' if quant else 'dense'} kv_ctx a layer "
+                f"{per_layer} B against the bound's {bound} B")
+        texts.append(f"{'int8' if quant else 'dense'} {per_layer:.0f} B a "
+                     f"layer, equal to the bound's")
+    return "; ".join(texts)
+
+
+def check_profile_round(serve_lens, smi):
+    """``tools/profile_round`` on the card, three ways. The timing mode
+    at Llama-3.2-1B (B 32, S 1024, R 16, context 356): each variant's
+    device ms a round above 0; the round variants' attention kernel ran
+    16 layers x 16 steps x PROFILE_REPS times on the card, the flush
+    alone never, and their attn_roofline_frac is in (0, 1.05]. The
+    dispatch budget at Llama-3.1-8B (32 layers, 4 requests): its five
+    byte fields, weights equal to the bf16 parameters' bytes, and
+    attn_roofline_frac (wall-time steps a second x bytes a step over the
+    H100's 3.35 TB/s, the peak chip_info takes from the card's name) in
+    (0, 1.05]. ``--spec all`` at tiny: six modes, each 4 x 32 tokens,
+    batched drafting one draft program a verify, per-slot drafting more.
+    Also roofline_vs_bound at the kernel check's serve shape. Returns
+    the timing mode's kernel executions."""
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.roofline import CHIP_PEAKS, chip_info
+
+    kind, peak, _ = chip_info()
+    if peak is None or peak != CHIP_PEAKS["H100 80GB HBM3"]:
+        raise AssertionError(f"profile round: no peak for {kind!r}")
+    rows, t_timing = profile_round_lines()
+    want = ["round +flush", "round no flush", "flush only"]
+    if [r["variant"] for r in rows] != want or any(
+            {k: r[k] for k in PROFILE_ROUND} != PROFILE_ROUND
+            or r["model_config"] != "llama3_1b" or not r["ms_per_round"] > 0
+            or not 0 < r["attn_roofline_frac"] <= 1.05 for r in rows):
+        raise AssertionError(f"profile round (timing): {rows}")
+    execs = [r["kernel_executions"] for r in rows]
+    per = 16 * PROFILE_ROUND["flush_every"] * PROFILE_REPS
+    if execs != [per, per, 0]:
+        raise AssertionError(f"profile round: the kernel ran {execs} times "
+                             f"(want {per}, {per}, 0)")
+    budget, t_budget = profile_round_lines(
+        "--dispatch-budget", "--model-config", "llama3_8b")
+    (b,) = budget
+    frac = b["attn_roofline_frac"]
+    bd = b["bytes_per_step_breakdown"]
+    c = ModelConfig.llama3_8b()
+    H, q, kv = c.hidden_size, c.num_heads * c.head_dim, \
+        c.num_kv_heads * c.head_dim
+    dense_bytes = 2 * (c.vocab_size * H * (1 if c.tie_word_embeddings
+                                           else 2) + H + c.num_layers * (
+        2 * H + 2 * H * q + 2 * H * kv + 3 * H * c.intermediate_size))
+    if (not b["device"].startswith("cuda") or frac is None
+            or not 0 < frac <= 1.05
+            or bd["weights"] != dense_bytes or b["kv_ctx_bytes_vs_bf16"]
+            != 1.0 or b["total_bytes_per_step"] != sum(bd.values())):
+        raise AssertionError(f"profile round (dispatch budget): {b}")
+    spec, t_spec = profile_round_lines("--spec", "all")
+    modes = {r["mode"]: r for r in spec}
+    if (list(modes) != ["off", "ngram", "draft", "draft-perslot", "tree",
+                        "tree-draft"]
+            or any(r["tokens"] != 4 * 32 for r in spec)
+            or modes["draft"]["draft_dispatches_per_verify"] != 1.0
+            or not modes["draft-perslot"]["draft_dispatches_per_verify"]
+            > 1.0):
+        raise AssertionError(f"profile round (spec): {spec}")
+    rb = roofline_vs_bound(serve_lens)
+    log(f"profile round: roofline's live-context bytes at the kernel "
+        f"check's serve shape: {rb}")
+    ms = {r["variant"]: r["ms_per_round"] / PROFILE_ROUND["flush_every"]
+          for r in rows}
+    log(f"profile round ({smi}): Llama-3.2-1B round at B 32, S 1024, R 16, "
+        f"context 356, {rows[0]['context_splits']} context splits: "
+        + ", ".join(f"{v} {ms[v]:.4f} ms a step (frac "
+                    f"{r['attn_roofline_frac']:.3f})"
+                    for v, r in zip(want, rows))
+        + f" [{t_timing:.1f} s]; dispatch budget Llama-3.1-8B: wall "
+        f"{b['wall_ms_per_step']:.3f} ms a step, device "
+        f"{b['device_ms_per_step']:.3f}, {b['total_bytes_per_step']} B a "
+        f"step, attn_roofline_frac {frac:.4f} [{t_budget:.1f} s]; spec "
+        f"dispatches a token " + ", ".join(
+            f"{m} {r['dispatches_per_token']}" for m, r in modes.items())
+        + f" [{t_spec:.1f} s]")
+    figures(f"1B round {ms['round +flush']:.4f} ms/step (frac "
+            f"{rows[0]['attn_roofline_frac']:.3f}), no flush "
+            f"{ms['round no flush']:.4f}, flush {ms['flush only']:.4f}; 8B "
+            f"budget frac {frac:.4f}; spec draft/perslot "
+            f"{modes['draft']['dispatches_per_token']}/"
+            f"{modes['draft-perslot']['dispatches_per_token']}")
+    return execs[0] + execs[1]
+
+
+async def ordered_burst(gate, submit, n):
+    """``submit(i)`` (a coroutine) for i in range(n) as tasks, each sent
+    once the one before it waits at ``gate`` (an IntakeGate), so the
+    intake holds the burst in order; their results."""
+    tasks = []
+    for i in range(n):
+        tasks.append(asyncio.ensure_future(submit(i)))
+        t0 = time.monotonic()
+        while not gate.open and gate.waiting() < i + 1:
+            if tasks[-1].done():
+                tasks[-1].result()
+                raise AssertionError(f"request {i} ended before reaching "
+                                     f"the engine")
+            if time.monotonic() - t0 > 60:
+                raise AssertionError(f"request {i} did not reach the engine "
+                                     f"in 60 s")
+            await asyncio.sleep(0.0005)
+    return await asyncio.wait_for(asyncio.gather(*tasks), 300)
+
+
+def check_sdk(params, smi, device="cuda"):
+    """The SDK (sdk.py) in process on the card: two @service classes on
+    the port's runtime over a store of its own, a backend wrapping a
+    TorchEngine at Llama-3.1-8B's width cut to CUT_LAYERS (the phase's
+    weights, their first layers), and an API service that depends() on
+    it and relays its outputs. The serve prompts as 8 greedy requests of
+    N_NEW tokens through the API's endpoint (serve_graph: discovery and
+    push RPC twice) must give the tokens the same engine gives them
+    through generate(), both bursts held at its intake in prompt order
+    (the engine's cached blocks dropped between them, so both prefill
+    alike). Launch counts are zeroed just before the SDK burst and read
+    just after: the dense kernel ran CUT_LAYERS times a decode step on
+    the card. Returns those executions."""
+    from dynamo_tpu_torch import sdk
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.ops import flash_decode as fd
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.store import serve_store
+
+    cfg = dataclasses.replace(ModelConfig.llama3_8b(), num_layers=CUT_LAYERS)
+    t0 = time.monotonic()
+    eng = TorchEngine(cfg, EngineConfig(),
+                      params=first_layers(params, CUT_LAYERS), device=device)
+    prompts = serve_prompts(cfg.vocab_size)
+
+    @sdk.service(namespace="sdk-smoke", gpus=1)
+    class Backend:
+        @sdk.endpoint()
+        async def generate(self, payload):
+            async for out in eng.generate(
+                    PreprocessedRequest.from_dict(payload)):
+                yield out.to_dict()
+
+    @sdk.service(namespace="sdk-smoke")
+    class Api:
+        backend = sdk.depends(Backend)
+
+        @sdk.endpoint()
+        async def generate(self, payload):
+            async for out in self.backend.generate(payload):
+                yield out
+
+    def request(i):
+        return PreprocessedRequest(
+            token_ids=list(prompts[i]),
+            stop_conditions=StopConditions(max_tokens=N_NEW,
+                                           ignore_eos=True)).to_dict()
+
+    async def run():
+        IntakeGate(eng, len(prompts))
+        direct = [t for t, *_ in await generate_all(eng, prompts, N_NEW)]
+        dropped = await asyncio.to_thread(eng.clear_kv_blocks)
+        server, _ = await serve_store(port=0)
+        port = server.sockets[0].getsockname()[1]
+        rt_s = await DistributedRuntime.connect(port=port)
+        rt_c = await DistributedRuntime.connect(port=port)
+        graph = client = None
+        try:
+            graph = await sdk.serve_graph(rt_s, Backend, Api)
+            client = await rt_c.namespace("sdk-smoke").component(
+                "api").endpoint("generate").client()
+            await client.wait_for_instances(1, timeout_s=30)
+
+            async def one(i):
+                toks, finish = [], None
+                async for out in client.generate(request(i)):
+                    toks += out.get("token_ids") or []
+                    finish = out.get("finish_reason") or finish
+                return toks, finish
+
+            gate = IntakeGate(eng, len(prompts))
+            steps0 = eng.step_count
+            # every kernel count to 0 just before the main path
+            fd.launches = fd.launches_int8 = 0
+            fd.executed(eng.device, reset=True)
+            t_burst = time.monotonic()
+            res = await ordered_burst(gate, one, len(prompts))
+            t_burst = time.monotonic() - t_burst
+            ran = fd.executed(eng.device)
+            steps = eng.step_count - steps0
+        finally:
+            if client is not None:
+                await client.stop()
+            if graph is not None:
+                await graph.stop()
+            await rt_c.close()
+            await rt_s.close()
+            server.close()
+            await eng.stop()
+        return direct, dropped, res, ran, steps, t_burst
+
+    direct, dropped, res, ran, steps, t_burst = asyncio.run(run())
+    got = [t for t, _ in res]
+    if any(f != "length" or len(t) != N_NEW for t, f in res):
+        raise AssertionError(f"sdk: finishes {[(len(t), f) for t, f in res]}")
+    if got != direct:
+        raise AssertionError(f"sdk: the served tokens {got} are not the "
+                             f"engine's own {direct}")
+    if not dropped:
+        raise AssertionError("sdk: no cached page was dropped between the "
+                             "bursts")
+    issued = fd.launches + fd.launches_int8
+    if ran != (CUT_LAYERS * steps, 0) or issued:
+        raise AssertionError(
+            f"sdk: the kernels ran {ran} times on the card over {steps} "
+            f"decode steps of {CUT_LAYERS} layers; the wrapper issued "
+            f"{issued}")
+    check_replayed(eng, "sdk")
+    log(f"sdk ({smi}): Backend (TorchEngine, Llama-3.1-8B width at "
+        f"{CUT_LAYERS} layers, built in {time.monotonic() - t0:.1f} s with "
+        f"the phase) and Api (depends on it) served over the port's runtime;"
+        f" 8 greedy requests x {N_NEW} tokens through Api in "
+        f"{t_burst:.3f} s equal to the engine's own generate() tokens "
+        f"({dropped} cached pages dropped between the bursts); "
+        f"flash_decode ran {ran[0]} times = {CUT_LAYERS} x {steps} steps "
+        f"(counted on the card), none issued eagerly")
+    figures(f"8 x {N_NEW} tokens via serve_graph == generate(); "
+            f"launches_sdk {ran[0]} = {CUT_LAYERS} x {steps}")
+    del eng
+    return ran[0]
+
+
+SERVE_MODEL = "llama3_8b"
+SERVE_CHAT_PROMPT = 40   # words a chat prompt: no block sealed by a prompt
+
+
+def word_card(d, vocab):
+    """A model card directory whose tokenizer maps word ``t{i}`` to id i
+    for every id of ``vocab`` (a WordLevel tokenizer.json), and a chat
+    template that joins the messages' contents: a chat's text and its
+    completion map back to token ids exactly."""
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        json.dump({"version": "1.0", "truncation": None, "padding": None,
+                   "added_tokens": [], "normalizer": None,
+                   "pre_tokenizer": {"type": "WhitespaceSplit"},
+                   "post_processor": None, "decoder": None,
+                   "model": {"type": "WordLevel",
+                             "vocab": {f"t{i}": i for i in range(vocab)},
+                             "unk_token": "t0"}}, f)
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"chat_template": "{% for m in messages %}{{ m.content }}"
+                                    " {% endfor %}"}, f)
+
+
+def _proc_stat(pid):
+    """(state, ppid, start time) of ``pid`` from /proc, or None."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            st = f.read().rsplit(")", 1)[1].split()
+    except OSError:
+        return None
+    return st[0], int(st[1]), st[19]
+
+
+def child_procs(ppid):
+    """{pid: (argv, start time)} of the live (not zombie) children of
+    ``ppid``."""
+    out = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        st = _proc_stat(d)
+        if st is None or st[0] == "Z" or st[1] != ppid:
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                argv = f.read().decode(errors="replace").split("\0")
+        except OSError:
+            continue
+        out[int(d)] = (argv, st[2])
+    return out
+
+
+def still_alive(procs):
+    """The pids of ``procs`` (child_procs' form) that still run as the
+    same processes (same start time, not zombies), whoever their parent
+    is now."""
+    alive = []
+    for pid, (_, start) in procs.items():
+        st = _proc_stat(pid)
+        if st is not None and st[0] != "Z" and st[2] == start:
+            alive.append(pid)
+    return alive
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def check_serve_graph(smi, model_flags=None, device_flags=()):
+    """``python -m dynamo_tpu_torch.cli serve graph.json`` as a user runs
+    it: a graph of a self-hosted store, the frontend, and 2 replicas of
+    ``out=torch --model-config llama3_8b --num-layers CUT_LAYERS`` on the
+    card (``model_flags``, ``device_flags`` for a CPU rehearsal). Right
+    after the store answers, ``cli llmctl add --model-path CARD``
+    registers the model with a word card (word_card: its tokenizer maps
+    ``t{i}`` to id i), so the frontend, which builds a model's chain from
+    the first registration it sees, tokenizes with it; no worker may have
+    registered before. 8 greedy chat requests, one at a time (N_NEW
+    tokens, ignore_eos), must give the token ids a direct run gives the
+    same prompts, one at a time, on an engine build_chain makes from the
+    same flags (the same random weights: seed 0 at the same depth).
+    SIGKILL on one worker: the supervisor restarts it, the new process
+    registers and the dead one's lease lapses, and a request after that
+    is served with the direct run's tokens. SIGTERM on the supervisor:
+    exit 0 with no child left. Returns the seconds to serve."""
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.frontend.http import HttpClient
+    from dynamo_tpu_torch.launch import run as launch
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.runtime.client import KvClient
+    from dynamo_tpu_torch.runtime.component import instance_prefix
+
+    model_flags = list(model_flags or ["--model-config", SERVE_MODEL,
+                                       "--num-layers", str(CUT_LAYERS)])
+    args = launch.build_parser().parse_intermixed_args(
+        ["in=text", "out=torch", *model_flags, *device_flags])
+    vocab = getattr(ModelConfig, args.model_config)().vocab_size
+    rng = np.random.RandomState(SEED + 7)
+    prompts = [rng.randint(0, vocab, SERVE_CHAT_PROMPT).tolist()
+               for _ in range(9)]
+
+    def direct_run():
+        """The prompts one at a time on build_chain's engine from the same
+        flags (run while the graph starts)."""
+        _, chain = launch.build_chain(args)
+
+        async def run():
+            try:
+                return [(await generate_all(chain.engine, [p], N_NEW))[0][0]
+                        for p in prompts]
+            finally:
+                await chain.engine.stop()
+
+        try:
+            return asyncio.run(run())
+        finally:
+            del chain
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="serve-graph-")
+    card, logs = os.path.join(tmp, "card"), os.path.join(tmp, "logs")
+    os.makedirs(logs)
+    word_card(card, vocab)
+    cp_port, http_port = free_port(), free_port()
+    ns = "graph-smoke"
+    cp = f"127.0.0.1:{cp_port}"
+    path = os.path.join(tmp, "graph.json")
+    with open(path, "w") as f:
+        json.dump({
+            "namespace": ns,
+            "control_plane": {"port": cp_port},
+            "frontend": {"http_port": http_port,
+                         "args": ["--http-host", "127.0.0.1"]},
+            "workers": [{"name": "llama", "replicas": 2, "gpus": 1,
+                         "args": ["out=torch", *model_flags, "--model-name",
+                                  SERVE_MODEL, *device_flags]}],
+        }, f)
+    # llmctl's add (the CLI's function, in a thread of this process) runs
+    # beside the supervisor's start: it connects as soon as the store
+    # listens and registers within a moment, long before a worker has
+    # built its engine
+    reg = {}
+
+    async def registered():
+        kv = await KvClient(port=cp_port).connect()
+        try:
+            return len(await kv.get_prefix(
+                instance_prefix(ns, "backend", "generate")))
+        finally:
+            await kv.close()
+
+    def add():
+        reg["rc"] = cli.main(["llmctl", "--control-plane", cp, "--namespace",
+                              ns, "add", SERVE_MODEL, "--model-path", card])
+        reg["s"] = time.monotonic() - t0
+        reg["early"] = asyncio.run(registered())
+        # the margin: when the first worker registers
+        t_end = time.monotonic() + 300
+        while time.monotonic() < t_end and not asyncio.run(registered()):
+            time.sleep(0.1)
+        reg["worker"] = time.monotonic() - t0
+
+    adder = threading.Thread(target=add, daemon=True)
+    t0 = time.monotonic()
+    sup = Proc("dynamo_tpu_torch.cli", "serve", path, "--log-dir", logs)
+    # every child the supervisor was seen to run: after it exits, none
+    # may be left
+    seen = {}
+
+    def kids():
+        got = child_procs(sup.p.pid)
+        seen.update(got)
+        return got
+
+    def replicas():
+        """The supervisor's worker children (``run in=endpoint``)."""
+        return [pid for pid, (argv, _) in kids().items()
+                if argv[3:5] == ["run", "in=endpoint"]]
+    adder.start()
+    ok = False
+    try:
+        sup.wait_for("serving graph: control-plane, llama-0, llama-1, "
+                     "frontend")
+        direct = direct_run()
+        adder.join(60)
+        if reg.get("rc") != 0 or reg.get("early") != 0:
+            raise AssertionError(f"serve graph: llmctl add exited "
+                                 f"{reg.get('rc')} with {reg.get('early')} "
+                                 f"workers registered before it")
+        log(f"serve graph: llmctl add done {reg['s']:.2f} s after the "
+            f"supervisor's start, no worker registered yet")
+
+        async def serve():
+            async with HttpClient("127.0.0.1", http_port) as c:
+                t_end = time.monotonic() + 300
+                while True:
+                    try:
+                        r = await c.request("GET", "/v1/models")
+                        ids = [m["id"] for m in r.json()["data"]]
+                    except (OSError, ValueError, KeyError):
+                        ids = []
+                    if ids == [SERVE_MODEL] and await registered() == 2:
+                        break
+                    if time.monotonic() > t_end:
+                        raise AssertionError("serve graph: not served "
+                                             "within 300 s")
+                    await asyncio.sleep(0.25)
+
+        async def chat(p):
+            async with HttpClient("127.0.0.1", http_port) as c:
+                r = await c.request("POST", "/v1/chat/completions",
+                                    json_body={
+                    "model": SERVE_MODEL, "max_tokens": N_NEW,
+                    "temperature": 0, "nvext": {"ignore_eos": True},
+                    "messages": [{"role": "user", "content": " ".join(
+                        f"t{t}" for t in p)}]})
+            if r.status != 200:
+                raise AssertionError(f"serve graph: status {r.status} "
+                                     f"{r.body[:500]!r}")
+            body = r.json()
+            if (body["usage"]["prompt_tokens"] != len(p)
+                    or body["choices"][0]["finish_reason"] != "length"):
+                raise AssertionError(f"serve graph: {body}")
+            return [int(w[1:]) for w in
+                    body["choices"][0]["message"]["content"].split()]
+
+        asyncio.run(serve())
+        t_up = time.monotonic() - t0
+        got = [asyncio.run(chat(p)) for p in prompts[:8]]
+        if got != direct[:8]:
+            raise AssertionError(f"serve graph: chat tokens {got}, the "
+                                 f"direct run's {direct[:8]}")
+        listed = subprocess.run(
+            [sys.executable, "-m", "dynamo_tpu_torch.cli", "llmctl",
+             "--control-plane", cp, "--namespace", ns, "list"],
+            capture_output=True, text=True, timeout=120).stdout.strip()
+        # SIGKILL one worker: the supervisor brings it back
+        workers = replicas()
+        if len(workers) != 2:
+            raise AssertionError(f"serve graph: worker pids {workers}")
+        t_kill = time.monotonic()
+        os.kill(workers[0], signal.SIGKILL)
+        worker_logs = [os.path.join(logs, f"llama-{i}.log") for i in (0, 1)]
+
+        def ready_lines():
+            n = 0
+            for p in worker_logs:
+                with open(p) as f:
+                    n += f.read().count(f" serving {ns}/backend/generate")
+            return n
+
+        async def restarted():
+            t_end = time.monotonic() + 300
+            while ready_lines() < 3 or await registered() != 2 \
+                    or len(replicas()) != 2:
+                if time.monotonic() > t_end:
+                    raise AssertionError("serve graph: the killed worker "
+                                         "was not back within 300 s")
+                await asyncio.sleep(0.25)
+
+        asyncio.run(restarted())
+        t_back = time.monotonic() - t_kill
+        after = asyncio.run(chat(prompts[8]))
+        if after != direct[8]:
+            raise AssertionError(f"serve graph: after the restart {after}, "
+                                 f"the direct run's {direct[8]}")
+        children = kids()
+        if len(children) != 4:
+            raise AssertionError(f"serve graph: the supervisor's children "
+                                 f"{children}")
+        t_term = time.monotonic()
+        rc = sup.stop(timeout=120)
+        t_drain = time.monotonic() - t_term
+        left = still_alive(seen)
+        if rc != 0 or left:
+            raise AssertionError(f"serve graph: the supervisor exited {rc}, "
+                                 f"processes left {left}")
+        ok = True
+    finally:
+        kids()
+        sup.stop()
+        for pid in still_alive(seen):
+            os.kill(pid, signal.SIGKILL)
+        if not ok:
+            for name in sorted(os.listdir(logs)):
+                with open(os.path.join(logs, name)) as f:
+                    log(f"serve graph: {name}:\n{f.read()[-3000:]}")
+            log("serve graph: supervisor:\n" + "\n".join(sup.lines[-30:]))
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"serve graph ({smi}): cli serve of a store, the frontend and 2 "
+        f"out=torch workers ({' '.join(model_flags)}) served in "
+        f"{t_up:.1f} s (llmctl add done at {reg['s']:.1f} s, the first "
+        f"worker registered by {reg['worker']:.1f} s); {listed!r}; 8 greedy chats x {N_NEW} tokens equal "
+        f"to the direct run; SIGKILL on a worker: back and registered in "
+        f"{t_back:.1f} s, a chat after it equal to the direct run; SIGTERM:"
+        f" the supervisor drained in {t_drain:.1f} s, exit 0, no child "
+        f"left")
+    figures(f"up {t_up:.1f} s; 8 chats == direct; restart {t_back:.1f} s; "
+            f"drain {t_drain:.1f} s exit 0")
+    return t_up
 
 
 def first_step_logprob_diff(dense, quant, prompt):
@@ -9124,14 +9785,22 @@ def main() -> int:
                                      dense_tokens[:8], direct)
     dist_launches, _ = phase("distributed", check_distributed, params,
                              dense_tokens[:8], direct, http_figs)
-    kv_launches, kv_figs = phase("kv router", check_kv_router, params,
-                                 dense_tokens[:8], direct, http_figs)
-    dis_launches, _ = phase("disagg", check_disagg, params, dense_tokens[:8],
+    # the router, disaggregation and fleet phases at the first CUT_LAYERS
+    # layers, held against the serve burst at that depth
+    cut = first_layers(params, CUT_LAYERS)
+    cut_tokens, cut_direct = phase(
+        "serve none cut", serve_llama3_8b, {}, cut, "none",
+        cfg=ModelConfig.llama3_8b(num_layers=CUT_LAYERS),
+        tag=f"none {CUT_LAYERS} layers")
+    kv_launches, kv_figs = phase("kv router", check_kv_router, cut,
+                                 cut_tokens[:8], cut_direct, None)
+    dis_launches, _ = phase("disagg", check_disagg, cut, cut_tokens[:8],
                             kv_figs, smi)
-    g4_launches, _ = phase("remote kv", check_remote_kv, params, smi)
-    res_launches, _ = phase("resilience", check_resilience, params)
-    eco_launches, _ = phase("prefix economy", check_prefix_economy, params,
+    g4_launches, _ = phase("remote kv", check_remote_kv, cut, smi)
+    res_launches, _ = phase("resilience", check_resilience, cut)
+    eco_launches, _ = phase("prefix economy", check_prefix_economy, cut,
                             smi)
+    del cut, cut_tokens, cut_direct
     phase("offload", check_offload, params, counts, smi)
     mm_launches = phase("multimodal", check_multimodal, params, smi)
     phase("embeddings", check_embeddings, params, smi)
@@ -9177,7 +9846,10 @@ def main() -> int:
     log(f"planner: {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
         f"allocated before the phase (the 8B bf16 weights "
         f"{weights_gib(params):.2f} GiB)")
-    planner_launches = phase("planner", check_planner, params, smi)
+    planner_launches = phase(
+        "planner", check_planner, first_layers(params, CUT_LAYERS), smi,
+        cfg=ModelConfig.llama3_8b(num_layers=CUT_LAYERS))
+    sdk_launches = phase("sdk", check_sdk, params, smi)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -9185,9 +9857,10 @@ def main() -> int:
     moe_q = phase("moe w8a16", check_moe, True, smi)
     moe_b = phase("moe bf16", check_moe, False, smi)
     run_profiled_checks()
-    text_out = phase("cli", check_cli)
+    text_out, profile_launches = phase("cli", check_cli, smi=smi)
     phase("cli distributed", check_cli_distributed, text_out)
     phase("cli w8a16", check_cli, ["--quantize", "int8"])
+    phase("serve graph", check_serve_graph, smi)
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
     source = "dynamo_tpu_torch/csrc/flash_decode.cu"
     kernels = [
@@ -9206,7 +9879,8 @@ def main() -> int:
              launches_checkpoint=ck_launches[0],
              launches_multimodal=mm_launches[0],
              launches_moe=moe_q[0] + moe_b[0],
-             launches_planner=planner_launches, **fd_report),
+             launches_planner=planner_launches, launches_sdk=sdk_launches,
+             launches_profile_round=profile_launches, **fd_report),
         dict(name="flash_decode_int8", route="cuda", source=source,
              replaces="dynamo_tpu/ops/flash_decode.py:176",
              launches=counts["flash_decode_int8"],

@@ -35,19 +35,24 @@ Commands:
         the mooncake-style trace generator and analyzer
         (data_generator.py): ``datagen --num 100 --output trace.jsonl``
         or ``datagen --analyze trace.jsonl``
-
-The JAX package's other commands (serve, llmctl, operator) are refused
-by name: their planes are not ported yet.
+  serve the serving-graph supervisor (launch/serve.py): ``serve
+        graph.json [--log-dir DIR]`` runs the graph's store, workers and
+        frontend as children of this CLI, restarts a child that exits,
+        and drains them on SIGTERM (exit code 0); ``serve graph.json
+        --emit-k8s [--image IMG] [--k8s-namespace NS]`` prints the
+        graph's Deployments and Services instead (k8s.py)
+  operator
+        the k8s operator (k8s.py DynamoOperator): ``operator
+        --control-plane HOST:PORT [--namespace N] [--api-base URL]
+        [--apply graph.json]`` reconciles the graph held in the store
+        into Deployments and Services
+  llmctl
+        model registrations on the store: ``llmctl --control-plane
+        HOST:PORT list|add NAME [--model-path DIR]|remove NAME``
 """
 from __future__ import annotations
 
 import sys
-
-_UNPORTED = {
-    "serve": "the serving-graph supervisor",
-    "llmctl": "model registration by hand",
-    "operator": "the k8s operator",
-}
 
 
 def _run_cp(rest: list[str]) -> int:
@@ -58,6 +63,9 @@ def _run_cp(rest: list[str]) -> int:
     from dynamo_tpu_torch.runtime.store import serve_store
 
     p = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.cli cp")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="address to listen on (0.0.0.0 in a container "
+                        "other pods reach)")
     p.add_argument("--port", type=int, default=7111)
     p.add_argument("--store-journal", metavar="PATH", default=None,
                    help="WAL journal path: keys/leases/queues survive a "
@@ -74,8 +82,8 @@ def _run_cp(rest: list[str]) -> int:
 
     async def _serve():
         server, store = await serve_store(
-            port=args.port, journal_path=args.store_journal,
-            fsync_mode=args.store_fsync,
+            host=args.host, port=args.port,
+            journal_path=args.store_journal, fsync_mode=args.store_fsync,
         )
         port = server.sockets[0].getsockname()[1]
         # the handler goes in before the ready line, so a SIGTERM sent
@@ -86,7 +94,7 @@ def _run_cp(rest: list[str]) -> int:
             extra = (f" (journal {args.store_journal}: "
                      f"{store.replayed_keys} keys, "
                      f"{store.replayed_queue_items} queue items replayed)")
-        print(f"dcp-server (python) listening on 127.0.0.1:{port}{extra}",
+        print(f"dcp-server (python) listening on {args.host}:{port}{extra}",
               flush=True)
         async with server:
             await stop.wait()
@@ -168,9 +176,7 @@ def _run_metrics(rest: list[str]) -> int:
 
 
 def _run_planner(rest: list[str]) -> int:
-    """The planner, with the JAX package's flags (``--connector
-    kubernetes`` parses and is refused: the k8s connector is not
-    ported)."""
+    """The planner, with the JAX package's flags."""
     import argparse
     import asyncio
 
@@ -208,8 +214,8 @@ def _run_planner(rest: list[str]) -> int:
                         "queue-wait p99 (0 = off)")
     p.add_argument("--connector", default="local",
                    choices=("local", "kubernetes"),
-                   help="scale actuator: local worker subprocesses (the "
-                        "k8s connector is not ported yet)")
+                   help="scale actuator: local worker subprocesses, or a "
+                        "k8s worker Deployment's scale subresource")
     p.add_argument("--k8s-deployment", default=None,
                    help="worker Deployment name (connector=kubernetes)")
     p.add_argument("--k8s-namespace", default="default")
@@ -268,9 +274,207 @@ def _run_profile(rest: list[str]) -> int:
     return 0
 
 
+def _run_serve(rest: list[str]) -> int:
+    """The serving-graph supervisor, or with --emit-k8s the graph's k8s
+    objects (the JAX package's flags; --log-dir is the port's own)."""
+    import argparse
+    import asyncio
+
+    p = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.cli serve")
+    p.add_argument("graph")
+    p.add_argument("--emit-k8s", action="store_true")
+    p.add_argument("--image", default="dynamo-tpu-torch:latest")
+    p.add_argument("--k8s-namespace", default="default")
+    p.add_argument("--log-dir", default=None,
+                   help="each child's output into DIR/NAME.log")
+    args = p.parse_args(rest)
+    from dynamo_tpu_torch.launch.serve import load_graph, serve_main
+
+    try:
+        graph = load_graph(args.graph)
+    except (OSError, ValueError) as e:
+        print(f"serve: {e}", file=sys.stderr)
+        return 2
+    if args.emit_k8s:
+        from dynamo_tpu_torch.k8s import emit_k8s_manifests, render_manifests
+
+        print(render_manifests(emit_k8s_manifests(
+            graph, image=args.image, k8s_namespace=args.k8s_namespace)))
+        return 0
+    try:
+        return asyncio.run(serve_main(graph, log_dir=args.log_dir))
+    except KeyboardInterrupt:
+        return 0
+
+
+def _run_operator(rest: list[str]) -> int:
+    """Operator-lite: reconcile a store-held serve graph into k8s
+    Deployments and Services (reference deploy/cloud/operator
+    controller), with the JAX package's flags. ``--apply graph.json``
+    writes the graph to the store first, then watches. SIGTERM stops it
+    with exit code 0."""
+    import argparse
+    import asyncio
+    import json
+
+    p = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.cli "
+                                     "operator")
+    p.add_argument("--control-plane", required=True, metavar="HOST:PORT")
+    p.add_argument("--namespace", default="dynamo")
+    p.add_argument("--api-base", default=None,
+                   help="k8s API base URL (default: in-cluster)")
+    p.add_argument("--k8s-namespace", default="default")
+    p.add_argument("--image", default="dynamo-tpu-torch:latest")
+    p.add_argument("--resync-s", type=float, default=30.0)
+    p.add_argument("--no-verify-ssl", action="store_true")
+    p.add_argument("--apply", default=None, metavar="GRAPH_FILE",
+                   help="write this graph spec to the store, then watch")
+    args = p.parse_args(rest)
+
+    from dynamo_tpu_torch.k8s import DynamoOperator, graph_key
+    from dynamo_tpu_torch.launch.run import sigterm_event
+    from dynamo_tpu_torch.launch.serve import load_graph
+    from dynamo_tpu_torch.runtime.client import KvClient
+
+    host, _, port = args.control_plane.partition(":")
+
+    async def run() -> None:
+        op = DynamoOperator(
+            api_base=args.api_base, k8s_namespace=args.k8s_namespace,
+            image=args.image, resync_s=args.resync_s,
+            verify_ssl=not args.no_verify_ssl)
+        kv = await KvClient(host or "127.0.0.1", int(port or 7111)).connect()
+        stop = asyncio.ensure_future(sigterm_event().wait())
+        task = asyncio.ensure_future(op.run(kv, args.namespace))
+        try:
+            if args.apply:
+                await kv.put(graph_key(args.namespace),
+                             json.dumps(load_graph(args.apply)))
+                print(f"graph spec applied to {graph_key(args.namespace)}",
+                      flush=True)
+            await asyncio.wait({task, stop},
+                               return_when=asyncio.FIRST_COMPLETED)
+            if task.done():
+                task.result()   # the watch ended or a reconcile failed
+        finally:
+            for t in (task, stop):
+                t.cancel()
+            await asyncio.gather(task, stop, return_exceptions=True)
+            await op.close()
+            await kv.close()
+
+    try:
+        asyncio.run(run())
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _run_llmctl(rest: list[str]) -> int:
+    """Inspect and manage model registrations on the store (reference
+    launch/llmctl main.rs:181-310), with the JAX package's flags; an
+    ``add --model-path`` uploads the model card (model_card.py)."""
+    import argparse
+    import asyncio
+    import json
+
+    p = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch.cli llmctl")
+    p.add_argument("--control-plane", required=True, metavar="HOST:PORT")
+    p.add_argument("--namespace", default="dynamo")
+    sub = p.add_subparsers(dest="action", required=True)
+    sub.add_parser("list", help="list registered models + live instances")
+    padd = sub.add_parser(
+        "add", help="statically register a model entry (no lease: it "
+                    "persists until removed; for externally managed "
+                    "workers)")
+    padd.add_argument("name")
+    padd.add_argument("--component", default="backend")
+    padd.add_argument("--endpoint", default="generate")
+    padd.add_argument("--block-size", type=int, default=64)
+    padd.add_argument("--router-mode", default="kv",
+                      choices=["kv", "round_robin", "random"])
+    padd.add_argument("--model-path", default=None,
+                      help="local HF model dir; tokenizer/config artifacts "
+                           "are uploaded as the model card so frontends "
+                           "tokenize correctly")
+    padd.add_argument("--context-length", type=int, default=None)
+    prem = sub.add_parser("remove", help="remove a model's registrations "
+                                         "and card artifacts")
+    prem.add_argument("name")
+    args = p.parse_args(rest)
+
+    from dynamo_tpu_torch.frontend.watcher import MODEL_PREFIX, ModelEntry
+    from dynamo_tpu_torch.model_card import (
+        card_bucket,
+        delete_card,
+        upload_card,
+    )
+    from dynamo_tpu_torch.runtime.client import KvClient
+    from dynamo_tpu_torch.runtime.component import instance_prefix
+
+    host, _, port = args.control_plane.partition(":")
+
+    async def run() -> int:
+        kv = await KvClient(host or "127.0.0.1", int(port or 7111)).connect()
+        prefix = f"dynamo://{args.namespace}/{MODEL_PREFIX}"
+        try:
+            if args.action == "list":
+                by_model: dict = {}
+                for _k, v, lease in await kv.get_prefix(prefix):
+                    e = ModelEntry.from_json(v)
+                    by_model.setdefault(e.name, []).append((e, lease))
+                if not by_model:
+                    print("no models registered")
+                for name, regs in sorted(by_model.items()):
+                    e = regs[0][0]
+                    inst = await kv.get_prefix(instance_prefix(
+                        e.namespace, e.component, e.endpoint))
+                    # instances carry their model in metadata: another
+                    # model's workers sharing the component do not count
+                    mine = 0
+                    for _k, iv, _l in inst:
+                        try:
+                            meta = json.loads(iv).get("metadata", {})
+                        except ValueError:
+                            meta = {}
+                        if meta.get("model", name) == name:
+                            mine += 1
+                    print(f"{name}: {len(regs)} registration(s), "
+                          f"{mine} instance(s) at "
+                          f"{e.component}/{e.endpoint} "
+                          f"[{e.router_mode}, block={e.block_size}]")
+            elif args.action == "add":
+                entry = ModelEntry(
+                    name=args.name, namespace=args.namespace,
+                    component=args.component, endpoint=args.endpoint,
+                    block_size=args.block_size,
+                    router_mode=args.router_mode,
+                    model_path=args.model_path,
+                    context_length=args.context_length,
+                )
+                if args.model_path:
+                    entry.card_ref = await upload_card(
+                        kv, args.namespace, args.name, args.model_path)
+                await kv.put(f"{prefix}{args.name}/static", entry.to_json())
+                print(f"registered {args.name} -> "
+                      f"{args.component}/{args.endpoint}"
+                      + (f" (card {entry.card_ref})"
+                         if entry.card_ref else ""))
+            elif args.action == "remove":
+                n = await kv.delete_prefix(f"{prefix}{args.name}/")
+                await delete_card(kv, card_bucket(args.namespace, args.name))
+                print(f"removed {n} registration(s) for {args.name}")
+            return 0
+        finally:
+            await kv.close()
+
+    return asyncio.run(run())
+
+
 _COMMANDS = {"cp": _run_cp, "router": _run_router, "datagen": _run_datagen,
              "metrics": _run_metrics, "planner": _run_planner,
-             "profile": _run_profile}
+             "profile": _run_profile, "serve": _run_serve,
+             "operator": _run_operator, "llmctl": _run_llmctl}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -290,10 +494,6 @@ def main(argv: list[str] | None = None) -> int:
         return run_cli(rest)
     if cmd in _COMMANDS:
         return _COMMANDS[cmd](rest)
-    if cmd in _UNPORTED:
-        print(f"{cmd}: {_UNPORTED[cmd]} is not served by the PyTorch port "
-              f"yet", file=sys.stderr)
-        return 2
     print(f"unknown command {cmd!r}", file=sys.stderr)
     return 2
 

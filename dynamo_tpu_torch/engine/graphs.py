@@ -47,8 +47,10 @@ same way; each graph keeps them as a separate count, and
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -85,10 +87,31 @@ def run_round(
     want_lp: bool,
     seal: Optional[torch.Tensor] = None,
 ) -> None:
-    """One decode round, IN PLACE: ``flush_every`` x (``decode_step``,
-    then argmax or the full sampler, plus packed logprobs with
-    ``want_lp``), the ring->ctx flush, then the seal batch ``seal``
-    ([3, W] int32 slots, starts, pages) ctx->pool when given. Advances
+    """One decode round, IN PLACE: its steps (``round_steps``), the
+    ring->ctx flush (``flush_round``), then the seal batch ``seal`` ([3,
+    W] int32 slots, starts, pages) ctx->pool when given."""
+    round_steps(config, ecfg, params, ctx, ring, dev, out, want_sample,
+                want_lp)
+    flush_round(ecfg, ctx, ring, dev, out["ring_base"])
+    if seal is not None:
+        llama.seal_blocks(cache, ctx, seal[0], seal[1], seal[2],
+                          ecfg.page_size)
+
+
+def round_steps(
+    config: ModelConfig,
+    ecfg: EngineConfig,
+    params,
+    ctx: llama.Cache,
+    ring: llama.Cache,
+    dev: dict[str, torch.Tensor],
+    out: dict[str, torch.Tensor],
+    want_sample: bool,
+    want_lp: bool,
+) -> None:
+    """A decode round's steps, IN PLACE: ``flush_every`` x
+    (``decode_step``, then argmax or the full sampler, plus packed
+    logprobs with ``want_lp``), the ring left unflushed. Advances
     ``dev`` (tokens, ctx; counts and keys when sampling) and writes
     ``out["ring_base"]``, the step tokens ``out["toks"]`` [F, B] and,
     with ``want_lp``, ``out["lp"]`` [F, B, 1+2K]. With a LoRA bank in
@@ -128,12 +151,16 @@ def run_round(
                 logits, toks, e.max_logprobs))
         dev["tokens"].copy_(toks)
         dev["ctx"].add_(1).clamp_(max=e.max_context)
-    # round boundary: scatter the ring into the ctx region (after every
-    # read of the round)
-    valid = torch.clamp(e.max_context - ring_base, max=n)
+
+
+def flush_round(ecfg: EngineConfig, ctx: llama.Cache, ring: llama.Cache,
+                dev: dict[str, torch.Tensor], ring_base: torch.Tensor
+                ) -> None:
+    """A round's boundary, after every read of its steps: each lane's
+    ring rows up to the region's end scattered into its ``dev["dest"]``
+    lane at ``ring_base``."""
+    valid = torch.clamp(ecfg.max_context - ring_base, max=ecfg.flush_every)
     llama.flush_ctx(ctx, ring, dev["dest"], ring_base, valid)
-    if seal is not None:
-        llama.seal_blocks(cache, ctx, seal[0], seal[1], seal[2], e.page_size)
 
 
 def pack_patch(batch: int, clear_slots=(), admit: Optional[dict] = None
@@ -188,6 +215,23 @@ def run_patch(dev: dict[str, torch.Tensor], row: torch.Tensor,
     dev["keys"].copy_(torch.where(sel[:, None], row[None, B + 3:B + 5],
                                   dev["keys"]))
     dev["counts"].masked_fill_((clear | sel)[:, None], 0)
+
+
+@contextlib.contextmanager
+def no_collection() -> Iterator[None]:
+    """The garbage collector off for the block (a capture). A collection
+    inside a capture would finalize whatever dead cycles hold, such as an
+    earlier engine's graphs and their memory pools, and a CUDA call those
+    finalizers make in the capturing thread ends the capture
+    (cudaErrorStreamCaptureInvalidated). The garbage waits for the next
+    collection after the block."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 class DeviceGraphs:
@@ -325,8 +369,8 @@ class DeviceGraphs:
         launches, gemms = _kernel_count(), w8a16.launches
         # thread_local: the engine thread captures while other threads
         # may use the device
-        with torch.cuda.graph(g, pool=self._pool,
-                              capture_error_mode="thread_local"):
+        with no_collection(), torch.cuda.graph(
+                g, pool=self._pool, capture_error_mode="thread_local"):
             # read after the context has emptied the allocator's cache
             reserved = torch.cuda.memory_reserved(self.device)
             fn()

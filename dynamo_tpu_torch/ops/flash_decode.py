@@ -152,6 +152,21 @@ def _cluster_residency(lib, device: torch.device, quant: bool,
     return _resident[key]
 
 
+def context_splits(dtype: torch.dtype, batch: int, kv_heads: int, S: int,
+                   hd: int, quant: bool, device: torch.device) -> int:
+    """Context splits per (slot, KV head) of a launch at these shapes on
+    ``device`` (a card): the bf16 kernel's ``cluster_splits`` under the
+    card's cluster residency, the f32 kernel's ``pick_splits``."""
+    tile = _TILE_ROWS[dtype]
+    if dtype != torch.bfloat16:
+        return pick_splits(batch, kv_heads, S, tile)
+    from dynamo_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("flash_decode")
+    return cluster_splits(batch, kv_heads, S, tile,
+                          _cluster_residency(lib, device, quant, hd))
+
+
 def _check(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base,
            ctx_k_scale=None, ctx_v_scale=None):
     B, n_heads, hd = q.shape
@@ -225,14 +240,12 @@ def _launch(q, ctx_k, ctx_v, ring_k, ring_v, layer, ctx_lens, ring_base,
     R = ring_k.shape[3]
     G = n_heads // nkv
     out = torch.empty_like(q)
+    n_split = context_splits(q.dtype, B, nkv, S, hd, quant, q.device)
     if q.dtype == torch.bfloat16:
         # one launch in either mode: the splits merge in a thread-block
         # cluster, no scratch
-        n_split = cluster_splits(B, nkv, S, _TILE_ROWS[q.dtype],
-                                 _cluster_residency(lib, q.device, quant, hd))
         scratch = []
     else:
-        n_split = pick_splits(B, nkv, S, _TILE_ROWS[q.dtype])
         f32 = dict(dtype=torch.float32, device=q.device)
         scratch = [torch.empty(B, nkv, n_split + 1, G, *extra, **f32)
                    for extra in ((), (), (hd,))]  # partial m, l, acc

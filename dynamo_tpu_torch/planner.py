@@ -418,26 +418,37 @@ class Planner:
 
 
 async def run_planner(args) -> None:
-    """CLI entry: planner over a local worker pool. SLA flags validate
-    BEFORE connecting so misconfiguration fails fast. SIGTERM stops the
-    planner and its workers (a clean exit, code 0)."""
+    """CLI entry: planner over a local worker pool, or over a k8s worker
+    Deployment (``--connector kubernetes --k8s-deployment NAME``). SLA
+    and connector flags validate BEFORE connecting so misconfiguration
+    fails fast. SIGTERM stops the planner and its workers (a clean exit,
+    code 0)."""
     from dynamo_tpu_torch.launch.run import sigterm_event
 
     sla = _build_sla(args)
-    if getattr(args, "connector", "local") == "kubernetes":
-        # the reference scales a worker Deployment through the k8s API
-        # (kubernetes_connector.py)
-        raise SystemExit(
-            "--connector kubernetes: the k8s connector (k8s.py) is not "
-            "served by the PyTorch port yet (ROADMAP item 14)")
+    kubernetes = getattr(args, "connector", "local") == "kubernetes"
+    if kubernetes and not args.k8s_deployment:
+        raise SystemExit("--connector kubernetes needs --k8s-deployment")
     host, _, port = args.control_plane.partition(":")
     kv = await KvClient(host or "127.0.0.1", int(port or 7111)).connect()
-    worker_cmd = [sys.executable, "-m", "dynamo_tpu_torch.cli", "run",
-                  "in=endpoint", f"out={args.engine}",
-                  "--control-plane", args.control_plane,
-                  "--model-name", args.model_name,
-                  "--namespace", args.namespace]
-    connector = LocalConnector(worker_cmd)
+    if kubernetes:
+        # scale the worker Deployment through the k8s API (reference
+        # kubernetes_connector.py; in-cluster credentials by default)
+        from dynamo_tpu_torch.k8s import KubernetesConnector
+
+        try:
+            connector = await KubernetesConnector(
+                args.k8s_deployment, args.k8s_namespace).start()
+        except BaseException:
+            await kv.close()
+            raise
+    else:
+        worker_cmd = [sys.executable, "-m", "dynamo_tpu_torch.cli", "run",
+                      "in=endpoint", f"out={args.engine}",
+                      "--control-plane", args.control_plane,
+                      "--model-name", args.model_name,
+                      "--namespace", args.namespace]
+        connector = LocalConnector(worker_cmd)
     cfg = PlannerConfig(
         adjustment_interval_s=args.adjustment_interval,
         min_replicas=args.min_replicas,

@@ -19,7 +19,8 @@ from dynamo_tpu_torch.launch import run as prun
 
 ROOT = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "dynamo_tpu", "aiohttp", "pydantic", "prometheus_client",
-           "tokenizers", "jinja2", "xxhash", "safetensors", "transformers")
+           "tokenizers", "jinja2", "xxhash", "safetensors", "transformers",
+           "yaml")
 TINY_TEXT = ["in=text", "out=torch", "--device", "cpu", "--model-config",
              "tiny", "--cache-dtype", "float32", "--prompt", "w1 w2 w3",
              "--max-tokens", "8"]
@@ -207,6 +208,9 @@ def test_port_runs_with_reference_packages_unimportable():
         "import dynamo_tpu_torch.kv_router.prefetch\n"
         "import dynamo_tpu_torch.kv_fleet_metrics\n"
         "import dynamo_tpu_torch.tools.kv_fleet\n"
+        "import dynamo_tpu_torch.roofline, dynamo_tpu_torch.sdk\n"
+        "import dynamo_tpu_torch.launch.serve, dynamo_tpu_torch.k8s\n"
+        "import dynamo_tpu_torch.tools.profile_round\n"
         "mods = [m.name for m in pkgutil.walk_packages("
         "dynamo_tpu_torch.__path__, 'dynamo_tpu_torch.')]\n"
         "for m in mods:\n"
@@ -364,16 +368,9 @@ def test_num_layers_cuts_the_random_weights():
     assert chain.engine.params["layers"]["wq"].shape[0] == 1
 
 
-@pytest.mark.parametrize("cmd", ["serve", "llmctl", "operator"])
-def test_cli_refuses_the_reference_commands_by_name(cmd, capsys):
-    from dynamo_tpu_torch import cli
-
-    assert cli.main([cmd]) == 2
-    assert f"{cmd}: " in capsys.readouterr().err
-
-
 # command -> (module, entry function, the flags given): the JAX package's
-# defaults for the rest
+# defaults for the rest; module None: the command parses inline, and
+# its parsed flags are read at the parser
 CLI_COMMANDS = {
     "metrics": ("metrics_exporter", "run_exporter",
                 ["--control-plane", "127.0.0.1:7111"]),
@@ -381,14 +378,25 @@ CLI_COMMANDS = {
                 ["--control-plane", "127.0.0.1:7111"]),
     "profile": ("profiler", "run_profile", []),
     "datagen": ("data_generator", "run_datagen", []),
+    "serve": (None, None, ["graph.json", "--emit-k8s"]),
+    "operator": (None, None, ["--control-plane", "127.0.0.1:7111"]),
+    "llmctl": (None, None, ["--control-plane", "127.0.0.1:7111", "add",
+                            "m"]),
 }
+
+
+class _Parsed(Exception):
+    pass
 
 
 @pytest.mark.parametrize("cmd", list(CLI_COMMANDS))
 def test_cli_commands_parse_the_reference_flags(cmd, monkeypatch):
-    """metrics, planner, profile and datagen parse the JAX package's flags
-    with its defaults (profile's --engine says torch where the reference
-    says tpu, and --device and --cache-dtype are the port's own)."""
+    """metrics, planner, profile, datagen, serve, operator and llmctl
+    parse the JAX package's flags with its defaults (profile's --engine
+    says torch where the reference says tpu, and --device and
+    --cache-dtype are the port's own; serve's --log-dir is the port's
+    own, and its and operator's default --image is the port's)."""
+    import argparse
     import importlib
 
     from dynamo_tpu import cli as rcli
@@ -396,22 +404,43 @@ def test_cli_commands_parse_the_reference_flags(cmd, monkeypatch):
 
     mod, fn, argv = CLI_COMMANDS[cmd]
     seen = {}
-    for pkg in ("dynamo_tpu", "dynamo_tpu_torch"):
-        target = importlib.import_module(f"{pkg}.{mod}")
+    if mod is None:
+        parse = argparse.ArgumentParser.parse_args
 
-        def capture(args, pkg=pkg):
-            seen[pkg] = vars(args)
+        def capture_parse(self, args=None, namespace=None):
+            ns = parse(self, args, namespace)
+            pkg = ("dynamo_tpu_torch" if "dynamo_tpu_torch" in self.prog
+                   else "dynamo_tpu")
+            seen[pkg] = vars(ns)
+            raise _Parsed
 
-        async def capture_async(args, pkg=pkg):
-            capture(args, pkg)
+        monkeypatch.setattr(argparse.ArgumentParser, "parse_args",
+                            capture_parse)
+        for main in (rcli.main, pcli.main):
+            with pytest.raises(_Parsed):
+                main([cmd] + argv)
+    else:
+        for pkg in ("dynamo_tpu", "dynamo_tpu_torch"):
+            target = importlib.import_module(f"{pkg}.{mod}")
 
-        monkeypatch.setattr(target, fn,
-                            capture if cmd == "datagen" else capture_async)
-    assert rcli.main([cmd] + argv) == pcli.main([cmd] + argv) == 0
+            def capture(args, pkg=pkg):
+                seen[pkg] = vars(args)
+
+            async def capture_async(args, pkg=pkg):
+                capture(args, pkg)
+
+            monkeypatch.setattr(target, fn,
+                                capture if cmd == "datagen" else capture_async)
+        assert rcli.main([cmd] + argv) == pcli.main([cmd] + argv) == 0
     ref, port = seen["dynamo_tpu"], seen["dynamo_tpu_torch"]
     if cmd == "profile":
         assert (port.pop("device"), port.pop("cache_dtype")) == (
             None, "bfloat16")
+    if cmd == "serve":
+        assert port.pop("log_dir") is None
+    if cmd in ("serve", "operator"):
+        assert (ref.pop("image"), port.pop("image")) == (
+            "dynamo-tpu:latest", "dynamo-tpu-torch:latest")
     assert port == ref
     if cmd == "profile":
         for argv in (["--engine", "torch"], ["--engine", "tpu"]):

@@ -5,7 +5,10 @@ histograms) both ``/metrics`` answers carry the same Content-Type and
 the same sample names, and the samples of the load plane (per-worker
 gauges, the shipped histograms, the worker count) the same values, in
 Prometheus text and in OpenMetrics. The counters of this process's other
-planes are each package's own, so only their families are compared.
+planes are each package's own, so only their families are compared; the
+process-wide fleet latency feeds, which every exporter appends, are reset
+in both packages around the comparison (an earlier test in the same
+process may have fed one of them a histogram that is not yet stale).
 ``python -m dynamo_tpu_torch.cli metrics`` serves the same in a
 subprocess and stops with exit code 0 on SIGTERM."""
 import asyncio
@@ -19,6 +22,7 @@ from prometheus_client.parser import text_string_to_metric_families
 
 from dynamo_tpu.metrics_exporter import MetricsExporter as RExporter
 from dynamo_tpu.telemetry import metrics as rmet
+from dynamo_tpu.telemetry.fleet_feed import FLEET_FEED as RFEED
 from dynamo_tpu_torch.frontend.http import HttpClient
 from dynamo_tpu_torch.kv_router.protocols import (
     ForwardPassMetrics,
@@ -29,6 +33,7 @@ from dynamo_tpu_torch.metrics_exporter import MetricsExporter as PExporter
 from dynamo_tpu_torch.runtime.client import KvClient
 from dynamo_tpu_torch.runtime.publisher import WorkerMetricsPublisher
 from dynamo_tpu_torch.runtime.store import serve_store
+from dynamo_tpu_torch.telemetry.fleet_feed import FLEET_FEED as PFEED
 
 ROOT = Path(__file__).resolve().parent.parent
 LOAD_PLANE = ("dynamo_worker_", "dynamo_kv_active", "dynamo_kv_total",
@@ -81,9 +86,20 @@ def _parse(text):
              for f in fams for s in f.samples})
 
 
+@pytest.fixture
+def fresh_fleet_feeds():
+    """Both packages' process-wide FLEET_FEED empty before the test
+    publishes and after it ends."""
+    for feed in (RFEED, PFEED):
+        feed.reset()
+    yield
+    for feed in (RFEED, PFEED):
+        feed.reset()
+
+
 @pytest.mark.parametrize("accept", [None, "application/openmetrics-text"],
                          ids=["plain", "openmetrics"])
-async def test_exporter_equals_the_reference(accept):
+async def test_exporter_equals_the_reference(accept, fresh_fleet_feeds):
     server, _ = await serve_store(port=0)
     port = server.sockets[0].getsockname()[1]
     kvs = [await KvClient(port=port).connect() for _ in range(3)]

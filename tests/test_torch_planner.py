@@ -389,11 +389,6 @@ def test_build_sla_refuses_as_the_reference(kw, tmp_path):
             want.max_concurrency(), want.config_name)
 
 
-async def test_unported_connectors_are_refused_by_name(tmp_path):
+def test_unported_connectors_are_refused_by_name():
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         pplan.MultihostLocalConnector(["x"], num_nodes=2)
-    args = _sla_args(tmp_path, sla_profile=None)
-    args.connector = "kubernetes"
-    args.control_plane = "127.0.0.1:1"
-    with pytest.raises(SystemExit, match="k8s connector"):
-        await pplan.run_planner(args)

@@ -358,6 +358,59 @@ def test_round_in_place_equals_the_rebinding_round(kv_quant, want_sample,
             assert torch.equal(got[k], want[k]), k
 
 
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_round_steps_then_flush_equal_the_round(kv_quant):
+    """``graphs.round_steps`` leaves the ctx region as it was and writes
+    the tokens ``run_round`` writes; ``flush_round`` after it leaves the
+    state ``run_round`` leaves (no seal batch)."""
+    cfg = TConfig.tiny(dtype="float32")
+    ecfg = TEngineConfig(**{**ENGINE_KW, "kv_quant": kv_quant})
+    params = llama.init_params(cfg, 3, "cpu")
+    ctx, ring, cache, dev = _state(cfg, ecfg, 5)
+    n, B, K = ecfg.flush_every, ecfg.max_decode_slots, ecfg.max_logprobs
+
+    def outs():
+        return {"ring_base": torch.zeros(B, dtype=torch.int32),
+                "toks": torch.zeros(n, B, dtype=torch.int32),
+                "lp": torch.zeros(n, B, 1 + 2 * K)}
+
+    c1, r1, p1, d1, o1 = (_clone(ctx), _clone(ring), _clone(cache),
+                          _clone(dev), outs())
+    graphs.run_round(cfg, ecfg, params, c1, r1, p1, d1, o1, False, True)
+    c2, r2, d2, o2 = _clone(ctx), _clone(ring), _clone(dev), outs()
+    graphs.round_steps(cfg, ecfg, params, c2, r2, d2, o2, False, True)
+    for k in ctx:
+        assert torch.equal(c2[k], ctx[k]), k
+    for k in o1:
+        assert torch.equal(o2[k], o1[k]), k
+    graphs.flush_round(ecfg, c2, r2, d2, o2["ring_base"])
+    for got, want in ((c2, c1), (r2, r1), (d2, d1)):
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert not any(torch.equal(c2[k], ctx[k]) for k in ("k", "v"))
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_no_collection_turns_the_collector_off_for_a_capture(enabled):
+    """Inside ``graphs.no_collection`` (each capture) the collector is
+    off, so no dead engine's graphs are finalized mid-capture; after it,
+    the collector is as it was, also when the block raised."""
+    import gc
+
+    was = gc.isenabled()
+    try:
+        (gc.enable if enabled else gc.disable)()
+        with graphs.no_collection():
+            assert not gc.isenabled()
+        assert gc.isenabled() == enabled
+        with pytest.raises(RuntimeError):
+            with graphs.no_collection():
+                raise RuntimeError("capture failed")
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
 def test_packed_patch_equals_the_indexed_patch():
     """``graphs.run_patch`` of a ``pack_patch`` row (releases, then one
     admission with a negative penalty, whose f32 bits travel as a signed
